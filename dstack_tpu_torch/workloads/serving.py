@@ -1,0 +1,1187 @@
+"""Continuous-batching decode engine in PyTorch (port of
+`dstack_tpu.workloads.serving`: the unified, single-device,
+non-speculative, LoRA-free engine, and the dense reference it is held to).
+
+A fixed batch of B slots steps together so new requests join mid-flight
+and finished ones free their slot at once. The KV cache is paged
+(workloads/kv_blocks.py): slots index a shared block pool through block
+tables, requests sharing a prompt prefix share its blocks (copy-on-write
+on divergence), and prompt admission is chunked — each loop iteration
+dispatches at most `prefill_chunk_tokens` prompt tokens before the decode
+chunk, so a long prompt never stalls in-flight decodes for more than one
+chunk budget. Every chunk prefill and decode step runs its attention
+through `paged_attention.ragged_attention` (the CUDA kernel on the card).
+
+Host syncs: one readback per decode chunk of `steps_per_sync` tokens,
+and one per finalized prefill's first token, which a reader thread waits
+for on its own CUDA event so the loop never blocks on it.
+
+The dense primitives (DecodeState / make_prefill / make_insert /
+make_decode_step) are the reference semantics: the paged decode body
+shares `_select_next_token` with the dense body.
+"""
+
+import logging
+import math
+import queue
+import threading
+import time
+from dataclasses import dataclass
+from typing import Any, Dict, List, NamedTuple, Optional
+
+import torch
+
+from dstack_tpu_torch.utils.flight_recorder import FlightRecorder
+from dstack_tpu_torch.utils.histogram import HistogramData
+from dstack_tpu_torch.workloads.attention import decode_attention
+from dstack_tpu_torch.workloads.config import ModelConfig, require_dense
+from dstack_tpu_torch.workloads.device import (
+    DeviceLike,
+    host_to_device,
+    resolve_device,
+)
+from dstack_tpu_torch.workloads.generate import (
+    KVCache,
+    _categorical,
+    _forward_cached,
+    _nucleus_filter,
+    sample_logits_row,
+)
+from dstack_tpu_torch.workloads.kv_blocks import (
+    BlockAllocator,
+    init_paged_state,
+    make_chunk_prefill,
+    make_copy_block,
+    make_paged_decode_step,
+)
+from dstack_tpu_torch.workloads.paged_attention import (
+    dispatch_path as attn_dispatch_path,
+)
+from dstack_tpu_torch.workloads.transformer import (
+    layer_params,
+    linear,
+    logits_linear,
+    mlp_block,
+    params_device,
+    project_qkv,
+    rms_norm,
+)
+
+Params = Dict[str, Any]
+ATTN_PATHS = ("cuda", "plain")
+
+
+# -- dense reference -----------------------------------------------------------
+
+
+@dataclass
+class DecodeState:
+    """Shared slot state: k/v (L, B, max_len, KV, hd), per-slot scalars."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    lengths: torch.Tensor      # (B,) int32 filled cache positions
+    last_token: torch.Tensor   # (B,) int32 next token to feed
+    active: torch.Tensor       # (B,) bool
+    remaining: torch.Tensor    # (B,) int32 new tokens still budgeted
+    temperature: torch.Tensor  # (B,) f32 per-request temp; 0 = greedy
+    top_p: torch.Tensor        # (B,) f32 nucleus cutoff; 1 = no filtering
+
+
+def init_decode_state(config: ModelConfig, batch: int, max_len: int,
+                      device: torch.device) -> DecodeState:
+    c = config
+    shape = (c.n_layers, batch, max_len, c.n_kv_heads, c.head_dim)
+
+    def z(dtype, fill=0):
+        return torch.full((batch,), fill, dtype=dtype, device=device)
+
+    return DecodeState(
+        k=torch.zeros(shape, dtype=c.activation_dtype, device=device),
+        v=torch.zeros(shape, dtype=c.activation_dtype, device=device),
+        lengths=z(torch.int32), last_token=z(torch.int32),
+        active=z(torch.bool, False), remaining=z(torch.int32),
+        temperature=z(torch.float32), top_p=z(torch.float32, 1.0),
+    )
+
+
+def make_prefill(config: ModelConfig):
+    """prefill(params, tokens (1, S), temp, top_p, generator) ->
+    (k (L, 1, S, KV, hd), v, first_token 0-d int32). The dense reference
+    prefill; the engine admits through the chunked paged path
+    (kv_blocks.make_chunk_prefill), which must sample identically."""
+    c = config
+
+    def prefill(params, tokens, temp, top_p, generator):
+        dev = params_device(params)
+        tokens = torch.as_tensor(tokens, device=dev)
+        shape = (c.n_layers, 1, tokens.shape[1], c.n_kv_heads, c.head_dim)
+        cache = KVCache(
+            k=torch.zeros(shape, dtype=c.activation_dtype, device=dev),
+            v=torch.zeros(shape, dtype=c.activation_dtype, device=dev),
+            length=0,
+        )
+        logits, cache = _forward_cached(c, params, tokens, cache)
+        first = sample_logits_row(logits[0], temp, top_p, generator)
+        return cache.k, cache.v, first
+
+    return prefill
+
+
+def make_insert():
+    """insert(state, slots (N,), k_rows (L, N, S, KV, hd), v_rows,
+    seq_lens (N,), tokens (N,), budgets (N,), temps (N,), top_ps (N,)) —
+    write N prefilled requests of the same prompt length S into their
+    slots, in place."""
+
+    def insert(state: DecodeState, slots, k_rows, v_rows, seq_lens, tokens,
+               budgets, temps, top_ps) -> DecodeState:
+        dev = state.k.device
+        slots = torch.as_tensor(slots, dtype=torch.int64, device=dev)
+        s_len = k_rows.shape[2]
+        state.k[:, slots, :s_len] = k_rows.to(state.k.dtype)
+        state.v[:, slots, :s_len] = v_rows.to(state.v.dtype)
+
+        def put(field, values, dtype):
+            field[slots] = torch.as_tensor(values, dtype=dtype, device=dev)
+
+        put(state.lengths, seq_lens, torch.int32)
+        put(state.last_token, tokens, torch.int32)
+        state.active[slots] = True
+        put(state.remaining, budgets, torch.int32)
+        put(state.temperature, temps, torch.float32)
+        put(state.top_p, top_ps, torch.float32)
+        return state
+
+    return insert
+
+
+def _select_next_token(state, logits, generator, *,
+                       sampling: Optional[bool] = None,
+                       nucleus: Optional[bool] = None):
+    """Per-slot next-token selection: scale by each slot's temperature
+    (guarded so greedy slots don't divide by 0 — their sampled value is
+    unused), nucleus-filter by each slot's top_p, then select greedy vs
+    sampled per slot. Shared by the dense and the paged decode bodies
+    (same field names), so the two cannot drift.
+
+    The reference gates the sampling and the vocab sort on whether any
+    LIVE slot samples / filters. Here that gate is a host value: the
+    engine passes what its live requests asked for; None reads it off the
+    device state (one sync)."""
+    temps = state.temperature
+    greedy = torch.argmax(logits, dim=-1).to(torch.int32)
+    if sampling is None:
+        sampling = bool((state.active & (temps > 0.0)).any())
+    if not sampling:
+        return greedy
+    scaled = logits / torch.clamp(temps, min=1e-6)[:, None]
+    if nucleus is None:
+        nucleus = bool(
+            (state.active & (state.top_p < 1.0) & (temps > 0.0)).any())
+    if nucleus:
+        scaled = _nucleus_filter(scaled, state.top_p[:, None])
+    sampled = _categorical(scaled, generator)
+    return torch.where(temps > 0, sampled, greedy)
+
+
+def _decode_body(config: ModelConfig):
+    """one_step(params, state, generator) -> tokens (B,) — the
+    single-token dense decode body, state updated in place."""
+    c = config
+    require_dense(c)
+
+    def one_step(params, state: DecodeState, generator, sampling=None,
+                 nucleus=None):
+        B, ml = state.lengths.shape[0], state.k.shape[2]
+        lengths = state.lengths
+        positions = lengths[:, None]
+        x = params["embed"][state.last_token[:, None]]
+        rows = torch.arange(B, device=lengths.device)
+        # Every in-bounds lane writes its row (as the reference); a full
+        # slot's out-of-bounds lane keeps the old value instead (the
+        # reference's scatter drops it).
+        ok = lengths < ml
+        at = torch.clamp(lengths, max=ml - 1).to(torch.int64)
+        for layer in range(c.n_layers):
+            p = layer_params(params, layer)
+            q, k, v = project_qkv(c, x, p, positions)
+            ck, cv = state.k[layer], state.v[layer]
+            ck[rows, at] = torch.where(ok[:, None, None], k[:, 0].to(ck.dtype), ck[rows, at])
+            cv[rows, at] = torch.where(ok[:, None, None], v[:, 0].to(cv.dtype), cv[rows, at])
+            attn = decode_attention(q, ck, cv, lengths + 1)
+            x = x + linear(attn, p["wo"])
+            x = mlp_block(c, x, p)
+        h = rms_norm(x, params["final_norm"], c.norm_eps)
+        logits = logits_linear(h[:, -1], params["lm_head"])
+        next_token = _select_next_token(state, logits, generator,
+                                        sampling=sampling, nucleus=nucleus)
+        act = state.active
+        remaining = state.remaining - act.to(torch.int32)
+        # A slot also retires when its cache is full (the NEXT write would
+        # land at row lengths+1, which must stay < max_len).
+        new_active = act & (remaining > 0) & (lengths + 2 <= ml)
+        emitted = torch.where(act, next_token, torch.full_like(next_token, -1))
+        state.last_token = torch.where(act, next_token, state.last_token)
+        state.lengths = lengths + act.to(torch.int32)
+        state.remaining = remaining
+        state.active = new_active
+        return emitted
+
+    return one_step
+
+
+def make_decode_step(config: ModelConfig, steps: int = 1):
+    """decode_step(params, state, generator, sampling=None, nucleus=None)
+    -> (state, tokens (B, steps), active): `steps` tokens for every active
+    slot per call, state updated in place."""
+    one_step = _decode_body(config)
+
+    def decode_steps(params, state: DecodeState, generator, sampling=None,
+                     nucleus=None):
+        toks = [one_step(params, state, generator, sampling, nucleus)
+                for _ in range(steps)]
+        return state, torch.stack(toks, dim=1), state.active
+
+    return decode_steps
+
+
+# -- engine --------------------------------------------------------------------
+
+
+class EngineOverloadedError(RuntimeError):
+    """submit() rejected because the pending queue is at max_pending.
+    `retry_after` is the engine's estimate (seconds) of when a slot is
+    likely to free up — callers surface it as an HTTP Retry-After."""
+
+    def __init__(self, pending: int, retry_after: float):
+        super().__init__(
+            f"serving engine overloaded: {pending} requests already queued"
+        )
+        self.pending = pending
+        self.retry_after = retry_after
+
+
+class _Request(NamedTuple):
+    tokens: List[int]
+    max_new_tokens: int
+    # Yields int tokens; None = clean end; an Exception = engine failure
+    # (consumers must re-raise, not treat partial output as complete).
+    out: "queue.Queue[object]"
+    temperature: float
+    top_p: float
+    t_submit: float
+    request_id: Optional[int] = None
+    trace: Optional[Any] = None
+
+
+class _FirstToken:
+    """A finalized prefill's first token: a 0-d device tensor copied to
+    pinned host memory behind a CUDA event, so the reader thread waits for
+    that prefill alone, not for work queued after it."""
+
+    def __init__(self, t: torch.Tensor):
+        self._event = None
+        if t.is_cuda:
+            self._host = torch.empty((), dtype=t.dtype, pin_memory=True)
+            self._host.copy_(t, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host = t
+
+    def get(self) -> int:
+        if self._event is not None:
+            self._event.synchronize()
+        return int(self._host)
+
+
+class _PrefillTask:
+    """A request mid-chunked-prefill: owns a slot and a growing block
+    table from admission until its final chunk dispatches."""
+
+    __slots__ = ("req", "slot", "pos", "table", "first", "t_pop",
+                 "delivered")
+
+    def __init__(self, req: _Request, slot: int, pos: int, table: List[int],
+                 t_pop: float):
+        self.req = req
+        self.slot = slot
+        self.pos = pos          # prompt tokens already in cache (prefix hits)
+        self.table = table      # host copy of the slot's block table
+        self.first: Optional[_FirstToken] = None
+        self.t_pop = t_pop
+        self.delivered = threading.Event()
+
+
+class ServingEngine:
+    """Continuous-batching host loop around the chunk-prefill and decode
+    programs. submit() returns a queue yielding generated token ids as
+    they decode (None terminates).
+
+    Unported features of the JAX engine are refused, never ignored:
+    speculative decoding, meshes, LoRA adapters, disaggregated roles,
+    KV transfer and the host KV tier raise NotImplementedError."""
+
+    def __init__(
+        self,
+        config: ModelConfig,
+        params: Params,
+        *,
+        slots: int = 8,
+        max_len: Optional[int] = None,
+        temperature: float = 0.0,
+        seed: int = 0,
+        steps_per_sync: int = 4,
+        max_pending: Optional[int] = None,
+        max_prefills_per_chunk: int = 4,
+        prefill_chunk_tokens: int = 128,
+        kv_block_size: int = 16,
+        kv_pool_blocks: Optional[int] = None,
+        prefix_cache: bool = True,
+        trace_ring: int = 256,
+        trace_slow_ms: Optional[float] = None,
+        device: DeviceLike = None,
+        spec_enable: bool = False,
+        mesh: Optional[Any] = None,
+        role: str = "unified",
+        kv_transfer: Optional[Any] = None,
+        lora_max_adapters: int = 0,
+        kv_host_budget_bytes: Optional[int] = None,
+        max_resident_slots: Optional[int] = None,
+    ):
+        unported = {
+            "spec_enable": bool(spec_enable),
+            "mesh": mesh is not None,
+            "lora_max_adapters > 0": lora_max_adapters > 0,
+            f"role={role!r}": role != "unified",
+            "kv_transfer": kv_transfer is not None,
+            "kv_host_budget_bytes": bool(kv_host_budget_bytes),
+            "max_resident_slots < slots": (max_resident_slots is not None
+                                           and max_resident_slots < slots),
+        }
+        asked = [name for name, on in unported.items() if on]
+        if asked:
+            raise NotImplementedError(
+                f"not ported to the PyTorch engine yet: {', '.join(asked)}"
+            )
+        require_dense(config)
+        self.device = resolve_device(device)
+        if params_device(params) != self.device:
+            raise ValueError(
+                f"params live on {params_device(params)}, engine device is"
+                f" {self.device}"
+            )
+        self.config = config
+        self.params = params
+        self.slots = slots
+        self.max_len = max_len or config.max_seq_len
+        self.role = "unified"
+        self.recorder = FlightRecorder(
+            capacity=trace_ring, slow_ms=trace_slow_ms, role=self.role
+        )
+        if max_prefills_per_chunk < 1:
+            raise ValueError(
+                f"max_prefills_per_chunk must be >= 1, got {max_prefills_per_chunk}"
+            )
+        if prefill_chunk_tokens < 1:
+            raise ValueError(
+                f"prefill_chunk_tokens must be >= 1, got {prefill_chunk_tokens}"
+            )
+        if kv_block_size < 1:
+            raise ValueError(f"kv_block_size must be >= 1, got {kv_block_size}")
+        if self.max_len % kv_block_size != 0:
+            raise ValueError(
+                f"kv_block_size {kv_block_size} must divide"
+                f" max_len {self.max_len}"
+            )
+        self._block_size = kv_block_size
+        self._max_blocks = self.max_len // kv_block_size
+        # Default pool = dense-equivalent: every slot can grow to max_len
+        # with zero sharing, so allocation cannot fail at the defaults.
+        self._num_blocks = (
+            kv_pool_blocks if kv_pool_blocks is not None
+            else slots * self._max_blocks
+        )
+        if self._num_blocks < self._max_blocks:
+            raise ValueError(
+                f"kv_pool_blocks {self._num_blocks} must fit one max_len"
+                f" request ({self._max_blocks} blocks)"
+            )
+        self._alloc = BlockAllocator(self._num_blocks, kv_block_size,
+                                     cache=prefix_cache)
+        self.prefill_chunk_tokens = prefill_chunk_tokens
+        self._chunk_cache: Dict[int, Any] = {}
+        self.state = init_paged_state(
+            config, slots, self.max_len, kv_block_size, self._num_blocks,
+            self.device,
+        )
+        self._step = make_paged_decode_step(config, steps=steps_per_sync)
+        self._copy_block = make_copy_block()
+        # Which ragged-attention implementation this engine runs (decided
+        # by its device) and how many chunk/decode dispatches ran it.
+        self._attn_path = attn_dispatch_path(self.device, config.head_dim)
+        self._attn_dispatch = {p: 0 for p in ATTN_PATHS}
+        self._temperature = temperature
+        self._gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.max_pending = max_pending
+        self.rejected = 0
+        self._steps_per_sync = steps_per_sync
+        self.max_prefills_per_chunk = max_prefills_per_chunk
+        self._chunk_s = 0.05  # EWMA wall time per decode chunk (seeded)
+        self._turn_s = 1.0    # EWMA slot occupancy admit->retire (seeded)
+        self._ttft_s = 0.0
+        self._queue_wait_s = 0.0
+        self._prefill_s = 0.0
+        self._n_admitted = 0
+        self._sum_ttft = 0.0
+        self._sum_queue_wait = 0.0
+        self._sum_prefill = 0.0
+        self._ttft_hist = HistogramData()
+        # TTFT samples land under role="cold_start" until warmup() ran or
+        # a first token was delivered (the sample that paid kernel build).
+        self._ttft_cold_hist = HistogramData()
+        self._cold_over = False
+        self._warmup_done = False
+        self._warmup_seconds: Optional[float] = None
+        self._warmup_programs = 0
+        self._warmup_hist = HistogramData()
+        self._t_decode = 0.0
+        self._t_prefill = 0.0
+        self._t_idle = 0.0
+        self._prefill_chunks = 0
+        self._prefill_tokens_computed = 0
+        self._tpt_hist = HistogramData()
+        self._last_chunk_s = 0.0
+        self._slot_t0: List[float] = [0.0] * slots
+        self._pending: "queue.Queue[_Request]" = queue.Queue()
+        self._next_req: Optional[_Request] = None
+        self._live: List[Optional[_Request]] = [None] * slots
+        # Host mirrors of per-slot cache length and block table (loop
+        # thread only).
+        self._lengths_host: List[int] = [0] * slots
+        self._slot_tables: List[Optional[List[int]]] = [None] * slots
+        # Requests popped for prefill but not yet live; guarded by _lock.
+        self._admitting: List[_Request] = []
+        self._tasks: List[_PrefillTask] = []
+        self._pending_activation: List[_PrefillTask] = []
+        self._deliver_q: "queue.Queue[Optional[_PrefillTask]]" = queue.Queue()
+        self._cancelled: set = set()
+        self._inflight: set = set()
+        self._wake = threading.Event()
+        self._hold_admission = False
+        self._stop = False
+        self._failed: Optional[BaseException] = None
+        self._lock = threading.Lock()
+        self._deliver_thread = threading.Thread(
+            target=self._deliver_loop, daemon=True
+        )
+        self._deliver_thread.start()
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+
+    # -- public surface -----------------------------------------------------
+
+    def _observe_ttft(self, dt: float) -> None:
+        if self._cold_over:
+            self._ttft_hist.observe(dt)
+        else:
+            self._ttft_cold_hist.observe(dt)
+            self._cold_over = True
+
+    def warmup(self) -> Dict[str, Any]:
+        """Build the kernel and run every program the scheduler can
+        dispatch once — the decode step and every chunk bucket — so the
+        first request pays no build. Each run is a no-op on an idle
+        engine: an all-inactive decode step and n_valid=0 chunks write
+        only to the discard block and touch no slot field. Only legal on
+        an idle engine (RuntimeError otherwise)."""
+        with self._lock:
+            if self._failed is not None:
+                raise RuntimeError("engine already failed") from self._failed
+            busy = (any(r is not None for r in self._live) or self._tasks
+                    or self._admitting or self._pending_activation
+                    or self._next_req is not None or not self._pending.empty())
+            if busy:
+                raise RuntimeError(
+                    "warmup requires an idle engine: call it before serving"
+                    " traffic (readiness gating) or after a drain"
+                )
+            self._hold_admission = True
+        t0 = time.monotonic()
+        programs = 0
+        try:
+            self._step(self.params, self.state, self._gen,
+                       sampling=False, nucleus=False)
+            programs += 1
+            row = self._pad_table([])
+            buckets = sorted({self._pad_chunk(n)
+                              for n in range(1, self.prefill_chunk_tokens + 1)})
+            for b in buckets:
+                self._chunk_fn(b)(self.params, self.state, 0, row, [0] * b,
+                                  0, 0, 0, 1.0, 1.0, self._gen, False)
+                programs += 1
+            self.state.block_tables[0] = self._num_blocks
+            self._copy_block(self.state, 0, 0)
+            programs += 1
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        finally:
+            with self._lock:
+                self._hold_admission = False
+            self._wake.set()
+        dt = time.monotonic() - t0
+        self._warmup_seconds = dt
+        self._warmup_programs = programs
+        self._warmup_hist.observe(dt)
+        self._warmup_done = True
+        self._cold_over = True
+        return {"seconds": dt, "programs": programs}
+
+    def submit(self, tokens: List[int], max_new_tokens: int,
+               temperature: Optional[float] = None, top_p: float = 1.0,
+               request_id: Optional[int] = None,
+               traceparent: Optional[str] = None,
+               x_request_id: Optional[str] = None) -> "queue.Queue[object]":
+        """Enqueue a request; returns its output queue (ints, then None;
+        an Exception on engine failure). `temperature` (0 = greedy) and
+        `top_p` override the engine defaults for this request."""
+        if not tokens:
+            raise ValueError("empty prompt")
+        if max_new_tokens < 1:
+            raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
+        if temperature is None:
+            temperature = self._temperature
+        if not (temperature >= 0) or math.isinf(temperature):
+            raise ValueError(
+                f"temperature must be a finite number >= 0, got {temperature}"
+            )
+        if not (0 < top_p <= 1):  # also rejects NaN
+            raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+        # The last decode write lands at cache row len + max_new - 2.
+        if len(tokens) + max_new_tokens > self.max_len:
+            raise ValueError(
+                f"prompt {len(tokens)} + max_new_tokens {max_new_tokens}"
+                f" must not exceed max_len {self.max_len}"
+            )
+        need = (len(tokens) + max_new_tokens - 2) // self._block_size + 1
+        if need > self._num_blocks:
+            raise ValueError(
+                f"request needs up to {need} KV blocks but the pool has"
+                f" {self._num_blocks} (raise kv_pool_blocks)"
+            )
+        out: "queue.Queue[object]" = queue.Queue()
+        rec = None
+        if self.recorder.enabled:
+            rec = self.recorder.begin(request_id, x_request_id=x_request_id,
+                                      traceparent=traceparent)
+        with self._lock:
+            if self._failed is not None:
+                raise RuntimeError(f"serving engine failed: {self._failed}")
+            if self._stop:
+                raise RuntimeError("serving engine is closed")
+            depth = self._pending.qsize() + (self._next_req is not None)
+            # Shed on the WAITING backlog: a request that will land in a
+            # free slot is not overload.
+            free = sum(r is None for r in self._live) - len(self._admitting)
+            if self.max_pending is not None and depth - free >= self.max_pending:
+                self.rejected += 1
+                self.recorder.finish(rec, "shed")
+                raise EngineOverloadedError(depth, self._retry_after(depth))
+            self._pending.put(_Request(
+                list(tokens), max_new_tokens, out, float(temperature),
+                float(top_p), time.monotonic(), request_id, rec,
+            ))
+            self._inflight.add(out)
+        self._wake.set()
+        return out
+
+    def _retry_after(self, depth: int) -> float:
+        turns_ahead = (depth + 1) / max(1, self.slots)
+        return max(1.0, round(turns_ahead * self._turn_s, 1))
+
+    def cancel(self, out: "queue.Queue[object]") -> None:
+        """Abandon the request whose submit() returned `out`: a queued one
+        is purged and answered at once, a live one is freed at the next
+        chunk boundary. Safe from any thread; idempotent."""
+        with self._lock:
+            if out not in self._inflight:
+                return
+            drained, found = [], None
+            while True:
+                try:
+                    r = self._pending.get_nowait()
+                except queue.Empty:
+                    break
+                if r.out is out:
+                    found = r
+                else:
+                    drained.append(r)
+            for r in drained:
+                self._pending.put(r)
+            if found is None and self._next_req is not None \
+                    and self._next_req.out is out:
+                found, self._next_req = self._next_req, None
+            if found is not None:
+                self._inflight.discard(out)
+                self.recorder.finish(found.trace, "cancelled")
+                out.put(None)
+                return
+            self._cancelled.add(out)
+        self._wake.set()
+
+    def stats(self) -> Dict[str, Any]:
+        """Live load snapshot (feeds /metrics): queue and shed counters,
+        scheduler gauges, the paged-KV pool and prefix-cache counters,
+        chunked-prefill counters, latency histograms, warmup, and which
+        attention path ran how often. Key names follow the JAX engine's
+        for every feature ported."""
+        busy = self._t_decode + self._t_prefill + self._t_idle
+        a = self._alloc
+        return {
+            "slots": self.slots,
+            "active": sum(r is not None for r in self._live),
+            "pending": self._pending.qsize() + (self._next_req is not None),
+            "max_pending": self.max_pending,
+            "rejected_total": self.rejected,
+            "chunk_seconds_ewma": round(self._chunk_s, 4),
+            "slot_turn_seconds_ewma": round(self._turn_s, 3),
+            "steps_per_sync": self._steps_per_sync,
+            "max_prefills_per_chunk": self.max_prefills_per_chunk,
+            "prefill_chunk_tokens": self.prefill_chunk_tokens,
+            "kv_block_size": self._block_size,
+            "kv_blocks_total": a.num_blocks,
+            "kv_blocks_in_use": a.in_use,
+            "kv_blocks_cached": a.cached,
+            "prefix_cache_hits_total": a.hits,
+            "prefix_cache_misses_total": a.misses,
+            "prefix_tokens_reused_total": a.tokens_reused,
+            "kv_cow_copies_total": a.cow_copies,
+            "kv_block_evictions_total": a.evictions,
+            "prefill_chunks_total": self._prefill_chunks,
+            "prefill_tokens_computed_total": self._prefill_tokens_computed,
+            "ttft_seconds_ewma": round(self._ttft_s, 4),
+            "queue_wait_seconds_ewma": round(self._queue_wait_s, 4),
+            "prefill_seconds_ewma": round(self._prefill_s, 4),
+            "util_decode": round(self._t_decode / busy, 4) if busy else 0.0,
+            "util_prefill": round(self._t_prefill / busy, 4) if busy else 0.0,
+            "util_idle": round(self._t_idle / busy, 4) if busy else 0.0,
+            "decode_seconds_total": round(self._t_decode, 4),
+            "prefill_seconds_total": round(self._t_prefill, 4),
+            "idle_seconds_total": round(self._t_idle, 4),
+            "admitted_total": self._n_admitted,
+            "ttft_seconds_sum": round(self._sum_ttft, 4),
+            "queue_wait_seconds_sum": round(self._sum_queue_wait, 4),
+            "prefill_seconds_sum": round(self._sum_prefill, 4),
+            "ttft_hist": self._ttft_hist.to_dict(),
+            "ttft_cold_hist": self._ttft_cold_hist.to_dict(),
+            "warmup_done": self._warmup_done,
+            "warmup_seconds": (
+                None if self._warmup_seconds is None
+                else round(self._warmup_seconds, 4)
+            ),
+            "warmup_programs": self._warmup_programs,
+            "warmup_hist": self._warmup_hist.to_dict(),
+            "role": self.role,
+            "tpt_hist": self._tpt_hist.to_dict(),
+            "attn_path": self._attn_path,
+            **{f"attn_dispatch_{p}_total": n
+               for p, n in self._attn_dispatch.items()},
+            "trace": self.recorder.stats(),
+            "phase_hists": self.recorder.phase_histograms(),
+        }
+
+    def close(self) -> None:
+        with self._lock:
+            self._stop = True
+        self._wake.set()
+        self._thread.join(timeout=10)
+        self._deliver_q.put(None)
+        self._deliver_thread.join(timeout=10)
+        # In-flight requests get an exception, not the clean-end None: a
+        # truncated generation must not read as a complete one.
+        self._flush_all(RuntimeError("serving engine closed mid-generation"))
+
+    def _flush_all(self, error: Optional[BaseException]) -> None:
+        """Terminate every consumer so no out.get() hangs forever."""
+        sentinel: object = error
+        with self._lock:
+            self._cancelled.clear()
+            self._inflight.clear()
+            for slot, req in enumerate(self._live):
+                if req is not None:
+                    self.recorder.finish(req.trace, "error")
+                    req.out.put(sentinel)
+                    self._live[slot] = None
+            for req in self._admitting:
+                self.recorder.finish(req.trace, "error")
+                req.out.put(sentinel)
+            self._admitting.clear()
+            self._tasks.clear()
+            self._pending_activation.clear()
+            if self._next_req is not None:
+                self.recorder.finish(self._next_req.trace, "error")
+                self._next_req.out.put(sentinel)
+                self._next_req = None
+            while True:
+                try:
+                    r = self._pending.get_nowait()
+                except queue.Empty:
+                    return
+                self.recorder.finish(r.trace, "error")
+                r.out.put(sentinel)
+
+    # -- chunked prefill admission -----------------------------------------
+
+    def _chunk_fn(self, n_padded: int):
+        """The chunk-prefill program for padded length `n_padded` (tests
+        wrap this to gate or spy on chunk dispatches)."""
+        fn = self._chunk_cache.get(n_padded)
+        if fn is None:
+            fn = make_chunk_prefill(self.config, n_padded)
+            self._chunk_cache[n_padded] = fn
+        return fn
+
+    def _pad_chunk(self, n: int) -> int:
+        """Pow-2 bucket (min 8) capped at the chunk budget, as the JAX
+        engine, so both run the same chunk shapes."""
+        c = 8
+        while c < n:
+            c *= 2
+        return max(min(c, self.prefill_chunk_tokens), n)
+
+    def _pad_table(self, table: List[int]) -> List[int]:
+        """Pad a host table to the device row width with the sentinel."""
+        return table + [self._num_blocks] * (self._max_blocks - len(table))
+
+    def _drop_task(self, task: _PrefillTask) -> None:
+        with self._lock:
+            for b in task.table:
+                self._alloc.release(b)
+            task.table.clear()
+            self._cancelled.discard(task.req.out)
+            self._inflight.discard(task.req.out)
+            if task.req in self._admitting:
+                self._admitting.remove(task.req)
+        self._tasks.remove(task)
+        self.recorder.finish(task.req.trace, "cancelled")
+        task.req.out.put(None)
+
+    def _ensure_task_blocks(self, task: _PrefillTask, upto: int) -> bool:
+        """Make blocks [pos//bs, (upto-1)//bs] of the task's table
+        writable: fresh-allocate missing ones, copy-on-write shared ones.
+        False when the pool is exhausted (refs taken are kept)."""
+        bs = self._block_size
+        with self._lock:
+            for idx in range(task.pos // bs, (upto - 1) // bs + 1):
+                if idx < len(task.table):
+                    b, needs_copy = self._alloc.ensure_writable(task.table[idx])
+                    if b is None:
+                        return False
+                    if needs_copy:
+                        self._copy_block(self.state, task.table[idx], b)
+                        task.table[idx] = b
+                else:
+                    b = self._alloc.alloc()
+                    if b is None:
+                        return False
+                    task.table.append(b)
+        return True
+
+    def _advance_prefills(self) -> bool:
+        """One admission boundary: pull new requests into prefill tasks
+        (up to `max_prefills_per_chunk`, prefix-cache matched on entry),
+        then dispatch prompt chunks round-robin within a TOTAL budget of
+        `prefill_chunk_tokens` valid tokens. Dispatch only: the final
+        chunk samples the first token and flips the slot live on the
+        device; the reader thread delivers it. Returns True if anything
+        moved."""
+        progressed = False
+        while (not self._hold_admission
+               and len(self._tasks) < self.max_prefills_per_chunk):
+            busy = {t.slot for t in self._tasks}
+            with self._lock:
+                req, self._next_req = self._next_req, None
+            if req is None:
+                try:
+                    req = self._pending.get_nowait()
+                except queue.Empty:
+                    break
+            with self._lock:
+                dead = req.out in self._cancelled
+                if dead:
+                    self._cancelled.discard(req.out)
+                    self._inflight.discard(req.out)
+            if dead:
+                self.recorder.finish(req.trace, "cancelled")
+                req.out.put(None)
+                progressed = True
+                continue
+            free = [s for s in range(self.slots)
+                    if self._live[s] is None and s not in busy]
+            if not free:
+                with self._lock:
+                    self._next_req = req
+                break
+            with self._lock:
+                self._admitting.append(req)
+                blocks, matched = self._alloc.match(req.tokens)
+            slot = free[0]
+            t_pop = time.monotonic()
+            self._slot_t0[slot] = t_pop
+            self._queue_wait_s = self._ewma_seed(
+                self._queue_wait_s, t_pop - req.t_submit
+            )
+            self._sum_queue_wait += t_pop - req.t_submit
+            if req.trace is not None:
+                req.trace.mark("prefill", t_pop)
+            self._tasks.append(_PrefillTask(req, slot, matched, blocks, t_pop))
+            progressed = True
+        budget = self.prefill_chunk_tokens
+        for task in list(self._tasks):
+            if budget <= 0:
+                break
+            with self._lock:
+                dead = task.req.out in self._cancelled
+            if dead:
+                self._drop_task(task)
+                progressed = True
+                continue
+            n = min(len(task.req.tokens) - task.pos, budget)
+            if not self._ensure_task_blocks(task, task.pos + n):
+                continue  # pool exhausted; retry next boundary
+            final = task.pos + n == len(task.req.tokens)
+            n_padded = self._pad_chunk(n)
+            chunk = task.req.tokens[task.pos:task.pos + n]
+            _, first, _ = self._chunk_fn(n_padded)(
+                self.params, self.state, task.slot,
+                self._pad_table(task.table), chunk + [0] * (n_padded - n),
+                n, task.pos, task.req.max_new_tokens, task.req.temperature,
+                task.req.top_p, self._gen, final,
+            )
+            self._attn_dispatch[self._attn_path] += 1
+            task.pos += n
+            budget -= n
+            self._prefill_chunks += 1
+            self._prefill_tokens_computed += n
+            if task.req.trace is not None:
+                task.req.trace.prefill_chunks += 1
+                task.req.trace.prefill_tokens += n
+            progressed = True
+            if final:
+                task.first = _FirstToken(first)
+                with self._lock:
+                    # Publish the prompt's full blocks now: stream order
+                    # puts these writes before any later matcher's reads.
+                    self._alloc.insert_full(task.req.tokens, task.table)
+                    if task.req.max_new_tokens > 1:
+                        self._live[task.slot] = task.req
+                        self._admitting.remove(task.req)
+                        self._lengths_host[task.slot] = len(task.req.tokens)
+                        self._slot_tables[task.slot] = task.table
+                    # One-token requests never go live: the reader thread
+                    # completes them and releases their blocks.
+                self._tasks.remove(task)
+                self._pending_activation.append(task)
+                self._deliver_q.put(task)
+        return progressed
+
+    def _deliver_loop(self) -> None:
+        """Reader thread: waits for each finalized prefill's first token
+        and delivers it the moment it lands, decoupled from the loop,
+        which may still be waiting on a decode chunk."""
+        while True:
+            task = self._deliver_q.get()
+            if task is None:
+                return
+            req = task.req
+            try:
+                first = task.first.get()
+            except Exception:  # engine failure mid-flight: the loop flushes
+                task.delivered.set()
+                continue
+            now = time.monotonic()
+            with self._lock:
+                dead = req.out in self._cancelled
+                if not dead:
+                    req.out.put(first)
+                    if req.trace is not None and req.max_new_tokens > 1:
+                        req.trace.mark("decode", now)
+                self._ttft_s = self._ewma_seed(self._ttft_s, now - req.t_submit)
+                self._prefill_s = self._ewma_seed(self._prefill_s, now - task.t_pop)
+                self._n_admitted += 1
+                self._sum_ttft += now - req.t_submit
+                self._sum_prefill += now - task.t_pop
+                self._observe_ttft(now - req.t_submit)
+                if req.max_new_tokens <= 1:
+                    self._cancelled.discard(req.out)
+                    self._inflight.discard(req.out)
+                    if req in self._admitting:
+                        self._admitting.remove(req)
+                    for b in task.table:
+                        self._alloc.release(b)
+                    task.table.clear()
+                    self.recorder.finish(
+                        req.trace, "cancelled" if dead else "ok", now
+                    )
+                    req.out.put(None)
+            task.delivered.set()
+
+    def _wait_activations(self) -> None:
+        """Order barrier: a decode chunk's tokens never overtake the first
+        tokens of the prefills dispatched before it."""
+        for task in self._pending_activation:
+            task.delivered.wait(timeout=60)
+        self._pending_activation.clear()
+
+    def _ensure_decode_blocks(self) -> None:
+        """Grow live slots' tables to cover the next chunk's writes. A slot
+        the pool cannot feed is force-retired with an error — silently
+        dropping its KV writes would corrupt the stream."""
+        bs = self._block_size
+        for slot in range(self.slots):
+            table = self._slot_tables[slot]
+            if self._live[slot] is None or table is None:
+                continue
+            need = min(
+                (self._lengths_host[slot] + self._steps_per_sync - 1) // bs + 1,
+                self._max_blocks,
+            )
+            grew = starved = False
+            while len(table) < need:
+                with self._lock:
+                    b = self._alloc.alloc()
+                if b is None:
+                    starved = True
+                    break
+                table.append(b)
+                grew = True
+            if starved:
+                self._force_retire(slot, RuntimeError(
+                    "kv block pool exhausted mid-decode (raise kv_pool_blocks)"
+                ))
+                continue
+            if grew:
+                self.state.block_tables[slot] = host_to_device(
+                    self._pad_table(table), torch.int32, self.device)
+
+    def _force_retire(self, slot: int, error: BaseException) -> None:
+        req = self._live[slot]
+        with self._lock:
+            self._live[slot] = None
+            if req is not None:
+                self._cancelled.discard(req.out)
+                self._inflight.discard(req.out)
+                self.recorder.finish(req.trace, "error")
+            self._release_slot_blocks(slot, cache_tail=False)
+        self._retire(slot)
+        if req is not None:
+            req.out.put(error)
+
+    def _release_slot_blocks(self, slot: int, cache_tail: bool,
+                             prompt: Optional[List[int]] = None) -> None:
+        """Return a retired slot's blocks to the pool (caller holds
+        _lock), first publishing the prompt's partial tail block."""
+        table = self._slot_tables[slot]
+        if table is None:
+            return
+        if cache_tail and prompt is not None:
+            self._alloc.insert_tail(prompt, table)
+        for b in table:
+            self._alloc.release(b)
+        self._slot_tables[slot] = None
+        self._lengths_host[slot] = 0
+
+    def _retire(self, slot: int) -> None:
+        self.state.active[slot] = False
+        self.state.remaining[slot] = 0
+
+    def _ewma(self, prev: float, sample: float, alpha: float = 0.2) -> float:
+        return prev + alpha * (sample - prev)
+
+    def _ewma_seed(self, prev: float, sample: float, alpha: float = 0.2) -> float:
+        return sample if prev == 0.0 else prev + alpha * (sample - prev)
+
+    # -- loop ---------------------------------------------------------------
+
+    def _decode_chunk(self):
+        """Dispatch one decode chunk and read it back: the one host sync
+        per `steps_per_sync` tokens."""
+        live = [r for r in self._live if r is not None]
+        sampling = any(r.temperature > 0 for r in live)
+        nucleus = any(r.temperature > 0 and r.top_p < 1 for r in live)
+        _, tokens, active = self._step(self.params, self.state, self._gen,
+                                       sampling=sampling, nucleus=nucleus)
+        self._attn_dispatch[self._attn_path] += 1
+        both = torch.cat([tokens, active[:, None].to(tokens.dtype)], dim=1).cpu()
+        return both[:, :-1].tolist(), [bool(x) for x in both[:, -1]]
+
+    def _loop(self) -> None:
+        while not self._stop:
+            try:
+                has_live = any(r is not None for r in self._live)
+                if not has_live and not self._tasks:
+                    if self._pending.empty() and self._next_req is None:
+                        t_w = time.monotonic()
+                        self._wake.wait(timeout=0.2)
+                        self._wake.clear()
+                        self._t_idle += time.monotonic() - t_w
+                        continue
+                if not has_live:
+                    # Nothing decoding: admission runs alone; the next
+                    # iteration decodes the freshly activated slots.
+                    t_p = time.monotonic()
+                    progressed = self._advance_prefills()
+                    self._wait_activations()
+                    self._t_prefill += time.monotonic() - t_p
+                    if not progressed and self._tasks:
+                        time.sleep(0.001)  # pool starved, nothing live
+                    continue
+                # 1) Prefill chunks first, so first-token readbacks land
+                #    while the decode chunk runs; block growth after, so
+                #    a prefill that went live above gets its decode rows.
+                t0 = time.monotonic()
+                self._advance_prefills()
+                self._ensure_decode_blocks()
+                t_pf = time.monotonic()
+                # 2) The decode chunk, and its one readback.
+                toks, still = self._decode_chunk()
+                t_sync = time.monotonic()
+                self._chunk_s = self._ewma(self._chunk_s, t_sync - t_pf)
+                self._t_decode += t_sync - t_pf
+                self._last_chunk_s = t_sync - t_pf
+                self._t_prefill += t_pf - t0
+                # 3) First-token order barrier, then fan out the chunk.
+                self._wait_activations()
+                self._fan_out(toks, still)
+            except Exception as e:  # fail every consumer loudly, not by
+                # wedging them on a dead queue
+                if self._stop:
+                    return
+                with self._lock:
+                    self._failed = e
+                self._flush_all(e)
+                logging.getLogger(__name__).exception("serving engine loop failed")
+                return
+
+    def _fan_out(self, toks, still) -> None:
+        """Deliver one chunk's tokens (rows -1-padded past each slot's
+        emissions) and retire slots that finished or were cancelled."""
+        with self._lock:
+            cancelled = set(self._cancelled)
+        total_emitted = 0
+        for slot, req in enumerate(self._live):
+            if req is None:
+                continue
+            row = [t for t in toks[slot] if t >= 0]
+            self._lengths_host[slot] += len(row)
+            total_emitted += len(row)
+            if req.trace is not None:
+                req.trace.decode_steps += 1
+                req.trace.decode_tokens += len(row)
+            if req.out in cancelled:
+                with self._lock:
+                    self._cancelled.discard(req.out)
+                    self._inflight.discard(req.out)
+                    self._live[slot] = None
+                    self._release_slot_blocks(slot, cache_tail=True,
+                                              prompt=req.tokens)
+                self._retire(slot)
+                self.recorder.finish(req.trace, "cancelled")
+                req.out.put(None)
+                continue
+            if not still[slot]:
+                # Free the slot (under the submit lock) BEFORE the final
+                # tokens + clean end: a client that resubmits at once must
+                # find the capacity it just released.
+                with self._lock:
+                    self._live[slot] = None
+                    self._cancelled.discard(req.out)
+                    self._inflight.discard(req.out)
+                    self._release_slot_blocks(slot, cache_tail=True,
+                                              prompt=req.tokens)
+                for tok in row:
+                    req.out.put(tok)
+                t_done = time.monotonic()
+                self.recorder.finish(req.trace, "ok", t_done)
+                req.out.put(None)
+                self._turn_s = self._ewma(self._turn_s, t_done - self._slot_t0[slot])
+                continue
+            for tok in row:
+                req.out.put(tok)
+        if total_emitted:
+            self._tpt_hist.observe(self._last_chunk_s / total_emitted)
+
+
+def prometheus_metrics(stats: Dict[str, Any]) -> str:
+    """Render a stats() snapshot in Prometheus text exposition format,
+    under the same series names as the JAX engine (the subset of features
+    the port serves)."""
+    series = [
+        ("dstack_tpu_serving_slots_active", "gauge", stats["active"]),
+        ("dstack_tpu_serving_pending_requests", "gauge", stats["pending"]),
+        ("dstack_tpu_serving_kv_blocks_in_use", "gauge", stats["kv_blocks_in_use"]),
+        ("dstack_tpu_serving_kv_blocks_cached", "gauge", stats["kv_blocks_cached"]),
+        ("dstack_tpu_serving_prefix_cache_hits_total", "counter",
+         stats["prefix_cache_hits_total"]),
+        ("dstack_tpu_serving_prefix_cache_misses_total", "counter",
+         stats["prefix_cache_misses_total"]),
+        ("dstack_tpu_serving_prefix_tokens_reused_total", "counter",
+         stats["prefix_tokens_reused_total"]),
+        ("dstack_tpu_serving_kv_cow_copies_total", "counter",
+         stats["kv_cow_copies_total"]),
+        ("dstack_tpu_serving_prefill_chunks_total", "counter",
+         stats["prefill_chunks_total"]),
+        ("dstack_tpu_serving_prefill_tokens_total", "counter",
+         stats["prefill_tokens_computed_total"]),
+        ("dstack_tpu_serving_admitted_total", "counter", stats["admitted_total"]),
+        ("dstack_tpu_serving_rejected_total", "counter", stats["rejected_total"]),
+    ]
+    lines = []
+    for name, mtype, value in series:
+        lines.append(f"# TYPE {name} {mtype}")
+        lines.append(f"{name} {value}")
+    attn = "dstack_tpu_serving_attn_dispatch_total"
+    lines.append(f"# TYPE {attn} counter")
+    for path in ATTN_PATHS:
+        lines.append(f'{attn}{{path="{path}"}}'
+                     f' {stats.get(f"attn_dispatch_{path}_total", 0)}')
+    role = stats.get("role", "unified")
+
+    def _render_hist(base: str, hist: Dict[str, Any], hist_role: str = "",
+                     emit_type: bool = True) -> None:
+        r = hist_role or role
+        if emit_type:
+            lines.append(f"# TYPE {base} histogram")
+        for le, cumulative in hist["buckets"]:
+            lines.append(f'{base}_bucket{{le="{le}",role="{r}"}} {cumulative}')
+        lines.append(f'{base}_bucket{{le="+Inf",role="{r}"}} {hist["count"]}')
+        lines.append(f'{base}_sum{{role="{r}"}} {hist["sum"]}')
+        lines.append(f'{base}_count{{role="{r}"}} {hist["count"]}')
+
+    _render_hist("dstack_tpu_serving_ttft_seconds", stats["ttft_hist"])
+    if stats["ttft_cold_hist"]["count"]:
+        _render_hist("dstack_tpu_serving_ttft_seconds", stats["ttft_cold_hist"],
+                     hist_role="cold_start", emit_type=False)
+    _render_hist("dstack_tpu_serving_tpt_seconds", stats["tpt_hist"])
+    wh = stats["warmup_hist"]
+    wb = "dstack_tpu_serving_warmup_seconds"
+    lines.append(f"# TYPE {wb} histogram")
+    for le, cumulative in wh["buckets"]:
+        lines.append(f'{wb}_bucket{{le="{le}"}} {cumulative}')
+    lines.append(f'{wb}_bucket{{le="+Inf"}} {wh["count"]}')
+    lines.append(f'{wb}_sum {wh["sum"]}')
+    lines.append(f'{wb}_count {wh["count"]}')
+    phase_hists = stats.get("phase_hists") or {}
+    if phase_hists:
+        base = "dstack_tpu_serving_phase_seconds"
+        lines.append(f"# TYPE {base} histogram")
+        for phase in sorted(phase_hists):
+            hist = phase_hists[phase]
+            labels = f'phase="{phase}",role="{role}"'
+            for le, cumulative in hist["buckets"]:
+                lines.append(f'{base}_bucket{{le="{le}",{labels}}} {cumulative}')
+            lines.append(f'{base}_bucket{{le="+Inf",{labels}}} {hist["count"]}')
+            lines.append(f'{base}_sum{{{labels}}} {hist["sum"]}')
+            lines.append(f'{base}_count{{{labels}}} {hist["count"]}')
+    return "\n".join(lines) + "\n"
