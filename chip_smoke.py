@@ -14,14 +14,30 @@ Phases (any failure fails the run; nothing is caught to exit 0):
                launch count over that run; a chunked prefill's logits
                against the dense plain forward;
   5. http    — native_server on localhost: models, two chat completions,
-               metrics.
-The line before the last is the `kernels` JSON; the last line is
-{"ok": true, "device": {...}}. Each phase logs its numbers on the way.
+               metrics;
+  3b. flash  — the three flash-attention kernels (forward, dQ, dK/dV)
+               against their plain versions at the smol-1b training shape
+               (B*H 128, S 2048, hd 128, causal) in bf16 and f32 and at a
+               ragged one (S 1000, non-causal, hd 64); times of kernel,
+               plain version, bound and the SDPA yardstick;
+  6. train   — smol-1b at full width and depth, B 8 x S 2048, bf16: two
+               warm-up steps, then timed steps with one host readback;
+               loss and grad norm finite, loss falling, each flash kernel
+               launched 16 times a step (32 for the forward under "full"
+               remat); step ms, tokens/s, MFU, peak memory, and a profiled
+               step (device idle share, ms by kernel class);
+  6b. model  — smol-1b width at 2 layers, B 2 x S 2048: loss and grads
+               through the kernels against plain_attention, f32 and bf16.
+Phase 3b runs after 3, phase 6 and 6b after 5. The line before the last
+is the `kernels` JSON; the last line is {"ok": true, "device": {...}}.
+Each phase logs its numbers on the way; details also go to
+chiprun_out/chip_smoke.json.
 Imports nothing of JAX. Exits non-zero without a CUDA device.
 """
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -46,6 +62,37 @@ KERNEL_TOL = {torch.bfloat16: 1e-2, torch.float32: 2e-5}
 ENGINE_LOGIT_TOL = {torch.bfloat16: 5e-2, torch.float32: 1e-4}
 PAGED_KERNEL_SOURCE = "dstack_tpu_torch/workloads/csrc/paged_attention.cu"
 PAGED_KERNEL_REPLACES = "dstack_tpu/workloads/paged_attention.py:222"
+FLASH_KERNEL_SOURCE = "dstack_tpu_torch/workloads/csrc/flash_attention.cu"
+FLASH_REPLACES = {
+    "flash_fwd": "dstack_tpu/workloads/flash_attention.py:219",
+    "flash_bwd_dq": "dstack_tpu/workloads/flash_attention.py:256",
+    "flash_bwd_dkv": "dstack_tpu/workloads/flash_attention.py:294",
+}
+# Flash kernels against plain versions: two scale-free readings per
+# output (O, dQ, dK, dV), see flash_errors; the limit holds both. One max
+# over the whole tensor would be set by the first rows of a causal head,
+# whose values are ~20x a late row's at S 2048, and so would pass an error
+# of a late row's typical size. bf16 — the kernels round P and dS to bf16
+# before their products, the plain versions keep f32, both round every
+# output to bf16. f32 — summation order only. Each (rel_l2, row_rel)
+# limit is ~3x the largest reading of sound runs on the H100 (here and in
+# tests/test_torch_cuda.py; PERF.md): bf16 2.75e-3 and 8.06e-3, f32
+# 6.3e-7 and 4.04e-6.
+FLASH_TOL = {torch.bfloat16: (9e-3, 2.5e-2), torch.float32: (2e-6, 1.2e-5)}
+# A row whose exact value is 0 by cancellation (the first query's dQ on a
+# causal head: P = 1, so dS = P (dP - delta) = 0) is held against this
+# share of the tensor's RMS instead of its own max.
+ROW_FLOOR = 1e-2
+# lse is f32 for both input dtypes: max |diff| (a log, so relative to l);
+# sound runs read 9.5e-7, one f32 ulp at |lse| in [8, 16).
+LSE_TOL = 3e-6
+# Inside the model (6b): loss |d|/|ref|, and per-leaf grad
+# ||g - g_ref|| / ||g_ref||, kernels against plain_attention. bf16 —
+# plain_attention rounds probs to bf16 but differentiates the softmax in
+# f32 from them, the kernels recompute P in f32 and round P and dS.
+MODEL_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (5e-3, 5e-2)}
+H100_BF16_PEAK = 989e12
+OUT = "chiprun_out/chip_smoke.json"
 
 
 def log(*a) -> None:
@@ -188,6 +235,316 @@ def run_kernels(flush):
     return results
 
 
+# -- phase 3b: flash kernels -------------------------------------------------
+
+
+def flash_bound(which, bh, s, hd, dtype, causal):
+    """(bound_ms, bound_by): bytes the call must move (inputs read once,
+    outputs written once) over HBM bandwidth, against its products' FLOPs
+    on the (row, key) pairs the mask keeps over the type's peak."""
+    es = torch.empty((), dtype=dtype).element_size()
+    mat = bh * s * hd * es
+    vec = bh * s * 4
+    pairs = bh * (s * (s + 1) // 2 if causal else s * s)
+    nbytes, products = {
+        "flash_fwd": (4 * mat + vec, 2),           # q k v -> o, lse
+        "flash_bwd_dq": (5 * mat + 2 * vec, 3),    # q k v do lse delta -> dq
+        "flash_bwd_dkv": (6 * mat + 2 * vec, 4),   # q k v do lse delta -> dk dv
+    }[which]
+    ops = products * 2 * hd * pairs
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+OUT_NAMES = {"flash_fwd": ("o", "lse"), "flash_bwd_dq": ("dq",),
+             "flash_bwd_dkv": ("dk", "dv")}
+
+
+def flash_errors(got, ref) -> tuple:
+    """(rel_l2, row_rel, max_abs, ref_max) of got against ref: rel_l2 is
+    ||got - ref|| / ||ref|| over the whole tensor; row_rel is the largest,
+    over rows (a query's O or dQ, a key's dK or dV), of the row's
+    max |got - ref| over its own max |ref|, floored at ROW_FLOOR x the
+    tensor's RMS; then max |got - ref| and max |ref| over the whole tensor
+    (logged, not gated)."""
+    d = got.double() - ref.double()
+    r = ref.double()
+    floor = ROW_FLOOR * float(r.square().mean().sqrt())
+    row = d.abs().amax(-1) / r.abs().amax(-1).clamp_min(max(floor, 1e-30))
+    return (float(d.norm() / r.norm()), float(row.max()), float(d.abs().max()),
+            float(r.abs().max()))
+
+
+def flash_readings(case, kern, pairs) -> dict:
+    """One kernel's readings on one case, over its outputs, logged."""
+    r = dict(case=case, kernel=kern, max_abs_err=0.0)
+    for out, (got, ref) in zip(OUT_NAMES[kern], pairs):
+        if not torch.isfinite(got.float()).all():
+            raise AssertionError(f"{case} {kern}: {out} not finite")
+        if out == "lse":
+            r["lse_max_abs_err"] = float((got - ref).abs().max())
+        else:
+            r[out] = dict(zip(("rel_l2", "row_rel", "max_abs_err", "ref_max"),
+                              flash_errors(got, ref)))
+            r["max_abs_err"] = max(r["max_abs_err"], r[out]["max_abs_err"])
+    log(f"flash {case} {kern}: "
+        + json.dumps({k: v for k, v in r.items() if k not in ("case", "kernel")}))
+    return r
+
+
+def check_flash(r, tol) -> None:
+    if not r.get("lse_max_abs_err", 0.0) <= LSE_TOL:
+        raise AssertionError(f"{r['case']} lse: {r['lse_max_abs_err']} past {LSE_TOL}")
+    for out in OUT_NAMES[r["kernel"]]:
+        if out != "lse" and not (r[out]["rel_l2"] <= tol[0] and r[out]["row_rel"] <= tol[1]):
+            raise AssertionError(f"{r['case']} {r['kernel']} {out}: {r[out]} past {tol}")
+
+
+def run_flash(timed: bool = True):
+    """Each flash kernel against its plain version on the same inputs;
+    the SDPA yardstick (forward, and backward for dQ + dK/dV together) at
+    the bf16 training shape. Returns one result per (case, kernel)."""
+    from dstack_tpu_torch.workloads import flash_attention as fa
+
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        cases.append((f"train_{tag}", dtype, 128, 2048, 128, True))
+        cases.append((f"ragged_{tag}", dtype, 16, 1000, 64, False))
+    results = []
+    for name, dtype, bh, s, hd, causal in cases:
+        g = torch.Generator(device="cuda").manual_seed(7)
+        q, k, v, do = (torch.randn((bh, s, hd), generator=g, device="cuda").to(dtype)
+                       for _ in range(4))
+        o, lse = fa._flash_fwd_cuda(q, k, v, causal)
+        o_ref, lse_ref = fa._flash_fwd_plain(q, k, v, causal)
+        delta = (do.float() * o_ref.float()).sum(-1)
+        dq = fa._flash_bwd_dq_cuda(q, k, v, do, lse_ref, delta, causal)
+        dk, dv = fa._flash_bwd_dkv_cuda(q, k, v, do, lse_ref, delta, causal)
+        dq_ref = fa._flash_bwd_dq_plain(q, k, v, do, lse_ref, delta, causal)
+        dk_ref, dv_ref = fa._flash_bwd_dkv_plain(q, k, v, do, lse_ref, delta, causal)
+        torch.cuda.synchronize()
+        outs = {"flash_fwd": [(o, o_ref), (lse, lse_ref)],
+                "flash_bwd_dq": [(dq, dq_ref)],
+                "flash_bwd_dkv": [(dk, dk_ref), (dv, dv_ref)]}
+        iters = (20, 3) if dtype == torch.bfloat16 else (5, 2)
+        calls = {
+            "flash_fwd": (lambda: fa._flash_fwd_cuda(q, k, v, causal),
+                          lambda: fa._flash_fwd_plain(q, k, v, causal)),
+            "flash_bwd_dq": (
+                lambda: fa._flash_bwd_dq_cuda(q, k, v, do, lse_ref, delta, causal),
+                lambda: fa._flash_bwd_dq_plain(q, k, v, do, lse_ref, delta, causal)),
+            "flash_bwd_dkv": (
+                lambda: fa._flash_bwd_dkv_cuda(q, k, v, do, lse_ref, delta, causal),
+                lambda: fa._flash_bwd_dkv_plain(q, k, v, do, lse_ref, delta, causal)),
+        }
+        lib = library_flash_ms(q, k, v, do, causal) if timed and dtype == torch.bfloat16 \
+            and name.startswith("train") else {}
+        checked = [flash_readings(name, kern, pairs) for kern, pairs in outs.items()]
+        for r in checked:  # every reading of the case is logged before a failure
+            check_flash(r, FLASH_TOL[dtype])
+        for r in checked:
+            kern = r["kernel"]
+            if timed:
+                kfn, pfn = calls[kern]
+                bound_ms, bound_by = flash_bound(kern, bh, s, hd, dtype, causal)
+                r.update(ms=cuda_ms(kfn, iters[0]), plain_ms=cuda_ms(pfn, iters[1]),
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=lib.get("fwd" if kern == "flash_fwd" else "bwd"))
+                log("flash timing", json.dumps(r))
+            results.append(r)
+        del q, k, v, do, o, lse, o_ref, lse_ref, delta, dq, dk, dv, dq_ref, dk_ref, dv_ref
+        del outs, calls
+        torch.cuda.empty_cache()
+    return results
+
+
+def library_flash_ms(q, k, v, do, causal):
+    """torch SDPA on the same (B*H, S, hd) inputs as (B*H, 1, S, hd): its
+    forward, and its backward (dQ, dK, dV in one call) — the yardstick the
+    port never calls."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qq, kk, vv = (x[:, None].clone().requires_grad_() for x in (q, k, v))
+    out = sdpa(qq, kk, vv, is_causal=causal)
+    dout = do[:, None]
+    fwd = cuda_ms(lambda: sdpa(qq.detach(), kk.detach(), vv.detach(), is_causal=causal), 20)
+    bwd = cuda_ms(lambda: torch.autograd.grad(out, (qq, kk, vv), dout, retain_graph=True), 20)
+    return {"fwd": fwd, "bwd": bwd}
+
+
+# -- phase 6: train ----------------------------------------------------------
+
+
+def flash_counts():
+    from dstack_tpu_torch.workloads import flash_attention as fa
+
+    return dict(fa.LAUNCHES)
+
+
+def zero_flash_counts():
+    from dstack_tpu_torch.workloads import flash_attention as fa
+
+    for k in fa.LAUNCHES:
+        fa.LAUNCHES[k] = 0
+
+
+def run_train(n_steps: int = 5):
+    """smol-1b, full depth, B 8 x S 2048, bf16, random weights from seed 0,
+    on one fixed synthetic batch: the port's trainer end to end."""
+    from dstack_tpu_torch.workloads.config import PRESETS
+    from dstack_tpu_torch.workloads.train import (
+        init_train_state,
+        make_train_step,
+        synthetic_batch,
+    )
+
+    cfg = PRESETS["smol-1b"]
+    B, S = 8, 2048
+    remat = cfg.resolve_remat(B * S, seq_len=S)
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(cfg, seed=0)
+    step = make_train_step(cfg)
+    batch = synthetic_batch(cfg, B, S, seed=0)
+    n_warm = 2
+    zero_flash_counts()
+    t0 = time.monotonic()
+    for _ in range(n_warm):  # warm-up: settles the allocator and cuBLAS
+        state, m = step(state, batch)
+    torch.cuda.synchronize()
+    warm_s = time.monotonic() - t0
+    losses, norms = [], []
+    t0 = time.monotonic()
+    for _ in range(n_steps):
+        state, m = step(state, batch)
+        losses.append(m["loss"])
+        norms.append(m["grad_norm"])
+    vals = torch.stack(losses + norms).tolist()  # the one host readback
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = flash_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses, norms = vals[:n_steps], vals[n_steps:]
+    n_run = n_warm + n_steps
+    fwd_per_layer = 2 if remat in ("full", "dots") else 1  # remat reruns it
+    want = {"flash_fwd": fwd_per_layer * cfg.n_layers * n_run,
+            "flash_bwd_dq": cfg.n_layers * n_run,
+            "flash_bwd_dkv": cfg.n_layers * n_run}
+    step_ms = wall / n_steps * 1e3
+    tokens_s = B * S * n_steps / wall
+    flops_step = cfg.flops_per_token(S) * B * S
+    stats = dict(
+        preset="smol-1b", layers=cfg.n_layers, batch=B, seq_len=S, dtype=cfg.dtype,
+        remat=remat, steps=n_steps, warmup_steps=n_warm, warmup_s=warm_s, step_ms=step_ms,
+        tokens_per_s=tokens_s, flops_per_step=flops_step,
+        mfu=cfg.flops_per_token(S) * tokens_s / H100_BF16_PEAK,
+        peak_mem_gb=peak / 1e9,
+        estimator_activation_gb=cfg.activation_bytes(B * S, seq_len=S) / 1e9,
+        train_state_gb=sum(t.numel() * t.element_size() for t in _state_tensors(state)) / 1e9,
+        losses=losses, grad_norms=norms, launches=launches)
+    log("train stats", json.dumps(stats))
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError(f"non-finite loss or grad norm: {losses} {norms}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+    if launches != want:
+        raise AssertionError(f"flash launches {launches}, expected {want}")
+    stats["profiled_step"] = profile_step(step, state, batch)
+    del state, batch
+    torch.cuda.empty_cache()
+    return stats
+
+
+def _state_tensors(state):
+    from dstack_tpu_torch.workloads.weights import flatten_params
+
+    yield from (t for _, t in flatten_params(state.params))
+    yield from (t for _, t in flatten_params(state.opt_state.mu))
+    yield from (t for _, t in flatten_params(state.opt_state.nu))
+
+
+def profile_step(step, state, batch):
+    """One train step under torch.profiler: device time by kernel class
+    and the device's idle share of the step's wall time (the profiler adds
+    host overhead; not used for the throughput above)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall_us = (time.monotonic() - t0) * 1e6
+    by_class, by_name = {}, {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = e.time_range.elapsed_us()
+        c = kernel_class(e.name)
+        by_class[c] = by_class.get(c, 0) + us
+        by_name[e.name] = by_name.get(e.name, 0) + us
+    busy = sum(by_class.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    out = {
+        "wall_ms": wall_us / 1e3,
+        "device_busy_ms": busy / 1e3,
+        "device_idle_share": 1 - busy / wall_us if wall_us else None,
+        "device_ms_by_class": {k: v / 1e3 for k, v in by_class.items()},
+        "top_kernels_ms": [(n[:90], v / 1e3) for n, v in top],
+    }
+    log("profiled train step", json.dumps(out))
+    return out
+
+
+# -- phase 6b: kernels against plain inside the model ------------------------
+
+
+def run_model_check():
+    """smol-1b width at 2 layers, B 2 x S 2048: one loss_fn and its grads
+    through the flash kernels, and again with plain_attention."""
+    from dstack_tpu_torch.workloads.attention import make_attention_fn, plain_attention
+    from dstack_tpu_torch.workloads.config import PRESETS
+    from dstack_tpu_torch.workloads.train import loss_fn, synthetic_batch
+    from dstack_tpu_torch.workloads.weights import flatten_params
+    from dstack_tpu_torch.workloads.transformer import init_params
+
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        cfg = PRESETS["smol-1b"].with_(n_layers=2, dtype=str(dtype).split(".")[1])
+        params = init_params(cfg, seed=1)
+        pairs = flatten_params(params)
+        for _, p in pairs:
+            p.requires_grad_(True)
+        batch = synthetic_batch(cfg, 2, 2048, seed=1)
+        res = {}
+        for name, attn in (("kernels", make_attention_fn()), ("plain", plain_attention)):
+            before = flash_counts()["flash_fwd"]
+            loss, _ = loss_fn(cfg, params, batch, attn)
+            grads = torch.autograd.grad(loss, [p for _, p in pairs])
+            res[name] = (float(loss.detach()), grads, flash_counts()["flash_fwd"] - before)
+        if res["kernels"][2] != cfg.n_layers or res["plain"][2] != 0:
+            raise AssertionError(f"6b {tag}: flash launches {res['kernels'][2]}"
+                                 f" / {res['plain'][2]}")
+        loss_rel = abs(res["kernels"][0] - res["plain"][0]) / abs(res["plain"][0])
+        grad_rel = {}
+        for (path, _), g, r in zip(pairs, res["kernels"][1], res["plain"][1]):
+            grad_rel[path] = float((g.float() - r.float()).norm() / r.float().norm())
+        tol_loss, tol_grad = MODEL_TOL[dtype]
+        worst = max(grad_rel.values())
+        log(f"model check {tag}: loss {res['kernels'][0]:.6f} vs {res['plain'][0]:.6f}"
+            f" (rel {loss_rel:.3e}, tol {tol_loss:g}); worst leaf grad rel"
+            f" {worst:.3e} (tol {tol_grad:g}) at"
+            f" {max(grad_rel, key=grad_rel.get)}")
+        if not loss_rel <= tol_loss or not worst <= tol_grad:
+            raise AssertionError(f"6b {tag}: kernels disagree with plain attention")
+        out[tag] = dict(loss_kernels=res["kernels"][0], loss_plain=res["plain"][0],
+                        loss_rel=loss_rel, grad_rel=grad_rel)
+        del params, pairs, res, batch
+        torch.cuda.empty_cache()
+    return out
+
+
 # -- phase 4: engine ---------------------------------------------------------
 
 
@@ -315,6 +672,8 @@ def kernel_class(name: str) -> str:
     n = name.lower()
     if "ragged_paged_attention" in n:
         return "paged_attention"
+    if "flash_" in n:
+        return "flash_attention"
     if any(s in n for s in ("gemm", "gemv", "cutlass", "xmma", "cublas", "matmul", "nvjet")):
         return "matmul"
     return "other"
@@ -444,6 +803,9 @@ def main() -> int:
     kres = run_kernels(flush)
     del flush
 
+    # 3b. flash kernels against plain versions
+    fres = run_flash()
+
     # 4. engine: smol-1b, full width and depth, random weights from seed 0
     from dstack_tpu_torch.workloads import paged_attention as pa
     from dstack_tpu_torch.workloads.config import PRESETS
@@ -463,6 +825,14 @@ def main() -> int:
 
     # 5. http
     run_http(params)
+    del params
+    torch.cuda.empty_cache()
+
+    # 6. train: smol-1b, full depth, B 8 x S 2048
+    train = run_train()
+
+    # 6b. kernels against plain attention inside the model
+    model = run_model_check()
 
     log(f"total {time.monotonic() - t_all:.1f}s")
     main_case = next(r for r in kres if r["case"] == "decode_bf16")
@@ -480,6 +850,25 @@ def main() -> int:
         "bound_by": main_case["bound_by"],
         "library_ms": main_case["library_ms"],
     }]}
+    for kern, replaces in FLASH_REPLACES.items():
+        main_f = next(r for r in fres if r["case"] == "train_bf16" and r["kernel"] == kern)
+        kernels["kernels"].append({
+            "name": kern,
+            "route": "cuda",
+            "source": FLASH_KERNEL_SOURCE,
+            "replaces": replaces,
+            "launches": train["launches"][kern],
+            "max_abs_err": main_f["max_abs_err"],
+            "ms": main_f["ms"],
+            "plain_ms": main_f["plain_ms"],
+            "bound_ms": main_f["bound_ms"],
+            "bound_by": main_f["bound_by"],
+            "library_ms": main_f["library_ms"],
+        })
+    os.makedirs(os.path.dirname(OUT), exist_ok=True)
+    with open(OUT, "w") as f:
+        json.dump({"device": smi, "paged": kres, "flash": fres, "train": train,
+                   "model_check": model, "build_s": _build.build_seconds}, f, indent=1)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

@@ -73,16 +73,16 @@ class Engine:
             from dstack_tpu_torch.workloads.quant import quantize_params
 
             params = quantize_params(params)
-        self.params = params
         self.weights_seconds = time.monotonic() - t0
         self.weights_via = weights_via
         self.serving = ServingEngine(
-            self.config, self.params, slots=slots, temperature=0.8,
+            self.config, params, slots=slots, temperature=0.8,
             max_pending=max_pending, steps_per_sync=steps_per_sync,
             max_prefills_per_chunk=max_prefills_per_chunk,
             prefill_chunk_tokens=prefill_chunk_tokens,
             kv_block_size=kv_block_size, device=self.device,
         )
+        self.params = self.serving.params  # detached: serving builds no graph
 
     def encode(self, text: str):
         ids = [min(b, self.config.vocab_size - 1) for b in text.encode()] or [0]
@@ -356,8 +356,9 @@ def main(argv: Optional[list] = None) -> None:
                              " runs the plain PyTorch path)")
     parser.add_argument("--max-new-tokens", type=int, default=64)
     parser.add_argument("--checkpoint-dir", default="",
-                        help="directory holding a JAX checkpoint.save_packed"
-                             " export (packed/manifest.json + weights.bin);"
+                        help="directory holding a save_packed export"
+                             " (packed/manifest.json + weights.bin) from the JAX"
+                             " package or the port's fine_tune;"
                              " without it weights are random from --seed")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--quantize", default="none", choices=["none", "int8"])

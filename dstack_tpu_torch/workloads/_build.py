@@ -4,10 +4,13 @@ The sources under `csrc/` have a plain C interface and include no PyTorch
 header, so `nvcc` builds them in seconds into a shared library that
 `ctypes` loads; a source that included `torch/extension.h` would take
 minutes per build on the card's machine, and every fresh machine builds
-anew. The library lands in `build/` beside this file (git-ignored), named
-by a hash of the sources and flags so an edited kernel never loads a stale
-build. Nothing here runs at import: `load_library()` builds on its first
-call, which the kernel wrappers make from their launch path.
+anew. Each source compiles in its own `nvcc -c`, all started together,
+so the build takes as long as the slowest source rather than their sum,
+and one `nvcc -shared` links the objects. The library lands in `build/`
+beside this file (git-ignored), named by a hash of the sources and flags
+so an edited kernel never loads a stale build. Nothing here runs at
+import: `load_library()` builds on its first call, which the kernel
+wrappers make from their launch path.
 """
 
 import ctypes
@@ -18,15 +21,16 @@ import subprocess
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("paged_attention.cu",)
+SOURCES = ("paged_attention.cu", "flash_attention.cu")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas=-v",
+    "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas=-v",
 )
 
 _lock = threading.Lock()
@@ -63,9 +67,41 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    tail = [i32, i32, i32, f32, i32, i32, ptr]  # BH, S, HD, scale, causal, dtype, stream
+    for name, n_ptr in (("dstack_flash_fwd", 5), ("dstack_flash_bwd_dq", 7),
+                        ("dstack_flash_bwd_dkv", 8)):
+        fn = getattr(lib, name)
+        fn.argtypes = [ptr] * n_ptr + tail
+        fn.restype = ctypes.c_int
     lib.dstack_cuda_error_string.argtypes = [ctypes.c_int]
     lib.dstack_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _run(cmd) -> str:
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                           f"{proc.stdout}{proc.stderr}")
+    return proc.stdout + proc.stderr
+
+
+def _compile_and_link(so: Path) -> str:
+    """One `nvcc -c` per source, all at once, then one link; the library
+    is published atomically, so a concurrent process never loads a half
+    file. Returns what nvcc printed (ptxas register reports)."""
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [str(Path(tmp) / (Path(s).stem + ".o")) for s in SOURCES]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(CSRC / s)]
+                for s, o in zip(SOURCES, objs)]
+        with ThreadPoolExecutor(max_workers=len(cmds)) as pool:
+            logs = list(pool.map(_run, cmds))
+        out = str(Path(tmp) / "lib.so")
+        logs.append(_run([nvcc, "-shared", "-o", out, *objs]))
+        os.replace(out, so)
+    return "".join(logs)
 
 
 def load_library(rebuild: bool = False) -> ctypes.CDLL:
@@ -80,19 +116,7 @@ def load_library(rebuild: bool = False) -> ctypes.CDLL:
         so = BUILD_DIR / f"libdstack_kernels_{_digest()}.so"
         if rebuild or not so.exists():
             t0 = time.monotonic()
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                   *(str(CSRC / s) for s in SOURCES)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-                )
-            # Atomic publish: a concurrent process never loads a half file.
-            os.replace(tmp, so)
-            build_log = proc.stdout + proc.stderr
+            build_log = _compile_and_link(so)
             build_seconds = time.monotonic() - t0
         _lib = _bind(ctypes.CDLL(str(so)))
         return _lib

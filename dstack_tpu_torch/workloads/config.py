@@ -1,12 +1,14 @@
 """Model configuration (llama-family decoder), the PyTorch port's copy.
 
 Mirrors `dstack_tpu.workloads.config` field for field so a preset name
-means the same shapes in both packages. `resolve_remat` is not here yet:
-it belongs to the training slice.
+means the same shapes in both packages, and `resolve_remat` keeps the
+reference's formula; only the HBM budget's default differs (80 GB, the
+H100, where the reference assumes a 16 GB TPU chip).
 """
 
+import os
 from dataclasses import dataclass, replace
-from typing import Dict, Union
+from typing import Dict, Optional, Union
 
 import torch
 
@@ -60,6 +62,76 @@ class ModelConfig:
         else:
             mlp = 3 * d * f
         return self.n_layers * (attn + mlp) + 2 * d * v
+
+    def resolve_remat(
+        self,
+        batch_tokens: int,
+        shards: Optional[Dict[str, int]] = None,
+        *,
+        seq_len: Optional[int] = None,
+        attn_scores: bool = False,
+    ) -> str:
+        """The remat policy ("none", "dots" or "full") for a training step
+        of `batch_tokens` on a mesh of `shards` (axis -> size), by the
+        reference's formula (`config.py:82-164`): "auto" compares the
+        saved-activation estimate of the no-remat forward against the HBM
+        left after the train state (12 B/param). Budget knob:
+        DSTACK_TPU_HBM_GB, default 80 (one H100)."""
+        r = self.remat
+        if r is True or r == "full":
+            return "full"
+        if r is False or r == "none":
+            return "none"
+        if r == "dots":
+            return "dots"
+        if r != "auto":
+            raise ValueError(
+                f"remat={r!r}: expected 'auto', 'none', 'dots', 'full' or a bool"
+            )
+        shards = shards or {}
+        hbm = float(os.environ.get("DSTACK_TPU_HBM_GB", "80")) * 2**30
+        weight_shard = (
+            shards.get("fsdp", 1) * shards.get("model", 1)
+            * shards.get("pipe", 1) * shards.get("expert", 1)
+        )
+        state_bytes = 12 * self.param_count() / weight_shard
+        budget = max(hbm - state_bytes, 0.15 * hbm)
+        act_bytes = self.activation_bytes(batch_tokens, shards, seq_len=seq_len,
+                                          attn_scores=attn_scores)
+        return "none" if act_bytes < 0.6 * budget else "dots"
+
+    def activation_bytes(self, batch_tokens: int,
+                         shards: Optional[Dict[str, int]] = None, *,
+                         seq_len: Optional[int] = None,
+                         attn_scores: bool = False) -> float:
+        """The reference's per-device estimate of what the no-remat
+        backward keeps (the half of `resolve_remat` that sizes it)."""
+        shards = shards or {}
+        act_shard = (
+            shards.get("data", 1) * shards.get("fsdp", 1) * shards.get("seq", 1)
+        )
+        d, f = self.d_model, self.d_ff
+        db = self.dtype_bytes
+        kv = self.n_kv_heads * self.head_dim
+        mlp_width = f * (
+            self.experts_per_token * self.capacity_factor
+            if self.n_experts > 0 else 1
+        )
+        # Per-layer residuals of the no-remat backward, as the reference
+        # counts them. Eager autograd keeps more (the f32 copies inside
+        # rms_norm and rope, the GQA-expanded K/V the flash Function saves):
+        # PERF.md records the measured peak against this estimate.
+        per_token = int((6 * d + 2 * kv) * db + mlp_width * 4 * db)
+        if attn_scores and seq_len:
+            # Plain attention keeps the f32 scores and probs for backward;
+            # the flash kernels recompute them.
+            per_token += 2 * seq_len * self.n_heads * 4
+        if self.ce_chunk > 0 and seq_len and seq_len % self.ce_chunk == 0:
+            head_per_token = d * db
+        else:
+            head_per_token = self.vocab_size * 4  # the f32 logits
+        return (batch_tokens / max(act_shard, 1)
+                * (per_token * self.n_layers + head_per_token))
 
     def flops_per_token(self, seq_len: int = None) -> float:
         """Approximate forward+backward FLOPs per token (3x forward), the

@@ -136,12 +136,14 @@ def sample_logits_row(logits: torch.Tensor, temp: float, top_p: float,
     return torch.argmax(logits).to(torch.int32)
 
 
+@torch.no_grad()
 def generate(config: ModelConfig, params: Params, prompt: torch.Tensor, *,
              max_new_tokens: int, max_len: Optional[int] = None,
              temperature: float = 0.0,
              generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Greedy (or temperature-sampled) generation: prompt (B, S) int ->
-    (B, max_new_tokens) int32, on the params' device."""
+    (B, max_new_tokens) int32, on the params' device. Runs without
+    autograd, so trained params that require grad build no graph."""
     c = config
     dev = params_device(params)
     prompt = torch.as_tensor(prompt, device=dev)

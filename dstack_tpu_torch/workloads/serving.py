@@ -58,6 +58,7 @@ from dstack_tpu_torch.workloads.paged_attention import (
     dispatch_path as attn_dispatch_path,
 )
 from dstack_tpu_torch.workloads.transformer import (
+    detach_params,
     layer_params,
     linear,
     logits_linear,
@@ -373,7 +374,9 @@ class ServingEngine:
                 f" {self.device}"
             )
         self.config = config
-        self.params = params
+        # Detached views (no copy): params straight from a train state carry
+        # requires_grad, and serving must build no autograd graph.
+        self.params = detach_params(params)
         self.slots = slots
         self.max_len = max_len or config.max_seq_len
         self.role = "unified"

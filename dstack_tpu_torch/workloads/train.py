@@ -1,0 +1,272 @@
+"""Training step for the flagship workload, single device (port of
+`dstack_tpu.workloads.train`, lines 32-325 and 444-461).
+
+`make_train_step(config)` returns `train_step(state, batch) -> (state,
+metrics)`. Where the reference jits and donates the state, this step runs
+eagerly and updates params and optimizer moments in place (the donated
+JAX state is as dead after a step as the old tensors here are). Metrics
+stay on the device: the step makes no host readback; callers read what
+they print.
+
+The optimizer is AdamW written out on tensors rather than
+`torch.optim.AdamW`, because its state must match optax's: `mu` in f32,
+`nu` in the param dtype, every scalar of optax's arithmetic rounded to the
+dtype of the tensor it meets (a weakly-typed JAX scalar takes the array's
+dtype), the f32 update added to the param and cast back to its dtype.
+
+Not here yet: the train-state checkpoint and what rests on it
+(`DrainHandler`, `checkpoint_and_exit`) and `read_resize_notice`.
+"""
+
+from dataclasses import dataclass
+from typing import Any, Dict, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from dstack_tpu_torch.workloads.attention import make_attention_fn
+from dstack_tpu_torch.workloads.config import ModelConfig
+from dstack_tpu_torch.workloads.device import DeviceLike, resolve_device
+from dstack_tpu_torch.workloads.transformer import forward, init_params, logits_linear
+from dstack_tpu_torch.workloads.weights import flatten_params, unflatten_params
+
+Params = Dict[str, Any]
+
+
+class TrainState(NamedTuple):
+    step: int
+    params: Params
+    opt_state: Any
+
+
+def _weak(x: float, dtype: torch.dtype) -> float:
+    """A Python scalar rounded to `dtype`, as a weakly-typed JAX scalar is
+    before it meets an array of that dtype."""
+    return float(torch.tensor(x, dtype=torch.float32).to(dtype))
+
+
+class AdamState(NamedTuple):
+    count: int
+    mu: Params
+    nu: Params
+
+
+@dataclass(frozen=True)
+class AdamW:
+    """optax.adamw(lr, b1=0.9, b2=0.95, eps=1e-8, weight_decay,
+    mu_dtype=f32), weight decay on every leaf (optax's default mask), with
+    the optional warmup-cosine schedule of
+    `optax.warmup_cosine_decay_schedule` evaluated at the pre-increment
+    count."""
+
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    warmup_steps: int = 0
+    decay_steps: int = 0
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+
+    def lr(self, count: int) -> float:
+        """The step size at optimizer count `count`, in f32 as optax
+        computes it."""
+        if not (self.warmup_steps or self.decay_steps):
+            return self.learning_rate
+        f32 = np.float32
+        peak = self.learning_rate
+        warm = max(self.warmup_steps, 1)
+        decay = max(self.decay_steps, self.warmup_steps + 1) - warm
+        if count < warm:
+            c = f32(min(max(count, 0), warm))
+            frac = f32(1) - c / f32(warm)
+            return float(f32(0.0 - peak) * frac + f32(peak))
+        alpha = f32(peak * 0.1 / peak)
+        c = f32(min(float(count - warm), float(decay)))
+        cos = f32(0.5) * (f32(1) + np.cos(f32(np.pi) * c / f32(decay)))
+        return float(f32(peak) * ((f32(1) - alpha) * cos + alpha))
+
+    def init(self, params: Params) -> AdamState:
+        pairs = flatten_params(params)
+        mu = unflatten_params((k, torch.zeros_like(p, dtype=torch.float32)) for k, p in pairs)
+        nu = unflatten_params((k, torch.zeros_like(p)) for k, p in pairs)
+        return AdamState(0, mu, nu)
+
+    @torch.no_grad()
+    def apply(self, params: Params, grads: Params, state: AdamState) -> AdamState:
+        """One AdamW step, in place on params and moments, leaf by leaf (the
+        f32 update of one leaf is live at a time)."""
+        count = state.count + 1
+        f32 = np.float32
+        bc1 = float(f32(1) - f32(self.b1) ** f32(count))
+        bc2 = float(f32(1) - f32(self.b2) ** f32(count))
+        step = -self.lr(state.count)
+        for (_, p), (_, g), (_, mu), (_, nu) in zip(
+                *(flatten_params(t) for t in (params, grads, state.mu, state.nu))):
+            gd = g.dtype
+            mu.copy_(_weak(1 - self.b1, gd) * g + self.b1 * mu)
+            nu.copy_(_weak(1 - self.b2, gd) * (g * g) + _weak(self.b2, nu.dtype) * nu)
+            mu_hat = mu / bc1
+            nu_hat = nu / _weak(bc2, nu.dtype)
+            upd = mu_hat / (torch.sqrt(nu_hat + 0.0) + _weak(self.eps, nu_hat.dtype))
+            upd = upd + _weak(self.weight_decay, p.dtype) * p
+            upd = upd * step
+            p.copy_((p + upd).to(p.dtype))
+        return AdamState(count, state.mu, state.nu)
+
+
+def make_optimizer(learning_rate: float = 3e-4, weight_decay: float = 0.1, *,
+                   warmup_steps: int = 0, decay_steps: int = 0) -> AdamW:
+    """AdamW with f32 first moments; linear warmup then cosine decay to a
+    tenth of the peak when warmup_steps/decay_steps are set."""
+    return AdamW(learning_rate, weight_decay, warmup_steps, decay_steps)
+
+
+def init_train_state(config: ModelConfig, seed: int = 0, device: DeviceLike = None,
+                     learning_rate: float = 3e-4, *, warmup_steps: int = 0,
+                     decay_steps: int = 0, params: Optional[Params] = None) -> TrainState:
+    """Params (random from `seed` on `device`, or the given `params`, e.g.
+    bridged from JAX) marked for grad, and zero optimizer moments."""
+    dev = resolve_device(device)
+    if params is None:
+        params = init_params(config, seed, dev)
+    for _, p in flatten_params(params):
+        if p.device != dev:
+            raise ValueError(f"params live on {p.device}, device is {dev}")
+        p.requires_grad_(True)
+    opt = make_optimizer(learning_rate, warmup_steps=warmup_steps,
+                         decay_steps=decay_steps)
+    return TrainState(0, params, opt.init(params))
+
+
+def ce_from_logits(logits: torch.Tensor, targets: torch.Tensor,
+                   mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Masked-mean softmax cross-entropy from (..., V) f32 logits, in lse
+    form: logits[target] - lse, never the normalised log-probs."""
+    lse = torch.logsumexp(logits, dim=-1)
+    nll = lse - torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    if mask is not None:
+        mask = mask.to(torch.float32)
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)
+
+
+def _chunked_ce(hidden: torch.Tensor, lm_head, targets: torch.Tensor,
+                mask: Optional[torch.Tensor], chunk: int):
+    """Softmax cross-entropy over sequence chunks -> (nll_sum, denom). Each
+    chunk's head matmul and logsumexp run under torch.utils.checkpoint, so
+    one (B, chunk, V) f32 logits buffer is live at a time and nothing
+    vocab-sized is saved for backward."""
+    b, s, _ = hidden.shape
+    ms = (torch.ones((b, s), dtype=torch.float32, device=hidden.device)
+          if mask is None else mask.to(torch.float32))
+
+    def body(xi, ti, mi):
+        logits = logits_linear(xi, lm_head)
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = torch.gather(logits, -1, ti.long()[..., None])[..., 0]
+        return torch.sum((lse - tgt) * mi)
+
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(0, s, chunk):
+        sl = slice(i, i + chunk)
+        total = total + checkpoint(body, hidden[:, sl], targets[:, sl], ms[:, sl],
+                                   use_reentrant=False)
+    return total, torch.sum(ms)
+
+
+def loss_fn(config: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
+            attention_fn=None, mesh=None):
+    """Next-token cross-entropy -> (loss, router_aux). batch: inputs and
+    targets (B, S) int, pre-shifted; optional loss_mask (B, S)."""
+    inputs, targets = batch["inputs"], batch["targets"]
+    mask = batch.get("loss_mask")
+    if config.ce_chunk > 0 and inputs.shape[1] % config.ce_chunk == 0:
+        hidden, aux = forward(config, params, inputs, attention_fn=attention_fn,
+                              mesh=mesh, return_aux=True, return_hidden=True)
+        total, denom = _chunked_ce(hidden, params["lm_head"], targets, mask,
+                                   config.ce_chunk)
+        ce = total / torch.clamp(denom, min=1.0)
+        return ce + config.router_aux_coef * aux, aux
+    logits, aux = forward(config, params, inputs, attention_fn=attention_fn,
+                          mesh=mesh, return_aux=True)
+    ce = ce_from_logits(logits, targets, mask)
+    return ce + config.router_aux_coef * aux, aux
+
+
+def global_norm(tree: Params) -> torch.Tensor:
+    """optax.global_norm: sqrt of the sum over leaves (sorted order) of
+    each leaf's sum of squares, each in its leaf's dtype."""
+    total = 0
+    for _, g in flatten_params(tree):
+        total = total + torch.sum(g * g)
+    return torch.sqrt(total)
+
+
+def make_train_step(config: ModelConfig, mesh=None, learning_rate: float = 3e-4, *,
+                    accum_steps: int = 1, warmup_steps: int = 0, decay_steps: int = 0):
+    """Returns `train_step(state, batch) -> (state, metrics)`; metrics are
+    0-d device tensors `loss`, `grad_norm`, `router_aux`. accum_steps > 1
+    cuts the batch into that many microbatches, sums their grads in f32 and
+    makes one optimizer update with the mean."""
+    if mesh is not None:
+        raise NotImplementedError("sharded training is not ported to PyTorch yet")
+    if accum_steps < 1:
+        raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    optimizer = make_optimizer(learning_rate, warmup_steps=warmup_steps,
+                               decay_steps=decay_steps)
+    attention_fn = make_attention_fn(mesh)
+
+    def grads_of(params, batch):
+        pairs = flatten_params(params)
+        loss, aux = loss_fn(config, params, batch, attention_fn)
+        grads = torch.autograd.grad(loss, [p for _, p in pairs])
+        return loss.detach(), aux.detach(), [(k, g) for (k, _), g in zip(pairs, grads)]
+
+    def accumulated_grads(params, batch):
+        b = next(iter(batch.values())).shape[0]
+        if b % accum_steps:
+            raise ValueError(
+                f"batch size {b} is not divisible by accum_steps {accum_steps};"
+                " gradient accumulation needs equal microbatches")
+        mb = b // accum_steps
+        loss_sum = aux_sum = 0.0
+        sums = None
+        for i in range(accum_steps):
+            micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+            loss, aux, grads = grads_of(params, micro)
+            loss_sum, aux_sum = loss_sum + loss, aux_sum + aux
+            if sums is None:
+                sums = [(k, g.to(torch.float32)) for k, g in grads]
+            else:
+                for (_, acc), (_, g) in zip(sums, grads):
+                    acc.add_(g.to(torch.float32))
+        dtypes = {k: p.dtype for k, p in flatten_params(params)}
+        grads = [(k, (g / float(accum_steps)).to(dtypes[k])) for k, g in sums]
+        return loss_sum / accum_steps, aux_sum / accum_steps, grads
+
+    def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        if accum_steps > 1:
+            loss, aux, grads = accumulated_grads(state.params, batch)
+        else:
+            loss, aux, grads = grads_of(state.params, batch)
+        grads = unflatten_params(grads)
+        gnorm = global_norm(grads)
+        opt_state = optimizer.apply(state.params, grads, state.opt_state)
+        new_state = TrainState(state.step + 1, state.params, opt_state)
+        return new_state, {"loss": loss, "grad_norm": gnorm, "router_aux": aux}
+
+    return train_step
+
+
+def synthetic_batch(config: ModelConfig, batch_size: int, seq_len: Optional[int] = None,
+                    seed: int = 0, device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    """Deterministic fake pre-shifted int32 batch: inputs/targets (B, S),
+    drawn from a torch.Generator seeded with `seed` on `device` (not the
+    reference's jax.random draw)."""
+    dev = resolve_device(device)
+    s = (seq_len or config.max_seq_len) + 1
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tokens = torch.randint(0, config.vocab_size, (batch_size, s), generator=gen,
+                           device=dev, dtype=torch.int32)
+    return {"inputs": tokens[:, :-1], "targets": tokens[:, 1:]}

@@ -1,5 +1,5 @@
-"""Llama-family decoder blocks in PyTorch (port of
-`dstack_tpu.workloads.transformer`, serving subset).
+"""Llama-family decoder in PyTorch (port of
+`dstack_tpu.workloads.transformer`, dense models).
 
 Params keep the JAX package's layout: one stacked tensor per weight kind
 with a leading layer dim (`(L, in, out)`), so a checkpoint bridged from
@@ -11,19 +11,30 @@ cast back; matmuls whose JAX form asks for an f32 result
 (`preferred_element_type`) upcast their operands so the product is exact
 and the accumulation is f32.
 
-The full-sequence `forward` is not here: on the TPU it dispatches to the
-flash kernel, and it comes with the training slice and its kernel.
+`forward` runs the full sequence through an injected `attention_fn`
+(attention.make_attention_fn: the flash kernels on the card), with the
+remat policy of `config.resolve_remat` mapped to torch.utils.checkpoint.
+Where JAX scans one traced block over the layer stack, this loops over
+the layers eagerly.
 """
 
-from typing import Any, Dict
+import functools
+from typing import Any, Callable, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
+from dstack_tpu_torch.workloads.attention import plain_attention
 from dstack_tpu_torch.workloads.config import ModelConfig, require_dense
 from dstack_tpu_torch.workloads.device import DeviceLike, resolve_device
 from dstack_tpu_torch.workloads.quant import QTensor
 
 Params = Dict[str, Any]
+AttentionFn = Callable[..., torch.Tensor]
 
 
 def init_params(config: ModelConfig, seed: int = 0,
@@ -75,6 +86,16 @@ def layer_params(params: Params, layer: int) -> Params:
         out[k] = (QTensor(w.q[layer], w.scale[layer])
                   if isinstance(w, QTensor) else w[layer])
     return out
+
+
+def detach_params(tree: Any) -> Any:
+    """The same params as views cut from autograd (no copy): serving
+    programs run on these so trained params build no graph."""
+    if isinstance(tree, dict):
+        return {k: detach_params(v) for k, v in tree.items()}
+    if isinstance(tree, QTensor):
+        return QTensor(tree.q.detach(), tree.scale.detach())
+    return tree.detach()
 
 
 def params_device(params: Params) -> torch.device:
@@ -135,10 +156,27 @@ def project_qkv(c: ModelConfig, x: torch.Tensor, p: Params,
     return _rope(q, positions, c.rope_theta), _rope(k, positions, c.rope_theta), v
 
 
+class _SiLU(torch.autograd.Function):
+    """silu computed in f32, returned in x.dtype; backward saves only the
+    pre-activation (in x.dtype) and recomputes the f32 sigmoid, as the
+    reference's custom VJP (`transformer.py:141-166`), so autograd keeps no
+    f32 (B, S, d_ff) intermediates."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.nn.functional.silu(x.to(torch.float32)).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        xf = x.to(torch.float32)
+        s = torch.sigmoid(xf)
+        return (g.to(torch.float32) * (s * (1.0 + xf * (1.0 - s)))).to(x.dtype)
+
+
 def _silu(x: torch.Tensor) -> torch.Tensor:
-    """silu computed in f32, returned in x.dtype (forward only: the
-    reference's custom VJP comes with the training slice)."""
-    return torch.nn.functional.silu(x.to(torch.float32)).to(x.dtype)
+    return _SiLU.apply(x)
 
 
 def mlp_block(c: ModelConfig, x: torch.Tensor, p: Params) -> torch.Tensor:
@@ -147,3 +185,97 @@ def mlp_block(c: ModelConfig, x: torch.Tensor, p: Params) -> torch.Tensor:
     gate = _silu(linear(h, p["w_gate"]))
     up = linear(h, p["w_up"])
     return x + linear(gate * up, p["w_down"])
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Selective checkpointing that keeps the outputs of matmuls without
+    batch dims (the reference's `dots_with_no_batch_dims_saveable`) and
+    recomputes everything else, attention included."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def apply_remat(body, c: ModelConfig, n_tokens: int,
+                seq_len: Optional[int] = None, attn_scores: bool = False):
+    """Wrap a block body per the resolved remat policy: "none" leaves it,
+    "full" checkpoints the whole block, "dots" checkpoints it keeping the
+    matmul outputs. `attn_scores` marks the plain O(S^2)-memory attention."""
+    policy = c.resolve_remat(n_tokens, seq_len=seq_len, attn_scores=attn_scores)
+    if policy == "none":
+        return body
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+
+    def remat_body(x, p):
+        return checkpoint(body, x, p, use_reentrant=False, **kw)
+
+    return remat_body
+
+
+def _block(c: ModelConfig, x: torch.Tensor, p: Params, positions: torch.Tensor,
+           attention_fn: AttentionFn):
+    """One decoder block -> (x, router_aux); aux is 0 for dense models."""
+    b, s, _ = x.shape
+    q, k, v = project_qkv(c, x, p, positions)
+    attn = attention_fn(q, k, v).reshape(b, s, c.n_heads * c.head_dim)
+    x = x + linear(attn, p["wo"])
+    return mlp_block(c, x, p)
+
+
+def _layer_slices(params: Params, n_layers: int):
+    """Per-layer param dicts. Raw stacked tensors are unbound once, so
+    autograd stacks their grads in one op instead of summing one full-size
+    zero-padded grad per layer."""
+    cols = {}
+    for k, w in params["layers"].items():
+        if isinstance(w, QTensor):
+            cols[k] = [QTensor(w.q[i], w.scale[i]) for i in range(n_layers)]
+        else:
+            cols[k] = w.unbind(0)
+    return [{k: col[i] for k, col in cols.items()} for i in range(n_layers)]
+
+
+def forward(config: ModelConfig, params: Params, tokens: torch.Tensor, *,
+            attention_fn: Optional[AttentionFn] = None,
+            positions: Optional[torch.Tensor] = None, mesh=None,
+            return_aux: bool = False, return_hidden: bool = False):
+    """tokens (B, S) int -> logits (B, S, V) in f32.
+
+    With return_aux=True returns (logits, aux), aux the summed router
+    loss (0 for dense models). With return_hidden=True the lm-head matmul
+    is skipped and the final-norm hidden states (B, S, D) come back in
+    place of logits (the chunked CE applies the head itself)."""
+    c = config
+    require_dense(c)
+    if mesh is not None:
+        raise NotImplementedError("sharded forward is not ported to PyTorch yet")
+    attn = attention_fn or plain_attention
+    dev = tokens.device
+    if positions is None:
+        positions = torch.arange(tokens.shape[1], device=dev)
+    x = params["embed"][tokens]
+
+    quadratic = getattr(attn, "memory_is_quadratic", None)
+    if quadratic is not None:
+        attn_scores = quadratic(tokens.shape[1], c.head_dim, c.dtype_bytes,
+                                device=params_device(params))
+    else:
+        attn_scores = attn is plain_attention
+
+    def body(x, p):
+        return _block(c, x, p, positions, attn)
+
+    body = apply_remat(body, c, tokens.shape[0] * tokens.shape[1],
+                       seq_len=tokens.shape[1], attn_scores=attn_scores)
+    for p in _layer_slices(params, c.n_layers):
+        x = body(x, p)
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
+
+    x = rms_norm(x, params["final_norm"], c.norm_eps)
+    if return_hidden:
+        return (x, aux) if return_aux else x
+    logits = logits_linear(x, params["lm_head"])
+    return (logits, aux) if return_aux else logits

@@ -10,7 +10,10 @@ init. Two entry points:
   `q` and `scale`), becomes the port's dict of tensors in the same layout.
 - `load_packed(directory, device)`: reads the `save_packed` export
   (`<dir>/packed/manifest.json` + `weights.bin`) that the JAX package
-  writes for cold starts, without JAX.
+  writes for cold starts, without JAX;
+- `save_packed(directory, params)`: writes that export from port params,
+  byte for byte what the JAX `checkpoint.save_packed` writes for the same
+  values, so either package loads what the other saved.
 
 bf16: numpy has no bfloat16 of its own. A JAX bf16 array converts to an
 `ml_dtypes` dtype that `torch.from_numpy` refuses, and the packed manifest
@@ -35,6 +38,7 @@ _PACKED_DIR = "packed"
 _PACKED_MANIFEST = "manifest.json"
 _PACKED_WEIGHTS = "weights.bin"
 _Q_SUFFIX, _SCALE_SUFFIX = ".q", ".scale"
+_PACKED_ALIGN = 64  # leaf offsets, as the reference aligns them
 
 _NP_DTYPES = {
     "float32": np.float32, "float16": np.float16, "int8": np.int8,
@@ -73,6 +77,14 @@ def _insert(tree: Params, path: str, leaf: Any) -> None:
     for p in parts[:-1]:
         node = node.setdefault(p, {})
     node[parts[-1]] = leaf
+
+
+def unflatten_params(pairs) -> Params:
+    """[(path, leaf)] -> the nested dict (no QTensor regrouping)."""
+    tree: Params = {}
+    for path, leaf in pairs:
+        _insert(tree, path, leaf)
+    return tree
 
 
 def load_packed(directory: Union[str, Path],
@@ -119,3 +131,52 @@ def load_packed(directory: Union[str, Path],
             raise ValueError(f"packed checkpoint: incomplete QTensor `{base}`")
         _insert(tree, base, QTensor(q=qs["q"], scale=qs["scale"]))
     return tree
+
+
+def flatten_params(node: Any, prefix: str = ""):
+    """Params -> [(path, tensor)] in sorted-key order (the order of
+    `jax.tree.leaves` over the same dict tree); a QTensor gives `path.q`
+    and `path.scale` (the reference's `_flatten_params`)."""
+    if isinstance(node, QTensor):
+        return [(prefix + _Q_SUFFIX, node.q), (prefix + _SCALE_SUFFIX, node.scale)]
+    if isinstance(node, dict):
+        out = []
+        for k in sorted(node):
+            out.extend(flatten_params(node[k], f"{prefix}/{k}" if prefix else str(k)))
+        return out
+    return [(prefix, node)]
+
+
+def _to_numpy(t: torch.Tensor):
+    """(array, manifest dtype name); bf16 leaves go out as their raw bits."""
+    t = t.detach().to("cpu").contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.uint16).numpy(), "bfloat16"
+    a = t.numpy()
+    return a, str(a.dtype)
+
+
+def save_packed(directory: Union[str, Path], params: Params) -> Path:
+    """Write `<dir>/packed/{manifest.json,weights.bin}`: every leaf
+    contiguous at a 64-byte-aligned offset, manifest entries {name, shape,
+    dtype, offset, nbytes} in sorted path order. Both files are written
+    under temporary names and renamed, so a killed writer never leaves a
+    half export behind a valid-looking path."""
+    path = Path(directory) / _PACKED_DIR
+    path.mkdir(parents=True, exist_ok=True)
+    manifest = []
+    tmp_bin = path / (_PACKED_WEIGHTS + ".tmp")
+    with open(tmp_bin, "wb") as f:
+        for name, leaf in flatten_params(params):
+            a, dtype = _to_numpy(leaf)
+            pad = (-f.tell()) % _PACKED_ALIGN
+            if pad:
+                f.write(b"\0" * pad)
+            manifest.append({"name": name, "shape": list(a.shape), "dtype": dtype,
+                             "offset": f.tell(), "nbytes": int(a.nbytes)})
+            f.write(a.tobytes())
+    tmp_man = path / (_PACKED_MANIFEST + ".tmp")
+    tmp_man.write_text(json.dumps(manifest, separators=(",", ":")))
+    tmp_bin.replace(path / _PACKED_WEIGHTS)
+    tmp_man.replace(path / _PACKED_MANIFEST)
+    return path

@@ -5,15 +5,20 @@ file imports neither JAX nor the JAX package, so the card's machine
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances: the kernel is one-pass (probabilities rounded to the storage
-dtype against the running max), the plain version two-pass (rounded at
-the final stats): bf16 outputs agree to 1e-2, f32 to 2e-5.
+Tolerances: the paged kernel is one-pass (probabilities rounded to the
+storage dtype against the running max), the plain version two-pass
+(rounded at the final stats): bf16 outputs agree to 1e-2, f32 to 2e-5.
+The flash kernels round P and dS to bf16 before their products where the
+plain versions keep f32. Each output is held by two scale-free readings
+(`_errors`), at ~3x the largest reading of sound runs on the H100: bf16
+rel_l2 9e-3 and row_rel 2.5e-2, f32 2e-6 and 1.2e-5 (summation order).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from dstack_tpu_torch.workloads import flash_attention as tfa
 from dstack_tpu_torch.workloads import paged_attention as tpa
 
 SHAPES = (
@@ -87,3 +92,138 @@ def test_kernel_ignores_nan_in_positions_no_row_sees(cuda):
     out = tpa.ragged_attention(q, kp, vp, tables, vlen)
     assert torch.isfinite(out).all()
     torch.testing.assert_close(out, clean, rtol=0, atol=0)
+
+
+# (rel_l2, row_rel) limits and the lse limit, as chip_smoke.py's.
+FLASH_TOL = {torch.float32: (2e-6, 1.2e-5), torch.bfloat16: (9e-3, 2.5e-2)}
+LSE_TOL = 3e-6
+ROW_FLOOR = 1e-2
+# f32 kernels against float64: delta = rowsum(dO * O) in f32 carries ~1e-7
+# of |dP| that rows whose dQ cancels to ~0 magnify (read 2.3e-4 on the H100).
+F64_TOL = (2e-6, 1e-3)
+
+
+def _errors(got, want):
+    """(rel_l2, row_rel): ||got - want|| / ||want||, and the largest over
+    rows (the last dim) of max|got - want| / max|want| in the row. Both are
+    scale-free, so a late row of a causal head (values ~20x smaller than
+    the first rows' at S 2048) is held as tightly as an early one. A row
+    that cancels to 0 (a causal head's first dQ row) is held against
+    ROW_FLOOR x the tensor's RMS instead."""
+    d = got.detach().double() - want.detach().double()
+    w = want.detach().double()
+    floor = max(ROW_FLOOR * float(w.square().mean().sqrt()), 1e-30)
+    row = d.abs().amax(-1) / w.abs().amax(-1).clamp_min(floor)
+    return float(d.norm() / w.norm()), float(row.max())
+
+
+def _within(errs, tol):
+    return errs[0] <= tol[0] and errs[1] <= tol[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("s", [128, 1000, 2048])
+def test_flash_kernels_match_plain_on_card(cuda, s, hd, causal, dtype):
+    """Forward and backward through the autograd Function (kernels) against
+    the plain versions on the same inputs, and the launch counters."""
+    rng = np.random.default_rng(s + hd)
+    bh = 4 if s < 2048 else 2
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((bh, s, hd)).astype(np.float32))
+                   .to("cuda", dtype) for _ in range(4))
+    before = dict(tfa.LAUNCHES)
+    qq, kk, vv = (x.clone().requires_grad_() for x in (q, k, v))
+    o = tfa._Flash.apply(qq, kk, vv, causal)
+    dq, dk, dv = torch.autograd.grad(o, (qq, kk, vv), do)
+    torch.cuda.synchronize()
+    assert {n: tfa.LAUNCHES[n] - before[n] for n in before} == {
+        "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+    # Each plain version on the inputs its kernel saw: the backward ones on
+    # the kernel's own o and lse, and delta as _Flash.backward forms it.
+    # (From the plain o, delta would differ by o's bf16 rounding, which rows
+    # whose dQ cancels, such as a causal head's second query, magnify.)
+    o_k, lse = tfa._flash_fwd_cuda(q, k, v, causal)
+    torch.testing.assert_close(o_k, o.detach(), rtol=0, atol=0)
+    o2, lse2 = tfa._flash_fwd_plain(q, k, v, causal)
+    assert float((lse - lse2).abs().max()) <= LSE_TOL
+    delta = (do.float() * o_k.float()).sum(-1)
+    want = tfa._flash_bwd_plain(q, k, v, o_k, lse, do, delta, causal)
+    for name, got, ref in zip(("o", "dq", "dk", "dv"), (o, dq, dk, dv), (o2, *want)):
+        assert got.dtype == dtype and torch.isfinite(got.float()).all(), name
+        errs = _errors(got, ref)
+        print(f"flash readings s={s} hd={hd} causal={causal} {dtype} {name}:"
+              f" rel_l2={errs[0]:.3e} row_rel={errs[1]:.3e}")
+        assert _within(errs, FLASH_TOL[dtype]), (name, errs)
+
+
+@pytest.mark.cuda
+def test_flash_f32_kernels_match_a_float64_reference(cuda):
+    """The f32 kernels against dense float64 autograd, independent of the
+    plain versions: forward, lse and all three grads."""
+    rng = np.random.default_rng(0)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((3, 300, 64))).cuda()
+                   for _ in range(4))
+    q64, k64, v64 = (x.clone().requires_grad_() for x in (q, k, v))
+    logits = torch.einsum("bqd,bkd->bqk", q64, k64) * 64 ** -0.5
+    logits = logits.masked_fill(~torch.ones(300, 300, dtype=torch.bool,
+                                            device="cuda").tril(), float("-inf"))
+    o64 = torch.einsum("bqk,bkd->bqd", logits.softmax(-1), v64)
+    g64 = torch.autograd.grad(o64, (q64, k64, v64), do)
+    o, lse = tfa._flash_fwd_cuda(q.float(), k.float(), v.float(), True)
+    delta = (do.float() * o).sum(-1)
+    dq = tfa._flash_bwd_dq_cuda(q.float(), k.float(), v.float(), do.float(), lse, delta, True)
+    dk, dv = tfa._flash_bwd_dkv_cuda(q.float(), k.float(), v.float(), do.float(), lse,
+                                     delta, True)
+    torch.testing.assert_close(lse.double(), logits.logsumexp(-1).detach(),
+                               rtol=1e-5, atol=1e-5)
+    for name, got, want in zip(("o", "dq", "dk", "dv"), (o, dq, dk, dv), (o64, *g64)):
+        errs = _errors(got, want)
+        print(f"flash readings f32 vs float64 {name}: rel_l2={errs[0]:.3e}"
+              f" row_rel={errs[1]:.3e}")
+        assert _within(errs, F64_TOL), (name, errs)
+
+
+@pytest.mark.cuda
+def test_flash_attention_rejects_what_the_kernels_do_not_take(cuda):
+    x = torch.zeros((2, 16, 4, 96), device="cuda")
+    with pytest.raises(NotImplementedError):
+        tfa.flash_attention(x, x, x)
+    with pytest.raises(ValueError):
+        tfa._flash_fwd_cuda(*(torch.zeros((2, 16, 64), device="cuda").transpose(1, 2)
+                              .contiguous().transpose(1, 2),) * 3, True)
+
+
+@pytest.mark.cuda
+def test_remat_rungs_through_the_kernels_on_card(cuda):
+    """tiny at f32 on the card: "dots" and "full" give the loss and grads of
+    "none", and re-run the forward kernel once per layer in backward."""
+    from dstack_tpu_torch.workloads.attention import make_attention_fn
+    from dstack_tpu_torch.workloads.config import PRESETS
+    from dstack_tpu_torch.workloads.train import loss_fn, synthetic_batch
+    from dstack_tpu_torch.workloads.weights import flatten_params
+    from dstack_tpu_torch.workloads.transformer import init_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    results = {}
+    for remat in ("none", "dots", "full"):
+        cfg = PRESETS["tiny"].with_(dtype="float32", remat=remat)
+        params = init_params(cfg, seed=3)
+        pairs = flatten_params(params)
+        for _, p in pairs:
+            p.requires_grad_(True)
+        batch = synthetic_batch(cfg, 2, 128, seed=3)
+        before = dict(tfa.LAUNCHES)
+        loss, _ = loss_fn(cfg, params, batch, make_attention_fn())
+        grads = torch.autograd.grad(loss, [p for _, p in pairs])
+        torch.cuda.synchronize()
+        n = {k: tfa.LAUNCHES[k] - before[k] for k in before}
+        fwd = cfg.n_layers * (1 if remat == "none" else 2)
+        assert n == {"flash_fwd": fwd, "flash_bwd_dq": cfg.n_layers,
+                     "flash_bwd_dkv": cfg.n_layers}, (remat, n)
+        results[remat] = (float(loss.detach()), grads)
+    for remat in ("dots", "full"):
+        assert results[remat][0] == pytest.approx(results["none"][0], rel=1e-6)
+        for a, b in zip(results[remat][1], results["none"][1]):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)

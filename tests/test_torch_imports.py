@@ -16,6 +16,7 @@ PKG = ROOT / "dstack_tpu_torch"
 
 MODULES = (
     "dstack_tpu_torch",
+    "dstack_tpu_torch.fine_tune",
     "dstack_tpu_torch.native_server",
     "dstack_tpu_torch.utils",
     "dstack_tpu_torch.utils.flight_recorder",
@@ -24,16 +25,19 @@ MODULES = (
     "dstack_tpu_torch.workloads._build",
     "dstack_tpu_torch.workloads.attention",
     "dstack_tpu_torch.workloads.config",
+    "dstack_tpu_torch.workloads.data",
     "dstack_tpu_torch.workloads.device",
+    "dstack_tpu_torch.workloads.flash_attention",
     "dstack_tpu_torch.workloads.generate",
     "dstack_tpu_torch.workloads.kv_blocks",
     "dstack_tpu_torch.workloads.paged_attention",
     "dstack_tpu_torch.workloads.quant",
     "dstack_tpu_torch.workloads.serving",
+    "dstack_tpu_torch.workloads.train",
     "dstack_tpu_torch.workloads.transformer",
     "dstack_tpu_torch.workloads.weights",
 )
-FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "dstack_tpu")
+FORBIDDEN = ("jax", "jaxlib", "optax", "ml_dtypes", "dstack_tpu")
 
 
 def _forbidden(name: str) -> bool:
@@ -89,8 +93,11 @@ def test_chip_smoke_imports_nothing_of_jax():
 
 
 def _entry_points():
+    from dstack_tpu_torch import fine_tune
     from dstack_tpu_torch.native_server import Engine
     from dstack_tpu_torch.workloads.config import PRESETS
+    from dstack_tpu_torch.workloads.data import BatchLoader
+    from dstack_tpu_torch.workloads.train import init_train_state, synthetic_batch
     from dstack_tpu_torch.workloads.device import resolve_device
     from dstack_tpu_torch.workloads.serving import ServingEngine
     from dstack_tpu_torch.workloads.transformer import init_params
@@ -105,12 +112,25 @@ def _entry_points():
         "load_packed": lambda: load_packed("/nonexistent"),
         "ServingEngine": lambda: ServingEngine(cfg, cpu_params, slots=1, max_len=32),
         "native_server.Engine": lambda: Engine("tiny", 8),
+        "init_train_state": lambda: init_train_state(cfg, 0),
+        "synthetic_batch": lambda: synthetic_batch(cfg, 2, 8),
+        "BatchLoader": lambda: BatchLoader(_OneRow(), 1),
+        "fine_tune": lambda: fine_tune.main(["--preset", "tiny", "--steps", "1"]),
     }
+
+
+class _OneRow:
+    """A one-row dataset stand-in: the loader resolves its device before
+    it reads anything."""
+
+    n_rows, seq_len, row = 1, 4, 5
 
 
 @pytest.mark.parametrize("name", ["resolve_device", "init_params",
                                   "params_from_numpy", "load_packed",
-                                  "ServingEngine", "native_server.Engine"])
+                                  "ServingEngine", "native_server.Engine",
+                                  "init_train_state", "synthetic_batch",
+                                  "BatchLoader", "fine_tune"])
 def test_entry_points_default_to_cuda_and_raise_without_it(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: device=None is valid here")

@@ -123,6 +123,35 @@ def test_cancel_of_a_queued_request_answers_at_once(weights):
         te.close()
 
 
+def test_params_that_require_grad_serve_without_autograd(weights):
+    """Params straight from a train state (requires_grad=True) serve the
+    same temperature-0 tokens as detached ones, and nothing the engine or
+    generate produces carries an autograd graph."""
+    import torch
+
+    from dstack_tpu_torch.workloads.generate import generate
+    from dstack_tpu_torch.workloads.weights import flatten_params
+
+    _, tp = weights
+    trained = jax.tree_util.tree_map(lambda t: t.clone().requires_grad_(True), tp)
+    streams = {}
+    for name, params in (("detached", tp), ("requires_grad", trained)):
+        eng = tsrv.ServingEngine(TCFG, params, device="cpu", **ENGINE_KW)
+        try:
+            streams[name] = [_drain(eng.submit(p, n, temperature=0.0))
+                             for p, n in REQUESTS[:3]]
+            assert not any(t.requires_grad for _, t in flatten_params(eng.params))
+            for t in (eng.state.k, eng.state.v, eng.state.last_token):
+                assert t.grad_fn is None and not t.requires_grad
+        finally:
+            eng.close()
+    assert streams["requires_grad"] == streams["detached"]
+    prompt = torch.tensor([REQUESTS[1][0]])
+    out = generate(TCFG, trained, prompt, max_new_tokens=4)
+    assert out.grad_fn is None and not out.requires_grad
+    assert out.tolist() == generate(TCFG, tp, prompt, max_new_tokens=4).tolist()
+
+
 @pytest.mark.parametrize("kw", [
     {"spec_enable": True}, {"mesh": object()}, {"lora_max_adapters": 2},
     {"role": "prefill"}, {"kv_transfer": object()},

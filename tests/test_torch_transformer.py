@@ -228,3 +228,79 @@ def test_presets_and_derived_sizes_match_jax(name):
     assert t.param_count() == j.param_count()
     for seq_len in (None, 2048):
         assert t.flops_per_token(seq_len) == j.flops_per_token(seq_len)
+
+
+# ---------------------------------------------------------------- forward
+
+
+def _tokens(cfg, seed=0, b=2, s=128):
+    return np.random.default_rng(seed).integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+
+
+def test_forward_logits_match_jax(model):
+    """The full-sequence forward (plain attention on the CPU) against the
+    JAX forward, logits and hidden states; aux 0 for a dense model. bf16 is
+    held as max|diff| <= 2e-2 * max|ref| over the whole tensor: two layers
+    of bf16 rounding at different points move single small elements by
+    more than an elementwise tolerance allows."""
+    dtype, jcfg, tcfg, jparams, tparams = model
+    tok = _tokens(tcfg)
+    want = jtr.forward(jcfg, jparams, jnp.asarray(tok))
+    got, aux = ttr.forward(tcfg, tparams, torch.from_numpy(tok), return_aux=True)
+    assert got.dtype == torch.float32 and float(aux) == 0.0
+    pos = np.arange(128, dtype=np.int32) + 5
+    hid_j = jtr.forward(jcfg, jparams, jnp.asarray(tok), positions=jnp.asarray(pos),
+                        return_hidden=True)
+    hid_t = ttr.forward(tcfg, tparams, torch.from_numpy(tok),
+                        positions=torch.from_numpy(pos), return_hidden=True)
+    for g, w in ((got, want), (hid_t, hid_j)):
+        if dtype == "float32":
+            np.testing.assert_allclose(_f32(g), _f32(w), rtol=1e-5, atol=1e-5)
+        else:
+            assert np.abs(_f32(g) - _f32(w)).max() <= 2e-2 * np.abs(_f32(w)).max()
+
+
+def test_forward_through_flash_matches_jax_interpret_flash():
+    """The same forward with each package's flash attention as
+    attention_fn: the port's (plain versions behind the autograd Function,
+    on the CPU) against JAX's Pallas kernels in interpret mode, f32 1e-5."""
+    from dstack_tpu.workloads.flash_attention import flash_attention as jflash
+    from dstack_tpu_torch.workloads.flash_attention import flash_attention as tflash
+
+    jcfg, tcfg = _cfgs("float32")
+    jparams = jtr.init_params(jcfg, jax.random.PRNGKey(1))
+    tparams = params_from_numpy(_to_np(jparams), "cpu")
+    tok = _tokens(tcfg, seed=1, b=1)
+    want = jtr.forward(jcfg, jparams, jnp.asarray(tok),
+                       attention_fn=lambda q, k, v: jflash(q, k, v, interpret=True))
+    got = ttr.forward(tcfg, tparams, torch.from_numpy(tok), attention_fn=tflash)
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_silu_grads_match_jax_custom_vjp(dtype):
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((3, 7, 16)).astype(np.float32) * 3
+    g = rng.standard_normal((3, 7, 16)).astype(np.float32)
+    jx = jnp.asarray(x, jnp.dtype(dtype))
+    jy, vjp = jax.vjp(jtr._silu, jx)
+    (jg,) = vjp(jnp.asarray(g, jnp.dtype(dtype)))
+    tx = torch.from_numpy(x).to(getattr(torch, dtype)).requires_grad_()
+    ty = ttr._silu(tx)
+    (tg,) = torch.autograd.grad(ty, tx, torch.from_numpy(g).to(tx.dtype),
+                                retain_graph=True)
+    assert ty.dtype == tx.dtype and tg.dtype == tx.dtype
+    _close(ty.detach(), jy, dtype)
+    _close(tg, jg, dtype)
+    # Backward keeps only the pre-activation, in its own dtype.
+    assert [t.dtype for t in ty.grad_fn.saved_tensors] == [tx.dtype]
+
+
+def test_forward_refuses_moe_and_meshes():
+    cfg = PRESETS["tiny-moe"]
+    with pytest.raises(NotImplementedError, match="MoE"):
+        ttr.forward(cfg, {}, torch.zeros((1, 4), dtype=torch.int32))
+    tcfg = PRESETS["tiny"]
+    with pytest.raises(NotImplementedError):
+        ttr.forward(tcfg, ttr.init_params(tcfg, 0, "cpu"),
+                    torch.zeros((1, 4), dtype=torch.int32), mesh=object())
