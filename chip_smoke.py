@@ -27,9 +27,26 @@ Phases (any failure fails the run; nothing is caught to exit 0):
                remat); step ms, tokens/s, MFU, peak memory, and a profiled
                step (device idle share, ms by kernel class);
   6b. model  — smol-1b width at 2 layers, B 2 x S 2048: loss and grads
-               through the kernels against plain_attention, f32 and bf16.
-Phase 3b runs after 3, phase 6 and 6b after 5. The line before the last
-is the `kernels` JSON; the last line is {"ok": true, "device": {...}}.
+               through the kernels against plain_attention, f32 and bf16;
+  3c. ring step — the ring-step kernel against its plain version
+               (`_block_ref_bh`) at the ring step of smol-1b-8k over 4
+               shards (B*H 16, S 2048, hd 128), diagonal (causal) and full,
+               bf16 and f32, and at a ragged one (S 1000, hd 64, full): o,
+               m and l each; times of kernel, plain version, bound and
+               SDPA's flash forward;
+  7. ring    — smol-1b-8k at full width and depth, B 1 x S 8192 over a
+               4-way seq mesh (the ring's 4 shards take turns on the card),
+               bf16, remat as resolve_remat answers: two warm-up steps, five
+               timed; loss and grad norm finite, loss falling, the ring-step
+               kernel launched 10 times per layer (4 diagonal + 6 full
+               steps) per forward; step ms, tokens/s, MFU, peak memory, and
+               a profiled step; then the same steps single-device through
+               the flash kernels, whose first loss the ring's must match;
+  7b. ring model — smol-1b-8k width at 2 layers, B 1 x S 8192: loss and
+               grads through the ring against plain_attention and against
+               the single-device flash kernels, f32 and bf16.
+Phase 3b and 3c run after 3, phases 6 to 7b after 5. The line before the
+last is the `kernels` JSON; the last line is {"ok": true, "device": {...}}.
 Each phase logs its numbers on the way; details also go to
 chiprun_out/chip_smoke.json.
 Imports nothing of JAX. Exits non-zero without a CUDA device.
@@ -67,6 +84,7 @@ FLASH_REPLACES = {
     "flash_fwd": "dstack_tpu/workloads/flash_attention.py:219",
     "flash_bwd_dq": "dstack_tpu/workloads/flash_attention.py:256",
     "flash_bwd_dkv": "dstack_tpu/workloads/flash_attention.py:294",
+    "flash_block_fwd": "dstack_tpu/workloads/flash_attention.py:455",
 }
 # Flash kernels against plain versions: two scale-free readings per
 # output (O, dQ, dK, dV), see flash_errors; the limit holds both. One max
@@ -91,6 +109,14 @@ LSE_TOL = 3e-6
 # plain_attention rounds probs to bf16 but differentiates the softmax in
 # f32 from them, the kernels recompute P in f32 and round P and dS.
 MODEL_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (5e-3, 5e-2)}
+# The ring-step kernel against `_block_ref_bh` (3c): its unnormalised o by
+# FLASH_TOL's two scale-free readings, its m by max abs error and its l by
+# max relative error (both f32 for either input dtype: the same logits
+# summed in another order). ~3x the largest sound reading on the H100
+# (here and in tests/test_torch_cuda.py, against plain and float64; PERF.md):
+# m 2.5e-6, l 2.6e-6.
+BLOCK_STAT_TOL = {torch.bfloat16: (8e-6, 8e-6), torch.float32: (8e-6, 8e-6)}
+RING_SHARDS = 4
 H100_BF16_PEAK = 989e12
 OUT = "chiprun_out/chip_smoke.json"
 
@@ -250,6 +276,8 @@ def flash_bound(which, bh, s, hd, dtype, causal):
         "flash_fwd": (4 * mat + vec, 2),           # q k v -> o, lse
         "flash_bwd_dq": (5 * mat + 2 * vec, 3),    # q k v do lse delta -> dq
         "flash_bwd_dkv": (6 * mat + 2 * vec, 4),   # q k v do lse delta -> dk dv
+        # q k v -> o (f32 whatever the inputs), m, l
+        "flash_block_fwd": (3 * mat + bh * s * hd * 4 + 2 * vec, 2),
     }[which]
     ops = products * 2 * hd * pairs
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -373,6 +401,70 @@ def library_flash_ms(q, k, v, do, causal):
     return {"fwd": fwd, "bwd": bwd}
 
 
+# -- phase 3c: the ring-step kernel -------------------------------------------
+
+
+def run_ring_block(timed: bool = True):
+    """The ring-step kernel against `_block_ref_bh` on the same inputs: o,
+    m and l held each on its own (a missed rescale of o cancels in o / l
+    when l carries it too). Returns one result per case."""
+    from dstack_tpu_torch.workloads import flash_attention as fa
+
+    s_shard = 8192 // RING_SHARDS
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        cases.append((f"ring_full_{tag}", dtype, 16, s_shard, 128, False))
+        cases.append((f"ring_diag_{tag}", dtype, 16, s_shard, 128, True))
+        cases.append((f"ragged_{tag}", dtype, 16, 1000, 64, False))
+    results = []
+    for name, dtype, bh, s, hd, causal in cases:
+        g = torch.Generator(device="cuda").manual_seed(11)
+        q, k, v = (torch.randn((bh, s, hd), generator=g, device="cuda").to(dtype)
+                   for _ in range(3))
+        o, m, l = fa._ring_block_cuda(q, k, v, causal)
+        ro, rm, rl = fa._block_ref_bh(q, k, v, causal)
+        torch.cuda.synchronize()
+        for part, t in (("o", o), ("m", m), ("l", l)):
+            if not torch.isfinite(t).all():
+                raise AssertionError(f"{name} flash_block_fwd: {part} not finite")
+        o_err = dict(zip(("rel_l2", "row_rel", "max_abs_err", "ref_max"),
+                         flash_errors(o, ro)))
+        m_err = float((m - rm).abs().max())
+        l_err = float(((l - rl).abs() / rl.abs()).max())
+        r = dict(case=name, kernel="flash_block_fwd", o=o_err, m_max_abs_err=m_err,
+                 l_max_rel_err=l_err, max_abs_err=max(o_err["max_abs_err"], m_err))
+        log(f"ring block {name}: " + json.dumps({k: v for k, v in r.items()
+                                                  if k not in ("case", "kernel")}))
+        tol, (m_tol, l_tol) = FLASH_TOL[dtype], BLOCK_STAT_TOL[dtype]
+        if not (o_err["rel_l2"] <= tol[0] and o_err["row_rel"] <= tol[1]
+                and m_err <= m_tol and l_err <= l_tol):
+            raise AssertionError(f"{name} flash_block_fwd past ({tol}, {m_tol}, {l_tol})")
+        if timed:
+            bound_ms, bound_by = flash_bound("flash_block_fwd", bh, s, hd, dtype, causal)
+            iters = (50, 5) if dtype == torch.bfloat16 else (10, 3)
+            lib = (library_block_ms(q, k, v, causal)
+                   if dtype == torch.bfloat16 and name.startswith("ring") else None)
+            r.update(ms=cuda_ms(lambda: fa._ring_block_cuda(q, k, v, causal), iters[0]),
+                     plain_ms=cuda_ms(lambda: fa._block_ref_bh(q, k, v, causal), iters[1]),
+                     bound_ms=bound_ms, bound_by=bound_by, library_ms=lib)
+            log("ring block timing", json.dumps(r))
+        results.append(r)
+        del q, k, v, o, m, l, ro, rm, rl
+        torch.cuda.empty_cache()
+    return results
+
+
+def library_block_ms(q, k, v, causal):
+    """SDPA's flash forward (aten's `_scaled_dot_product_flash_attention`)
+    on the same (B*H, S, hd) inputs as (B*H, 1, S, hd): normalised O and
+    lse, the same information as (o, m, l) up to the choice of m. The
+    yardstick the port never calls."""
+    flash = torch.ops.aten._scaled_dot_product_flash_attention
+    qq, kk, vv = (x[:, None] for x in (q, k, v))
+    return cuda_ms(lambda: flash(qq, kk, vv, 0.0, causal), 50)
+
+
 # -- phase 6: train ----------------------------------------------------------
 
 
@@ -389,23 +481,43 @@ def zero_flash_counts():
         fa.LAUNCHES[k] = 0
 
 
-def run_train(n_steps: int = 5):
-    """smol-1b, full depth, B 8 x S 2048, bf16, random weights from seed 0,
-    on one fixed synthetic batch: the port's trainer end to end."""
+def expected_launches(cfg, remat, n_steps, seq_shards=1):
+    """Kernel launches of n_steps train steps: the forward kernel runs
+    twice per layer under "full" and "dots" remat (the recompute), the
+    backward ones once; the ring runs n(n+1)/2 ring-step launches per layer
+    and forward (causal: n diagonal steps, the rest full) and no backward
+    kernel (its backward recomputes through the plain version)."""
+    fwd = (2 if remat in ("full", "dots") else 1) * cfg.n_layers * n_steps
+    want = dict.fromkeys(FLASH_REPLACES, 0)
+    if seq_shards > 1:
+        want["flash_block_fwd"] = fwd * seq_shards * (seq_shards + 1) // 2
+    else:
+        want.update(flash_fwd=fwd, flash_bwd_dq=cfg.n_layers * n_steps,
+                    flash_bwd_dkv=cfg.n_layers * n_steps)
+    return want
+
+
+def run_train(preset: str, B: int, S: int, seq_shards: int = 1, n_steps: int = 5,
+              profiled: bool = True):
+    """`preset` at full width and depth, B x S, bf16, random weights from
+    seed 0, on one fixed synthetic batch: the port's trainer end to end,
+    over a seq mesh of `seq_shards` (the ring) when that is > 1; then one
+    profiled step unless `profiled` is False."""
     from dstack_tpu_torch.workloads.config import PRESETS
+    from dstack_tpu_torch.workloads.sharding import device_shards, make_mesh
     from dstack_tpu_torch.workloads.train import (
         init_train_state,
         make_train_step,
         synthetic_batch,
     )
 
-    cfg = PRESETS["smol-1b"]
-    B, S = 8, 2048
-    remat = cfg.resolve_remat(B * S, seq_len=S)
+    cfg = PRESETS[preset]
+    mesh = make_mesh(seq=seq_shards) if seq_shards > 1 else None
+    remat = cfg.resolve_remat(B * S, device_shards(mesh), seq_len=S)
     torch.cuda.reset_peak_memory_stats()
-    state = init_train_state(cfg, seed=0)
-    step = make_train_step(cfg)
-    batch = synthetic_batch(cfg, B, S, seed=0)
+    state = init_train_state(cfg, seed=0, mesh=mesh)
+    step = make_train_step(cfg, mesh)
+    batch = synthetic_batch(cfg, B, S, seed=0, mesh=mesh)
     n_warm = 2
     zero_flash_counts()
     t0 = time.monotonic()
@@ -425,31 +537,30 @@ def run_train(n_steps: int = 5):
     launches = flash_counts()
     peak = torch.cuda.max_memory_allocated()
     losses, norms = vals[:n_steps], vals[n_steps:]
-    n_run = n_warm + n_steps
-    fwd_per_layer = 2 if remat in ("full", "dots") else 1  # remat reruns it
-    want = {"flash_fwd": fwd_per_layer * cfg.n_layers * n_run,
-            "flash_bwd_dq": cfg.n_layers * n_run,
-            "flash_bwd_dkv": cfg.n_layers * n_run}
+    want = expected_launches(cfg, remat, n_warm + n_steps, seq_shards)
     step_ms = wall / n_steps * 1e3
     tokens_s = B * S * n_steps / wall
     flops_step = cfg.flops_per_token(S) * B * S
     stats = dict(
-        preset="smol-1b", layers=cfg.n_layers, batch=B, seq_len=S, dtype=cfg.dtype,
-        remat=remat, steps=n_steps, warmup_steps=n_warm, warmup_s=warm_s, step_ms=step_ms,
-        tokens_per_s=tokens_s, flops_per_step=flops_step,
+        preset=preset, layers=cfg.n_layers, batch=B, seq_len=S, seq_shards=seq_shards,
+        dtype=cfg.dtype, remat=remat, steps=n_steps, warmup_steps=n_warm,
+        warmup_s=warm_s, step_ms=step_ms, tokens_per_s=tokens_s, flops_per_step=flops_step,
         mfu=cfg.flops_per_token(S) * tokens_s / H100_BF16_PEAK,
         peak_mem_gb=peak / 1e9,
-        estimator_activation_gb=cfg.activation_bytes(B * S, seq_len=S) / 1e9,
+        estimator_activation_gb=cfg.activation_bytes(B * S, device_shards(mesh),
+                                                     seq_len=S) / 1e9,
         train_state_gb=sum(t.numel() * t.element_size() for t in _state_tensors(state)) / 1e9,
-        losses=losses, grad_norms=norms, launches=launches)
-    log("train stats", json.dumps(stats))
+        losses=losses, grad_norms=norms, launches=launches,
+        launches_per_step={k: v // (n_warm + n_steps) for k, v in launches.items()})
+    log(f"train stats ({preset}, {seq_shards} seq shards)", json.dumps(stats))
     if not all(math.isfinite(x) for x in losses + norms):
         raise AssertionError(f"non-finite loss or grad norm: {losses} {norms}")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"loss did not fall: {losses}")
     if launches != want:
         raise AssertionError(f"flash launches {launches}, expected {want}")
-    stats["profiled_step"] = profile_step(step, state, batch)
+    if profiled:
+        stats["profiled_step"] = profile_step(step, state, batch)
     del state, batch
     torch.cuda.empty_cache()
     return stats
@@ -499,47 +610,59 @@ def profile_step(step, state, batch):
 # -- phase 6b: kernels against plain inside the model ------------------------
 
 
-def run_model_check():
-    """smol-1b width at 2 layers, B 2 x S 2048: one loss_fn and its grads
-    through the flash kernels, and again with plain_attention."""
+def run_model_check(preset: str = "smol-1b", B: int = 2, S: int = 2048,
+                    seq_shards: int = 1):
+    """`preset`'s width at 2 layers, B x S: one loss_fn and its grads
+    through the kernels (the ring over `seq_shards` when > 1, else the
+    single-device flash kernels), and again with plain_attention (and, for
+    the ring, with the single-device flash kernels)."""
     from dstack_tpu_torch.workloads.attention import make_attention_fn, plain_attention
     from dstack_tpu_torch.workloads.config import PRESETS
+    from dstack_tpu_torch.workloads.sharding import device_shards, make_mesh
     from dstack_tpu_torch.workloads.train import loss_fn, synthetic_batch
     from dstack_tpu_torch.workloads.weights import flatten_params
     from dstack_tpu_torch.workloads.transformer import init_params
 
+    mesh = make_mesh(seq=seq_shards) if seq_shards > 1 else None
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
         tag = "bf16" if dtype == torch.bfloat16 else "f32"
-        cfg = PRESETS["smol-1b"].with_(n_layers=2, dtype=str(dtype).split(".")[1])
+        cfg = PRESETS[preset].with_(n_layers=2, dtype=str(dtype).split(".")[1])
         params = init_params(cfg, seed=1)
         pairs = flatten_params(params)
         for _, p in pairs:
             p.requires_grad_(True)
-        batch = synthetic_batch(cfg, 2, 2048, seed=1)
+        batch = synthetic_batch(cfg, B, S, seed=1)
+        variants = [("kernels", make_attention_fn(mesh), mesh), ("plain", plain_attention, None)]
+        if mesh is not None:
+            variants.append(("flash", make_attention_fn(), None))
         res = {}
-        for name, attn in (("kernels", make_attention_fn()), ("plain", plain_attention)):
-            before = flash_counts()["flash_fwd"]
-            loss, _ = loss_fn(cfg, params, batch, attn)
+        for name, attn, m in variants:
+            zero_flash_counts()
+            loss, _ = loss_fn(cfg, params, batch, attn, m)
             grads = torch.autograd.grad(loss, [p for _, p in pairs])
-            res[name] = (float(loss.detach()), grads, flash_counts()["flash_fwd"] - before)
-        if res["kernels"][2] != cfg.n_layers or res["plain"][2] != 0:
-            raise AssertionError(f"6b {tag}: flash launches {res['kernels'][2]}"
-                                 f" / {res['plain'][2]}")
-        loss_rel = abs(res["kernels"][0] - res["plain"][0]) / abs(res["plain"][0])
-        grad_rel = {}
-        for (path, _), g, r in zip(pairs, res["kernels"][1], res["plain"][1]):
-            grad_rel[path] = float((g.float() - r.float()).norm() / r.float().norm())
+            res[name] = (float(loss.detach()), grads, flash_counts())
+        remat = cfg.resolve_remat(B * S, device_shards(mesh), seq_len=S)
+        want = expected_launches(cfg, remat, 1, seq_shards)
+        if res["kernels"][2] != want or any(res["plain"][2].values()):
+            raise AssertionError(f"model check {tag}: launches {res['kernels'][2]}"
+                                 f" (expected {want}) / {res['plain'][2]}")
         tol_loss, tol_grad = MODEL_TOL[dtype]
-        worst = max(grad_rel.values())
-        log(f"model check {tag}: loss {res['kernels'][0]:.6f} vs {res['plain'][0]:.6f}"
-            f" (rel {loss_rel:.3e}, tol {tol_loss:g}); worst leaf grad rel"
-            f" {worst:.3e} (tol {tol_grad:g}) at"
-            f" {max(grad_rel, key=grad_rel.get)}")
-        if not loss_rel <= tol_loss or not worst <= tol_grad:
-            raise AssertionError(f"6b {tag}: kernels disagree with plain attention")
-        out[tag] = dict(loss_kernels=res["kernels"][0], loss_plain=res["plain"][0],
-                        loss_rel=loss_rel, grad_rel=grad_rel)
+        out[tag] = {}
+        for ref in [n for n, _, _ in variants[1:]]:
+            loss_rel = abs(res["kernels"][0] - res[ref][0]) / abs(res[ref][0])
+            grad_rel = {}
+            for (path, _), g, r in zip(pairs, res["kernels"][1], res[ref][1]):
+                grad_rel[path] = float((g.float() - r.float()).norm() / r.float().norm())
+            worst = max(grad_rel.values())
+            log(f"model check {preset} x{seq_shards} {tag} vs {ref}: loss"
+                f" {res['kernels'][0]:.6f} vs {res[ref][0]:.6f} (rel {loss_rel:.3e},"
+                f" tol {tol_loss:g}); worst leaf grad rel {worst:.3e} (tol {tol_grad:g})"
+                f" at {max(grad_rel, key=grad_rel.get)}")
+            if not loss_rel <= tol_loss or not worst <= tol_grad:
+                raise AssertionError(f"model check {tag}: kernels disagree with {ref}")
+            out[tag][ref] = dict(loss_kernels=res["kernels"][0], loss_ref=res[ref][0],
+                                 loss_rel=loss_rel, grad_rel=grad_rel)
         del params, pairs, res, batch
         torch.cuda.empty_cache()
     return out
@@ -804,7 +927,12 @@ def main() -> int:
     del flush
 
     # 3b. flash kernels against plain versions
+    t0 = time.monotonic()
     fres = run_flash()
+
+    # 3c. the ring-step kernel against its plain version
+    fres += run_ring_block()
+    log(f"phases 3b-3c: {time.monotonic() - t0:.1f}s")
 
     # 4. engine: smol-1b, full width and depth, random weights from seed 0
     from dstack_tpu_torch.workloads import paged_attention as pa
@@ -829,10 +957,33 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 6. train: smol-1b, full depth, B 8 x S 2048
-    train = run_train()
+    t0 = time.monotonic()
+    train = run_train("smol-1b", 8, 2048)
 
     # 6b. kernels against plain attention inside the model
     model = run_model_check()
+    log(f"phases 6-6b: {time.monotonic() - t0:.1f}s")
+
+    # 7. ring: smol-1b-8k, full depth, B 1 x S 8192 over 4 seq shards
+    t0 = time.monotonic()
+    ring = run_train("smol-1b-8k", 1, 8192, seq_shards=RING_SHARDS)
+    # The same config, weights and batch through the single-device flash
+    # kernels: the first step's loss is the same function of the same
+    # inputs; the later ones say whether a feature of the trajectory is the
+    # ring's or the optimizer's.
+    single = run_train("smol-1b-8k", 1, 8192, profiled=False)
+    first_rel = abs(ring["losses"][0] - single["losses"][0]) / single["losses"][0]
+    log(f"ring vs single device, smol-1b-8k: losses {ring['losses']} vs"
+        f" {single['losses']}; first step rel {first_rel:.3e}"
+        f" (tol {MODEL_TOL[torch.bfloat16][0]:g})")
+    if not first_rel <= MODEL_TOL[torch.bfloat16][0]:
+        raise AssertionError("the ring's first loss disagrees with the single device's")
+    ring["single_device"] = {k: single[k] for k in ("losses", "grad_norms", "step_ms",
+                                                      "tokens_per_s", "peak_mem_gb")}
+
+    # 7b. the ring against plain attention and the flash kernels in the model
+    ring_model = run_model_check("smol-1b-8k", 1, 8192, seq_shards=RING_SHARDS)
+    log(f"phases 7-7b: {time.monotonic() - t0:.1f}s")
 
     log(f"total {time.monotonic() - t_all:.1f}s")
     main_case = next(r for r in kres if r["case"] == "decode_bf16")
@@ -851,13 +1002,15 @@ def main() -> int:
         "library_ms": main_case["library_ms"],
     }]}
     for kern, replaces in FLASH_REPLACES.items():
-        main_f = next(r for r in fres if r["case"] == "train_bf16" and r["kernel"] == kern)
+        main_case = "ring_full_bf16" if kern == "flash_block_fwd" else "train_bf16"
+        main_f = next(r for r in fres if r["case"] == main_case and r["kernel"] == kern)
+        run = ring if kern == "flash_block_fwd" else train
         kernels["kernels"].append({
             "name": kern,
             "route": "cuda",
             "source": FLASH_KERNEL_SOURCE,
             "replaces": replaces,
-            "launches": train["launches"][kern],
+            "launches": run["launches"][kern],
             "max_abs_err": main_f["max_abs_err"],
             "ms": main_f["ms"],
             "plain_ms": main_f["plain_ms"],
@@ -868,7 +1021,8 @@ def main() -> int:
     os.makedirs(os.path.dirname(OUT), exist_ok=True)
     with open(OUT, "w") as f:
         json.dump({"device": smi, "paged": kres, "flash": fres, "train": train,
-                   "model_check": model, "build_s": _build.build_seconds}, f, indent=1)
+                   "model_check": model, "ring_train": ring, "ring_model_check": ring_model,
+                   "build_s": _build.build_seconds}, f, indent=1)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

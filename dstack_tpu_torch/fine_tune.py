@@ -1,13 +1,19 @@
 """Fine-tune a llama-family model with the PyTorch port, on one device
-(the single-device subset of examples/fine-tuning/jax/train.py).
+(the one-device subset of examples/fine-tuning/jax/train.py).
 
     python -m dstack_tpu_torch.fine_tune --steps 20                # the card
     python -m dstack_tpu_torch.fine_tune --device cpu --preset tiny --steps 3
+    # ring attention over 4 sequence shards, long context, on the card
+    python -m dstack_tpu_torch.fine_tune --preset smol-1b-8k --seq-len 8192 \
+        --batch-size 1 --seq-parallel 4
 
+`--seq-parallel n` builds a seq mesh whose n sequence shards take turns on
+the one device through the ring (workloads/attention.py); it works on the
+CPU too (`--device cpu --preset tiny --seq-parallel 4 --seq-len 256`).
 With --checkpoint-dir the final params are written as a packed export
 (`<dir>/packed/`), which `python -m dstack_tpu_torch.native_server
 --checkpoint-dir <dir>` serves. Periodic train-state checkpoints, resume,
-meshes and LoRA are not ported yet.
+--model-parallel, --expert-parallel and LoRA are not ported yet.
 """
 
 import argparse
@@ -41,31 +47,40 @@ def main(argv: Optional[list] = None) -> None:
     args = parser.parse_args(argv)
 
     unported = [f"--{name.replace('_', '-')} {getattr(args, name)}"
-                for name in ("model_parallel", "seq_parallel", "expert_parallel")
+                for name in ("model_parallel", "expert_parallel")
                 if getattr(args, name) > 1]
     if args.lora_rank > 0:
         unported.append(f"--lora-rank {args.lora_rank}")
     if unported:
         raise NotImplementedError(
             f"not ported to PyTorch yet: {', '.join(unported)} (the port trains"
-            " dense models on one device)")
+            " dense models on one device, with --seq-parallel as its ring)")
 
     from dstack_tpu_torch.workloads.train import (
         init_train_state,
         make_train_step,
         synthetic_batch,
     )
+    from dstack_tpu_torch.workloads.sharding import make_mesh
     from dstack_tpu_torch.workloads.weights import save_packed
 
     config = PRESETS[args.preset]
     seq_len = args.seq_len or min(2048, config.max_seq_len)
     if seq_len > config.max_seq_len:
         raise SystemExit(f"--seq-len > {config.max_seq_len} for {args.preset}")
-    state = init_train_state(config, 0, args.device)
+    mesh = None
+    if args.seq_parallel > 1:
+        if seq_len % args.seq_parallel:
+            raise SystemExit(f"--seq-parallel {args.seq_parallel} must divide"
+                             f" --seq-len {seq_len}")
+        mesh = make_mesh(None if args.device is None else [args.device],
+                         seq=args.seq_parallel)
+    state = init_train_state(config, 0, args.device, mesh=mesh)
     device = state.params["embed"].device
-    step = make_train_step(config, accum_steps=args.accum_steps)
+    step = make_train_step(config, mesh, accum_steps=args.accum_steps)
+    ring = f", ring over {args.seq_parallel} seq shards" if mesh else ""
     print(f"{args.preset}: {config.param_count() / 1e9:.3f}B params on {device},"
-          f" batch {args.batch_size} x {seq_len}", flush=True)
+          f" batch {args.batch_size} x {seq_len}{ring}", flush=True)
     loader = None
     if args.data:
         from dstack_tpu_torch.workloads.data import BatchLoader, TokenDataset

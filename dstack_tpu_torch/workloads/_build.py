@@ -69,8 +69,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     tail = [i32, i32, i32, f32, i32, i32, ptr]  # BH, S, HD, scale, causal, dtype, stream
-    for name, n_ptr in (("dstack_flash_fwd", 5), ("dstack_flash_bwd_dq", 7),
-                        ("dstack_flash_bwd_dkv", 8)):
+    for name, n_ptr in (("dstack_flash_fwd", 5), ("dstack_flash_block_fwd", 6),
+                        ("dstack_flash_bwd_dq", 7), ("dstack_flash_bwd_dkv", 8)):
         fn = getattr(lib, name)
         fn.argtypes = [ptr] * n_ptr + tail
         fn.restype = ctypes.c_int

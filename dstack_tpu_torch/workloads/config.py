@@ -105,7 +105,12 @@ class ModelConfig:
                          seq_len: Optional[int] = None,
                          attn_scores: bool = False) -> float:
         """The reference's per-device estimate of what the no-remat
-        backward keeps (the half of `resolve_remat` that sizes it)."""
+        backward keeps (the half of `resolve_remat` that sizes it).
+        `shards` is the device's real share: the reference divides by its
+        seq axis because each device holds 1/n of the sequence, while the
+        port's one-device ring holds all n shards, so its callers pass a
+        seq factor of 1 (sharding.device_shards). Dividing by n there would
+        under-count by n and answer "none" where memory says otherwise."""
         shards = shards or {}
         act_shard = (
             shards.get("data", 1) * shards.get("fsdp", 1) * shards.get("seq", 1)

@@ -1,9 +1,10 @@
 // Flash attention forward and backward for NVIDIA Hopper (sm_90a).
 //
-// Replaces three TPU kernels of dstack_tpu/workloads/flash_attention.py:
-//   flash_fwd_kernel      <- `_fwd_kernel` (:219, body `_streaming_attend` :170)
-//   flash_bwd_dq_kernel   <- `_bwd_dq_kernel` (:256)
-//   flash_bwd_dkv_kernel  <- `_bwd_dkv_kernel` (:294)
+// Replaces four TPU kernels of dstack_tpu/workloads/flash_attention.py:
+//   flash_fwd_kernel        <- `_fwd_kernel` (:219, body `_streaming_attend` :170)
+//   flash_block_fwd_kernel  <- `_block_fwd_kernel` (:455, the ring step)
+//   flash_bwd_dq_kernel     <- `_bwd_dq_kernel` (:256)
+//   flash_bwd_dkv_kernel    <- `_bwd_dkv_kernel` (:294)
 // Same functions on (BH, S, HD) tensors, GQA already expanded by the
 // caller: the forward writes normalised O in the input dtype and
 // lse = m + log(l) in f32, laid out (BH, S) (the TPU's (BH, 1, S) was only
@@ -37,6 +38,16 @@
 //     denominators and every accumulator stay f32.
 // No wgmma, TMA or cp.async pipelining yet: a simple kernel that is right
 // first. The causal grid launches the heaviest tiles first.
+//
+// The ring step (flash_block_fwd_kernel) is the forward's loop with the other
+// epilogue of the reference (both call `_streaming_attend`): O stays
+// unnormalised, relative to the row's final max m, and is written in f32
+// whatever T is; m (floored at NEG_INF/2 like the running max) and
+// l = rowsum(exp(s - m)) (not floored) are written beside it, (BH, S) each,
+// for the ring's merge. q and k/v shards have the same S (the ring's equal
+// shards: the causal mask row >= col is the ring's diagonal block only
+// then). At the ring step of smol-1b-8k over 4 shards (BH 16, S 2048,
+// HD 128, bf16) a full step is ~34 GFLOP on ~42 MB: bound by operations too.
 //
 // Launch contract: the kernels allocate nothing, run on the caller's
 // stream, and each C entry point returns cudaGetLastError() after launch.
@@ -72,6 +83,8 @@ struct Args {
   const void* o;      // (BH, S, HD)   forward output
   const void* dout;   // (BH, S, HD)   dO
   float* lse;         // (BH, S)
+  float* m_out;       // (BH, S)       ring step: row max
+  float* l_out;       // (BH, S)       ring step: row sum
   const float* delta; // (BH, S)
   void* dq;           // (BH, S, HD)
   void* dk;           // (BH, S, HD)
@@ -213,8 +226,10 @@ struct FwdCfg {
   static constexpr size_t smem = sizeof(T) * (size_t(BQ) * LD + 2 * size_t(BK) * LD + size_t(BQ) * LDP);
 };
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args p) {
+// The streaming-softmax loop shared by the forward and the ring step; kBlock
+// picks the epilogue (see the header).
+template <typename T, int HD, bool kBlock>
+__device__ __forceinline__ void fwd_body(const Args& p) {
   using C = FwdCfg<T, HD>;
   extern __shared__ __align__(16) unsigned char smem[];
   T* qs = reinterpret_cast<T*>(smem);
@@ -291,14 +306,38 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args p) {
     warp_gemm<HD / 8, C::BK, false>(acc, pw, C::LDP, vs, C::LD);
   }
 
-  l[0] = fmaxf(l[0], 1e-30f);
-  l[1] = fmaxf(l[1], 1e-30f);
-  store_frag<T, HD / 8>(static_cast<T*>(const_cast<void*>(p.o)) + head * HD, HD,
-                        q0 + warp * 16, p.S, acc, 1.f / l[0], 1.f / l[1]);
-  if (t == 0) {
-    if (row0 < p.S) p.lse[head + row0] = m[0] + logf(l[0]);
-    if (row0 + 8 < p.S) p.lse[head + row0 + 8] = m[1] + logf(l[1]);
+  if constexpr (kBlock) {
+    store_frag<float, HD / 8>(static_cast<float*>(const_cast<void*>(p.o)) + head * HD, HD,
+                              q0 + warp * 16, p.S, acc, 1.f, 1.f);
+    if (t == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (row0 + 8 * r < p.S) {
+          p.m_out[head + row0 + 8 * r] = m[r];
+          p.l_out[head + row0 + 8 * r] = l[r];
+        }
+      }
+    }
+  } else {
+    l[0] = fmaxf(l[0], 1e-30f);
+    l[1] = fmaxf(l[1], 1e-30f);
+    store_frag<T, HD / 8>(static_cast<T*>(const_cast<void*>(p.o)) + head * HD, HD,
+                          q0 + warp * 16, p.S, acc, 1.f / l[0], 1.f / l[1]);
+    if (t == 0) {
+      if (row0 < p.S) p.lse[head + row0] = m[0] + logf(l[0]);
+      if (row0 + 8 < p.S) p.lse[head + row0 + 8] = m[1] + logf(l[1]);
+    }
   }
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args p) {
+  fwd_body<T, HD, false>(p);
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads) flash_block_fwd_kernel(Args p) {
+  fwd_body<T, HD, true>(p);
 }
 
 // --------------------------------------------------------------- dQ kernel
@@ -478,13 +517,15 @@ cudaError_t launch(Kernel kernel, size_t smem, dim3 grid, const Args& a, cudaStr
   return cudaGetLastError();
 }
 
-enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
+enum Which { kFwd = 0, kDq = 1, kDkv = 2, kBlockFwd = 3 };
 
 template <typename T, int HD>
 cudaError_t dispatch(Which w, int BH, const Args& a, cudaStream_t st) {
-  if (w == kFwd) {
+  if (w == kFwd || w == kBlockFwd) {
     using C = FwdCfg<T, HD>;
-    return launch(flash_fwd_kernel<T, HD>, C::smem, dim3((a.S + C::BQ - 1) / C::BQ, BH), a, st);
+    const dim3 grid((a.S + C::BQ - 1) / C::BQ, BH);
+    if (w == kBlockFwd) return launch(flash_block_fwd_kernel<T, HD>, C::smem, grid, a, st);
+    return launch(flash_fwd_kernel<T, HD>, C::smem, grid, a, st);
   }
   if (w == kDq) {
     using C = DqCfg<T, HD>;
@@ -531,6 +572,20 @@ int dstack_flash_fwd(const void* q, const void* k, const void* v, void* o, float
   a.o = o;
   a.lse = lse;
   return run(kFwd, BH, HD, dtype, a, stream);
+}
+
+// The ring step: o (BH, S, HD) f32 unnormalised, m and l (BH, S) f32.
+int dstack_flash_block_fwd(const void* q, const void* k, const void* v, float* o, float* m,
+                           float* l, int BH, int S, int HD, float scale, int causal, int dtype,
+                           void* stream) {
+  Args a = make_args(S, causal, scale);
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.o = o;
+  a.m_out = m;
+  a.l_out = l;
+  return run(kBlockFwd, BH, HD, dtype, a, stream);
 }
 
 int dstack_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,

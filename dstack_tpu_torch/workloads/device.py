@@ -24,6 +24,9 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} requested but CUDA is not available")
+    if dev.type == "cuda" and dev.index is None:
+        # "cuda" names the current card; tensors report it with its index.
+        return torch.device("cuda", torch.cuda.current_device())
     return dev
 
 

@@ -1,14 +1,16 @@
-"""Flash attention for the single-device training path (port of
-`dstack_tpu.workloads.flash_attention`, its non-ring half).
+"""Flash attention for training (port of
+`dstack_tpu.workloads.flash_attention`): the single-device kernels and
+the ring step.
 
-Three hand-written Hopper kernels in `csrc/flash_attention.cu` (built at
+Four hand-written Hopper kernels in `csrc/flash_attention.cu` (built at
 first use by `_build.py`) replace the TPU kernels of the reference:
 
-| Kernel here            | Replaces (dstack_tpu/workloads/flash_attention.py) |
-|------------------------|----------------------------------------------------|
-| `dstack_flash_fwd`     | `_fwd_kernel` :219 (body `_streaming_attend` :170) |
-| `dstack_flash_bwd_dq`  | `_bwd_dq_kernel` :256                              |
-| `dstack_flash_bwd_dkv` | `_bwd_dkv_kernel` :294                             |
+| Kernel here              | Replaces (dstack_tpu/workloads/flash_attention.py) |
+|--------------------------|----------------------------------------------------|
+| `dstack_flash_fwd`       | `_fwd_kernel` :219 (body `_streaming_attend` :170) |
+| `dstack_flash_block_fwd` | `_block_fwd_kernel` :455 (the ring step)           |
+| `dstack_flash_bwd_dq`    | `_bwd_dq_kernel` :256                              |
+| `dstack_flash_bwd_dkv`   | `_bwd_dkv_kernel` :294                             |
 
 At the smol-1b training shape (B*H 128, S 2048, hd 128, causal, bf16) all
 three are bound by operations on this card, not bytes: ~137.5, ~206 and
@@ -26,7 +28,14 @@ DSTACK_TPU_FLASH_ATTENTION has no counterpart here).
 Rounding: for bf16 the kernels round P (forward) and dS (backward) to
 bf16 before their products, as the tensor cores need; the TPU kernels and
 the plain versions keep them in f32. The logsumexp is kept as (B*H, S);
-the reference's (B*H, 1, S) was a TPU tiling rule.
+the reference's (B*H, 1, S) was a TPU tiling rule, and so are the ring
+step's m and l.
+
+The ring step (`_RingBlock`, `flash_block_attend`) returns one step's
+unnormalised partials (o in f32 relative to the row max m, m, l) for the
+ring's merge (attention.py). Its backward has no kernel in the reference
+either: it recomputes through the plain version `_block_ref_bh` under
+autograd, so plain torch ops there are the design, not a fallback.
 """
 
 import ctypes
@@ -36,11 +45,13 @@ import torch
 
 from dstack_tpu_torch.workloads.attention import NEG_INF, _repeat_kv
 
-__all__ = ["flash_attention", "use_flash", "LAUNCHES", "CUDA_HEAD_DIMS"]
+__all__ = ["flash_attention", "flash_block_attend", "use_flash", "LAUNCHES",
+           "CUDA_HEAD_DIMS"]
 
 # Launches of each kernel, counted where it is launched and nowhere else
-# (chip_smoke.py zeroes and reads them around the training run).
-LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+# (chip_smoke.py zeroes and reads them around the training runs).
+LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                            "flash_block_fwd": 0}
 
 CUDA_HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -66,13 +77,14 @@ def use_flash(seq_len: int, head_dim: int, device) -> bool:
 
 
 def _scores(q, k, causal):
-    """f32 logits (BH, S, S) scaled and masked with NEG_INF."""
+    """f32 logits (BH, Sq, Sk) scaled and masked with NEG_INF; causal is
+    the tril shifted by Sk - Sq (the plain diagonal when Sq == Sk)."""
     scale = q.shape[-1] ** -0.5
     logits = torch.einsum("bqd,bkd->bqk", q.to(torch.float32),
                           k.to(torch.float32)) * scale
     if causal:
-        s = q.shape[1]
-        mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+        sq, sk = q.shape[1], k.shape[1]
+        mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device).tril(sk - sq)
         logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
     return logits
 
@@ -86,6 +98,18 @@ def _flash_fwd_plain(q, k, v, causal: bool) -> Tuple[torch.Tensor, torch.Tensor]
     l = torch.clamp(p.sum(dim=-1), min=1e-30)
     o = torch.einsum("bqk,bkd->bqd", p, v.to(torch.float32)) / l[..., None]
     return o.to(q.dtype), m + torch.log(l)
+
+
+def _block_ref_bh(q, k, v, causal: bool):
+    """The ring step's plain version (`_block_ref_bh` :462): (o, m, l) on
+    (BH, S, hd), o f32 relative to m = max(row max, NEG_INF/2), l the
+    unfloored row sum of P, P kept in f32. The backward of `_RingBlock`
+    differentiates this."""
+    logits = _scores(q, k, causal)
+    m = torch.clamp(logits.amax(dim=-1), min=NEG_INF / 2)
+    p = torch.exp(logits - m[..., None])
+    o = torch.einsum("bqk,bkd->bqd", p, v.to(torch.float32))
+    return o, m, p.sum(dim=-1)
 
 
 def _probs(q, k, lse, causal):
@@ -184,6 +208,17 @@ def _flash_fwd_cuda(q, k, v, causal: bool):
     return o, lse
 
 
+def _ring_block_cuda(q, k, v, causal: bool):
+    """The ring step's kernel: q and k/v shards of equal S (the ring's)."""
+    _check_cuda(q, k, v)
+    o = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    m = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    if q.numel():
+        _launch("flash_block_fwd", (q, k, v, o, m, l), causal)
+    return o, m, l
+
+
 def _flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal: bool):
     _check_cuda(q, k, v, do)
     _check_stats(q, lse, delta)
@@ -248,3 +283,51 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     o = _Flash.apply(to_bh(q), to_bh(k), to_bh(v), causal)
     return o.reshape(b, h, s, hd).transpose(1, 2)
+
+
+class _RingBlock(torch.autograd.Function):
+    """The reference's `_ring_block` custom VJP (:480-522) on (B*H, S, hd):
+    forward returns the step's (o, m, l), from the kernel for CUDA tensors
+    and from `_block_ref_bh` for CPU ones, and saves q, k, v. Backward
+    recomputes `_block_ref_bh` under autograd and pulls the cotangents of
+    all three outputs through it (:514-519); the reference has no backward
+    kernel for this step, so this is its design, not a fallback. The
+    recompute holds the step's (Sq, Sk) f32 logits, the reference's own
+    known limit (:447-452)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        fwd = _ring_block_cuda if q.is_cuda else _block_ref_bh
+        ctx.save_for_backward(q, k, v)
+        ctx.causal = causal
+        return fwd(q, k, v, causal)
+
+    @staticmethod
+    def backward(ctx, do, dm, dl):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            qkv = [x.detach().requires_grad_() for x in (q, k, v)]
+            outs = _block_ref_bh(*qkv, ctx.causal)
+            dq, dk, dv = torch.autograd.grad(outs, qkv, (do, dm, dl))
+        return dq, dk, dv, None
+
+
+def flash_block_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                       causal: bool):
+    """One ring step's partials: q (B, Sq, H, hd), k/v (B, Sk, H, hd)
+    already GQA-expanded -> o (B, Sq, H, hd) f32 unnormalised, m and l
+    (B, H, Sq). The kernel takes Sq == Sk only (the ring's equal shards,
+    the only case the reference launches its kernel for); the plain
+    version on the CPU takes any Sk when not causal."""
+    b, sq, h, hd = q.shape
+    sk = k.shape[1]
+    # The kernel's causal mask is the absolute row >= col diagonal, which
+    # equals the ring's shifted tril only for equal shards.
+    assert not causal or sq == sk, (sq, sk)
+
+    def to_bh(x, s):
+        return x.transpose(1, 2).reshape(b * h, s, hd).contiguous()
+
+    o, m, l = _RingBlock.apply(to_bh(q, sq), to_bh(k, sk), to_bh(v, sk), causal)
+    o = o.reshape(b, h, sq, hd).transpose(1, 2)
+    return o, m.reshape(b, h, sq), l.reshape(b, h, sq)

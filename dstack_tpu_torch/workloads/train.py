@@ -1,8 +1,10 @@
-"""Training step for the flagship workload, single device (port of
+"""Training step for the flagship workload on one device (port of
 `dstack_tpu.workloads.train`, lines 32-325 and 444-461).
 
-`make_train_step(config)` returns `train_step(state, batch) -> (state,
-metrics)`. Where the reference jits and donates the state, this step runs
+`make_train_step(config, mesh)` returns `train_step(state, batch) ->
+(state, metrics)`. With a seq mesh (sharding.make_mesh(seq=n)) attention
+runs as the ring over n sequence shards that take turns on the device;
+without one, the single-device flash path. Where the reference jits and donates the state, this step runs
 eagerly and updates params and optimizer moments in place (the donated
 JAX state is as dead after a step as the old tensors here are). Metrics
 stay on the device: the step makes no host readback; callers read what
@@ -122,12 +124,23 @@ def make_optimizer(learning_rate: float = 3e-4, weight_decay: float = 0.1, *,
     return AdamW(learning_rate, weight_decay, warmup_steps, decay_steps)
 
 
+def _device_of(device: DeviceLike, mesh) -> torch.device:
+    """The mesh's device, or `device` without a mesh."""
+    if mesh is None:
+        return resolve_device(device)
+    if device is not None and resolve_device(device) != mesh.device:
+        raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+    return mesh.device
+
+
 def init_train_state(config: ModelConfig, seed: int = 0, device: DeviceLike = None,
                      learning_rate: float = 3e-4, *, warmup_steps: int = 0,
-                     decay_steps: int = 0, params: Optional[Params] = None) -> TrainState:
-    """Params (random from `seed` on `device`, or the given `params`, e.g.
-    bridged from JAX) marked for grad, and zero optimizer moments."""
-    dev = resolve_device(device)
+                     decay_steps: int = 0, params: Optional[Params] = None,
+                     mesh=None) -> TrainState:
+    """Params (random from `seed` on `device` or the mesh's, or the given
+    `params`, e.g. bridged from JAX) marked for grad, and zero optimizer
+    moments."""
+    dev = _device_of(device, mesh)
     if params is None:
         params = init_params(config, seed, dev)
     for _, p in flatten_params(params):
@@ -178,7 +191,8 @@ def _chunked_ce(hidden: torch.Tensor, lm_head, targets: torch.Tensor,
 def loss_fn(config: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
             attention_fn=None, mesh=None):
     """Next-token cross-entropy -> (loss, router_aux). batch: inputs and
-    targets (B, S) int, pre-shifted; optional loss_mask (B, S)."""
+    targets (B, S) int, pre-shifted; optional loss_mask (B, S). `mesh`
+    reaches the remat estimate; `attention_fn` carries the ring."""
     inputs, targets = batch["inputs"], batch["targets"]
     mask = batch.get("loss_mask")
     if config.ce_chunk > 0 and inputs.shape[1] % config.ce_chunk == 0:
@@ -208,9 +222,8 @@ def make_train_step(config: ModelConfig, mesh=None, learning_rate: float = 3e-4,
     """Returns `train_step(state, batch) -> (state, metrics)`; metrics are
     0-d device tensors `loss`, `grad_norm`, `router_aux`. accum_steps > 1
     cuts the batch into that many microbatches, sums their grads in f32 and
-    makes one optimizer update with the mean."""
-    if mesh is not None:
-        raise NotImplementedError("sharded training is not ported to PyTorch yet")
+    makes one optimizer update with the mean. A seq `mesh` runs attention
+    as the ring (make_attention_fn(mesh))."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     optimizer = make_optimizer(learning_rate, warmup_steps=warmup_steps,
@@ -219,7 +232,7 @@ def make_train_step(config: ModelConfig, mesh=None, learning_rate: float = 3e-4,
 
     def grads_of(params, batch):
         pairs = flatten_params(params)
-        loss, aux = loss_fn(config, params, batch, attention_fn)
+        loss, aux = loss_fn(config, params, batch, attention_fn, mesh)
         grads = torch.autograd.grad(loss, [p for _, p in pairs])
         return loss.detach(), aux.detach(), [(k, g) for (k, _), g in zip(pairs, grads)]
 
@@ -260,11 +273,12 @@ def make_train_step(config: ModelConfig, mesh=None, learning_rate: float = 3e-4,
 
 
 def synthetic_batch(config: ModelConfig, batch_size: int, seq_len: Optional[int] = None,
-                    seed: int = 0, device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+                    seed: int = 0, device: DeviceLike = None,
+                    mesh=None) -> Dict[str, torch.Tensor]:
     """Deterministic fake pre-shifted int32 batch: inputs/targets (B, S),
-    drawn from a torch.Generator seeded with `seed` on `device` (not the
-    reference's jax.random draw)."""
-    dev = resolve_device(device)
+    drawn from a torch.Generator seeded with `seed` on `device` or the
+    mesh's (not the reference's jax.random draw)."""
+    dev = _device_of(device, mesh)
     s = (seq_len or config.max_seq_len) + 1
     gen = torch.Generator(device=dev).manual_seed(seed)
     tokens = torch.randint(0, config.vocab_size, (batch_size, s), generator=gen,

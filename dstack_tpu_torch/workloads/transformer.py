@@ -12,8 +12,9 @@ cast back; matmuls whose JAX form asks for an f32 result
 and the accumulation is f32.
 
 `forward` runs the full sequence through an injected `attention_fn`
-(attention.make_attention_fn: the flash kernels on the card), with the
-remat policy of `config.resolve_remat` mapped to torch.utils.checkpoint.
+(attention.make_attention_fn: the flash kernels on the card, or the ring
+over a seq mesh), with the remat policy of `config.resolve_remat` mapped
+to torch.utils.checkpoint.
 Where JAX scans one traced block over the layer stack, this loops over
 the layers eagerly.
 """
@@ -32,6 +33,7 @@ from dstack_tpu_torch.workloads.attention import plain_attention
 from dstack_tpu_torch.workloads.config import ModelConfig, require_dense
 from dstack_tpu_torch.workloads.device import DeviceLike, resolve_device
 from dstack_tpu_torch.workloads.quant import QTensor
+from dstack_tpu_torch.workloads.sharding import device_shards
 
 Params = Dict[str, Any]
 AttentionFn = Callable[..., torch.Tensor]
@@ -196,12 +198,13 @@ def _dots_policy(ctx, op, *args, **kwargs):
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def apply_remat(body, c: ModelConfig, n_tokens: int,
+def apply_remat(body, c: ModelConfig, n_tokens: int, mesh=None,
                 seq_len: Optional[int] = None, attn_scores: bool = False):
     """Wrap a block body per the resolved remat policy: "none" leaves it,
     "full" checkpoints the whole block, "dots" checkpoints it keeping the
     matmul outputs. `attn_scores` marks the plain O(S^2)-memory attention."""
-    policy = c.resolve_remat(n_tokens, seq_len=seq_len, attn_scores=attn_scores)
+    policy = c.resolve_remat(n_tokens, device_shards(mesh), seq_len=seq_len,
+                             attn_scores=attn_scores)
     if policy == "none":
         return body
     kw = {}
@@ -247,11 +250,13 @@ def forward(config: ModelConfig, params: Params, tokens: torch.Tensor, *,
     With return_aux=True returns (logits, aux), aux the summed router
     loss (0 for dense models). With return_hidden=True the lm-head matmul
     is skipped and the final-norm hidden states (B, S, D) come back in
-    place of logits (the chunked CE applies the head itself)."""
+    place of logits (the chunked CE applies the head itself).
+
+    A seq `mesh` (sharding.make_mesh) is read by the remat estimate; the
+    ring itself lives inside `attention_fn` (make_attention_fn(mesh)), and
+    positions stay 0..S-1 since the whole sequence is on the device."""
     c = config
     require_dense(c)
-    if mesh is not None:
-        raise NotImplementedError("sharded forward is not ported to PyTorch yet")
     attn = attention_fn or plain_attention
     dev = tokens.device
     if positions is None:
@@ -268,7 +273,7 @@ def forward(config: ModelConfig, params: Params, tokens: torch.Tensor, *,
     def body(x, p):
         return _block(c, x, p, positions, attn)
 
-    body = apply_remat(body, c, tokens.shape[0] * tokens.shape[1],
+    body = apply_remat(body, c, tokens.shape[0] * tokens.shape[1], mesh,
                        seq_len=tokens.shape[1], attn_scores=attn_scores)
     for p in _layer_slices(params, c.n_layers):
         x = body(x, p)

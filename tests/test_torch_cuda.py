@@ -12,6 +12,8 @@ The flash kernels round P and dS to bf16 before their products where the
 plain versions keep f32. Each output is held by two scale-free readings
 (`_errors`), at ~3x the largest reading of sound runs on the H100: bf16
 rel_l2 9e-3 and row_rel 2.5e-2, f32 2e-6 and 1.2e-5 (summation order).
+The ring-step kernel's unnormalised o is held the same way, its m by max
+abs error and its l by max relative error (BLOCK_STAT_TOL).
 """
 
 import numpy as np
@@ -139,7 +141,7 @@ def test_flash_kernels_match_plain_on_card(cuda, s, hd, causal, dtype):
     dq, dk, dv = torch.autograd.grad(o, (qq, kk, vv), do)
     torch.cuda.synchronize()
     assert {n: tfa.LAUNCHES[n] - before[n] for n in before} == {
-        "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+        "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1, "flash_block_fwd": 0}
     # Each plain version on the inputs its kernel saw: the backward ones on
     # the kernel's own o and lse, and delta as _Flash.backward forms it.
     # (From the plain o, delta would differ by o's bf16 rounding, which rows
@@ -221,9 +223,99 @@ def test_remat_rungs_through_the_kernels_on_card(cuda):
         n = {k: tfa.LAUNCHES[k] - before[k] for k in before}
         fwd = cfg.n_layers * (1 if remat == "none" else 2)
         assert n == {"flash_fwd": fwd, "flash_bwd_dq": cfg.n_layers,
-                     "flash_bwd_dkv": cfg.n_layers}, (remat, n)
+                     "flash_bwd_dkv": cfg.n_layers, "flash_block_fwd": 0}, (remat, n)
         results[remat] = (float(loss.detach()), grads)
     for remat in ("dots", "full"):
         assert results[remat][0] == pytest.approx(results["none"][0], rel=1e-6)
         for a, b in zip(results[remat][1], results["none"][1]):
             torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+# The ring step's m (max abs error) and l (max relative error): f32 sums of
+# the same logits in another order, ~3x the largest sound reading on the
+# H100 against plain and float64 (m 2.5e-6, l 2.6e-6).
+BLOCK_STAT_TOL = (8e-6, 8e-6)
+
+
+def _block_f64(q, k, v, causal):
+    """The ring step in float64, independent of the plain version."""
+    s = torch.einsum("bqd,bkd->bqk", q.double(), k.double()) * q.shape[-1] ** -0.5
+    if causal:
+        n = q.shape[1]
+        s = s.masked_fill(~torch.ones(n, n, dtype=torch.bool, device=q.device).tril(),
+                          float("-inf"))
+    m = s.amax(-1)
+    p = torch.exp(s - m[..., None])
+    return torch.einsum("bqk,bkd->bqd", p, v.double()), m, p.sum(-1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("s", [128, 1000, 2048])
+def test_ring_block_kernel_matches_plain_and_float64_on_card(cuda, s, hd, causal, dtype):
+    """The ring-step kernel through `_RingBlock` (one launch counted)
+    against `_block_ref_bh` and a float64 reference: o, m and l each."""
+    rng = np.random.default_rng(100 + s + hd)
+    bh = 4 if s < 2048 else 2
+    q, k, v = (torch.from_numpy(rng.standard_normal((bh, s, hd)).astype(np.float32))
+               .to("cuda", dtype) for _ in range(3))
+    before = dict(tfa.LAUNCHES)
+    o, m, l = tfa._RingBlock.apply(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert {n: tfa.LAUNCHES[n] - before[n] for n in before} == {
+        "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "flash_block_fwd": 1}
+    assert o.dtype == m.dtype == l.dtype == torch.float32
+    for ref_name, (ro, rm, rl) in (("plain", tfa._block_ref_bh(q, k, v, causal)),
+                                   ("float64", _block_f64(q, k, v, causal))):
+        errs = _errors(o, ro)
+        m_err = float((m.double() - rm.double()).abs().max())
+        l_err = float(((l.double() - rl.double()).abs() / rl.double().abs()).max())
+        print(f"ring block readings s={s} hd={hd} causal={causal} {dtype} vs {ref_name}:"
+              f" o rel_l2={errs[0]:.3e} row_rel={errs[1]:.3e} m={m_err:.3e} l={l_err:.3e}")
+        assert torch.isfinite(o).all()
+        assert _within(errs, FLASH_TOL[dtype]), (ref_name, errs)
+        assert m_err <= BLOCK_STAT_TOL[0] and l_err <= BLOCK_STAT_TOL[1], (ref_name, m_err, l_err)
+
+
+@pytest.mark.cuda
+def test_ring_block_rejects_unequal_shards_on_card(cuda):
+    q = torch.zeros((2, 64, 64), device="cuda")
+    with pytest.raises(ValueError):
+        tfa._ring_block_cuda(q, q[:, :32].contiguous(), q[:, :32].contiguous(), False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_ring_inside_a_2_layer_model_matches_plain_attention_on_card(cuda, causal):
+    """tiny at f32 on the card over a 4-way seq mesh: the loss and every
+    leaf's grad through the ring-step kernel against plain_attention, and
+    the kernel's launches (10 per layer causal, 16 full)."""
+    from dstack_tpu_torch.workloads.attention import make_attention_fn, plain_attention
+    from dstack_tpu_torch.workloads.config import PRESETS
+    from dstack_tpu_torch.workloads.sharding import make_mesh
+    from dstack_tpu_torch.workloads.train import loss_fn, synthetic_batch
+    from dstack_tpu_torch.workloads.weights import flatten_params
+    from dstack_tpu_torch.workloads.transformer import init_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = PRESETS["tiny"].with_(dtype="float32")
+    params = init_params(cfg, seed=4)
+    pairs = flatten_params(params)
+    for _, p in pairs:
+        p.requires_grad_(True)
+    batch = synthetic_batch(cfg, 2, 128, seed=4)
+    mesh = make_mesh(seq=4)
+    res = {}
+    for name, attn in (("ring", make_attention_fn(mesh, causal=causal)),
+                       ("plain", lambda q, k, v: plain_attention(q, k, v, causal=causal))):
+        before = tfa.LAUNCHES["flash_block_fwd"]
+        loss, _ = loss_fn(cfg, params, batch, attn, mesh)
+        grads = torch.autograd.grad(loss, [p for _, p in pairs])
+        torch.cuda.synchronize()
+        res[name] = (float(loss.detach()), grads, tfa.LAUNCHES["flash_block_fwd"] - before)
+    assert res["ring"][2] == cfg.n_layers * (10 if causal else 16) and res["plain"][2] == 0
+    assert res["ring"][0] == pytest.approx(res["plain"][0], rel=1e-5)
+    for (path, _), g, r in zip(pairs, res["ring"][1], res["plain"][1]):
+        assert float((g - r).norm() / r.norm()) <= 1e-4, path

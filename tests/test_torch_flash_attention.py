@@ -109,7 +109,8 @@ def test_use_flash_raises_for_a_head_dim_the_kernels_do_not_take():
 def test_make_attention_fn_dispatch(monkeypatch):
     """On the CPU the single-device path is plain_attention; a head_dim the
     kernels do not take raises on a CUDA device (device check
-    monkeypatched: there is no card here); a seq mesh axis raises."""
+    monkeypatched: there is no card here); a seq mesh axis > 1 gives the
+    ring, which computes the same attention."""
     fn = tattn.make_attention_fn()
     q, k, v, _ = _qkvg(1, 1, 8, 2, 1, 32)
     tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
@@ -124,10 +125,11 @@ def test_make_attention_fn_dispatch(monkeypatch):
     class Mesh:
         shape = {"data": 1, "seq": 2}
 
-    with pytest.raises(NotImplementedError, match="ring"):
-        tattn.make_attention_fn(Mesh())
+    ring = tattn.make_attention_fn(Mesh())
+    assert ring.__name__ == "ring"
+    torch.testing.assert_close(ring(tq, tk, tv), tattn.plain_attention(tq, tk, tv))
     Mesh.shape = {"seq": 1}
-    assert tattn.make_attention_fn(Mesh()) is not None
+    assert tattn.make_attention_fn(Mesh()).__name__ == "single_device"
 
 
 def test_cuda_wrappers_raise_for_cpu_tensors():

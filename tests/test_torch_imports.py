@@ -33,6 +33,7 @@ MODULES = (
     "dstack_tpu_torch.workloads.paged_attention",
     "dstack_tpu_torch.workloads.quant",
     "dstack_tpu_torch.workloads.serving",
+    "dstack_tpu_torch.workloads.sharding",
     "dstack_tpu_torch.workloads.train",
     "dstack_tpu_torch.workloads.transformer",
     "dstack_tpu_torch.workloads.weights",
@@ -100,6 +101,7 @@ def _entry_points():
     from dstack_tpu_torch.workloads.train import init_train_state, synthetic_batch
     from dstack_tpu_torch.workloads.device import resolve_device
     from dstack_tpu_torch.workloads.serving import ServingEngine
+    from dstack_tpu_torch.workloads.sharding import make_mesh
     from dstack_tpu_torch.workloads.transformer import init_params
     from dstack_tpu_torch.workloads.weights import load_packed, params_from_numpy
 
@@ -115,6 +117,7 @@ def _entry_points():
         "init_train_state": lambda: init_train_state(cfg, 0),
         "synthetic_batch": lambda: synthetic_batch(cfg, 2, 8),
         "BatchLoader": lambda: BatchLoader(_OneRow(), 1),
+        "make_mesh": lambda: make_mesh(seq=4),
         "fine_tune": lambda: fine_tune.main(["--preset", "tiny", "--steps", "1"]),
     }
 
@@ -130,7 +133,7 @@ class _OneRow:
                                   "params_from_numpy", "load_packed",
                                   "ServingEngine", "native_server.Engine",
                                   "init_train_state", "synthetic_batch",
-                                  "BatchLoader", "fine_tune"])
+                                  "BatchLoader", "make_mesh", "fine_tune"])
 def test_entry_points_default_to_cuda_and_raise_without_it(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: device=None is valid here")
