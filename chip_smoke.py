@@ -19,7 +19,9 @@ Phases (any failure fails the run; nothing is caught to exit 0):
                against their plain versions at the smol-1b training shape
                (B*H 128, S 2048, hd 128, causal) in bf16 and f32 and at a
                ragged one (S 1000, non-causal, hd 64); times of kernel,
-               plain version, bound and the SDPA yardstick;
+               plain version, bound and the SDPA yardstick, the achieved
+               TFLOP/s and share of the bound, and ptxas's registers and
+               spills of each kernel's bf16 hd-128 build;
   6. train   — smol-1b at full width and depth, B 8 x S 2048, bf16: two
                warm-up steps, then timed steps with one host readback;
                loss and grad norm finite, loss falling, each flash kernel
@@ -33,7 +35,7 @@ Phases (any failure fails the run; nothing is caught to exit 0):
                shards (B*H 16, S 2048, hd 128), diagonal (causal) and full,
                bf16 and f32, and at a ragged one (S 1000, hd 64, full): o,
                m and l each; times of kernel, plain version, bound and
-               SDPA's flash forward;
+               SDPA's flash forward, TFLOP/s, share of bound, ptxas;
   7. ring    — smol-1b-8k at full width and depth, B 1 x S 8192 over a
                4-way seq mesh (the ring's 4 shards take turns on the card),
                bf16, remat as resolve_remat answers: two warm-up steps, five
@@ -55,6 +57,7 @@ Imports nothing of JAX. Exits non-zero without a CUDA device.
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -264,25 +267,75 @@ def run_kernels(flush):
 # -- phase 3b: flash kernels -------------------------------------------------
 
 
+FLASH_PRODUCTS = {"flash_fwd": 2, "flash_bwd_dq": 3, "flash_bwd_dkv": 4, "flash_block_fwd": 2}
+
+
+def flash_ops(which, bh, s, hd, causal):
+    """FLOPs of the call's products on the (row, key) pairs the mask keeps."""
+    pairs = bh * (s * (s + 1) // 2 if causal else s * s)
+    return FLASH_PRODUCTS[which] * 2 * hd * pairs
+
+
 def flash_bound(which, bh, s, hd, dtype, causal):
     """(bound_ms, bound_by): bytes the call must move (inputs read once,
-    outputs written once) over HBM bandwidth, against its products' FLOPs
-    on the (row, key) pairs the mask keeps over the type's peak."""
+    outputs written once) over HBM bandwidth, against `flash_ops` over the
+    type's peak."""
     es = torch.empty((), dtype=dtype).element_size()
     mat = bh * s * hd * es
     vec = bh * s * 4
-    pairs = bh * (s * (s + 1) // 2 if causal else s * s)
-    nbytes, products = {
-        "flash_fwd": (4 * mat + vec, 2),           # q k v -> o, lse
-        "flash_bwd_dq": (5 * mat + 2 * vec, 3),    # q k v do lse delta -> dq
-        "flash_bwd_dkv": (6 * mat + 2 * vec, 4),   # q k v do lse delta -> dk dv
+    nbytes = {
+        "flash_fwd": 4 * mat + vec,                # q k v -> o, lse
+        "flash_bwd_dq": 5 * mat + 2 * vec,         # q k v do lse delta -> dq
+        "flash_bwd_dkv": 6 * mat + 2 * vec,        # q k v do lse delta -> dk dv
         # q k v -> o (f32 whatever the inputs), m, l
-        "flash_block_fwd": (3 * mat + bh * s * hd * 4 + 2 * vec, 2),
+        "flash_block_fwd": 3 * mat + bh * s * hd * 4 + 2 * vec,
     }[which]
-    ops = products * 2 * hd * pairs
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    t_ops = flash_ops(which, bh, s, hd, causal) / PEAK_OPS_PER_S[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def rate_readings(which, bh, s, hd, causal, ms, bound_ms) -> dict:
+    """Achieved TFLOP/s of a timed call and the share of its bound."""
+    return dict(tflops=flash_ops(which, bh, s, hd, causal) / (ms * 1e-3) / 1e12,
+                bound_share=bound_ms / ms)
+
+
+# The bf16 hd-128 instantiation of each flash kernel in ptxas's report
+# (a substring of its mangled name).
+PTXAS_ENTRY = {
+    "flash_fwd": "flash_fwd_sm90_kernelILi128E",
+    "flash_block_fwd": "flash_block_fwd_sm90_kernelILi128E",
+    "flash_bwd_dq": "flash_bwd_dq_kernelI13__nv_bfloat16Li128E",
+    "flash_bwd_dkv": "flash_bwd_dkv_kernelI13__nv_bfloat16Li128E",
+}
+
+
+def ptxas_resources(build_log: str) -> dict:
+    """{mangled entry: {registers, spill_stores, spill_loads, stack}} from
+    nvcc's -Xptxas=-v report (bytes for the last three)."""
+    out, cur = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties for )([^' ]+)", line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores,"
+                      r" (\d+) bytes spill loads", line)
+        if m and cur is not None:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    return out
+
+
+def kernel_ptxas(build_log: str) -> dict:
+    """PTXAS_ENTRY's kernels' resources by kernel name (None if absent)."""
+    res = ptxas_resources(build_log or "")
+    return {kern: next((v for k, v in res.items() if pat in k), None)
+            for kern, pat in PTXAS_ENTRY.items()}
 
 
 OUT_NAMES = {"flash_fwd": ("o", "lse"), "flash_bwd_dq": ("dq",),
@@ -333,7 +386,10 @@ def run_flash(timed: bool = True):
     """Each flash kernel against its plain version on the same inputs;
     the SDPA yardstick (forward, and backward for dQ + dK/dV together) at
     the bf16 training shape. Returns one result per (case, kernel)."""
+    from dstack_tpu_torch.workloads import _build
     from dstack_tpu_torch.workloads import flash_attention as fa
+
+    ptxas = kernel_ptxas(_build.build_log)
 
     cases = []
     for dtype in (torch.bfloat16, torch.float32):
@@ -379,7 +435,9 @@ def run_flash(timed: bool = True):
                 bound_ms, bound_by = flash_bound(kern, bh, s, hd, dtype, causal)
                 r.update(ms=cuda_ms(kfn, iters[0]), plain_ms=cuda_ms(pfn, iters[1]),
                          bound_ms=bound_ms, bound_by=bound_by,
-                         library_ms=lib.get("fwd" if kern == "flash_fwd" else "bwd"))
+                         library_ms=lib.get("fwd" if kern == "flash_fwd" else "bwd"),
+                         ptxas=ptxas[kern] if dtype == torch.bfloat16 and hd == 128 else None)
+                r.update(rate_readings(kern, bh, s, hd, causal, r["ms"], bound_ms))
                 log("flash timing", json.dumps(r))
             results.append(r)
         del q, k, v, do, o, lse, o_ref, lse_ref, delta, dq, dk, dv, dq_ref, dk_ref, dv_ref
@@ -408,7 +466,10 @@ def run_ring_block(timed: bool = True):
     """The ring-step kernel against `_block_ref_bh` on the same inputs: o,
     m and l held each on its own (a missed rescale of o cancels in o / l
     when l carries it too). Returns one result per case."""
+    from dstack_tpu_torch.workloads import _build
     from dstack_tpu_torch.workloads import flash_attention as fa
+
+    ptxas = kernel_ptxas(_build.build_log)["flash_block_fwd"]
 
     s_shard = 8192 // RING_SHARDS
     cases = []
@@ -447,7 +508,9 @@ def run_ring_block(timed: bool = True):
                    if dtype == torch.bfloat16 and name.startswith("ring") else None)
             r.update(ms=cuda_ms(lambda: fa._ring_block_cuda(q, k, v, causal), iters[0]),
                      plain_ms=cuda_ms(lambda: fa._block_ref_bh(q, k, v, causal), iters[1]),
-                     bound_ms=bound_ms, bound_by=bound_by, library_ms=lib)
+                     bound_ms=bound_ms, bound_by=bound_by, library_ms=lib,
+                     ptxas=ptxas if dtype == torch.bfloat16 and hd == 128 else None)
+            r.update(rate_readings("flash_block_fwd", bh, s, hd, causal, r["ms"], bound_ms))
             log("ring block timing", json.dumps(r))
         results.append(r)
         del q, k, v, o, m, l, ro, rm, rl
@@ -918,7 +981,8 @@ def main() -> int:
     _build.load_library(rebuild=True)
     log(f"build: {time.monotonic() - t0:.2f}s (nvcc {_build.build_seconds:.2f}s)")
     for line in (_build.build_log or "").splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
+        # C75xx: ptxas serialized a kernel's wgmma pipeline.
+        if any(w in line for w in ("registers", "spill", "Compiling", "arning", "(C75")):
             log("  ptxas:", line.strip())
 
     # 3. kernels against plain versions
@@ -1001,6 +1065,11 @@ def main() -> int:
         "bound_by": main_case["bound_by"],
         "library_ms": main_case["library_ms"],
     }]}
+    # `ms` (and so `tflops` and `bound_share`) times one launch, from the
+    # host's call on an idle card and a cold L2: for flash_block_fwd (~0.06
+    # ms of kernel) that latency is about half of the reading. The profiled
+    # ring step's flash device time over its 160 launches (phase 7) is the
+    # kernel's own time.
     for kern, replaces in FLASH_REPLACES.items():
         main_case = "ring_full_bf16" if kern == "flash_block_fwd" else "train_bf16"
         main_f = next(r for r in fres if r["case"] == main_case and r["kernel"] == kern)
@@ -1017,6 +1086,9 @@ def main() -> int:
             "bound_ms": main_f["bound_ms"],
             "bound_by": main_f["bound_by"],
             "library_ms": main_f["library_ms"],
+            "tflops": main_f["tflops"],
+            "bound_share": main_f["bound_share"],
+            "ptxas": main_f["ptxas"],
         })
     os.makedirs(os.path.dirname(OUT), exist_ok=True)
     with open(OUT, "w") as f:

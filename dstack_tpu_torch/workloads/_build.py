@@ -8,7 +8,11 @@ anew. Each source compiles in its own `nvcc -c`, all started together,
 so the build takes as long as the slowest source rather than their sum,
 and one `nvcc -shared` links the objects. The library lands in `build/`
 beside this file (git-ignored), named by a hash of the sources and flags
-so an edited kernel never loads a stale build. Nothing here runs at
+so an edited kernel never loads a stale build. The bf16 forward kernels
+copy tiles with TMA, whose descriptors the driver's
+`cuTensorMapEncodeTiled` encodes; the source fetches that function through
+the CUDA runtime (`cudaGetDriverEntryPoint`), so the link needs no
+`-lcuda`, and no CUTLASS header is included. Nothing here runs at
 import: `load_library()` builds on its first call, which the kernel
 wrappers make from their launch path.
 """
