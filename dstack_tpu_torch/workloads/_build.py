@@ -68,7 +68,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     # Pointers and the stream go as c_void_p: ctypes would otherwise pass
     # Python ints as 32-bit C ints and cut them.
     fn = lib.dstack_ragged_paged_attention
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float

@@ -87,8 +87,80 @@ def test_ptxas_entries_name_kernels_of_the_source(kern):
     import re
     from pathlib import Path
 
-    src = (Path(cs.__file__).parent / cs.FLASH_KERNEL_SOURCE).read_text()
+    source = cs.PAGED_KERNEL_SOURCE if kern.startswith("ragged") else cs.FLASH_KERNEL_SOURCE
+    src = (Path(cs.__file__).parent / source).read_text()
     pat = cs.PTXAS_ENTRY[kern]
     name = re.match(r"\w+?_kernel", pat).group(0)
     assert re.search(rf"__global__ void __launch_bounds__\([^)]*\)\s+{name}\(", src), name
-    assert pat.endswith("Li128E"), pat
+    assert "Li128E" in pat, pat
+
+
+def _paged_case(B, S, H, KV, hd, bs, MB, starts, dtype=torch.bfloat16):
+    """What `paged_bound` and the readings read of a smoke case, on the
+    CPU: slot b's row i attends positions < starts[b] + 1 + i."""
+    vlen = torch.stack([torch.arange(s + 1, s + S + 1) for s in starts]).to(torch.int32)
+    return dict(q=torch.zeros((B, S, H, hd), dtype=dtype),
+                k=torch.zeros((4, bs, KV, hd), dtype=dtype),
+                tables=torch.zeros((B, MB), dtype=torch.int32), vlen=vlen)
+
+
+def test_paged_work_and_bound_at_the_chunk_shape():
+    """The smoke's 128-token chunk at start 384 on smol-1b (H 16, KV 8, hd
+    128, bf16, block 16, MB 128): K and V of 512 positions, q in and out,
+    the table and the valid lengths; QK^T + PV over rows 385 .. 512."""
+    case = _paged_case(1, 128, 16, 8, 128, 16, 128, [384])
+    nbytes, ops = cs.paged_work(case)
+    assert nbytes == 512 * 8 * 128 * 2 * 2 + 2 * 128 * 16 * 128 * 2 + 128 * 4 + 128 * 4
+    assert nbytes == 3_146_752
+    assert ops == sum(range(385, 513)) * 16 * 128 * 4 == 470_286_336
+    bound, by = cs.paged_bound(case)
+    assert by == "bytes" and bound == pytest.approx(3_146_752 / 3.35e12 * 1e3)
+
+
+def test_paged_work_at_the_decode_shape():
+    lens = [37, 200, 513, 1000, 1499, 1801, 2046, 64]
+    nbytes, ops = cs.paged_work(_paged_case(8, 1, 16, 8, 128, 16, 128, lens))
+    held = sum(lens) + 8
+    assert nbytes == held * 8 * 128 * 4 + 2 * 8 * 16 * 128 * 2 + 8 * 128 * 4 + 8 * 4
+    assert ops == held * 16 * 128 * 4
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+def test_paged_gate_is_scale_free_and_fails_a_scaled_output(dtype):
+    """A 1.6% scaling reads 1.6% whatever the rows' scale and fails
+    PAGED_TOL, on every row and on the rows that read more than one KV
+    split alone (what a combine that mis-weighs the splits leaves); sound
+    noise of a bf16 rounding passes. The rows are the smoke's decode case:
+    8 slots of 38 to 2047 positions, whose outputs scale as 1 / sqrt(len)."""
+    g = torch.Generator().manual_seed(0)
+    lens = torch.tensor([37, 200, 513, 1000, 1499, 1801, 2046, 64]) + 1
+    ref = (torch.randn((8, 1, 16 * 128), generator=g, dtype=torch.float64)
+           / lens.double().sqrt()[:, None, None])
+    vlen = lens[:, None].to(torch.int32)
+    tol = cs.PAGED_TOL[dtype]
+    whole = cs.paged_readings(ref * cs.MUTATION_SCALE, ref, 16)
+    for k in ("rel_l2", "row_rel", "row_l2"):
+        assert whole[k] == pytest.approx(0.016)
+    assert not cs.within(whole, tol)
+    # Slots of 514 positions and more read 2 or more splits of 256: only
+    # their rows scaled. One rel_l2 over the output reads ~0.3 of the 1.6%
+    # (the short slots' larger rows dominate it) and row_rel's bf16 limit
+    # is above 1.6%; row_l2 reads it in full and fails it.
+    part = cs.paged_readings(cs.split_mutant(ref, vlen, 256), ref, 16)
+    assert part["row_l2"] == pytest.approx(0.016) and part["row_rel"] == pytest.approx(0.016)
+    assert part["rel_l2"] == pytest.approx(0.016 * 0.301, rel=0.05)
+    if dtype == torch.bfloat16:
+        assert part["rel_l2"] <= tol[0] and part["row_rel"] <= tol[1]
+    assert not cs.within(part, tol)
+    sound = cs.paged_readings(ref.to(torch.bfloat16).double(), ref, 16)
+    assert cs.within(sound, cs.PAGED_TOL[torch.bfloat16])
+    assert cs.within(cs.paged_readings(ref, ref, 16), tol)
+
+
+def test_split_mutant_scales_every_row_where_none_reads_two_splits():
+    got = torch.ones((2, 3, 8))
+    vlen = torch.tensor([[1, 2, 3], [3, 4, 5]], dtype=torch.int32)
+    some = cs.split_mutant(got, vlen, 3)
+    assert some[1, 1:].eq(cs.MUTATION_SCALE).all() and some[0].eq(1).all()
+    assert some[1, 0].eq(1).all()
+    assert cs.split_mutant(got, vlen, 5).eq(cs.MUTATION_SCALE).all()
