@@ -25,10 +25,14 @@ Phases (any failure fails the run; nothing is caught to exit 0):
   3b. flash  — the three flash-attention kernels (forward, dQ, dK/dV)
                against their plain versions at the smol-1b training shape
                (B*H 128, S 2048, hd 128, causal) in bf16 and f32 and at a
-               ragged one (S 1000, non-causal, hd 64); times of kernel,
-               plain version, bound and the SDPA yardstick, the achieved
-               TFLOP/s and share of the bound, and ptxas's registers and
-               spills of each kernel's bf16 hd-128 build;
+               ragged one (S 1000, non-causal, hd 64), and the same gate
+               shown to fail the backward's stale-ring-stage faults (dQ
+               with a K/V tile counted in place of its successor, dK/dV
+               with a Q/dO tile counted twice); times of kernel, plain
+               version, bound and the SDPA yardstick, the achieved TFLOP/s
+               and share of the bound, and ptxas's registers and spills of
+               each kernel's bf16 hd-128 build; the whole backward (delta,
+               dQ, dK/dV) against SDPA's backward;
   6. train   — smol-1b at full width and depth, B 8 x S 2048, bf16: two
                warm-up steps, then timed steps with one host readback;
                loss and grad norm finite, loss falling, each flash kernel
@@ -481,8 +485,8 @@ PTXAS_ENTRY = {
     "ragged_paged_attention_chunk": "ragged_paged_attention_kernelI13__nv_bfloat16Li128ELi1E",
     "flash_fwd": "flash_fwd_sm90_kernelILi128E",
     "flash_block_fwd": "flash_block_fwd_sm90_kernelILi128E",
-    "flash_bwd_dq": "flash_bwd_dq_kernelI13__nv_bfloat16Li128E",
-    "flash_bwd_dkv": "flash_bwd_dkv_kernelI13__nv_bfloat16Li128E",
+    "flash_bwd_dq": "flash_bwd_dq_sm90_kernelILi128E",
+    "flash_bwd_dkv": "flash_bwd_dkv_sm90_kernelILi128E",
 }
 
 
@@ -515,6 +519,58 @@ def kernel_ptxas(build_log: str) -> dict:
 
 OUT_NAMES = {"flash_fwd": ("o", "lse"), "flash_bwd_dq": ("dq",),
              "flash_bwd_dkv": ("dk", "dv")}
+# Rows of the tiles the backward kernels stream through their 2-stage ring
+# (K/V for dQ, Q/dO with their lse and delta for dK/dV).
+BWD_TILE = 64
+
+
+def stale_stage_mutants(q, k, v, do, lse, delta, causal, tile=BWD_TILE) -> dict:
+    """The outputs of a backward whose ring hands a consumer a stage before
+    the producer refilled it, built from the plain versions: dQ with the
+    K/V tile after the middle one replaced by the middle one (counted in
+    place of its successor), and dK/dV with the Q/dO tile after the middle
+    one, its lse and delta rows with it, replaced the same way (the middle
+    one counted twice). The masks keep each position's own index. Needs S
+    of at least two tiles."""
+    from dstack_tpu_torch.workloads import flash_attention as fa
+
+    j = q.shape[1] // tile // 2 - 1
+    if j < 0:
+        raise ValueError(f"S {q.shape[1]} holds fewer than two tiles of {tile}")
+    mid, nxt = slice(j * tile, (j + 1) * tile), slice((j + 1) * tile, (j + 2) * tile)
+
+    def stale(x):
+        x = x.clone()
+        x[:, nxt] = x[:, mid]
+        return x
+
+    dq = fa._flash_bwd_dq_plain(q, stale(k), stale(v), do, lse, delta, causal)
+    dk, dv = fa._flash_bwd_dkv_plain(stale(q), k, v, stale(do), stale(lse), stale(delta),
+                                     causal)
+    return {"flash_bwd_dq": (dq,), "flash_bwd_dkv": (dk, dv)}
+
+
+def mutant_readings(mutants: dict, refs: dict, tol) -> dict:
+    """Per backward kernel: each output's (rel_l2, row_rel) against the
+    plain version, and whether the flash gate fails the mutant (it must)."""
+    out = {}
+    for kern, outs in mutants.items():
+        readings = {name: flash_errors(got, ref)[:2]
+                    for name, got, ref in zip(OUT_NAMES[kern], outs, refs[kern])}
+        out[kern] = dict(readings=readings, caught=any(
+            e[0] > tol[0] or e[1] > tol[1] for e in readings.values()))
+    return out
+
+
+def flash_backward(q, k, v, o, lse, do, causal):
+    """What `_Flash.backward` runs on CUDA tensors: delta = rowsum(dO * O)
+    in f32 (three eager ops), then the dQ and the dK/dV kernels."""
+    from dstack_tpu_torch.workloads import flash_attention as fa
+
+    delta = (do.to(torch.float32) * o.to(torch.float32)).sum(dim=-1)
+    dq = fa._flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal)
+    dk, dv = fa._flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal)
+    return dq, dk, dv
 
 
 def flash_errors(got, ref) -> tuple:
@@ -598,11 +654,28 @@ def run_flash(timed: bool = True):
                 lambda: fa._flash_bwd_dkv_cuda(q, k, v, do, lse_ref, delta, causal),
                 lambda: fa._flash_bwd_dkv_plain(q, k, v, do, lse_ref, delta, causal)),
         }
-        lib = library_flash_ms(q, k, v, do, causal) if timed and dtype == torch.bfloat16 \
-            and name.startswith("train") else {}
+        main_case = dtype == torch.bfloat16 and name.startswith("train")
+        lib = library_flash_ms(q, k, v, do, causal) if timed and main_case else {}
         checked = [flash_readings(name, kern, pairs) for kern, pairs in outs.items()]
+        if main_case:
+            mutants = mutant_readings(
+                stale_stage_mutants(q, k, v, do, lse_ref, delta, causal),
+                {"flash_bwd_dq": (dq_ref,), "flash_bwd_dkv": (dk_ref, dv_ref)}, FLASH_TOL[dtype])
+            log(f"flash {name} stale-stage mutants: {json.dumps(mutants)} (tol {FLASH_TOL[dtype]})")
+            for r in checked:
+                if r["kernel"] in mutants:
+                    r["mutation"] = mutants[r["kernel"]]
         for r in checked:  # every reading of the case is logged before a failure
             check_flash(r, FLASH_TOL[dtype])
+            if "mutation" in r and not r["mutation"]["caught"]:
+                raise AssertionError(f"{name} {r['kernel']}: the gate passes a stale ring stage")
+        if timed and main_case:
+            # delta, dQ and dK/dV as `_Flash.backward` runs them, against
+            # SDPA's backward (which computes its own delta).
+            wfn = lambda: flash_backward(q, k, v, o, lse, do, causal)  # noqa: E731
+            whole = dict(ms=cuda_ms(wfn, iters[0]), ms_one_launch=cuda_ms_one(wfn, iters[0]),
+                         library_ms=lib["bwd"], library_ms_one_launch=lib["bwd_one_launch"])
+            log("flash whole backward", json.dumps(whole))
         for r in checked:
             kern = r["kernel"]
             if timed:
@@ -616,6 +689,8 @@ def run_flash(timed: bool = True):
                          library_ms_one_launch=lib.get(which + "_one_launch"),
                          ptxas=ptxas[kern] if dtype == torch.bfloat16 and hd == 128 else None)
                 r.update(rate_readings(kern, bh, s, hd, causal, r["ms"], bound_ms))
+                if main_case and kern != "flash_fwd":
+                    r["whole_backward"] = whole
                 log("flash timing", json.dumps(r))
             results.append(r)
         del q, k, v, do, o, lse, o_ref, lse_ref, delta, dq, dk, dv, dq_ref, dk_ref, dv_ref
@@ -833,7 +908,7 @@ def profile_step(step, state, batch):
         step(state, batch)
         torch.cuda.synchronize()
         wall_us = (time.monotonic() - t0) * 1e6
-    by_class, by_name = {}, {}
+    by_class, by_name, flash = {}, {}, {}
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -841,6 +916,13 @@ def profile_step(step, state, batch):
         c = kernel_class(e.name)
         by_class[c] = by_class.get(c, 0) + us
         by_name[e.name] = by_name.get(e.name, 0) + us
+        if c == "flash_attention":
+            m = re.search(r"flash_\w*?_kernel", e.name)
+            f = flash.setdefault(m.group(0) if m else e.name[:60], {"calls": 0, "ms": 0.0})
+            f["calls"] += 1
+            f["ms"] += us / 1e3
+    for f in flash.values():
+        f["ms_per_call"] = f["ms"] / f["calls"]
     busy = sum(by_class.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     out = {
@@ -848,6 +930,7 @@ def profile_step(step, state, batch):
         "device_busy_ms": busy / 1e3,
         "device_idle_share": 1 - busy / wall_us if wall_us else None,
         "device_ms_by_class": {k: v / 1e3 for k, v in by_class.items()},
+        "flash_kernels": flash,
         "top_kernels_ms": [(n[:90], v / 1e3) for n, v in top],
     }
     log("profiled train step", json.dumps(out))
@@ -1298,6 +1381,8 @@ def main() -> int:
             "tflops": main_f["tflops"],
             "bound_share": main_f["bound_share"],
             "ptxas": main_f["ptxas"],
+            **({"whole_backward": main_f["whole_backward"]} if "whole_backward" in main_f
+               else {}),
         })
     os.makedirs(os.path.dirname(OUT), exist_ok=True)
     with open(OUT, "w") as f:

@@ -4,7 +4,10 @@ unified subset of examples/deployment/native/server.py).
 Endpoints: GET /v1/models, POST /v1/chat/completions (plain and SSE),
 GET /healthz (liveness), GET /readyz (503 until the engine's warmup has
 built the kernel and run every program once), GET /metrics (JSON, or
-Prometheus text with ?format=prometheus or Accept: text/plain).
+Prometheus text with ?format=prometheus or Accept: text/plain). Every
+JSON and SSE response echoes the request's `X-Request-ID` and
+`Traceparent` (minted when absent or malformed), the identity that the
+engine's flight recorder keeps for the request.
 
 The tokenizer is the same toy byte-level one as the JAX server's, so the
 server runs without a vocabulary download; swap in a real tokenizer for
@@ -17,12 +20,12 @@ import argparse
 import codecs
 import itertools
 import json
-import secrets
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
+from dstack_tpu_torch.utils.tracecontext import ensure_request_trace
 from dstack_tpu_torch.workloads.config import PRESETS
 from dstack_tpu_torch.workloads.device import DeviceLike, resolve_device
 from dstack_tpu_torch.workloads.serving import (
@@ -104,7 +107,8 @@ class Engine:
         return bytes(int(t) % 256 for t in ids).decode("utf-8", errors="replace")
 
     def chat_stream(self, messages, max_tokens=None, temperature=None,
-                    top_p=None, usage_out=None, x_request_id=None):
+                    top_p=None, usage_out=None, traceparent=None,
+                    x_request_id=None):
         """Yield decoded text fragments as tokens land. Malformed
         per-request fields fall back to the server defaults; UTF-8 is
         decoded incrementally so multi-byte characters reassemble."""
@@ -139,6 +143,7 @@ class Engine:
             usage_out["completion_tokens"] = 0
         out = self.serving.submit(tokens, max_new_tokens=budget,
                                   temperature=temp, top_p=nucleus,
+                                  traceparent=traceparent,
                                   x_request_id=x_request_id)
         dec = codecs.getincrementaldecoder("utf-8")("replace")
         try:
@@ -161,9 +166,10 @@ class Engine:
             self.serving.cancel(out)
 
     def chat(self, messages, max_tokens=None, temperature=None, top_p=None,
-             usage_out=None, x_request_id=None) -> str:
+             usage_out=None, traceparent=None, x_request_id=None) -> str:
         return "".join(self.chat_stream(messages, max_tokens, temperature,
                                         top_p, usage_out=usage_out,
+                                        traceparent=traceparent,
                                         x_request_id=x_request_id))
 
 
@@ -177,17 +183,26 @@ def make_server(engine: Engine, host: str, port: int,
         def log_message(self, *a):
             pass
 
-        def _request_id(self) -> str:
-            rid = (self.headers.get("X-Request-ID") or "").strip()
-            ok = 0 < len(rid) <= 128 and all(
-                ch.isalnum() or ch in "._:-" for ch in rid)
-            return rid if ok else secrets.token_hex(8)
+        def parse_request(self) -> bool:
+            self._trace_state = {}  # one trace identity per request
+            return super().parse_request()
+
+        def _trace_identity(self):
+            """(traceparent, request_id) of this request: the inbound
+            `traceparent` and `X-Request-ID` when valid, minted otherwise,
+            once per request, so the response echoes the pair the engine
+            recorded (as examples/deployment/native/server.py does)."""
+            hdrs = {k.lower(): v for k, v in self.headers.items()}
+            return ensure_request_trace(self._trace_state, hdrs)
 
         def _send(self, code: int, obj, headers=()) -> None:
             body = json.dumps(obj).encode()
             self.send_response(code)
             self.send_header("Content-Type", "application/json")
             self.send_header("Content-Length", str(len(body)))
+            tp, rid = self._trace_identity()
+            self.send_header("X-Request-ID", rid)
+            self.send_header("Traceparent", tp)
             for k, v in headers:
                 self.send_header(k, v)
             self.end_headers()
@@ -213,12 +228,12 @@ def make_server(engine: Engine, host: str, port: int,
             """OpenAI-style SSE: one delta chunk per decoded piece. The
             first piece is pulled before the 200 is committed, so a
             submit-time error is a clean JSON error."""
-            rid = self._request_id()
+            tp, rid = self._trace_identity()
             try:
                 pieces = engine.chat_stream(
                     req.get("messages", []), req.get("max_tokens"),
                     req.get("temperature"), req.get("top_p"),
-                    x_request_id=rid,
+                    traceparent=tp, x_request_id=rid,
                 )
                 first = next(pieces)
             except StopIteration:
@@ -233,6 +248,7 @@ def make_server(engine: Engine, host: str, port: int,
             self.send_header("Content-Type", "text/event-stream")
             self.send_header("Cache-Control", "no-cache")
             self.send_header("X-Request-ID", rid)
+            self.send_header("Traceparent", tp)
             self.end_headers()
             try:
                 for i, piece in enumerate(itertools.chain([first], pieces)):
@@ -294,10 +310,11 @@ def make_server(engine: Engine, host: str, port: int,
             if req.get("stream"):
                 return self._stream(req)
             usage = {}
+            tp, rid = self._trace_identity()
             try:
                 text = engine.chat(req.get("messages", []), req.get("max_tokens"),
                                    req.get("temperature"), req.get("top_p"),
-                                   usage_out=usage, x_request_id=self._request_id())
+                                   usage_out=usage, traceparent=tp, x_request_id=rid)
             except EngineOverloadedError as e:
                 return self._send_overloaded(e)
             except ValueError as e:

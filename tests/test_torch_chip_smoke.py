@@ -23,14 +23,14 @@ ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_127flash_block_fwd_sm9
 ptxas info    : Function properties for _ZN12_GLOBAL__N_127flash_block_fwd_sm90_kernelILi128EEEvNS_4sm904MapsENS_4ArgsE
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 168 registers, used 1 barriers
-ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119flash_bwd_dq_kernelIfLi128EEEvNS_4ArgsE' for 'sm_90a'
-ptxas info    : Function properties for _ZN12_GLOBAL__N_119flash_bwd_dq_kernelIfLi128EEEvNS_4ArgsE
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119flash_bwd_dq_kernelILi128EEEvNS_4ArgsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_119flash_bwd_dq_kernelILi128EEEvNS_4ArgsE
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 255 registers, used 1 barriers
-ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119flash_bwd_dq_kernelI13__nv_bfloat16Li128EEEvNS_4ArgsE' for 'sm_90a'
-ptxas info    : Function properties for _ZN12_GLOBAL__N_119flash_bwd_dq_kernelI13__nv_bfloat16Li128EEEvNS_4ArgsE
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_124flash_bwd_dq_sm90_kernelILi128EEEvNS_4sm907BwdMapsENS_4ArgsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_124flash_bwd_dq_sm90_kernelILi128EEEvNS_4sm907BwdMapsENS_4ArgsE
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
-ptxas info    : Used 128 registers, used 1 barriers
+ptxas info    : Used 168 registers, used 1 barriers
 """
 
 
@@ -46,7 +46,7 @@ def test_kernel_ptxas_picks_the_bf16_hd128_instantiations():
     assert got["flash_fwd"]["registers"] == 168 and got["flash_fwd"]["spill_loads"] == 12
     assert got["flash_block_fwd"] == {"stack": 0, "spill_stores": 0, "spill_loads": 0,
                                       "registers": 168}
-    assert got["flash_bwd_dq"]["registers"] == 128  # bf16, not the f32 build's 255
+    assert got["flash_bwd_dq"]["registers"] == 168  # the bf16 sm90 build, not the f32 one's 255
     assert got["flash_bwd_dkv"] is None
     assert cs.kernel_ptxas(None) == dict.fromkeys(cs.PTXAS_ENTRY)
 
@@ -93,6 +93,38 @@ def test_ptxas_entries_name_kernels_of_the_source(kern):
     name = re.match(r"\w+?_kernel", pat).group(0)
     assert re.search(rf"__global__ void __launch_bounds__\([^)]*\)\s+{name}\(", src), name
     assert "Li128E" in pat, pat
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_gate_fails_a_stale_ring_stage(causal):
+    """The smoke's backward mutants at a small bf16 shape (S 256 in tiles
+    of 64): dQ with K/V tile 1 counted in place of tile 2, dK/dV with Q/dO
+    tile 1 counted twice. The flash gate (FLASH_TOL, unchanged) fails
+    each, and the plain outputs themselves pass it."""
+    from dstack_tpu_torch.workloads import flash_attention as fa
+
+    g = torch.Generator().manual_seed(0)
+    q, k, v, do = (torch.randn((2, 256, 32), generator=g).to(torch.bfloat16)
+                   for _ in range(4))
+    o, lse = fa._flash_fwd_plain(q, k, v, causal)
+    delta = (do.float() * o.float()).sum(-1)
+    refs = {"flash_bwd_dq": (fa._flash_bwd_dq_plain(q, k, v, do, lse, delta, causal),),
+            "flash_bwd_dkv": fa._flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal)}
+    tol = cs.FLASH_TOL[torch.bfloat16]
+    mutants = cs.stale_stage_mutants(q, k, v, do, lse, delta, causal)
+    got = cs.mutant_readings(mutants, refs, tol)
+    assert got["flash_bwd_dq"]["caught"] and got["flash_bwd_dkv"]["caught"], got
+    # When causal, what the stale stage cannot reach stays: dQ's rows before
+    # the stale K/V tile (rows 128 ... 191), dK/dV's keys past the stale
+    # Q/dO tile (the same rows).
+    dq, (dk, dv) = mutants["flash_bwd_dq"][0], mutants["flash_bwd_dkv"]
+    if causal:
+        assert torch.equal(dq[:, :128], refs["flash_bwd_dq"][0][:, :128])
+        assert torch.equal(dk[:, 192:], refs["flash_bwd_dkv"][0][:, 192:])
+    assert not any(r["caught"] for r in cs.mutant_readings(refs, refs, tol).values())
+    with pytest.raises(ValueError, match="two tiles"):
+        cs.stale_stage_mutants(q[:, :100], k[:, :100], v[:, :100], do[:, :100],
+                               lse[:, :100], delta[:, :100], causal)
 
 
 def _paged_case(B, S, H, KV, hd, bs, MB, starts, dtype=torch.bfloat16):

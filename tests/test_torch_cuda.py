@@ -335,6 +335,61 @@ def test_flash_attention_rejects_what_the_kernels_do_not_take(cuda):
                               .contiguous().transpose(1, 2),) * 3, True)
 
 
+def _bwd_inputs(seed, bh, s, hd, dtype, causal):
+    """q, k, v, dO, and the kernel forward's lse and delta = rowsum(dO * O)
+    as `_Flash.backward` forms it."""
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((bh, s, hd)).astype(np.float32))
+                   .to("cuda", dtype) for _ in range(4))
+    o, lse = tfa._flash_fwd_cuda(q, k, v, causal)
+    return q, k, v, do, lse, (do.float() * o.float()).sum(-1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_backward_is_bitwise_deterministic_on_card(cuda, causal, dtype):
+    """Each output tile is written by one CTA, with no atomics: two calls
+    of the backward kernels give the same dq, dk and dv, bit for bit (what
+    a resumed training run needs to equal an unbroken one)."""
+    args = _bwd_inputs(17, 6, 1000, 128, dtype, causal)
+    first = (tfa._flash_bwd_dq_cuda(*args, causal), *tfa._flash_bwd_dkv_cuda(*args, causal))
+    second = (tfa._flash_bwd_dq_cuda(*args, causal), *tfa._flash_bwd_dkv_cuda(*args, causal))
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_flash_backward_replays_in_a_cuda_graph_on_card(cuda, dtype):
+    """Both backward kernels captured in a CUDA graph (the TMA descriptors
+    built at capture, on the captured pointers), replayed after the inputs
+    change in place, give the eager call's dq, dk and dv."""
+    causal = True
+    q, k, v, do, lse, delta = _bwd_inputs(19, 4, 777, 64, dtype, causal)
+    tfa._flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal)  # builds, warms the allocator
+    tfa._flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        dq = tfa._flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal)
+        dk, dv = tfa._flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal)
+    for seed in (23, 29):
+        fresh = _bwd_inputs(seed, 4, 777, 64, dtype, causal)
+        for dst, src in zip((q, k, v, do, lse, delta), fresh):
+            dst.copy_(src)
+        graph.replay()
+        eager = (tfa._flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal),
+                 *tfa._flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal))
+        torch.cuda.synchronize()
+        for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), eager):
+            assert torch.equal(got, want), (seed, name)
+        ref = tfa._flash_bwd_plain(q, k, v, None, lse, do, delta, causal)
+        for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+            assert _within(_errors(got, want), FLASH_TOL[dtype]), (seed, name)
+
+
 @pytest.mark.cuda
 def test_remat_rungs_through_the_kernels_on_card(cuda):
     """tiny at f32 on the card: "dots" and "full" give the loss and grads of

@@ -21,6 +21,7 @@ MODULES = (
     "dstack_tpu_torch.utils",
     "dstack_tpu_torch.utils.flight_recorder",
     "dstack_tpu_torch.utils.histogram",
+    "dstack_tpu_torch.utils.tracecontext",
     "dstack_tpu_torch.workloads",
     "dstack_tpu_torch.workloads._build",
     "dstack_tpu_torch.workloads.attention",

@@ -5,6 +5,7 @@ accounting; refusal of unported options; the native server in process."""
 
 import json
 import threading
+import urllib.error
 import urllib.request
 
 import jax
@@ -229,6 +230,59 @@ def test_native_server_in_process_on_cpu():
         assert code == 200 and stats["admitted_total"] == 2
         code, body = _http("GET", base + "/metrics?format=prometheus")
         assert code == 200 and "dstack_tpu_serving_admitted_total 2" in body
+    finally:
+        server.shutdown()
+        server.server_close()
+        th.join(timeout=10)
+        engine.serving.close()
+
+
+def test_native_server_echoes_the_request_trace_identity():
+    """As the JAX server (tests/test_serving_http.py): X-Request-ID and
+    Traceparent come back on a 200, a 400 and a stream, the caller's when
+    valid and minted otherwise, and the engine's flight recorder keeps the
+    same pair for the request."""
+    from dstack_tpu_torch.native_server import Engine, make_server, start_warmup
+
+    engine = Engine("tiny", max_new_tokens=4, device="cpu", slots=2)
+    server, ready = make_server(engine, "127.0.0.1", 0)
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    th = threading.Thread(target=server.serve_forever, daemon=True)
+    th.start()
+    tp = f"00-{'f0' * 16}-{'1b' * 8}-01"
+    msg = {"messages": [{"role": "user", "content": "hi"}], "max_tokens": 3,
+           "temperature": 0}
+
+    def post(data, headers):
+        req = urllib.request.Request(base + "/v1/chat/completions", data=data,
+                                     headers={"Content-Type": "application/json",
+                                              **headers})
+        try:
+            with urllib.request.urlopen(req, timeout=60) as r:
+                return r.status, r.headers, r.read().decode()
+        except urllib.error.HTTPError as e:
+            return e.code, e.headers, e.read().decode()
+
+    try:
+        start_warmup(engine, ready).join(timeout=60)
+        given = {"X-Request-ID": "trace-test-1", "traceparent": tp}
+        minted = {"X-Request-ID": "bad id!", "traceparent": "00-zz-1b-01"}
+        for body, code in ((json.dumps(msg).encode(), 200), (b"{not json", 400),
+                           (json.dumps({**msg, "stream": True}).encode(), 200)):
+            status, hdrs, text = post(body, given)
+            assert status == code, text
+            assert hdrs["X-Request-ID"] == "trace-test-1"
+            assert hdrs["Traceparent"] == tp
+            status, hdrs, text = post(body, minted)
+            assert status == code, text
+            rid, got_tp = hdrs["X-Request-ID"], hdrs["Traceparent"]
+            assert len(rid) == 16 and int(rid, 16) >= 0, rid
+            assert got_tp != tp and len(got_tp.split("-")) == 4, got_tp
+            if code == 200:
+                rec = engine.serving.recorder.get(rid)
+                assert rec["x_request_id"] == rid and rec["traceparent"] == got_tp
+        rec = engine.serving.recorder.get("trace-test-1")
+        assert rec["traceparent"] == tp and rec["trace_id"] == "f0" * 16
     finally:
         server.shutdown()
         server.server_close()
