@@ -21,7 +21,9 @@ Phases (any failure fails the run; nothing is caught to exit 0):
                launch count over that run; a chunked prefill's logits
                against the dense plain forward;
   5. http    — native_server on localhost: models, two chat completions,
-               metrics;
+               one request's phase trace, the stream's phase_summary,
+               metrics (JSON, and Prometheus with the compile-cache
+               series);
   3b. flash  — the three flash-attention kernels (forward, dQ, dK/dV)
                against their plain versions at the smol-1b training shape
                (B*H 128, S 2048, hd 128, causal) in bf16 and f32 and at a
@@ -57,8 +59,23 @@ Phases (any failure fails the run; nothing is caught to exit 0):
                the flash kernels, whose first loss the ring's must match;
   7b. ring model — smol-1b-8k width at 2 layers, B 1 x S 8192: loss and
                grads through the ring against plain_attention and against
-               the single-device flash kernels, f32 and bf16.
-Phase 3b and 3c run after 3, phases 6 to 7b after 5. The line before the
+               the single-device flash kernels, f32 and bf16;
+  8. checkpoint — smol-1b at full width and depth, B 8 x S 2048, bf16: the
+               train state after two steps saved (seconds, GB/s, the
+               device-to-host share) and restored into a fresh template,
+               bit for bit; one step from the saved state in memory, one
+               from each of two restores (both bit for bit): the step from
+               a restore must equal the step from the saved state bit for
+               bit where the card's step repeats, else lie within 3x its
+               spread; whether the embedding gather's backward repeats;
+  8b. drain  — a 2-layer smol-1b trainer (B 2 x S 2048) in a subprocess,
+               with DSTACK_RUN_NAME and a fresh DSTACK_TPU_COMPILE_CACHE:
+               its stage markers in order and one kernel build (a miss);
+               SIGTERM after step 2, exit 113 with a checkpoint at step 2
+               (the drain's save timed); a relaunch on the same volume and
+               cache hits the cache (no build), resumes at step 2 and runs
+               to step 5.
+Phase 3b and 3c run after 3, phases 6 to 8b after 5. The line before the
 last is the `kernels` JSON; the last line is {"ok": true, "device": {...}}.
 Each phase logs its numbers on the way; details also go to
 chiprun_out/chip_smoke.json.
@@ -871,7 +888,7 @@ def run_train(preset: str, B: int, S: int, seq_shards: int = 1, n_steps: int = 5
         peak_mem_gb=peak / 1e9,
         estimator_activation_gb=cfg.activation_bytes(B * S, device_shards(mesh),
                                                      seq_len=S) / 1e9,
-        train_state_gb=sum(t.numel() * t.element_size() for t in _state_tensors(state)) / 1e9,
+        train_state_gb=sum(t.numel() * t.element_size() for _, t in state_leaves(state)) / 1e9,
         losses=losses, grad_norms=norms, launches=launches,
         launches_per_step={k: v // (n_warm + n_steps) for k, v in launches.items()})
     log(f"train stats ({preset}, {seq_shards} seq shards)", json.dumps(stats))
@@ -888,12 +905,14 @@ def run_train(preset: str, B: int, S: int, seq_shards: int = 1, n_steps: int = 5
     return stats
 
 
-def _state_tensors(state):
+def state_leaves(state):
+    """[(group/path, tensor)] of a train state: params, mu, nu."""
     from dstack_tpu_torch.workloads.weights import flatten_params
 
-    yield from (t for _, t in flatten_params(state.params))
-    yield from (t for _, t in flatten_params(state.opt_state.mu))
-    yield from (t for _, t in flatten_params(state.opt_state.nu))
+    opt = state.opt_state
+    return [(f"{g}/{k}", t) for g, tree in (("params", state.params), ("mu", opt.mu),
+                                            ("nu", opt.nu))
+            for k, t in flatten_params(tree)]
 
 
 def profile_step(step, state, batch):
@@ -1179,10 +1198,10 @@ def profile_wave(eng, cfg):
 # -- phase 5: http -----------------------------------------------------------
 
 
-def http(method, url, body=None, timeout=120):
+def http(method, url, body=None, timeout=120, headers=None):
     data = None if body is None else json.dumps(body).encode()
     req = urllib.request.Request(url, data=data, method=method,
-                                 headers={"Content-Type": "application/json"})
+                                 headers={"Content-Type": "application/json", **(headers or {})})
     with urllib.request.urlopen(req, timeout=timeout) as r:
         return r.status, r.read().decode()
 
@@ -1214,22 +1233,322 @@ def run_http(params):
         assert code == 200 and json.loads(body)["data"], body
         msg = {"messages": [{"role": "user", "content": "hello from the card"}],
                "max_tokens": 12, "temperature": 0}
-        code, body = http("POST", base + "/v1/chat/completions", msg)
+        code, body = http("POST", base + "/v1/chat/completions", msg,
+                          headers={"X-Request-ID": "chip-smoke-1"})
         resp = json.loads(body)
         assert code == 200 and resp["usage"]["completion_tokens"] == 12, body
+        code, body = http("GET", base + "/v1/requests/chip-smoke-1/trace")
+        trace = json.loads(body)
+        phases = [p["phase"] for p in trace["phases"]]
+        assert code == 200 and trace["status"] == "ok" and "decode" in phases, body
         code, body = http("POST", base + "/v1/chat/completions", {**msg, "stream": True})
         assert code == 200 and body.rstrip().endswith("data: [DONE]"), body[-200:]
+        assert '"phase_summary"' in body.rsplit("data: ", 2)[-2], body[-400:]
         code, body = http("GET", base + "/metrics")
         m = json.loads(body)
         assert code == 200 and m["admitted_total"] >= 2 and m["attn_path"] == "cuda", m
         code, body = http("GET", base + "/metrics?format=prometheus")
         assert code == 200 and 'dstack_tpu_serving_attn_dispatch_total{path="cuda"}' in body
-        log(f"http: models, 2 chat completions and metrics answered 200 on :{port}")
+        assert "dstack_tpu_compile_cache_hits_total" in body, body
+        log(f"http: models, 2 chat completions, a request's trace ({', '.join(phases)}),"
+            f" the stream's phase_summary and metrics answered 200 on :{port}")
     finally:
         server.shutdown()
         server.server_close()
         th.join(timeout=10)
         engine.serving.close()
+
+
+# -- phase 8: the train-state checkpoint at full width -------------------------
+
+
+def host_copies(state) -> dict:
+    """{group/path: host copy} of every leaf of a train state."""
+    return {name: t.detach().to("cpu", copy=True) for name, t in state_leaves(state)}
+
+
+def leaf_rel_l2(x: torch.Tensor, ref: torch.Tensor) -> float:
+    x, ref = x.float(), ref.float()
+    return float((x - ref).norm() / ref.norm().clamp_min(1e-30))
+
+
+def gather_backward_repeatable(cfg, batch, tries: int = 3) -> bool:
+    """Whether the embedding gather's backward (`params["embed"][tokens]`,
+    transformer.py; index_put_ with accumulate) gives the same bits twice
+    at this batch, in the model's dtype."""
+    dev = batch["inputs"].device
+    g = torch.Generator(device=dev).manual_seed(3)
+    w = torch.randn((cfg.vocab_size, cfg.d_model), generator=g, device=dev,
+                    dtype=cfg.activation_dtype).requires_grad_(True)
+    up = torch.randn((*batch["inputs"].shape, cfg.d_model), generator=g, device=dev,
+                     dtype=cfg.activation_dtype)
+
+    def once():
+        return torch.autograd.grad(w[batch["inputs"]], w, up)[0]
+
+    first = once()
+    return all(torch.equal(first, once()) for _ in range(tries))
+
+
+def check_restore(state, saved: dict, saved_at) -> int:
+    """Every leaf of `state` and its (step, count) bit-equal to the saved
+    host copies; returns the number of leaves."""
+    leaves = state_leaves(state)
+    bad = [name for name, t in leaves if not torch.equal(t, saved[name].to(t.device))]
+    at = (state.step, state.opt_state.count)
+    if bad or at != saved_at:
+        raise AssertionError(f"restore is not the saved state: {bad[:8]} {at} vs {saved_at}")
+    return len(leaves)
+
+
+def run_checkpoint(preset: str = "smol-1b", B: int = 8, S: int = 2048):
+    """`preset` at full width and depth, B x S, bf16: two train steps, then
+    save the state (params, AdamW moments, step, count) and restore it into
+    a fresh template, bit for bit. Continuation: one step from the state in
+    memory at the save (a), one from a restore (b), one more from a second
+    restore (c), which must be bit for bit too; (b) must equal (a) bit for
+    bit wherever (b) equals (c), and elsewhere lie within 3x the (b)-(c)
+    spread. One state is on the card at a time; the saved state, (a) and
+    (b) are kept as host copies."""
+    import tempfile
+    from pathlib import Path
+
+    from dstack_tpu_torch.workloads import checkpoint as ckpt
+    from dstack_tpu_torch.workloads.config import PRESETS
+    from dstack_tpu_torch.workloads.train import (
+        init_train_state,
+        make_train_step,
+        synthetic_batch,
+    )
+
+    cfg = PRESETS[preset]
+    step = make_train_step(cfg)
+    batch = synthetic_batch(cfg, B, S, seed=0)
+    state = init_train_state(cfg, seed=0)
+    for _ in range(2):
+        state, m = step(state, batch)
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size() for _, t in state_leaves(state))
+    out = dict(preset=preset, layers=cfg.n_layers, batch=B, seq_len=S, dtype=cfg.dtype,
+               state_bytes=nbytes)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as vol:
+        saved, saved_at = host_copies(state), (state.step, state.opt_state.count)
+        t0 = time.monotonic()
+        ckpt.save(vol, state)  # returns once every leaf is on the host
+        t_d2h = time.monotonic() - t0
+        ckpt.close_all()  # the write, on disk (fsync)
+        t_save = time.monotonic() - t0
+        out.update(file_bytes=(Path(vol) / str(state.step) / "weights.bin").stat().st_size,
+                   save_s=t_save, save_gb_per_s=nbytes / t_save / 1e9,
+                   save_d2h_s=t_d2h, save_d2h_share=t_d2h / t_save)
+        state, m = step(state, batch)  # (a), from the state in memory
+        a, loss_a = host_copies(state), float(m["loss"])
+        del state, m
+        torch.cuda.empty_cache()
+        template = init_train_state(cfg, seed=1)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        state = ckpt.restore_latest(vol, template)
+        torch.cuda.synchronize()
+        t_restore = time.monotonic() - t0
+        out.update(restore_s=t_restore, restore_gb_per_s=nbytes / t_restore / 1e9)
+        n_equal = check_restore(state, saved, saved_at)
+        out.update(restore_bit_exact=True, restored_leaves=n_equal,
+                   restored_step_count=saved_at)
+        log(f"checkpoint {preset} B {B} x S {S}: {nbytes / 1e9:.3f} GB saved in {t_save:.2f}s"
+            f" ({out['save_gb_per_s']:.2f} GB/s; device-to-host {t_d2h:.2f}s, share"
+            f" {out['save_d2h_share']:.3f}), restored in {t_restore:.2f}s"
+            f" ({out['restore_gb_per_s']:.2f} GB/s); step/count {saved_at};"
+            f" {n_equal} leaves bit-equal")
+        state, m = step(state, batch)  # (b), from a restore
+        b, loss_b = host_copies(state), float(m["loss"])
+        state = ckpt.restore_latest(vol, state)  # into the same tensors
+        check_restore(state, saved, saved_at)
+        del saved
+        state, m = step(state, batch)  # (c), from a second restore
+        loss_c = float(m["loss"])
+        per_leaf, failed = {}, []
+        for name, t in state_leaves(state):
+            tb = b[name].to(t.device)
+            repeat = torch.equal(t, tb)
+            same = torch.equal(tb, a[name].to(t.device))
+            rel_ba = 0.0 if same else leaf_rel_l2(tb, a[name].to(t.device))
+            rel_bc = 0.0 if repeat else leaf_rel_l2(tb, t)
+            per_leaf[name] = dict(repeatable=repeat, b_equals_a=same, rel_l2_b_a=rel_ba,
+                                  rel_l2_b_c=rel_bc)
+            if (repeat and not same) or (not repeat and not rel_ba <= 3 * rel_bc):
+                failed.append(name)
+        del state, m, a, b
+        torch.cuda.empty_cache()
+    loss_repeat = loss_b == loss_c
+    loss_ok = loss_b == loss_a if loss_repeat else abs(loss_b - loss_a) <= 3 * abs(loss_b - loss_c)
+    not_repeatable = [n for n, r in per_leaf.items() if not r["repeatable"]]
+    gather_repeat = gather_backward_repeatable(cfg, batch)
+    out.update(losses_abc=[loss_a, loss_b, loss_c], loss_repeatable=loss_repeat,
+               step_bit_repeatable=loss_repeat and not not_repeatable,
+               leaves_not_repeatable=not_repeatable,
+               gather_backward_repeatable=gather_repeat,
+               worst_rel_l2_b_a=max(r["rel_l2_b_a"] for r in per_leaf.values()),
+               worst_rel_l2_b_c=max(r["rel_l2_b_c"] for r in per_leaf.values()),
+               leaves=per_leaf)
+    log(f"checkpoint continuation: losses a {loss_a!r} b {loss_b!r} c {loss_c!r};"
+        f" {len(per_leaf) - len(not_repeatable)}/{len(per_leaf)} leaves bit-repeatable"
+        f" (b = c), not: {not_repeatable[:8]}; worst rel_l2 b-a {out['worst_rel_l2_b_a']:.3e},"
+        f" b-c {out['worst_rel_l2_b_c']:.3e}; the embedding gather's backward"
+        f" {'is' if gather_repeat else 'is not'} bit-repeatable")
+    if failed or not loss_ok:
+        raise AssertionError(f"a step from the restore is not the step from the saved state:"
+                             f" leaves {failed[:8]}, loss ok {loss_ok}")
+    del batch
+    torch.cuda.empty_cache()
+    return out
+
+
+# -- phase 8b: drain and resume in a subprocess trainer ------------------------
+
+# The drill trainer of phase 8b, shaped like dstack_tpu/chaos/scenarios.py's:
+# a DrainHandler, a restore from the volume, and after each step a JSON line
+# (step, loss, the kernel cache's counters); after step argv[3] it holds
+# until a drain comes (up to 300 s), so the smoke's SIGTERM lands after a
+# known step.
+DRAIN_TRAINER = """
+import json, sys, time
+vol, steps, hold = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+from dstack_tpu_torch.workloads import _build, compile_cache
+from dstack_tpu_torch.workloads import checkpoint as ckpt
+from dstack_tpu_torch.workloads.config import PRESETS
+from dstack_tpu_torch.workloads.train import (
+    init_train_state, install_drain_handler, make_train_step, synthetic_batch)
+
+drain = install_drain_handler()
+cfg = PRESETS["smol-1b"].with_(n_layers=2)
+state = init_train_state(cfg, seed=0)
+restored = ckpt.restore_latest(vol, state)
+if restored is not None:
+    state = restored
+    print(f"resumed from step {state.step}", flush=True)
+step = make_train_step(cfg)
+batch = synthetic_batch(cfg, 2, 2048, seed=0)
+for _ in range(state.step, steps):
+    state, m = step(state, batch)
+    print(json.dumps({"step": state.step, "loss": float(m["loss"]),
+                      "cache": compile_cache.snapshot(), "cache_dir": compile_cache.enabled_dir(),
+                      "build_s": _build.build_seconds, "load_s": _build.load_seconds}), flush=True)
+    deadline = time.monotonic() + (300 if state.step == hold else 0)
+    while not drain.draining and time.monotonic() < deadline:
+        time.sleep(0.01)
+    if drain.draining:
+        drain.checkpoint_and_exit(vol, state)
+print("final", state.step, flush=True)
+"""
+TRAIN_STAGES = ["tpu_init", "compile_start", "compile_end", "first_step"]
+
+
+def launch_trainer(vol, steps, env, sigterm_after=None, timeout=600):
+    """Run DRAIN_TRAINER to its exit: (rc, its output lines, stderr merged
+    in, seconds from the SIGTERM to the exit). With `sigterm_after`, the
+    trainer holds after that step and SIGTERM goes out once it reports it."""
+    import signal
+
+    proc = subprocess.Popen([sys.executable, "-c", DRAIN_TRAINER, vol, str(steps),
+                             str(sigterm_after or 0)],
+                            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    lines, t_sig = [], None
+    try:
+        if sigterm_after is not None:
+            for line in proc.stdout:
+                lines.append(line.rstrip("\n"))
+                if line.startswith("{") and json.loads(line)["step"] == sigterm_after:
+                    t_sig = time.monotonic()
+                    proc.send_signal(signal.SIGTERM)
+                    break
+        rest, _ = proc.communicate(timeout=timeout)
+        t_exit = time.monotonic()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    lines += rest.splitlines()
+    return proc.returncode, lines, (t_exit - t_sig if t_sig else None)
+
+
+def run_drain():
+    """Launch 1 of a 2-layer smol-1b trainer (B 2 x S 2048) with
+    DSTACK_RUN_NAME set and DSTACK_TPU_COMPILE_CACHE at a fresh directory:
+    its stage markers in order, one kernel build (a miss); SIGTERM after
+    step 2, exit 113 with a checkpoint at that step. Launch 2 on the same
+    volume and cache: a hit and no build, resumed at the saved step, run to
+    step 5 with finite losses."""
+    import tempfile
+    from pathlib import Path
+
+    from dstack_tpu_torch.utils.stagemarkers import parse_stage_marker
+    from dstack_tpu_torch.workloads import _build
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_drain_") as tmp:
+        vol, cache = os.path.join(tmp, "ckpt"), os.path.join(tmp, "kernels")
+        env = {**os.environ, "DSTACK_RUN_NAME": "chip-smoke-drain",
+               "DSTACK_TPU_COMPILE_CACHE": cache,
+               "PYTHONPATH": os.pathsep.join(
+                   [os.path.dirname(os.path.abspath(__file__))]
+                   + [x for x in [os.environ.get("PYTHONPATH")] if x])}
+        t0 = time.monotonic()
+        rc1, out1, drain_wall = launch_trainer(vol, 5, env, sigterm_after=2)
+        wall1 = time.monotonic() - t0
+        log(f"drain launch 1: rc {rc1} in {wall1:.1f}s;", " | ".join(out1[-6:]))
+        if rc1 != 113:
+            raise AssertionError(f"launch 1 exited {rc1}, not 113:\n" + "\n".join(out1[-40:]))
+        stages1 = [parse_stage_marker(x) for x in out1 if parse_stage_marker(x)]
+        steps1 = [json.loads(x) for x in out1 if x.startswith("{")]
+        drained = [x for x in out1 if x.startswith("drain: checkpoint saved at step")]
+        saved_step = int(drained[0].split()[5]) if drained else None
+        drain_save_s = float(drained[0].split()[7].rstrip("s;")) if drained else None
+        t0 = time.monotonic()
+        rc2, out2, _ = launch_trainer(vol, 5, env)
+        wall2 = time.monotonic() - t0
+        log(f"drain launch 2: rc {rc2} in {wall2:.1f}s;", " | ".join(out2[-5:]))
+        if rc2 != 0:
+            raise AssertionError(f"launch 2 exited {rc2}:\n" + "\n".join(out2[-40:]))
+        steps2 = [json.loads(x) for x in out2 if x.startswith("{")]
+        leaf = Path(steps1[0]["cache_dir"]) if steps1 and steps1[0]["cache_dir"] else None
+        libs = sorted(p.name for p in leaf.iterdir()) if leaf and leaf.is_dir() else []
+    c1, c2 = steps1[0]["cache"], steps2[0]["cache"]
+    out = dict(
+        launch1=dict(rc=rc1, wall_s=wall1, stages=stages1, steps=[x["step"] for x in steps1],
+                     losses=[x["loss"] for x in steps1], cache=c1,
+                     build_s=steps1[0]["build_s"], load_s=steps1[0]["load_s"],
+                     drained_at_step=saved_step, drain_save_s=drain_save_s,
+                     sigterm_to_exit_s=drain_wall),
+        launch2=dict(rc=rc2, wall_s=wall2, resumed=[x for x in out2 if x.startswith("resumed")],
+                     steps=[x["step"] for x in steps2], losses=[x["loss"] for x in steps2],
+                     cache=c2, build_s=steps2[0]["build_s"], load_s=steps2[0]["load_s"]),
+        cache_leaf=str(leaf), cache_leaf_files=libs)
+    log("drain and resume", json.dumps(out))
+    want_leaf = f"nvcc{{}}-{_build.ARCH.replace('_', '')}"
+    checks = {
+        "launch 1 stage markers in order": stages1 == TRAIN_STAGES,
+        "launch 1 built once (a miss)": (c1["compiles"], c1["cache_misses"], c1["cache_hits"])
+        == (1, 1, 0) and c1["compile_seconds"] > 0,
+        "the library in the keyed leaf": leaf is not None and leaf.parent == Path(cache)
+        and re.fullmatch(want_leaf.format(r"\d+\.\d+"), leaf.name) is not None
+        and f"libdstack_kernels_{_build._digest()}.so" in libs,
+        "drained at the last finished step": saved_step == steps1[-1]["step"] == 2,
+        "launch 2 hit the cache, no build": (c2["compiles"], c2["cache_misses"],
+                                             c2["cache_hits"]) == (0, 0, 1),
+        "launch 2 resumed at the saved step": out["launch2"]["resumed"]
+        == [f"resumed from step {saved_step}"] and out["launch2"]["steps"] == [3, 4, 5]
+        and out2[-1] == "final 5",
+        "finite losses": all(math.isfinite(x) for x in out["launch1"]["losses"]
+                             + out["launch2"]["losses"]),
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"drain and resume: {bad}")
+    log(f"drain: saved in {drain_save_s:.3f}s (SIGTERM to exit {drain_wall:.2f}s); kernel"
+        f" build {out['launch1']['build_s']:.2f}s (+ load {out['launch1']['load_s']:.4f}s)"
+        f" vs cache-hit load {out['launch2']['load_s']:.4f}s")
+    return out
 
 
 PAGED_TIMES = ("ms", "ms_one_launch", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -1355,6 +1674,14 @@ def main() -> int:
     ring_model = run_model_check("smol-1b-8k", 1, 8192, seq_shards=RING_SHARDS)
     log(f"phases 7-7b: {time.monotonic() - t0:.1f}s")
 
+    # 8. the train-state checkpoint of smol-1b at full width and depth
+    t0 = time.monotonic()
+    checkpoint = run_checkpoint()
+
+    # 8b. SIGTERM drain and resume of a subprocess trainer, kernel cache
+    drain = run_drain()
+    log(f"phases 8-8b: {time.monotonic() - t0:.1f}s")
+
     log(f"total {time.monotonic() - t_all:.1f}s")
     kernels = {"kernels": [paged_entry(kres, launches, wave)]}
     # `ms` (and so `tflops` and `bound_share`) times launches back to back
@@ -1388,6 +1715,7 @@ def main() -> int:
     with open(OUT, "w") as f:
         json.dump({"device": smi, "paged": kres, "flash": fres, "train": train,
                    "model_check": model, "ring_train": ring, "ring_model_check": ring_model,
+                   "checkpoint": checkpoint, "drain": drain,
                    "build_s": _build.build_seconds}, f, indent=1)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,13 +10,23 @@
 `--seq-parallel n` builds a seq mesh whose n sequence shards take turns on
 the one device through the ring (workloads/attention.py); it works on the
 CPU too (`--device cpu --preset tiny --seq-parallel 4 --seq-len 256`).
-With --checkpoint-dir the final params are written as a packed export
-(`<dir>/packed/`), which `python -m dstack_tpu_torch.native_server
---checkpoint-dir <dir>` serves. Periodic train-state checkpoints, resume,
---model-parallel, --expert-parallel and LoRA are not ported yet.
+
+`--checkpoint-dir` (default `$CHECKPOINT_DIR`, a directory on a mounted
+volume) makes a run resumable, as the JAX example trainer: the newest
+train-state checkpoint there is restored and the loop continues from its
+step (the data loader too); a checkpoint is saved every 100 steps and at
+the last step, and the final params are exported (`<dir>/packed/`), which
+`python -m dstack_tpu_torch.native_server --checkpoint-dir <dir>` serves.
+A retried job therefore resumes where the last one saved; a drained one
+where it was drained (train.DrainHandler). On the card the kernel library
+is built into `$DSTACK_TPU_COMPILE_CACHE` when it is set
+(workloads/compile_cache.py), so a repeat boot on the same volume skips
+the build. --model-parallel, --expert-parallel and LoRA are not ported
+yet.
 """
 
 import argparse
+import os
 import time
 from typing import Optional
 
@@ -36,10 +46,10 @@ def main(argv: Optional[list] = None) -> None:
                              " the plain PyTorch path)")
     parser.add_argument("--data", default="",
                         help="flat int32 token .npy (workloads/data.py); synthetic if unset")
-    parser.add_argument("--checkpoint-dir", default="",
-                        help="write the final params here as a packed export that"
-                             " native_server --checkpoint-dir serves. Periodic"
-                             " train-state checkpoints and resume are not ported yet")
+    parser.add_argument("--checkpoint-dir", default=os.environ.get("CHECKPOINT_DIR", ""),
+                        help="directory on a mounted volume: resume from its newest"
+                             " checkpoint, save every 100 steps and at the end, and"
+                             " export the final params for native_server")
     parser.add_argument("--model-parallel", type=int, default=1)
     parser.add_argument("--seq-parallel", type=int, default=1)
     parser.add_argument("--expert-parallel", type=int, default=1)
@@ -56,13 +66,13 @@ def main(argv: Optional[list] = None) -> None:
             f"not ported to PyTorch yet: {', '.join(unported)} (the port trains"
             " dense models on one device, with --seq-parallel as its ring)")
 
+    from dstack_tpu_torch.workloads import checkpoint as ckpt
+    from dstack_tpu_torch.workloads.sharding import make_mesh
     from dstack_tpu_torch.workloads.train import (
         init_train_state,
         make_train_step,
         synthetic_batch,
     )
-    from dstack_tpu_torch.workloads.sharding import make_mesh
-    from dstack_tpu_torch.workloads.weights import save_packed
 
     config = PRESETS[args.preset]
     seq_len = args.seq_len or min(2048, config.max_seq_len)
@@ -81,17 +91,26 @@ def main(argv: Optional[list] = None) -> None:
     ring = f", ring over {args.seq_parallel} seq shards" if mesh else ""
     print(f"{args.preset}: {config.param_count() / 1e9:.3f}B params on {device},"
           f" batch {args.batch_size} x {seq_len}{ring}", flush=True)
+    if args.checkpoint_dir:
+        # Resume from the volume: a retried job continues at the last saved
+        # step instead of step 0.
+        restored = ckpt.restore_latest(args.checkpoint_dir, state)
+        if restored is not None:
+            state = restored
+            print(f"resumed from step {state.step}", flush=True)
+    start = state.step
     loader = None
     if args.data:
         from dstack_tpu_torch.workloads.data import BatchLoader, TokenDataset
 
         loader = BatchLoader(TokenDataset(args.data, seq_len), args.batch_size,
-                             device=device, vocab_size=config.vocab_size)
+                             device=device, start_step=start,
+                             vocab_size=config.vocab_size)
     else:
         batch = synthetic_batch(config, args.batch_size, seq_len, device=device)
     try:
         t0 = time.monotonic()
-        for i in range(args.steps):
+        for i in range(start, args.steps):
             if loader is not None:
                 batch = next(loader)
             state, metrics = step(state, batch)
@@ -99,11 +118,15 @@ def main(argv: Optional[list] = None) -> None:
                 print(f"step {i}: loss {float(metrics['loss']):.4f}"
                       f" grad_norm {float(metrics['grad_norm']):.4f}"
                       f" ({time.monotonic() - t0:.1f}s)", flush=True)
+            if args.checkpoint_dir and ((i + 1) % 100 == 0 or i == args.steps - 1):
+                # Block on the last one so the job ends with it on disk.
+                ckpt.save(args.checkpoint_dir, state, wait=i == args.steps - 1)
     finally:
         if loader is not None:
             loader.close()
     if args.checkpoint_dir:
-        path = save_packed(args.checkpoint_dir, state.params)
+        path = ckpt.export_params(args.checkpoint_dir, state)
+        ckpt.close_all()
         print(f"params exported to {path}", flush=True)
     print("training complete", flush=True)
 

@@ -4,10 +4,19 @@ unified subset of examples/deployment/native/server.py).
 Endpoints: GET /v1/models, POST /v1/chat/completions (plain and SSE),
 GET /healthz (liveness), GET /readyz (503 until the engine's warmup has
 built the kernel and run every program once), GET /metrics (JSON, or
-Prometheus text with ?format=prometheus or Accept: text/plain). Every
+Prometheus text with ?format=prometheus or Accept: text/plain), GET
+/v1/requests/<id>/trace (one request's phase timeline from the flight
+recorder, by engine id or X-Request-ID; a JSON 404 when unknown). Every
 JSON and SSE response echoes the request's `X-Request-ID` and
 `Traceparent` (minted when absent or malformed), the identity that the
-engine's flight recorder keeps for the request.
+engine's flight recorder keeps for the request; a stream ends with a
+`phase_summary` chunk (an empty-delta choice) before `[DONE]`.
+
+Weights (`--checkpoint-dir`), in the reference's cold-start order: the
+packed export first, then the params of the newest train-state
+checkpoint (workloads/checkpoint.py); the load is bracketed by the
+weights_start / weights_end stage markers. `--compile-cache-dir` (else
+`$DSTACK_TPU_COMPILE_CACHE`) keeps the kernel library on a volume.
 
 The tokenizer is the same toy byte-level one as the JAX server's, so the
 server runs without a vocabulary download; swap in a real tokenizer for
@@ -25,7 +34,11 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
+import torch
+
+from dstack_tpu_torch.utils.stagemarkers import auto_stage
 from dstack_tpu_torch.utils.tracecontext import ensure_request_trace
+from dstack_tpu_torch.workloads import compile_cache
 from dstack_tpu_torch.workloads.config import PRESETS
 from dstack_tpu_torch.workloads.device import DeviceLike, resolve_device
 from dstack_tpu_torch.workloads.serving import (
@@ -48,7 +61,8 @@ class Engine:
                  device: DeviceLike = None, slots: int = 8,
                  steps_per_sync: int = 4, max_prefills_per_chunk: int = 4,
                  prefill_chunk_tokens: int = 128, kv_block_size: int = 16,
-                 max_pending: int = 16, seed: int = 0, params=None):
+                 max_pending: int = 16, seed: int = 0, params=None,
+                 trace_ring: int = 256, trace_slow_ms: Optional[float] = None):
         self.config = PRESETS[preset]
         if max_new_tokens >= self.config.max_seq_len:
             raise ValueError(
@@ -57,18 +71,24 @@ class Engine:
             )
         self.max_new_tokens = max_new_tokens
         self.device = resolve_device(device)
+        auto_stage("weights_start")
         t0 = time.monotonic()
         weights_via = "given"
         if params is None and checkpoint_dir:
-            from dstack_tpu_torch.workloads.weights import load_packed
+            from dstack_tpu_torch.workloads import checkpoint as ckpt
 
-            params = load_packed(checkpoint_dir, self.device)
+            # Cold-start order: the packed export, then the params of the
+            # newest train-state checkpoint (its moments are not read).
+            params = ckpt.load_packed(checkpoint_dir, self.device)
+            weights_via = "packed"
+            if params is None:
+                params = ckpt.restore_latest_params(checkpoint_dir, self.device)
+                weights_via = "checkpoint"
             if params is None:
                 raise ValueError(
-                    f"no packed export under {checkpoint_dir}/packed"
-                    " (the port reads checkpoint.save_packed exports only)"
+                    f"no packed export ({checkpoint_dir}/packed) and no"
+                    f" train-state checkpoint under {checkpoint_dir}"
                 )
-            weights_via = "packed"
         elif params is None:
             params = init_params(self.config, seed, self.device)
             weights_via = "init"
@@ -76,6 +96,9 @@ class Engine:
             from dstack_tpu_torch.workloads.quant import quantize_params
 
             params = quantize_params(params)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        auto_stage("weights_end")
         self.weights_seconds = time.monotonic() - t0
         self.weights_via = weights_via
         self.serving = ServingEngine(
@@ -84,6 +107,7 @@ class Engine:
             max_prefills_per_chunk=max_prefills_per_chunk,
             prefill_chunk_tokens=prefill_chunk_tokens,
             kv_block_size=kv_block_size, device=self.device,
+            trace_ring=trace_ring, trace_slow_ms=trace_slow_ms,
         )
         self.params = self.serving.params  # detached: serving builds no graph
 
@@ -259,6 +283,17 @@ def make_server(engine: Engine, host: str, port: int,
                     self.wfile.flush()
                 self.wfile.write(b"data: " + json.dumps(
                     self._chunk({}, "length")).encode() + b"\n\n")
+                # The flight recorder's phase summary of this stream, so the
+                # client sees where its latency went without a second round
+                # trip; an empty-delta choice, since SSE consumers commonly
+                # index choices[0] unconditionally.
+                trace = engine.serving.request_trace(rid)
+                if trace is not None:
+                    summary = self._chunk({})
+                    summary["phase_summary"] = {
+                        k: trace[k] for k in ("request_id", "trace_id", "total_seconds",
+                                              "phases", "counters")}
+                    self.wfile.write(b"data: " + json.dumps(summary).encode() + b"\n\n")
                 self.wfile.write(b"data: [DONE]\n\n")
             except Exception:
                 # Headers are committed: truncating without [DONE] is the
@@ -297,6 +332,14 @@ def make_server(engine: Engine, host: str, port: int,
                     self.wfile.write(body)
                     return
                 return self._send(200, stats)
+            if path.startswith("/v1/requests/") and path.endswith("/trace"):
+                # By engine request id or client X-Request-ID (the live ring
+                # first, then the tail store).
+                rid = path[len("/v1/requests/"):-len("/trace")]
+                trace = engine.serving.request_trace(rid)
+                if trace is None:
+                    return self._send(404, {"error": f"no trace for request {rid!r}"})
+                return self._send(200, trace)
             self._send(404, {"error": "not found"})
 
         def do_POST(self):
@@ -375,8 +418,13 @@ def main(argv: Optional[list] = None) -> None:
     parser.add_argument("--checkpoint-dir", default="",
                         help="directory holding a save_packed export"
                              " (packed/manifest.json + weights.bin) from the JAX"
-                             " package or the port's fine_tune;"
-                             " without it weights are random from --seed")
+                             " package or the port's fine_tune, or else the port's"
+                             " train-state checkpoints; without it weights are"
+                             " random from --seed")
+    parser.add_argument("--compile-cache-dir", default="",
+                        help="kernel-library cache base dir (wins over"
+                             " $DSTACK_TPU_COMPILE_CACHE); the library lands in a"
+                             " leaf keyed by nvcc release and architecture")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--quantize", default="none", choices=["none", "int8"])
     parser.add_argument("--max-pending", type=int, default=16)
@@ -388,7 +436,18 @@ def main(argv: Optional[list] = None) -> None:
     parser.add_argument("--no-warmup", action="store_true",
                         help="skip the warmup pass (the first request then"
                              " pays the kernel build)")
+    parser.add_argument("--trace-ring", type=int, default=256,
+                        help="flight-recorder ring size (retained request"
+                             " traces); 0 disables per-request tracing")
+    parser.add_argument("--trace-slow-ms", type=float, default=None,
+                        help="tail-based capture threshold: full traces persist"
+                             " only for requests at/above this many ms or ending"
+                             " in error/shed (unset disables tail capture)")
     args = parser.parse_args(argv)
+    # An explicit cache dir must be live before the engine's warmup or a
+    # first request builds the kernel library.
+    if args.compile_cache_dir:
+        compile_cache.enable(args.compile_cache_dir)
     try:
         engine = Engine(
             args.preset, args.max_new_tokens, args.checkpoint_dir,
@@ -397,10 +456,14 @@ def main(argv: Optional[list] = None) -> None:
             max_prefills_per_chunk=args.max_prefills_per_chunk,
             prefill_chunk_tokens=args.prefill_chunk_tokens,
             kv_block_size=args.kv_block_size, max_pending=args.max_pending,
-            seed=args.seed,
+            seed=args.seed, trace_ring=args.trace_ring,
+            trace_slow_ms=args.trace_slow_ms,
         )
     except ValueError as e:
         raise SystemExit(f"invalid serving configuration: {e}")
+    leaf = engine.serving.stats()["compile_cache_dir"]
+    if leaf:
+        print(f"compile cache: {leaf}", flush=True)
     server, ready = make_server(engine, args.host, args.port, args.model_name)
     print(f"native model server (torch, {engine.device}): {args.model_name}"
           f" on :{server.server_address[1]}", flush=True)

@@ -1,0 +1,272 @@
+"""Train-state checkpoints on a mounted volume, and the packed serving
+export (the counterpart of `dstack_tpu.workloads.checkpoint`).
+
+The orchestrator re-provisions a retried gang with the same volume mounts;
+a trainer that calls `save` / `restore_latest` against the volume resumes
+at its last saved step instead of step 0, and a drained one
+(`train.DrainHandler`) at the step it was drained at.
+
+Format: the reference writes Orbax, which the port cannot import (the
+card's machine has no JAX), so the port's train-state format is its own.
+One directory per step, the packed layout of `weights.save_packed`:
+
+    <dir>/<step>/manifest.json   {name, shape, dtype, offset, nbytes} per leaf
+    <dir>/<step>/weights.bin     params/<path>, mu/<path>, nu/<path> leaves
+    <dir>/<step>/state.json      {"format": 1, "step": N, "count": C}
+
+Neither package reads the other's train-state checkpoints. Params travel
+between them through the packed export (`export_params`, which both
+packages' servers load), and a JAX TrainState reaches the port through
+`weights.train_state_from_numpy`.
+
+A step is written into a temporary directory beside the others, each file
+reaches the disk (fsync), and the directory is then published by rename;
+`restore_latest` takes the newest step directory that holds its
+state.json, so a killed writer never leaves a half checkpoint that looks
+valid. Only the newest MAX_TO_KEEP steps are kept.
+
+`save` is asynchronous by default. The port's train step updates params
+and moments in place, so `save` copies every leaf to the host before it
+returns (on the CPU too, where `.cpu()` would alias the live storage);
+only the file write runs on the directory's background writer, and saves
+to one directory are written in order.
+"""
+
+import json
+import os
+import shutil
+import tempfile
+import threading
+from concurrent.futures import Future, ThreadPoolExecutor
+from pathlib import Path
+from typing import Any, Dict, List, Optional, Tuple, Union
+
+import torch
+
+from dstack_tpu_torch.workloads.device import DeviceLike, resolve_device
+from dstack_tpu_torch.workloads.weights import (  # noqa: F401  (load_packed re-exported)
+    dtype_name,
+    flatten_params,
+    load_packed,
+    read_leaves,
+    read_manifest,
+    save_packed,
+    unflatten_params,
+    write_leaves,
+)
+
+MAX_TO_KEEP = 3
+FORMAT = 1
+_STATE = "state.json"
+_GROUPS = ("params", "mu", "nu")
+
+Params = Dict[str, Any]
+
+
+class _Writer:
+    """One background thread per directory (as the reference keeps one
+    Orbax manager per directory): saves are written in submission order,
+    and a failed write raises on the next save, wait or close."""
+
+    def __init__(self):
+        self._pool = ThreadPoolExecutor(max_workers=1,
+                                        thread_name_prefix="checkpoint-writer")
+        self._pending: List[Future] = []
+
+    def submit(self, fn) -> None:
+        done = [f for f in self._pending if f.done()]
+        self._pending = [f for f in self._pending if not f.done()]
+        for f in done:
+            f.result()
+        self._pending.append(self._pool.submit(fn))
+
+    def wait(self) -> None:
+        pending, self._pending = self._pending, []
+        for f in pending:
+            f.result()
+
+    def close(self) -> None:
+        try:
+            self.wait()
+        finally:
+            self._pool.shutdown()
+
+
+_writers: Dict[str, _Writer] = {}
+_lock = threading.Lock()
+
+
+def _writer(directory: Union[str, Path], create: bool = True) -> Optional[_Writer]:
+    key = str(Path(directory).absolute())
+    with _lock:
+        w = _writers.get(key)
+        if w is None and create:
+            w = _writers[key] = _Writer()
+        return w
+
+
+def _leaves(state) -> List[Tuple[str, torch.Tensor]]:
+    """The state's tensors as (group/path, tensor): params, mu, nu."""
+    opt = state.opt_state
+    return [(f"{group}/{path}", t)
+            for group, tree in zip(_GROUPS, (state.params, opt.mu, opt.nu))
+            for path, t in flatten_params(tree)]
+
+
+def _fsync_dir(path: Path) -> None:
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
+def _steps(root: Path) -> List[int]:
+    """Published steps under `root` (directories named by the step that
+    hold their state.json), ascending."""
+    if not root.is_dir():
+        return []
+    return sorted(int(p.name) for p in root.iterdir()
+                  if p.name.isdigit() and (p / _STATE).is_file())
+
+
+def _write(root: Path, step: int, leaves, meta: Dict[str, int]) -> None:
+    root.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix=f".{step}.", suffix=".tmp", dir=root))
+    try:
+        os.chmod(tmp, 0o755)  # mkdtemp's 0700 would hide it from other readers
+        write_leaves(tmp, leaves, sync=True)
+        with open(tmp / _STATE, "w") as f:
+            json.dump(meta, f)
+            f.flush()
+            os.fsync(f.fileno())
+        final = root / str(step)
+        if final.exists():  # a second save of one step replaces the first
+            old = Path(tempfile.mkdtemp(prefix=f".{step}.", suffix=".old", dir=root))
+            final.rename(old / "step")
+            tmp.rename(final)
+            shutil.rmtree(old, ignore_errors=True)
+        else:
+            tmp.rename(final)
+        _fsync_dir(root)
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    for old_step in _steps(root)[:-MAX_TO_KEEP]:
+        shutil.rmtree(root / str(old_step), ignore_errors=True)
+
+
+def save(directory: Union[str, Path], state, *, wait: bool = False) -> int:
+    """Write a checkpoint of `state` for `state.step`; returns the step.
+
+    Every leaf is copied to the host before this returns, so the caller
+    may step (in place) at once; the write drains in the background unless
+    `wait` (or `close_all()` at job end) blocks until it is on disk."""
+    step = int(state.step)
+    snapshot = [(name, t.detach().to("cpu", copy=True)) for name, t in _leaves(state)]
+    meta = {"format": FORMAT, "step": step, "count": int(state.opt_state.count)}
+    w = _writer(directory)
+    w.submit(lambda: _write(Path(directory), step, snapshot, meta))
+    if wait:
+        w.wait()
+    return step
+
+
+def _load_into(path: Path, manifest, targets: List[Tuple[str, torch.Tensor]]) -> None:
+    """Copy the leaves of `path` into `targets` [(name, tensor)] in place,
+    after checking that names, shapes and dtypes all match (so a mismatch
+    leaves the targets untouched)."""
+    specs = {s["name"]: s for s in manifest}
+    want = dict(targets)
+    if set(specs) != set(want):
+        missing, extra = sorted(set(want) - set(specs)), sorted(set(specs) - set(want))
+        raise ValueError(f"checkpoint {path} does not match the template:"
+                         f" missing {missing[:5]}, unexpected {extra[:5]}")
+    for name, t in want.items():
+        s = specs[name]
+        if list(s["shape"]) != list(t.shape) or s["dtype"] != dtype_name(t.dtype):
+            raise ValueError(f"checkpoint {path}: `{name}` is {s['dtype']} {s['shape']},"
+                             f" the template's {dtype_name(t.dtype)} {list(t.shape)}")
+    with torch.no_grad():
+        for name, host in read_leaves(path, manifest, keep=want.__contains__):
+            want[name].copy_(host)
+
+
+def restore_latest(directory: Union[str, Path], template):
+    """Restore the newest checkpoint into `template` (a TrainState of the
+    same config, e.g. from `init_train_state`), or None when the volume
+    holds no checkpoint yet (first run).
+
+    The leaves are read into the template's tensors in place (its device,
+    dtypes and shapes; no second state on the device), and the returned
+    state carries them with the saved step and optimizer count."""
+    from dstack_tpu_torch.workloads.train import AdamState, TrainState
+
+    root = Path(directory)
+    w = _writer(root, create=False)
+    if w is not None:
+        w.wait()  # this process's own saves first
+    steps = _steps(root)
+    if not steps:
+        return None
+    path = root / str(steps[-1])
+    meta = json.loads((path / _STATE).read_text())
+    if meta.get("format") != FORMAT:
+        raise ValueError(f"checkpoint {path}: format {meta.get('format')!r},"
+                         f" this reader knows {FORMAT}")
+    _load_into(path, read_manifest(path), _leaves(template))
+    opt = template.opt_state
+    return TrainState(int(meta["step"]), template.params,
+                      AdamState(int(meta["count"]), opt.mu, opt.nu))
+
+
+def restore_latest_params(directory: Union[str, Path],
+                          device: DeviceLike = None) -> Optional[Params]:
+    """The params of the newest train-state checkpoint on `device` (the
+    moments are not read), or None without one: a serving host's fallback
+    when the volume holds no packed export."""
+    dev = resolve_device(device)
+    root = Path(directory)
+    steps = _steps(root)
+    if not steps:
+        return None
+    path = root / str(steps[-1])
+    n = len("params/")
+    return unflatten_params((name[n:], t.to(dev)) for name, t in
+                    read_leaves(path, read_manifest(path),
+                                keep=lambda name: name.startswith("params/")))
+
+
+def export_params(directory: Union[str, Path], state) -> Path:
+    """Write the params-only serving export (`<dir>/packed`, the layout
+    both packages' servers load): a serving host need not read the Adam
+    moments (~3x the bf16 parameter bytes)."""
+    return save_packed(directory, state.params)
+
+
+def restore_exported_params(directory: Union[str, Path], params_template: Params
+                            ) -> Optional[Params]:
+    """Restore the params-only export into `params_template`'s tensors in
+    place (shapes and dtypes must match), or None when there is none."""
+    path = Path(directory) / "packed"
+    manifest = read_manifest(path)
+    if manifest is None:
+        return None
+    _load_into(path, manifest, flatten_params(params_template))
+    return params_template
+
+
+def close_all() -> None:
+    """Drain and release every directory's writer (job end, drain, tests);
+    raises the first failed write after all are closed."""
+    with _lock:
+        writers = list(_writers.values())
+        _writers.clear()
+    error = None
+    for w in writers:
+        try:
+            w.close()
+        except Exception as e:  # close every writer, then report
+            error = error or e
+    if error is not None:
+        raise error

@@ -33,6 +33,8 @@ import torch
 
 from dstack_tpu_torch.utils.flight_recorder import FlightRecorder
 from dstack_tpu_torch.utils.histogram import HistogramData
+from dstack_tpu_torch.utils.stagemarkers import auto_stage
+from dstack_tpu_torch.workloads import compile_cache
 from dstack_tpu_torch.workloads.attention import decode_attention
 from dstack_tpu_torch.workloads.config import ModelConfig, require_dense
 from dstack_tpu_torch.workloads.device import (
@@ -368,6 +370,12 @@ class ServingEngine:
             )
         require_dense(config)
         self.device = resolve_device(device)
+        # The kernel cache (workloads/compile_cache.py) honours
+        # DSTACK_TPU_COMPILE_CACHE before warmup or a first request builds
+        # the kernel library, so a repeat boot on the same volume loads it
+        # instead of running nvcc. Only the card builds anything.
+        self._compile_cache_dir = (compile_cache.enable_from_env()
+                                   if self.device.type == "cuda" else None)
         if params_device(params) != self.device:
             raise ValueError(
                 f"params live on {params_device(params)}, engine device is"
@@ -445,6 +453,7 @@ class ServingEngine:
         # a first token was delivered (the sample that paid kernel build).
         self._ttft_cold_hist = HistogramData()
         self._cold_over = False
+        self._first_token_emitted = False
         self._warmup_done = False
         self._warmup_seconds: Optional[float] = None
         self._warmup_programs = 0
@@ -498,7 +507,14 @@ class ServingEngine:
         first request pays no build. Each run is a no-op on an idle
         engine: an all-inactive decode step and n_valid=0 chunks write
         only to the discard block and touch no slot field. Only legal on
-        an idle engine (RuntimeError otherwise)."""
+        an idle engine (RuntimeError otherwise).
+
+        Emits the compile_start / compile_end / warmup_end stage markers
+        and returns {"seconds", "programs", "compiles", "cache_hits",
+        "cache_misses", "compile_seconds"}, the last four the kernel
+        cache's counters moved by this warmup (workloads/compile_cache.py:
+        a build, or a library found on disk, or neither when an earlier
+        call in the process loaded it)."""
         with self._lock:
             if self._failed is not None:
                 raise RuntimeError("engine already failed") from self._failed
@@ -512,6 +528,8 @@ class ServingEngine:
                 )
             self._hold_admission = True
         t0 = time.monotonic()
+        before = compile_cache.snapshot()
+        auto_stage("compile_start")
         programs = 0
         try:
             self._step(self.params, self.state, self._gen,
@@ -529,17 +547,25 @@ class ServingEngine:
             programs += 1
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
+            auto_stage("compile_end")
         finally:
             with self._lock:
                 self._hold_admission = False
             self._wake.set()
         dt = time.monotonic() - t0
+        after = compile_cache.snapshot()
         self._warmup_seconds = dt
         self._warmup_programs = programs
         self._warmup_hist.observe(dt)
         self._warmup_done = True
         self._cold_over = True
-        return {"seconds": dt, "programs": programs}
+        auto_stage("warmup_end")
+        return {
+            "seconds": dt,
+            "programs": programs,
+            **{k: after[k] - before[k] for k in ("compiles", "cache_hits", "cache_misses")},
+            "compile_seconds": round(after["compile_seconds"] - before["compile_seconds"], 4),
+        }
 
     def submit(self, tokens: List[int], max_new_tokens: int,
                temperature: Optional[float] = None, top_p: float = 1.0,
@@ -636,11 +662,13 @@ class ServingEngine:
     def stats(self) -> Dict[str, Any]:
         """Live load snapshot (feeds /metrics): queue and shed counters,
         scheduler gauges, the paged-KV pool and prefix-cache counters,
-        chunked-prefill counters, latency histograms, warmup, and which
-        attention path ran how often. Key names follow the JAX engine's
-        for every feature ported."""
+        chunked-prefill counters, latency histograms, warmup, the kernel
+        cache's process-wide counters, and which attention path ran how
+        often. Key names follow the JAX engine's for every feature
+        ported."""
         busy = self._t_decode + self._t_prefill + self._t_idle
         a = self._alloc
+        cc = compile_cache.snapshot()
         return {
             "slots": self.slots,
             "active": sum(r is not None for r in self._live),
@@ -685,6 +713,11 @@ class ServingEngine:
             ),
             "warmup_programs": self._warmup_programs,
             "warmup_hist": self._warmup_hist.to_dict(),
+            "compile_cache_dir": self._compile_cache_dir,
+            "compiles_total": cc["compiles"],
+            "compile_cache_hits_total": cc["cache_hits"],
+            "compile_cache_misses_total": cc["cache_misses"],
+            "compile_seconds_total": round(cc["compile_seconds"], 4),
             "role": self.role,
             "tpt_hist": self._tpt_hist.to_dict(),
             "attn_path": self._attn_path,
@@ -693,6 +726,12 @@ class ServingEngine:
             "trace": self.recorder.stats(),
             "phase_hists": self.recorder.phase_histograms(),
         }
+
+    def request_trace(self, key: Any) -> Optional[Dict[str, Any]]:
+        """Phase-timeline snapshot of one request, by engine request id or
+        client X-Request-ID (None when unknown, recycled, or the recorder
+        is off): the payload of GET /v1/requests/<id>/trace."""
+        return self.recorder.get(key)
 
     def close(self) -> None:
         with self._lock:
@@ -916,6 +955,11 @@ class ServingEngine:
                 self._sum_ttft += now - req.t_submit
                 self._sum_prefill += now - task.t_pop
                 self._observe_ttft(now - req.t_submit)
+                if not self._first_token_emitted:
+                    # The serving cold start's end, as first_step is the
+                    # trainer's: once per engine lifetime.
+                    self._first_token_emitted = True
+                    auto_stage("first_token")
                 if req.max_new_tokens <= 1:
                     self._cancelled.discard(req.out)
                     self._inflight.discard(req.out)
@@ -1139,6 +1183,13 @@ def prometheus_metrics(stats: Dict[str, Any]) -> str:
          stats["prefill_tokens_computed_total"]),
         ("dstack_tpu_serving_admitted_total", "counter", stats["admitted_total"]),
         ("dstack_tpu_serving_rejected_total", "counter", stats["rejected_total"]),
+        # The kernel cache: library loads found on disk, nvcc builds, and
+        # the builds' seconds (process-wide).
+        ("dstack_tpu_compile_cache_hits_total", "counter",
+         stats["compile_cache_hits_total"]),
+        ("dstack_tpu_compile_cache_misses_total", "counter",
+         stats["compile_cache_misses_total"]),
+        ("dstack_tpu_compile_seconds_total", "counter", stats["compile_seconds_total"]),
     ]
     lines = []
     for name, mtype, value in series:

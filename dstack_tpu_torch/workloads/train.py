@@ -1,5 +1,6 @@
 """Training step for the flagship workload on one device (port of
-`dstack_tpu.workloads.train`, lines 32-325 and 444-461).
+`dstack_tpu.workloads.train`), and the hooks of the orchestrator's
+contract that rest on the train-state checkpoint.
 
 `make_train_step(config, mesh)` returns `train_step(state, batch) ->
 (state, metrics)`. With a seq mesh (sharding.make_mesh(seq=n)) attention
@@ -16,10 +17,23 @@ The optimizer is AdamW written out on tensors rather than
 dtype of the tensor it meets (a weakly-typed JAX scalar takes the array's
 dtype), the f32 update added to the param and cast back to its dtype.
 
-Not here yet: the train-state checkpoint and what rests on it
-(`DrainHandler`, `checkpoint_and_exit`) and `read_resize_notice`.
+The contract with the runner, as the reference keeps it:
+
+- stage markers (workloads/stages.py): `tpu_init` in `init_train_state`,
+  and `compile_start`, `compile_end` and `first_step` around the first
+  train step, which builds the kernel library (`_staged_step`);
+- `DrainHandler` / `install_drain_handler`: on SIGTERM (a preemption or
+  maintenance notice) the loop checkpoints (workloads/checkpoint.py) and
+  exits DRAIN_EXIT_CODE, which the runner reports as a clean drain; the
+  resubmitted gang resumes from that step;
+- `read_resize_notice`: the elastic-resize notice the runner writes.
 """
 
+import json
+import os
+import signal
+import sys
+import time
 from dataclasses import dataclass
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
@@ -27,6 +41,8 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from dstack_tpu_torch.utils.stagemarkers import auto_stage
+from dstack_tpu_torch.workloads import compile_cache
 from dstack_tpu_torch.workloads.attention import make_attention_fn
 from dstack_tpu_torch.workloads.config import ModelConfig
 from dstack_tpu_torch.workloads.device import DeviceLike, resolve_device
@@ -34,6 +50,11 @@ from dstack_tpu_torch.workloads.transformer import forward, init_params, logits_
 from dstack_tpu_torch.workloads.weights import flatten_params, unflatten_params
 
 Params = Dict[str, Any]
+
+# The exit code of a trainer that checkpointed on SIGTERM, which the runner
+# reports as a clean drain (the port's own copy of
+# `dstack_tpu.agents.protocol.DRAIN_EXIT_CODE`).
+DRAIN_EXIT_CODE = 113
 
 
 class TrainState(NamedTuple):
@@ -139,8 +160,13 @@ def init_train_state(config: ModelConfig, seed: int = 0, device: DeviceLike = No
                      mesh=None) -> TrainState:
     """Params (random from `seed` on `device` or the mesh's, or the given
     `params`, e.g. bridged from JAX) marked for grad, and zero optimizer
-    moments."""
+    moments. On the card, the kernel cache (workloads/compile_cache.py) is
+    enabled from DSTACK_TPU_COMPILE_CACHE before anything builds; the
+    `tpu_init` stage marker marks the first touch of the device."""
     dev = _device_of(device, mesh)
+    if dev.type == "cuda":
+        compile_cache.enable_from_env()
+    auto_stage("tpu_init")
     if params is None:
         params = init_params(config, seed, dev)
     for _, p in flatten_params(params):
@@ -269,7 +295,128 @@ def make_train_step(config: ModelConfig, mesh=None, learning_rate: float = 3e-4,
         new_state = TrainState(state.step + 1, state.params, opt_state)
         return new_state, {"loss": loss, "grad_norm": gnorm, "router_aux": aux}
 
-    return train_step
+    return _staged_step(train_step)
+
+
+def _staged_step(step_fn):
+    """Bracket the FIRST call with the compile_start / compile_end and
+    first_step markers (no-ops outside an orchestrated run). The first
+    call builds the kernel library and runs one step; the device is
+    synchronised before compile_end, so the bracket holds the build and
+    the first step's execution, not their dispatch. Later calls go
+    through untouched."""
+    holder = {"first": True}
+
+    def stepped(state, batch):
+        if not holder["first"]:
+            return step_fn(state, batch)
+        holder["first"] = False
+        auto_stage("compile_start")
+        out = step_fn(state, batch)
+        dev = out[1]["loss"].device
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        auto_stage("compile_end")
+        auto_stage("first_step")
+        return out
+
+    return stepped
+
+
+class DrainHandler:
+    """Graceful-preemption hook for training loops.
+
+    When the provider announces a maintenance or preemption event, the
+    runner SIGTERMs the job group and waits a grace window before killing
+    it. A loop that installs this handler turns that window into a durable
+    checkpoint:
+
+        handler = install_drain_handler()
+        for _ in range(start, steps):
+            state, metrics = train_step(state, batch)
+            if handler.draining:
+                handler.checkpoint_and_exit(ckpt_dir, state)
+
+    `checkpoint_and_exit` saves through workloads/checkpoint.py (blocking
+    until the files are on disk) and exits DRAIN_EXIT_CODE, so the runner
+    reports a clean drain and the resubmitted gang resumes from this step.
+    `exec` the trainer from the job command so the exit code reaches the
+    runner unwrapped by the shell.
+    """
+
+    def __init__(self, signals=(signal.SIGTERM,)):
+        self._draining = False
+        self._prior = {}
+        for sig in signals:
+            try:
+                self._prior[sig] = signal.signal(sig, self._on_signal)
+            except ValueError as e:
+                # signal.signal works on the main thread only; a half
+                # installed handler would promise drain coverage it lacks.
+                raise RuntimeError(
+                    "DrainHandler must be installed from the main thread"
+                    " (signal handlers are process-global); install it"
+                    " before spawning data-loader/metric threads"
+                ) from e
+
+    def _on_signal(self, signum, frame) -> None:
+        self._draining = True
+        # Chain what was installed before (a framework's own hook, an
+        # earlier DrainHandler): replacing it would disable its cleanup.
+        prior = self._prior.get(signum)
+        if callable(prior):
+            prior(signum, frame)
+
+    @property
+    def draining(self) -> bool:
+        return self._draining
+
+    def checkpoint_and_exit(self, directory, state: TrainState,
+                            grace_seconds: Optional[float] = None) -> None:
+        """Save a checkpoint of `state`, wait until it is on disk, and exit
+        DRAIN_EXIT_CODE. `grace_seconds` is the drain window the runner
+        allows; a save that overran it is reported on stderr (the runner
+        may have killed sibling processes by then: size the grace to the
+        checkpoint time)."""
+        from dstack_tpu_torch.workloads import checkpoint as ckpt
+
+        t0 = time.monotonic()
+        step = ckpt.save(directory, state, wait=True)
+        ckpt.close_all()
+        elapsed = time.monotonic() - t0
+        if grace_seconds is not None and elapsed > grace_seconds:
+            print(f"WARNING: drain checkpoint took {elapsed:.1f}s, over the"
+                  f" {grace_seconds:.0f}s grace window; the runner may have"
+                  " hard-killed this job before the save completed. Raise the"
+                  " drain grace or shrink the checkpoint",
+                  file=sys.stderr, flush=True)
+        print(f"drain: checkpoint saved at step {step} in {elapsed:.3f}s; exiting",
+              flush=True)
+        sys.exit(DRAIN_EXIT_CODE)
+
+
+def install_drain_handler() -> DrainHandler:
+    """Install SIGTERM-drain handling for the calling training process."""
+    return DrainHandler()
+
+
+def read_resize_notice(path: Optional[str] = None) -> Optional[Dict[str, int]]:
+    """The pending elastic-resize notice from the runner, or None.
+
+    The runner writes `{"width": W, "total": N}` atomically to
+    DSTACK_TPU_RESIZE_FILE when the server resizes an elastic gang; an
+    elastic loop polls this once per step and re-forms its mesh on a
+    change. Malformed or partial content reads as None (the write is
+    atomic, so that only means "no notice yet")."""
+    p = path or os.environ.get("DSTACK_TPU_RESIZE_FILE")
+    if not p:
+        return None
+    try:
+        with open(p) as f:
+            data = json.loads(f.read())
+        return {"width": int(data["width"]), "total": int(data.get("total", 0))}
+    except (OSError, ValueError, KeyError, TypeError):
+        return None
 
 
 def synthetic_batch(config: ModelConfig, batch_size: int, seq_len: Optional[int] = None,

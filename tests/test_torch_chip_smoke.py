@@ -196,3 +196,80 @@ def test_split_mutant_scales_every_row_where_none_reads_two_splits():
     assert some[1, 1:].eq(cs.MUTATION_SCALE).all() and some[0].eq(1).all()
     assert some[1, 0].eq(1).all()
     assert cs.split_mutant(got, vlen, 5).eq(cs.MUTATION_SCALE).all()
+
+
+def _on_the_cpu(monkeypatch):
+    """Phase 8 at tiny on the CPU: its device syncs become no-ops and the
+    trainer's default device the CPU."""
+    from dstack_tpu_torch.workloads import train
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda *a, **k: None)
+    monkeypatch.setattr(train, "_device_of", lambda device, mesh: torch.device("cpu"))
+
+
+def test_checkpoint_phase_passes_a_sound_restore(monkeypatch):
+    _on_the_cpu(monkeypatch)
+    out = cs.run_checkpoint("tiny", 2, 32)
+    assert out["restore_bit_exact"] and out["restored_step_count"] == (2, 2)
+    assert out["file_bytes"] == out["state_bytes"] > 0
+    assert out["step_bit_repeatable"] and out["gather_backward_repeatable"]
+    assert len(out["leaves"]) == 36 and out["worst_rel_l2_b_a"] == 0.0
+
+
+@pytest.mark.parametrize("which", [1, 2])
+def test_checkpoint_phase_fails_a_restore_off_by_one_bit(monkeypatch, which):
+    """A restore (the first or the second) that flips the lowest bit of
+    one element of one moment fails the bitwise gate."""
+    from dstack_tpu_torch.workloads import checkpoint as ckpt
+
+    _on_the_cpu(monkeypatch)
+    real, calls = ckpt.restore_latest, []
+
+    def faulty(directory, template):
+        state = real(directory, template)
+        calls.append(1)
+        if len(calls) == which:
+            state.opt_state.mu["layers"]["wq"].view(torch.int32).view(-1)[7] ^= 1
+        return state
+
+    monkeypatch.setattr(ckpt, "restore_latest", faulty)
+    with pytest.raises(AssertionError, match="restore is not the saved state"):
+        cs.run_checkpoint("tiny", 2, 32)
+
+
+def test_checkpoint_phase_fails_a_step_from_a_restore_that_differs(monkeypatch):
+    """Steps from both restores ((b) and (c)) land one bit off the step
+    from the state in memory (a), the same way each time: the step repeats
+    ((b) = (c)), so (b) must equal (a), and the continuation gate fails."""
+    from dstack_tpu_torch.workloads import train
+
+    _on_the_cpu(monkeypatch)
+    real_make = train.make_train_step
+
+    def make(*a, **k):
+        step, calls = real_make(*a, **k), []
+
+        def stepped(state, batch):
+            state, m = step(state, batch)
+            calls.append(1)
+            if len(calls) >= 4:  # 2 warm-up steps, (a), then (b) and (c)
+                with torch.no_grad():
+                    state.params["layers"]["wq"].view(torch.int16).view(-1)[3] ^= 1
+            return state, m
+
+        return stepped
+
+    monkeypatch.setattr(train, "make_train_step", make)
+    with pytest.raises(AssertionError, match="not the step from the saved state"):
+        cs.run_checkpoint("tiny", 2, 32)
+
+
+def test_drain_trainer_is_python_and_names_the_contract():
+    import ast
+
+    ast.parse(cs.DRAIN_TRAINER)
+    for name in ("install_drain_handler", "checkpoint_and_exit", "restore_latest",
+                 "compile_cache.snapshot"):
+        assert name in cs.DRAIN_TRAINER
+    assert cs.TRAIN_STAGES == ["tpu_init", "compile_start", "compile_end", "first_step"]

@@ -21,10 +21,13 @@ MODULES = (
     "dstack_tpu_torch.utils",
     "dstack_tpu_torch.utils.flight_recorder",
     "dstack_tpu_torch.utils.histogram",
+    "dstack_tpu_torch.utils.stagemarkers",
     "dstack_tpu_torch.utils.tracecontext",
     "dstack_tpu_torch.workloads",
     "dstack_tpu_torch.workloads._build",
     "dstack_tpu_torch.workloads.attention",
+    "dstack_tpu_torch.workloads.checkpoint",
+    "dstack_tpu_torch.workloads.compile_cache",
     "dstack_tpu_torch.workloads.config",
     "dstack_tpu_torch.workloads.data",
     "dstack_tpu_torch.workloads.device",
@@ -35,6 +38,7 @@ MODULES = (
     "dstack_tpu_torch.workloads.quant",
     "dstack_tpu_torch.workloads.serving",
     "dstack_tpu_torch.workloads.sharding",
+    "dstack_tpu_torch.workloads.stages",
     "dstack_tpu_torch.workloads.train",
     "dstack_tpu_torch.workloads.transformer",
     "dstack_tpu_torch.workloads.weights",

@@ -288,3 +288,129 @@ def test_native_server_echoes_the_request_trace_identity():
         server.server_close()
         th.join(timeout=10)
         engine.serving.close()
+
+
+def _serve_http(**engine_kw):
+    from dstack_tpu_torch.native_server import Engine, make_server, start_warmup
+
+    engine = Engine("tiny", max_new_tokens=4, device="cpu", slots=2, **engine_kw)
+    server, ready = make_server(engine, "127.0.0.1", 0)
+    th = threading.Thread(target=server.serve_forever, daemon=True)
+    th.start()
+    start_warmup(engine, ready).join(timeout=60)
+
+    def stop():
+        server.shutdown()
+        server.server_close()
+        th.join(timeout=10)
+        engine.serving.close()
+
+    return engine, f"http://127.0.0.1:{server.server_address[1]}", stop
+
+
+def _post(base, body, headers=()):
+    req = urllib.request.Request(base + "/v1/chat/completions",
+                                 data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json", **dict(headers)})
+    with urllib.request.urlopen(req, timeout=60) as r:
+        return r.status, r.read().decode()
+
+
+def _get_error(url):
+    with pytest.raises(urllib.error.HTTPError) as err:
+        urllib.request.urlopen(url, timeout=60)
+    return err.value.code, json.loads(err.value.read().decode())
+
+
+MSG = {"messages": [{"role": "user", "content": "hi"}], "max_tokens": 3, "temperature": 0}
+
+
+def test_request_trace_endpoint_by_request_id_and_engine_id():
+    """GET /v1/requests/<id>/trace by X-Request-ID or the engine's id
+    (examples/deployment/native/server.py), a JSON 404 when unknown."""
+    engine, base, stop = _serve_http()
+    try:
+        assert _post(base, MSG, {"X-Request-ID": "trace-me-1"})[0] == 200
+        code, body = _http("GET", base + "/v1/requests/trace-me-1/trace")
+        trace = json.loads(body)
+        assert code == 200 and trace["x_request_id"] == "trace-me-1"
+        assert trace["status"] == "ok" and trace["counters"]["decode_tokens"] >= 1
+        phases = [p["phase"] for p in trace["phases"]]
+        assert phases[:2] == ["queue_wait", "prefill"] and "decode" in phases
+        code, by_id = _http("GET", base + f"/v1/requests/{trace['request_id']}/trace")
+        assert code == 200 and json.loads(by_id)["x_request_id"] == "trace-me-1"
+        assert engine.serving.request_trace("trace-me-1")["request_id"] == trace["request_id"]
+        code, err = _get_error(base + "/v1/requests/no-such-request/trace")
+        assert code == 404 and "no-such-request" in err["error"]
+    finally:
+        stop()
+
+
+def _sse_chunks(body):
+    return [json.loads(line[len("data: "):]) for line in body.splitlines()
+            if line.startswith("data: ") and line != "data: [DONE]"]
+
+
+def test_stream_ends_with_a_phase_summary_chunk():
+    engine, base, stop = _serve_http()
+    try:
+        code, body = _post(base, {**MSG, "stream": True}, {"X-Request-ID": "stream-1"})
+        assert code == 200 and body.rstrip().endswith("data: [DONE]")
+        chunks = _sse_chunks(body)
+        summary = chunks[-1]
+        assert "phase_summary" not in chunks[-2]
+        # An empty-delta choice, so a client indexing choices[0] survives it.
+        assert summary["choices"] == [{"index": 0, "delta": {}, "finish_reason": None}]
+        ps = summary["phase_summary"]
+        assert set(ps) == {"request_id", "trace_id", "total_seconds", "phases", "counters"}
+        assert ps == {k: engine.serving.request_trace("stream-1")[k] for k in ps}
+        assert ps["total_seconds"] > 0 and ps["phases"]
+    finally:
+        stop()
+
+
+def test_trace_ring_zero_disables_request_traces():
+    engine, base, stop = _serve_http(trace_ring=0, trace_slow_ms=5.0)
+    try:
+        assert not engine.serving.recorder.enabled
+        assert engine.serving.recorder.tail.slow_ms == 5.0
+        assert _post(base, MSG, {"X-Request-ID": "untraced"})[0] == 200
+        assert _get_error(base + "/v1/requests/untraced/trace")[0] == 404
+        code, body = _post(base, {**MSG, "stream": True})
+        assert code == 200 and body.rstrip().endswith("data: [DONE]")
+        assert not any("phase_summary" in c for c in _sse_chunks(body))
+        code, body = _http("GET", base + "/metrics?format=prometheus")
+        assert code == 200 and "dstack_tpu_compile_cache_hits_total 0" in body
+    finally:
+        stop()
+
+
+def test_native_server_main_passes_trace_and_cache_flags(tmp_path, monkeypatch):
+    """--trace-ring / --trace-slow-ms reach the engine, and
+    --compile-cache-dir is enabled before the engine starts (it wins over
+    $DSTACK_TPU_COMPILE_CACHE; the nvcc release is stubbed here)."""
+    from dstack_tpu_torch import native_server
+    from dstack_tpu_torch.workloads import compile_cache
+
+    monkeypatch.setattr(compile_cache, "_enabled_dir", None)
+    monkeypatch.setattr(compile_cache, "nvcc_version", lambda: "12.9")
+    monkeypatch.setenv(compile_cache.ENV_VAR, str(tmp_path / "env"))
+    seen = {}
+
+    class Stop(Exception):
+        pass
+
+    def fake_make_server(engine, host, port, model_name):
+        seen["recorder"] = engine.serving.recorder
+        seen["leaf"] = compile_cache.enabled_dir()
+        engine.serving.close()
+        raise Stop
+
+    monkeypatch.setattr(native_server, "make_server", fake_make_server)
+    with pytest.raises(Stop):
+        native_server.main(["--preset", "tiny", "--device", "cpu", "--max-new-tokens", "4",
+                            "--trace-ring", "3", "--trace-slow-ms", "7.5",
+                            "--compile-cache-dir", str(tmp_path / "flag")])
+    assert seen["recorder"].capacity == 3 and seen["recorder"].tail.slow_ms == 7.5
+    assert seen["leaf"] == str(tmp_path / "flag" / "nvcc12.9-sm90a")
+    assert compile_cache.enable_from_env() == seen["leaf"]
