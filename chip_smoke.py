@@ -8,7 +8,9 @@ Phases (any failure fails the run; nothing is caught to exit 0):
   3. kernels — the paged kernel against its plain PyTorch version on the
                card, at the serving path's shapes for smol-1b (decode over
                slots to 2047 positions, decode over the engine's short
-               slots, and a 128-token chunk), in bf16 and f32, per output
+               slots, a 128-token chunk, and the speculative verify's
+               windows of 5 rows on 8 slots and 3 rows on 32), in bf16 and
+               f32, per output
                row by three scale-free readings, and the same gate shown
                to fail the kernel's output with the rows that read more
                than one KV split scaled by 1.6%; times of kernel (back to
@@ -20,10 +22,31 @@ Phases (any failure fails the run; nothing is caught to exit 0):
                requests, two sharing a 64-token prefix; the kernel's
                launch count over that run; a chunked prefill's logits
                against the dense plain forward;
+  4b. spec   — the plain engine and the speculative one (int8 drafter,
+               spec_max_draft 4) on phase 4's requests x 64 tokens, plain,
+               spec, spec, plain: decode tok/s, TTFT, acceptance, draft vs
+               verify seconds, paged launches per token, a profiled spec
+               wave; streams held by the near-tie rule (at the first
+               token two temperature-0 streams differ, the dense forward's
+               logits put the two within phase 4's tolerance), the rule
+               shown failing a stream with a low-logit token put in; the
+               same A/B at 4 layers in f32;
+  4c. host tier — a pool of 2 x max_blocks under 12 requests over 3
+               shared 256-token prefixes: prefix blocks spill and swap back
+               (host hits), streams by the near-tie rule against a big
+               pool; a speculating slot preempted and resumed, its chain
+               in both pools byte for byte before, in the tier and after;
   5. http    — native_server on localhost: models, two chat completions,
                one request's phase trace, the stream's phase_summary,
                metrics (JSON, and Prometheus with the compile-cache
                series);
+  5b. service — native_server with examples/deployment/native/service.yml's
+               flags (smol-1b, speculation, host tier, 8 of 32 slots
+               resident, QoS weights) in a subprocess: 30 best-effort chats
+               then 10 paid ones, 64 tokens each; all complete, a
+               preemption and a swap-in happened, speculation ran, the
+               Prometheus series are there, and every stream holds by the
+               near-tie rule against a plain 40-slot engine's;
   3b. flash  — the three flash-attention kernels (forward, dQ, dK/dV)
                against their plain versions at the smol-1b training shape
                (B*H 128, S 2048, hd 128, causal) in bf16 and f32 and at a
@@ -75,7 +98,8 @@ Phases (any failure fails the run; nothing is caught to exit 0):
                (the drain's save timed); a relaunch on the same volume and
                cache hits the cache (no build), resumes at step 2 and runs
                to step 5.
-Phase 3b and 3c run after 3, phases 6 to 8b after 5. The line before the
+Phase 3b and 3c run after 3, 4b and 4c after 4, 5b after 5, phases 6 to
+8b after 5b. The line before the
 last is the `kernels` JSON; the last line is {"ok": true, "device": {...}}.
 Each phase logs its numbers on the way; details also go to
 chiprun_out/chip_smoke.json.
@@ -337,10 +361,21 @@ def run_kernels(flush):
 
     # smol-1b serving shapes: H 16, KV 8, hd 128, block 16, MB 2048/16.
     # Decode over slots to 2047 positions, decode over slots as short as
-    # the engine wave's (to 269 positions), a 128-token chunk.
+    # the engine wave's (to 269 positions), a 128-token chunk, and the
+    # speculative verify's windows: k+1 = 5 rows on 8 slots of 106 to 2047
+    # positions, and 3 rows on 32 slots of 104 to 1998 (each row i of slot
+    # b attends start[b] + 1 + i positions). Then the shapes of phases 4c
+    # and 5b (service.yml: 256-token chunks, block 32, 32 slots, k <= 4):
+    # a 256-token chunk at block 16 and at block 32, and at block 32
+    # (MB 2048/32) decode on 32 slots of 38 to 1991 positions and the
+    # verify's k+1 = 5 rows on 32 slots of 106 to 1997.
     geo = dict(H=16, KV=8, hd=128, bs=16, MB=128, NB=1024)
+    geo32 = dict(geo, bs=32, MB=64, NB=2304)
     decode_lens = [37, 200, 513, 1000, 1499, 1801, 2046, 64]
     short_lens = [100, 124, 148, 172, 196, 220, 244, 268]
+    verify_lens = [101, 300, 517, 999, 1203, 1640, 1888, 2042]
+    verify32_lens = [101 + 61 * i for i in range(32)]
+    decode_bs32_lens = [37 + 63 * i for i in range(32)]
     cases = []
     for dtype in (torch.bfloat16, torch.float32):
         tag = "bf16" if dtype == torch.bfloat16 else "f32"
@@ -350,6 +385,18 @@ def run_kernels(flush):
                                 start=short_lens, seed=3))
         cases.append(paged_case(f"prefill_{tag}", dtype, B=1, S=128, **geo,
                                 start=[384], seed=2))
+        cases.append(paged_case(f"verify_{tag}", dtype, B=8, S=5, **geo,
+                                start=verify_lens, seed=4))
+        cases.append(paged_case(f"verify32_{tag}", dtype, B=32, S=3,
+                                **{**geo, "NB": 2304}, start=verify32_lens, seed=5))
+        cases.append(paged_case(f"chunk256_{tag}", dtype, B=1, S=256, **geo,
+                                start=[384], seed=6))
+        cases.append(paged_case(f"chunk256_bs32_{tag}", dtype, B=1, S=256, **geo32,
+                                start=[384], seed=7))
+        cases.append(paged_case(f"decode_bs32_{tag}", dtype, B=32, S=1, **geo32,
+                                start=decode_bs32_lens, seed=8))
+        cases.append(paged_case(f"verify_bs32_{tag}", dtype, B=32, S=5, **geo32,
+                                start=verify32_lens, seed=9))
     results = []
     for case in cases:
         args = (case["q"], case["k"], case["v"], case["tables"], case["vlen"])
@@ -1069,8 +1116,51 @@ def dense_check(cfg, params, dtype):
         raise AssertionError(f"chunked-prefill logits off by {rel}")
 
 
-def run_engine(cfg, params):
+def engine_prompts():
+    """Phase 4's 8 requests (32-300 prompt tokens, two sharing a 64-token
+    prefix)."""
+    shared = byte_prompt(0, 64)
+    prompts = [shared + byte_prompt(1, 40)]
+    prompts += [byte_prompt(s, n) for s, n in zip(range(2, 8), (32, 77, 128, 180, 255, 300))]
+    prompts.insert(4, shared + byte_prompt(9, 70))
+    return prompts
+
+
+def serve_wave(eng, prompts, n_new) -> dict:
+    """Phase 4's wave on a warm engine, the paged kernel's launch count
+    zeroed just before and read just after: the first prefix sharer runs
+    ahead (so its prefix blocks are published before the second is
+    admitted), the other 7 together; streams, TTFTs, throughput, and the
+    engine's counters."""
     from dstack_tpu_torch.workloads import paged_attention as pa
+
+    pa.LAUNCHES["ragged_paged_attention"] = 0
+    t_start = time.monotonic()
+    t_sub = [time.monotonic()]
+    results = [drain(eng.submit(prompts[0], max_new_tokens=n_new, temperature=0.0))]
+    t_wave = time.monotonic()
+    outs = []
+    for p in prompts[1:]:
+        t_sub.append(time.monotonic())
+        outs.append(eng.submit(p, max_new_tokens=n_new, temperature=0.0))
+    results += [drain(q) for q in outs]
+    launches = pa.LAUNCHES["ragged_paged_attention"]
+    st = eng.stats()
+    ttft = sorted(tf - ts for (_, tf), ts in zip(results, t_sub))
+    streams = [t for t, _ in results]
+    emitted = sum(len(t) for t in streams)
+    return dict(
+        streams=streams, stats=st, kernel_launches=launches,
+        launches_per_token=launches / emitted,
+        ttft_p50_s=statistics.median(ttft),
+        ttft_p95_s=ttft[min(len(ttft) - 1, math.ceil(0.95 * len(ttft)) - 1)],
+        decode_tokens_per_s=(emitted - len(streams)) / max(st["decode_seconds_total"], 1e-9),
+        wave_tokens_per_s=(emitted - len(streams[0])) / (time.monotonic() - t_wave),
+        wall_s=time.monotonic() - t_start,
+    )
+
+
+def run_engine(cfg, params):
     from dstack_tpu_torch.workloads.serving import ServingEngine
 
     eng = ServingEngine(cfg, params, slots=8, steps_per_sync=4,
@@ -1080,36 +1170,18 @@ def run_engine(cfg, params):
         w = eng.warmup()
         log(f"engine warmup: {w['programs']} programs in {w['seconds']:.3f}s"
             f" (wall {time.monotonic() - t0:.3f}s)")
-        shared = byte_prompt(0, 64)
-        prompts = [shared + byte_prompt(1, 40)]
-        prompts += [byte_prompt(s, n) for s, n in
-                    zip(range(2, 8), (32, 77, 128, 180, 255, 300))]
-        prompts.insert(4, shared + byte_prompt(9, 70))
-        pa.LAUNCHES["ragged_paged_attention"] = 0
         n_new = 32
-        t_start = time.monotonic()
-        # The first sharer runs ahead so its prefix blocks are published
-        # before the second sharer is admitted.
-        t_sub = [time.monotonic()]
-        outs = [eng.submit(prompts[0], max_new_tokens=n_new, temperature=0.0)]
-        first_toks, t_first0 = drain(outs[0])
-        results = [(first_toks, t_first0)]
-        t_wave = time.monotonic()
-        for p in prompts[1:]:
-            t_sub.append(time.monotonic())
-            outs.append(eng.submit(p, max_new_tokens=n_new, temperature=0.0))
-        results += [drain(q) for q in outs[1:]]
-        t_end = time.monotonic()
-        launches = pa.LAUNCHES["ragged_paged_attention"]
-        st = eng.stats()
+        wave = serve_wave(eng, engine_prompts(), n_new)
         breakdown = profile_wave(eng, cfg)
     finally:
         eng.close()
-    counts = [len(t) for t, _ in results]
+    st, launches = wave.pop("stats"), wave["kernel_launches"]
+    streams = wave.pop("streams")
+    counts = [len(t) for t in streams]
     log(f"engine: token counts {counts}, kernel launches {launches},"
         f" prefix hits {st['prefix_cache_hits_total']},"
         f" tokens reused {st['prefix_tokens_reused_total']}")
-    if counts != [n_new] * len(prompts):
+    if counts != [n_new] * len(streams):
         raise AssertionError(f"token counts {counts}")
     if launches <= 0:
         raise AssertionError("the engine run launched the kernel 0 times")
@@ -1117,23 +1189,16 @@ def run_engine(cfg, params):
         raise AssertionError("the shared prefix did not hit the prefix cache")
     if st["attn_path"] != "cuda" or st["attn_dispatch_plain_total"]:
         raise AssertionError(f"attention path {st['attn_path']}")
-    for toks, _ in results:
+    for toks in streams:
         if not all(0 <= t < cfg.vocab_size for t in toks):
             raise AssertionError("token id out of range")
-    ttft = sorted(tf - ts for (_, tf), ts in zip(results, t_sub))
-    wave_tokens = n_new * (len(prompts) - 1)
     eng_stats = dict(
-        requests=len(prompts), new_tokens_each=n_new, kernel_launches=launches,
+        requests=len(streams), new_tokens_each=n_new,
         prefix_cache_hits=st["prefix_cache_hits_total"],
-        prefix_tokens_reused=st["prefix_tokens_reused_total"],
-        ttft_p50_s=statistics.median(ttft),
-        ttft_p95_s=ttft[min(len(ttft) - 1, math.ceil(0.95 * len(ttft)) - 1)],
-        wave_tokens_per_s=wave_tokens / (t_end - t_wave),
-        decode_tokens_per_s=(sum(counts) - len(counts)) / max(st["decode_seconds_total"], 1e-9),
+        prefix_tokens_reused=st["prefix_tokens_reused_total"], **wave,
         decode_seconds_total=st["decode_seconds_total"],
         prefill_seconds_total=st["prefill_seconds_total"],
         prefill_chunks=st["prefill_chunks_total"],
-        wall_s=t_end - t_start,
         profiled_wave=breakdown,
     )
     log("engine stats", json.dumps(eng_stats))
@@ -1193,6 +1258,313 @@ def profile_wave(eng, cfg):
                                 if calls else None)
     log("profiled wave", json.dumps(out))
     return out
+
+
+# -- phase 4b: speculative decoding -----------------------------------------
+
+
+def dense_logits(cfg, params, tokens):
+    """The dense plain forward's f32 logits after `tokens` (V,), as phase
+    4's dense check reads them."""
+    from dstack_tpu_torch.workloads.generate import _forward_cached, init_cache
+
+    dev = params["embed"].device
+    logits, _ = _forward_cached(cfg, params, torch.tensor([tokens], device=dev),
+                                init_cache(cfg, 1, len(tokens), dev))
+    return logits[0].float()
+
+
+def near_tie(cfg, params, prompt, ref, got, tol) -> dict:
+    """Two temperature-0 streams of one prompt held by the near-tie rule:
+    equal, or at the first position where they differ the dense plain
+    forward's f32 logits put the two tokens within `tol` x max |logit|
+    of each other (bf16 rounds the (B, k+1) verify and the (B, 1) decode
+    step differently, so a near-tie may flip); nothing after that
+    position is compared. A stream shorter or longer than the other
+    fails at the first position one of them lacks."""
+    at = next((i for i, (a, b) in enumerate(zip(ref, got)) if a != b), None)
+    if at is None:
+        if len(ref) == len(got):
+            return dict(diverged=False, ok=True)
+        return dict(diverged=True, at=min(len(ref), len(got)), gap=None, ok=False)
+    logits = dense_logits(cfg, params, list(prompt) + list(ref[:at]))
+    gap = float((logits[ref[at]] - logits[got[at]]).abs() / logits.abs().max())
+    return dict(diverged=True, at=at, gap=gap, ok=gap <= tol)
+
+
+def hold_streams(cfg, params, prompts, refs, gots, tol, what) -> dict:
+    """Every stream by the near-tie rule; returns the count of
+    divergences (each a near-tie), the largest gap among them and the
+    sorted positions of the first divergences (no token after one is
+    compared), raises on the first that is not a near-tie."""
+    divergences, max_gap, at = 0, 0.0, []
+    for i, (p, ref, got) in enumerate(zip(prompts, refs, gots)):
+        r = near_tie(cfg, params, p, ref, got, tol)
+        if not r["ok"]:
+            raise AssertionError(f"{what}: stream {i} diverges past a near-tie: {r}")
+        if r["diverged"]:
+            divergences += 1
+            max_gap = max(max_gap, r["gap"])
+            at.append(r["at"])
+    return dict(divergences=divergences, max_gap=max_gap, of=len(refs), at=sorted(at))
+
+
+def rule_fails_a_genuine_divergence(cfg, params, prompt, stream, tol) -> dict:
+    """The near-tie rule's own check: the stream with its token at the
+    middle replaced by the token the dense forward puts lowest must fail
+    it (and the stream against itself must pass)."""
+    at = len(stream) // 2
+    low = int(dense_logits(cfg, params, list(prompt) + list(stream[:at])).argmin())
+    bad = list(stream[:at]) + [low] + list(stream[at + 1:])
+    r = near_tie(cfg, params, prompt, stream, bad, tol)
+    if r["ok"] or not near_tie(cfg, params, prompt, stream, stream, tol)["ok"]:
+        raise AssertionError(f"the near-tie rule passes a genuine divergence: {r}")
+    return r
+
+
+SPEC_KEYS = ("spec_rounds_total", "spec_tokens_proposed_total", "spec_tokens_accepted_total",
+             "spec_accept_rate_ewma", "spec_tokens_per_round_ewma", "spec_draft_len_mean",
+             "spec_draft_seconds_total", "spec_verify_seconds_total",
+             "spec_fallback_rounds_total")
+
+
+def run_spec(cfg, params, n_new: int = 64) -> dict:
+    """Phase 4b: the plain engine and the speculative one (int8 drafter,
+    spec_max_draft 4) on phase 4's requests, plain, spec, spec, plain in
+    one call; every spec stream held by the near-tie rule against the
+    first plain run's, the rule shown failing a genuine divergence, and a
+    profiled wave of the spec engine. Then the same A/B at smol-1b width
+    and 4 layers in f32, at f32's tolerance."""
+    from dstack_tpu_torch.workloads.serving import ServingEngine
+    from dstack_tpu_torch.workloads.transformer import init_params
+
+    prompts = engine_prompts()
+    runs, profiled = [], None
+    for spec in (False, True, True, False):
+        eng = ServingEngine(cfg, params, slots=8, steps_per_sync=4, prefill_chunk_tokens=128,
+                            kv_block_size=16, spec_enable=spec, spec_max_draft=4)
+        try:
+            w = eng.warmup()
+            r = serve_wave(eng, prompts, n_new)
+            r.update(spec=spec, warmup_s=w["seconds"], warmup_programs=w["programs"])
+            if spec and profiled is None:
+                profiled = profile_wave(eng, cfg)
+                ps = eng.stats()
+                rounds = ps["spec_rounds_total"] - r["stats"]["spec_rounds_total"]
+                profiled.update(spec_rounds=rounds, device_busy_ms_per_round=(
+                    profiled["device_busy_ms"] / rounds if rounds else None))
+        finally:
+            eng.close()
+        del eng
+        torch.cuda.empty_cache()
+        runs.append(r)
+    tol = ENGINE_LOGIT_TOL[torch.bfloat16]
+    base = runs[0]["streams"]
+    out = {"runs": [], "profiled_spec_wave": profiled}
+    for r in runs:
+        st = r.pop("stats")
+        streams = r.pop("streams")
+        if any(len(t) != n_new for t in streams):
+            raise AssertionError(f"token counts {[len(t) for t in streams]}")
+        r["near_tie"] = hold_streams(cfg, params, prompts, base, streams, tol,
+                                     "spec" if r["spec"] else "plain")
+        r.update({k: st[k] for k in SPEC_KEYS}, decode_seconds_total=st["decode_seconds_total"])
+        if r["kernel_launches"] <= 0:
+            raise AssertionError("the wave launched the paged kernel 0 times")
+        if r["spec"] and not (st["spec_rounds_total"] > 0 and st["spec_tokens_accepted_total"] > 0):
+            raise AssertionError(f"no accepted speculation: {r}")
+        log("spec A/B run", json.dumps(r))
+        out["runs"].append(r)
+    out["rule_check"] = rule_fails_a_genuine_divergence(cfg, params, prompts[1], base[1], tol)
+    log(f"near-tie rule on a stream with a token replaced by the lowest-logit one:"
+        f" {json.dumps(out['rule_check'])} (tol {tol:g}): fails, as it must")
+    # smol-1b width at 4 layers in f32.
+    cfg32 = cfg.with_(dtype="float32", n_layers=4)
+    p32 = init_params(cfg32, 0, params["embed"].device)
+    streams32 = {}
+    for spec in (False, True):
+        eng = ServingEngine(cfg32, p32, slots=8, steps_per_sync=4, prefill_chunk_tokens=128,
+                            kv_block_size=16, spec_enable=spec, spec_max_draft=4)
+        try:
+            eng.warmup()
+            r = serve_wave(eng, prompts, 32)
+            streams32[spec] = r["streams"]
+            st = r["stats"]
+        finally:
+            eng.close()
+        del eng
+    tol32 = ENGINE_LOGIT_TOL[torch.float32]
+    out["f32_4_layers"] = dict(
+        near_tie=hold_streams(cfg32, p32, prompts, streams32[False], streams32[True],
+                              tol32, "spec f32"),
+        **{k: st[k] for k in SPEC_KEYS})
+    if not st["spec_tokens_accepted_total"] > 0:
+        raise AssertionError("f32: no accepted speculation")
+    log("spec f32 4 layers", json.dumps(out["f32_4_layers"]), f"(tol {tol32:g})")
+    del p32
+    torch.cuda.empty_cache()
+    return out
+
+
+# -- phase 4c: the host KV tier -----------------------------------------------
+
+
+def block_bytes(cfg, bs: int) -> int:
+    """Bytes of one KV block in one pool, K and V over every layer."""
+    return cfg.n_layers * bs * cfg.n_kv_heads * cfg.head_dim * 2 * cfg.dtype_bytes
+
+
+def run_host_tier(cfg, params, prefix: int = 256, suffix: int = 1152, bs: int = 16) -> dict:
+    """Phase 4c. (a) A pool of 2 x max_blocks and 12 requests over 3
+    shared 256-token prefixes (each with a 1152-token suffix of its own,
+    so three requests overflow the pool), sent one after another: prefix
+    blocks are evicted, spilled and swapped back. Streams by the near-tie
+    rule against a default-pool engine's. (b) With speculation: a slot's
+    chain read before preempt, in the tier, and after readmission, both
+    pools byte for byte."""
+    from dstack_tpu_torch.workloads import paged_attention as pa
+    from dstack_tpu_torch.workloads.serving import ServingEngine
+
+    n_new, max_blocks = 8, cfg.max_seq_len // bs
+    prefixes = [byte_prompt(40 + j, prefix) for j in range(3)]
+    prompts = [prefixes[i % 3] + byte_prompt(50 + i, suffix) for i in range(12)]
+    streams, stats, launches = {}, {}, {}
+    for small in (True, False):
+        eng = ServingEngine(cfg, params, slots=8, prefill_chunk_tokens=256, kv_block_size=bs,
+                            kv_pool_blocks=2 * max_blocks if small else None,
+                            kv_host_budget_bytes=4 << 30 if small else None)
+        try:
+            eng.warmup()
+            pa.LAUNCHES["ragged_paged_attention"] = 0
+            streams[small] = [drain(eng.submit(p, max_new_tokens=n_new, temperature=0.0))[0]
+                              for p in prompts]
+            launches[small] = pa.LAUNCHES["ragged_paged_attention"]
+            stats[small] = eng.stats()
+        finally:
+            eng.close()
+        del eng
+        torch.cuda.empty_cache()
+    st = stats[True]
+    hist = st["swap_in_hist"]
+    per_block = hist["sum"] / hist["count"] if hist["count"] else None
+    out = {"spill": dict(
+        kernel_launches=launches[True], near_tie=hold_streams(
+            cfg, params, prompts, streams[False], streams[True],
+            ENGINE_LOGIT_TOL[torch.bfloat16], "host tier"),
+        **{k: st[k] for k in ("prefix_cache_hits_total", "prefix_cache_host_hits_total",
+                              "prefix_cache_device_hits_total", "kv_spills_total",
+                              "kv_swap_ins_total", "kv_block_evictions_total",
+                              "kv_host_evictions_total", "kv_host_bytes")},
+        big_pool_hits=stats[False]["prefix_cache_hits_total"],
+        swap_in_s_per_block=per_block,
+        swap_in_gb_per_s=block_bytes(cfg, bs) / per_block / 1e9 if per_block else None)}
+    log("host tier spill", json.dumps(out["spill"]))
+    if not st["prefix_cache_host_hits_total"] > 0:
+        raise AssertionError("no prefix block came back from the host tier")
+    out["preempt"] = run_preempt_bytes(cfg, params, bs, prefix + 44)
+    if launches[True] <= 0:
+        raise AssertionError("the host-tier run launched the paged kernel 0 times")
+    return out
+
+
+def run_preempt_bytes(cfg, params, bs: int = 16, prompt_len: int = 300,
+                      other_len: int = 1800) -> dict:
+    """A speculating slot preempted mid-stream and held parked while a
+    second request prefills and decodes in a pool of one max_len, so over
+    blocks the first one freed: the first slot's chain (target and
+    drafter pools) gathered from the card just before the swap-out must
+    equal, byte for byte, what the tier holds at swap-out and at
+    readmission, and what its fresh blocks hold after readmission."""
+    from dstack_tpu_torch.workloads.serving import ServingEngine
+
+    eng = ServingEngine(cfg, params, slots=8, prefill_chunk_tokens=256, kv_block_size=bs,
+                        kv_pool_blocks=cfg.max_seq_len // bs, spec_enable=True,
+                        spec_max_draft=4, kv_host_budget_bytes=4 << 30)
+    seen = {"other_blocks": set()}
+    parked, release = threading.Event(), threading.Event()
+    real_preempt, real_place = eng._preempt_slot, eng._place_slot
+    real_inject, real_readmit = eng._inject_chain, eng._readmit_swapped
+
+    def clone(arrays):
+        return {k: v.clone() for k, v in arrays.items()}
+
+    def preempt(slot):
+        table = eng._slot_tables[slot]
+        n_keep = (eng._lengths_host[slot] - 1) // bs + 1
+        seen["before"] = clone(eng._gather_chain(table[:n_keep]))
+        seen["freed"] = set(table)
+        t0 = time.monotonic()
+        ok = real_preempt(slot)
+        seen["swap_out_s"] = time.monotonic() - t0
+        sw = eng._swapped[-1]
+        seen["tier_at_swap_out"] = clone(sw.arrays)
+        seen["nbytes"], seen["sw"] = sw.nbytes, sw
+        parked.set()
+        return ok
+
+    def readmit():
+        # The parked slot stays out until the second request has decoded;
+        # meanwhile every block a live slot holds is noted.
+        if eng._swapped and not release.is_set():
+            for s, r in enumerate(eng._live):
+                if r is not None:
+                    seen["other_blocks"].update(eng._slot_tables[s] or ())
+            return False
+        return real_readmit()
+
+    def place(slot, table, *a):
+        # Readmission: _inject_chain has just scattered the payload.
+        eng._sync()
+        seen["swap_in_s"] = time.monotonic() - seen.pop("t_in")
+        seen["tier_at_readmission"] = clone(seen["sw"].arrays)
+        seen["after"] = clone(eng._gather_chain(table))
+        return real_place(slot, table, *a)
+
+    def inject(arrays, table):
+        seen.setdefault("t_in", time.monotonic())
+        return real_inject(arrays, table)
+
+    eng._preempt_slot, eng._place_slot, eng._inject_chain = preempt, place, inject
+    eng._readmit_swapped = readmit
+    try:
+        eng.warmup()
+        out = eng.submit(byte_prompt(70, prompt_len), max_new_tokens=64, temperature=0.0)
+        got = [out.get(timeout=300) for _ in range(8)]
+        eng.preempt(out)
+        if not parked.wait(300):
+            raise AssertionError("preempt: the slot never swapped out")
+        other = eng.submit(byte_prompt(71, other_len), max_new_tokens=16, temperature=0.0)
+        other_got = [other.get(timeout=300) for _ in range(8)]
+        release.set()
+        got += drain(out)[0]
+        other_got += drain(other)[0]
+        st = eng.stats()
+    finally:
+        eng.close()
+    reused = len(seen["other_blocks"] & seen["freed"])
+    if not reused or len(other_got) != 16:
+        raise AssertionError(f"preempt: the second request ({len(other_got)} tokens) held"
+                             f" {reused} of the {len(seen['freed'])} blocks the parked slot freed")
+    if len(got) != 64 or st["slot_preemptions_total"] != 1 or st["slot_swap_ins_total"] != 1:
+        raise AssertionError(f"preempt/resume: {len(got)} tokens, {st['slot_preemptions_total']}"
+                             f" preemptions, {st['slot_swap_ins_total']} swap-ins")
+    names = sorted(seen["before"])
+    if names != ["draft_k", "draft_v", "k", "v"]:
+        raise AssertionError(f"the swapped chain holds {names}")
+    for what in ("tier_at_swap_out", "tier_at_readmission", "after"):
+        for name in names:
+            a, b = seen["before"][name], seen[what][name]
+            if a.shape != b.shape or not torch.equal(a.cpu().view(torch.uint8),
+                                                     b.cpu().view(torch.uint8)):
+                raise AssertionError(f"{name} {what} differs from the chain before preempt")
+    r = dict(pools=names, blocks=int(seen["before"]["k"].shape[1]), bytes=seen["nbytes"],
+             swap_out_s=seen["swap_out_s"], swap_in_s=seen["swap_in_s"],
+             swap_out_gb_per_s=seen["nbytes"] / seen["swap_out_s"] / 1e9,
+             swap_in_gb_per_s=seen["nbytes"] / seen["swap_in_s"] / 1e9,
+             byte_exact=True, tokens=len(got), freed_blocks=len(seen["freed"]),
+             freed_blocks_rewritten=reused)
+    log("host tier preempt/resume", json.dumps(r))
+    return r
 
 
 # -- phase 5: http -----------------------------------------------------------
@@ -1257,6 +1629,218 @@ def run_http(params):
         server.server_close()
         th.join(timeout=10)
         engine.serving.close()
+
+
+# -- phase 5b: the service of examples/deployment/native/service.yml ----------
+
+SERVICE_YML = "examples/deployment/native/service.yml"
+
+
+def service_argv(preset=None, port=None, path=None):
+    """native_server's flags from service.yml's command, verbatim but for
+    --checkpoint-dir (weights random from --seed), with `preset` and
+    `port` put in place of its own when given."""
+    path = path or os.path.join(os.path.dirname(os.path.abspath(__file__)), SERVICE_YML)
+    text = open(path).read()
+    cmd = text.split("commands:", 1)[1].split("\nport:", 1)[0]
+    words = " ".join(line.strip().removeprefix("- ") for line in cmd.splitlines()).split()
+    words = words[words.index("--preset"):]
+    argv, i = [], 0
+    while i < len(words):
+        flag = words[i]
+        has_value = i + 1 < len(words) and not words[i + 1].startswith("--")
+        value = words[i + 1] if has_value else None
+        i += 2 if has_value else 1
+        if flag == "--checkpoint-dir":
+            continue
+        if flag == "--preset" and preset is not None:
+            value = preset
+        if flag == "--port" and port is not None:
+            value = str(port)
+        argv += [flag] + ([value] if has_value else [])
+    return argv
+
+
+def service_messages(n: int = 40):
+    """n chats of 32-300 bytes of text, the first 4 sharing a 64-byte
+    prefix (and one length, so their byte prompts align)."""
+    shared = bytes((i * 7 + 3) % 26 + 97 for i in range(64)).decode()
+    msgs = []
+    for i in range(n):
+        length = 120 if i < 4 else 32 + (i * 67) % 269
+        body = bytes((i * 31 + j * 11 + 5) % 26 + 97 for j in range(length)).decode()
+        text = shared + body[64:] if i < 4 else body
+        msgs.append([{"role": "user", "content": text}])
+    return msgs
+
+
+def ttft_of(trace) -> float:
+    """Submit to first token: the start of the first `decode` phase."""
+    return next(p["start_s"] for p in trace["phases"] if p["phase"] == "decode")
+
+
+SERVICE_SERIES = (
+    "dstack_tpu_serving_spec_rounds_total", "dstack_tpu_serving_spec_tokens_accepted_total",
+    "dstack_tpu_serving_kv_host_bytes", "dstack_tpu_serving_kv_swap_ins_total",
+    "dstack_tpu_serving_slot_preemptions_total", "dstack_tpu_serving_slot_swap_ins_total",
+    "dstack_tpu_serving_slots_swapped", "dstack_tpu_serving_prefix_cache_host_hits_total",
+    "dstack_tpu_serving_kv_swap_in_seconds_count",
+)
+
+
+def run_service(cfg, params, n_new: int = 64, preset=None, extra=()) -> dict:
+    """Phase 5b: native_server's main() with service.yml's flags (port 0
+    in place of its own) in a thread of this process (smol-1b, random
+    weights from --seed 0, the card's int8 drafter): 30 best-effort
+    chats, then 10 paid ones once the first are decoding, each at
+    temperature 0 for 64 tokens. The token ids are read off the engine's
+    output queues by a spy on `submit`. Gates: all complete; a paid
+    request preempted a best-effort slot and it swapped back; speculation
+    ran through the kernel; the Prometheus text has the new series; every
+    stream agrees by the near-tie rule with a plain engine's (no spec, no
+    tier, 40 slots) on the same token prompt in this process."""
+    from dstack_tpu_torch import native_server
+    from dstack_tpu_torch.workloads.serving import ServingEngine
+
+    argv = service_argv(preset, port=0) + list(extra)
+    started, seen, sent = threading.Event(), {}, {}
+    real_make = native_server.make_server
+
+    def make(engine, host, port, model_name):
+        server, ready = real_make(engine, "127.0.0.1", port, model_name)
+        real_submit = engine.serving.submit
+
+        def submit(tokens, *a, **kw):
+            # Each request's prompt and the ids its stream reads.
+            q = real_submit(tokens, *a, **kw)
+            ids = []
+            sent[kw.get("x_request_id")] = (list(tokens), ids)
+            real_get = q.get
+
+            def get(*ga, **gk):
+                item = real_get(*ga, **gk)
+                if item is not None and not isinstance(item, BaseException):
+                    ids.append(int(item))
+                return item
+
+            q.get = get
+            return q
+
+        engine.serving.submit = submit
+        seen.update(server=server, ready=ready, engine=engine)
+        started.set()
+        return server, ready
+
+    native_server.make_server = make
+    th = threading.Thread(target=native_server.main, args=(argv,), daemon=True)
+    t0 = time.monotonic()
+    th.start()
+    msgs = service_messages()
+    tenants = ["besteffort"] * 30 + ["paid"] * 10
+    results, peak = [None] * 40, {"kv_host_bytes": 0, "slots_swapped": 0}
+    try:
+        if not started.wait(300) or not seen["ready"].wait(300):
+            raise AssertionError("native_server never turned ready")
+        boot_s = time.monotonic() - t0
+        base = f"http://127.0.0.1:{seen['server'].server_address[1]}"
+
+        def send(i):
+            body = {"messages": msgs[i], "max_tokens": n_new, "temperature": 0}
+            code, text = http("POST", base + "/v1/chat/completions", body, timeout=600,
+                              headers={"Authorization": f"Bearer {tenants[i]}",
+                                       "X-Request-ID": f"svc-{i}"})
+            results[i] = (code, json.loads(text))
+
+        done = threading.Event()
+
+        def watch():
+            while not done.is_set():
+                try:
+                    m = json.loads(http("GET", base + "/metrics", timeout=10)[1])
+                    for k in peak:
+                        peak[k] = max(peak[k], m[k])
+                except Exception:
+                    pass
+                done.wait(0.25)
+
+        watcher = threading.Thread(target=watch, daemon=True)
+        watcher.start()
+        t_wave = time.monotonic()
+        threads = [threading.Thread(target=send, args=(i,)) for i in range(30)]
+        for t in threads:
+            t.start()
+        # The paid requests go once the best-effort ones are decoding.
+        while json.loads(http("GET", base + "/metrics")[1])["admitted_total"] < 8:
+            time.sleep(0.05)
+        paid = [threading.Thread(target=send, args=(i,)) for i in range(30, 40)]
+        for t in paid:
+            t.start()
+        for t in threads + paid:
+            t.join(timeout=900)
+        wave_s = time.monotonic() - t_wave
+        done.set()
+        watcher.join(timeout=10)
+        stats = json.loads(http("GET", base + "/metrics")[1])
+        prom = http("GET", base + "/metrics?format=prometheus")[1]
+        traces = [json.loads(http("GET", base + f"/v1/requests/svc-{i}/trace")[1])
+                  for i in range(40)]
+    finally:
+        native_server.make_server = real_make
+        if "server" in seen:
+            seen["server"].shutdown()  # main() then closes the server and engine
+        th.join(timeout=60)
+    if th.is_alive():
+        raise AssertionError("native_server's main() did not return after shutdown")
+    del seen
+    torch.cuda.empty_cache()
+    bad = [i for i, r in enumerate(results) if r is None or r[0] != 200
+           or r[1]["usage"]["completion_tokens"] != n_new
+           or len(sent.get(f"svc-{i}", ((), ()))[1]) != n_new]
+    if bad:
+        raise AssertionError(f"service requests {bad} did not complete with {n_new} tokens")
+    for name in SERVICE_SERIES:
+        if name not in prom:
+            raise AssertionError(f"the Prometheus text lacks {name}")
+    gates = dict(slot_preemptions_total=stats["slot_preemptions_total"] >= 1,
+                 slot_swap_ins_total=stats["slot_swap_ins_total"] >= 1,
+                 spec_rounds_total=stats["spec_rounds_total"] >= 1,
+                 kernel=stats["attn_path"] == "cuda" and stats["attn_dispatch_cuda_total"] > 0
+                 and not stats["attn_dispatch_plain_total"])
+    if not all(gates.values()):
+        raise AssertionError(f"service gates {gates}: {json.dumps(stats)[:2000]}")
+    # The plain engine on the token prompts the server submitted.
+    prompts = [sent[f"svc-{i}"][0] for i in range(40)]
+    eng = ServingEngine(cfg, params, slots=40, prefill_chunk_tokens=256, kv_block_size=32)
+    try:
+        eng.warmup()
+        outs = [eng.submit(p, max_new_tokens=n_new, temperature=0.0) for p in prompts]
+        plain = [drain(q)[0] for q in outs]
+    finally:
+        eng.close()
+    del eng
+    torch.cuda.empty_cache()
+    got = [sent[f"svc-{i}"][1] for i in range(40)]
+    near = hold_streams(cfg, params, prompts, plain, got,
+                        ENGINE_LOGIT_TOL[torch.bfloat16], "service")
+    ttft = {t: sorted(ttft_of(tr) for tr, tt in zip(traces, tenants) if tt == t)
+            for t in ("besteffort", "paid")}
+
+    def pct(xs, q):
+        return xs[min(len(xs) - 1, math.ceil(q * len(xs)) - 1)]
+
+    out = dict(
+        argv=argv, boot_s=boot_s, wave_s=wave_s, near_tie=near,
+        ttft_s={t: {"p50": statistics.median(v), "p95": pct(v, 0.95)} for t, v in ttft.items()},
+        decode_tokens_per_s=40 * (n_new - 1) / max(stats["decode_seconds_total"], 1e-9),
+        wave_tokens_per_s=40 * n_new / wave_s,
+        peak_kv_host_bytes=peak["kv_host_bytes"], peak_slots_swapped=peak["slots_swapped"],
+        **{k: stats[k] for k in ("slot_preemptions_total", "slot_swap_ins_total",
+                                 "kv_spills_total", "kv_swap_ins_total",
+                                 "prefix_cache_hits_total", "prefix_cache_host_hits_total",
+                                 "admitted_total", "attn_dispatch_cuda_total") + SPEC_KEYS},
+    )
+    log("service (5b)", json.dumps(out))
+    return out
 
 
 # -- phase 8: the train-state checkpoint at full width -------------------------
@@ -1576,6 +2160,10 @@ def paged_entry(kres, launches, wave) -> dict:
         "decode_short": {k: case["decode_short_bf16"][k] for k in PAGED_TIMES},
         "chunk": {**{k: case["prefill_bf16"][k] for k in PAGED_TIMES},
                   "ptxas": ptxas["ragged_paged_attention_chunk"]},
+        "verify": {k: case["verify_bf16"][k] for k in PAGED_TIMES},
+        "verify32": {k: case["verify32_bf16"][k] for k in PAGED_TIMES},
+        **{name: {k: case[f"{name}_bf16"][k] for k in PAGED_TIMES}
+           for name in ("chunk256", "chunk256_bs32", "decode_bs32", "verify_bs32")},
         "profiled_ms_per_call": wave["paged_ms_per_call"],
         "ptxas": ptxas["ragged_paged_attention"],
     }
@@ -1612,8 +2200,10 @@ def main() -> int:
 
     # 3. kernels against plain versions
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    t0 = time.monotonic()
     kres = run_kernels(flush)
     del flush
+    log(f"phase 3: {time.monotonic() - t0:.1f}s")
 
     # 3b. flash kernels against plain versions
     t0 = time.monotonic()
@@ -1640,8 +2230,23 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches, wave = run_engine(cfg, params)
 
+    # 4b. speculative decoding: plain, spec, spec, plain; f32 at 4 layers
+    t0 = time.monotonic()
+    spec = run_spec(cfg, params)
+    log(f"phase 4b: {time.monotonic() - t0:.1f}s")
+
+    # 4c. the host KV tier: spill and swap back, preempt and resume
+    t0 = time.monotonic()
+    host_tier = run_host_tier(cfg, params)
+    log(f"phase 4c: {time.monotonic() - t0:.1f}s")
+
     # 5. http
     run_http(params)
+
+    # 5b. native_server with service.yml's flags
+    t0 = time.monotonic()
+    service = run_service(cfg, params)
+    log(f"phase 5b: {time.monotonic() - t0:.1f}s")
     del params
     torch.cuda.empty_cache()
 
@@ -1684,6 +2289,13 @@ def main() -> int:
 
     log(f"total {time.monotonic() - t_all:.1f}s")
     kernels = {"kernels": [paged_entry(kres, launches, wave)]}
+    # The paged kernel's launches on the speculative and host-tier paths
+    # (each zeroed just before its run and read just after).
+    kernels["kernels"][0]["launches_by_path"] = {
+        "engine": launches,
+        "spec": [r["kernel_launches"] for r in spec["runs"] if r["spec"]],
+        "host_tier": host_tier["spill"]["kernel_launches"],
+    }
     # `ms` (and so `tflops` and `bound_share`) times launches back to back
     # (`cuda_ms`); `ms_one_launch` one launch from the host's call on an
     # idle card and a cold L2, which for a short kernel is mostly latency.
@@ -1713,7 +2325,8 @@ def main() -> int:
         })
     os.makedirs(os.path.dirname(OUT), exist_ok=True)
     with open(OUT, "w") as f:
-        json.dump({"device": smi, "paged": kres, "flash": fres, "train": train,
+        json.dump({"device": smi, "paged": kres, "spec": spec, "host_tier": host_tier,
+                   "service": service, "flash": fres, "train": train,
                    "model_check": model, "ring_train": ring, "ring_model_check": ring_model,
                    "checkpoint": checkpoint, "drain": drain,
                    "build_s": _build.build_seconds}, f, indent=1)

@@ -22,6 +22,20 @@ The tokenizer is the same toy byte-level one as the JAX server's, so the
 server runs without a vocabulary download; swap in a real tokenizer for
 real checkpoints.
 
+Serving flags of examples/deployment/native/service.yml: speculative
+decoding (`--spec-enable`, `--spec-max-draft`, `--spec-draft-preset`:
+`int8` is the int8 quantization of the target; a preset name builds a
+random drafter of that preset from a torch generator seeded at 1, which
+cannot reproduce the JAX server's `jax.random` drafter), the KV budget
+check (`--kv-budget-mb`), the host KV tier and slot overcommit
+(`--kv-host-budget-mb`, `--max-resident-slots`) and QoS weights
+(`--qos-weight TENANT=WEIGHT`). A request's tenant is its Bearer key, else
+the adapter named in `model` ("base:adapter"; LoRA itself is not ported),
+else "default", as the JAX server resolves it; on a host-tier engine a
+heavier tenant may preempt a lighter one's live slot. `--qos-rate` (the
+dataplane's per-tenant token buckets) is not ported and refuses > 0;
+`GET /v1/affinity` answers 501.
+
     python -m dstack_tpu_torch.native_server --preset smol-1b --port 9000
 """
 
@@ -48,13 +62,43 @@ from dstack_tpu_torch.workloads.serving import (
 )
 from dstack_tpu_torch.workloads.transformer import init_params
 
+# The tenant of a request with neither a Bearer key nor an adapter (the
+# dataplane's default bucket in the JAX package).
+DEFAULT_TENANT = "default"
+# Prompts are bucketed to powers of two as in the JAX server, so both
+# servers hand the engine the same prompt shapes.
+MIN_BUCKET = 32
+
+
+def encode_text(text: str, vocab_size: int, max_seq_len: int,
+                max_new_tokens: int):
+    """The byte tokenizer: token ids of `text`, left-padded with newline
+    bytes to a power-of-two bucket (at least MIN_BUCKET), the OLDEST
+    bytes truncated past it, within max_seq_len - max_new_tokens."""
+    ids = [min(b, vocab_size - 1) for b in text.encode()] or [0]
+    limit = max_seq_len - max_new_tokens
+    ids = ids[-limit:] if limit > 0 else ids[:1]
+    bucket = MIN_BUCKET
+    while bucket * 2 <= len(ids):
+        bucket *= 2
+    bucket = min(bucket, limit if limit > 0 else bucket)
+    if len(ids) < bucket:
+        ids = [10] * (bucket - len(ids)) + ids
+    else:
+        ids = ids[-bucket:]
+    return ids
+
+
+def chat_text(messages) -> str:
+    """The prompt text of a chat: one `role: content` line per message,
+    then the assistant's turn."""
+    return "\n".join(
+        f"{m.get('role', 'user')}: {m.get('content', '')}" for m in messages
+    ) + "\nassistant:"
+
 
 class Engine:
     """Model + serving engine + byte tokenizer."""
-
-    # Prompts are bucketed to powers of two as in the JAX server, so both
-    # servers hand the engine the same prompt shapes.
-    MIN_BUCKET = 32
 
     def __init__(self, preset: str, max_new_tokens: int,
                  checkpoint_dir: str = "", quantize: str = "none",
@@ -62,7 +106,15 @@ class Engine:
                  steps_per_sync: int = 4, max_prefills_per_chunk: int = 4,
                  prefill_chunk_tokens: int = 128, kv_block_size: int = 16,
                  max_pending: int = 16, seed: int = 0, params=None,
-                 trace_ring: int = 256, trace_slow_ms: Optional[float] = None):
+                 trace_ring: int = 256, trace_slow_ms: Optional[float] = None,
+                 spec_enable: bool = False, spec_max_draft: int = 4,
+                 spec_draft_preset: str = "int8", kv_budget_mb: int = 0,
+                 kv_host_budget_mb: int = 0, max_resident_slots: int = 0,
+                 qos_weights=None, qos_rate: float = 0.0):
+        if qos_rate > 0:
+            raise NotImplementedError(
+                "--qos-rate (the dataplane's per-tenant token buckets) is not"
+                " ported to the PyTorch server yet")
         self.config = PRESETS[preset]
         if max_new_tokens >= self.config.max_seq_len:
             raise ValueError(
@@ -101,6 +153,12 @@ class Engine:
         auto_stage("weights_end")
         self.weights_seconds = time.monotonic() - t0
         self.weights_via = weights_via
+        # The drafter: the engine quantizes the target itself for "int8";
+        # a preset name drafts with a random model of that preset.
+        draft_params = draft_config = None
+        if spec_enable and spec_draft_preset != "int8":
+            draft_config = PRESETS[spec_draft_preset]
+            draft_params = init_params(draft_config, 1, self.device)
         self.serving = ServingEngine(
             self.config, params, slots=slots, temperature=0.8,
             max_pending=max_pending, steps_per_sync=steps_per_sync,
@@ -108,31 +166,25 @@ class Engine:
             prefill_chunk_tokens=prefill_chunk_tokens,
             kv_block_size=kv_block_size, device=self.device,
             trace_ring=trace_ring, trace_slow_ms=trace_slow_ms,
+            spec_enable=spec_enable, spec_max_draft=spec_max_draft,
+            spec_draft_params=draft_params, spec_draft_config=draft_config,
+            kv_budget_bytes=kv_budget_mb * (1 << 20) or None,
+            kv_host_budget_bytes=kv_host_budget_mb * (1 << 20) or None,
+            max_resident_slots=max_resident_slots or None,
+            qos_weights=qos_weights or None,
         )
         self.params = self.serving.params  # detached: serving builds no graph
 
     def encode(self, text: str):
-        ids = [min(b, self.config.vocab_size - 1) for b in text.encode()] or [0]
-        limit = self.config.max_seq_len - self.max_new_tokens
-        ids = ids[-limit:] if limit > 0 else ids[:1]
-        # Bucket to a power of two: pad short prompts left with newline
-        # bytes, truncate the OLDEST bytes down to the bucket otherwise.
-        bucket = self.MIN_BUCKET
-        while bucket * 2 <= len(ids):
-            bucket *= 2
-        bucket = min(bucket, limit if limit > 0 else bucket)
-        if len(ids) < bucket:
-            ids = [10] * (bucket - len(ids)) + ids
-        else:
-            ids = ids[-bucket:]
-        return ids
+        return encode_text(text, self.config.vocab_size, self.config.max_seq_len,
+                           self.max_new_tokens)
 
     def decode(self, ids) -> str:
         return bytes(int(t) % 256 for t in ids).decode("utf-8", errors="replace")
 
     def chat_stream(self, messages, max_tokens=None, temperature=None,
                     top_p=None, usage_out=None, traceparent=None,
-                    x_request_id=None):
+                    x_request_id=None, tenant=None):
         """Yield decoded text fragments as tokens land. Malformed
         per-request fields fall back to the server defaults; UTF-8 is
         decoded incrementally so multi-byte characters reassemble."""
@@ -158,17 +210,15 @@ class Engine:
                     nucleus = min(max(v, 1e-6), 1.0)
             except (TypeError, ValueError):
                 pass
-        prompt = "\n".join(
-            f"{m.get('role', 'user')}: {m.get('content', '')}" for m in messages
-        )
-        tokens = self.encode(prompt + "\nassistant:")
+        tokens = self.encode(chat_text(messages))
         if usage_out is not None:
             usage_out["prompt_tokens"] = len(tokens)
             usage_out["completion_tokens"] = 0
         out = self.serving.submit(tokens, max_new_tokens=budget,
                                   temperature=temp, top_p=nucleus,
                                   traceparent=traceparent,
-                                  x_request_id=x_request_id)
+                                  x_request_id=x_request_id,
+                                  tenant=tenant or DEFAULT_TENANT)
         dec = codecs.getincrementaldecoder("utf-8")("replace")
         try:
             while True:
@@ -190,11 +240,13 @@ class Engine:
             self.serving.cancel(out)
 
     def chat(self, messages, max_tokens=None, temperature=None, top_p=None,
-             usage_out=None, traceparent=None, x_request_id=None) -> str:
+             usage_out=None, traceparent=None, x_request_id=None,
+             tenant=None) -> str:
         return "".join(self.chat_stream(messages, max_tokens, temperature,
                                         top_p, usage_out=usage_out,
                                         traceparent=traceparent,
-                                        x_request_id=x_request_id))
+                                        x_request_id=x_request_id,
+                                        tenant=tenant))
 
 
 def make_server(engine: Engine, host: str, port: int,
@@ -248,6 +300,16 @@ def make_server(engine: Engine, host: str, port: int,
                              "finish_reason": finish}],
             }
 
+        def _tenant(self, req) -> str:
+            """The request's QoS tenant, as the JAX server resolves it: the
+            Bearer key when one was sent, else the adapter named in
+            `model` ("base:adapter"), else the default bucket."""
+            model = req.get("model") or ""
+            adapter = model.split(":", 1)[1] if ":" in model else ""
+            auth = self.headers.get("Authorization", "")
+            key = auth[7:].strip() if auth.lower().startswith("bearer ") else ""
+            return key or adapter or DEFAULT_TENANT
+
         def _stream(self, req) -> None:
             """OpenAI-style SSE: one delta chunk per decoded piece. The
             first piece is pulled before the 200 is committed, so a
@@ -257,7 +319,7 @@ def make_server(engine: Engine, host: str, port: int,
                 pieces = engine.chat_stream(
                     req.get("messages", []), req.get("max_tokens"),
                     req.get("temperature"), req.get("top_p"),
-                    traceparent=tp, x_request_id=rid,
+                    traceparent=tp, x_request_id=rid, tenant=self._tenant(req),
                 )
                 first = next(pieces)
             except StopIteration:
@@ -332,6 +394,8 @@ def make_server(engine: Engine, host: str, port: int,
                     self.wfile.write(body)
                     return
                 return self._send(200, stats)
+            if path == "/v1/affinity":
+                return self._send(501, {"error": "the affinity sketch is not ported"})
             if path.startswith("/v1/requests/") and path.endswith("/trace"):
                 # By engine request id or client X-Request-ID (the live ring
                 # first, then the tail store).
@@ -357,7 +421,8 @@ def make_server(engine: Engine, host: str, port: int,
             try:
                 text = engine.chat(req.get("messages", []), req.get("max_tokens"),
                                    req.get("temperature"), req.get("top_p"),
-                                   usage_out=usage, traceparent=tp, x_request_id=rid)
+                                   usage_out=usage, traceparent=tp, x_request_id=rid,
+                                   tenant=self._tenant(req))
             except EngineOverloadedError as e:
                 return self._send_overloaded(e)
             except ValueError as e:
@@ -443,7 +508,63 @@ def main(argv: Optional[list] = None) -> None:
                         help="tail-based capture threshold: full traces persist"
                              " only for requests at/above this many ms or ending"
                              " in error/shed (unset disables tail capture)")
+    parser.add_argument("--spec-enable", action="store_true",
+                        help="draft-model speculative decoding: a cheap"
+                             " drafter proposes tokens, the target verifies"
+                             " them in one forward (distribution-exact)")
+    parser.add_argument("--spec-max-draft", type=int, default=4,
+                        help="ceiling for the adaptive per-slot draft length")
+    parser.add_argument("--spec-draft-preset", default="int8",
+                        help="drafter model: 'int8' (quantized copy of the"
+                             " target) or a preset name (random weights)")
+    parser.add_argument("--kv-budget-mb", type=int, default=0,
+                        help="KV pool memory budget in MiB (0 = unlimited);"
+                             " with --spec-enable the target AND drafter"
+                             " pools must both fit")
+    parser.add_argument("--kv-host-budget-mb", type=int, default=0,
+                        help="host-RAM KV tier budget in MiB (0 = no host"
+                             " tier): evicted prefix-cache blocks spill here"
+                             " instead of dying, and preempted slots park"
+                             " their live KV chain here until resume")
+    parser.add_argument("--max-resident-slots", type=int, default=0,
+                        help="decode slots resident on the card (0 = --slots);"
+                             " below --slots admitted streams overcommit the"
+                             " card through the host tier (requires"
+                             " --kv-host-budget-mb)")
+    parser.add_argument("--qos-weight", action="append", default=[],
+                        metavar="TENANT=WEIGHT",
+                        help="per-tenant weight (repeatable; default 1.0):"
+                             " with --kv-host-budget-mb a heavier tenant may"
+                             " preempt a lighter tenant's live slot")
+    parser.add_argument("--qos-rate", type=float, default=0.0,
+                        help="per-tenant token-bucket refill rate; not ported"
+                             " (only 0 is accepted)")
     args = parser.parse_args(argv)
+    if args.spec_max_draft <= 0:
+        raise SystemExit(
+            f"--spec-max-draft must be positive, got {args.spec_max_draft}")
+    if args.spec_draft_preset != "int8" and args.spec_draft_preset not in PRESETS:
+        raise SystemExit(
+            f"--spec-draft-preset {args.spec_draft_preset!r} is not a known"
+            f" preset (choose 'int8' or one of: {', '.join(sorted(PRESETS))})"
+        )
+    if args.max_resident_slots and not args.kv_host_budget_mb:
+        raise SystemExit(
+            "--max-resident-slots overcommit needs --kv-host-budget-mb"
+            " (swapped-out slots park their KV in the host tier)"
+        )
+    qos_weights = {}
+    for entry in args.qos_weight:
+        tenant, _, weight = entry.partition("=")
+        try:
+            qos_weights[tenant] = float(weight)
+        except ValueError:
+            weight = ""
+        if not tenant or not weight or qos_weights[tenant] <= 0:
+            raise SystemExit(
+                f"--qos-weight {entry!r} is not TENANT=WEIGHT"
+                " with a positive weight"
+            )
     # An explicit cache dir must be live before the engine's warmup or a
     # first request builds the kernel library.
     if args.compile_cache_dir:
@@ -457,7 +578,13 @@ def main(argv: Optional[list] = None) -> None:
             prefill_chunk_tokens=args.prefill_chunk_tokens,
             kv_block_size=args.kv_block_size, max_pending=args.max_pending,
             seed=args.seed, trace_ring=args.trace_ring,
-            trace_slow_ms=args.trace_slow_ms,
+            trace_slow_ms=args.trace_slow_ms, spec_enable=args.spec_enable,
+            spec_max_draft=args.spec_max_draft,
+            spec_draft_preset=args.spec_draft_preset,
+            kv_budget_mb=args.kv_budget_mb,
+            kv_host_budget_mb=args.kv_host_budget_mb,
+            max_resident_slots=args.max_resident_slots,
+            qos_weights=qos_weights, qos_rate=args.qos_rate,
         )
     except ValueError as e:
         raise SystemExit(f"invalid serving configuration: {e}")

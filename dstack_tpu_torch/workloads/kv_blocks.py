@@ -1,13 +1,16 @@
-"""Paged KV cache: block pool + prefix sharing + chunked prefill (port of
-`dstack_tpu.workloads.kv_blocks`, serving slice).
+"""Paged KV cache: block pool + prefix sharing + chunked prefill +
+speculative draft/verify (port of `dstack_tpu.workloads.kv_blocks`,
+without the LoRA verify).
 
 `k`/`v` are per-layer block pools and each slot owns a block-table row
 mapping its logical cache positions to pool blocks. A host-side
 `BlockAllocator` refcounts blocks and keeps a hash-chained prefix cache;
 `make_chunk_prefill` writes one prompt chunk straight into the pool and
-`make_paged_decode_step` decodes every live slot against it. Every
-attention goes through `paged_attention.ragged_attention`, which on the
-card is the hand-written CUDA kernel.
+`make_paged_decode_step` decodes every live slot against it;
+`make_spec_draft` / `make_spec_verify` are the two halves of a
+speculation round. Every attention goes through
+`paged_attention.ragged_attention`, which on the card is the
+hand-written CUDA kernel.
 
 Writes. The JAX programs donate the pools and scatter with
 `mode="drop"`, so a lane aimed at the out-of-range sentinel vanishes.
@@ -30,7 +33,11 @@ import torch
 
 from dstack_tpu_torch.workloads.config import ModelConfig, require_dense
 from dstack_tpu_torch.workloads.device import host_to_device
-from dstack_tpu_torch.workloads.generate import sample_logits_row
+from dstack_tpu_torch.workloads.generate import (
+    _categorical,
+    _nucleus_filter,
+    sample_logits_row,
+)
 from dstack_tpu_torch.workloads.paged_attention import ragged_attention
 from dstack_tpu_torch.workloads.transformer import (
     layer_params,
@@ -109,8 +116,8 @@ def _chain_hash(parent: bytes, block_tokens) -> bytes:
 
 class BlockAllocator:
     """Refcounted free-list over the pool + LRU prefix cache (a copy of
-    the JAX package's allocator, which is pure Python; its host-tier
-    spill/swap-in hooks and affinity digests come with those slices).
+    the JAX package's allocator, which is pure Python; its affinity
+    digests come with that slice).
 
     NOT thread-safe — the engine serializes calls under its own lock.
     Refcount convention: `_ref[b]` counts holders (one per task/slot
@@ -125,21 +132,35 @@ class BlockAllocator:
     `match`/`insert_full`/`insert_tail` take a `namespace`: a non-empty
     namespace seeds the hash chain, so two tenants with identical prompts
     but different KV contents never share a prefix block.
+
+    Host tier (optional): `spill(key, block)` is called at the eviction
+    seam in `alloc()` while the victim block's device contents are still
+    intact, so the owner can ship its KV to host memory before the block
+    is recycled. `swap_in(key) -> Optional[block]` is called on a cache
+    miss in `match()`: the owner pulls the payload back into a freshly
+    allocated block and returns it (ref=1, which becomes the cache's
+    hold), or None. A swap-in may reenter `alloc()` and so spill (depth
+    one); a spill never allocates, and neither hook reenters `match()`.
     """
 
-    def __init__(self, num_blocks: int, block_size: int, cache: bool = True):
+    def __init__(self, num_blocks: int, block_size: int, cache: bool = True,
+                 spill=None, swap_in=None):
         self.num_blocks = num_blocks
         self.block_size = block_size
         self.cache_enabled = cache
+        self._spill = spill
+        self._swap_in = swap_in
         self._free: List[int] = list(range(num_blocks))
         self._ref = [0] * num_blocks
         self._cache: "OrderedDict[tuple, int]" = OrderedDict()
         self._block_key: Dict[int, tuple] = {}
         self.hits = 0
         self.misses = 0
+        self.host_hits = 0       # matches that pulled >=1 block from host
         self.tokens_reused = 0
         self.cow_copies = 0
         self.evictions = 0
+        self._last_lookup_swapped = False
 
     @property
     def in_use(self) -> int:
@@ -161,6 +182,9 @@ class BlockAllocator:
             b = self._cache.pop(victim)
             del self._block_key[b]
             self.evictions += 1
+            if self._spill is not None:
+                # Nothing has written block b since the cache published it.
+                self._spill(victim, b)
             self._ref[b] -= 1
             self._free.append(b)
         b = self._free.pop()
@@ -204,11 +228,13 @@ class BlockAllocator:
         blocks: List[int] = []
         h = self._ns_seed(namespace)
         matched = 0
+        swapped_in = False
         while (len(blocks) + 1) * bs <= limit:
             h2 = _chain_hash(h, tokens[matched:matched + bs])
             b = self._lookup(("F", h2))
             if b is None:
                 break
+            swapped_in = swapped_in or self._last_lookup_swapped
             self._ref[b] += 1
             blocks.append(b)
             matched += bs
@@ -216,22 +242,37 @@ class BlockAllocator:
         for f in range(min(limit - matched, bs - 1), 0, -1):
             b = self._lookup(("P", h, tuple(tokens[matched:matched + f])))
             if b is not None:
+                swapped_in = swapped_in or self._last_lookup_swapped
                 self._ref[b] += 1
                 blocks.append(b)
                 matched += f
                 break
         if matched:
             self.hits += 1
+            if swapped_in:
+                self.host_hits += 1
         else:
             self.misses += 1
         self.tokens_reused += matched
         return blocks, matched
 
     def _lookup(self, key: tuple) -> Optional[int]:
-        """Cache probe; a hit bumps the entry to most-recently-used."""
+        """Cache probe with the host-tier fallback: a device hit bumps the
+        entry to most-recently-used; a miss asks `swap_in` to bring the
+        block back from host memory and republishes it under `key`."""
+        self._last_lookup_swapped = False
         b = self._cache.get(key)
         if b is not None:
             self._cache.move_to_end(key)
+            return b
+        if self._swap_in is None:
+            return None
+        b = self._swap_in(key)
+        if b is None:
+            return None
+        self._cache[key] = b
+        self._block_key[b] = key
+        self._last_lookup_swapped = True
         return b
 
     @staticmethod
@@ -295,6 +336,7 @@ class BlockAllocator:
             "blocks_cached": self.cached,
             "hits": self.hits,
             "misses": self.misses,
+            "host_hits": self.host_hits,
             "tokens_reused": self.tokens_reused,
             "cow_copies": self.cow_copies,
             "evictions": self.evictions,
@@ -311,6 +353,18 @@ def _write_rows(pool: torch.Tensor, blk: torch.Tensor, off: torch.Tensor,
     block."""
     pool.index_put_((blk.to(torch.int64), off.to(torch.int64)),
                     rows.to(pool.dtype))
+
+
+def _window_lanes(tables: torch.Tensor, positions: torch.Tensor,
+                  ok: torch.Tensor, nb: int, bs: int):
+    """(blk, off) write lanes for cache `positions` (B, S) through the
+    slots' block tables; a lane that must not write (`ok` false, or a
+    sentinel table entry) is aimed at the discard block `nb`."""
+    mb = tables.shape[1]
+    blk = torch.gather(tables, 1,
+                       torch.clamp(positions // bs, 0, mb - 1).to(torch.int64))
+    blk = torch.where(ok & (blk < nb), blk, torch.full_like(blk, nb))
+    return blk, positions % bs
 
 
 def make_chunk_prefill(config: ModelConfig, chunk: int):
@@ -414,13 +468,9 @@ def make_paged_decode_step(config: ModelConfig, steps: int = 1):
         lengths = state.lengths
         positions = lengths[:, None]                          # (B, 1)
         x = params["embed"][state.last_token[:, None]]        # (B, 1, d)
-        write_ok = state.active & (lengths < ml)
-        blk = torch.gather(
-            state.block_tables, 1,
-            torch.clamp(lengths // bs, 0, mb - 1)[:, None].to(torch.int64),
-        )[:, 0]
-        blk = torch.where(write_ok & (blk < nb), blk, torch.full_like(blk, nb))
-        off = lengths % bs
+        blk, off = _window_lanes(state.block_tables, positions,
+                                 (state.active & (lengths < ml))[:, None], nb, bs)
+        blk, off = blk[:, 0], off[:, 0]
         valid_len = (lengths + 1)[:, None]                    # (B, 1) int32
         for layer in range(c.n_layers):
             p = layer_params(params, layer)
@@ -454,6 +504,198 @@ def make_paged_decode_step(config: ModelConfig, steps: int = 1):
         return state, torch.stack(toks, dim=1), state.active
 
     return decode_steps
+
+
+# -- speculative decoding (draft k cheap tokens, verify in one forward) -------
+
+
+def _sampling_probs(logits: torch.Tensor, temps: torch.Tensor,
+                    top_ps: torch.Tensor,
+                    nucleus: Optional[bool] = None) -> torch.Tensor:
+    """Per-slot sampling distributions under the engine's semantics:
+    logits (B, S, V), temps / top_ps (B,) -> probs (B, S, V). Temperature
+    scale guarded like `_select_next_token` (greedy slots do not divide
+    by 0), nucleus filter through the shared `generate._nucleus_filter`,
+    gated so traffic where no sampling slot filters never pays the vocab
+    sort. Rejection sampling is exact only if the drafter's q and the
+    target's p both come from this function. `nucleus` is the gate as a
+    host value; None reads it off the device (one sync)."""
+    scaled = logits / torch.clamp(temps, min=1e-6)[:, None, None]
+    if nucleus is None:
+        nucleus = bool(((temps > 0.0) & (top_ps < 1.0)).any())
+    if nucleus:
+        scaled = _nucleus_filter(scaled, top_ps[:, None, None])
+    return torch.softmax(scaled, dim=-1)
+
+
+def make_spec_draft(config: ModelConfig, k: int):
+    """spec_draft(params, draft_state, block_tables, lengths, last_token,
+    active, temps, top_ps, generator, sampling=None, nucleus=None) ->
+    (drafts (B, k) int32, qlogits (B, k, V) f32).
+
+    The drafter's half of a speculation round: k+1 single-token drafter
+    steps against the DRAFTER's pools (`draft_state.k` / `.v`, updated in
+    place), through the TARGET's block tables — one allocator indexes
+    both pools, so prefix sharing and copy-on-write apply to both. Step i
+    feeds the previous token at position lengths+i and proposes the next:
+    steps 0..k-1 yield d_1..d_k; step k's token is thrown away, but its
+    KV write (row lengths+k, the KV of d_k) is what lets a fully accepted
+    round go on without a catch-up pass — the drafter's rows always
+    cover the target's new length, whatever the acceptance count.
+    Inactive slots (their tables may be stale) and rows past max_len
+    write to the discard block. `qlogits` are the logits behind each
+    draft, from which the verify recomputes q with `_sampling_probs`.
+    `sampling` / `nucleus` say whether any live slot samples / filters
+    (host values; None reads them off the device)."""
+    c = config
+    require_dense(c)
+
+    def spec_draft(params, draft_state: PagedDecodeState, block_tables,
+                   lengths, last_token, active, temps, top_ps,
+                   generator: Optional[torch.Generator],
+                   sampling: Optional[bool] = None,
+                   nucleus: Optional[bool] = None):
+        nb, bs = draft_state.num_blocks, draft_state.k.shape[2]
+        mb = block_tables.shape[1]
+        ml = mb * bs
+        if sampling is None:
+            sampling = bool((active & (temps > 0.0)).any())
+        pos, token = lengths, last_token
+        toks, logits_k = [], []
+        for _ in range(k + 1):
+            x = params["embed"][token[:, None]]                 # (B, 1, d)
+            blk, off = _window_lanes(block_tables, pos[:, None],
+                                     (active & (pos < ml))[:, None], nb, bs)
+            valid_len = (pos + 1).to(torch.int32)[:, None]
+            for layer in range(c.n_layers):
+                p = layer_params(params, layer)
+                q, kk, vv = project_qkv(c, x, p, pos[:, None])
+                _write_rows(draft_state.k[layer], blk[:, 0], off[:, 0], kk[:, 0])
+                _write_rows(draft_state.v[layer], blk[:, 0], off[:, 0], vv[:, 0])
+                kp, vp = draft_state.pools(layer)
+                attn = ragged_attention(q, kp, vp, block_tables, valid_len)
+                x = x + linear(attn, p["wo"])
+                x = mlp_block(c, x, p)
+            h = rms_norm(x, params["final_norm"], c.norm_eps)
+            logits = logits_linear(h[:, -1], params["lm_head"])  # (B, V)
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+            if sampling:
+                probs = _sampling_probs(logits[:, None], temps, top_ps, nucleus)[:, 0]
+                sampled = _categorical(torch.log(probs.clamp_min(1e-38)), generator)
+                nxt = torch.where(temps > 0, sampled, nxt)
+            toks.append(nxt)
+            logits_k.append(logits)
+            pos, token = pos + 1, nxt
+        return torch.stack(toks[:k], dim=1), torch.stack(logits_k[:k], dim=1)
+
+    return spec_draft
+
+
+def make_spec_verify(config: ModelConfig, k: int, lora: bool = False):
+    """spec_verify(params, state, drafts (B, k), qlogits (B, k, V),
+    generator, sampling=None, nucleus=None) -> (state, emitted (B, k+1),
+    accepted (B,), active (B,)), state updated in place.
+
+    The target's half: a (B, k+1) forward over [last_token, d_1..d_k] at
+    positions lengths..lengths+k, every row written into the slot's pool
+    blocks first and attended raggedly with valid lengths positions+1,
+    so logits[:, j] conditions on the drafts up to d_j as the sequential
+    decode body would. Temperature-0 slots accept the leading run of
+    drafts that match the target's argmax (token-exact with plain
+    decode); sampling slots accept d_j where u_j * q_j(d_j) < p_j(d_j),
+    draw the correction token from norm(max(p_m - q_m, 0)) (p_m when that
+    sum is 0) and the bonus token from p_k when all k are accepted, which
+    keeps the target's distribution (arXiv:2211.17192). Emission caps
+    (`remaining`, and no write past max_len - 1) and the retire rules are
+    `make_paged_decode_step`'s. Rollback is length gating over a window
+    the engine made private before the round (`_ensure_spec_writable`):
+    rejected rows sit past the new length, masked, until overwritten.
+    `emitted` is -1-padded past each slot's emissions; `accepted` is the
+    uncapped accepted count m. The LoRA flavour is not ported."""
+    if lora:
+        raise NotImplementedError(
+            "the LoRA spec verify is not ported to the PyTorch engine yet")
+    c = config
+    require_dense(c)
+    S = k + 1
+
+    def spec_verify(params, state: PagedDecodeState, drafts, qlogits,
+                    generator: Optional[torch.Generator],
+                    sampling: Optional[bool] = None,
+                    nucleus: Optional[bool] = None):
+        nb, bs = state.num_blocks, state.k.shape[2]
+        B, mb = state.block_tables.shape
+        ml = mb * bs
+        dev = state.k.device
+        lens, act0 = state.lengths, state.active
+        offs = torch.arange(S, dtype=torch.int32, device=dev)
+        drafts = drafts.to(torch.int32)
+        tokens = torch.cat([state.last_token[:, None], drafts], dim=1)  # (B, S)
+        positions = lens[:, None] + offs[None, :]
+        blk, off = _window_lanes(state.block_tables, positions,
+                                 act0[:, None] & (positions < ml), nb, bs)
+        blk, off = blk.reshape(-1), off.reshape(-1)
+        valid_len = (positions + 1).to(torch.int32)
+        x = params["embed"][tokens]                                     # (B, S, d)
+        for layer in range(c.n_layers):
+            p = layer_params(params, layer)
+            q, kk, vv = project_qkv(c, x, p, positions)
+            _write_rows(state.k[layer], blk, off, kk.reshape(B * S, *kk.shape[2:]))
+            _write_rows(state.v[layer], blk, off, vv.reshape(B * S, *vv.shape[2:]))
+            kp, vp = state.pools(layer)
+            attn = ragged_attention(q, kp, vp, state.block_tables, valid_len)
+            x = x + linear(attn, p["wo"])
+            x = mlp_block(c, x, p)
+        h = rms_norm(x, params["final_norm"], c.norm_eps)
+        logits = logits_linear(h, params["lm_head"])                    # (B, S, V)
+
+        temps = state.temperature
+        if sampling is None:
+            sampling = bool((act0 & (temps > 0.0)).any())
+        greedy_tok = torch.argmax(logits, dim=-1).to(torch.int32)       # (B, S)
+        ok = greedy_tok[:, :k] == drafts
+        if sampling:
+            samp = temps > 0
+            p_probs = _sampling_probs(logits, temps, state.top_p, nucleus)
+            q_probs = _sampling_probs(qlogits, temps, state.top_p, nucleus)
+            idx = drafts.to(torch.int64)[:, :, None]
+            p_at = torch.gather(p_probs[:, :k], 2, idx)[:, :, 0]
+            q_at = torch.gather(q_probs, 2, idx)[:, :, 0]
+            u = torch.rand((B, k), generator=generator, device=dev)
+            ok = torch.where(samp[:, None], u * q_at < p_at, ok)
+        m = torch.cumprod(ok.to(torch.int32), dim=1).sum(dim=1).to(torch.int32)
+        m64 = m.to(torch.int64)
+        bonus = torch.gather(greedy_tok, 1, m64[:, None])[:, 0]
+        if sampling:
+            rows = torch.arange(B, device=dev)
+            p_m = p_probs[rows, m64]
+            q_pad = torch.cat([q_probs, torch.zeros_like(q_probs[:, :1])], dim=1)
+            q_m = q_pad[rows, m64]
+            resid = torch.clamp(p_m - q_m, min=0.0)
+            r_sum = resid.sum(dim=-1, keepdim=True)
+            resid = torch.where(r_sum > 0, resid / torch.clamp(r_sum, min=1e-38), p_m)
+            bonus_samp = _categorical(torch.log(resid.clamp_min(1e-38)), generator)
+            bonus = torch.where(samp, bonus_samp, bonus)
+
+        cap = torch.clamp(ml - 1 - lens, min=0)
+        n_emit = torch.where(act0, torch.minimum(torch.minimum(m + 1, state.remaining), cap),
+                             torch.zeros_like(m)).to(torch.int32)
+        seq = torch.cat([drafts, torch.zeros_like(drafts[:, :1])], dim=1)
+        seq = torch.where(offs[None, :] == m[:, None], bonus[:, None], seq)
+        emitted = torch.where(offs[None, :] < n_emit[:, None], seq, torch.full_like(seq, -1))
+        new_len = lens + n_emit
+        new_rem = state.remaining - n_emit
+        new_act = act0 & (new_rem > 0) & (new_len + 2 <= ml)
+        last_emitted = torch.gather(
+            emitted, 1, torch.clamp(n_emit - 1, 0, k).to(torch.int64)[:, None])[:, 0]
+        state.last_token = torch.where(n_emit > 0, last_emitted, state.last_token)
+        state.lengths = new_len
+        state.remaining = new_rem
+        state.active = new_act
+        accepted = torch.where(act0, m, torch.zeros_like(m))
+        return state, emitted, accepted, new_act
+
+    return spec_verify
 
 
 def make_copy_block():

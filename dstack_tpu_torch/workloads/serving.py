@@ -1,6 +1,7 @@
 """Continuous-batching decode engine in PyTorch (port of
-`dstack_tpu.workloads.serving`: the unified, single-device,
-non-speculative, LoRA-free engine, and the dense reference it is held to).
+`dstack_tpu.workloads.serving`: the unified, single-device, LoRA-free
+engine with speculative decoding, the host KV tier and slot preemption,
+and the dense reference it is held to).
 
 A fixed batch of B slots steps together so new requests join mid-flight
 and finished ones free their slot at once. The KV cache is paged
@@ -12,9 +13,24 @@ chunk, so a long prompt never stalls in-flight decodes for more than one
 chunk budget. Every chunk prefill and decode step runs its attention
 through `paged_attention.ragged_attention` (the CUDA kernel on the card).
 
-Host syncs: one readback per decode chunk of `steps_per_sync` tokens,
-and one per finalized prefill's first token, which a reader thread waits
-for on its own CUDA event so the loop never blocks on it.
+Speculative decoding (`spec_enable`): a drafter (by default the int8
+quantization of the target) proposes k tokens per slot against its own
+pool, indexed through the target's block tables by the one allocator,
+and the target verifies all k+1 positions in one forward
+(kv_blocks.make_spec_draft / make_spec_verify); k adapts per slot to its
+acceptance, and a batch that keeps rejecting falls back to plain decode
+chunks for a while. Host tier (`kv_host_budget_bytes`): prefix blocks
+that eviction takes spill to page-locked host memory and swap back on a
+later hit; a live slot can be preempted (its chain parked host-side,
+resumed later token-exact at temperature 0) when the pool starves, when a
+heavier tenant (`qos_weights`) finds every resident slot taken, or on
+`preempt()`; `max_resident_slots` caps the slots resident on the card.
+
+Host syncs: one readback per decode chunk of `steps_per_sync` tokens (or
+per speculation round, plus one between its draft and verify that splits
+their times), and one per finalized prefill's first token, which a
+reader thread waits for on its own CUDA event so the loop never blocks
+on it. A spill and a swap-out wait for their device-to-host copies.
 
 The dense primitives (DecodeState / make_prefill / make_insert /
 make_decode_step) are the reference semantics: the paged decode body
@@ -55,10 +71,14 @@ from dstack_tpu_torch.workloads.kv_blocks import (
     make_chunk_prefill,
     make_copy_block,
     make_paged_decode_step,
+    make_spec_draft,
+    make_spec_verify,
 )
+from dstack_tpu_torch.workloads.kv_host_tier import HostKVTier, payload_bytes
 from dstack_tpu_torch.workloads.paged_attention import (
     dispatch_path as attn_dispatch_path,
 )
+from dstack_tpu_torch.workloads.quant import quantize_params
 from dstack_tpu_torch.workloads.transformer import (
     detach_params,
     layer_params,
@@ -276,6 +296,32 @@ class _Request(NamedTuple):
     t_submit: float
     request_id: Optional[int] = None
     trace: Optional[Any] = None
+    # QoS identity: keys the engine's qos_weights, which decide who
+    # preempts whom on a host-tier engine. None weighs 1.0.
+    tenant: Optional[str] = None
+
+
+class _SwappedSlot:
+    """A preempted request parked in host memory: the KV of its whole
+    block chain (target and drafter pools, host tensors) and the device
+    sampling scalars at the boundary it left, everything readmission
+    needs to resume it token-exact at temperature 0 with the budget it
+    had left. `nbytes` stays reserved in the host tier until readmission
+    or a terminal path unreserves it."""
+
+    __slots__ = ("req", "length", "last_token", "remaining", "arrays",
+                 "nbytes", "t0")
+
+    def __init__(self, req: _Request, length: int, last_token: int,
+                 remaining: int, arrays: Dict[str, torch.Tensor],
+                 nbytes: int, t0: float):
+        self.req = req
+        self.length = length          # filled cache positions at swap
+        self.last_token = last_token  # next token to feed
+        self.remaining = remaining    # decode budget left
+        self.arrays = arrays          # k/v (+draft_k/draft_v), (L, n, bs, KV, hd)
+        self.nbytes = nbytes          # reserved against the host budget
+        self.t0 = t0                  # original slot admission time
 
 
 class _FirstToken:
@@ -318,13 +364,13 @@ class _PrefillTask:
 
 
 class ServingEngine:
-    """Continuous-batching host loop around the chunk-prefill and decode
-    programs. submit() returns a queue yielding generated token ids as
-    they decode (None terminates).
+    """Continuous-batching host loop around the chunk-prefill, decode and
+    speculation programs. submit() returns a queue yielding generated
+    token ids as they decode (None terminates).
 
     Unported features of the JAX engine are refused, never ignored:
-    speculative decoding, meshes, LoRA adapters, disaggregated roles,
-    KV transfer and the host KV tier raise NotImplementedError."""
+    meshes, LoRA adapters, disaggregated roles, KV transfer and the
+    affinity sketch raise NotImplementedError."""
 
     def __init__(
         self,
@@ -346,22 +392,24 @@ class ServingEngine:
         trace_slow_ms: Optional[float] = None,
         device: DeviceLike = None,
         spec_enable: bool = False,
+        spec_max_draft: int = 4,
+        spec_draft_params: Optional[Params] = None,
+        spec_draft_config: Optional[ModelConfig] = None,
+        spec_min_accept: float = 0.3,
+        kv_budget_bytes: Optional[int] = None,
         mesh: Optional[Any] = None,
         role: str = "unified",
         kv_transfer: Optional[Any] = None,
         lora_max_adapters: int = 0,
         kv_host_budget_bytes: Optional[int] = None,
         max_resident_slots: Optional[int] = None,
+        qos_weights: Optional[Dict[str, float]] = None,
     ):
         unported = {
-            "spec_enable": bool(spec_enable),
             "mesh": mesh is not None,
             "lora_max_adapters > 0": lora_max_adapters > 0,
             f"role={role!r}": role != "unified",
             "kv_transfer": kv_transfer is not None,
-            "kv_host_budget_bytes": bool(kv_host_budget_bytes),
-            "max_resident_slots < slots": (max_resident_slots is not None
-                                           and max_resident_slots < slots),
         }
         asked = [name for name, on in unported.items() if on]
         if asked:
@@ -419,8 +467,43 @@ class ServingEngine:
                 f"kv_pool_blocks {self._num_blocks} must fit one max_len"
                 f" request ({self._max_blocks} blocks)"
             )
-        self._alloc = BlockAllocator(self._num_blocks, kv_block_size,
-                                     cache=prefix_cache)
+        # -- host tier and slot preemption ---------------------------------
+        # With a host budget, evicted prefix blocks spill to host memory
+        # instead of dying, and whole slots can swap out under pressure or
+        # QoS preemption. Off, the engine is the tier-less engine.
+        self._host_tier: Optional[HostKVTier] = None
+        if kv_host_budget_bytes:
+            self._host_tier = HostKVTier(kv_host_budget_bytes)
+        if max_resident_slots is None:
+            self._max_resident = slots
+        else:
+            if not (1 <= max_resident_slots <= slots):
+                raise ValueError(
+                    f"max_resident_slots {max_resident_slots} must be in"
+                    f" [1, slots={slots}]"
+                )
+            if max_resident_slots < slots and self._host_tier is None:
+                raise ValueError(
+                    "max_resident_slots < slots requires a host tier to"
+                    " park swapped slots in (set kv_host_budget_bytes)"
+                )
+            self._max_resident = max_resident_slots
+        self._qos_weights: Dict[str, float] = dict(qos_weights or {})
+        # Preempted requests parked in the host tier, readmitted
+        # heaviest-tenant first; guarded by _lock.
+        self._swapped: List[_SwappedSlot] = []
+        # Out-queues whose live slot preempt() asked to swap out at the
+        # next boundary; guarded by _lock.
+        self._preempt_requests: set = set()
+        self._preemptions = 0
+        self._slot_swap_ins = 0
+        self._swap_in_hist = HistogramData()
+        tiered = self._host_tier is not None
+        self._alloc = BlockAllocator(
+            self._num_blocks, kv_block_size, cache=prefix_cache,
+            spill=self._spill_block if tiered else None,
+            swap_in=self._swap_in_block if tiered else None,
+        )
         self.prefill_chunk_tokens = prefill_chunk_tokens
         self._chunk_cache: Dict[int, Any] = {}
         self.state = init_paged_state(
@@ -430,11 +513,98 @@ class ServingEngine:
         self._step = make_paged_decode_step(config, steps=steps_per_sync)
         self._copy_block = make_copy_block()
         # Which ragged-attention implementation this engine runs (decided
-        # by its device) and how many chunk/decode dispatches ran it.
+        # by its device) and how many chunk/decode/spec dispatches ran it.
         self._attn_path = attn_dispatch_path(self.device, config.head_dim)
         self._attn_dispatch = {p: 0 for p in ATTN_PATHS}
+        # -- speculative decoding ------------------------------------------
+        self._spec = bool(spec_enable)
+        if spec_max_draft < 1:
+            raise ValueError(f"spec_max_draft must be >= 1, got {spec_max_draft}")
+        self._spec_max_draft = spec_max_draft
+        self._spec_min_accept = spec_min_accept
+
+        def _pool_bytes(cfg: ModelConfig) -> int:
+            row = 2 * cfg.n_kv_heads * cfg.head_dim  # k + v
+            return (cfg.n_layers * self._num_blocks * kv_block_size * row
+                    * cfg.dtype_bytes)
+
+        self._draft_config = spec_draft_config or config
+        if self._spec:
+            if self._draft_config.vocab_size != config.vocab_size:
+                raise ValueError(
+                    "drafter vocab_size"
+                    f" {self._draft_config.vocab_size} must match the"
+                    f" target's {config.vocab_size} (one tokenizer)"
+                )
+            target_cover = min(self.max_len, config.max_seq_len)
+            if self._draft_config.max_seq_len < target_cover:
+                raise ValueError(
+                    f"drafter max_seq_len {self._draft_config.max_seq_len}"
+                    f" must cover the engine window {target_cover}"
+                    f" (min of engine max_len {self.max_len} and target"
+                    f" max_seq_len {config.max_seq_len})"
+                )
+        if kv_budget_bytes is not None:
+            need_bytes = _pool_bytes(config)
+            if self._spec:
+                need_bytes += _pool_bytes(self._draft_config)
+            if need_bytes > kv_budget_bytes:
+                what = ("a drafter KV pool alongside the target pool"
+                        if self._spec else "the KV pool")
+                raise ValueError(
+                    f"cannot fit {what}: {need_bytes} bytes needed but"
+                    f" kv_budget_bytes is {kv_budget_bytes}"
+                    + (" (disable speculation or shrink the pool)"
+                       if self._spec else "")
+                )
+        if self._spec:
+            require_dense(self._draft_config)
+            # Default drafter: weight-only int8 of the target (QTensor
+            # leaves dispatch in transformer.linear), so every program runs
+            # unchanged on it.
+            self._draft_params = detach_params(
+                spec_draft_params if spec_draft_params is not None
+                else quantize_params(self.params))
+            if params_device(self._draft_params) != self.device:
+                raise ValueError(
+                    f"drafter params live on {params_device(self._draft_params)},"
+                    f" engine device is {self.device}"
+                )
+            # The drafter's pool has the target pool's geometry and is
+            # indexed through the same block tables: one allocator drives
+            # both. Its own table and scalar fields are unused.
+            self._draft_state = init_paged_state(
+                self._draft_config, slots, self.max_len, kv_block_size,
+                self._num_blocks, self.device,
+            )
+            self._draft_chunk_cache: Dict[int, Any] = {}
+            self._spec_draft_fns: Dict[int, Any] = {}
+            self._spec_verify_fns: Dict[int, Any] = {}
+        # Per-slot adaptive draft length: starts mid, grows toward
+        # spec_max_draft while the slot's acceptance EWMA stays high,
+        # shrinks toward 1 when it drops. None EWMA = unseeded.
+        self._spec_init_k = min(2, spec_max_draft)
+        self._slot_k: List[int] = [self._spec_init_k] * slots
+        self._accept_ewma: List[Optional[float]] = [None] * slots
+        self._spec_accept_ewma = 0.0
+        self._spec_tokens_round_ewma = 0.0
+        self._spec_rounds = 0
+        self._spec_fallback_rounds = 0
+        self._spec_proposed = 0
+        self._spec_accepted = 0
+        self._spec_rejected = 0
+        self._t_spec_draft = 0.0
+        self._t_spec_verify = 0.0
+        # Whole-batch fallback: after 3 consecutive rounds whose batch-mean
+        # acceptance is below spec_min_accept, plain decode chunks for 50
+        # boundaries, then a re-probe at k=1.
+        self._spec_low_streak = 0
+        self._spec_cooldown = 0
         self._temperature = temperature
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
+        # The drafter's own stream: at temperature 0 neither is drawn
+        # from, and the target's stream stays the plain engine's.
+        self._gen_draft = torch.Generator(device=self.device).manual_seed(seed + 0x5bec)
         self.max_pending = max_pending
         self.rejected = 0
         self._steps_per_sync = steps_per_sync
@@ -503,11 +673,14 @@ class ServingEngine:
 
     def warmup(self) -> Dict[str, Any]:
         """Build the kernel and run every program the scheduler can
-        dispatch once — the decode step and every chunk bucket — so the
-        first request pays no build. Each run is a no-op on an idle
-        engine: an all-inactive decode step and n_valid=0 chunks write
-        only to the discard block and touch no slot field. Only legal on
-        an idle engine (RuntimeError otherwise).
+        dispatch once — the decode step, every chunk bucket, and with
+        speculation the drafter's chunk buckets, the draft and verify for
+        every k in 1..spec_max_draft and the drafter's block copy — so
+        the first request meets no build, kernel plan or allocation that
+        warmup did not make. Each run is a no-op on an idle engine: an
+        all-inactive decode step or round and n_valid=0 chunks write only
+        to the discard block and touch no slot field. Only legal on an
+        idle engine (RuntimeError otherwise).
 
         Emits the compile_start / compile_end / warmup_end stage markers
         and returns {"seconds", "programs", "compiles", "cache_hits",
@@ -520,7 +693,8 @@ class ServingEngine:
                 raise RuntimeError("engine already failed") from self._failed
             busy = (any(r is not None for r in self._live) or self._tasks
                     or self._admitting or self._pending_activation
-                    or self._next_req is not None or not self._pending.empty())
+                    or self._swapped or self._next_req is not None
+                    or not self._pending.empty())
             if busy:
                 raise RuntimeError(
                     "warmup requires an idle engine: call it before serving"
@@ -542,7 +716,26 @@ class ServingEngine:
                 self._chunk_fn(b)(self.params, self.state, 0, row, [0] * b,
                                   0, 0, 0, 1.0, 1.0, self._gen, False)
                 programs += 1
+                if self._spec:
+                    self._draft_chunk_fn(b)(self._draft_params, self._draft_state,
+                                            0, row, [0] * b, 0, 0, 0, 1.0, 1.0,
+                                            self._gen_draft, False)
+                    programs += 1
             self.state.block_tables[0] = self._num_blocks
+            if self._spec:
+                # The speculation ladder: every draft length adaptation
+                # can reach, on the all-inactive batch.
+                st = self.state
+                for k in range(1, self._spec_max_draft + 1):
+                    drafts, qlogits = self._spec_draft_fn(k)(
+                        self._draft_params, self._draft_state, st.block_tables,
+                        st.lengths, st.last_token, st.active, st.temperature,
+                        st.top_p, self._gen_draft, sampling=False, nucleus=False)
+                    self._spec_verify_fn(k)(self.params, st, drafts, qlogits,
+                                            self._gen, sampling=False, nucleus=False)
+                    programs += 2
+                self._copy_block(self._draft_state, 0, 0)
+                programs += 1
             self._copy_block(self.state, 0, 0)
             programs += 1
             if self.device.type == "cuda":
@@ -571,10 +764,13 @@ class ServingEngine:
                temperature: Optional[float] = None, top_p: float = 1.0,
                request_id: Optional[int] = None,
                traceparent: Optional[str] = None,
-               x_request_id: Optional[str] = None) -> "queue.Queue[object]":
+               x_request_id: Optional[str] = None,
+               tenant: Optional[str] = None) -> "queue.Queue[object]":
         """Enqueue a request; returns its output queue (ints, then None;
         an Exception on engine failure). `temperature` (0 = greedy) and
-        `top_p` override the engine defaults for this request."""
+        `top_p` override the engine defaults for this request. `tenant`
+        keys qos_weights: on a host-tier engine a heavier tenant's request
+        may preempt a lighter one's live slot instead of queueing."""
         if not tokens:
             raise ValueError("empty prompt")
         if max_new_tokens < 1:
@@ -619,7 +815,7 @@ class ServingEngine:
                 raise EngineOverloadedError(depth, self._retry_after(depth))
             self._pending.put(_Request(
                 list(tokens), max_new_tokens, out, float(temperature),
-                float(top_p), time.monotonic(), request_id, rec,
+                float(top_p), time.monotonic(), request_id, rec, tenant,
             ))
             self._inflight.add(out)
         self._wake.set()
@@ -651,6 +847,14 @@ class ServingEngine:
             if found is None and self._next_req is not None \
                     and self._next_req.out is out:
                 found, self._next_req = self._next_req, None
+            if found is None:
+                # Swapped out: purge the parked payload and unpin its host
+                # bytes here, so the tier keeps no residue.
+                for i, sw in enumerate(self._swapped):
+                    if sw.req.out is out:
+                        found = self._swapped.pop(i).req
+                        self._host_tier.unreserve(sw.nbytes)
+                        break
             if found is not None:
                 self._inflight.discard(out)
                 self.recorder.finish(found.trace, "cancelled")
@@ -658,6 +862,25 @@ class ServingEngine:
                 return
             self._cancelled.add(out)
         self._wake.set()
+
+    def preempt(self, out: "queue.Queue[object]") -> None:
+        """Ask the engine to preempt the live request whose submit()
+        returned `out` at the next chunk boundary: its block chain swaps
+        out to the host tier and the request readmits later (token-exact
+        at temperature 0). Advisory: a request that is not live, an engine
+        without a host tier, or a host budget that cannot pin the payload
+        leaves the request running. Safe from any thread; idempotent."""
+        if self._host_tier is None:
+            return
+        with self._lock:
+            if out in self._inflight:
+                self._preempt_requests.add(out)
+        self._wake.set()
+
+    def affinity_sketch(self, limit: int = 512) -> Dict[str, Any]:
+        """The reference's cache-affinity sketch: not ported yet."""
+        raise NotImplementedError(
+            "the affinity sketch is not ported to the PyTorch engine yet")
 
     def stats(self) -> Dict[str, Any]:
         """Live load snapshot (feeds /metrics): queue and shed counters,
@@ -668,6 +891,7 @@ class ServingEngine:
         ported."""
         busy = self._t_decode + self._t_prefill + self._t_idle
         a = self._alloc
+        tier = self._host_tier.stats() if self._host_tier is not None else {}
         cc = compile_cache.snapshot()
         return {
             "slots": self.slots,
@@ -686,9 +910,25 @@ class ServingEngine:
             "kv_blocks_cached": a.cached,
             "prefix_cache_hits_total": a.hits,
             "prefix_cache_misses_total": a.misses,
+            # A host hit is a match that pulled at least one block back
+            # from the host tier; device + host + misses partition probes.
+            "prefix_cache_device_hits_total": a.hits - a.host_hits,
+            "prefix_cache_host_hits_total": a.host_hits,
             "prefix_tokens_reused_total": a.tokens_reused,
             "kv_cow_copies_total": a.cow_copies,
             "kv_block_evictions_total": a.evictions,
+            "kv_host_enabled": self._host_tier is not None,
+            "kv_host_budget_bytes": tier.get("budget_bytes", 0),
+            "kv_host_blocks": tier.get("blocks", 0),
+            "kv_host_bytes": tier.get("spill_bytes", 0) + tier.get("pinned_bytes", 0),
+            "kv_spills_total": tier.get("spills_total", 0),
+            "kv_host_evictions_total": tier.get("evictions_total", 0),
+            "kv_swap_ins_total": tier.get("swap_ins_total", 0),
+            "max_resident_slots": self._max_resident,
+            "slots_swapped": len(self._swapped),
+            "slot_preemptions_total": self._preemptions,
+            "slot_swap_ins_total": self._slot_swap_ins,
+            "swap_in_hist": self._swap_in_hist.to_dict(),
             "prefill_chunks_total": self._prefill_chunks,
             "prefill_tokens_computed_total": self._prefill_tokens_computed,
             "ttft_seconds_ewma": round(self._ttft_s, 4),
@@ -720,6 +960,22 @@ class ServingEngine:
             "compile_seconds_total": round(cc["compile_seconds"], 4),
             "role": self.role,
             "tpt_hist": self._tpt_hist.to_dict(),
+            # Speculative decoding: draft/verify seconds, token fates
+            # (proposed = accepted + rejected; the correction or bonus token
+            # of each round is not proposed) and the acceptance EWMAs that
+            # drive draft-length adaptation and the fallback.
+            "spec_enabled": self._spec,
+            "spec_max_draft": self._spec_max_draft,
+            "spec_rounds_total": self._spec_rounds,
+            "spec_fallback_rounds_total": self._spec_fallback_rounds,
+            "spec_tokens_proposed_total": self._spec_proposed,
+            "spec_tokens_accepted_total": self._spec_accepted,
+            "spec_tokens_rejected_total": self._spec_rejected,
+            "spec_accept_rate_ewma": round(self._spec_accept_ewma, 4),
+            "spec_tokens_per_round_ewma": round(self._spec_tokens_round_ewma, 4),
+            "spec_draft_len_mean": round(sum(self._slot_k) / len(self._slot_k), 4),
+            "spec_draft_seconds_total": round(self._t_spec_draft, 4),
+            "spec_verify_seconds_total": round(self._t_spec_verify, 4),
             "attn_path": self._attn_path,
             **{f"attn_dispatch_{p}_total": n
                for p, n in self._attn_dispatch.items()},
@@ -761,6 +1017,12 @@ class ServingEngine:
             self._admitting.clear()
             self._tasks.clear()
             self._pending_activation.clear()
+            for sw in self._swapped:
+                self.recorder.finish(sw.req.trace, "error")
+                sw.req.out.put(sentinel)
+                self._host_tier.unreserve(sw.nbytes)
+            self._swapped.clear()
+            self._preempt_requests.clear()
             if self._next_req is not None:
                 self.recorder.finish(self._next_req.trace, "error")
                 self._next_req.out.put(sentinel)
@@ -783,6 +1045,37 @@ class ServingEngine:
             fn = make_chunk_prefill(self.config, n_padded)
             self._chunk_cache[n_padded] = fn
         return fn
+
+    def _draft_chunk_fn(self, n_padded: int):
+        """The drafter's twin of _chunk_fn."""
+        fn = self._draft_chunk_cache.get(n_padded)
+        if fn is None:
+            fn = make_chunk_prefill(self._draft_config, n_padded)
+            self._draft_chunk_cache[n_padded] = fn
+        return fn
+
+    def _spec_draft_fn(self, k: int):
+        fn = self._spec_draft_fns.get(k)
+        if fn is None:
+            fn = make_spec_draft(self._draft_config, k)
+            self._spec_draft_fns[k] = fn
+        return fn
+
+    def _spec_verify_fn(self, k: int):
+        """The verify program for draft length k (tests wrap this to gate
+        or spy on rounds)."""
+        fn = self._spec_verify_fns.get(k)
+        if fn is None:
+            fn = make_spec_verify(self.config, k)
+            self._spec_verify_fns[k] = fn
+        return fn
+
+    def _copy_both(self, src: int, dst: int) -> None:
+        """Copy-on-write's device half, in every pool the allocator
+        indexes (the drafter's moves with the target's)."""
+        self._copy_block(self.state, src, dst)
+        if self._spec:
+            self._copy_block(self._draft_state, src, dst)
 
     def _pad_chunk(self, n: int) -> int:
         """Pow-2 bucket (min 8) capped at the chunk budget, as the JAX
@@ -821,7 +1114,7 @@ class ServingEngine:
                     if b is None:
                         return False
                     if needs_copy:
-                        self._copy_block(self.state, task.table[idx], b)
+                        self._copy_both(task.table[idx], b)
                         task.table[idx] = b
                 else:
                     b = self._alloc.alloc()
@@ -859,8 +1152,22 @@ class ServingEngine:
                 req.out.put(None)
                 progressed = True
                 continue
-            free = [s for s in range(self.slots)
-                    if self._live[s] is None and s not in busy]
+
+            def _room():
+                # Residency cap: a prefilling task goes live the moment it
+                # finalizes, so it counts against max_resident_slots now.
+                # Swapped-out slots do not count: their KV is host-side.
+                live_n = sum(r is not None for r in self._live)
+                if live_n + len(busy) >= self._max_resident:
+                    return []
+                return [s for s in range(self.slots)
+                        if self._live[s] is None and s not in busy]
+
+            free = _room()
+            if not free and self._try_queue_jump(req):
+                # A heavier tenant swapped the lightest live slot out.
+                progressed = True
+                free = _room()
             if not free:
                 with self._lock:
                     self._next_req = req
@@ -902,6 +1209,17 @@ class ServingEngine:
                 task.req.top_p, self._gen, final,
             )
             self._attn_dispatch[self._attn_path] += 1
+            if self._spec:
+                # The drafter prefills the same chunk into its pool through
+                # the same table (a prefix hit skips both models' prefill
+                # alike). It never samples here: its first token is unused.
+                self._draft_chunk_fn(n_padded)(
+                    self._draft_params, self._draft_state, task.slot,
+                    self._pad_table(task.table), chunk + [0] * (n_padded - n),
+                    n, task.pos, task.req.max_new_tokens, task.req.temperature,
+                    task.req.top_p, self._gen_draft, False,
+                )
+                self._attn_dispatch[self._attn_path] += 1
             task.pos += n
             budget -= n
             self._prefill_chunks += 1
@@ -921,6 +1239,9 @@ class ServingEngine:
                         self._admitting.remove(task.req)
                         self._lengths_host[task.slot] = len(task.req.tokens)
                         self._slot_tables[task.slot] = task.table
+                        # A fresh request restarts draft-length adaptation.
+                        self._slot_k[task.slot] = self._spec_init_k
+                        self._accept_ewma[task.slot] = None
                     # One-token requests never go live: the reader thread
                     # completes them and releases their blocks.
                 self._tasks.remove(task)
@@ -981,17 +1302,245 @@ class ServingEngine:
             task.delivered.wait(timeout=60)
         self._pending_activation.clear()
 
-    def _ensure_decode_blocks(self) -> None:
-        """Grow live slots' tables to cover the next chunk's writes. A slot
-        the pool cannot feed is force-retired with an error — silently
-        dropping its KV writes would corrupt the stream."""
+    # -- host tier and slot preemption --------------------------------------
+
+    def _weight(self, req: _Request) -> float:
+        """QoS weight for preemption decisions (unknown tenants weigh 1)."""
+        return float(self._qos_weights.get(req.tenant, 1.0))
+
+    def _pools(self):
+        """(name, pool) of every pool the allocator indexes."""
+        pools = [("k", self.state.k), ("v", self.state.v)]
+        if self._spec:
+            pools += [("draft_k", self._draft_state.k), ("draft_v", self._draft_state.v)]
+        return pools
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+
+    def _gather_chain(self, table: List[int]) -> Dict[str, torch.Tensor]:
+        """Device -> host copy of a block chain out of every pool, as host
+        tensors (L, n, bs, KV, hd), page-locked on CUDA. Returns after the
+        copies have landed, so the blocks may be freed and rewritten at
+        once."""
+        ids = torch.tensor(table, dtype=torch.int64, device=self.device)
+        out = {}
+        for name, pool in self._pools():
+            rows = pool[:, ids]
+            if self.device.type == "cuda":
+                host = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
+                host.copy_(rows, non_blocking=True)
+                rows = host
+            out[name] = rows
+        self._sync()
+        return out
+
+    def _inject_chain(self, arrays: Dict[str, torch.Tensor],
+                      table: List[int]) -> None:
+        """Host -> device: scatter a gathered chain into the blocks of
+        `table`, in every pool (the lossless inverse of _gather_chain). A
+        payload that lacks a pool's rows raises: the drafter must never
+        decode from stale rows."""
+        missing = [name for name, _ in self._pools() if name not in arrays]
+        if missing:
+            raise RuntimeError(f"host KV payload lacks {missing}")
+        ids = torch.tensor(table, dtype=torch.int64, device=self.device)
+        for name, pool in self._pools():
+            pool[:, ids] = arrays[name].to(self.device, non_blocking=True)
+
+    def _spill_block(self, key: tuple, b: int) -> None:
+        """Allocator eviction hook: ship the victim block's KV to the host
+        tier before the block recycles, keyed by its prefix-chain key. A
+        payload the budget cannot hold just dies."""
+        self._host_tier.put(key, list(self._gather_chain([b]).items()))
+
+    def _swap_in_block(self, key: tuple) -> Optional[int]:
+        """Allocator miss hook: bring a spilled block back into a fresh
+        device block. The alloc may itself evict and spill (depth one; a
+        spill never allocates). None when the key is not spilled or no
+        block frees up; the payload then stays host-side."""
+        tier = self._host_tier
+        payload = tier.get(key)
+        if payload is None:
+            return None
+        t0 = time.monotonic()
+        b = self._alloc.alloc()
+        if b is None:
+            return None
+        self._inject_chain(payload, [b])
+        tier.pop(key)
+        self._swap_in_hist.observe(time.monotonic() - t0)
+        return b
+
+    def _place_slot(self, slot: int, table: List[int], length: int,
+                    last_token: int, remaining: int, temperature: float,
+                    top_p: float) -> None:
+        """The device state a final prefill chunk would leave in `slot`:
+        table row, length, next token, the budget left, sampling params."""
+        st = self.state
+        st.block_tables[slot] = host_to_device(self._pad_table(table), torch.int32,
+                                               self.device)
+        st.lengths[slot] = length
+        st.last_token[slot] = last_token
+        st.active[slot] = remaining > 0
+        st.remaining[slot] = remaining
+        st.temperature[slot] = temperature
+        st.top_p[slot] = top_p
+
+    def _preempt_slot(self, slot: int) -> bool:
+        """Swap a live slot's whole chain out to the host tier at a chunk
+        boundary: KV and sampling scalars park host-side, the slot and its
+        blocks free at once, and readmission resumes the request. False
+        (the slot keeps decoding) when the host budget cannot pin it."""
+        req = self._live[slot]
+        table = self._slot_tables[slot]
+        if req is None or table is None or self._host_tier is None:
+            return False
+        t0 = time.monotonic()
+        if req.trace is not None:
+            req.trace.mark("kv_swap_out", t0)
+        # The device scalars, not the host mirrors: resume restarts from
+        # the state the last program left.
+        st = self.state
+        length, last, rem = torch.stack(
+            [st.lengths[slot], st.last_token[slot], st.remaining[slot]]).tolist()
+        # Only the filled chain ships; blocks past `length` re-grow later.
+        n_keep = (length - 1) // self._block_size + 1
+        arrays = self._gather_chain(table[:n_keep])
+        nbytes = payload_bytes(list(arrays.items()))
+        if not self._host_tier.reserve(nbytes):
+            if req.trace is not None:
+                req.trace.mark("decode")
+            return False
+        sw = _SwappedSlot(req, length, last, rem, arrays, nbytes,
+                          self._slot_t0[slot])
+        with self._lock:
+            self._live[slot] = None
+            self._release_slot_blocks(slot, cache_tail=False)
+            self._swapped.append(sw)
+            self._preempt_requests.discard(req.out)
+        self._retire(slot)
+        self._preemptions += 1
+        if req.trace is not None:
+            req.trace.mark("queue_wait")
+        return True
+
+    def _try_queue_jump(self, req: _Request) -> bool:
+        """QoS preemption at admission: with every resident slot busy, a
+        request whose tenant weight strictly exceeds the lightest live
+        request's swaps that victim out. Ties go to the resident; among
+        equal-weight victims the longest-resident one goes."""
+        if self._host_tier is None or not self._qos_weights:
+            return False
+        w = self._weight(req)
+        victim: Optional[int] = None
+        vw = 0.0
+        for slot, r in enumerate(self._live):
+            if r is None:
+                continue
+            rw = self._weight(r)
+            if (victim is None or rw < vw
+                    or (rw == vw and self._slot_t0[slot] < self._slot_t0[victim])):
+                victim, vw = slot, rw
+        if victim is None or not w > vw:
+            return False
+        return self._preempt_slot(victim)
+
+    def _process_preempt_requests(self) -> None:
+        """Serve preempt() asks at a boundary. Asks for requests no longer
+        in flight are dropped; asks for requests not yet live wait."""
+        with self._lock:
+            self._preempt_requests &= self._inflight
+            wanted = set(self._preempt_requests)
+        if not wanted:
+            return
+        for slot, req in enumerate(self._live):
+            if req is not None and req.out in wanted:
+                self._preempt_slot(slot)
+
+    def _readmit_swapped(self) -> bool:
+        """Admission boundary for swapped-out requests: heaviest tenant
+        first (FIFO within a weight), each into a free slot and fresh
+        blocks (whose allocation may evict and spill cached ones). Entries
+        stay parked while slots, residency or blocks are short."""
+        progressed = False
+        while True:
+            with self._lock:
+                keep = []
+                for sw in self._swapped:
+                    if sw.req.out in self._cancelled:
+                        self._cancelled.discard(sw.req.out)
+                        self._inflight.discard(sw.req.out)
+                        self._host_tier.unreserve(sw.nbytes)
+                        self.recorder.finish(sw.req.trace, "cancelled")
+                        sw.req.out.put(None)
+                        progressed = True
+                    else:
+                        keep.append(sw)
+                self._swapped[:] = keep
+                if not self._swapped:
+                    return progressed
+                busy = {t.slot for t in self._tasks}
+                live_n = sum(r is not None for r in self._live)
+                free = [s for s in range(self.slots)
+                        if self._live[s] is None and s not in busy]
+                if not free or live_n + len(busy) >= self._max_resident:
+                    return progressed
+                pick = min(range(len(self._swapped)),
+                           key=lambda i: (-self._weight(self._swapped[i].req), i))
+                sw = self._swapped[pick]
+                n = int(sw.arrays["k"].shape[1])
+                table: List[int] = []
+                for _ in range(n):
+                    b = self._alloc.alloc()
+                    if b is None:
+                        break
+                    table.append(b)
+                if len(table) < n:
+                    for b in table:
+                        self._alloc.release(b)
+                    return progressed  # pool starved; retry next boundary
+                self._swapped.pop(pick)
+            slot = free[0]
+            t0 = time.monotonic()
+            if sw.req.trace is not None:
+                sw.req.trace.mark("kv_swap_in", t0)
+            self._inject_chain(sw.arrays, table)
+            self._place_slot(slot, table, sw.length, sw.last_token, sw.remaining,
+                             sw.req.temperature, sw.req.top_p)
+            with self._lock:
+                self._live[slot] = sw.req
+                self._lengths_host[slot] = sw.length
+                self._slot_tables[slot] = table
+                self._slot_k[slot] = self._spec_init_k
+                self._accept_ewma[slot] = None
+                self._slot_t0[slot] = sw.t0
+                self._host_tier.unreserve(sw.nbytes)
+            self._slot_swap_ins += 1
+            self._swap_in_hist.observe(time.monotonic() - t0)
+            if sw.req.trace is not None:
+                sw.req.trace.mark("decode")
+            progressed = True
+
+    # -- decode ---------------------------------------------------------------
+
+    def _ensure_decode_blocks(self, lookahead: Optional[int] = None) -> None:
+        """Grow live slots' tables to cover the next chunk's writes,
+        `lookahead` rows past each slot's length (the decode chunk's
+        steps_per_sync by default; a speculation round passes k+1). A slot
+        the pool cannot feed is preempted to the host tier where there is
+        one, else force-retired with an error — silently dropping its KV
+        writes would corrupt the stream."""
+        if lookahead is None:
+            lookahead = self._steps_per_sync
         bs = self._block_size
         for slot in range(self.slots):
             table = self._slot_tables[slot]
             if self._live[slot] is None or table is None:
                 continue
             need = min(
-                (self._lengths_host[slot] + self._steps_per_sync - 1) // bs + 1,
+                (self._lengths_host[slot] + lookahead - 1) // bs + 1,
                 self._max_blocks,
             )
             grew = starved = False
@@ -1004,11 +1553,46 @@ class ServingEngine:
                 table.append(b)
                 grew = True
             if starved:
+                if self._host_tier is not None and self._preempt_slot(slot):
+                    continue
                 self._force_retire(slot, RuntimeError(
                     "kv block pool exhausted mid-decode (raise kv_pool_blocks)"
                 ))
                 continue
             if grew:
+                self.state.block_tables[slot] = host_to_device(
+                    self._pad_table(table), torch.int32, self.device)
+
+    def _ensure_spec_writable(self, k: int) -> None:
+        """Copy-on-write over each live slot's speculation window (rows
+        length..length+k) in both pools, before any draft or verify write:
+        a block still shared with the prefix cache or another slot must be
+        private first, or rejected drafts would corrupt every holder. A
+        slot the pool cannot feed is preempted, else force-retired."""
+        bs = self._block_size
+        for slot in range(self.slots):
+            table = self._slot_tables[slot]
+            if self._live[slot] is None or table is None:
+                continue
+            first_blk = self._lengths_host[slot] // bs
+            last_blk = min((self._lengths_host[slot] + k) // bs, len(table) - 1)
+            changed = False
+            for idx in range(first_blk, last_blk + 1):
+                with self._lock:
+                    b, needs_copy = self._alloc.ensure_writable(table[idx])
+                if b is None:
+                    if self._host_tier is not None and self._preempt_slot(slot):
+                        break
+                    self._force_retire(slot, RuntimeError(
+                        "kv block pool exhausted during speculative"
+                        " copy-on-write (raise kv_pool_blocks)"
+                    ))
+                    break
+                if needs_copy:
+                    self._copy_both(table[idx], b)
+                    table[idx] = b
+                    changed = True
+            if changed and self._slot_tables[slot] is table:
                 self.state.block_tables[slot] = host_to_device(
                     self._pad_table(table), torch.int32, self.device)
 
@@ -1051,12 +1635,17 @@ class ServingEngine:
 
     # -- loop ---------------------------------------------------------------
 
+    def _sampling_flags(self):
+        """(sampling, nucleus): whether any live request samples, and
+        whether any of those filters by top_p (host values, no sync)."""
+        live = [r for r in self._live if r is not None]
+        return (any(r.temperature > 0 for r in live),
+                any(r.temperature > 0 and r.top_p < 1 for r in live))
+
     def _decode_chunk(self):
         """Dispatch one decode chunk and read it back: the one host sync
         per `steps_per_sync` tokens."""
-        live = [r for r in self._live if r is not None]
-        sampling = any(r.temperature > 0 for r in live)
-        nucleus = any(r.temperature > 0 and r.top_p < 1 for r in live)
+        sampling, nucleus = self._sampling_flags()
         _, tokens, active = self._step(self.params, self.state, self._gen,
                                        sampling=sampling, nucleus=nucleus)
         self._attn_dispatch[self._attn_path] += 1
@@ -1068,7 +1657,9 @@ class ServingEngine:
             try:
                 has_live = any(r is not None for r in self._live)
                 if not has_live and not self._tasks:
-                    if self._pending.empty() and self._next_req is None:
+                    with self._lock:
+                        waiting = bool(self._swapped) or self._next_req is not None
+                    if self._pending.empty() and not waiting:
                         t_w = time.monotonic()
                         self._wake.wait(timeout=0.2)
                         self._wake.clear()
@@ -1077,26 +1668,44 @@ class ServingEngine:
                 if not has_live:
                     # Nothing decoding: admission runs alone; the next
                     # iteration decodes the freshly activated slots.
+                    # Swapped-out requests get first claim on capacity.
                     t_p = time.monotonic()
-                    progressed = self._advance_prefills()
+                    progressed = self._readmit_swapped()
+                    progressed |= self._advance_prefills()
                     self._wait_activations()
                     self._t_prefill += time.monotonic() - t_p
-                    if not progressed and self._tasks:
+                    if not progressed and (self._tasks or self._swapped):
                         time.sleep(0.001)  # pool starved, nothing live
                     continue
                 # 1) Prefill chunks first, so first-token readbacks land
                 #    while the decode chunk runs; block growth after, so
                 #    a prefill that went live above gets its decode rows.
                 t0 = time.monotonic()
+                self._readmit_swapped()
+                self._process_preempt_requests()
                 self._advance_prefills()
-                self._ensure_decode_blocks()
-                t_pf = time.monotonic()
-                # 2) The decode chunk, and its one readback.
-                toks, still = self._decode_chunk()
-                t_sync = time.monotonic()
-                self._chunk_s = self._ewma(self._chunk_s, t_sync - t_pf)
-                self._t_decode += t_sync - t_pf
-                self._last_chunk_s = t_sync - t_pf
+                if self._spec and self._spec_cooldown == 0:
+                    toks, still, t_pf = self._spec_round()
+                    if toks is None:
+                        continue  # every slot left during provisioning
+                else:
+                    self._ensure_decode_blocks()
+                    t_pf = time.monotonic()
+                    # 2) The decode chunk, and its one readback.
+                    toks, still = self._decode_chunk()
+                    t_sync = time.monotonic()
+                    self._chunk_s = self._ewma(self._chunk_s, t_sync - t_pf)
+                    self._t_decode += t_sync - t_pf
+                    self._last_chunk_s = t_sync - t_pf
+                    if self._spec:
+                        self._spec_fallback_rounds += 1
+                        self._spec_cooldown -= 1
+                        if self._spec_cooldown == 0:
+                            # Re-probe cautiously: shortest drafts, fresh
+                            # acceptance estimates.
+                            self._slot_k = [1] * self.slots
+                            self._accept_ewma = [None] * self.slots
+                            self._spec_low_streak = 0
                 self._t_prefill += t_pf - t0
                 # 3) First-token order barrier, then fan out the chunk.
                 self._wait_activations()
@@ -1111,9 +1720,89 @@ class ServingEngine:
                 logging.getLogger(__name__).exception("serving engine loop failed")
                 return
 
+    def _spec_round(self):
+        """One speculation boundary: the drafter proposes k tokens per
+        slot, the target verifies all k+1 positions in one forward, and
+        the host adapts each slot's draft length to what survived. Returns
+        (toks, still, t_pf) shaped like a decode chunk's (rows of k+1,
+        -1-padded) so the fan-out is shared, or (None, None, t) when no
+        slot survived block provisioning."""
+        k_cur = max((self._slot_k[s] for s in range(self.slots)
+                     if self._live[s] is not None), default=self._spec_init_k)
+        self._ensure_decode_blocks(k_cur + 1)
+        self._ensure_spec_writable(k_cur)
+        if not any(r is not None for r in self._live):
+            return None, None, time.monotonic()
+        t_pf = time.monotonic()
+        sampling, nucleus = self._sampling_flags()
+        st = self.state
+        drafts, qlogits = self._spec_draft_fn(k_cur)(
+            self._draft_params, self._draft_state, st.block_tables, st.lengths,
+            st.last_token, st.active, st.temperature, st.top_p, self._gen_draft,
+            sampling=sampling, nucleus=nucleus)
+        self._sync()  # splits the draft's time from the verify's
+        t_draft = time.monotonic()
+        _, emitted, accepted, active = self._spec_verify_fn(k_cur)(
+            self.params, st, drafts, qlogits, self._gen,
+            sampling=sampling, nucleus=nucleus)
+        both = torch.cat([emitted, accepted[:, None], active[:, None].to(emitted.dtype)],
+                         dim=1).cpu().tolist()
+        t_sync = time.monotonic()
+        toks = [row[:-2] for row in both]
+        acc = [row[-2] for row in both]
+        still = [bool(row[-1]) for row in both]
+        self._attn_dispatch[self._attn_path] += 2  # draft + verify programs
+        self._chunk_s = self._ewma(self._chunk_s, t_sync - t_pf)
+        self._t_decode += t_sync - t_pf
+        self._last_chunk_s = t_sync - t_pf
+        self._t_spec_draft += t_draft - t_pf
+        self._t_spec_verify += t_sync - t_draft
+        self._spec_rounds += 1
+        live_rates = []
+        n_round_tokens = 0
+        for slot in range(self.slots):
+            if self._live[slot] is None:
+                continue
+            a = acc[slot]
+            self._spec_proposed += k_cur
+            self._spec_accepted += a
+            self._spec_rejected += k_cur - a
+            n_round_tokens += sum(t >= 0 for t in toks[slot])
+            tr = self._live[slot].trace
+            if tr is not None:
+                tr.spec_rounds += 1
+                tr.spec_drafted += k_cur
+                tr.spec_accepted += a
+                tr.spec_rejected += k_cur - a
+            rate = a / k_cur
+            prev = self._accept_ewma[slot]
+            ewma = rate if prev is None else prev + 0.3 * (rate - prev)
+            self._accept_ewma[slot] = ewma
+            live_rates.append(ewma)
+            if ewma > 0.8 and self._slot_k[slot] < self._spec_max_draft:
+                self._slot_k[slot] += 1
+            elif ewma < 0.4 and self._slot_k[slot] > 1:
+                self._slot_k[slot] -= 1
+        if live_rates:
+            mean_rate = sum(live_rates) / len(live_rates)
+            self._spec_accept_ewma = self._ewma_seed(self._spec_accept_ewma, mean_rate)
+            self._spec_tokens_round_ewma = self._ewma_seed(
+                self._spec_tokens_round_ewma, n_round_tokens / len(live_rates))
+            # Speculation that keeps missing is a strict loss (k drafter
+            # steps and a (k+1)-row verify for about one token): after
+            # three low rounds, plain decode chunks for a cooldown.
+            if mean_rate < self._spec_min_accept:
+                self._spec_low_streak += 1
+                if self._spec_low_streak >= 3:
+                    self._spec_cooldown = 50
+            else:
+                self._spec_low_streak = 0
+        return toks, still, t_pf
+
     def _fan_out(self, toks, still) -> None:
-        """Deliver one chunk's tokens (rows -1-padded past each slot's
-        emissions) and retire slots that finished or were cancelled."""
+        """Deliver one chunk's tokens (decode chunk or speculation round;
+        rows -1-padded past each slot's emissions) and retire slots that
+        finished or were cancelled."""
         with self._lock:
             cancelled = set(self._cancelled)
         total_emitted = 0
@@ -1173,16 +1862,49 @@ def prometheus_metrics(stats: Dict[str, Any]) -> str:
          stats["prefix_cache_hits_total"]),
         ("dstack_tpu_serving_prefix_cache_misses_total", "counter",
          stats["prefix_cache_misses_total"]),
+        ("dstack_tpu_serving_prefix_cache_device_hits_total", "counter",
+         stats["prefix_cache_device_hits_total"]),
+        ("dstack_tpu_serving_prefix_cache_host_hits_total", "counter",
+         stats["prefix_cache_host_hits_total"]),
         ("dstack_tpu_serving_prefix_tokens_reused_total", "counter",
          stats["prefix_tokens_reused_total"]),
         ("dstack_tpu_serving_kv_cow_copies_total", "counter",
          stats["kv_cow_copies_total"]),
+        # The host tier and slot preemption (zero without a host budget).
+        ("dstack_tpu_serving_kv_host_blocks", "gauge", stats["kv_host_blocks"]),
+        ("dstack_tpu_serving_kv_host_bytes", "gauge", stats["kv_host_bytes"]),
+        ("dstack_tpu_serving_kv_spills_total", "counter", stats["kv_spills_total"]),
+        ("dstack_tpu_serving_kv_host_evictions_total", "counter",
+         stats["kv_host_evictions_total"]),
+        ("dstack_tpu_serving_kv_swap_ins_total", "counter", stats["kv_swap_ins_total"]),
+        ("dstack_tpu_serving_slots_swapped", "gauge", stats["slots_swapped"]),
+        ("dstack_tpu_serving_slot_preemptions_total", "counter",
+         stats["slot_preemptions_total"]),
+        ("dstack_tpu_serving_slot_swap_ins_total", "counter",
+         stats["slot_swap_ins_total"]),
         ("dstack_tpu_serving_prefill_chunks_total", "counter",
          stats["prefill_chunks_total"]),
         ("dstack_tpu_serving_prefill_tokens_total", "counter",
          stats["prefill_tokens_computed_total"]),
         ("dstack_tpu_serving_admitted_total", "counter", stats["admitted_total"]),
         ("dstack_tpu_serving_rejected_total", "counter", stats["rejected_total"]),
+        # Speculative decoding (zero without spec_enable).
+        ("dstack_tpu_serving_spec_rounds_total", "counter", stats["spec_rounds_total"]),
+        ("dstack_tpu_serving_spec_fallback_rounds_total", "counter",
+         stats["spec_fallback_rounds_total"]),
+        ("dstack_tpu_serving_spec_tokens_proposed_total", "counter",
+         stats["spec_tokens_proposed_total"]),
+        ("dstack_tpu_serving_spec_tokens_accepted_total", "counter",
+         stats["spec_tokens_accepted_total"]),
+        ("dstack_tpu_serving_spec_tokens_rejected_total", "counter",
+         stats["spec_tokens_rejected_total"]),
+        ("dstack_tpu_serving_spec_draft_seconds_total", "counter",
+         stats["spec_draft_seconds_total"]),
+        ("dstack_tpu_serving_spec_verify_seconds_total", "counter",
+         stats["spec_verify_seconds_total"]),
+        ("dstack_tpu_serving_spec_accept_rate_ewma", "gauge",
+         stats["spec_accept_rate_ewma"]),
+        ("dstack_tpu_serving_spec_draft_len_mean", "gauge", stats["spec_draft_len_mean"]),
         # The kernel cache: library loads found on disk, nvcc builds, and
         # the builds' seconds (process-wide).
         ("dstack_tpu_compile_cache_hits_total", "counter",
@@ -1218,6 +1940,8 @@ def prometheus_metrics(stats: Dict[str, Any]) -> str:
         _render_hist("dstack_tpu_serving_ttft_seconds", stats["ttft_cold_hist"],
                      hist_role="cold_start", emit_type=False)
     _render_hist("dstack_tpu_serving_tpt_seconds", stats["tpt_hist"])
+    # Host-tier swap-in latency (block swap-ins and slot readmissions).
+    _render_hist("dstack_tpu_serving_kv_swap_in_seconds", stats["swap_in_hist"])
     wh = stats["warmup_hist"]
     wb = "dstack_tpu_serving_warmup_seconds"
     lines.append(f"# TYPE {wb} histogram")

@@ -273,3 +273,123 @@ def test_drain_trainer_is_python_and_names_the_contract():
                  "compile_cache.snapshot"):
         assert name in cs.DRAIN_TRAINER
     assert cs.TRAIN_STAGES == ["tpu_init", "compile_start", "compile_end", "first_step"]
+
+
+# -- phases 3 (verify), 4b, 4c and 5b ---------------------------------------------
+
+
+def test_paged_work_at_the_verify_shape():
+    """The speculative verify's window (B 8, S 5): each slot's K/V read
+    once up to its longest row, every row's keys counted in the ops."""
+    starts = [101, 300, 517, 999, 1203, 1640, 1888, 2042]
+    nbytes, ops = cs.paged_work(_paged_case(8, 5, 16, 8, 128, 16, 128, starts))
+    held = sum(starts) + 8 * 5
+    assert nbytes == held * 8 * 128 * 4 + 2 * 8 * 5 * 16 * 128 * 2 + 8 * 128 * 4 + 40 * 4
+    assert ops == sum(s + 1 + i for s in starts for i in range(5)) * 16 * 128 * 4
+
+
+def test_paged_work_at_the_block_32_decode_shape():
+    """Phase 3's block-32 decode (service.yml's shape: B 32, S 1, MB
+    2048/32): each slot's K/V read once, one row per slot."""
+    lens = [37 + 63 * i for i in range(32)]
+    nbytes, ops = cs.paged_work(_paged_case(32, 1, 16, 8, 128, 32, 64, lens))
+    held = sum(lens) + 32
+    assert nbytes == held * 8 * 128 * 4 + 2 * 32 * 16 * 128 * 2 + 32 * 64 * 4 + 32 * 4
+    assert ops == held * 16 * 128 * 4
+
+
+@pytest.fixture(scope="module")
+def tiny():
+    from dstack_tpu_torch.workloads.config import PRESETS
+    from dstack_tpu_torch.workloads.generate import generate
+    from dstack_tpu_torch.workloads.transformer import init_params
+
+    cfg = PRESETS["tiny"].with_(dtype="float32")
+    params = init_params(cfg, 0, "cpu")
+    prompt = cs.byte_prompt(3, 20)
+    stream = generate(cfg, params, torch.tensor([prompt]), max_new_tokens=12)[0].tolist()
+    return cfg, params, prompt, stream
+
+
+def test_near_tie_rule_passes_a_tie_and_fails_a_genuine_divergence(tiny):
+    """At the first differing position the rule reads the dense forward's
+    gap between the two tokens against tol x max |logit|: the runner-up
+    token passes at a tol just above its gap (and fails just below it),
+    whatever follows it; the lowest-logit token fails at bf16's tol; equal
+    streams pass and a short stream fails."""
+    cfg, params, prompt, stream = tiny
+    at = 5
+    logits = cs.dense_logits(cfg, params, prompt + stream[:at])
+    assert int(logits.argmax()) == stream[at]
+    runner_up = int(logits.topk(2).indices[1])
+    gap = float((logits[stream[at]] - logits[runner_up]) / logits.abs().max())
+    tie = stream[:at] + [runner_up] + [0] * (len(stream) - at - 1)
+    r = cs.near_tie(cfg, params, prompt, stream, tie, gap * 1.001)
+    assert r["ok"] and r["diverged"] and r["at"] == at and r["gap"] == pytest.approx(gap)
+    assert not cs.near_tie(cfg, params, prompt, stream, tie, gap * 0.999)["ok"]
+    assert cs.near_tie(cfg, params, prompt, stream, stream, 0.0) == dict(diverged=False, ok=True)
+    assert not cs.near_tie(cfg, params, prompt, stream, stream[:-1], 1.0)["ok"]
+    tol = cs.ENGINE_LOGIT_TOL[torch.bfloat16]
+    bad = cs.rule_fails_a_genuine_divergence(cfg, params, prompt, stream, tol)
+    assert not bad["ok"] and bad["gap"] > tol
+    with pytest.raises(AssertionError, match="past a near-tie"):
+        cs.hold_streams(cfg, params, [prompt], [stream],
+                        [stream[:6] + [int(logits.argmin())] + stream[7:]], tol, "test")
+    held = cs.hold_streams(cfg, params, [prompt] * 2, [stream] * 2, [stream, tie],
+                           gap * 1.001, "test")
+    assert held == dict(divergences=1, max_gap=pytest.approx(gap), of=2, at=[at])
+
+
+def test_service_argv_is_service_yml_verbatim_but_the_checkpoint():
+    argv = cs.service_argv()
+    assert argv == ["--preset", "smol-1b", "--port", "9000", "--model-name", "smol-1b-native",
+                    "--prefill-chunk-tokens", "256", "--kv-block-size", "32", "--spec-enable",
+                    "--spec-draft-preset", "int8", "--spec-max-draft", "4",
+                    "--kv-host-budget-mb", "4096", "--max-resident-slots", "8", "--slots", "32",
+                    "--qos-weight", "paid=4", "--qos-weight", "besteffort=1"]
+    tiny = cs.service_argv("tiny", 0)
+    assert tiny[:4] == ["--preset", "tiny", "--port", "0"] and tiny[4:] == argv[4:]
+
+
+def test_service_messages_and_their_byte_prompts():
+    from dstack_tpu_torch.native_server import chat_text, encode_text
+
+    msgs = cs.service_messages()
+    texts = [m[0]["content"] for m in msgs]
+    assert len(texts) == 40 and all(32 <= len(t) <= 300 for t in texts)
+    assert len({t[:64] for t in texts[:4]}) == 1 and len({t for t in texts[:4]}) == 4
+    assert all(t[:64] != texts[0][:64] for t in texts[4:])
+    prompts = [encode_text(chat_text(m), 32768, 2048, 64) for m in msgs]
+    # The 4 sharers land in one bucket, so their byte prompts share a block.
+    assert len({len(p) for p in prompts[:4]}) == 1 and prompts[0][:32] == prompts[3][:32]
+
+
+def test_block_bytes_and_ttft_readings():
+    from dstack_tpu_torch.workloads.config import PRESETS
+
+    assert cs.block_bytes(PRESETS["smol-1b"], 16) == 1 << 20
+    assert cs.block_bytes(PRESETS["smol-1b"], 32) == 2 << 20
+    trace = {"phases": [{"phase": "queue_wait", "start_s": 0.0, "duration_s": 0.5},
+                        {"phase": "prefill", "start_s": 0.5, "duration_s": 0.25},
+                        {"phase": "decode", "start_s": 0.75, "duration_s": 2.0}]}
+    assert cs.ttft_of(trace) == 0.75
+
+
+def test_preempt_phase_rewrites_the_freed_blocks_and_resumes_byte_exact(monkeypatch):
+    """Phase 4c(b) on the CPU at tiny f32: the parked slot's freed blocks
+    are taken and written by the second request before readmission, and
+    the chain comes back byte for byte in both pools."""
+    import functools
+
+    from dstack_tpu_torch.workloads import serving
+    from dstack_tpu_torch.workloads.config import PRESETS
+    from dstack_tpu_torch.workloads.transformer import init_params
+
+    monkeypatch.setattr(serving, "ServingEngine",
+                        functools.partial(serving.ServingEngine, device="cpu"))
+    cfg = PRESETS["tiny"].with_(dtype="float32")
+    r = cs.run_preempt_bytes(cfg, init_params(cfg, 0, "cpu"), bs=8, prompt_len=40,
+                             other_len=200)
+    assert r["byte_exact"] and r["tokens"] == 64 and r["pools"] == [
+        "draft_k", "draft_v", "k", "v"]
+    assert 0 < r["freed_blocks_rewritten"] <= r["freed_blocks"]

@@ -34,6 +34,7 @@ MODULES = (
     "dstack_tpu_torch.workloads.flash_attention",
     "dstack_tpu_torch.workloads.generate",
     "dstack_tpu_torch.workloads.kv_blocks",
+    "dstack_tpu_torch.workloads.kv_host_tier",
     "dstack_tpu_torch.workloads.paged_attention",
     "dstack_tpu_torch.workloads.quant",
     "dstack_tpu_torch.workloads.serving",

@@ -1,7 +1,8 @@
 """The PyTorch ServingEngine on the CPU against the JAX ServingEngine
 (tiny, f32, bridged weights): identical temperature-0 token streams
 through chunked prefill, the prefix cache and paged decode; block
-accounting; refusal of unported options; the native server in process."""
+accounting; refusal of unported options and validation of the ported
+ones; the native server in process, with service.yml's flags too."""
 
 import json
 import threading
@@ -11,6 +12,7 @@ import urllib.request
 import jax
 import numpy as np
 import pytest
+import torch
 
 from dstack_tpu.server.metrics_registry import METRICS
 from dstack_tpu.workloads import serving as jsrv
@@ -154,14 +156,54 @@ def test_params_that_require_grad_serve_without_autograd(weights):
 
 
 @pytest.mark.parametrize("kw", [
-    {"spec_enable": True}, {"mesh": object()}, {"lora_max_adapters": 2},
+    {"mesh": object()}, {"lora_max_adapters": 2},
     {"role": "prefill"}, {"kv_transfer": object()},
-    {"kv_host_budget_bytes": 1 << 20}, {"max_resident_slots": 2},
 ])
 def test_unported_options_raise(weights, kw):
     _, tp = weights
     with pytest.raises(NotImplementedError):
         tsrv.ServingEngine(TCFG, tp, device="cpu", **{**ENGINE_KW, **kw})
+
+
+def test_affinity_sketch_is_refused(weights):
+    _, tp = weights
+    te = tsrv.ServingEngine(TCFG, tp, device="cpu", **ENGINE_KW)
+    try:
+        with pytest.raises(NotImplementedError):
+            te.affinity_sketch()
+    finally:
+        te.close()
+
+
+# Pool bytes of ENGINE_KW's pool (tiny f32: 2 layers x 48 blocks x 8 rows
+# x k and v of 2 heads x 32), as the reference counts them.
+ONE_POOL = 2 * 48 * 8 * 2 * 2 * 32 * 4
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(spec_enable=True, spec_draft_config=TCFG.with_(vocab_size=300)),
+     "vocab_size 300 must match"),
+    (dict(spec_enable=True, spec_draft_config=TCFG.with_(max_seq_len=64)),
+     "must cover the engine window 96"),
+    (dict(max_resident_slots=2), "requires a host tier"),
+    (dict(max_resident_slots=5, kv_host_budget_bytes=1 << 20), r"in \[1, slots=4\]"),
+    (dict(spec_enable=True, kv_budget_bytes=int(ONE_POOL * 1.5)),
+     "drafter KV pool alongside the target pool"),
+    (dict(kv_budget_bytes=ONE_POOL - 1), "cannot fit the KV pool"),
+    (dict(spec_enable=True, spec_max_draft=0), "spec_max_draft must be >= 1"),
+])
+def test_ctor_validation_of_the_ported_options(weights, kw, match):
+    """The reference's messages for the drafter's vocab and window, the
+    resident cap without a tier or out of range, and a KV budget that
+    fits one pool but not the drafter's beside it."""
+    _, tp = weights
+    if "spec_draft_config" in kw:
+        kw = {**kw, "spec_draft_params": tp}
+    with pytest.raises(ValueError, match=match):
+        tsrv.ServingEngine(TCFG, tp, device="cpu", **{**ENGINE_KW, **kw})
+    # ONE_POOL is exactly the pool's size: it fits, one byte less does not.
+    tsrv.ServingEngine(TCFG, tp, device="cpu", kv_budget_bytes=ONE_POOL,
+                       **ENGINE_KW).close()
 
 
 def test_submit_validates_like_the_reference(weights):
@@ -414,3 +456,114 @@ def test_native_server_main_passes_trace_and_cache_flags(tmp_path, monkeypatch):
     assert seen["recorder"].capacity == 3 and seen["recorder"].tail.slow_ms == 7.5
     assert seen["leaf"] == str(tmp_path / "flag" / "nvcc12.9-sm90a")
     assert compile_cache.enable_from_env() == seen["leaf"]
+
+
+NEW_SERIES = (
+    "dstack_tpu_serving_spec_rounds_total", "dstack_tpu_serving_spec_tokens_accepted_total",
+    "dstack_tpu_serving_spec_accept_rate_ewma", "dstack_tpu_serving_kv_host_bytes",
+    "dstack_tpu_serving_kv_swap_ins_total", "dstack_tpu_serving_slot_preemptions_total",
+    "dstack_tpu_serving_slot_swap_ins_total", "dstack_tpu_serving_slots_swapped",
+    "dstack_tpu_serving_prefix_cache_host_hits_total",
+    "dstack_tpu_serving_kv_swap_in_seconds_count",
+)
+
+
+def test_native_server_runs_service_yml_flags_on_cpu(monkeypatch):
+    """examples/deployment/native/service.yml's command line, with
+    `--preset tiny --device cpu` and no checkpoint: main() starts, two
+    tenants (Bearer keys) are served and resolve to their tenants, and
+    /metrics in both formats carries the speculation and host-tier
+    series under the JAX names."""
+    import chip_smoke as cs
+    from dstack_tpu_torch import native_server
+
+    argv = cs.service_argv("tiny", port=0) + ["--device", "cpu", "--max-new-tokens", "16"]
+    assert "--spec-enable" in argv and "--qos-weight" in argv and "--checkpoint-dir" not in argv
+    started, seen = threading.Event(), {}
+    real_make = native_server.make_server
+
+    def make(engine, host, port, model_name):
+        server, ready = real_make(engine, "127.0.0.1", port, model_name)
+        seen.update(server=server, ready=ready, engine=engine)
+        started.set()
+        return server, ready
+
+    monkeypatch.setattr(native_server, "make_server", make)
+    tenants = []
+    th = threading.Thread(target=native_server.main, args=(argv,), daemon=True)
+    th.start()
+    assert started.wait(120)
+    eng = seen["engine"]
+    real_submit = eng.serving.submit
+
+    def submit(*a, **kw):
+        tenants.append(kw.get("tenant"))
+        return real_submit(*a, **kw)
+
+    eng.serving.submit = submit
+    base = f"http://127.0.0.1:{seen['server'].server_address[1]}"
+    try:
+        assert seen["ready"].wait(120)
+        st = eng.serving.stats()
+        assert st["spec_enabled"] and st["kv_host_enabled"] and st["max_resident_slots"] == 8
+        assert st["slots"] == 32 and st["kv_block_size"] == 32
+        assert eng.serving._qos_weights == {"paid": 4.0, "besteffort": 1.0}
+        body = {**MSG, "max_tokens": 6}
+        for key in ("besteffort", "paid"):
+            code, text = _post(base, body, {"Authorization": f"Bearer {key}"})
+            assert code == 200 and json.loads(text)["usage"]["completion_tokens"] == 6
+        assert _post(base, MSG)[0] == 200
+        assert tenants == ["besteffort", "paid", "default"]
+        assert _get_error(base + "/v1/affinity")[0] == 501
+        code, text = _http("GET", base + "/metrics")
+        stats = json.loads(text)
+        assert code == 200 and stats["spec_rounds_total"] > 0 and stats["admitted_total"] == 3
+        code, text = _http("GET", base + "/metrics?format=prometheus")
+        for name in NEW_SERIES:
+            assert name in text, name
+        for line in text.splitlines():
+            if line.startswith("# TYPE "):
+                _, _, name, mtype = line.split()
+                assert name in METRICS and METRICS[name][0] == mtype, line
+    finally:
+        seen["server"].shutdown()
+        th.join(timeout=30)
+    assert not th.is_alive()
+
+
+@pytest.mark.parametrize("extra,message", [
+    (["--spec-max-draft", "0"], "--spec-max-draft must be positive"),
+    (["--spec-draft-preset", "nope"], "is not a known preset"),
+    (["--max-resident-slots", "2"], "needs --kv-host-budget-mb"),
+    (["--qos-weight", "paid"], "is not TENANT=WEIGHT"),
+    (["--qos-weight", "paid=-1"], "is not TENANT=WEIGHT"),
+])
+def test_native_server_flag_validation(extra, message, capsys):
+    from dstack_tpu_torch import native_server
+
+    with pytest.raises(SystemExit, match=message):
+        native_server.main(["--preset", "tiny", "--device", "cpu"] + extra)
+
+
+def test_native_server_refuses_qos_rate():
+    from dstack_tpu_torch.native_server import Engine
+
+    with pytest.raises(NotImplementedError, match="qos-rate"):
+        Engine("tiny", 8, device="cpu", qos_rate=1.0)
+
+
+def test_native_server_preset_drafter_is_seeded():
+    """--spec-draft-preset <preset>: a random drafter of that preset from
+    the torch generator seeded at 1, the same on every boot."""
+    from dstack_tpu_torch.native_server import Engine
+    from dstack_tpu_torch.workloads.transformer import init_params
+
+    engine = Engine("tiny", 8, device="cpu", slots=2, spec_enable=True,
+                    spec_draft_preset="tiny")
+    try:
+        want = init_params(PRESETS["tiny"], 1, "cpu")
+        got = engine.serving._draft_params
+        assert torch.equal(got["embed"], want["embed"])
+        assert not torch.equal(got["embed"], engine.params["embed"])
+    finally:
+        engine.serving.close()
