@@ -98,14 +98,46 @@ Phases (any failure fails the run; nothing is caught to exit 0):
                (the drain's save timed); a relaunch on the same volume and
                cache hits the cache (no build), resumes at step 2 and runs
                to step 5.
+  9. LoRA serving — smol-1b, bf16, rank 8 on wq/wv, a bank of 4 slots:
+               (a) project_qkv_lora at a decode batch (B 8, rows on t1-t3
+               and the base) and a 128-token chunk, layers 0 and 15,
+               against a per-row plain version by rel_l2 and row_rel, base
+               rows equal to project_qkv bit for bit, the gate shown
+               failing the indices rolled by a row and -1 read from slot
+               0; the LoRA decode program's host syncs against the plain
+               one's (set_sync_debug_mode); (b) phase 4's requests, 3 on
+               t1, 3 on t2, 2 base, plain, LoRA, LoRA, plain: decode tok/s,
+               TTFT, launches, the LoRA engine with no adapter in flight, a
+               profiled mixed wave (the delta as its own class); adapter
+               streams by the near-tie rule against a plain engine on the
+               merged params, base streams against the plain engine, each
+               adapter changing a shared prompt's stream; (c) speculation
+               with t1 and the base mixed; (d) 4c(b)'s preempt, park and
+               resume on t1, byte for byte, its bank slot restored; (e)
+               native_server with --adapter t1=random and t2=<npz>: models,
+               chats, DELETE, POST /v1/adapters, the adapters_loaded gauge;
+  10. LoRA train — smol-1b, B 8 x S 2048, phase 6's base and batch: the
+               step-0 loss equal to the full model's bit for bit, A's
+               step-0 gradient 0, the base unchanged after 7 steps, B off 0,
+               the loss falling; step ms, tokens/s, MFU from the step's own
+               products (formula printed), peak memory, flash launches per
+               step, a profiled step, beside phase 6;
+  10b. LoRA at 2 layers — the LoRA loss and adapter grads through the
+               flash kernels against plain attention (f32, bf16), through
+               the ring over 4 shards (smol-1b-8k, S 8192) against the
+               single device, a LoRA checkpoint continued bit for bit, and
+               `fine_tune --lora-rank 8` (full depth, S 512) in a
+               subprocess: SIGTERM -> 113 with an adapter checkpoint, a
+               relaunch resumes, native_server serves its merged export.
 Phase 3b and 3c run after 3, 4b and 4c after 4, 5b after 5, phases 6 to
-8b after 5b. The line before the
+10b after 5b. The line before the
 last is the `kernels` JSON; the last line is {"ok": true, "device": {...}}.
 Each phase logs its numbers on the way; details also go to
 chiprun_out/chip_smoke.json.
 Imports nothing of JAX. Exits non-zero without a CUDA device.
 """
 
+import gc
 import json
 import math
 import os
@@ -455,10 +487,9 @@ def paged_call_breakdown(kern, n: int = 32) -> dict:
             kern[i % len(kern)]()
         torch.cuda.synchronize()
     by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            key = "combine" if "combine" in e.name else "main"
-            by_name[key] = by_name.get(key, 0) + e.time_range.elapsed_us()
+    for name, us, _ in device_kernels(prof):
+        key = "combine" if "combine" in name else "main"
+        by_name[key] = by_name.get(key, 0) + us
     return dict(host_us_per_call=host_us,
                 profiled_ms_per_call={k: v / 1e3 / n for k, v in by_name.items()})
 
@@ -975,16 +1006,13 @@ def profile_step(step, state, batch):
         torch.cuda.synchronize()
         wall_us = (time.monotonic() - t0) * 1e6
     by_class, by_name, flash = {}, {}, {}
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = e.time_range.elapsed_us()
-        c = kernel_class(e.name)
+    for name, us, _ in device_kernels(prof):
+        c = kernel_class(name)
         by_class[c] = by_class.get(c, 0) + us
-        by_name[e.name] = by_name.get(e.name, 0) + us
+        by_name[name] = by_name.get(name, 0) + us
         if c == "flash_attention":
-            m = re.search(r"flash_\w*?_kernel", e.name)
-            f = flash.setdefault(m.group(0) if m else e.name[:60], {"calls": 0, "ms": 0.0})
+            m = re.search(r"flash_\w*?_kernel", name)
+            f = flash.setdefault(m.group(0) if m else name[:60], {"calls": 0, "ms": 0.0})
             f["calls"] += 1
             f["ms"] += us / 1e3
     for f in flash.values():
@@ -1126,23 +1154,27 @@ def engine_prompts():
     return prompts
 
 
-def serve_wave(eng, prompts, n_new) -> dict:
+def serve_wave(eng, prompts, n_new, adapters=None) -> dict:
     """Phase 4's wave on a warm engine, the paged kernel's launch count
     zeroed just before and read just after: the first prefix sharer runs
     ahead (so its prefix blocks are published before the second is
     admitted), the other 7 together; streams, TTFTs, throughput, and the
-    engine's counters."""
+    engine's counters. `adapters` names each request's LoRA adapter (None
+    for the base model)."""
     from dstack_tpu_torch.workloads import paged_attention as pa
 
+    adapters = adapters or [None] * len(prompts)
+    decode_s0 = eng.stats()["decode_seconds_total"]  # nonzero on a used engine
     pa.LAUNCHES["ragged_paged_attention"] = 0
     t_start = time.monotonic()
     t_sub = [time.monotonic()]
-    results = [drain(eng.submit(prompts[0], max_new_tokens=n_new, temperature=0.0))]
+    results = [drain(eng.submit(prompts[0], max_new_tokens=n_new, temperature=0.0,
+                                adapter=adapters[0]))]
     t_wave = time.monotonic()
     outs = []
-    for p in prompts[1:]:
+    for p, a in zip(prompts[1:], adapters[1:]):
         t_sub.append(time.monotonic())
-        outs.append(eng.submit(p, max_new_tokens=n_new, temperature=0.0))
+        outs.append(eng.submit(p, max_new_tokens=n_new, temperature=0.0, adapter=a))
     results += [drain(q) for q in outs]
     launches = pa.LAUNCHES["ragged_paged_attention"]
     st = eng.stats()
@@ -1154,7 +1186,8 @@ def serve_wave(eng, prompts, n_new) -> dict:
         launches_per_token=launches / emitted,
         ttft_p50_s=statistics.median(ttft),
         ttft_p95_s=ttft[min(len(ttft) - 1, math.ceil(0.95 * len(ttft)) - 1)],
-        decode_tokens_per_s=(emitted - len(streams)) / max(st["decode_seconds_total"], 1e-9),
+        decode_tokens_per_s=(emitted - len(streams))
+        / max(st["decode_seconds_total"] - decode_s0, 1e-9),
         wave_tokens_per_s=(emitted - len(streams[0])) / (time.monotonic() - t_wave),
         wall_s=time.monotonic() - t_start,
     )
@@ -1216,31 +1249,66 @@ def kernel_class(name: str) -> str:
     return "other"
 
 
-def profile_wave(eng, cfg):
+def device_kernels(prof):
+    """[(name, us, stream)] of the device's kernels in a finished profile,
+    read off the profiler's raw results: building its Python event tree
+    takes ~20 s for a serving wave at full width."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return [(e.name(), (e.end_ns() - e.start_ns()) / 1e3, e.device_resource_id())
+            for e in prof.profiler.kineto_results.events() if e.device_type() == cuda]
+
+
+def profile_wave(eng, cfg, adapters=None):
     """A second wave (8 requests x 32 tokens, prompts 100-240 tokens)
     under torch.profiler: device time per kernel class and the device's
     busy share of the wave's wall time. Not used for the throughput
-    numbers above (the profiler adds host overhead)."""
+    numbers above (the profiler adds host overhead). With `adapters` (one
+    per request) every LoRA delta runs on a side stream of its own, fenced
+    both ways by stream waits (no host sync), so its kernels form a
+    `lora_delta` class: the device streams that run no paged attention."""
     from torch.profiler import ProfilerActivity, profile
 
+    from dstack_tpu_torch.workloads import lora_serving as tls
     from dstack_tpu_torch.workloads import paged_attention as pa
 
     prompts = [byte_prompt(20 + s, 100 + 20 * s) for s in range(8)]
+    adapters = adapters or [None] * len(prompts)
     before = pa.LAUNCHES["ragged_paged_attention"]
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        outs = [eng.submit(p, max_new_tokens=32, temperature=0.0) for p in prompts]
-        for q in outs:
-            drain(q)
-        torch.cuda.synchronize()
-        wall_us = (time.monotonic() - t0) * 1e6
+    real_delta = tls.lora_delta
+    if any(adapters):
+        side = torch.cuda.Stream()
+
+        def delta(*a):
+            cur = torch.cuda.current_stream()
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                out = real_delta(*a)
+            cur.wait_stream(side)
+            out.record_stream(cur)
+            return out
+
+        tls.lora_delta = delta
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            outs = [eng.submit(p, max_new_tokens=32, temperature=0.0, adapter=a)
+                    for p, a in zip(prompts, adapters)]
+            for q in outs:
+                drain(q)
+            torch.cuda.synchronize()
+            wall_us = (time.monotonic() - t0) * 1e6
+    finally:
+        tls.lora_delta = real_delta
+    calls = pa.LAUNCHES["ragged_paged_attention"] - before
+    kernels = device_kernels(prof)
+    main = {st for name, _, st in kernels if kernel_class(name) == "paged_attention"}
     by_class, by_name = {}, {}
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = e.time_range.elapsed_us()
-        by_class[kernel_class(e.name)] = by_class.get(kernel_class(e.name), 0) + us
-        by_name[e.name] = by_name.get(e.name, 0) + us
+    for name, us, st in kernels:
+        c = "lora_delta" if any(adapters) and st not in main else kernel_class(name)
+        by_class[c] = by_class.get(c, 0) + us
+        by_name[name] = by_name.get(name, 0) + us
+    if any(adapters) and not by_class.get("lora_delta"):
+        raise AssertionError("the profiled LoRA wave attributed no device time to the delta")
     busy = sum(by_class.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     out = {
@@ -1250,9 +1318,10 @@ def profile_wave(eng, cfg):
         "device_ms_by_class": {k: v / 1e3 for k, v in by_class.items()},
         "top_kernels_ms": [(n[:90], v / 1e3) for n, v in top],
     }
+    if any(adapters):
+        out["lora_delta_share_of_busy"] = by_class["lora_delta"] / busy
     # The paged kernel's device time per wrapper call (its split-KV combine
     # kernel, where it runs, counted in the same call).
-    calls = pa.LAUNCHES["ragged_paged_attention"] - before
     out["paged_calls"] = calls
     out["paged_ms_per_call"] = (by_class.get("paged_attention", 0) / 1e3 / calls
                                 if calls else None)
@@ -1468,18 +1537,24 @@ def run_host_tier(cfg, params, prefix: int = 256, suffix: int = 1152, bs: int = 
 
 
 def run_preempt_bytes(cfg, params, bs: int = 16, prompt_len: int = 300,
-                      other_len: int = 1800) -> dict:
+                      other_len: int = 1800, adapters=None) -> dict:
     """A speculating slot preempted mid-stream and held parked while a
     second request prefills and decodes in a pool of one max_len, so over
     blocks the first one freed: the first slot's chain (target and
     drafter pools) gathered from the card just before the swap-out must
     equal, byte for byte, what the tier holds at swap-out and at
-    readmission, and what its fresh blocks hold after readmission."""
+    readmission, and what its fresh blocks hold after readmission. With
+    `adapters` ({name: adapter}) the engine multiplexes them and the
+    parked request runs on the first: readmission must restore its bank
+    slot, and the result carries its stream."""
     from dstack_tpu_torch.workloads.serving import ServingEngine
 
+    lora = lora_engine_kw(adapters)
     eng = ServingEngine(cfg, params, slots=8, prefill_chunk_tokens=256, kv_block_size=bs,
                         kv_pool_blocks=cfg.max_seq_len // bs, spec_enable=True,
-                        spec_max_draft=4, kv_host_budget_bytes=4 << 30)
+                        spec_max_draft=4, kv_host_budget_bytes=4 << 30, **lora)
+    load_adapters(eng, adapters)
+    adapter = next(iter(adapters)) if adapters else None
     seen = {"other_blocks": set()}
     parked, release = threading.Event(), threading.Event()
     real_preempt, real_place = eng._preempt_slot, eng._place_slot
@@ -1514,6 +1589,7 @@ def run_preempt_bytes(cfg, params, bs: int = 16, prompt_len: int = 300,
 
     def place(slot, table, *a):
         # Readmission: _inject_chain has just scattered the payload.
+        seen["adapter_ix"] = a[-1]
         eng._sync()
         seen["swap_in_s"] = time.monotonic() - seen.pop("t_in")
         seen["tier_at_readmission"] = clone(seen["sw"].arrays)
@@ -1528,7 +1604,8 @@ def run_preempt_bytes(cfg, params, bs: int = 16, prompt_len: int = 300,
     eng._readmit_swapped = readmit
     try:
         eng.warmup()
-        out = eng.submit(byte_prompt(70, prompt_len), max_new_tokens=64, temperature=0.0)
+        out = eng.submit(byte_prompt(70, prompt_len), max_new_tokens=64, temperature=0.0,
+                         adapter=adapter)
         got = [out.get(timeout=300) for _ in range(8)]
         eng.preempt(out)
         if not parked.wait(300):
@@ -1539,8 +1616,13 @@ def run_preempt_bytes(cfg, params, bs: int = 16, prompt_len: int = 300,
         got += drain(out)[0]
         other_got += drain(other)[0]
         st = eng.stats()
+        want_ix = eng._lora.slot_of(adapter) if adapter else -1
+        inflight = eng._lora.inflight if adapter else 0
     finally:
         eng.close()
+    if seen["adapter_ix"] != want_ix or inflight:
+        raise AssertionError(f"preempt: readmitted with adapter_ix {seen['adapter_ix']}"
+                             f" (want {want_ix}), {inflight} adapter refs left")
     reused = len(seen["other_blocks"] & seen["freed"])
     if not reused or len(other_got) != 16:
         raise AssertionError(f"preempt: the second request ({len(other_got)} tokens) held"
@@ -1562,8 +1644,11 @@ def run_preempt_bytes(cfg, params, bs: int = 16, prompt_len: int = 300,
              swap_out_gb_per_s=seen["nbytes"] / seen["swap_out_s"] / 1e9,
              swap_in_gb_per_s=seen["nbytes"] / seen["swap_in_s"] / 1e9,
              byte_exact=True, tokens=len(got), freed_blocks=len(seen["freed"]),
-             freed_blocks_rewritten=reused)
+             freed_blocks_rewritten=reused, adapter=adapter,
+             readmitted_adapter_ix=seen["adapter_ix"])
     log("host tier preempt/resume", json.dumps(r))
+    if adapter:
+        r["stream"] = got
     return r
 
 
@@ -2135,6 +2220,775 @@ def run_drain():
     return out
 
 
+# -- phase 9: LoRA serving ------------------------------------------------------
+
+LORA_RANK, LORA_ALPHA = 8, 16.0
+LORA_TARGETS = ("wq", "wv")
+LORA_MAX_ADAPTERS = 4
+# 9(a)'s gate on project_qkv_lora against the per-row reference, (rel_l2,
+# row_rel) over each of q, k and v.
+LORA_DELTA_TOL = {torch.bfloat16: (1e-3, 4e-3), torch.float32: (1e-5, 4e-5)}
+# Phase 9(b)'s request mix over phase 4's prompts: 3 on t1, 3 on t2, 2 base.
+LORA_MIX = ["t1", "t2", None, "t1", "t2", None, "t1", "t2"]
+
+
+def demo_adapters(cfg, params, names=("t1", "t2", "t3")) -> dict:
+    """Rank-8 demo adapters on wq/wv (nonzero B), seeded 1, 2, ... in order."""
+    from dstack_tpu_torch.workloads.lora_serving import demo_adapter
+
+    return {n: demo_adapter(cfg, params, i + 1, rank=LORA_RANK, targets=LORA_TARGETS)
+            for i, n in enumerate(names)}
+
+
+def lora_engine_kw(adapters) -> dict:
+    return (dict(lora_max_adapters=LORA_MAX_ADAPTERS, lora_rank=LORA_RANK,
+                 lora_targets=LORA_TARGETS) if adapters else {})
+
+
+def load_adapters(eng, adapters) -> None:
+    for name, ad in (adapters or {}).items():
+        eng.load_adapter(name, ad, alpha=LORA_ALPHA)
+
+
+def lora_reference(cfg, p, x, positions, layer, adapters, names):
+    """The plain version of `project_qkv_lora`, written independently: row
+    (request) i is `linear(h_i, W)` plus that row's own f32 delta
+    `(h_i·A)·B·alpha/r` from its adapter tree (none for a None name), cast
+    back, then reshape and rope, row by row."""
+    from dstack_tpu_torch.workloads.transformer import _rope, linear, rms_norm
+
+    h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
+    rows = {t: [] for t in ("wq", "wk", "wv")}
+    for i, name in enumerate(names):
+        hi = h[i:i + 1]
+        for t in rows:
+            y = linear(hi, p[t])
+            if name is not None and f"{t}_a" in adapters[name]["layers"]:
+                a = adapters[name]["layers"][f"{t}_a"][layer].float()
+                b = adapters[name]["layers"][f"{t}_b"][layer].float()
+                y = (y.float() + (hi.float() @ a @ b) * (LORA_ALPHA / LORA_RANK)).to(y.dtype)
+            rows[t].append(y)
+    n, s = x.shape[0], x.shape[1]
+    q = torch.cat(rows["wq"]).reshape(n, s, cfg.n_heads, cfg.head_dim)
+    k = torch.cat(rows["wk"]).reshape(n, s, cfg.n_kv_heads, cfg.head_dim)
+    v = torch.cat(rows["wv"]).reshape(n, s, cfg.n_kv_heads, cfg.head_dim)
+    return (_rope(q, positions, cfg.rope_theta), _rope(k, positions, cfg.rope_theta), v)
+
+
+def lora_readings(got, ref) -> dict:
+    """Scale-free readings over q, k and v: rel_l2 (the whole output) and
+    row_rel (the worst row, a row being one request's output)."""
+    out = {"rel_l2": 0.0, "row_rel": 0.0}
+    for g, r in zip(got, ref):
+        g, r = g.float().flatten(1), r.float().flatten(1)
+        out["rel_l2"] = max(out["rel_l2"], float((g - r).norm() / r.norm()))
+        rows = (g - r).norm(dim=1) / r.norm(dim=1).clamp_min(1e-30)
+        out["row_rel"] = max(out["row_rel"], float(rows.max()))
+    return out
+
+
+def lora_gate(readings, tol) -> bool:
+    return readings["rel_l2"] <= tol[0] and readings["row_rel"] <= tol[1]
+
+
+def lora_module_check(cfg, params, reg, adapters, seed: int = 0) -> dict:
+    """Phase 9(a) on one registry: `project_qkv_lora` at a decode batch
+    (B 8, S 1; rows on t1, t2, t3, base, twice) and a 128-token chunk (one
+    request, on each of t1, t2, t3 and base), on the first and the last
+    layer, against `lora_reference`, by `lora_gate`. The decode batch's
+    base rows must equal `project_qkv` on the batch bit for bit. Two
+    mutants of the decode batch must fail the gate: the bank indices
+    rolled by one across rows, and -1 gathered from bank slot 0 instead of
+    the zero pad. `reg` must hold an adapter in slot 0."""
+    from dstack_tpu_torch.workloads.lora_serving import bank_layer, project_qkv_lora, safe_index
+    from dstack_tpu_torch.workloads.transformer import layer_params, project_qkv
+
+    dev, dt = params["embed"].device, cfg.activation_dtype
+    tol = LORA_DELTA_TOL[dt]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    names_b = ["t1", "t2", "t3", None] * 2
+    out = {"cases": [], "mutants": {}}
+    for layer in (0, cfg.n_layers - 1):
+        p, lp = layer_params(params, layer), bank_layer(reg.bank, layer)
+        cases = [("decode", names_b, 1)] + [(f"chunk_{n or 'base'}", [n], 128)
+                                             for n in ("t1", "t2", "t3", None)]
+        for case, names, s in cases:
+            x = torch.randn((len(names), s, cfg.d_model), generator=gen, device=dev).to(dt)
+            pos = torch.arange(37, 37 + s, device=dev)
+            ix_host = [-1 if n is None else reg.slot_of(n) for n in names]
+            ix = (ix_host[0] if s > 1 else
+                  torch.tensor(ix_host, dtype=torch.int32, device=dev))
+            sx, scale = safe_index(reg.bank, ix)
+            got = project_qkv_lora(cfg, x, p, pos, lp, sx, scale, True)
+            ref = lora_reference(cfg, p, x, pos, layer, adapters, names)
+            r = dict(case=case, layer=layer, **lora_readings(got, ref))
+            r["ok"] = lora_gate(r, tol)
+            out["cases"].append(r)
+            if case != "decode":
+                continue
+            plain = project_qkv(cfg, x, p, pos)
+            base_rows = [i for i, n in enumerate(names) if n is None]
+            r["base_rows_bit_exact"] = all(torch.equal(g[base_rows], b[base_rows])
+                                           for g, b in zip(got, plain))
+            rolled = torch.roll(sx, 1)
+            slot0 = torch.where(ix >= 0, ix, torch.zeros_like(ix)).to(torch.int64)
+            for name, mix in (("rolled", rolled), ("minus_one_from_slot_0", slot0)):
+                mg = project_qkv_lora(cfg, x, p, pos, lp, mix, reg.bank["scale"][mix], True)
+                m = lora_readings(mg, ref)
+                m["fails_gate"] = not lora_gate(m, tol)
+                out["mutants"][f"{name}_layer{layer}"] = m
+    out["tol"] = tol
+    out["max_rel_l2"] = max(c["rel_l2"] for c in out["cases"])
+    out["max_row_rel"] = max(c["row_rel"] for c in out["cases"])
+    out["ok"] = (all(c["ok"] for c in out["cases"])
+                 and all(c.get("base_rows_bit_exact", True) for c in out["cases"])
+                 and all(m["fails_gate"] for m in out["mutants"].values()))
+    return out
+
+
+def lora_sync_warnings(cfg, params, reg) -> dict:
+    """Host syncs of one LoRA decode program against one plain program on
+    the same live batch (8 slots, 4 on adapters), counted as
+    `torch.cuda.set_sync_debug_mode("warn")` warnings: the LoRA program
+    decides `has_lora` on the host and may add none."""
+    import warnings
+
+    from dstack_tpu_torch.workloads.kv_blocks import init_paged_state, make_paged_decode_step
+
+    dev, bs, n = params["embed"].device, 16, 8
+    st = init_paged_state(cfg, n, cfg.max_seq_len, bs, n * (cfg.max_seq_len // bs), dev)
+    mb = cfg.max_seq_len // bs
+    st.block_tables[:] = torch.arange(n * mb, dtype=torch.int32, device=dev).reshape(n, mb)
+    st.lengths[:] = torch.arange(100, 100 + 50 * n, 50, dtype=torch.int32, device=dev)
+    st.active[:] = True
+    st.remaining[:] = 100
+    st.adapter_ix[:] = torch.tensor([reg.slot_of("t1"), -1, reg.slot_of("t2"), -1,
+                                     reg.slot_of("t3"), -1, reg.slot_of("t1"), -1],
+                                    dtype=torch.int32, device=dev)
+    plain = make_paged_decode_step(cfg, 4)
+    lora = make_paged_decode_step(cfg, 4, lora=True)
+    counts = {}
+    for name, call in (("plain", lambda: plain(params, st, None, sampling=False,
+                                                nucleus=False)),
+                       ("lora", lambda: lora(params, st, None, reg.bank, sampling=False,
+                                             nucleus=False, has_lora=True))):
+        call()  # settle the allocator and plans first
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                call()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        msgs = [str(w.message) for w in seen
+                if "called a synchronizing CUDA operation" in str(w.message)]
+        counts[name] = len(msgs)
+        counts[f"{name}_messages"] = sorted({m[:160] for m in msgs})
+        torch.cuda.synchronize()
+    return counts
+
+
+def run_lora_module(cfg, params) -> dict:
+    """Phase 9(a): the module on a bank of 4 slots holding t1-t3 and a
+    fourth adapter in slot 0 (so the slot-0 mutant reads real weights)."""
+    from dstack_tpu_torch.workloads.lora_serving import AdapterRegistry
+
+    adapters = demo_adapters(cfg, params, ("t1", "t2", "t3", "t0"))
+    reg = AdapterRegistry(cfg, params, max_adapters=LORA_MAX_ADAPTERS, rank=LORA_RANK,
+                          targets=LORA_TARGETS)
+    for name, ad in adapters.items():
+        reg.load(name, ad, alpha=LORA_ALPHA)
+    if reg.slot_of("t0") != 0:
+        raise AssertionError(f"slot 0 holds no adapter: {reg.loaded()}")
+    out = lora_module_check(cfg, params, reg, adapters)
+    out["sync_warnings"] = lora_sync_warnings(cfg, params, reg)
+    log("lora module (9a)", json.dumps(out))
+    if not out["ok"]:
+        raise AssertionError("9(a): project_qkv_lora fails its gate, a base row differs"
+                             " from project_qkv, or a mutant passes")
+    if out["sync_warnings"]["lora"] > out["sync_warnings"]["plain"]:
+        raise AssertionError(f"9(a): the LoRA decode program syncs: {out['sync_warnings']}")
+    return out
+
+
+def reference_streams(cfg, params, requests) -> list:
+    """Temperature-0 streams of a plain engine (phase 4's settings) for
+    [(prompt, n_new)], submitted together."""
+    from dstack_tpu_torch.workloads.serving import ServingEngine
+
+    eng = ServingEngine(cfg, params, slots=8, steps_per_sync=4, prefill_chunk_tokens=128,
+                        kv_block_size=16)
+    try:
+        eng.warmup()
+        outs = [eng.submit(p, max_new_tokens=n, temperature=0.0) for p, n in requests]
+        return [drain(q)[0] for q in outs]
+    finally:
+        eng.close()
+
+
+def run_lora_engines(cfg, params, adapters, n_new: int = 32) -> dict:
+    """Phase 9(b)-(d). (b) The plain engine and the LoRA engine (bank of 4,
+    t1-t3 loaded) on phase 4's prompts x 32 tokens, 3 on t1, 3 on t2, 2 on
+    the base, in the order plain, LoRA, LoRA, plain; the first LoRA run
+    also serves the wave with no adapter in flight (the plain twins), a
+    shared prompt on t1, t2 and the base, and a profiled mixed wave.
+    Adapter streams are held by the near-tie rule against a plain engine
+    serving `merge_lora(base, adapter)` (dense logits from those merged
+    params), base streams against the plain engine. (c) Speculation (int8
+    drafter, spec_max_draft 4) on the LoRA engine, t1 and base mixed.
+    (d) Phase 4c(b)'s preempt, park and resume with the request on t1."""
+    from dstack_tpu_torch.workloads.lora import merge_lora
+    from dstack_tpu_torch.workloads.serving import ServingEngine
+
+    prompts = engine_prompts()
+    tol = ENGINE_LOGIT_TOL[torch.bfloat16]
+    shared = prompts[2]
+    runs, extra, profiled = [], {}, None
+    t_b = time.monotonic()
+    for lora in (False, True, True, False):
+        eng = ServingEngine(cfg, params, slots=8, steps_per_sync=4, prefill_chunk_tokens=128,
+                            kv_block_size=16, **lora_engine_kw(adapters if lora else None))
+        try:
+            load_adapters(eng, adapters if lora else None)
+            w = eng.warmup()
+            r = serve_wave(eng, prompts, n_new, LORA_MIX if lora else None)
+            r.update(lora=lora, warmup_s=w["seconds"], warmup_programs=w["programs"])
+            if lora and profiled is None:
+                extra["no_adapter_in_flight"] = serve_wave(eng, prompts, n_new)
+                extra["shared"] = {a: drain(eng.submit(shared, max_new_tokens=n_new,
+                                                       temperature=0.0, adapter=a))[0]
+                                   for a in ("t1", "t2", None)}
+                profiled = profile_wave(eng, cfg, ["t1", "t2", None, "t3"] * 2)
+                if eng._lora.inflight:
+                    raise AssertionError(f"{eng._lora.inflight} adapter refs left")
+        finally:
+            eng.close()
+        del eng
+        torch.cuda.empty_cache()
+        runs.append(r)
+    # References: the plain engine's streams (run 1) and merged engines.
+    p70 = byte_prompt(70, 300)
+    merged, refs = {}, {None: runs[0]["streams"]}
+    for name in ("t1", "t2"):
+        with torch.no_grad():
+            merged[name] = merge_lora(params, adapters[name], rank=LORA_RANK, alpha=LORA_ALPHA)
+        reqs = [(p, n_new) for p in prompts] + ([(p70, 64)] if name == "t1" else [])
+        refs[name] = reference_streams(cfg, merged[name], reqs)
+        torch.cuda.empty_cache()
+
+    def hold(assign, streams, what):
+        """Streams of `assign`ed requests over phase 4's prompts, each by
+        the rule against its own reference and params."""
+        res = {}
+        for a in sorted(set(assign), key=str):
+            idx = [i for i, x in enumerate(assign) if x == a]
+            res[str(a)] = hold_streams(cfg, merged.get(a, params), [prompts[i] for i in idx],
+                                       [refs[a][i] for i in idx], [streams[i] for i in idx],
+                                       tol, f"{what} ({a})")
+        return res
+
+    out = {"runs": [], "profiled_mixed_wave": profiled}
+    for r in runs:
+        st = r.pop("stats")
+        streams = r.pop("streams")
+        if any(len(t) != n_new for t in streams):
+            raise AssertionError(f"token counts {[len(t) for t in streams]}")
+        r["near_tie"] = hold(LORA_MIX if r["lora"] else [None] * 8, streams,
+                             "lora" if r["lora"] else "plain")
+        r.update(adapters_loaded=st["adapters_loaded"],
+                 decode_seconds_total=st["decode_seconds_total"])
+        if r["kernel_launches"] <= 0:
+            raise AssertionError("the wave launched the paged kernel 0 times")
+        log("lora A/B run", json.dumps(r))
+        out["runs"].append(r)
+    twins = extra["no_adapter_in_flight"]
+    twins.pop("stats")
+    out["no_adapter_in_flight"] = dict(
+        near_tie=hold([None] * 8, twins.pop("streams"), "lora engine, no adapter"),
+        **{k: twins[k] for k in ("decode_tokens_per_s", "ttft_p50_s", "kernel_launches")})
+    sh = extra["shared"]
+    out["shared_prompt_differs"] = {a: sh[a] != sh[None] for a in ("t1", "t2")}
+    out["shared_prompt_near_tie"] = {
+        str(a): hold_streams(cfg, merged.get(a, params), [shared], [refs[a][2]], [sh[a]],
+                             tol, f"shared prompt ({a})") for a in ("t1", "t2", None)}
+    if not all(out["shared_prompt_differs"].values()):
+        raise AssertionError(f"an adapter left the shared prompt's stream as the base's:"
+                             f" {out['shared_prompt_differs']}")
+    log("lora engines (9b)", json.dumps({k: v for k, v in out.items() if k != "runs"}),
+        f"{time.monotonic() - t_b:.1f}s")
+
+    # (c) speculation with LoRA: base and t1 mixed (the base request runs
+    # ahead alone first, so the drafter is not written off at the start).
+    t_c = time.monotonic()
+    spec_mix = [None, "t1"] * 4
+    eng = ServingEngine(cfg, params, slots=8, steps_per_sync=4, prefill_chunk_tokens=128,
+                        kv_block_size=16, spec_enable=True, spec_max_draft=4,
+                        **lora_engine_kw(adapters))
+    try:
+        load_adapters(eng, adapters)
+        eng.warmup()
+        r = serve_wave(eng, prompts, n_new, spec_mix)
+    finally:
+        eng.close()
+    del eng
+    torch.cuda.empty_cache()
+    st = r.pop("stats")
+    r["near_tie"] = hold(spec_mix, r.pop("streams"), "lora spec")
+    r.update({k: st[k] for k in SPEC_KEYS})
+    out["spec"] = r
+    log("lora spec (9c)", json.dumps(r), f"{time.monotonic() - t_c:.1f}s")
+    if not (st["spec_rounds_total"] > 0 and st["spec_tokens_accepted_total"] > 0):
+        raise AssertionError("9(c): no speculation round accepted a draft")
+
+    # (d) the host tier: preempt, park and resume on t1.
+    t_d = time.monotonic()
+    pre = run_preempt_bytes(cfg, params, 16, 300, adapters=adapters)
+    got = pre.pop("stream")
+    pre["near_tie"] = hold_streams(cfg, merged["t1"], [p70], [refs["t1"][-1]], [got], tol,
+                                   "lora preempt/resume")
+    out["host_tier"] = pre
+    log("lora host tier (9d)", json.dumps(pre), f"{time.monotonic() - t_d:.1f}s")
+    del merged
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_main(argv, fn):
+    """native_server.main(argv) in a thread of this process (its server on
+    127.0.0.1): once /readyz would answer 200, fn(base_url) runs; then the
+    server shuts down and main() returns (closing the engine). Returns
+    (fn's result, boot seconds)."""
+    from dstack_tpu_torch import native_server
+
+    started, seen = threading.Event(), {}
+    real_make = native_server.make_server
+
+    def make(engine, host, port, model_name):
+        server, ready = real_make(engine, "127.0.0.1", port, model_name)
+        seen.update(server=server, ready=ready)
+        started.set()
+        return server, ready
+
+    native_server.make_server = make
+    th = threading.Thread(target=native_server.main, args=(argv,), daemon=True)
+    t0 = time.monotonic()
+    th.start()
+    try:
+        if not started.wait(300) or not seen["ready"].wait(300):
+            raise AssertionError("native_server never turned ready")
+        boot_s = time.monotonic() - t0
+        result = fn(f"http://127.0.0.1:{seen['server'].server_address[1]}")
+    finally:
+        native_server.make_server = real_make
+        if "server" in seen:
+            seen["server"].shutdown()
+        th.join(timeout=60)
+    if th.is_alive():
+        raise AssertionError("native_server's main() did not return after shutdown")
+    torch.cuda.empty_cache()
+    return result, boot_s
+
+
+def code_of(method, url, body=None):
+    """(status, body) of a request, error statuses included."""
+    import urllib.error
+
+    try:
+        return http(method, url, body)
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def run_lora_http(adapters) -> dict:
+    """Phase 9(e): native_server.main on port 0 with `--adapter t1=random
+    --adapter t2=<npz written by save_adapter>` (smol-1b, random weights
+    from --seed 0): /v1/models lists both, chats on m:t1, m:t2 and m answer
+    200 with three different texts, DELETE t1 answers 200 and m:t1 then
+    404, POST /v1/adapters reloads t1 from the npz with 200, and the
+    Prometheus text has adapters_loaded."""
+    import tempfile
+
+    from dstack_tpu_torch.workloads.lora_serving import save_adapter
+
+    msg = {"messages": [{"role": "user", "content": "hello from a tenant"}],
+           "max_tokens": 12, "temperature": 0}
+
+    def drive(base):
+        out = {"models": [m["id"] for m in
+                          json.loads(http("GET", base + "/v1/models")[1])["data"]]}
+        chats = {m: code_of("POST", base + "/v1/chat/completions", {**msg, "model": m})
+                 for m in ("m:t1", "m:t2", "m")}
+        out["chat_codes"] = {m: c for m, (c, _) in chats.items()}
+        out["texts_differ"] = len({json.loads(t)["choices"][0]["message"]["content"]
+                                   for c, t in chats.values() if c == 200}) == 3
+        out["delete_t1"] = code_of("DELETE", base + "/v1/adapters/t1")[0]
+        out["chat_t1_after_delete"] = code_of("POST", base + "/v1/chat/completions",
+                                              {**msg, "model": "m:t1"})[0]
+        out["reload_t1"] = code_of("POST", base + "/v1/adapters",
+                                   {"name": "t1", "path": npz})[0]
+        out["chat_t1_after_reload"] = code_of("POST", base + "/v1/chat/completions",
+                                              {**msg, "model": "m:t1"})[0]
+        prom = http("GET", base + "/metrics?format=prometheus")[1]
+        out["adapters_loaded"] = "dstack_tpu_serving_adapters_loaded 2" in prom
+        out["attn"] = json.loads(http("GET", base + "/metrics")[1])["attn_path"]
+        return out
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lora_") as tmp:
+        npz = os.path.join(tmp, "t2.npz")
+        save_adapter(npz, adapters["t2"], rank=LORA_RANK, alpha=LORA_ALPHA)
+        out, out["boot_s"] = serve_main(
+            ["--preset", "smol-1b", "--port", "0", "--model-name", "m", "--max-new-tokens",
+             "16", "--adapter", "t1=random", "--adapter", f"t2={npz}"], drive)
+    log("lora http (9e)", json.dumps(out))
+    want = dict(models=["m", "m:t1", "m:t2"], chat_codes={"m:t1": 200, "m:t2": 200, "m": 200},
+                texts_differ=True, delete_t1=200, chat_t1_after_delete=404, reload_t1=200,
+                chat_t1_after_reload=200, adapters_loaded=True, attn="cuda")
+    bad = {k: out[k] for k, v in want.items() if out[k] != v}
+    if bad:
+        raise AssertionError(f"9(e): {bad}")
+    return out
+
+
+def run_lora_serving(cfg, params) -> dict:
+    """Phase 9 (a)-(e); the paged kernel's launches of each engine path."""
+    t0 = time.monotonic()
+    out = {"module": run_lora_module(cfg, params)}
+    log(f"9(a): {time.monotonic() - t0:.1f}s")
+    adapters = demo_adapters(cfg, params)
+    out.update(run_lora_engines(cfg, params, adapters))
+    t0 = time.monotonic()
+    out["http"] = run_lora_http(adapters)
+    log(f"9(e): {time.monotonic() - t0:.1f}s")
+    return out
+
+
+# -- phase 10: LoRA training ----------------------------------------------------
+
+
+def step_flops(cfg, B: int, S: int, weight_grads=None, rank: int = 0) -> tuple:
+    """(FLOPs of one train step, the formula) from its products, in the
+    accounting of `flops_per_token` (fwd per token and layer: 2 x the
+    projections' weights + 2 S H hd for causal QK^T and AV; the head
+    2 d V). A full step (`weight_grads` None) is 3 x fwd: the forward, the
+    activations' gradients and every weight's gradient, attention's
+    backward twice its forward. A LoRA step computes the forward, the
+    activations' gradients (1 x fwd of every product, 2 x attention), the
+    weight gradients of the merged targets only (2 x their weights per
+    token), and the merge: its product L d r o per target and that
+    product's two gradients (3 x 2 L d r o)."""
+    d, f, v, hd = cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.head_dim
+    widths = {"wq": cfg.n_heads * hd, "wk": cfg.n_kv_heads * hd, "wv": cfg.n_kv_heads * hd}
+    proj = 2 * d * sum(widths.values()) + 2 * cfg.n_heads * hd * d + 3 * 2 * d * f
+    attn = 2 * S * cfg.n_heads * hd
+    head = 2 * d * v
+    tokens = B * S
+    fwd = cfg.n_layers * (proj + attn) + head
+    if weight_grads is None:
+        return 3.0 * fwd * tokens, "3 x (L (proj + 2 S H hd) + 2 d V) x B S"
+    dw = cfg.n_layers * sum(2 * d * widths[t] for t in weight_grads)
+    merge = 3 * sum(2 * cfg.n_layers * d * rank * widths[t] for t in weight_grads)
+    lora = (fwd + cfg.n_layers * (proj + 2 * attn) + head + dw) * tokens + merge
+    return float(lora), ("(L (2 proj + 3 x 2 S H hd + 2 d (H hd + KV hd)) + 2 x 2 d V) x B S"
+                         " + 3 x 2 L d r (H hd + KV hd)")
+
+
+def run_lora_train(full: dict, B: int = 8, S: int = 2048, n_steps: int = 5) -> dict:
+    """Phase 10: smol-1b at full width and depth, B 8 x S 2048, bf16, rank 8
+    on wq/wv: the base and batch of phase 6 (init_params seed 0, the
+    synthetic batch seed 0), adapters from a generator seeded at 1. Gates:
+    the step-0 loss (the LoRA step's own, and loss_fn on the merged params)
+    equals the full model's loss on the base bit for bit; A's step-0
+    gradient is exactly 0 and B's is not; after two warm-up and 5 timed
+    steps the base is bit-identical, B has moved off 0, the loss fell and
+    each flash kernel ran the full step's count per step. Step ms, tokens/s,
+    MFU (FLOPs from `step_flops`), peak memory and a profiled step, beside
+    phase 6's full step (`full`)."""
+    from dstack_tpu_torch.workloads.attention import make_attention_fn
+    from dstack_tpu_torch.workloads.config import PRESETS
+    from dstack_tpu_torch.workloads.lora import (
+        init_lora_state,
+        lora_param_count,
+        make_lora_train_step,
+        merge_lora,
+    )
+    from dstack_tpu_torch.workloads.train import loss_fn, synthetic_batch
+    from dstack_tpu_torch.workloads.transformer import detach_params, init_params
+    from dstack_tpu_torch.workloads.weights import flatten_params
+
+    cfg = PRESETS["smol-1b"]
+    remat = cfg.resolve_remat(B * S, None, seq_len=S)
+    base = init_params(cfg, 0)
+    batch = synthetic_batch(cfg, B, S, seed=0)
+    attn = make_attention_fn()
+    with torch.no_grad():
+        full_loss = loss_fn(cfg, base, batch, attn)[0]
+    before = {k: t.cpu() for k, t in flatten_params(base)}  # off the device's peak
+    gc.collect()  # engines of phase 9 left in reference cycles hold their pools
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    state = init_lora_state(cfg, base, 1, rank=LORA_RANK)
+    pairs = flatten_params(state.lora)
+    loss0, _ = loss_fn(cfg, merge_lora(detach_params(base), state.lora, rank=LORA_RANK),
+                       batch, attn)
+    g0 = dict(zip((k for k, _ in pairs),
+                  torch.autograd.grad(loss0, [t for _, t in pairs])))
+    step = make_lora_train_step(cfg, rank=LORA_RANK)
+    n_warm = 2
+    zero_flash_counts()
+    t0 = time.monotonic()
+    warm = []
+    for _ in range(n_warm):
+        state, m = step(state, base, batch)
+        warm.append(m["loss"])
+    torch.cuda.synchronize()
+    warm_s = time.monotonic() - t0
+    losses, norms = [], []
+    t0 = time.monotonic()
+    for _ in range(n_steps):
+        state, m = step(state, base, batch)
+        losses.append(m["loss"])
+        norms.append(m["grad_norm"])
+    vals = torch.stack(losses + norms).tolist()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = flash_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses, norms = vals[:n_steps], vals[n_steps:]
+    want = expected_launches(cfg, remat, n_warm + n_steps)
+    flops, formula = step_flops(cfg, B, S, LORA_TARGETS, LORA_RANK)
+    full_flops, full_formula = step_flops(cfg, B, S)
+    step_ms = wall / n_steps * 1e3
+    bits = dict(
+        step0_loss_equals_full=bool(torch.equal(warm[0], full_loss)),
+        merged_loss_equals_full=bool(torch.equal(loss0.detach(), full_loss)),
+        a_grad_zero=all(not g0[k].any() for k in g0 if k.endswith("_a")),
+        b_grad_nonzero=all(bool(g0[k].any()) for k in g0 if k.endswith("_b")),
+        base_bit_identical=all(torch.equal(t.cpu(), before[k]) for k, t in flatten_params(base)),
+        b_moved=all(bool(t.detach().any()) for k, t in flatten_params(state.lora)
+                    if k.endswith("_b")),
+        loss_fell=losses[-1] < losses[0],
+        finite=all(math.isfinite(x) for x in losses + norms),
+        launches=launches == want)
+    stats = dict(
+        preset="smol-1b", batch=B, seq_len=S, dtype=cfg.dtype, remat=remat, rank=LORA_RANK,
+        targets=LORA_TARGETS, adapter_params=lora_param_count(state.lora),
+        full_loss=float(full_loss), step0_loss=float(warm[0]), losses=losses, grad_norms=norms,
+        warmup_s=warm_s, step_ms=step_ms, tokens_per_s=B * S * n_steps / wall,
+        flops_per_step=flops, flops_formula=formula,
+        mfu=flops / (step_ms / 1e3) / H100_BF16_PEAK,
+        full_step_flops=full_flops, full_step_formula=full_formula,
+        full_step_flops_per_token_check=full_flops == cfg.flops_per_token(S) * B * S,
+        peak_mem_gb=peak / 1e9, mem_at_reset_gb=mem0 / 1e9, launches=launches,
+        launches_per_step={k: v // (n_warm + n_steps) for k, v in launches.items()},
+        gates=bits,
+        full_step={k: full[k] for k in ("step_ms", "tokens_per_s", "mfu", "peak_mem_gb",
+                                        "flops_per_step", "launches_per_step")},
+        step_ms_vs_full=step_ms / full["step_ms"])
+    stats["profiled_step"] = profile_step(lambda s, b: step(s, base, b), state, batch)
+    log("lora train (10)", json.dumps(stats))
+    bad = [k for k, ok in bits.items() if not ok]
+    if bad or not stats["full_step_flops_per_token_check"]:
+        raise AssertionError(f"10: LoRA training gates fail: {bad} (launches {launches},"
+                             f" expected {want}; losses {losses})")
+    del state, base, before, batch, g0
+    torch.cuda.empty_cache()
+    return stats
+
+
+# -- phase 10b: LoRA at 2 layers -------------------------------------------------
+
+
+def lora_grads(cfg, base, lora, batch, attn, mesh=None):
+    """(loss, {adapter leaf: grad}) of loss_fn on merge_lora(base, lora)."""
+    from dstack_tpu_torch.workloads.lora import merge_lora
+    from dstack_tpu_torch.workloads.train import loss_fn
+    from dstack_tpu_torch.workloads.weights import flatten_params
+
+    pairs = flatten_params(lora)
+    loss, _ = loss_fn(cfg, merge_lora(base, lora, rank=LORA_RANK), batch, attn, mesh)
+    grads = torch.autograd.grad(loss, [t for _, t in pairs])
+    return float(loss.detach()), {k: g for (k, _), g in zip(pairs, grads)}
+
+
+def compare_lora(tag, got, ref, tol) -> dict:
+    loss_rel = abs(got[0] - ref[0]) / abs(ref[0])
+    grad_rel = {k: float((g.float() - ref[1][k].float()).norm() / ref[1][k].float().norm())
+                for k, g in got[1].items()}
+    worst = max(grad_rel.values())
+    log(f"{tag}: loss {got[0]:.6f} vs {ref[0]:.6f} (rel {loss_rel:.3e}, tol {tol[0]:g});"
+        f" worst adapter grad rel {worst:.3e} (tol {tol[1]:g})")
+    if not loss_rel <= tol[0] or not worst <= tol[1]:
+        raise AssertionError(f"{tag}: disagrees")
+    return dict(loss=got[0], loss_ref=ref[0], loss_rel=loss_rel, grad_rel=grad_rel)
+
+
+def run_lora_model_checks() -> dict:
+    """Phase 10b at 2 layers: (1) smol-1b width, B 2 x S 2048: the LoRA loss
+    and adapter grads (demo adapters, so A and B both get a gradient)
+    through the flash kernels against plain_attention, f32 and bf16, at
+    6b's limits; (2) smol-1b-8k width, B 1 x S 8192, bf16: through the ring
+    over 4 shards against the single-device flash kernels at 7b's limits,
+    and one LoRA step over the ring; (3) smol-1b width, bf16: a LoRA
+    checkpoint after 2 steps saved, restored into a fresh template, and a
+    step from it against the step from the saved state, bit for bit."""
+    import tempfile
+    from pathlib import Path
+
+    from dstack_tpu_torch.workloads import checkpoint as ckpt
+    from dstack_tpu_torch.workloads.attention import make_attention_fn, plain_attention
+    from dstack_tpu_torch.workloads.config import PRESETS
+    from dstack_tpu_torch.workloads.lora import init_lora_state, make_lora_train_step
+    from dstack_tpu_torch.workloads.lora_serving import demo_adapter
+    from dstack_tpu_torch.workloads.sharding import make_mesh
+    from dstack_tpu_torch.workloads.train import synthetic_batch
+    from dstack_tpu_torch.workloads.transformer import init_params
+    from dstack_tpu_torch.workloads.weights import flatten_params
+
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        cfg = PRESETS["smol-1b"].with_(n_layers=2, dtype=str(dtype).split(".")[1])
+        base = init_params(cfg, seed=1)
+        lora = demo_adapter(cfg, base, 2, rank=LORA_RANK, targets=LORA_TARGETS)
+        for _, t in flatten_params(lora):
+            t.requires_grad_(True)
+        batch = synthetic_batch(cfg, 2, 2048, seed=1)
+        zero_flash_counts()
+        kern = lora_grads(cfg, base, lora, batch, make_attention_fn())
+        launched = flash_counts()
+        plain = lora_grads(cfg, base, lora, batch, plain_attention)
+        if not all(launched.get(k) for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")):
+            raise AssertionError(f"10b: the LoRA loss ran the flash kernels {launched}")
+        out[f"flash_vs_plain_{tag}"] = compare_lora(f"lora model check {tag}", kern, plain,
+                                                    MODEL_TOL[dtype])
+        del base, lora, batch
+        torch.cuda.empty_cache()
+    # (2) the ring over 4 shards against the single device, smol-1b-8k width.
+    cfg = PRESETS["smol-1b-8k"].with_(n_layers=2)
+    base = init_params(cfg, seed=1)
+    lora = demo_adapter(cfg, base, 2, rank=LORA_RANK, targets=LORA_TARGETS)
+    for _, t in flatten_params(lora):
+        t.requires_grad_(True)
+    mesh = make_mesh(seq=RING_SHARDS)
+    batch = synthetic_batch(cfg, 1, 8192, seed=1)
+    zero_flash_counts()
+    ring = lora_grads(cfg, base, lora, batch, make_attention_fn(mesh), mesh)
+    ring_launches = flash_counts()["flash_block_fwd"]
+    single = lora_grads(cfg, base, lora, batch, make_attention_fn())
+    out["ring_vs_single"] = compare_lora("lora ring vs single device", ring, single,
+                                         MODEL_TOL[torch.bfloat16])
+    state = init_lora_state(cfg, base, 1, rank=LORA_RANK, mesh=mesh)
+    _, m = make_lora_train_step(cfg, mesh, rank=LORA_RANK)(state, base, batch)
+    out["ring_step_loss"] = float(m["loss"])
+    out["ring_block_launches"] = ring_launches
+    if not ring_launches or not math.isfinite(out["ring_step_loss"]):
+        raise AssertionError(f"10b: the LoRA ring step: {ring_launches} ring-step launches,"
+                             f" loss {out['ring_step_loss']}")
+    del base, lora, batch, state
+    torch.cuda.empty_cache()
+    # (3) the LoRA checkpoint, bit for bit.
+    cfg = PRESETS["smol-1b"].with_(n_layers=2)
+    base = init_params(cfg, seed=0)
+    batch = synthetic_batch(cfg, 2, 2048, seed=0)
+    step = make_lora_train_step(cfg, rank=LORA_RANK)
+    state = init_lora_state(cfg, base, 1, rank=LORA_RANK)
+    for _ in range(2):
+        state, _ = step(state, base, batch)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lora_ckpt_") as vol:
+        ckpt.save(vol, state, wait=True)
+        names = sorted({s["name"].split("/")[0] for s in ckpt.read_manifest(Path(vol) / "2")})
+        state, _ = step(state, base, batch)
+        want = {k: t.detach().clone() for k, t in ckpt._leaves(state)}
+        restored = ckpt.restore_latest(vol, init_lora_state(cfg, base, 7, rank=LORA_RANK))
+        ckpt.close_all()
+    restored, _ = step(restored, base, batch)
+    same = all(torch.equal(t, want[k]) for k, t in ckpt._leaves(restored))
+    out["checkpoint"] = dict(groups=names, continued_bit_for_bit=same, step=restored.step)
+    log("lora checkpoint (10b)", json.dumps(out["checkpoint"]))
+    if names != ["lora", "mu", "nu"] or not same or restored.step != 3:
+        raise AssertionError(f"10b: LoRA checkpoint {out['checkpoint']}")
+    del base, batch, state, restored, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_lora_drain(preset: str = "smol-1b", seq: int = 512, extra=()) -> dict:
+    """Phase 10b (4): `python -m dstack_tpu_torch.fine_tune --lora-rank 8`
+    in a subprocess (smol-1b at full depth, B 2 x S 512, so its merged
+    export is a smol-1b checkpoint; the kernel library this run built),
+    with a checkpoint dir: SIGTERM once it has printed its first step; it
+    exits 113 with an adapter checkpoint (lora, mu and nu leaves) at the
+    step it finished; a relaunch to that step + 3 resumes there and exports
+    the merged params; native_server --checkpoint-dir serves one chat from
+    that export with a 200. `extra` goes to both command lines."""
+    import signal
+    import tempfile
+    from pathlib import Path
+
+    from dstack_tpu_torch.workloads import checkpoint as ckpt
+
+    env = {k: v for k, v in os.environ.items() if k != "DSTACK_TPU_COMPILE_CACHE"}
+    env["PYTHONPATH"] = os.pathsep.join([os.path.dirname(os.path.abspath(__file__))]
+                                        + [x for x in [os.environ.get("PYTHONPATH")] if x])
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lora_drain_") as tmp:
+        vol = os.path.join(tmp, "ckpt")
+        cmd = [sys.executable, "-m", "dstack_tpu_torch.fine_tune", "--preset", preset,
+               "--batch-size", "2", "--seq-len", str(seq), "--lora-rank", str(LORA_RANK),
+               "--checkpoint-dir", vol, *extra]
+        t0 = time.monotonic()
+        proc = subprocess.Popen(cmd + ["--steps", "100000"], env=env, text=True,
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        out1 = []
+        try:
+            for line in proc.stdout:
+                out1.append(line.rstrip("\n"))
+                if line.startswith("step 0:"):
+                    proc.send_signal(signal.SIGTERM)
+                    break
+            out1 += proc.communicate(timeout=600)[0].splitlines()
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        wall1 = time.monotonic() - t0
+        drained = [x for x in out1 if x.startswith("drain: checkpoint saved at step")]
+        if proc.returncode != 113 or not drained:
+            raise AssertionError(f"LoRA fine_tune exited {proc.returncode}, not 113:\n"
+                                 + "\n".join(out1[-40:]))
+        at = int(drained[0].split()[5])
+        groups = sorted({s["name"].split("/")[0]
+                         for s in ckpt.read_manifest(Path(vol) / str(at))})
+        t0 = time.monotonic()
+        run2 = subprocess.run(cmd + ["--steps", str(at + 3)], env=env, text=True,
+                              capture_output=True, timeout=600)
+        wall2 = time.monotonic() - t0
+        out2 = run2.stdout.splitlines()
+        if run2.returncode != 0:
+            raise AssertionError(f"LoRA relaunch exited {run2.returncode}:\n{run2.stderr[-4000:]}")
+        msg = {"messages": [{"role": "user", "content": "after the drain"}],
+               "max_tokens": 8, "temperature": 0}
+        (code, via), boot_s = serve_main(
+            ["--preset", preset, "--port", "0", "--checkpoint-dir", vol,
+             "--max-new-tokens", "8", "--slots", "2", *extra],
+            lambda base: (code_of("POST", base + "/v1/chat/completions", msg)[0],
+                          json.loads(http("GET", base + "/readyz")[1])["weights_via"]))
+    out = dict(launch1=dict(rc=proc.returncode, wall_s=wall1, drained=drained,
+                            checkpoint_groups=groups),
+               launch2=dict(rc=run2.returncode, wall_s=wall2,
+                            lines=[x for x in out2 if not x.startswith("step ")]),
+               serve=dict(code=code, weights_via=via, boot_s=boot_s))
+    log("lora drain (10b)", json.dumps(out))
+    ok = (at >= 1 and groups == ["lora", "mu", "nu"]
+          and f"resumed from step {at}" in out2
+          and any(x.startswith("params exported to") for x in out2)
+          and code == 200 and via == "packed")
+    if not ok:
+        raise AssertionError(f"10b: LoRA drain and resume: {out}")
+    return out
+
+
 PAGED_TIMES = ("ms", "ms_one_launch", "plain_ms", "bound_ms", "bound_by", "library_ms",
                "library_ms_one_launch", "tflops", "bound_share", "other_plan",
                "host_us_per_call")
@@ -2287,6 +3141,21 @@ def main() -> int:
     drain = run_drain()
     log(f"phases 8-8b: {time.monotonic() - t0:.1f}s")
 
+    # 9. LoRA serving: the module, the engines, speculation, the host tier, http
+    t0 = time.monotonic()
+    params = init_params(cfg, seed=0)
+    lora_serving = run_lora_serving(cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    log(f"phase 9: {time.monotonic() - t0:.1f}s")
+
+    # 10. LoRA training at full width and depth; 10b. at 2 layers, drain
+    t0 = time.monotonic()
+    lora_train = run_lora_train(train)
+    lora_checks = run_lora_model_checks()
+    lora_checks["drain"] = run_lora_drain()
+    log(f"phases 10-10b: {time.monotonic() - t0:.1f}s")
+
     log(f"total {time.monotonic() - t_all:.1f}s")
     kernels = {"kernels": [paged_entry(kres, launches, wave)]}
     # The paged kernel's launches on the speculative and host-tier paths
@@ -2295,6 +3164,8 @@ def main() -> int:
         "engine": launches,
         "spec": [r["kernel_launches"] for r in spec["runs"] if r["spec"]],
         "host_tier": host_tier["spill"]["kernel_launches"],
+        "lora": [r["kernel_launches"] for r in lora_serving["runs"] if r["lora"]],
+        "lora_spec": lora_serving["spec"]["kernel_launches"],
     }
     # `ms` (and so `tflops` and `bound_share`) times launches back to back
     # (`cuda_ms`); `ms_one_launch` one launch from the host's call on an
@@ -2309,6 +3180,9 @@ def main() -> int:
             "source": FLASH_KERNEL_SOURCE,
             "replaces": replaces,
             "launches": run["launches"][kern],
+            **({"launches_by_path": {"train": train["launches"][kern],
+                                     "lora_train": lora_train["launches"][kern]}}
+               if kern != "flash_block_fwd" else {}),
             "max_abs_err": main_f["max_abs_err"],
             "ms": main_f["ms"],
             "ms_one_launch": main_f["ms_one_launch"],
@@ -2328,7 +3202,8 @@ def main() -> int:
         json.dump({"device": smi, "paged": kres, "spec": spec, "host_tier": host_tier,
                    "service": service, "flash": fres, "train": train,
                    "model_check": model, "ring_train": ring, "ring_model_check": ring_model,
-                   "checkpoint": checkpoint, "drain": drain,
+                   "checkpoint": checkpoint, "drain": drain, "lora_serving": lora_serving,
+                   "lora_train": lora_train, "lora_checks": lora_checks,
                    "build_s": _build.build_seconds}, f, indent=1)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,6 +6,8 @@
     # ring attention over 4 sequence shards, long context, on the card
     python -m dstack_tpu_torch.fine_tune --preset smol-1b-8k --seq-len 8192 \
         --batch-size 1 --seq-parallel 4
+    # LoRA adapters (rank 8 on wq/wv) over the frozen base
+    python -m dstack_tpu_torch.fine_tune --lora-rank 8 --checkpoint-dir ckpt
 
 `--seq-parallel n` builds a seq mesh whose n sequence shards take turns on
 the one device through the ring (workloads/attention.py); it works on the
@@ -17,18 +19,32 @@ train-state checkpoint there is restored and the loop continues from its
 step (the data loader too); a checkpoint is saved every 100 steps and at
 the last step, and the final params are exported (`<dir>/packed/`), which
 `python -m dstack_tpu_torch.native_server --checkpoint-dir <dir>` serves.
-A retried job therefore resumes where the last one saved; a drained one
-where it was drained (train.DrainHandler). On the card the kernel library
-is built into `$DSTACK_TPU_COMPILE_CACHE` when it is set
-(workloads/compile_cache.py), so a repeat boot on the same volume skips
-the build. --model-parallel, --expert-parallel and LoRA are not ported
-yet.
+A retried job therefore resumes where the last one saved. With a
+checkpoint dir, SIGTERM (a preemption or maintenance notice) drains the
+run: the step in flight finishes, a checkpoint is saved and the process
+exits 113 (train.DrainHandler), and the resubmitted job resumes there. On
+the card the kernel library is built into `$DSTACK_TPU_COMPILE_CACHE` when
+it is set (workloads/compile_cache.py), so a repeat boot on the same
+volume skips the build.
+
+`--lora-rank r` trains rank-r adapters on wq and wv over the frozen base
+(workloads/lora.py), as the JAX example trainer: the base is
+`init_params(config, seed 0)` and the adapters are drawn from a torch
+generator seeded at 1 (the JAX trainer's `PRNGKey(0)` and `PRNGKey(1)`;
+torch cannot draw the same numbers). Checkpoints hold the adapters and
+their moments; the export is the merged params, which native_server
+serves unchanged. It composes with --seq-parallel. The JAX LoRA step has
+no gradient accumulation, so --accum-steps > 1 with --lora-rank raises.
+--model-parallel and --expert-parallel are not ported yet.
 """
 
 import argparse
 import os
+import threading
 import time
 from typing import Optional
+
+import torch
 
 from dstack_tpu_torch.workloads.config import PRESETS
 
@@ -53,23 +69,29 @@ def main(argv: Optional[list] = None) -> None:
     parser.add_argument("--model-parallel", type=int, default=1)
     parser.add_argument("--seq-parallel", type=int, default=1)
     parser.add_argument("--expert-parallel", type=int, default=1)
-    parser.add_argument("--lora-rank", type=int, default=0)
+    parser.add_argument("--lora-rank", type=int, default=0,
+                        help="train low-rank adapters over the frozen base"
+                             " (0 = full fine-tune)")
     args = parser.parse_args(argv)
 
     unported = [f"--{name.replace('_', '-')} {getattr(args, name)}"
                 for name in ("model_parallel", "expert_parallel")
                 if getattr(args, name) > 1]
-    if args.lora_rank > 0:
-        unported.append(f"--lora-rank {args.lora_rank}")
     if unported:
         raise NotImplementedError(
             f"not ported to PyTorch yet: {', '.join(unported)} (the port trains"
             " dense models on one device, with --seq-parallel as its ring)")
+    if args.lora_rank > 0 and args.accum_steps > 1:
+        raise NotImplementedError(
+            f"--accum-steps {args.accum_steps} with --lora-rank: the LoRA step"
+            " has no gradient accumulation (as the JAX package's)")
 
     from dstack_tpu_torch.workloads import checkpoint as ckpt
     from dstack_tpu_torch.workloads.sharding import make_mesh
     from dstack_tpu_torch.workloads.train import (
+        TrainState,
         init_train_state,
+        install_drain_handler,
         make_train_step,
         synthetic_batch,
     )
@@ -85,12 +107,49 @@ def main(argv: Optional[list] = None) -> None:
                              f" --seq-len {seq_len}")
         mesh = make_mesh(None if args.device is None else [args.device],
                          seq=args.seq_parallel)
-    state = init_train_state(config, 0, args.device, mesh=mesh)
-    device = state.params["embed"].device
-    step = make_train_step(config, mesh, accum_steps=args.accum_steps)
+    # One state and one step either way; LoRA swaps in the adapter state
+    # and a step closed over the frozen base. Data, checkpoints, drain and
+    # the loop below are shared.
+    if args.lora_rank > 0:
+        from dstack_tpu_torch.workloads.lora import (
+            init_lora_state,
+            lora_param_count,
+            make_lora_train_step,
+            merge_lora,
+        )
+        from dstack_tpu_torch.workloads.train import _device_of
+        from dstack_tpu_torch.workloads.transformer import detach_params, init_params
+
+        base = init_params(config, 0, _device_of(args.device, mesh))
+        state = init_lora_state(config, base, 1, rank=args.lora_rank, mesh=mesh)
+        device = base["embed"].device
+        lora_step = make_lora_train_step(config, mesh, rank=args.lora_rank)
+
+        def step(s, b):
+            return lora_step(s, base, b)
+
+        def export(final_state):
+            # Serve the merged model; the checkpoints hold the adapters.
+            with torch.no_grad():
+                merged = merge_lora(base, detach_params(final_state.lora),
+                                    rank=args.lora_rank)
+            return ckpt.export_params(args.checkpoint_dir,
+                                      TrainState(final_state.step, merged, None))
+
+        what = (f", LoRA rank {args.lora_rank} on wq/wv"
+                f" ({lora_param_count(state.lora) / 1e6:.3f}M adapter params)")
+    else:
+        state = init_train_state(config, 0, args.device, mesh=mesh)
+        device = state.params["embed"].device
+        step = make_train_step(config, mesh, accum_steps=args.accum_steps)
+
+        def export(final_state):
+            return ckpt.export_params(args.checkpoint_dir, final_state)
+
+        what = ""
     ring = f", ring over {args.seq_parallel} seq shards" if mesh else ""
     print(f"{args.preset}: {config.param_count() / 1e9:.3f}B params on {device},"
-          f" batch {args.batch_size} x {seq_len}{ring}", flush=True)
+          f" batch {args.batch_size} x {seq_len}{ring}{what}", flush=True)
     if args.checkpoint_dir:
         # Resume from the volume: a retried job continues at the last saved
         # step instead of step 0.
@@ -108,6 +167,10 @@ def main(argv: Optional[list] = None) -> None:
                              vocab_size=config.vocab_size)
     else:
         batch = synthetic_batch(config, args.batch_size, seq_len, device=device)
+    # Drain needs somewhere to save to, and signal handlers install from
+    # the main thread only.
+    drain = (install_drain_handler() if args.checkpoint_dir
+             and threading.current_thread() is threading.main_thread() else None)
     try:
         t0 = time.monotonic()
         for i in range(start, args.steps):
@@ -118,14 +181,18 @@ def main(argv: Optional[list] = None) -> None:
                 print(f"step {i}: loss {float(metrics['loss']):.4f}"
                       f" grad_norm {float(metrics['grad_norm']):.4f}"
                       f" ({time.monotonic() - t0:.1f}s)", flush=True)
+            if drain is not None and drain.draining:
+                drain.checkpoint_and_exit(args.checkpoint_dir, state)
             if args.checkpoint_dir and ((i + 1) % 100 == 0 or i == args.steps - 1):
                 # Block on the last one so the job ends with it on disk.
                 ckpt.save(args.checkpoint_dir, state, wait=i == args.steps - 1)
     finally:
         if loader is not None:
             loader.close()
+        if drain is not None:
+            drain.restore()
     if args.checkpoint_dir:
-        path = ckpt.export_params(args.checkpoint_dir, state)
+        path = export(state)
         ckpt.close_all()
         print(f"params exported to {path}", flush=True)
     print("training complete", flush=True)

@@ -1,7 +1,9 @@
 """OpenAI-compatible model server over the PyTorch serving engine (the
 unified subset of examples/deployment/native/server.py).
 
-Endpoints: GET /v1/models, POST /v1/chat/completions (plain and SSE),
+Endpoints: GET /v1/models (with `<model>:<adapter>` for each loaded LoRA
+adapter), POST /v1/chat/completions (plain and SSE), POST /v1/adapters
+and DELETE /v1/adapters/<name> (runtime adapter load and unload),
 GET /healthz (liveness), GET /readyz (503 until the engine's warmup has
 built the kernel and run every program once), GET /metrics (JSON, or
 Prometheus text with ?format=prometheus or Accept: text/plain), GET
@@ -30,11 +32,21 @@ cannot reproduce the JAX server's `jax.random` drafter), the KV budget
 check (`--kv-budget-mb`), the host KV tier and slot overcommit
 (`--kv-host-budget-mb`, `--max-resident-slots`) and QoS weights
 (`--qos-weight TENANT=WEIGHT`). A request's tenant is its Bearer key, else
-the adapter named in `model` ("base:adapter"; LoRA itself is not ported),
-else "default", as the JAX server resolves it; on a host-tier engine a
-heavier tenant may preempt a lighter one's live slot. `--qos-rate` (the
-dataplane's per-tenant token buckets) is not ported and refuses > 0;
-`GET /v1/affinity` answers 501.
+the adapter named in `model`, else "default", as the JAX server resolves
+it; on a host-tier engine a heavier tenant may preempt a lighter one's
+live slot. `--qos-rate` (the dataplane's per-tenant token buckets) is not
+ported and refuses > 0; `GET /v1/affinity` answers 501.
+
+Multi-tenant LoRA, as the JAX server: `--adapter NAME=PATH` (repeatable)
+preloads an adapter, PATH a `save_adapter` npz of either package or
+`random` for a demo adapter; `--lora-max-adapters` sizes the device bank
+(default: the number of `--adapter`s; 0 without them is no LoRA) and
+`--lora-rank` its rank. A request picks its adapter with the OpenAI
+`model` field, `"<model>:<adapter>"`: an unknown adapter answers 404, and
+an engine without LoRA answers 400. A `random` adapter is drawn from a
+torch generator seeded with the CRC-32 of its name (stable across runs;
+the JAX server seeds `jax.random` from Python's `hash`, which changes with
+PYTHONHASHSEED, so the two servers' random adapters differ anyway).
 
     python -m dstack_tpu_torch.native_server --preset smol-1b --port 9000
 """
@@ -45,6 +57,7 @@ import itertools
 import json
 import threading
 import time
+import zlib
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
@@ -55,6 +68,12 @@ from dstack_tpu_torch.utils.tracecontext import ensure_request_trace
 from dstack_tpu_torch.workloads import compile_cache
 from dstack_tpu_torch.workloads.config import PRESETS
 from dstack_tpu_torch.workloads.device import DeviceLike, resolve_device
+from dstack_tpu_torch.workloads.lora_serving import (
+    AdapterBusyError,
+    AdapterPoolFullError,
+    demo_adapter,
+    load_adapter_file,
+)
 from dstack_tpu_torch.workloads.serving import (
     EngineOverloadedError,
     ServingEngine,
@@ -110,7 +129,8 @@ class Engine:
                  spec_enable: bool = False, spec_max_draft: int = 4,
                  spec_draft_preset: str = "int8", kv_budget_mb: int = 0,
                  kv_host_budget_mb: int = 0, max_resident_slots: int = 0,
-                 qos_weights=None, qos_rate: float = 0.0):
+                 qos_weights=None, qos_rate: float = 0.0,
+                 lora_max_adapters: int = 0, lora_rank: int = 8, adapters=()):
         if qos_rate > 0:
             raise NotImplementedError(
                 "--qos-rate (the dataplane's per-tenant token buckets) is not"
@@ -172,8 +192,40 @@ class Engine:
             kv_host_budget_bytes=kv_host_budget_mb * (1 << 20) or None,
             max_resident_slots=max_resident_slots or None,
             qos_weights=qos_weights or None,
+            lora_max_adapters=lora_max_adapters, lora_rank=lora_rank,
         )
         self.params = self.serving.params  # detached: serving builds no graph
+        # --adapter NAME=PATH entries: "random" makes a demo adapter in
+        # process; anything else is a save_adapter npz with its own rank
+        # and alpha.
+        self.lora_rank = lora_rank
+        try:
+            for entry in adapters:
+                name, _, path = entry.partition("=")
+                if not name or not path:
+                    raise ValueError(f"--adapter {entry!r} is not NAME=PATH")
+                try:
+                    self.load_adapter(name, path)
+                except (ValueError, RuntimeError, OSError) as e:
+                    raise ValueError(f"--adapter {entry!r}: {e}") from e
+        except ValueError:
+            self.serving.close()
+            raise
+
+    def load_adapter(self, name: str, path: str, alpha: float = 16.0) -> int:
+        """Load a LoRA adapter into the bank: `path` is a save_adapter npz,
+        or "random" for a demo adapter seeded with the CRC-32 of `name`.
+        Returns the bank slot. ValueError when the file's rank is not the
+        engine's; RuntimeError on an engine without LoRA."""
+        if path == "random":
+            tree = demo_adapter(self.config, self.params, zlib.crc32(name.encode()),
+                                rank=self.lora_rank, targets=("wq", "wv"))
+            return self.serving.load_adapter(name, tree, alpha=alpha)
+        tree, rank, file_alpha = load_adapter_file(path)
+        if rank != self.lora_rank:
+            raise ValueError(f"adapter {name!r} has rank {rank}, engine pool is"
+                             f" rank {self.lora_rank}")
+        return self.serving.load_adapter(name, tree, alpha=file_alpha)
 
     def encode(self, text: str):
         return encode_text(text, self.config.vocab_size, self.config.max_seq_len,
@@ -184,10 +236,12 @@ class Engine:
 
     def chat_stream(self, messages, max_tokens=None, temperature=None,
                     top_p=None, usage_out=None, traceparent=None,
-                    x_request_id=None, tenant=None):
+                    x_request_id=None, tenant=None, adapter=None):
         """Yield decoded text fragments as tokens land. Malformed
         per-request fields fall back to the server defaults; UTF-8 is
-        decoded incrementally so multi-byte characters reassemble."""
+        decoded incrementally so multi-byte characters reassemble.
+        `adapter` names a loaded LoRA adapter (KeyError when unknown,
+        ValueError on an engine without LoRA)."""
         budget = self.max_new_tokens
         if max_tokens is not None:
             try:
@@ -218,7 +272,8 @@ class Engine:
                                   temperature=temp, top_p=nucleus,
                                   traceparent=traceparent,
                                   x_request_id=x_request_id,
-                                  tenant=tenant or DEFAULT_TENANT)
+                                  tenant=tenant or DEFAULT_TENANT,
+                                  adapter=adapter)
         dec = codecs.getincrementaldecoder("utf-8")("replace")
         try:
             while True:
@@ -241,12 +296,12 @@ class Engine:
 
     def chat(self, messages, max_tokens=None, temperature=None, top_p=None,
              usage_out=None, traceparent=None, x_request_id=None,
-             tenant=None) -> str:
+             tenant=None, adapter=None) -> str:
         return "".join(self.chat_stream(messages, max_tokens, temperature,
                                         top_p, usage_out=usage_out,
                                         traceparent=traceparent,
                                         x_request_id=x_request_id,
-                                        tenant=tenant))
+                                        tenant=tenant, adapter=adapter))
 
 
 def make_server(engine: Engine, host: str, port: int,
@@ -300,32 +355,36 @@ def make_server(engine: Engine, host: str, port: int,
                              "finish_reason": finish}],
             }
 
-        def _tenant(self, req) -> str:
-            """The request's QoS tenant, as the JAX server resolves it: the
-            Bearer key when one was sent, else the adapter named in
-            `model` ("base:adapter"), else the default bucket."""
+        def _request_identity(self, req):
+            """(adapter, tenant) of a request, as the JAX server resolves
+            them: the OpenAI `model` field selects the adapter
+            ("base:adapter"); the tenant is the Bearer key when one was
+            sent, else the adapter, else the default bucket."""
             model = req.get("model") or ""
-            adapter = model.split(":", 1)[1] if ":" in model else ""
+            adapter = (model.split(":", 1)[1] or None) if ":" in model else None
             auth = self.headers.get("Authorization", "")
             key = auth[7:].strip() if auth.lower().startswith("bearer ") else ""
-            return key or adapter or DEFAULT_TENANT
+            return adapter, key or adapter or DEFAULT_TENANT
 
         def _stream(self, req) -> None:
             """OpenAI-style SSE: one delta chunk per decoded piece. The
             first piece is pulled before the 200 is committed, so a
             submit-time error is a clean JSON error."""
             tp, rid = self._trace_identity()
+            adapter, tenant = self._request_identity(req)
             try:
                 pieces = engine.chat_stream(
                     req.get("messages", []), req.get("max_tokens"),
                     req.get("temperature"), req.get("top_p"),
-                    traceparent=tp, x_request_id=rid, tenant=self._tenant(req),
+                    traceparent=tp, x_request_id=rid, tenant=tenant, adapter=adapter,
                 )
                 first = next(pieces)
             except StopIteration:
                 first, pieces = "", iter(())
             except EngineOverloadedError as e:
                 return self._send_overloaded(e)
+            except KeyError as e:  # unknown adapter
+                return self._send(404, {"error": f"unknown adapter: {e}"})
             except ValueError as e:
                 return self._send(400, {"error": str(e)})
             except Exception as e:
@@ -378,10 +437,13 @@ def make_server(engine: Engine, host: str, port: int,
                 return self._send(503, {"ready": False, "phase": "warmup"},
                                   headers=[("Retry-After", "2")])
             if path == "/v1/models":
-                return self._send(200, {"object": "list", "data": [{
-                    "id": model_name, "object": "model", "created": 0,
-                    "owned_by": "dstack-tpu",
-                }]})
+                # Loaded adapters list as models of their own
+                # (`base:adapter`), as the JAX server lists them.
+                names = [model_name] + [f"{model_name}:{a}"
+                                        for a in sorted(engine.serving.adapters())]
+                return self._send(200, {"object": "list", "data": [
+                    {"id": n, "object": "model", "created": 0, "owned_by": "dstack-tpu"}
+                    for n in names]})
             if path == "/metrics":
                 stats = engine.serving.stats()
                 accept = self.headers.get("Accept", "")
@@ -406,25 +468,71 @@ def make_server(engine: Engine, host: str, port: int,
                 return self._send(200, trace)
             self._send(404, {"error": "not found"})
 
-        def do_POST(self):
-            if self.path.rstrip("/") != "/v1/chat/completions":
-                return self._send(404, {"error": "not found"})
+        def _read_json(self):
             length = int(self.headers.get("Content-Length", 0))
+            return json.loads(self.rfile.read(length) or b"{}")
+
+        def _load_adapter_route(self) -> None:
+            """POST /v1/adapters {"name", "path", "alpha"?}: runtime adapter
+            load or replace. 409 when every bank slot is pinned by
+            in-flight requests or the adapter is busy (retryable); 400 on a
+            shape or rank mismatch, a missing file or an engine without
+            LoRA."""
             try:
-                req = json.loads(self.rfile.read(length) or b"{}")
+                req = self._read_json()
+            except json.JSONDecodeError as e:
+                return self._send(400, {"error": f"bad json: {e}"})
+            name, path = req.get("name"), req.get("path")
+            if not name or not path:
+                return self._send(400, {"error": "`name` and `path` are required"})
+            try:
+                slot = engine.load_adapter(name, path, alpha=float(req.get("alpha", 16.0)))
+            except (AdapterPoolFullError, AdapterBusyError) as e:
+                return self._send(409, {"error": str(e)})
+            except (ValueError, OSError, RuntimeError) as e:
+                return self._send(400, {"error": str(e)})
+            self._send(200, {"name": name, "slot": slot, "model": f"{model_name}:{name}"})
+
+        def do_DELETE(self):
+            path = self.path.rstrip("/")
+            prefix = "/v1/adapters/"
+            if not path.startswith(prefix):
+                return self._send(404, {"error": "not found"})
+            name = path[len(prefix):]
+            try:
+                engine.serving.unload_adapter(name)
+            except AdapterBusyError as e:
+                return self._send(409, {"error": str(e)})
+            except KeyError:
+                return self._send(404, {"error": f"unknown adapter: {name}"})
+            except RuntimeError as e:  # engine built without LoRA
+                return self._send(400, {"error": str(e)})
+            self._send(200, {"name": name, "unloaded": True})
+
+        def do_POST(self):
+            path = self.path.rstrip("/")
+            if path == "/v1/adapters":
+                return self._load_adapter_route()
+            if path != "/v1/chat/completions":
+                return self._send(404, {"error": "not found"})
+            try:
+                req = self._read_json()
             except json.JSONDecodeError as e:
                 return self._send(400, {"error": f"bad json: {e}"})
             if req.get("stream"):
                 return self._stream(req)
             usage = {}
             tp, rid = self._trace_identity()
+            adapter, tenant = self._request_identity(req)
             try:
                 text = engine.chat(req.get("messages", []), req.get("max_tokens"),
                                    req.get("temperature"), req.get("top_p"),
                                    usage_out=usage, traceparent=tp, x_request_id=rid,
-                                   tenant=self._tenant(req))
+                                   tenant=tenant, adapter=adapter)
             except EngineOverloadedError as e:
                 return self._send_overloaded(e)
+            except KeyError as e:  # unknown adapter
+                return self._send(404, {"error": f"unknown adapter: {e}"})
             except ValueError as e:
                 return self._send(400, {"error": str(e)})
             except Exception as e:
@@ -539,7 +647,21 @@ def main(argv: Optional[list] = None) -> None:
     parser.add_argument("--qos-rate", type=float, default=0.0,
                         help="per-tenant token-bucket refill rate; not ported"
                              " (only 0 is accepted)")
+    parser.add_argument("--adapter", action="append", default=[],
+                        metavar="NAME=PATH",
+                        help="preload a LoRA adapter (repeatable); PATH is an"
+                             " .npz from save_adapter, or 'random' for a demo"
+                             " adapter. Request it with model '<model>:NAME'")
+    parser.add_argument("--lora-max-adapters", type=int, default=0,
+                        help="device adapter-bank slots; 0 disables LoRA"
+                             " multiplexing (defaults to the number of"
+                             " --adapter entries when adapters are given)")
+    parser.add_argument("--lora-rank", type=int, default=8,
+                        help="rank of the device adapter bank; every loaded"
+                             " adapter must match it")
     args = parser.parse_args(argv)
+    if args.adapter and args.lora_max_adapters <= 0:
+        args.lora_max_adapters = len(args.adapter)
     if args.spec_max_draft <= 0:
         raise SystemExit(
             f"--spec-max-draft must be positive, got {args.spec_max_draft}")
@@ -585,6 +707,8 @@ def main(argv: Optional[list] = None) -> None:
             kv_host_budget_mb=args.kv_host_budget_mb,
             max_resident_slots=args.max_resident_slots,
             qos_weights=qos_weights, qos_rate=args.qos_rate,
+            lora_max_adapters=args.lora_max_adapters, lora_rank=args.lora_rank,
+            adapters=args.adapter,
         )
     except ValueError as e:
         raise SystemExit(f"invalid serving configuration: {e}")

@@ -14,6 +14,12 @@ One directory per step, the packed layout of `weights.save_packed`:
     <dir>/<step>/weights.bin     params/<path>, mu/<path>, nu/<path> leaves
     <dir>/<step>/state.json      {"format": 1, "step": N, "count": C}
 
+A LoRA run (lora.LoraState) saves its adapters and their moments in the
+same layout, as `lora/<path>`, `mu/<path>` and `nu/<path>` leaves: a few
+MB where a full state is three times the params. The leaf names keep the
+two apart: a full checkpoint does not restore into a LoRA template, nor a
+LoRA one into a full template (`_load_into` raises on the names).
+
 Neither package reads the other's train-state checkpoints. Params travel
 between them through the packed export (`export_params`, which both
 packages' servers load), and a JAX TrainState reaches the port through
@@ -59,6 +65,7 @@ MAX_TO_KEEP = 3
 FORMAT = 1
 _STATE = "state.json"
 _GROUPS = ("params", "mu", "nu")
+_LORA_GROUPS = ("lora", "mu", "nu")
 
 Params = Dict[str, Any]
 
@@ -105,11 +112,18 @@ def _writer(directory: Union[str, Path], create: bool = True) -> Optional[_Write
         return w
 
 
+def _is_lora(state) -> bool:
+    return hasattr(state, "lora")
+
+
 def _leaves(state) -> List[Tuple[str, torch.Tensor]]:
-    """The state's tensors as (group/path, tensor): params, mu, nu."""
+    """The state's tensors as (group/path, tensor): params (a LoraState's
+    adapters: lora), mu, nu."""
     opt = state.opt_state
+    groups, first = ((_LORA_GROUPS, state.lora) if _is_lora(state)
+                     else (_GROUPS, state.params))
     return [(f"{group}/{path}", t)
-            for group, tree in zip(_GROUPS, (state.params, opt.mu, opt.nu))
+            for group, tree in zip(groups, (first, opt.mu, opt.nu))
             for path, t in flatten_params(tree)]
 
 
@@ -194,12 +208,14 @@ def _load_into(path: Path, manifest, targets: List[Tuple[str, torch.Tensor]]) ->
 
 def restore_latest(directory: Union[str, Path], template):
     """Restore the newest checkpoint into `template` (a TrainState of the
-    same config, e.g. from `init_train_state`), or None when the volume
-    holds no checkpoint yet (first run).
+    same config, e.g. from `init_train_state`, or a lora.LoraState from
+    `init_lora_state`), or None when the volume holds no checkpoint yet
+    (first run).
 
     The leaves are read into the template's tensors in place (its device,
     dtypes and shapes; no second state on the device), and the returned
     state carries them with the saved step and optimizer count."""
+    from dstack_tpu_torch.workloads.lora import LoraState
     from dstack_tpu_torch.workloads.train import AdamState, TrainState
 
     root = Path(directory)
@@ -216,15 +232,18 @@ def restore_latest(directory: Union[str, Path], template):
                          f" this reader knows {FORMAT}")
     _load_into(path, read_manifest(path), _leaves(template))
     opt = template.opt_state
-    return TrainState(int(meta["step"]), template.params,
-                      AdamState(int(meta["count"]), opt.mu, opt.nu))
+    adam = AdamState(int(meta["count"]), opt.mu, opt.nu)
+    if _is_lora(template):
+        return LoraState(int(meta["step"]), template.lora, adam)
+    return TrainState(int(meta["step"]), template.params, adam)
 
 
 def restore_latest_params(directory: Union[str, Path],
                           device: DeviceLike = None) -> Optional[Params]:
     """The params of the newest train-state checkpoint on `device` (the
     moments are not read), or None without one: a serving host's fallback
-    when the volume holds no packed export."""
+    when the volume holds no packed export. A LoRA checkpoint holds no
+    params (only adapters) and reads as None too."""
     dev = resolve_device(device)
     root = Path(directory)
     steps = _steps(root)
@@ -232,15 +251,17 @@ def restore_latest_params(directory: Union[str, Path],
         return None
     path = root / str(steps[-1])
     n = len("params/")
-    return unflatten_params((name[n:], t.to(dev)) for name, t in
-                    read_leaves(path, read_manifest(path),
-                                keep=lambda name: name.startswith("params/")))
+    pairs = [(name[n:], t.to(dev)) for name, t in
+             read_leaves(path, read_manifest(path),
+                         keep=lambda name: name.startswith("params/"))]
+    return unflatten_params(pairs) if pairs else None
 
 
 def export_params(directory: Union[str, Path], state) -> Path:
     """Write the params-only serving export (`<dir>/packed`, the layout
     both packages' servers load): a serving host need not read the Adam
-    moments (~3x the bf16 parameter bytes)."""
+    moments (~3x the bf16 parameter bytes). A LoRA run exports the merged
+    params (`lora.merge_lora`) through a TrainState that carries them."""
     return save_packed(directory, state.params)
 
 

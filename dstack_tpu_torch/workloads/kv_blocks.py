@@ -1,6 +1,5 @@
 """Paged KV cache: block pool + prefix sharing + chunked prefill +
-speculative draft/verify (port of `dstack_tpu.workloads.kv_blocks`,
-without the LoRA verify).
+speculative draft/verify (port of `dstack_tpu.workloads.kv_blocks`).
 
 `k`/`v` are per-layer block pools and each slot owns a block-table row
 mapping its logical cache positions to pool blocks. A host-side
@@ -11,6 +10,17 @@ mapping its logical cache positions to pool blocks. A host-side
 speculation round. Every attention goes through
 `paged_attention.ragged_attention`, which on the card is the
 hand-written CUDA kernel.
+
+LoRA. `lora=True` builds the multi-tenant twin of the chunk, decode and
+verify programs: each takes the adapter bank (lora_serving.py) and adds
+each row's unmerged adapter delta inside the q/k/v projection
+(`lora_serving.project_qkv_lora`). The chunk program takes its request's
+bank slot; finalize writes it to `state.adapter_ix[slot]`, which the
+batched programs gather by (-1 = no adapter, the bank's zero slot). The
+batched programs take `has_lora`, whether any live slot carries an
+adapter, as a host value (the engine knows it from its requests; None
+reads it off the device, one sync); without one they run the plain
+projection. The drafter stays adapter-free.
 
 Writes. The JAX programs donate the pools and scatter with
 `mode="drop"`, so a lane aimed at the out-of-range sentinel vanishes.
@@ -65,6 +75,7 @@ class PagedDecodeState:
     remaining: torch.Tensor    # (B,) int32 new tokens still budgeted
     temperature: torch.Tensor  # (B,) f32; 0 = greedy
     top_p: torch.Tensor        # (B,) f32; 1 = no filtering
+    adapter_ix: torch.Tensor   # (B,) int32 LoRA bank slot; -1 = none
 
     @property
     def num_blocks(self) -> int:
@@ -102,6 +113,7 @@ def init_paged_state(config: ModelConfig, batch: int, max_len: int,
         remaining=z(torch.int32),
         temperature=z(torch.float32),
         top_p=z(torch.float32, 1.0),
+        adapter_ix=z(torch.int32, -1),
     )
 
 
@@ -367,7 +379,34 @@ def _window_lanes(tables: torch.Tensor, positions: torch.Tensor,
     return blk, positions % bs
 
 
-def make_chunk_prefill(config: ModelConfig, chunk: int):
+def _lora_qkv(c: ModelConfig, bank, adapter_ix, has_lora: bool):
+    """qkv(x, p, layer, positions) for a program: `project_qkv`, or with a
+    bank and an adapter in the batch `lora_serving.project_qkv_lora` on the
+    layer's bank slice with the sanitised index and scale (computed once
+    per program call)."""
+    if bank is None or not has_lora:
+        return lambda x, p, layer, positions: project_qkv(c, x, p, positions)
+    from dstack_tpu_torch.workloads.lora_serving import (
+        bank_layer,
+        project_qkv_lora,
+        safe_index,
+    )
+
+    ix, scale = safe_index(bank, adapter_ix)
+    return lambda x, p, layer, positions: project_qkv_lora(
+        c, x, p, positions, bank_layer(bank, layer), ix, scale, has_lora)
+
+
+def _has_lora(state: "PagedDecodeState", active: torch.Tensor,
+              has_lora: Optional[bool]) -> bool:
+    """Whether any live slot carries an adapter: the caller's host value,
+    or read off the device (one sync)."""
+    if has_lora is None:
+        has_lora = bool((active & (state.adapter_ix >= 0)).any())
+    return has_lora
+
+
+def make_chunk_prefill(config: ModelConfig, chunk: int, lora: bool = False):
     """chunk_prefill(params, state, slot, table_row (MB,), tokens (C,),
     n_valid, start, budget, temp, top_p, generator, finalize) ->
     (state, first, logits).
@@ -382,15 +421,21 @@ def make_chunk_prefill(config: ModelConfig, chunk: int):
     device (lengths, last_token, active, ...); `logits` is the f32
     last-position logits row `first` was sampled from. Without finalize
     both are None and the lm-head is skipped.
+
+    With `lora=True` the program takes two trailing args, the request's
+    bank slot (an int, -1 = none) and the adapter bank, and applies the
+    request's delta in the q/k/v projection; finalize records the slot in
+    `state.adapter_ix` (the plain program's finalize records -1, so a slot
+    reused by an adapter-free request resets).
     """
     c = config
     require_dense(c)
 
-    def chunk_prefill(params, state: PagedDecodeState, slot: int,
-                      table_row: Sequence[int], tokens: Sequence[int],
-                      n_valid: int, start: int, budget: int, temp: float,
-                      top_p: float, generator: Optional[torch.Generator],
-                      finalize: bool):
+    def _impl(params, state: PagedDecodeState, slot: int,
+              table_row: Sequence[int], tokens: Sequence[int],
+              n_valid: int, start: int, budget: int, temp: float,
+              top_p: float, generator: Optional[torch.Generator],
+              finalize: bool, adapter_ix: int, bank):
         if len(tokens) != chunk:
             raise ValueError(f"chunk program for {chunk} tokens got {len(tokens)}")
         dev = state.k.device
@@ -411,9 +456,10 @@ def make_chunk_prefill(config: ModelConfig, chunk: int):
         tables = row[None]
 
         x = params["embed"][toks]                               # (1, C, d)
+        qkv = _lora_qkv(c, bank, int(adapter_ix), adapter_ix >= 0)
         for layer in range(c.n_layers):
             p = layer_params(params, layer)
-            q, k, v = project_qkv(c, x, p, positions)
+            q, k, v = qkv(x, p, layer, positions)
             # Write the chunk's rows FIRST, then attend: row i sees the
             # rows just written up to its own position.
             _write_rows(state.k[layer], blk, off, k[0, :n_valid])
@@ -436,16 +482,35 @@ def make_chunk_prefill(config: ModelConfig, chunk: int):
         state.remaining[slot] = budget - 1
         state.temperature[slot] = temp
         state.top_p[slot] = top_p
+        state.adapter_ix[slot] = adapter_ix
         return state, first, logits
+
+    if lora:
+        def chunk_prefill_lora(params, state, slot, table_row, tokens, n_valid,
+                               start, budget, temp, top_p, generator, finalize,
+                               adapter_ix: int, bank):
+            return _impl(params, state, slot, table_row, tokens, n_valid, start,
+                         budget, temp, top_p, generator, finalize, adapter_ix, bank)
+
+        return chunk_prefill_lora
+
+    def chunk_prefill(params, state, slot, table_row, tokens, n_valid, start,
+                      budget, temp, top_p, generator, finalize):
+        return _impl(params, state, slot, table_row, tokens, n_valid, start,
+                     budget, temp, top_p, generator, finalize, -1, None)
 
     return chunk_prefill
 
 
-def make_paged_decode_step(config: ModelConfig, steps: int = 1):
+def make_paged_decode_step(config: ModelConfig, steps: int = 1, lora: bool = False):
     """decode_steps(params, state, generator, sampling=None, nucleus=None)
     -> (state, tokens (B, steps) int32, active (B,)) over a
     PagedDecodeState, updated in place — the paged twin of
-    serving.make_decode_step.
+    serving.make_decode_step. With `lora=True`:
+    decode_steps_lora(params, state, generator, bank, sampling=None,
+    nucleus=None, has_lora=None), each slot adding the delta of its
+    `state.adapter_ix` (has_lora: whether any live slot carries one, a
+    host value; None reads it off the device).
 
     Each of the `steps` iterations writes the new row's K/V straight into
     each slot's current block and attends raggedly over the block tables.
@@ -461,7 +526,8 @@ def make_paged_decode_step(config: ModelConfig, steps: int = 1):
     require_dense(c)
     from dstack_tpu_torch.workloads import serving as _serving
 
-    def one_step(params, state: PagedDecodeState, generator, sampling, nucleus):
+    def one_step(params, state: PagedDecodeState, generator, sampling, nucleus,
+                 qkv):
         nb, bs = state.num_blocks, state.k.shape[2]
         B, mb = state.block_tables.shape
         ml = mb * bs
@@ -474,7 +540,7 @@ def make_paged_decode_step(config: ModelConfig, steps: int = 1):
         valid_len = (lengths + 1)[:, None]                    # (B, 1) int32
         for layer in range(c.n_layers):
             p = layer_params(params, layer)
-            q, k, v = project_qkv(c, x, p, positions)
+            q, k, v = qkv(x, p, layer, positions)
             _write_rows(state.k[layer], blk, off, k[:, 0])
             _write_rows(state.v[layer], blk, off, v[:, 0])
             kp, vp = state.pools(layer)
@@ -496,12 +562,30 @@ def make_paged_decode_step(config: ModelConfig, steps: int = 1):
         state.active = new_active
         return emitted
 
+    def _run(params, state, generator, sampling, nucleus, qkv):
+        toks = [one_step(params, state, generator, sampling, nucleus, qkv)
+                for _ in range(steps)]
+        return state, torch.stack(toks, dim=1), state.active
+
+    if lora:
+        def decode_steps_lora(params, state: PagedDecodeState, generator, bank,
+                              sampling: Optional[bool] = None,
+                              nucleus: Optional[bool] = None,
+                              has_lora: Optional[bool] = None):
+            # One decision for the whole chunk: a slot only retires inside
+            # it, so the chunk's first state over-approximates the rest.
+            qkv = _lora_qkv(c, bank, state.adapter_ix,
+                            _has_lora(state, state.active, has_lora))
+            return _run(params, state, generator, sampling, nucleus, qkv)
+
+        return decode_steps_lora
+
+    plain_qkv = _lora_qkv(c, None, None, False)
+
     def decode_steps(params, state: PagedDecodeState, generator,
                      sampling: Optional[bool] = None,
                      nucleus: Optional[bool] = None):
-        toks = [one_step(params, state, generator, sampling, nucleus)
-                for _ in range(steps)]
-        return state, torch.stack(toks, dim=1), state.active
+        return _run(params, state, generator, sampling, nucleus, plain_qkv)
 
     return decode_steps
 
@@ -611,18 +695,20 @@ def make_spec_verify(config: ModelConfig, k: int, lora: bool = False):
     the engine made private before the round (`_ensure_spec_writable`):
     rejected rows sit past the new length, masked, until overwritten.
     `emitted` is -1-padded past each slot's emissions; `accepted` is the
-    uncapped accepted count m. The LoRA flavour is not ported."""
-    if lora:
-        raise NotImplementedError(
-            "the LoRA spec verify is not ported to the PyTorch engine yet")
+    uncapped accepted count m.
+
+    With `lora=True`: spec_verify_lora(params, state, drafts, qlogits,
+    generator, bank, sampling=None, nucleus=None, has_lora=None). The
+    TARGET applies each slot's adapter delta (`state.adapter_ix`), so the
+    accept test scores the tenant's own distribution; the drafter stays
+    adapter-free, which lowers acceptance, never correctness."""
     c = config
     require_dense(c)
     S = k + 1
 
-    def spec_verify(params, state: PagedDecodeState, drafts, qlogits,
-                    generator: Optional[torch.Generator],
-                    sampling: Optional[bool] = None,
-                    nucleus: Optional[bool] = None):
+    def _impl(params, state: PagedDecodeState, drafts, qlogits,
+              generator: Optional[torch.Generator], sampling: Optional[bool],
+              nucleus: Optional[bool], bank, has_lora: Optional[bool]):
         nb, bs = state.num_blocks, state.k.shape[2]
         B, mb = state.block_tables.shape
         ml = mb * bs
@@ -637,9 +723,11 @@ def make_spec_verify(config: ModelConfig, k: int, lora: bool = False):
         blk, off = blk.reshape(-1), off.reshape(-1)
         valid_len = (positions + 1).to(torch.int32)
         x = params["embed"][tokens]                                     # (B, S, d)
+        qkv = _lora_qkv(c, bank, state.adapter_ix,
+                        bank is not None and _has_lora(state, act0, has_lora))
         for layer in range(c.n_layers):
             p = layer_params(params, layer)
-            q, kk, vv = project_qkv(c, x, p, positions)
+            q, kk, vv = qkv(x, p, layer, positions)
             _write_rows(state.k[layer], blk, off, kk.reshape(B * S, *kk.shape[2:]))
             _write_rows(state.v[layer], blk, off, vv.reshape(B * S, *vv.shape[2:]))
             kp, vp = state.pools(layer)
@@ -694,6 +782,24 @@ def make_spec_verify(config: ModelConfig, k: int, lora: bool = False):
         state.active = new_act
         accepted = torch.where(act0, m, torch.zeros_like(m))
         return state, emitted, accepted, new_act
+
+    if lora:
+        def spec_verify_lora(params, state: PagedDecodeState, drafts, qlogits,
+                             generator: Optional[torch.Generator], bank,
+                             sampling: Optional[bool] = None,
+                             nucleus: Optional[bool] = None,
+                             has_lora: Optional[bool] = None):
+            return _impl(params, state, drafts, qlogits, generator, sampling,
+                         nucleus, bank, has_lora)
+
+        return spec_verify_lora
+
+    def spec_verify(params, state: PagedDecodeState, drafts, qlogits,
+                    generator: Optional[torch.Generator],
+                    sampling: Optional[bool] = None,
+                    nucleus: Optional[bool] = None):
+        return _impl(params, state, drafts, qlogits, generator, sampling,
+                     nucleus, None, None)
 
     return spec_verify
 

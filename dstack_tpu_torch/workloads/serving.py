@@ -1,7 +1,7 @@
 """Continuous-batching decode engine in PyTorch (port of
-`dstack_tpu.workloads.serving`: the unified, single-device, LoRA-free
-engine with speculative decoding, the host KV tier and slot preemption,
-and the dense reference it is held to).
+`dstack_tpu.workloads.serving`: the unified, single-device engine with
+speculative decoding, the host KV tier and slot preemption, multi-tenant
+LoRA adapters, and the dense reference it is held to).
 
 A fixed batch of B slots steps together so new requests join mid-flight
 and finished ones free their slot at once. The KV cache is paged
@@ -25,6 +25,12 @@ later hit; a live slot can be preempted (its chain parked host-side,
 resumed later token-exact at temperature 0) when the pool starves, when a
 heavier tenant (`qos_weights`) finds every resident slot taken, or on
 `preempt()`; `max_resident_slots` caps the slots resident on the card.
+Multi-tenant LoRA (`lora_max_adapters`): a refcounted registry over a
+device adapter bank (workloads/lora_serving.py); a request names its
+adapter at `submit` and holds a ref until it ends, its adapter's name
+namespaces its prefix-cache blocks (device and host tier), and the LoRA
+twins of the programs add each slot's delta while any request holds an
+adapter ref (the plain programs run otherwise).
 
 Host syncs: one readback per decode chunk of `steps_per_sync` tokens (or
 per speculation round, plus one between its draft and verify that splits
@@ -43,7 +49,7 @@ import queue
 import threading
 import time
 from dataclasses import dataclass
-from typing import Any, Dict, List, NamedTuple, Optional
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -75,6 +81,7 @@ from dstack_tpu_torch.workloads.kv_blocks import (
     make_spec_verify,
 )
 from dstack_tpu_torch.workloads.kv_host_tier import HostKVTier, payload_bytes
+from dstack_tpu_torch.workloads.lora_serving import AdapterRegistry
 from dstack_tpu_torch.workloads.paged_attention import (
     dispatch_path as attn_dispatch_path,
 )
@@ -299,6 +306,17 @@ class _Request(NamedTuple):
     # QoS identity: keys the engine's qos_weights, which decide who
     # preempts whom on a host-tier engine. None weighs 1.0.
     tenant: Optional[str] = None
+    # Multi-tenant LoRA: the adapter this request selected (None = base
+    # model) and its bank slot (-1 = none). The name also namespaces the
+    # prefix cache, so tenants never share blocks.
+    adapter: Optional[str] = None
+    adapter_ix: int = -1
+
+
+def _namespace(req: _Request) -> bytes:
+    """The request's prefix-cache namespace: its adapter's name (the base
+    model's is empty), so tenants never share cached KV."""
+    return (req.adapter or "").encode()
 
 
 class _SwappedSlot:
@@ -369,8 +387,8 @@ class ServingEngine:
     token ids as they decode (None terminates).
 
     Unported features of the JAX engine are refused, never ignored:
-    meshes, LoRA adapters, disaggregated roles, KV transfer and the
-    affinity sketch raise NotImplementedError."""
+    meshes, disaggregated roles, KV transfer and the affinity sketch raise
+    NotImplementedError."""
 
     def __init__(
         self,
@@ -401,13 +419,19 @@ class ServingEngine:
         role: str = "unified",
         kv_transfer: Optional[Any] = None,
         lora_max_adapters: int = 0,
+        lora_rank: int = 8,
+        lora_targets: Optional[Tuple[str, ...]] = None,
         kv_host_budget_bytes: Optional[int] = None,
         max_resident_slots: Optional[int] = None,
         qos_weights: Optional[Dict[str, float]] = None,
     ):
+        if lora_max_adapters > 0 and role != "unified":
+            raise ValueError(
+                "adapter multiplexing requires role='unified' (KV"
+                " handoffs do not carry adapter identity yet)"
+            )
         unported = {
             "mesh": mesh is not None,
-            "lora_max_adapters > 0": lora_max_adapters > 0,
             f"role={role!r}": role != "unified",
             "kv_transfer": kv_transfer is not None,
         }
@@ -505,12 +529,33 @@ class ServingEngine:
             swap_in=self._swap_in_block if tiered else None,
         )
         self.prefill_chunk_tokens = prefill_chunk_tokens
-        self._chunk_cache: Dict[int, Any] = {}
+        self._chunk_cache: Dict[Any, Any] = {}
         self.state = init_paged_state(
             config, slots, self.max_len, kv_block_size, self._num_blocks,
             self.device,
         )
         self._step = make_paged_decode_step(config, steps=steps_per_sync)
+        # -- multi-tenant LoRA (lora_max_adapters > 0) ----------------------
+        # A refcounted host registry over a device adapter bank. The LoRA
+        # twins of the programs run while any request holds an adapter ref
+        # (registry.inflight > 0); the plain programs otherwise.
+        self._lora: Optional[AdapterRegistry] = None
+        self._step_lora = None
+        if lora_max_adapters > 0:
+            self._lora = AdapterRegistry(
+                config, self.params, max_adapters=lora_max_adapters,
+                rank=lora_rank, targets=lora_targets or ("wq", "wv"),
+            )
+            self._step_lora = make_paged_decode_step(config, steps=steps_per_sync,
+                                                     lora=True)
+        # out-queue -> adapter name of every in-flight adapter request;
+        # _release_adapter pops it once, on whichever terminal path.
+        self._adapter_holds: Dict[Any, str] = {}
+        # The stream the loop dispatches on: bank writes from other
+        # threads go on it, behind every step already queued (None, a
+        # no-op stream context, on the CPU).
+        self._stream = (torch.cuda.current_stream(self.device)
+                        if self.device.type == "cuda" else None)
         self._copy_block = make_copy_block()
         # Which ragged-attention implementation this engine runs (decided
         # by its device) and how many chunk/decode/spec dispatches ran it.
@@ -579,7 +624,7 @@ class ServingEngine:
             )
             self._draft_chunk_cache: Dict[int, Any] = {}
             self._spec_draft_fns: Dict[int, Any] = {}
-            self._spec_verify_fns: Dict[int, Any] = {}
+            self._spec_verify_fns: Dict[Any, Any] = {}
         # Per-slot adaptive draft length: starts mid, grows toward
         # spec_max_draft while the slot's acceptance EWMA stays high,
         # shrinks toward 1 when it drops. None EWMA = unseeded.
@@ -705,10 +750,17 @@ class ServingEngine:
         before = compile_cache.snapshot()
         auto_stage("compile_start")
         programs = 0
+        lora = self._lora is not None
         try:
             self._step(self.params, self.state, self._gen,
                        sampling=False, nucleus=False)
             programs += 1
+            if lora:
+                # The LoRA twins with the delta on (the bank's zero slot:
+                # an all-inactive batch writes only the discard block).
+                self._step_lora(self.params, self.state, self._gen, self._lora.bank,
+                                sampling=False, nucleus=False, has_lora=True)
+                programs += 1
             row = self._pad_table([])
             buckets = sorted({self._pad_chunk(n)
                               for n in range(1, self.prefill_chunk_tokens + 1)})
@@ -716,6 +768,12 @@ class ServingEngine:
                 self._chunk_fn(b)(self.params, self.state, 0, row, [0] * b,
                                   0, 0, 0, 1.0, 1.0, self._gen, False)
                 programs += 1
+                if lora:
+                    self._chunk_fn(b, lora=True)(
+                        self.params, self.state, 0, row, [0] * b, 0, 0, 0, 1.0,
+                        1.0, self._gen, False, self._lora.max_adapters,
+                        self._lora.bank)
+                    programs += 1
                 if self._spec:
                     self._draft_chunk_fn(b)(self._draft_params, self._draft_state,
                                             0, row, [0] * b, 0, 0, 0, 1.0, 1.0,
@@ -734,6 +792,12 @@ class ServingEngine:
                     self._spec_verify_fn(k)(self.params, st, drafts, qlogits,
                                             self._gen, sampling=False, nucleus=False)
                     programs += 2
+                    if lora:
+                        self._spec_verify_fn(k, lora=True)(
+                            self.params, st, drafts, qlogits, self._gen,
+                            self._lora.bank, sampling=False, nucleus=False,
+                            has_lora=True)
+                        programs += 1
                 self._copy_block(self._draft_state, 0, 0)
                 programs += 1
             self._copy_block(self.state, 0, 0)
@@ -765,12 +829,17 @@ class ServingEngine:
                request_id: Optional[int] = None,
                traceparent: Optional[str] = None,
                x_request_id: Optional[str] = None,
-               tenant: Optional[str] = None) -> "queue.Queue[object]":
+               tenant: Optional[str] = None,
+               adapter: Optional[str] = None) -> "queue.Queue[object]":
         """Enqueue a request; returns its output queue (ints, then None;
         an Exception on engine failure). `temperature` (0 = greedy) and
         `top_p` override the engine defaults for this request. `tenant`
         keys qos_weights: on a host-tier engine a heavier tenant's request
-        may preempt a lighter one's live slot instead of queueing."""
+        may preempt a lighter one's live slot instead of queueing.
+        `adapter` selects a loaded LoRA adapter by name: ValueError on an
+        engine without LoRA, KeyError for an unknown adapter, both before
+        anything is queued; the request holds a registry ref until it
+        ends (retire, cancel, close, an engine error), across a swap."""
         if not tokens:
             raise ValueError("empty prompt")
         if max_new_tokens < 1:
@@ -813,9 +882,21 @@ class ServingEngine:
                 self.rejected += 1
                 self.recorder.finish(rec, "shed")
                 raise EngineOverloadedError(depth, self._retry_after(depth))
+            adapter_ix = -1
+            if adapter is not None:
+                if self._lora is None:
+                    raise ValueError(
+                        "engine has no adapter support"
+                        " (construct with lora_max_adapters > 0)"
+                    )
+                # KeyError for an unknown adapter, before anything queues;
+                # the ref pins the bank slot until the request ends.
+                adapter_ix = self._lora.acquire(adapter)
+                self._adapter_holds[out] = adapter
             self._pending.put(_Request(
                 list(tokens), max_new_tokens, out, float(temperature),
                 float(top_p), time.monotonic(), request_id, rec, tenant,
+                adapter, adapter_ix,
             ))
             self._inflight.add(out)
         self._wake.set()
@@ -857,6 +938,7 @@ class ServingEngine:
                         break
             if found is not None:
                 self._inflight.discard(out)
+                self._release_adapter(out)
                 self.recorder.finish(found.trace, "cancelled")
                 out.put(None)
                 return
@@ -881,6 +963,54 @@ class ServingEngine:
         """The reference's cache-affinity sketch: not ported yet."""
         raise NotImplementedError(
             "the affinity sketch is not ported to the PyTorch engine yet")
+
+    # -- multi-tenant adapters ----------------------------------------------
+
+    @property
+    def lora_enabled(self) -> bool:
+        return self._lora is not None
+
+    def _require_lora(self) -> AdapterRegistry:
+        if self._lora is None:
+            raise RuntimeError(
+                "engine has no adapter support"
+                " (construct with lora_max_adapters > 0)"
+            )
+        return self._lora
+
+    def load_adapter(self, name: str, adapter: Params, *, alpha: float = 16.0) -> int:
+        """Install (or replace) a LoRA adapter under `name`; returns its bank
+        slot. May LRU-evict an idle adapter; AdapterBusyError /
+        AdapterPoolFullError when in-flight refs forbid it
+        (lora_serving.py). Under the engine lock, on the engine's stream:
+        a step already queued reads the bank as it was."""
+        with self._lock, torch.cuda.stream(self._stream):
+            return self._require_lora().load(name, adapter, alpha=alpha)
+
+    def unload_adapter(self, name: str) -> None:
+        with self._lock, torch.cuda.stream(self._stream):
+            self._require_lora().unload(name)
+
+    def adapters(self) -> Dict[str, Dict[str, Any]]:
+        """Loaded adapters: name -> {slot, refs, alpha, rank}."""
+        with self._lock:
+            return {} if self._lora is None else self._lora.loaded()
+
+    def _release_adapter(self, out) -> None:
+        """Drop a request's adapter ref (idempotent; caller holds _lock)."""
+        name = self._adapter_holds.pop(out, None)
+        if name is not None and self._lora is not None:
+            self._lora.release(name)
+
+    def _lora_live(self):
+        """(run the LoRA programs, whether a live slot carries an adapter):
+        host values, no sync. A request holding a ref may still be queued
+        or prefilling; the live slots decide what the batch computes."""
+        if self._lora is None:
+            return False, False
+        with self._lock:
+            on = self._lora.inflight > 0
+        return on, on and any(r is not None and r.adapter_ix >= 0 for r in self._live)
 
     def stats(self) -> Dict[str, Any]:
         """Live load snapshot (feeds /metrics): queue and shed counters,
@@ -979,6 +1109,10 @@ class ServingEngine:
             "attn_path": self._attn_path,
             **{f"attn_dispatch_{p}_total": n
                for p, n in self._attn_dispatch.items()},
+            # Multi-tenant LoRA: bank occupancy for the adapters_loaded gauge.
+            "lora_enabled": self._lora is not None,
+            "lora_max_adapters": 0 if self._lora is None else self._lora.max_adapters,
+            "adapters_loaded": 0 if self._lora is None else self._lora.loaded_count,
             "trace": self.recorder.stats(),
             "phase_hists": self.recorder.phase_histograms(),
         }
@@ -1027,6 +1161,9 @@ class ServingEngine:
                 self.recorder.finish(self._next_req.trace, "error")
                 self._next_req.out.put(sentinel)
                 self._next_req = None
+            # Every in-flight adapter ref dies with its consumer.
+            for out in list(self._adapter_holds):
+                self._release_adapter(out)
             while True:
                 try:
                     r = self._pending.get_nowait()
@@ -1037,13 +1174,15 @@ class ServingEngine:
 
     # -- chunked prefill admission -----------------------------------------
 
-    def _chunk_fn(self, n_padded: int):
-        """The chunk-prefill program for padded length `n_padded` (tests
-        wrap this to gate or spy on chunk dispatches)."""
-        fn = self._chunk_cache.get(n_padded)
+    def _chunk_fn(self, n_padded: int, lora: bool = False):
+        """The chunk-prefill program for padded length `n_padded`, or its
+        LoRA twin (prefill is per request: an adapter-free request on a
+        LoRA engine takes the plain one). Tests wrap this to gate or spy on
+        chunk dispatches."""
+        fn = self._chunk_cache.get((n_padded, lora))
         if fn is None:
-            fn = make_chunk_prefill(self.config, n_padded)
-            self._chunk_cache[n_padded] = fn
+            fn = make_chunk_prefill(self.config, n_padded, lora=lora)
+            self._chunk_cache[(n_padded, lora)] = fn
         return fn
 
     def _draft_chunk_fn(self, n_padded: int):
@@ -1061,13 +1200,13 @@ class ServingEngine:
             self._spec_draft_fns[k] = fn
         return fn
 
-    def _spec_verify_fn(self, k: int):
-        """The verify program for draft length k (tests wrap this to gate
-        or spy on rounds)."""
-        fn = self._spec_verify_fns.get(k)
+    def _spec_verify_fn(self, k: int, lora: bool = False):
+        """The verify program for draft length k, or its LoRA twin (tests
+        wrap this to gate or spy on rounds)."""
+        fn = self._spec_verify_fns.get((k, lora))
         if fn is None:
-            fn = make_spec_verify(self.config, k)
-            self._spec_verify_fns[k] = fn
+            fn = make_spec_verify(self.config, k, lora=lora)
+            self._spec_verify_fns[(k, lora)] = fn
         return fn
 
     def _copy_both(self, src: int, dst: int) -> None:
@@ -1096,6 +1235,7 @@ class ServingEngine:
             task.table.clear()
             self._cancelled.discard(task.req.out)
             self._inflight.discard(task.req.out)
+            self._release_adapter(task.req.out)
             if task.req in self._admitting:
                 self._admitting.remove(task.req)
         self._tasks.remove(task)
@@ -1147,6 +1287,7 @@ class ServingEngine:
                 if dead:
                     self._cancelled.discard(req.out)
                     self._inflight.discard(req.out)
+                    self._release_adapter(req.out)
             if dead:
                 self.recorder.finish(req.trace, "cancelled")
                 req.out.put(None)
@@ -1174,7 +1315,8 @@ class ServingEngine:
                 break
             with self._lock:
                 self._admitting.append(req)
-                blocks, matched = self._alloc.match(req.tokens)
+                blocks, matched = self._alloc.match(req.tokens,
+                                                    namespace=_namespace(req))
             slot = free[0]
             t_pop = time.monotonic()
             self._slot_t0[slot] = t_pop
@@ -1202,12 +1344,16 @@ class ServingEngine:
             final = task.pos + n == len(task.req.tokens)
             n_padded = self._pad_chunk(n)
             chunk = task.req.tokens[task.pos:task.pos + n]
-            _, first, _ = self._chunk_fn(n_padded)(
-                self.params, self.state, task.slot,
-                self._pad_table(task.table), chunk + [0] * (n_padded - n),
-                n, task.pos, task.req.max_new_tokens, task.req.temperature,
-                task.req.top_p, self._gen, final,
-            )
+            args = (self.params, self.state, task.slot,
+                    self._pad_table(task.table), chunk + [0] * (n_padded - n),
+                    n, task.pos, task.req.max_new_tokens, task.req.temperature,
+                    task.req.top_p, self._gen, final)
+            if task.req.adapter_ix >= 0:
+                # Target only: the drafter below never applies LoRA.
+                _, first, _ = self._chunk_fn(n_padded, lora=True)(
+                    *args, task.req.adapter_ix, self._lora.bank)
+            else:
+                _, first, _ = self._chunk_fn(n_padded)(*args)
             self._attn_dispatch[self._attn_path] += 1
             if self._spec:
                 # The drafter prefills the same chunk into its pool through
@@ -1233,7 +1379,8 @@ class ServingEngine:
                 with self._lock:
                     # Publish the prompt's full blocks now: stream order
                     # puts these writes before any later matcher's reads.
-                    self._alloc.insert_full(task.req.tokens, task.table)
+                    self._alloc.insert_full(task.req.tokens, task.table,
+                                            namespace=_namespace(task.req))
                     if task.req.max_new_tokens > 1:
                         self._live[task.slot] = task.req
                         self._admitting.remove(task.req)
@@ -1284,6 +1431,7 @@ class ServingEngine:
                 if req.max_new_tokens <= 1:
                     self._cancelled.discard(req.out)
                     self._inflight.discard(req.out)
+                    self._release_adapter(req.out)
                     if req in self._admitting:
                         self._admitting.remove(req)
                     for b in task.table:
@@ -1375,9 +1523,10 @@ class ServingEngine:
 
     def _place_slot(self, slot: int, table: List[int], length: int,
                     last_token: int, remaining: int, temperature: float,
-                    top_p: float) -> None:
+                    top_p: float, adapter_ix: int) -> None:
         """The device state a final prefill chunk would leave in `slot`:
-        table row, length, next token, the budget left, sampling params."""
+        table row, length, next token, the budget left, sampling params,
+        adapter identity."""
         st = self.state
         st.block_tables[slot] = host_to_device(self._pad_table(table), torch.int32,
                                                self.device)
@@ -1387,12 +1536,15 @@ class ServingEngine:
         st.remaining[slot] = remaining
         st.temperature[slot] = temperature
         st.top_p[slot] = top_p
+        st.adapter_ix[slot] = adapter_ix
 
     def _preempt_slot(self, slot: int) -> bool:
         """Swap a live slot's whole chain out to the host tier at a chunk
         boundary: KV and sampling scalars park host-side, the slot and its
-        blocks free at once, and readmission resumes the request. False
-        (the slot keeps decoding) when the host budget cannot pin it."""
+        blocks free at once, and readmission resumes the request. The
+        request keeps its adapter ref while parked, so the adapter can be
+        neither evicted nor unloaded under it. False (the slot keeps
+        decoding) when the host budget cannot pin it."""
         req = self._live[slot]
         table = self._slot_tables[slot]
         if req is None or table is None or self._host_tier is None:
@@ -1472,6 +1624,7 @@ class ServingEngine:
                     if sw.req.out in self._cancelled:
                         self._cancelled.discard(sw.req.out)
                         self._inflight.discard(sw.req.out)
+                        self._release_adapter(sw.req.out)
                         self._host_tier.unreserve(sw.nbytes)
                         self.recorder.finish(sw.req.trace, "cancelled")
                         sw.req.out.put(None)
@@ -1508,7 +1661,7 @@ class ServingEngine:
                 sw.req.trace.mark("kv_swap_in", t0)
             self._inject_chain(sw.arrays, table)
             self._place_slot(slot, table, sw.length, sw.last_token, sw.remaining,
-                             sw.req.temperature, sw.req.top_p)
+                             sw.req.temperature, sw.req.top_p, sw.req.adapter_ix)
             with self._lock:
                 self._live[slot] = sw.req
                 self._lengths_host[slot] = sw.length
@@ -1603,6 +1756,7 @@ class ServingEngine:
             if req is not None:
                 self._cancelled.discard(req.out)
                 self._inflight.discard(req.out)
+                self._release_adapter(req.out)
                 self.recorder.finish(req.trace, "error")
             self._release_slot_blocks(slot, cache_tail=False)
         self._retire(slot)
@@ -1610,22 +1764,26 @@ class ServingEngine:
             req.out.put(error)
 
     def _release_slot_blocks(self, slot: int, cache_tail: bool,
-                             prompt: Optional[List[int]] = None) -> None:
+                             req: Optional[_Request] = None) -> None:
         """Return a retired slot's blocks to the pool (caller holds
-        _lock), first publishing the prompt's partial tail block."""
+        _lock), first publishing the prompt's partial tail block under the
+        request's adapter namespace."""
         table = self._slot_tables[slot]
         if table is None:
             return
-        if cache_tail and prompt is not None:
-            self._alloc.insert_tail(prompt, table)
+        if cache_tail and req is not None:
+            self._alloc.insert_tail(req.tokens, table, namespace=_namespace(req))
         for b in table:
             self._alloc.release(b)
         self._slot_tables[slot] = None
         self._lengths_host[slot] = 0
 
     def _retire(self, slot: int) -> None:
+        # adapter_ix too: the plain chunk program of a request that reuses
+        # the slot resets it only at its finalize.
         self.state.active[slot] = False
         self.state.remaining[slot] = 0
+        self.state.adapter_ix[slot] = -1
 
     def _ewma(self, prev: float, sample: float, alpha: float = 0.2) -> float:
         return prev + alpha * (sample - prev)
@@ -1646,8 +1804,14 @@ class ServingEngine:
         """Dispatch one decode chunk and read it back: the one host sync
         per `steps_per_sync` tokens."""
         sampling, nucleus = self._sampling_flags()
-        _, tokens, active = self._step(self.params, self.state, self._gen,
-                                       sampling=sampling, nucleus=nucleus)
+        lora, has_lora = self._lora_live()
+        if lora:
+            _, tokens, active = self._step_lora(
+                self.params, self.state, self._gen, self._lora.bank,
+                sampling=sampling, nucleus=nucleus, has_lora=has_lora)
+        else:
+            _, tokens, active = self._step(self.params, self.state, self._gen,
+                                           sampling=sampling, nucleus=nucleus)
         self._attn_dispatch[self._attn_path] += 1
         both = torch.cat([tokens, active[:, None].to(tokens.dtype)], dim=1).cpu()
         return both[:, :-1].tolist(), [bool(x) for x in both[:, -1]]
@@ -1742,9 +1906,15 @@ class ServingEngine:
             sampling=sampling, nucleus=nucleus)
         self._sync()  # splits the draft's time from the verify's
         t_draft = time.monotonic()
-        _, emitted, accepted, active = self._spec_verify_fn(k_cur)(
-            self.params, st, drafts, qlogits, self._gen,
-            sampling=sampling, nucleus=nucleus)
+        lora, has_lora = self._lora_live()
+        if lora:
+            _, emitted, accepted, active = self._spec_verify_fn(k_cur, lora=True)(
+                self.params, st, drafts, qlogits, self._gen, self._lora.bank,
+                sampling=sampling, nucleus=nucleus, has_lora=has_lora)
+        else:
+            _, emitted, accepted, active = self._spec_verify_fn(k_cur)(
+                self.params, st, drafts, qlogits, self._gen,
+                sampling=sampling, nucleus=nucleus)
         both = torch.cat([emitted, accepted[:, None], active[:, None].to(emitted.dtype)],
                          dim=1).cpu().tolist()
         t_sync = time.monotonic()
@@ -1820,8 +1990,8 @@ class ServingEngine:
                     self._cancelled.discard(req.out)
                     self._inflight.discard(req.out)
                     self._live[slot] = None
-                    self._release_slot_blocks(slot, cache_tail=True,
-                                              prompt=req.tokens)
+                    self._release_slot_blocks(slot, cache_tail=True, req=req)
+                    self._release_adapter(req.out)
                 self._retire(slot)
                 self.recorder.finish(req.trace, "cancelled")
                 req.out.put(None)
@@ -1834,8 +2004,11 @@ class ServingEngine:
                     self._live[slot] = None
                     self._cancelled.discard(req.out)
                     self._inflight.discard(req.out)
-                    self._release_slot_blocks(slot, cache_tail=True,
-                                              prompt=req.tokens)
+                    self._release_slot_blocks(slot, cache_tail=True, req=req)
+                    self._release_adapter(req.out)
+                # The device retired the slot itself; this also clears its
+                # adapter_ix, so no later batch gathers the old tenant's.
+                self._retire(slot)
                 for tok in row:
                     req.out.put(tok)
                 t_done = time.monotonic()
@@ -1905,6 +2078,8 @@ def prometheus_metrics(stats: Dict[str, Any]) -> str:
         ("dstack_tpu_serving_spec_accept_rate_ewma", "gauge",
          stats["spec_accept_rate_ewma"]),
         ("dstack_tpu_serving_spec_draft_len_mean", "gauge", stats["spec_draft_len_mean"]),
+        # Multi-tenant LoRA (zero without lora_max_adapters).
+        ("dstack_tpu_serving_adapters_loaded", "gauge", stats["adapters_loaded"]),
         # The kernel cache: library loads found on disk, nvcc builds, and
         # the builds' seconds (process-wide).
         ("dstack_tpu_compile_cache_hits_total", "counter",

@@ -307,12 +307,12 @@ def _staged_step(step_fn):
     through untouched."""
     holder = {"first": True}
 
-    def stepped(state, batch):
+    def stepped(*args):
         if not holder["first"]:
-            return step_fn(state, batch)
+            return step_fn(*args)
         holder["first"] = False
         auto_stage("compile_start")
-        out = step_fn(state, batch)
+        out = step_fn(*args)
         dev = out[1]["loss"].device
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
@@ -371,9 +371,17 @@ class DrainHandler:
     def draining(self) -> bool:
         return self._draining
 
-    def checkpoint_and_exit(self, directory, state: TrainState,
+    def restore(self) -> None:
+        """Put back the handlers this one replaced (a loop that returns
+        instead of exiting, e.g. a trainer called in process)."""
+        for sig, prior in self._prior.items():
+            signal.signal(sig, signal.SIG_DFL if prior is None else prior)
+        self._prior = {}
+
+    def checkpoint_and_exit(self, directory, state,
                             grace_seconds: Optional[float] = None) -> None:
-        """Save a checkpoint of `state`, wait until it is on disk, and exit
+        """Save a checkpoint of `state` (a TrainState, or a lora.LoraState:
+        the adapters and their moments), wait until it is on disk, and exit
         DRAIN_EXIT_CODE. `grace_seconds` is the drain window the runner
         allows; a save that overran it is reported on stderr (the runner
         may have killed sibling processes by then: size the grace to the

@@ -13,6 +13,10 @@ init. Entry points:
   `TrainState` (step, params, and optax's AdamW state: count, mu, nu)
   with numpy leaves becomes the port's, so a state trained or
   checkpointed in JAX continues in the port;
+- `lora_from_numpy(tree, device)` / `lora_state_from_numpy(state,
+  device)`: the JAX package's adapter tree, or its whole `LoraState`
+  (step, adapters, AdamW count/mu/nu), becomes the port's, so both
+  packages train adapters from one JAX init;
 - `load_packed(directory, device)`: reads the `save_packed` export
   (`<dir>/packed/manifest.json` + `weights.bin`) that the JAX package
   writes for cold starts, without JAX;
@@ -224,22 +228,51 @@ def save_packed(directory: Union[str, Path], params: Params) -> Path:
     return path
 
 
+def _adam_from_numpy(opt_state: Any, dev: torch.device):
+    """The AdamW (count, mu, nu) of an optax state with numpy leaves: the
+    chain element that holds them (`ScaleByAdamState`)."""
+    from dstack_tpu_torch.workloads.train import AdamState
+
+    adam = [s for s in opt_state if all(hasattr(s, k) for k in ("count", "mu", "nu"))]
+    if len(adam) != 1:
+        raise ValueError("opt_state holds no single AdamW (count, mu, nu) state")
+    return AdamState(int(adam[0].count), params_from_numpy(adam[0].mu, dev),
+                     params_from_numpy(adam[0].nu, dev))
+
+
 def train_state_from_numpy(state: Any, device: DeviceLike = None):
     """The JAX package's `TrainState(step, params, opt_state)` with numpy
     leaves (`jax.tree.map(np.asarray, state)`) -> the port's TrainState:
     the step, params marked for grad, and the AdamW moments and count from
     the optax state's `ScaleByAdamState` (the chain element that holds
     count, mu and nu; mu f32, nu in the param dtype, as both keep them)."""
-    from dstack_tpu_torch.workloads.train import AdamState, TrainState
+    from dstack_tpu_torch.workloads.train import TrainState
 
     dev = resolve_device(device)
-    adam = [s for s in state.opt_state
-            if all(hasattr(s, k) for k in ("count", "mu", "nu"))]
-    if len(adam) != 1:
-        raise ValueError("opt_state holds no single AdamW (count, mu, nu) state")
     params = params_from_numpy(state.params, dev)
     for _, p in flatten_params(params):
         p.requires_grad_(True)
-    return TrainState(int(state.step), params,
-                      AdamState(int(adam[0].count), params_from_numpy(adam[0].mu, dev),
-                                params_from_numpy(adam[0].nu, dev)))
+    return TrainState(int(state.step), params, _adam_from_numpy(state.opt_state, dev))
+
+
+def lora_from_numpy(tree: Any, device: DeviceLike = None) -> Params:
+    """A JAX adapter tree `{"layers": {f"{t}_a", f"{t}_b"}}` with numpy
+    leaves -> the port's, in the same layout and dtypes (a serving
+    registry's load or `merge_lora` takes it as is)."""
+    layers = tree.get("layers") if isinstance(tree, dict) else None
+    if not layers:
+        raise ValueError("an adapter tree is {'layers': {...}}")
+    return params_from_numpy({"layers": layers}, device)
+
+
+def lora_state_from_numpy(state: Any, device: DeviceLike = None):
+    """The JAX package's `LoraState(step, lora, opt_state)` with numpy
+    leaves -> the port's lora.LoraState: the step, the adapters marked for
+    grad, and the AdamW moments and count of the adapter tree."""
+    from dstack_tpu_torch.workloads.lora import LoraState
+
+    dev = resolve_device(device)
+    lora = lora_from_numpy(state.lora, dev)
+    for _, t in flatten_params(lora):
+        t.requires_grad_(True)
+    return LoraState(int(state.step), lora, _adam_from_numpy(state.opt_state, dev))

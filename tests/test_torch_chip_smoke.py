@@ -393,3 +393,95 @@ def test_preempt_phase_rewrites_the_freed_blocks_and_resumes_byte_exact(monkeypa
     assert r["byte_exact"] and r["tokens"] == 64 and r["pools"] == [
         "draft_k", "draft_v", "k", "v"]
     assert 0 < r["freed_blocks_rewritten"] <= r["freed_blocks"]
+
+
+# -- phases 9-10b: LoRA ------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lora_module_gate_passes_the_sound_delta_and_fails_both_mutants(dtype):
+    """Phase 9(a) at tiny on the CPU: project_qkv_lora within the gate of
+    its per-row plain version at the decode batch and the 128-token chunk,
+    base rows equal to project_qkv, and both mutants (indices rolled by a
+    row, -1 read from bank slot 0) failing it."""
+    from dstack_tpu_torch.workloads.config import PRESETS
+    from dstack_tpu_torch.workloads.lora_serving import AdapterRegistry
+    from dstack_tpu_torch.workloads.transformer import init_params
+
+    cfg = PRESETS["tiny"].with_(dtype=dtype, max_seq_len=512)
+    params = init_params(cfg, 0, "cpu")
+    adapters = cs.demo_adapters(cfg, params, ("t1", "t2", "t3", "t0"))
+    reg = AdapterRegistry(cfg, params, max_adapters=cs.LORA_MAX_ADAPTERS, rank=cs.LORA_RANK,
+                          targets=cs.LORA_TARGETS)
+    for name, ad in adapters.items():
+        reg.load(name, ad, alpha=cs.LORA_ALPHA)
+    assert reg.slot_of("t0") == 0
+    r = cs.lora_module_check(cfg, params, reg, adapters)
+    assert r["ok"], r
+    assert len(r["cases"]) == 10 and all(c["ok"] for c in r["cases"])
+    assert all(c["base_rows_bit_exact"] for c in r["cases"] if c["case"] == "decode")
+    assert len(r["mutants"]) == 4 and all(m["fails_gate"] for m in r["mutants"].values())
+    tol = cs.LORA_DELTA_TOL[cfg.activation_dtype]
+    assert min(m["row_rel"] for m in r["mutants"].values()) > 10 * tol[1]
+
+
+def test_lora_readings_are_scale_free():
+    ref = [torch.randn(3, 4, 2, 8) for _ in range(3)]
+    got = [t * 1.01 for t in ref]
+    r = cs.lora_readings(got, ref)
+    assert r["rel_l2"] == pytest.approx(0.01, rel=1e-4)
+    assert r["row_rel"] == pytest.approx(0.01, rel=1e-4)
+    big = cs.lora_readings([t * 1e3 for t in got], [t * 1e3 for t in ref])
+    assert big["rel_l2"] == pytest.approx(r["rel_l2"], rel=1e-5)
+
+
+def test_step_flops_of_the_full_and_the_lora_step():
+    """The full step from the step's products is flops_per_token's count;
+    the LoRA step keeps the forward, the activations' and attention's
+    gradients, the targets' weight gradients and the merge."""
+    from dstack_tpu_torch.workloads.config import PRESETS
+
+    cfg = PRESETS["smol-1b"]
+    full, _ = cs.step_flops(cfg, 8, 2048)
+    assert full == cfg.flops_per_token(2048) * 8 * 2048
+    assert full == pytest.approx(87.4e12, rel=2e-3)
+    lora, formula = cs.step_flops(cfg, 8, 2048, cs.LORA_TARGETS, cs.LORA_RANK)
+    d, hd, T, L = 2048, 128, 8 * 2048, 16
+    dw = L * 2 * d * (16 * hd + 8 * hd) * T
+    merge = 3 * 2 * L * d * 8 * (16 * hd + 8 * hd)
+    attn_fwd = L * 2 * 2048 * 16 * hd * T
+    # Two forwards (the forward, the activations' gradients), attention's
+    # backward a forward more, the targets' weight gradients and the merge.
+    assert lora == pytest.approx(2 * full / 3 + attn_fwd + dw + merge, rel=1e-12)
+    assert 0.6 < lora / full < 0.75 and "B S" in formula
+
+
+def test_preempt_phase_on_an_adapter_restores_its_bank_slot(monkeypatch):
+    """Phase 9(d) on the CPU at tiny f32: the parked request runs on t1,
+    readmission restores t1's bank slot, no adapter ref is left, and the
+    chain comes back byte for byte in both pools."""
+    import functools
+
+    from dstack_tpu_torch.workloads import serving
+    from dstack_tpu_torch.workloads.config import PRESETS
+    from dstack_tpu_torch.workloads.transformer import init_params
+
+    monkeypatch.setattr(serving, "ServingEngine",
+                        functools.partial(serving.ServingEngine, device="cpu"))
+    cfg = PRESETS["tiny"].with_(dtype="float32")
+    params = init_params(cfg, 0, "cpu")
+    r = cs.run_preempt_bytes(cfg, params, bs=8, prompt_len=40, other_len=200,
+                             adapters=cs.demo_adapters(cfg, params))
+    assert r["adapter"] == "t1" and r["readmitted_adapter_ix"] == cs.LORA_MAX_ADAPTERS - 1
+    assert r["byte_exact"] and r["tokens"] == len(r["stream"]) == 64
+
+
+def test_lora_drain_phase_drains_resumes_and_serves_the_merged_export():
+    """Phase 10b's drain on the CPU at tiny: `fine_tune --lora-rank 8` in a
+    subprocess exits 113 on SIGTERM with an adapter checkpoint, a relaunch
+    resumes at that step and exports the merged params, and native_server
+    serves a chat from the export."""
+    r = cs.run_lora_drain("tiny", 64, ["--device", "cpu"])
+    assert r["launch1"]["rc"] == 113 and r["launch1"]["checkpoint_groups"] == ["lora", "mu", "nu"]
+    assert r["launch2"]["rc"] == 0 and r["serve"] == {**r["serve"], "code": 200,
+                                                     "weights_via": "packed"}

@@ -35,6 +35,8 @@ MODULES = (
     "dstack_tpu_torch.workloads.generate",
     "dstack_tpu_torch.workloads.kv_blocks",
     "dstack_tpu_torch.workloads.kv_host_tier",
+    "dstack_tpu_torch.workloads.lora",
+    "dstack_tpu_torch.workloads.lora_serving",
     "dstack_tpu_torch.workloads.paged_attention",
     "dstack_tpu_torch.workloads.quant",
     "dstack_tpu_torch.workloads.serving",
@@ -125,6 +127,8 @@ def _entry_points():
         "BatchLoader": lambda: BatchLoader(_OneRow(), 1),
         "make_mesh": lambda: make_mesh(seq=4),
         "fine_tune": lambda: fine_tune.main(["--preset", "tiny", "--steps", "1"]),
+        "fine_tune --lora-rank": lambda: fine_tune.main(["--preset", "tiny", "--steps", "1",
+                                                         "--lora-rank", "4"]),
     }
 
 
@@ -139,7 +143,8 @@ class _OneRow:
                                   "params_from_numpy", "load_packed",
                                   "ServingEngine", "native_server.Engine",
                                   "init_train_state", "synthetic_batch",
-                                  "BatchLoader", "make_mesh", "fine_tune"])
+                                  "BatchLoader", "make_mesh", "fine_tune",
+                                  "fine_tune --lora-rank"])
 def test_entry_points_default_to_cuda_and_raise_without_it(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: device=None is valid here")

@@ -156,8 +156,7 @@ def test_params_that_require_grad_serve_without_autograd(weights):
 
 
 @pytest.mark.parametrize("kw", [
-    {"mesh": object()}, {"lora_max_adapters": 2},
-    {"role": "prefill"}, {"kv_transfer": object()},
+    {"mesh": object()}, {"role": "prefill"}, {"kv_transfer": object()},
 ])
 def test_unported_options_raise(weights, kw):
     _, tp = weights
@@ -567,3 +566,141 @@ def test_native_server_preset_drafter_is_seeded():
         assert not torch.equal(got["embed"], engine.params["embed"])
     finally:
         engine.serving.close()
+
+
+# -- multi-tenant LoRA on the server ------------------------------------------------
+
+
+def _post_code(base, body, path="/v1/chat/completions", method="POST"):
+    """(status, JSON body) of a request, error statuses included."""
+    req = urllib.request.Request(base + path, method=method,
+                                 data=None if body is None else json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def test_an_adapter_request_is_never_served_by_the_base_model():
+    """`model: "m:t1"` names an adapter: a server without LoRA answers 400
+    (plain and streamed), a LoRA server answers 404 for an adapter it has
+    not loaded, and 200 with t1's tokens, not the base's, when t1 is."""
+    msg = {**MSG, "model": "m:t1", "max_tokens": 4}
+    engine, base, stop = _serve_http()
+    try:
+        assert _post_code(base, msg)[0] == 400
+        assert _post_code(base, {**msg, "stream": True})[0] == 400
+        assert _post_code(base, MSG)[0] == 200
+    finally:
+        stop()
+    engine, base, stop = _serve_http(lora_max_adapters=2, adapters=["t1=random"])
+    try:
+        for body in ({**msg, "model": "m:ghost"}, {**msg, "model": "m:ghost", "stream": True}):
+            code, text = _post_code(base, body)
+            assert code == 404 and "ghost" in text
+        code, text = _post_code(base, msg)
+        assert code == 200
+        got = json.loads(text)["choices"][0]["message"]["content"]
+        msgs, kw = msg["messages"], dict(max_tokens=4, temperature=0.0)
+        assert got == engine.chat(msgs, adapter="t1", **kw)
+        assert got != engine.chat(msgs, **kw)
+        assert engine.serving._lora.inflight == 0
+    finally:
+        stop()
+
+
+def test_native_server_adapter_flags_models_load_and_unload(tmp_path, monkeypatch):
+    """main() with `--adapter t1=random --adapter t2=<npz>` on port 0:
+    /v1/models lists both, chats on m:t1, m:t2 and m answer 200, DELETE
+    unloads (then m:t1 is a 404), POST /v1/adapters reloads from an npz
+    (409 while the adapter is busy, 400 on a rank mismatch), and the
+    Prometheus text carries the adapters_loaded gauge."""
+    from dstack_tpu_torch import native_server
+    from dstack_tpu_torch.workloads.lora_serving import demo_adapter, save_adapter
+    from dstack_tpu_torch.workloads.transformer import init_params
+
+    cfg = PRESETS["tiny"]
+    params = init_params(cfg, 0, "cpu")
+    npz, bad = str(tmp_path / "t2.npz"), str(tmp_path / "r4.npz")
+    save_adapter(npz, demo_adapter(cfg, params, 5, rank=8), rank=8, alpha=16.0)
+    save_adapter(bad, demo_adapter(cfg, params, 5, rank=4), rank=4)
+    started, seen = threading.Event(), {}
+    real_make = native_server.make_server
+
+    def make(engine, host, port, model_name):
+        server, ready = real_make(engine, "127.0.0.1", port, model_name)
+        seen.update(server=server, ready=ready, engine=engine)
+        started.set()
+        return server, ready
+
+    monkeypatch.setattr(native_server, "make_server", make)
+    argv = ["--preset", "tiny", "--device", "cpu", "--port", "0", "--slots", "2",
+            "--model-name", "m", "--max-new-tokens", "8",
+            "--adapter", "t1=random", "--adapter", f"t2={npz}"]
+    th = threading.Thread(target=native_server.main, args=(argv,), daemon=True)
+    th.start()
+    assert started.wait(120)
+    eng = seen["engine"]
+    base = f"http://127.0.0.1:{seen['server'].server_address[1]}"
+    try:
+        assert seen["ready"].wait(120)
+        st = eng.serving.stats()
+        assert st["lora_max_adapters"] == 2 and st["adapters_loaded"] == 2
+        ids = [m["id"] for m in json.loads(_http("GET", base + "/v1/models")[1])["data"]]
+        assert ids == ["m", "m:t1", "m:t2"]
+        texts = {}
+        for model in ("m:t1", "m:t2", "m"):
+            code, text = _post_code(base, {**MSG, "model": model, "max_tokens": 6})
+            assert code == 200, (model, text)
+            texts[model] = json.loads(text)["choices"][0]["message"]["content"]
+        assert len(set(texts.values())) == 3  # each adapter changes the stream
+        assert _post_code(base, None, "/v1/adapters/t1", "DELETE")[0] == 200
+        assert _post_code(base, None, "/v1/adapters/t1", "DELETE")[0] == 404
+        assert _post_code(base, {**MSG, "model": "m:t1"})[0] == 404
+        code, text = _post_code(base, {"name": "t1", "path": npz}, "/v1/adapters")
+        assert code == 200 and json.loads(text)["model"] == "m:t1"
+        assert _post_code(base, {**MSG, "model": "m:t1"})[0] == 200
+        assert _post_code(base, {"name": "t3", "path": bad}, "/v1/adapters")[0] == 400
+        assert _post_code(base, {"name": "t3"}, "/v1/adapters")[0] == 400
+        eng.serving._lora.acquire("t1")  # an in-flight request's ref
+        try:
+            assert _post_code(base, {"name": "t1", "path": npz}, "/v1/adapters")[0] == 409
+            assert _post_code(base, None, "/v1/adapters/t1", "DELETE")[0] == 409
+        finally:
+            eng.serving._lora.release("t1")
+        code, text = _http("GET", base + "/metrics?format=prometheus")
+        assert "dstack_tpu_serving_adapters_loaded 2" in text
+        assert eng.serving._lora.inflight == 0
+    finally:
+        seen["server"].shutdown()
+        th.join(timeout=30)
+    assert not th.is_alive()
+
+
+def test_native_server_random_adapter_is_seeded_by_its_name():
+    from dstack_tpu_torch.native_server import Engine
+
+    banks = []
+    for _ in range(2):
+        engine = Engine("tiny", 8, device="cpu", slots=2, lora_max_adapters=2,
+                        adapters=["t1=random", "t2=random"])
+        try:
+            banks.append({k: v.clone() for k, v in engine.serving._lora.bank["layers"].items()})
+        finally:
+            engine.serving.close()
+    for k, v in banks[0].items():
+        assert torch.equal(v, banks[1][k]) and v.any()
+        assert not torch.equal(v[:, 0], v[:, 1])  # two names, two adapters
+
+
+@pytest.mark.parametrize("extra,message", [
+    (["--adapter", "t1"], "is not NAME=PATH"),
+    (["--adapter", "t1=/nonexistent.npz"], "--adapter 't1=/nonexistent.npz'"),
+])
+def test_native_server_refuses_a_bad_adapter_flag(extra, message):
+    from dstack_tpu_torch import native_server
+
+    with pytest.raises(SystemExit, match=message):
+        native_server.main(["--preset", "tiny", "--device", "cpu", "--slots", "2"] + extra)

@@ -185,11 +185,6 @@ def test_spec_verify_matches_jax_at_temperature_0(weights, bad_drafter, k, rejec
     assert int((te[1] >= 0).sum()) == min(want_m + 1, 3)
 
 
-def test_verify_refuses_lora():
-    with pytest.raises(NotImplementedError):
-        tkv.make_spec_verify(TCFG, 2, lora=True)
-
-
 # -- the rejection sampler keeps the target distribution ---------------------------
 
 

@@ -334,7 +334,7 @@ def test_fine_tune_cli_trains_tiny_and_exports_what_native_server_serves(tmp_pat
 
 @pytest.mark.parametrize("flag", [["--model-parallel", "2"],
                                   ["--seq-parallel", "2", "--expert-parallel", "2"],
-                                  ["--expert-parallel", "2"], ["--lora-rank", "4"]])
+                                  ["--expert-parallel", "2"]])
 def test_fine_tune_refuses_unported_options(flag):
     from dstack_tpu_torch import fine_tune
 
