@@ -28,7 +28,9 @@ Phases (any failure fails the run; nothing is caught to exit 0):
                verify seconds, paged launches per token, a profiled spec
                wave; streams held by the near-tie rule (at the first
                token two temperature-0 streams differ, the dense forward's
-               logits put the two within phase 4's tolerance), the rule
+               logits put the two within phase 4's tolerance, and each
+               token is within it of the dense argmax on its own stream's
+               prefix), the rule
                shown failing a stream with a low-logit token put in; the
                same A/B at 4 layers in f32;
   4c. host tier — a pool of 2 x max_blocks under 12 requests over 3
@@ -39,7 +41,11 @@ Phases (any failure fails the run; nothing is caught to exit 0):
   5. http    — native_server on localhost: models, two chat completions,
                one request's phase trace, the stream's phase_summary,
                metrics (JSON, and Prometheus with the compile-cache
-               series);
+               series), GET /v1/affinity carrying the served prompt's
+               chain digests (recomputed with the allocator's chain hash);
+               then a second server with --qos-rate 1 --qos-burst 2: a
+               burst of 6 chats from one Bearer key gets a 429 with
+               Retry-After, another tenant a 200, the per-tenant series;
   5b. service — native_server with examples/deployment/native/service.yml's
                flags (smol-1b, speculation, host tier, 8 of 32 slots
                resident, QoS weights) in a subprocess: 30 best-effort chats
@@ -129,8 +135,32 @@ Phases (any failure fails the run; nothing is caught to exit 0):
                `fine_tune --lora-rank 8` (full depth, S 512) in a
                subprocess: SIGTERM -> 113 with an adapter checkpoint, a
                relaunch resumes, native_server serves its merged export.
-Phase 3b and 3c run after 3, 4b and 4c after 4, 5b after 5, phases 6 to
-10b after 5b. The line before the
+  11. disaggregation — smol-1b, bf16: (a) a prefill engine and a decode
+               engine joined by the port's TransferServer/TransferClient
+               over localhost TCP, phase 4's 8 requests and the drill's
+               awkward lengths (mid-block end, chunk remainder, a decode
+               across a block boundary, a one-token request completed on the
+               prefill tier), unified, split, split, unified: streams by the
+               near-tie rule (bit-exact count printed), zero residue on both
+               pools, bytes sent = admitted = off the wire, the paged kernel
+               on both tiers (launches by thread), a handoff's logits
+               through the kernel within phase 4's tolerance and its faults
+               (tail block exchanged, a block zeroed) beyond it, a
+               tail-swapped handoff admitted by the decode engine failing
+               the near-tie rule against the unified stream, a stale
+               payload rejected after bump_handoff_epoch, a cancel
+               mid-handoff; handoff bytes, transfer s and GB/s, TTFT legs,
+               decode tok/s, and inter-token p95 of 4 live streams under a
+               flood of 6 x 1800-token prompts against the unified engine
+               (recorded, not gated: one card's tiers share its SMs); (b)
+               `python -m dstack_tpu_torch.workloads.serving_disagg --device
+               cuda --preset smol-1b` in a subprocess, exit 0 with its own
+               checks; (c) native_server --role decode/prefill in two
+               subprocesses: kv_handoff ack, /v1/handoffs/<id> streaming the
+               unified server's tokens by the near-tie rule, the
+               role-labelled series.
+Phase 3b and 3c run after 3, 4b and 4c after 4, 5b after 5, 11 after
+5b, phases 6 to 10b after 11. The line before the
 last is the `kernels` JSON; the last line is {"ok": true, "device": {...}}.
 Each phase logs its numbers on the way; details also go to
 chiprun_out/chip_smoke.json.
@@ -150,6 +180,8 @@ import time
 import urllib.request
 
 import torch
+
+from dstack_tpu_torch.workloads.serving_disagg import NEAR_TIE_TOL, dense_logits, near_tie
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, and ops/s for
 # the type the kernel computes on (bf16 tensor-core peak for bf16 inputs,
@@ -181,7 +213,8 @@ MUTATION_SCALE = 1.016
 PAGED_COPIES = 16
 # Chunked-prefill logits (paged, through the kernel) against the dense
 # plain forward, max |diff| / max |ref| over 16 layers.
-ENGINE_LOGIT_TOL = {torch.bfloat16: 5e-2, torch.float32: 1e-4}
+# The near-tie rule (dense_logits, near_tie) and its table are the drill's.
+ENGINE_LOGIT_TOL = NEAR_TIE_TOL
 PAGED_KERNEL_SOURCE = "dstack_tpu_torch/workloads/csrc/paged_attention.cu"
 PAGED_KERNEL_REPLACES = "dstack_tpu/workloads/paged_attention.py:222"
 FLASH_KERNEL_SOURCE = "dstack_tpu_torch/workloads/csrc/flash_attention.cu"
@@ -1332,50 +1365,24 @@ def profile_wave(eng, cfg, adapters=None):
 # -- phase 4b: speculative decoding -----------------------------------------
 
 
-def dense_logits(cfg, params, tokens):
-    """The dense plain forward's f32 logits after `tokens` (V,), as phase
-    4's dense check reads them."""
-    from dstack_tpu_torch.workloads.generate import _forward_cached, init_cache
-
-    dev = params["embed"].device
-    logits, _ = _forward_cached(cfg, params, torch.tensor([tokens], device=dev),
-                                init_cache(cfg, 1, len(tokens), dev))
-    return logits[0].float()
-
-
-def near_tie(cfg, params, prompt, ref, got, tol) -> dict:
-    """Two temperature-0 streams of one prompt held by the near-tie rule:
-    equal, or at the first position where they differ the dense plain
-    forward's f32 logits put the two tokens within `tol` x max |logit|
-    of each other (bf16 rounds the (B, k+1) verify and the (B, 1) decode
-    step differently, so a near-tie may flip); nothing after that
-    position is compared. A stream shorter or longer than the other
-    fails at the first position one of them lacks."""
-    at = next((i for i, (a, b) in enumerate(zip(ref, got)) if a != b), None)
-    if at is None:
-        if len(ref) == len(got):
-            return dict(diverged=False, ok=True)
-        return dict(diverged=True, at=min(len(ref), len(got)), gap=None, ok=False)
-    logits = dense_logits(cfg, params, list(prompt) + list(ref[:at]))
-    gap = float((logits[ref[at]] - logits[got[at]]).abs() / logits.abs().max())
-    return dict(diverged=True, at=at, gap=gap, ok=gap <= tol)
-
-
 def hold_streams(cfg, params, prompts, refs, gots, tol, what) -> dict:
     """Every stream by the near-tie rule; returns the count of
-    divergences (each a near-tie), the largest gap among them and the
-    sorted positions of the first divergences (no token after one is
-    compared), raises on the first that is not a near-tie."""
-    divergences, max_gap, at = 0, 0.0, []
+    divergences (each a near-tie), the largest gap among them, the sorted
+    positions of the first divergences and the largest gap of a token on
+    its own stream's prefix (`worst`); raises on the first stream that
+    is not held."""
+    divergences, max_gap, at, worst = 0, 0.0, [], 0.0
     for i, (p, ref, got) in enumerate(zip(prompts, refs, gots)):
         r = near_tie(cfg, params, p, ref, got, tol)
         if not r["ok"]:
             raise AssertionError(f"{what}: stream {i} diverges past a near-tie: {r}")
+        worst = max(worst, r["worst"])
         if r["diverged"]:
             divergences += 1
             max_gap = max(max_gap, r["gap"])
             at.append(r["at"])
-    return dict(divergences=divergences, max_gap=max_gap, of=len(refs), at=sorted(at))
+    return dict(divergences=divergences, max_gap=max_gap, of=len(refs), at=sorted(at),
+                worst=worst)
 
 
 def rule_fails_a_genuine_divergence(cfg, params, prompt, stream, tol) -> dict:
@@ -1664,7 +1671,7 @@ def http(method, url, body=None, timeout=120, headers=None):
 
 
 def run_http(params):
-    from dstack_tpu_torch.native_server import Engine, make_server, start_warmup
+    from dstack_tpu_torch.native_server import Engine, chat_text, make_server, start_warmup
 
     engine = Engine("smol-1b", max_new_tokens=16, params=params)
     server, ready = make_server(engine, "127.0.0.1", 0)
@@ -1707,13 +1714,125 @@ def run_http(params):
         code, body = http("GET", base + "/metrics?format=prometheus")
         assert code == 200 and 'dstack_tpu_serving_attn_dispatch_total{path="cuda"}' in body
         assert "dstack_tpu_compile_cache_hits_total" in body, body
+        code, body = http("GET", base + "/v1/affinity")
+        served = engine.encode(chat_text(msg["messages"]))
+        sketch = affinity_check(json.loads(body), served)
+        must_fail(affinity_check, {**sketch, "digests": sketch["digests"][1:]}, served)
         log(f"http: models, 2 chat completions, a request's trace ({', '.join(phases)}),"
-            f" the stream's phase_summary and metrics answered 200 on :{port}")
+            f" the stream's phase_summary, metrics and the affinity sketch"
+            f" ({len(sketch['digests'])} digests, the prompt's chain among them)"
+            f" answered 200 on :{port}")
     finally:
         server.shutdown()
         server.server_close()
         th.join(timeout=10)
         engine.serving.close()
+
+
+def chain_digests(tokens, block_size: int, namespace: bytes = b"") -> list:
+    """The affinity digests of a prompt's full blocks, recomputed with the
+    allocator's chain hash (what a fleet router computes)."""
+    from dstack_tpu_torch.workloads.kv_blocks import BlockAllocator, _chain_hash
+
+    h, out = BlockAllocator._ns_seed(namespace), []
+    for i in range(len(tokens) // block_size):
+        h = _chain_hash(h, tokens[i * block_size:(i + 1) * block_size])
+        out.append(h.hex()[:BlockAllocator.DIGEST_HEX])
+    return out
+
+
+def affinity_check(sketch: dict, tokens) -> dict:
+    """GET /v1/affinity's body must carry the chain of a prompt just
+    served (its full blocks' digests, recomputed here)."""
+    want = chain_digests(tokens, sketch["block_size"])
+    missing = [d for d in want if d not in sketch["digests"]]
+    if not want or missing:
+        raise AssertionError(f"the affinity sketch lacks the served prompt's chain {missing}")
+    return sketch
+
+
+def must_fail(gate, *args, **kwargs) -> str:
+    """Run `gate` on a faulty input: it must raise AssertionError (its
+    message is returned); a gate that passes the fault fails the run."""
+    try:
+        gate(*args, **kwargs)
+    except AssertionError as e:
+        return str(e)[:120]
+    raise AssertionError(f"{gate.__name__} passes a fault: {args}")
+
+
+def qos_check(codes) -> None:
+    """A burst from one tenant over its bucket: at least one 429, each
+    with Retry-After; everything else a 200."""
+    shed = [(c, ra) for c, ra in codes if c == 429]
+    if not shed or any(not ra or int(ra) < 1 for _, ra in shed):
+        raise AssertionError(f"no 429 with Retry-After in the burst: {codes}")
+    if any(c not in (200, 429) for c, _ in codes):
+        raise AssertionError(f"the burst got {codes}")
+
+
+def run_qos(params, qos_rate: float = 1.0, qos_burst: float = 2.0, n: int = 6,
+            preset: str = "smol-1b") -> dict:
+    """Phase 5's QoS gate: a second in-process server with --qos-rate 1
+    --qos-burst 2; a burst of n concurrent chats from one Bearer key gets
+    at least one 429 with Retry-After, a chat from another tenant a 200,
+    and the per-tenant series count them."""
+    import urllib.error
+
+    from dstack_tpu_torch.native_server import Engine, make_server, start_warmup
+
+    engine = Engine(preset, max_new_tokens=8, params=params, qos_rate=qos_rate,
+                    qos_burst=qos_burst, device=params["embed"].device)
+    server, ready = make_server(engine, "127.0.0.1", 0)
+    th = threading.Thread(target=server.serve_forever, daemon=True)
+    th.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    msg = {"messages": [{"role": "user", "content": "rate me"}], "max_tokens": 4,
+           "temperature": 0}
+    codes = [None] * n
+
+    def send(i, key):
+        req = urllib.request.Request(base + "/v1/chat/completions", method="POST",
+                                     data=json.dumps(msg).encode(),
+                                     headers={"Content-Type": "application/json",
+                                              "Authorization": f"Bearer {key}"})
+        try:
+            with urllib.request.urlopen(req, timeout=120) as r:
+                return r.status, r.headers.get("Retry-After")
+        except urllib.error.HTTPError as e:
+            return e.code, e.headers.get("Retry-After")
+
+    try:
+        start_warmup(engine, ready).join(timeout=300)
+
+        def burst(i):
+            codes[i] = send(i, "flood")
+
+        threads = [threading.Thread(target=burst, args=(i,)) for i in range(n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        other = send(n, "other")
+        qos_check(codes)
+        must_fail(qos_check, [(200, None) if c == 429 else (c, ra) for c, ra in codes])
+        if other[0] != 200:
+            raise AssertionError(f"another tenant's chat got {other[0]}")
+        prom = http("GET", base + "/metrics?format=prometheus")[1]
+        qos = json.loads(http("GET", base + "/metrics")[1])["qos"]
+    finally:
+        server.shutdown()
+        server.server_close()
+        th.join(timeout=10)
+        engine.close()
+    n_shed = sum(c == 429 for c, _ in codes)
+    for line in (f'dstack_tpu_serving_tenant_shed_total{{tenant="flood"}} {n_shed}',
+                 'dstack_tpu_serving_tenant_requests_total{tenant="other"} 1'):
+        if line not in prom:
+            raise AssertionError(f"the Prometheus text lacks {line!r}")
+    out = dict(codes=codes, other=other[0], qos=qos)
+    log("qos (5)", json.dumps(out))
+    return out
 
 
 # -- phase 5b: the service of examples/deployment/native/service.yml ----------
@@ -2989,6 +3108,724 @@ def run_lora_drain(preset: str = "smol-1b", seq: int = 512, extra=()) -> dict:
     return out
 
 
+# -- phase 11: prefill/decode disaggregation ------------------------------------
+
+DISAGG_KW = dict(slots=8, steps_per_sync=4, prefill_chunk_tokens=128, kv_block_size=16)
+FLOOD_LEN = 1800
+# The model and device of the subprocesses of 11(b) and 11(c).
+DISAGG_PRESET, DISAGG_DEVICE = "smol-1b", "cuda"
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def disagg_requests(n_new: int = 32) -> list:
+    """Phase 4's 8 requests, then the reference drill's awkward lengths: a
+    prompt that ends mid-block, one that leaves a chunk remainder of 2, a
+    decode that crosses a block boundary, and a one-token request that
+    completes on the prefill tier."""
+    return [(p, n_new) for p in engine_prompts()] + [
+        (byte_prompt(40, 29), 20), (byte_prompt(41, 130), 24),
+        (byte_prompt(42, 32), 35), (byte_prompt(43, 17), 1)]
+
+
+class Tiers:
+    """A decode engine behind the port's TransferServer and a prefill
+    engine whose TransferClient dials it over localhost TCP, in this
+    process. Each send is timed (handoff seconds include the ack), and a
+    request submitted with a `fault` has its handoff rewritten by that
+    fault of handoff_mutants before it leaves."""
+
+    def __init__(self, cfg, params, **kw):
+        from dstack_tpu_torch.workloads.kv_transfer import TransferClient, TransferServer
+        from dstack_tpu_torch.workloads.serving import ServingEngine
+
+        self.dec = ServingEngine(cfg, params, role="decode", **kw)
+        self.outs, self.sends, self.captured = {}, [], {}
+        self.capture, self.faults = set(), {}
+        self._lock = threading.Lock()
+        self.server = TransferServer("127.0.0.1", 0, self._on_handoff,
+                                     epoch=self.dec.handoff_epoch)
+        self.client = TransferClient("127.0.0.1", self.server.port)
+        tiers = self
+
+        class Sender:
+            def send(self, h):
+                fault = tiers.faults.pop(h.request_id, None)
+                if fault is not None:
+                    h = handoff_mutants(h)[fault]
+                if h.request_id in tiers.capture:
+                    tiers.captured[h.request_id] = h
+                t0 = time.monotonic()
+                tiers.client.send(h)
+                tiers.sends.append((h.request_id, h.payload_bytes, time.monotonic() - t0))
+
+        self.pre = ServingEngine(cfg, params, role="prefill", kv_transfer=Sender(), **kw)
+        self._rid = 0
+
+    def _on_handoff(self, h):
+        out = self.dec.submit_prefilled(h)
+        with self._lock:
+            self.outs[h.request_id] = out
+
+    def submit(self, prompt, n_new, fault=None):
+        """(request id, the prefill tier's queue)."""
+        self._rid += 1
+        if fault is not None:
+            self.faults[self._rid] = fault
+        return self._rid, self.pre.submit(prompt, n_new, temperature=0.0,
+                                          request_id=self._rid)
+
+    def collect(self, rid, out, n_new):
+        """(tokens, first-token time): a one-token request from the
+        prefill tier, any other from the decode tier after the ack."""
+        toks, t_first = drain(out)
+        if n_new <= 1:
+            return toks, t_first
+        if toks:
+            raise AssertionError(f"the prefill tier streamed {toks} for a handoff")
+        with self._lock:
+            q = self.outs.pop(rid)
+        return drain(q)
+
+    def warmup(self):
+        return self.pre.warmup()["programs"], self.dec.warmup()["programs"]
+
+    def close(self):
+        self.pre.close()
+        self.dec.close()
+        self.server.close()
+        self.client.close()
+
+
+def run_split_wave(submit, collect, reqs) -> dict:
+    """A wave of (prompt, n_new) requests: the first alone (its prefix is
+    published before the other sharer comes), then the rest together,
+    each collected by a thread of its own so a first token is stamped as
+    it lands; streams and submit -> first-token seconds."""
+    t_sub = [time.monotonic()]
+    rid, q = submit(*reqs[0])
+    results = [collect(rid, q, reqs[0][1])]
+    subs = []
+    for p, n in reqs[1:]:
+        t_sub.append(time.monotonic())
+        subs.append((submit(p, n), n))
+    results += [None] * len(subs)
+
+    def read(i, rid, q, n):
+        results[i] = collect(rid, q, n)
+
+    readers = [threading.Thread(target=read, args=(i, rid, q, n), daemon=True)
+               for i, ((rid, q), n) in enumerate(subs, 1)]
+    for r in readers:
+        r.start()
+    for r in readers:
+        r.join(timeout=600)
+    if any(r is None for r in results):
+        raise AssertionError("a request of the wave did not finish")
+    return dict(streams=[t for t, _ in results],
+                ttft=sorted(tf - ts for (_, tf), ts in zip(results, t_sub)))
+
+
+def pct(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, max(0, math.ceil(q * len(xs)) - 1))]
+
+
+def wait_zero_residue(engines, timeout: float = 30.0) -> None:
+    """Every pool back to its cached blocks (in_use == cached, the no-leak
+    condition: the prefix cache holds blocks at ref 1)."""
+    deadline = time.monotonic() + timeout
+    while True:
+        left = {e.role: (e.stats()["kv_blocks_in_use"], e.stats()["kv_blocks_cached"])
+                for e in engines}
+        if all(a == b for a, b in left.values()):
+            return
+        if time.monotonic() > deadline:
+            raise AssertionError(f"block residue (in use, cached) by role: {left}")
+        time.sleep(0.05)
+
+
+def check_tier_launches(launches: int, by_tier: dict) -> None:
+    """The paged kernel ran on both tiers, and every launch the wrapper
+    counted came from one of them."""
+    if launches <= 0 or any(n <= 0 for n in by_tier.values()) \
+            or sum(by_tier.values()) != launches:
+        raise AssertionError(f"paged launches {launches}, by tier {by_tier}")
+
+
+def check_bytes(sent: int, received: int, wire_received: int) -> None:
+    if not sent or sent != received or received != wire_received:
+        raise AssertionError(f"handoff bytes sent {sent}, admitted {received},"
+                             f" off the wire {wire_received}")
+
+
+def handoff_logits(cfg, params, h) -> float:
+    """The decode side's reading of a handoff: its blocks scattered into a
+    fresh pool, one chunk-prefill step of the handed first token over them
+    (attention through the paged kernel), its logits against the dense
+    plain forward's after prompt + first token, over max |logit|."""
+    from dstack_tpu_torch.workloads.kv_blocks import init_paged_state, make_chunk_prefill
+
+    dev = params["embed"].device
+    bs = h.k.shape[2]
+    need = len(h.prompt) // bs + 1  # the first token's row too
+    st = init_paged_state(cfg, 1, need * bs, bs, need, dev)
+    st.k[:, :h.n_blocks] = h.k.to(dev, st.k.dtype)
+    st.v[:, :h.n_blocks] = h.v.to(dev, st.v.dtype)
+    _, _, logits = make_chunk_prefill(cfg, 8)(
+        params, st, 0, list(range(need)), [h.first_token] + [0] * 7, 1, len(h.prompt),
+        2, 0.0, 1.0, None, True)
+    ref = dense_logits(cfg, params, list(h.prompt) + [h.first_token])
+    return float((logits.float() - ref).abs().max() / ref.abs().max())
+
+
+def handoff_mutants(h) -> dict:
+    """Faults of a gather or a wire: the partial tail block exchanged with
+    the full block before it, and a block lost (zeros). Exchanging two
+    FULL blocks is no fault: each cached key already carries its rope
+    rotation, so attention over the pairs is the same set in another
+    order."""
+    n = h.n_blocks
+    tail = list(range(n - 2)) + [n - 1, n - 2]
+    zk, zv = h.k.clone(), h.v.clone()
+    zk[:, n // 2] = 0
+    zv[:, n // 2] = 0
+    return {"tail_swapped": h._replace(k=h.k[:, tail], v=h.v[:, tail]),
+            "block_zeroed": h._replace(k=zk, v=zv),
+            "full_blocks_swapped": h._replace(k=h.k[:, [1, 0] + list(range(2, n))],
+                                              v=h.v[:, [1, 0] + list(range(2, n))])}
+
+
+def check_handoff_gate(cfg, params, h, tol) -> dict:
+    """The handoff's logits within `tol`; each fault's beyond it."""
+    readings = {"sound": handoff_logits(cfg, params, h)}
+    for name, m in handoff_mutants(h).items():
+        readings[name] = handoff_logits(cfg, params, m)
+    if not readings["sound"] <= tol:
+        raise AssertionError(f"a sound handoff's logits are off: {readings}")
+    caught = [readings[k] > tol for k in ("tail_swapped", "block_zeroed")]
+    if not all(caught):
+        raise AssertionError(f"the handoff gate passes a faulty payload: {readings}")
+    return readings
+
+
+def fault_sweep(cfg, params, tiers, reqs, refs, tol) -> dict:
+    """Recorded, not gated: each request's handoff with its tail block
+    exchanged (prompts with a partial tail; a prompt of whole blocks has
+    none, and exchanging two full blocks is no fault) and with a block
+    zeroed, through the decode engine, each stream held against the
+    unified one by the first-divergence rule alone (the dense gap at the
+    first differing token) and by the near-tie rule; how many faults each
+    passes, and the streams by request (None where not run)."""
+    bs = DISAGG_KW["kv_block_size"]
+    out = {}
+    for fault in ("tail_swapped", "block_zeroed"):
+        streams, first, held = [None] * len(reqs), 0, 0
+        for j, ((p, n), good) in enumerate(zip(reqs, refs)):
+            if n <= 1 or (fault == "tail_swapped" and len(p) % bs == 0):
+                continue
+            rid, q = tiers.submit(p, n, fault=fault)
+            streams[j] = tiers.collect(rid, q, n)[0]
+            r = near_tie(cfg, params, p, good, streams[j], tol)
+            first += not r["diverged"] or (r["gap"] is not None and r["gap"] <= tol)
+            held += r["ok"]
+        out[fault] = {"faults": sum(s is not None for s in streams),
+                      "first_divergence_rule_passes": first, "near_tie_rule_passes": held,
+                      "streams": streams}
+    return out
+
+
+def itl_p95(times) -> dict:
+    """Inter-token gaps over every stream (arrival times per stream; the
+    engine hands a stream steps_per_sync tokens at a time, so most gaps
+    are ~0 and the tail is the chunk's wall time)."""
+    gaps = [b - a for ts in times for a, b in zip(ts, ts[1:])]
+    if not gaps:
+        return {"p50_ms": None, "p95_ms": None, "max_ms": None, "gaps": 0}
+    return {"p50_ms": 1e3 * pct(gaps, 0.5), "p95_ms": 1e3 * pct(gaps, 0.95),
+            "max_ms": 1e3 * max(gaps), "gaps": len(gaps)}
+
+
+def flood_run(submit_live, submit_flood, n_live=4, live_new=160, n_flood=6,
+              flood_len=FLOOD_LEN) -> dict:
+    """n_live decoding streams, and once each has its first token a flood
+    of n_flood prompts of flood_len tokens x 1 new token (a one-token
+    request never leaves the prefill tier): the live streams' inter-token
+    gaps while the flood is in, and over their whole decode.
+    `submit_live(prompt, n)` returns a callable that gives the stream's
+    queue."""
+    lives = [submit_live(byte_prompt(60 + i, 64), live_new) for i in range(n_live)]
+    queues = [get_queue() for get_queue in lives]
+    got = [None] * n_live
+    first = [threading.Event() for _ in range(n_live)]
+
+    def read(i):  # arrival times are taken as the tokens land
+        toks, times = [], []
+        try:
+            while True:
+                t = queues[i].get(timeout=600)
+                if t is None or isinstance(t, BaseException):
+                    break
+                toks.append(t)
+                times.append(time.monotonic())
+                first[i].set()
+            got[i] = (toks, times) if t is None else t
+        finally:
+            first[i].set()
+
+    readers = [threading.Thread(target=read, args=(i,), daemon=True) for i in range(n_live)]
+    for r in readers:
+        r.start()
+    for e in first:  # every live stream is decoding
+        e.wait(timeout=600)
+    t0 = time.monotonic()
+    floods = [submit_flood(byte_prompt(70 + i, flood_len)) for i in range(n_flood)]
+    for q in floods:
+        drain(q)
+    t1 = time.monotonic()
+    for r in readers:
+        r.join(timeout=600)
+    if any(not isinstance(g, tuple) or len(g[0]) != live_new for g in got):
+        raise AssertionError(f"live streams: {[g if not isinstance(g, tuple) else len(g[0]) for g in got]}")
+    times = [ts for _, ts in got]
+    window = [[t for t in ts if t0 <= t <= t1] for ts in times]
+    return {"flood_s": t1 - t0, "in_flood": itl_p95(window), "whole": itl_p95(times)}
+
+
+def run_disagg(cfg, params, n_new: int = 32) -> dict:
+    """Phase 11(a): a prefill engine and a decode engine joined by the
+    port's TransferServer and TransferClient over localhost TCP, against
+    the unified engine (phase 4's settings) on the same card. Gates:
+    streams by the near-tie rule; zero residue on both pools; bytes sent
+    = admitted = off the wire; the paged kernel on both tiers; a stale
+    payload rejected and counted after bump_handoff_epoch; a cancel
+    mid-handoff with zero residue; a handoff's logits through the paged
+    kernel, and their faults failing it; a tail-swapped handoff through
+    the decode engine's admission failing the near-tie rule (and, not
+    gated, how many such faults each rule passes). Times: handoff bytes,
+    transfer seconds and GB/s, both TTFT legs against unified TTFT, decode
+    tok/s (unified, split, split, unified), and the decode tier's
+    inter-token p95 under a flood of long prompts against the unified
+    engine's."""
+    from dstack_tpu_torch.workloads import kv_blocks
+    from dstack_tpu_torch.workloads import paged_attention as pa
+    from dstack_tpu_torch.workloads.kv_transfer import StaleEpochError, TransferClient
+    from dstack_tpu_torch.workloads.serving import ServingEngine
+
+    reqs = disagg_requests(n_new)
+    tol = ENGINE_LOGIT_TOL[cfg.activation_dtype]
+    uni = ServingEngine(cfg, params, **DISAGG_KW)
+    tiers = Tiers(cfg, params, **DISAGG_KW)
+    out = {"requests": len(reqs)}
+    try:
+        uni.warmup()
+        out["warmup_programs"] = tiers.warmup()
+
+        def uni_submit(p, n):
+            return None, uni.submit(p, n, temperature=0.0)
+
+        def uni_collect(_, q, n):
+            return drain(q)
+
+        def split_run(tally=False):
+            d0 = tiers.dec.stats()
+            p0 = tiers.pre.stats()
+            n_sends = len(tiers.sends)
+            by_thread = {}
+            real = kv_blocks.ragged_attention
+            if tally:
+                def counted(*a, **k):
+                    r = real(*a, **k)
+                    ident = threading.get_ident()
+                    by_thread[ident] = by_thread.get(ident, 0) + 1
+                    return r
+
+                kv_blocks.ragged_attention = counted
+                pa.LAUNCHES["ragged_paged_attention"] = 0
+            try:
+                w = run_split_wave(tiers.submit, tiers.collect, reqs)
+            finally:
+                kv_blocks.ragged_attention = real
+            launches = pa.LAUNCHES["ragged_paged_attention"]
+            d1, p1 = tiers.dec.stats(), tiers.pre.stats()
+            tokens = sum(len(s) - 1 for s in w["streams"])
+            w["decode_tokens_per_s"] = tokens / max(
+                d1["decode_seconds_total"] - d0["decode_seconds_total"], 1e-9)
+            handed = d1["admitted_total"] - d0["admitted_total"]
+            w["ttft_prefill_leg_mean_s"] = (
+                (p1["ttft_seconds_sum"] - p0["ttft_seconds_sum"])
+                / max(p1["admitted_total"] - p0["admitted_total"], 1))
+            w["ttft_decode_leg_mean_s"] = (
+                (d1["ttft_seconds_sum"] - d0["ttft_seconds_sum"]) / max(handed, 1))
+            w["sends"] = tiers.sends[n_sends:]
+            if tally:
+                w["launches"] = launches
+                w["launches_by_tier"] = {
+                    "prefill": by_thread.get(tiers.pre._thread.ident, 0),
+                    "decode": by_thread.get(tiers.dec._thread.ident, 0)}
+            return w
+
+        def uni_run():
+            s0 = uni.stats()
+            w = run_split_wave(uni_submit, uni_collect, reqs)
+            s1 = uni.stats()
+            w["decode_tokens_per_s"] = sum(len(s) - 1 for s in w["streams"]) / max(
+                s1["decode_seconds_total"] - s0["decode_seconds_total"], 1e-9)
+            return w
+
+        big = max(range(len(reqs)), key=lambda i: len(reqs[i][0]))
+        tiers.capture = {tiers._rid + 1 + big}
+        runs = [("unified", uni_run()), ("split", split_run(tally=True)),
+                ("split", split_run()), ("unified", uni_run())]
+        ref, split = runs[0][1], runs[1][1]
+        if [len(s) for s in split["streams"]] != [n for _, n in reqs]:
+            raise AssertionError(f"split stream lengths {[len(s) for s in split['streams']]}")
+        prompts = [p for p, _ in reqs]
+        held = hold_streams(cfg, params, prompts, ref["streams"], split["streams"], tol,
+                            "disaggregated")
+        held["bit_exact"] = sum(a == b for a, b in zip(ref["streams"], split["streams"]))
+        held_2 = hold_streams(cfg, params, prompts, ref["streams"], runs[2][1]["streams"],
+                              tol, "disaggregated, second run")
+        check_tier_launches(split["launches"], split["launches_by_tier"])
+        must_fail(check_tier_launches, split["launches"],
+                  {**split["launches_by_tier"], "prefill": 0})
+        wait_zero_residue([tiers.pre, tiers.dec])
+        leaked = tiers.dec._alloc.alloc()
+        must_fail(wait_zero_residue, [tiers.dec], timeout=0.1)
+        tiers.dec._alloc.release(leaked)
+        ps, ds = tiers.pre.stats(), tiers.dec.stats()
+        check_bytes(ps["kv_transfer_bytes_total"], ds["kv_transfer_bytes_total"],
+                    tiers.server.bytes_received)
+        must_fail(check_bytes, ps["kv_transfer_bytes_total"],
+                  ds["kv_transfer_bytes_total"] - block_bytes(cfg, DISAGG_KW["kv_block_size"]),
+                  tiers.server.bytes_received)
+        # The handoff gate on the largest prompt's payload, and its faults.
+        (h,) = tiers.captured.values()
+        readings = check_handoff_gate(cfg, params, h, tol)
+        # The faults through the decode engine's own admission
+        # (submit_prefilled, _admit_prefilled, _inject_chain, _place_slot):
+        # the tail-swapped stream of the prompt that ends mid-block fails
+        # the near-tie rule against the unified engine's.
+        sweep = fault_sweep(cfg, params, tiers, reqs, ref["streams"], tol)
+        i = len(engine_prompts())
+        (p, _), good = reqs[i], ref["streams"][i]
+        bad = sweep["tail_swapped"]["streams"][i]
+
+        def hold_faulty(bad):
+            hold_streams(cfg, params, [p], [good], [bad], tol, "a tail-swapped handoff")
+
+        engine_fault = {"stream": bad, "unified": good, "near_tie": near_tie(
+            cfg, params, p, good, bad, tol), "gate": must_fail(hold_faulty, bad),
+            "sweep": {k: {kk: vv for kk, vv in v.items() if kk != "streams"}
+                      for k, v in sweep.items()}}
+
+        # Stale epoch: a client that learned the epoch before the bump.
+        stale = TransferClient("127.0.0.1", tiers.server.port, retry_stale=False)
+        try:
+            stale._connect()
+            tiers.dec.bump_handoff_epoch()
+            tiers.server.bump_epoch()
+            try:
+                stale.send(h._replace(request_id=10 ** 6))
+                raise AssertionError("a stale handoff was admitted")
+            except StaleEpochError:
+                pass
+            try:
+                tiers.dec.submit_prefilled(h._replace(request_id=10 ** 6 + 1))
+                raise AssertionError("the decode engine admitted a stale epoch")
+            except StaleEpochError:
+                pass
+        finally:
+            stale.close()
+        ds = tiers.dec.stats()
+        if tiers.server.stale_rejected != 1 or ds["kv_handoffs_stale_rejected_total"] != 1:
+            raise AssertionError(f"stale rejects: wire {tiers.server.stale_rejected},"
+                                 f" engine {ds['kv_handoffs_stale_rejected_total']}")
+        wait_zero_residue([tiers.dec])
+        # The live client's next handoff is rejected once and lands on
+        # its retry with the new epoch.
+        rid, q = tiers.submit(byte_prompt(44, 100), 8)
+        if len(tiers.collect(rid, q, 8)[0]) != 8 or tiers.client.stale_rejects_seen != 1:
+            raise AssertionError("the live client did not recover from the epoch bump")
+        # Cancel mid-handoff.
+        rid, q = tiers.submit(byte_prompt(45, FLOOD_LEN), 30)
+        tiers.pre.cancel(q)
+        drain(q)
+        with tiers._lock:
+            late = tiers.outs.pop(rid, None)
+        if late is not None:
+            drain(late)  # the handoff raced ahead of the cancel
+        wait_zero_residue([tiers.pre, tiers.dec])
+        status = tiers.pre.request_trace(rid)["status"]
+
+        sends = [s for _, _, s in split["sends"]]
+        nbytes = [b for _, b, _ in split["sends"]]
+        out.update(
+            near_tie=held, near_tie_second_run=held_2,
+            launches=split["launches"], launches_by_tier=split["launches_by_tier"],
+            handoffs=len(sends), handoff_bytes_per_request=nbytes,
+            handoff_bytes_mean=statistics.mean(nbytes),
+            block_bytes=block_bytes(cfg, DISAGG_KW["kv_block_size"]),
+            transfer_s_p50=pct(sends, 0.5), transfer_s_p95=pct(sends, 0.95),
+            transfer_gb_per_s=sum(nbytes) / sum(sends) / 1e9,
+            engine_transfer_s_mean=ps["kv_transfer_hist"]["sum"] / ps["kv_transfer_hist"]["count"],
+            ttft_unified_p50_s=statistics.median(ref["ttft"]),
+            ttft_unified_p95_s=pct(ref["ttft"], 0.95),
+            ttft_split_p50_s=statistics.median(split["ttft"]),
+            ttft_split_p95_s=pct(split["ttft"], 0.95),
+            ttft_prefill_leg_mean_s=split["ttft_prefill_leg_mean_s"],
+            ttft_decode_leg_mean_s=split["ttft_decode_leg_mean_s"],
+            decode_tokens_per_s={"order": [k for k, _ in runs],
+                                 "values": [r["decode_tokens_per_s"] for _, r in runs]},
+            handoff_logits=readings, engine_fault=engine_fault, stale_rejected=1,
+            cancel_status=status,
+            bytes_sent=ps["kv_transfer_bytes_total"],
+            bytes_received=ds["kv_transfer_bytes_total"],
+        )
+
+        def uni_live(p, n):
+            q = uni.submit(p, n, temperature=0.0)
+            return lambda: q
+
+        out["flood_itl"] = {
+            "unified": flood_run(uni_live, lambda p: uni.submit(p, 1, temperature=0.0)),
+            "split": flood_run(lambda p, n: split_live(tiers, p, n),
+                               lambda p: tiers.pre.submit(p, 1, temperature=0.0)),
+        }
+        wait_zero_residue([tiers.pre, tiers.dec, uni])
+    finally:
+        tiers.close()
+        uni.close()
+    torch.cuda.empty_cache()
+    out["seam_alone"] = seam_alone(h)
+    log("disagg (11a)", json.dumps(out))
+    return out
+
+
+def seam_alone(h, n: int = 10) -> dict:
+    """The seam by itself: a handoff sent n times through a fresh
+    TransferServer/TransferClient pair over localhost in this process with
+    no engine thread running (the server's callback only counts), so its
+    seconds are the wire's and the framing's, not the GIL's."""
+    from dstack_tpu_torch.workloads.kv_transfer import TransferClient, TransferServer
+
+    server = TransferServer("127.0.0.1", 0, lambda _: None)
+    client = TransferClient("127.0.0.1", server.port)
+    secs = []
+    try:
+        for _ in range(n):
+            t0 = time.monotonic()
+            client.send(h)
+            secs.append(time.monotonic() - t0)
+    finally:
+        client.close()
+        server.close()
+    return {"bytes": h.payload_bytes, "s_p50": pct(secs, 0.5), "s_min": min(secs),
+            "gb_per_s": h.payload_bytes / pct(secs, 0.5) / 1e9}
+
+
+def split_live(tiers, prompt, n_new):
+    """Submit a live request to the prefill tier; the returned callable
+    waits for the ack and gives the decode tier's queue."""
+    rid, q = tiers.submit(prompt, n_new)
+
+    def decode_queue():
+        toks, _ = drain(q)
+        if toks:
+            raise AssertionError(f"the prefill tier streamed {toks} for a handoff")
+        with tiers._lock:
+            return tiers.outs.pop(rid)
+
+    return decode_queue
+
+
+def run_disagg_drill(timeout: int = 900) -> dict:
+    """Phase 11(b): the two-process drill on the card, as a user runs it:
+    python -m dstack_tpu_torch.workloads.serving_disagg --device cuda
+    --preset smol-1b. It must exit 0 with every check of its own passed."""
+    path = os.path.join(ROOT, os.path.dirname(OUT), "disagg_drill.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    argv = [sys.executable, "-m", "dstack_tpu_torch.workloads.serving_disagg",
+            "--device", DISAGG_DEVICE, "--preset", DISAGG_PRESET, "--out", path]
+    t0 = time.monotonic()
+    r = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True, timeout=timeout)
+    seconds = time.monotonic() - t0
+    for line in r.stdout.splitlines():
+        if line.startswith("[drill]"):
+            log("  " + line)
+    if r.returncode != 0:
+        raise AssertionError(f"the drill exited {r.returncode}: {r.stderr[-3000:]}")
+    with open(path) as f:
+        report = json.load(f)
+    checks = report["checks"]
+    need = ("params_equal", "trace_continuity", "stale_reject_recovered", "zero_residue")
+    if not report.get("ok") or not all(checks.get(k) for k in need):
+        raise AssertionError(f"the drill's checks: {checks}")
+    out = dict(seconds=seconds, n_layers=report["n_layers"], checks=checks,
+               handoffs_sent=report["handoffs_sent"],
+               transfer_bytes=report["transfer_bytes"],
+               transfer_seconds_mean=report["transfer_seconds_mean"],
+               transfer_gb_per_s=report["transfer_gb_per_s"],
+               scenarios_seconds=report["scenarios_seconds"])
+    log("disagg drill (11b)", json.dumps(out))
+    return out
+
+
+class ServerProc:
+    """python -m dstack_tpu_torch.native_server in a subprocess: its HTTP
+    port (and a decode tier's transfer port) read off its stdout."""
+
+    def __init__(self, argv):
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "dstack_tpu_torch.native_server", *argv], cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        self.lines, self.port, self.transfer_port = [], None, None
+        self._seen = threading.Condition()
+        threading.Thread(target=self._read, daemon=True).start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            with self._seen:
+                self.lines.append(line.rstrip())
+                m = re.search(r"kv transfer server on :(\d+)", line)
+                if m:
+                    self.transfer_port = int(m.group(1))
+                m = re.search(r"native model server .* on :(\d+)", line)
+                if m:
+                    self.port = int(m.group(1))
+                self._seen.notify_all()
+
+    def wait_for(self, what: str, timeout: float = 300.0) -> int:
+        deadline = time.monotonic() + timeout
+        with self._seen:
+            while getattr(self, what) is None:
+                if self.proc.poll() is not None or time.monotonic() > deadline:
+                    raise AssertionError(f"native_server gave no {what}: {self.lines[-20:]}")
+                self._seen.wait(0.5)
+            return getattr(self, what)
+
+    def ready(self, timeout: float = 300.0) -> str:
+        import urllib.error
+
+        base = f"http://127.0.0.1:{self.wait_for('port', timeout)}"
+        deadline = time.monotonic() + timeout
+        while True:
+            try:
+                if http("GET", base + "/readyz", timeout=10)[0] == 200:
+                    return base
+            except (urllib.error.URLError, ConnectionError):
+                pass
+            if self.proc.poll() is not None or time.monotonic() > deadline:
+                raise AssertionError(f"native_server never turned ready: {self.lines[-20:]}")
+            time.sleep(0.2)
+
+    def stop(self):
+        self.proc.terminate()
+        try:
+            self.proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait(timeout=30)
+
+
+ROLE_SERIES = {
+    "prefill": ('dstack_tpu_serving_ttft_seconds_count{role="prefill"} 1',
+                'dstack_tpu_serving_kv_transfer_seconds_count{role="prefill"} 1',
+                "dstack_tpu_serving_kv_handoffs_sent_total 1"),
+    "decode": ('dstack_tpu_serving_ttft_seconds_count{role="decode"} 1',
+               'dstack_tpu_serving_tpt_seconds_count{role="decode"}',
+               "dstack_tpu_serving_kv_handoffs_received_total 1"),
+}
+
+
+def run_disagg_http(cfg, params, n_new: int = 16) -> dict:
+    """Phase 11(c): native_server --role decode --kv-transfer-port 0 and
+    --role prefill --kv-transfer-connect in subprocesses (smol-1b, seed 0),
+    and a unified server in this process on the same weights. A chat on the
+    prefill tier answers kv_handoff with a handoff_id; the decode tier's
+    /v1/handoffs/<id> streams tokens that hold by the near-tie rule against
+    the unified server's (read by a spy on its engine's submit); both
+    tiers export their role-labelled series."""
+    from dstack_tpu_torch.native_server import Engine, make_server, start_warmup
+
+    common = ["--preset", DISAGG_PRESET, "--device", DISAGG_DEVICE, "--seed", "0",
+              "--host", "127.0.0.1", "--port", "0", "--max-new-tokens", str(n_new)]
+    t0 = time.monotonic()
+    dec = ServerProc(common + ["--role", "decode", "--kv-transfer-port", "0"])
+    pre = None
+    uni = Engine(DISAGG_PRESET, max_new_tokens=n_new, params=params,
+                 device=params["embed"].device)
+    server, ready = make_server(uni, "127.0.0.1", 0)
+    bu = f"http://127.0.0.1:{server.server_address[1]}"
+    th = threading.Thread(target=server.serve_forever, daemon=True)
+    th.start()
+    seen = []
+    real_submit = uni.serving.submit
+
+    def submit(tokens, *a, **kw):
+        q = real_submit(tokens, *a, **kw)
+        ids = []
+        seen.append((list(tokens), ids))
+        real_get = q.get
+
+        def get(*ga, **gk):
+            item = real_get(*ga, **gk)
+            if isinstance(item, int):
+                ids.append(item)
+            return item
+
+        q.get = get
+        return q
+
+    uni.serving.submit = submit
+    try:
+        tport = dec.wait_for("transfer_port")
+        pre = ServerProc(common + ["--role", "prefill", "--kv-transfer-connect",
+                                   f"127.0.0.1:{tport}"])
+        start_warmup(uni, ready).join(timeout=300)
+        bd, bp = dec.ready(), pre.ready()
+        boot_s = time.monotonic() - t0
+        msg = {"messages": [{"role": "user", "content": "disaggregate this request"}],
+               "max_tokens": n_new, "temperature": 0}
+        code, body = http("POST", bp + "/v1/chat/completions", msg)
+        ack = json.loads(body)
+        if code != 200 or ack["choices"][0]["finish_reason"] != "kv_handoff" \
+                or "handoff_id" not in ack:
+            raise AssertionError(f"the prefill tier answered {code} {body[:500]}")
+        code, body = http("GET", bd + f"/v1/handoffs/{ack['handoff_id']}")
+        events = [json.loads(line[6:]) for line in body.splitlines()
+                  if line.startswith("data: {")]
+        if code != 200 or not body.rstrip().endswith("data: [DONE]"):
+            raise AssertionError(f"the decode tier's stream: {code} {body[-500:]}")
+        got = [e["token"] for e in events]
+        code, body = http("POST", bu + "/v1/chat/completions", msg)
+        if code != 200:
+            raise AssertionError(f"the unified server answered {code}")
+        (prompt, want), = seen
+        held = hold_streams(cfg, params, [prompt], [want], [got],
+                            ENGINE_LOGIT_TOL[cfg.activation_dtype], "http tiers")
+        series = {}
+        for role, base in (("prefill", bp), ("decode", bd)):
+            prom = http("GET", base + "/metrics?format=prometheus")[1]
+            missing = [s for s in ROLE_SERIES[role] if s not in prom]
+            if missing:
+                raise AssertionError(f"the {role} tier's Prometheus text lacks {missing}")
+            series[role] = len(ROLE_SERIES[role])
+    finally:
+        server.shutdown()
+        server.server_close()
+        th.join(timeout=10)
+        uni.serving.submit = real_submit
+        uni.close()
+        for proc in (pre, dec):
+            if proc is not None:
+                proc.stop()
+    torch.cuda.empty_cache()
+    out = dict(boot_s=boot_s, tokens=len(got), bit_exact=got == want, near_tie=held,
+               handoff_id=ack["handoff_id"], role_series=series)
+    log("disagg http (11c)", json.dumps(out))
+    return out
+
+
 PAGED_TIMES = ("ms", "ms_one_launch", "plain_ms", "bound_ms", "bound_by", "library_ms",
                "library_ms_one_launch", "tflops", "bound_share", "other_plan",
                "host_us_per_call")
@@ -3094,13 +3931,23 @@ def main() -> int:
     host_tier = run_host_tier(cfg, params)
     log(f"phase 4c: {time.monotonic() - t0:.1f}s")
 
-    # 5. http
+    # 5. http; the QoS gate on a second server
     run_http(params)
+    qos = run_qos(params)
 
     # 5b. native_server with service.yml's flags
     t0 = time.monotonic()
     service = run_service(cfg, params)
     log(f"phase 5b: {time.monotonic() - t0:.1f}s")
+
+    # 11. disaggregation: in process, the two-process drill, the HTTP tiers
+    t0 = time.monotonic()
+    disagg = run_disagg(cfg, params)
+    log(f"phase 11a: {time.monotonic() - t0:.1f}s")
+    t0 = time.monotonic()
+    disagg["drill"] = run_disagg_drill()
+    disagg["http"] = run_disagg_http(cfg, params)
+    log(f"phases 11b-11c: {time.monotonic() - t0:.1f}s")
     del params
     torch.cuda.empty_cache()
 
@@ -3166,6 +4013,8 @@ def main() -> int:
         "host_tier": host_tier["spill"]["kernel_launches"],
         "lora": [r["kernel_launches"] for r in lora_serving["runs"] if r["lora"]],
         "lora_spec": lora_serving["spec"]["kernel_launches"],
+        "disagg": disagg["launches"],
+        "disagg_by_tier": disagg["launches_by_tier"],
     }
     # `ms` (and so `tflops` and `bound_share`) times launches back to back
     # (`cuda_ms`); `ms_one_launch` one launch from the host's call on an
@@ -3200,7 +4049,7 @@ def main() -> int:
     os.makedirs(os.path.dirname(OUT), exist_ok=True)
     with open(OUT, "w") as f:
         json.dump({"device": smi, "paged": kres, "spec": spec, "host_tier": host_tier,
-                   "service": service, "flash": fres, "train": train,
+                   "qos": qos, "service": service, "disagg": disagg, "flash": fres, "train": train,
                    "model_check": model, "ring_train": ring, "ring_model_check": ring_model,
                    "checkpoint": checkpoint, "drain": drain, "lora_serving": lora_serving,
                    "lora_train": lora_train, "lora_checks": lora_checks,

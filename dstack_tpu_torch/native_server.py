@@ -34,8 +34,22 @@ check (`--kv-budget-mb`), the host KV tier and slot overcommit
 (`--qos-weight TENANT=WEIGHT`). A request's tenant is its Bearer key, else
 the adapter named in `model`, else "default", as the JAX server resolves
 it; on a host-tier engine a heavier tenant may preempt a lighter one's
-live slot. `--qos-rate` (the dataplane's per-tenant token buckets) is not
-ported and refuses > 0; `GET /v1/affinity` answers 501.
+live slot. `--qos-rate` (requests/s, with `--qos-burst` and
+`--qos-tenant-cap`) puts the per-tenant QoS gate (utils/qos.py) in front
+of `submit`: a tenant over its token bucket gets a 429 with `Retry-After`,
+and under contention admission follows weighted deficit round robin;
+`/metrics` carries the per-tenant series (requests, sheds, TTFT) and, in
+JSON, the gate's `qos` stats. `GET /v1/affinity` serves the engine's
+cache-affinity sketch (chain-head digests, loaded adapters, the tokenizer's
+parameters) from a 0.25 s cache.
+
+Prefill/decode disaggregation, as the JAX server's `--role`: `--role
+decode --kv-transfer-port P` admits handoffs on a KV transfer server at P
+(0 picks a free port, printed as "kv transfer server on :P") and streams
+each one at `GET /v1/handoffs/<id>` (SSE, one claim per id); `--role
+prefill --kv-transfer-connect HOST:P` prefills and ships the KV, and its
+chat answers with `finish_reason: "kv_handoff"` and the `handoff_id`.
+`--mesh-model` is accepted only as 1 (the device mesh is not ported).
 
 Multi-tenant LoRA, as the JAX server: `--adapter NAME=PATH` (repeatable)
 preloads an adapter, PATH a `save_adapter` npz of either package or
@@ -55,19 +69,29 @@ import argparse
 import codecs
 import itertools
 import json
+import math
 import threading
 import time
 import zlib
+from collections import defaultdict
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
 import torch
 
+from dstack_tpu_torch.utils.histogram import HistogramData
+from dstack_tpu_torch.utils.qos import (
+    DEFAULT_TENANT,
+    QoSGate,
+    TenantLabels,
+    TenantShedError,
+)
 from dstack_tpu_torch.utils.stagemarkers import auto_stage
 from dstack_tpu_torch.utils.tracecontext import ensure_request_trace
 from dstack_tpu_torch.workloads import compile_cache
 from dstack_tpu_torch.workloads.config import PRESETS
 from dstack_tpu_torch.workloads.device import DeviceLike, resolve_device
+from dstack_tpu_torch.workloads.kv_transfer import TransferClient, TransferServer
 from dstack_tpu_torch.workloads.lora_serving import (
     AdapterBusyError,
     AdapterPoolFullError,
@@ -81,12 +105,11 @@ from dstack_tpu_torch.workloads.serving import (
 )
 from dstack_tpu_torch.workloads.transformer import init_params
 
-# The tenant of a request with neither a Bearer key nor an adapter (the
-# dataplane's default bucket in the JAX package).
-DEFAULT_TENANT = "default"
 # Prompts are bucketed to powers of two as in the JAX server, so both
 # servers hand the engine the same prompt shapes.
 MIN_BUCKET = 32
+# Seconds a built affinity sketch is served before it is rebuilt.
+AFFINITY_TTL_S = 0.25
 
 
 def encode_text(text: str, vocab_size: int, max_seq_len: int,
@@ -129,12 +152,16 @@ class Engine:
                  spec_enable: bool = False, spec_max_draft: int = 4,
                  spec_draft_preset: str = "int8", kv_budget_mb: int = 0,
                  kv_host_budget_mb: int = 0, max_resident_slots: int = 0,
-                 qos_weights=None, qos_rate: float = 0.0,
-                 lora_max_adapters: int = 0, lora_rank: int = 8, adapters=()):
-        if qos_rate > 0:
+                 qos_weights=None, qos_rate: float = 0.0, qos_burst: float = 20.0,
+                 qos_tenant_cap: int = 64, lora_max_adapters: int = 0,
+                 lora_rank: int = 8, adapters=(), role: str = "unified",
+                 mesh_model: int = 1, kv_transfer_connect: str = "",
+                 kv_transfer_port: Optional[int] = None,
+                 kv_transfer_host: str = "0.0.0.0"):
+        if mesh_model != 1:
             raise NotImplementedError(
-                "--qos-rate (the dataplane's per-tenant token buckets) is not"
-                " ported to the PyTorch server yet")
+                f"--mesh-model {mesh_model}: the device mesh is not ported to"
+                " the PyTorch server yet (only 1 is accepted)")
         self.config = PRESETS[preset]
         if max_new_tokens >= self.config.max_seq_len:
             raise ValueError(
@@ -179,6 +206,21 @@ class Engine:
         if spec_enable and spec_draft_preset != "int8":
             draft_config = PRESETS[spec_draft_preset]
             draft_params = init_params(draft_config, 1, self.device)
+        # A prefill tier ships finished KV blocks to the decode tier's
+        # transfer server; its chat acks with finish_reason "kv_handoff".
+        kv_transfer = None
+        if role == "prefill":
+            if not kv_transfer_connect:
+                raise SystemExit(
+                    "--role prefill requires --kv-transfer-connect host:port")
+            host, _, port = kv_transfer_connect.rpartition(":")
+            try:
+                kv_transfer = TransferClient(host or "127.0.0.1", int(port))
+            except ValueError:
+                raise SystemExit(
+                    f"--kv-transfer-connect {kv_transfer_connect!r} is not"
+                    " host:port")
+        self._handoff_ids = itertools.count(1)
         self.serving = ServingEngine(
             self.config, params, slots=slots, temperature=0.8,
             max_pending=max_pending, steps_per_sync=steps_per_sync,
@@ -193,6 +235,7 @@ class Engine:
             max_resident_slots=max_resident_slots or None,
             qos_weights=qos_weights or None,
             lora_max_adapters=lora_max_adapters, lora_rank=lora_rank,
+            role=role, kv_transfer=kv_transfer,
         )
         self.params = self.serving.params  # detached: serving builds no graph
         # --adapter NAME=PATH entries: "random" makes a demo adapter in
@@ -211,6 +254,76 @@ class Engine:
         except ValueError:
             self.serving.close()
             raise
+        # Per-tenant QoS in front of submit: token buckets shed floods (429
+        # + Retry-After), the DRR queue orders admission under contention
+        # for the decode slots. Off unless qos_rate > 0.
+        self.qos = None
+        if qos_rate > 0:
+            self.qos = QoSGate(rate=qos_rate, burst=qos_burst,
+                               tenant_cap=qos_tenant_cap,
+                               weights=qos_weights or None,
+                               concurrency=max(slots, max_pending))
+        # Per-tenant series, bounded by the gate's labels when QoS is on.
+        self.tenant_labels = (self.qos.labels if self.qos is not None
+                              else TenantLabels(cap=qos_tenant_cap))
+        self._tenant_lock = threading.Lock()
+        self.tenant_requests = defaultdict(int)
+        self.tenant_shed = defaultdict(int)
+        self.tenant_ttft = defaultdict(HistogramData)
+        # A decode tier admits handoffs through its transfer server and
+        # parks each admitted stream for GET /v1/handoffs/<id>.
+        self.handoff_streams = {}
+        self.handoff_lock = threading.Lock()
+        self.transfer_server = None
+        if role == "decode" and kv_transfer_port is not None:
+            self.transfer_server = TransferServer(
+                kv_transfer_host, kv_transfer_port, self._on_handoff,
+                epoch=self.serving.handoff_epoch)
+
+    def _on_handoff(self, h) -> None:
+        out = self.serving.submit_prefilled(h)
+        with self.handoff_lock:
+            self.handoff_streams[h.request_id] = out
+
+    def close(self) -> None:
+        if self.transfer_server is not None:
+            self.transfer_server.close()
+        self.serving.close()
+
+    def record_tenant(self, tenant: str, *, shed: bool = False,
+                      ttft: Optional[float] = None) -> None:
+        """Count a tenant's request (or its shed), or observe its TTFT. A
+        TTFT sample counts no second request (the JAX server's does)."""
+        label = self.tenant_labels.label(tenant or DEFAULT_TENANT)
+        with self._tenant_lock:
+            if shed:
+                self.tenant_shed[label] += 1
+            elif ttft is None:
+                self.tenant_requests[label] += 1
+            if ttft is not None:
+                self.tenant_ttft[label].observe(ttft)
+
+    def tenant_metrics_lines(self) -> list:
+        """The per-tenant Prometheus series appended to the engine's."""
+        with self._tenant_lock:
+            req = sorted(self.tenant_requests.items())
+            shed = sorted(self.tenant_shed.items())
+            ttft = sorted((t, h.to_dict()) for t, h in self.tenant_ttft.items())
+        lines = ["# TYPE dstack_tpu_serving_tenant_requests_total counter"]
+        lines += [f'dstack_tpu_serving_tenant_requests_total{{tenant="{t}"}} {n}'
+                  for t, n in req]
+        lines.append("# TYPE dstack_tpu_serving_tenant_shed_total counter")
+        lines += [f'dstack_tpu_serving_tenant_shed_total{{tenant="{t}"}} {n}'
+                  for t, n in shed]
+        base = "dstack_tpu_serving_tenant_ttft_seconds"
+        lines.append(f"# TYPE {base} histogram")
+        for t, h in ttft:
+            for le, cum in h["buckets"]:
+                lines.append(f'{base}_bucket{{le="{le}",tenant="{t}"}} {cum}')
+            lines.append(f'{base}_bucket{{le="+Inf",tenant="{t}"}} {h["count"]}')
+            lines.append(f'{base}_sum{{tenant="{t}"}} {h["sum"]}')
+            lines.append(f'{base}_count{{tenant="{t}"}} {h["count"]}')
+        return lines
 
     def load_adapter(self, name: str, path: str, alpha: float = 16.0) -> int:
         """Load a LoRA adapter into the bank: `path` is a save_adapter npz,
@@ -268,13 +381,45 @@ class Engine:
         if usage_out is not None:
             usage_out["prompt_tokens"] = len(tokens)
             usage_out["completion_tokens"] = 0
-        out = self.serving.submit(tokens, max_new_tokens=budget,
-                                  temperature=temp, top_p=nucleus,
-                                  traceparent=traceparent,
-                                  x_request_id=x_request_id,
-                                  tenant=tenant or DEFAULT_TENANT,
-                                  adapter=adapter)
+        rid = None
+        if self.serving.role == "prefill":
+            # Carried on the KV handoff: the decode tier streams the
+            # request at GET /v1/handoffs/<id>.
+            rid = next(self._handoff_ids)
+            if usage_out is not None:
+                usage_out["handoff_id"] = rid
+        # Arrival before QoS admission: the flight recorder's
+        # qos_admission phase is the time spent at the gate.
+        t_arrival = time.monotonic()
+        granted = False
+        if self.qos is not None:
+            # Sheds (TenantShedError -> 429) or waits for the tenant's DRR
+            # turn at a grant permit; the permit frees in `finally`.
+            try:
+                self.qos.admit(tenant or DEFAULT_TENANT)
+            except TenantShedError:
+                # Shed before the engine saw it: a one-shot terminal trace.
+                self.serving.recorder.record_dropped(
+                    x_request_id, x_request_id=x_request_id,
+                    traceparent=traceparent, t0=t_arrival)
+                raise
+            granted = True
+        t_submit = time.monotonic()
+        try:
+            out = self.serving.submit(tokens, max_new_tokens=budget,
+                                      temperature=temp, top_p=nucleus,
+                                      request_id=rid, traceparent=traceparent,
+                                      x_request_id=x_request_id,
+                                      tenant=tenant or DEFAULT_TENANT,
+                                      adapter=adapter,
+                                      t_arrival=t_arrival if granted else None)
+        except BaseException:
+            if granted:
+                self.qos.release()
+            raise
+        self.record_tenant(tenant)
         dec = codecs.getincrementaldecoder("utf-8")("replace")
+        ttft_seen = False
         try:
             while True:
                 tok = out.get()
@@ -284,7 +429,17 @@ class Engine:
                     tail = dec.decode(b"", True)
                     if tail:
                         yield tail
+                    if (self.serving.role == "prefill" and budget > 1
+                            and usage_out is not None
+                            and not usage_out.get("completion_tokens")):
+                        # Handed off: the first token travels inside the KV
+                        # handoff and the decode tier streams the rest;
+                        # this response is the ack.
+                        usage_out["finish_reason"] = "kv_handoff"
                     return
+                if not ttft_seen:
+                    ttft_seen = True
+                    self.record_tenant(tenant, ttft=time.monotonic() - t_submit)
                 if usage_out is not None:
                     usage_out["completion_tokens"] += 1
                 piece = dec.decode(bytes([int(tok) % 256]))
@@ -293,6 +448,8 @@ class Engine:
         finally:
             # Consumer gone mid-stream: stop decoding into a dead queue.
             self.serving.cancel(out)
+            if granted:
+                self.qos.release()
 
     def chat(self, messages, max_tokens=None, temperature=None, top_p=None,
              usage_out=None, traceparent=None, x_request_id=None,
@@ -309,6 +466,29 @@ def make_server(engine: Engine, host: str, port: int,
     """(server, ready): a ThreadingHTTPServer bound to host:port serving
     `engine`, and the Event that flips /readyz to 200."""
     ready = threading.Event()
+    # The affinity sketch is polled by every router worker: a short cache
+    # bounds its cost at one build per TTL however many poll.
+    sketch = {"at": 0.0, "body": None}
+    sketch_lock = threading.Lock()
+
+    def affinity():
+        with sketch_lock:
+            now = time.monotonic()
+            if sketch["body"] is None or now - sketch["at"] > AFFINITY_TTL_S:
+                sketch["body"] = {
+                    **engine.serving.affinity_sketch(),
+                    "model": model_name,
+                    # What a router needs to recompute the same chain keys
+                    # over the same block boundaries.
+                    "tokenizer": {
+                        "kind": "byte",
+                        "vocab_size": engine.config.vocab_size,
+                        "prompt_limit": engine.config.max_seq_len - engine.max_new_tokens,
+                        "min_bucket": MIN_BUCKET,
+                    },
+                }
+                sketch["at"] = now
+            return sketch["body"]
 
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, *a):
@@ -338,6 +518,15 @@ def make_server(engine: Engine, host: str, port: int,
                 self.send_header(k, v)
             self.end_headers()
             self.wfile.write(body)
+
+        def _send_shed(self, e: TenantShedError) -> None:
+            engine.record_tenant(e.tenant, shed=True)
+            self._send(
+                429,
+                {"error": {"message": str(e), "type": "rate_limited",
+                           "tenant": e.tenant, "retry_after": e.retry_after}},
+                headers=[("Retry-After", str(max(1, math.ceil(e.retry_after))))],
+            )
 
         def _send_overloaded(self, e: EngineOverloadedError) -> None:
             self._send(
@@ -381,7 +570,10 @@ def make_server(engine: Engine, host: str, port: int,
                 first = next(pieces)
             except StopIteration:
                 first, pieces = "", iter(())
+            except TenantShedError as e:
+                return self._send_shed(e)
             except EngineOverloadedError as e:
+                engine.record_tenant(tenant, shed=True)
                 return self._send_overloaded(e)
             except KeyError as e:  # unknown adapter
                 return self._send(404, {"error": f"unknown adapter: {e}"})
@@ -448,16 +640,21 @@ def make_server(engine: Engine, host: str, port: int,
                 stats = engine.serving.stats()
                 accept = self.headers.get("Accept", "")
                 if "format=prometheus" in query or "text/plain" in accept:
-                    body = prometheus_metrics(stats).encode()
+                    body = "\n".join([prometheus_metrics(stats).rstrip("\n")]
+                                     + engine.tenant_metrics_lines()).encode() + b"\n"
                     self.send_response(200)
                     self.send_header("Content-Type", "text/plain; version=0.0.4")
                     self.send_header("Content-Length", str(len(body)))
                     self.end_headers()
                     self.wfile.write(body)
                     return
+                if engine.qos is not None:
+                    stats = {**stats, "qos": engine.qos.stats()}
                 return self._send(200, stats)
             if path == "/v1/affinity":
-                return self._send(501, {"error": "the affinity sketch is not ported"})
+                return self._send(200, affinity())
+            if path.startswith("/v1/handoffs/"):
+                return self._stream_handoff(path)
             if path.startswith("/v1/requests/") and path.endswith("/trace"):
                 # By engine request id or client X-Request-ID (the live ring
                 # first, then the tail store).
@@ -467,6 +664,36 @@ def make_server(engine: Engine, host: str, port: int,
                     return self._send(404, {"error": f"no trace for request {rid!r}"})
                 return self._send(200, trace)
             self._send(404, {"error": "not found"})
+
+        def _stream_handoff(self, path: str) -> None:
+            """Decode tier: a handed-off request's tokens as SSE events
+            ({"id", "token", "text"}, then [DONE]). The claim is exclusive:
+            two readers cannot interleave one stream."""
+            try:
+                rid = int(path.rsplit("/", 1)[1])
+            except ValueError:
+                return self._send(400, {"error": "handoff id must be int"})
+            with engine.handoff_lock:
+                out = engine.handoff_streams.pop(rid, None)
+            if out is None:
+                return self._send(404, {"error": f"no handoff {rid}"})
+            self.send_response(200)
+            self.send_header("Content-Type", "text/event-stream")
+            self.send_header("Cache-Control", "no-cache")
+            self.end_headers()
+            try:
+                while True:
+                    tok = out.get()
+                    if tok is None:
+                        self.wfile.write(b"data: [DONE]\n\n")
+                        return
+                    if isinstance(tok, BaseException):
+                        return  # truncated without [DONE]: a broken stream
+                    ev = {"id": rid, "token": int(tok), "text": engine.decode([tok])}
+                    self.wfile.write(b"data: " + json.dumps(ev).encode() + b"\n\n")
+                    self.wfile.flush()
+            except OSError:
+                engine.serving.cancel(out)  # reader gone: free the slot
 
         def _read_json(self):
             length = int(self.headers.get("Content-Length", 0))
@@ -529,7 +756,10 @@ def make_server(engine: Engine, host: str, port: int,
                                    req.get("temperature"), req.get("top_p"),
                                    usage_out=usage, traceparent=tp, x_request_id=rid,
                                    tenant=tenant, adapter=adapter)
+            except TenantShedError as e:
+                return self._send_shed(e)
             except EngineOverloadedError as e:
+                engine.record_tenant(tenant, shed=True)
                 return self._send_overloaded(e)
             except KeyError as e:  # unknown adapter
                 return self._send(404, {"error": f"unknown adapter: {e}"})
@@ -537,6 +767,11 @@ def make_server(engine: Engine, host: str, port: int,
                 return self._send(400, {"error": str(e)})
             except Exception as e:
                 return self._send(500, {"error": str(e)})
+            finish = usage.pop("finish_reason", "length")
+            handoff_id = usage.pop("handoff_id", None)
+            usage["total_tokens"] = sum(usage.values())
+            if handoff_id is not None:
+                usage["handoff_id"] = handoff_id
             self._send(200, {
                 "id": "chatcmpl-native",
                 "object": "chat.completion",
@@ -545,9 +780,11 @@ def make_server(engine: Engine, host: str, port: int,
                 "choices": [{
                     "index": 0,
                     "message": {"role": "assistant", "content": text},
-                    "finish_reason": "length",
+                    "finish_reason": finish,
                 }],
-                "usage": {**usage, "total_tokens": sum(usage.values())},
+                "usage": usage,
+                # Top level too, where the JAX server puts it.
+                **({"handoff_id": handoff_id} if handoff_id is not None else {}),
             })
 
     class ModelHTTPServer(ThreadingHTTPServer):
@@ -645,8 +882,28 @@ def main(argv: Optional[list] = None) -> None:
                              " with --kv-host-budget-mb a heavier tenant may"
                              " preempt a lighter tenant's live slot")
     parser.add_argument("--qos-rate", type=float, default=0.0,
-                        help="per-tenant token-bucket refill rate; not ported"
-                             " (only 0 is accepted)")
+                        help="per-tenant token-bucket refill rate"
+                             " (requests/s); 0 disables QoS admission")
+    parser.add_argument("--qos-burst", type=float, default=20.0,
+                        help="per-tenant token-bucket capacity")
+    parser.add_argument("--qos-tenant-cap", type=int, default=64,
+                        help="distinct tenant labels before metrics"
+                             " collapse into the overflow label")
+    parser.add_argument("--role", default="unified",
+                        choices=["unified", "prefill", "decode"],
+                        help="serving tier: unified (default) runs prefill"
+                             " and decode in-process; prefill ships finished"
+                             " KV blocks to the decode tier; decode admits"
+                             " handed-off requests on --kv-transfer-port")
+    parser.add_argument("--mesh-model", type=int, default=1,
+                        help="tensor-parallel shards; the device mesh is not"
+                             " ported, so only 1 is accepted")
+    parser.add_argument("--kv-transfer-port", type=int, default=None,
+                        help="decode role: port the KV transfer server"
+                             " listens on (0 picks a free one)")
+    parser.add_argument("--kv-transfer-connect", default="",
+                        help="prefill role: host:port of the decode tier's"
+                             " KV transfer server")
     parser.add_argument("--adapter", action="append", default=[],
                         metavar="NAME=PATH",
                         help="preload a LoRA adapter (repeatable); PATH is an"
@@ -670,6 +927,8 @@ def main(argv: Optional[list] = None) -> None:
             f"--spec-draft-preset {args.spec_draft_preset!r} is not a known"
             f" preset (choose 'int8' or one of: {', '.join(sorted(PRESETS))})"
         )
+    if args.role == "decode" and args.kv_transfer_port is None:
+        raise SystemExit("--role decode requires --kv-transfer-port")
     if args.max_resident_slots and not args.kv_host_budget_mb:
         raise SystemExit(
             "--max-resident-slots overcommit needs --kv-host-budget-mb"
@@ -707,14 +966,19 @@ def main(argv: Optional[list] = None) -> None:
             kv_host_budget_mb=args.kv_host_budget_mb,
             max_resident_slots=args.max_resident_slots,
             qos_weights=qos_weights, qos_rate=args.qos_rate,
+            qos_burst=args.qos_burst, qos_tenant_cap=args.qos_tenant_cap,
             lora_max_adapters=args.lora_max_adapters, lora_rank=args.lora_rank,
-            adapters=args.adapter,
+            adapters=args.adapter, role=args.role, mesh_model=args.mesh_model,
+            kv_transfer_connect=args.kv_transfer_connect,
+            kv_transfer_port=args.kv_transfer_port, kv_transfer_host=args.host,
         )
     except ValueError as e:
         raise SystemExit(f"invalid serving configuration: {e}")
     leaf = engine.serving.stats()["compile_cache_dir"]
     if leaf:
         print(f"compile cache: {leaf}", flush=True)
+    if engine.transfer_server is not None:
+        print(f"kv transfer server on :{engine.transfer_server.port}", flush=True)
     server, ready = make_server(engine, args.host, args.port, args.model_name)
     print(f"native model server (torch, {engine.device}): {args.model_name}"
           f" on :{server.server_address[1]}", flush=True)
@@ -726,7 +990,7 @@ def main(argv: Optional[list] = None) -> None:
         server.serve_forever()
     finally:
         server.server_close()
-        engine.serving.close()
+        engine.close()
 
 
 if __name__ == "__main__":

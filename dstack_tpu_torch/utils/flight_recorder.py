@@ -282,6 +282,18 @@ class FlightRecorder:
             if self.tail.should_capture(rec.total_seconds(), rec.status):
                 self.tail.capture(rec.to_dict())
 
+    def record_dropped(self, request_id: Any, *, status: str = "shed",
+                       x_request_id: Optional[str] = None,
+                       traceparent: Optional[str] = None,
+                       t0: Optional[float] = None) -> None:
+        """One-shot trace for a request refused before it got a timeline
+        (a QoS shed): one qos_admission phase, terminal at once, so the
+        tail store still sees it."""
+        rec = self.begin(request_id, x_request_id=x_request_id,
+                         traceparent=traceparent, first_phase="qos_admission",
+                         t0=t0)
+        self.finish(rec, status)
+
     def get(self, key: Any) -> Optional[Dict[str, Any]]:
         """Trace snapshot by engine request id or client X-Request-ID:
         the live ring first, then the tail store (a slow trace outlives

@@ -341,6 +341,22 @@ class BlockAllocator:
         self._block_key[b] = key
         self._ref[b] += 1
 
+    # Affinity-sketch digest width: 16 hex chars (64 bits) of the sha1
+    # chain hash, as the reference and the fleet router cut them.
+    DIGEST_HEX = 16
+
+    def affinity_digests(self, limit: int = 512) -> List[str]:
+        """Resident full-block chain-head digests for the routing affinity
+        sketch, most recently used last, bounded to the `limit` hottest
+        (the OrderedDict's order is the LRU order). Partial-tail entries
+        are left out: a router cannot rebuild their tail-token keys. The
+        digests commit to the tenant namespace (insert_full seeds the
+        chain with _ns_seed): equal digests need equal namespace and
+        tokens."""
+        digests = [key[1].hex()[: self.DIGEST_HEX]
+                   for key in self._cache if key[0] == "F"]
+        return digests[-limit:]
+
     def stats(self) -> Dict[str, int]:
         return {
             "blocks_total": self.num_blocks,

@@ -150,6 +150,14 @@ class HostKVTier:
     def blocks(self) -> int:
         return len(self._spilled)
 
+    def affinity_digests(self, limit: int = 512) -> List[str]:
+        """Spilled full-block chain-head digests for the affinity sketch
+        (the allocator's key space and truncation: the tier is keyed by
+        its chain keys), most recently used last."""
+        digests = [key[1].hex()[:16] for key in self._spilled
+                   if isinstance(key, tuple) and key and key[0] == "F"]
+        return digests[-limit:]
+
     def stats(self) -> Dict[str, int]:
         return {
             "budget_bytes": self.budget_bytes,

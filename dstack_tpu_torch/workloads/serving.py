@@ -1,7 +1,8 @@
 """Continuous-batching decode engine in PyTorch (port of
-`dstack_tpu.workloads.serving`: the unified, single-device engine with
-speculative decoding, the host KV tier and slot preemption, multi-tenant
-LoRA adapters, and the dense reference it is held to).
+`dstack_tpu.workloads.serving`: the single-device engine with speculative
+decoding, the host KV tier and slot preemption, multi-tenant LoRA
+adapters, prefill/decode disaggregation, the cache-affinity sketch, and
+the dense reference it is held to).
 
 A fixed batch of B slots steps together so new requests join mid-flight
 and finished ones free their slot at once. The KV cache is paged
@@ -31,6 +32,15 @@ adapter at `submit` and holds a ref until it ends, its adapter's name
 namespaces its prefix-cache blocks (device and host tier), and the LoRA
 twins of the programs add each slot's delta while any request holds an
 adapter ref (the plain programs run otherwise).
+
+Disaggregation (`role`): a prefill engine never activates decode slots.
+At a request's final chunk the loop thread gathers its blocks (and the
+drafter's) into page-locked host tensors behind a CUDA event, and a
+sender thread ships them with the first token through `kv_transfer`
+(workloads/kv_transfer.py), then releases the blocks. A decode engine
+takes handoffs at `submit_prefilled`, scatters them into fresh blocks of
+its own pool and decodes from there. Both tiers' chunk prefill, decode
+and verify run the paged kernel.
 
 Host syncs: one readback per decode chunk of `steps_per_sync` tokens (or
 per speculation round, plus one between its draft and verify that splits
@@ -81,6 +91,7 @@ from dstack_tpu_torch.workloads.kv_blocks import (
     make_spec_verify,
 )
 from dstack_tpu_torch.workloads.kv_host_tier import HostKVTier, payload_bytes
+from dstack_tpu_torch.workloads.kv_transfer import KVHandoff, StaleEpochError
 from dstack_tpu_torch.workloads.lora_serving import AdapterRegistry
 from dstack_tpu_torch.workloads.paged_attention import (
     dispatch_path as attn_dispatch_path,
@@ -311,6 +322,9 @@ class _Request(NamedTuple):
     # prefix cache, so tenants never share blocks.
     adapter: Optional[str] = None
     adapter_ix: int = -1
+    # The caller's W3C trace context, carried on a KV handoff so the
+    # decode tier continues the same trace.
+    traceparent: Optional[str] = None
 
 
 def _namespace(req: _Request) -> bytes:
@@ -363,12 +377,34 @@ class _FirstToken:
         return int(self._host)
 
 
+class _HostPayload:
+    """A prefill-role task's KV blocks gathered on the loop thread into
+    page-locked host tensors behind a CUDA event: later chunks may rewrite
+    the blocks at once (the device gather ran before them in stream
+    order), and the sender thread waits on this event alone."""
+
+    def __init__(self, arrays: Dict[str, torch.Tensor], keep: List[torch.Tensor]):
+        self.arrays = arrays
+        self._keep = keep  # device gathers, alive until their copies land
+        self._event = None
+        if keep:
+            self._event = torch.cuda.Event()
+            self._event.record()
+
+    def get(self) -> Dict[str, torch.Tensor]:
+        if self._event is not None:
+            self._event.synchronize()
+            self._event, self._keep = None, []
+        return self.arrays
+
+
 class _PrefillTask:
     """A request mid-chunked-prefill: owns a slot and a growing block
-    table from admission until its final chunk dispatches."""
+    table from admission until its final chunk dispatches (a prefill-role
+    task keeps its blocks until its handoff resolves)."""
 
     __slots__ = ("req", "slot", "pos", "table", "first", "t_pop",
-                 "delivered")
+                 "delivered", "kv_payload")
 
     def __init__(self, req: _Request, slot: int, pos: int, table: List[int],
                  t_pop: float):
@@ -379,16 +415,17 @@ class _PrefillTask:
         self.first: Optional[_FirstToken] = None
         self.t_pop = t_pop
         self.delivered = threading.Event()
+        self.kv_payload: Optional[_HostPayload] = None
 
 
 class ServingEngine:
     """Continuous-batching host loop around the chunk-prefill, decode and
     speculation programs. submit() returns a queue yielding generated
-    token ids as they decode (None terminates).
+    token ids as they decode (None terminates); a decode-role engine's
+    submit_prefilled() does the same for a handed-off request.
 
-    Unported features of the JAX engine are refused, never ignored:
-    meshes, disaggregated roles, KV transfer and the affinity sketch raise
-    NotImplementedError."""
+    The one unported feature of the JAX engine, a device mesh, is
+    refused with NotImplementedError, never ignored."""
 
     def __init__(
         self,
@@ -425,21 +462,23 @@ class ServingEngine:
         max_resident_slots: Optional[int] = None,
         qos_weights: Optional[Dict[str, float]] = None,
     ):
+        if role not in ("unified", "prefill", "decode"):
+            raise ValueError(
+                f"role must be unified/prefill/decode, got {role!r}"
+            )
         if lora_max_adapters > 0 and role != "unified":
             raise ValueError(
                 "adapter multiplexing requires role='unified' (KV"
                 " handoffs do not carry adapter identity yet)"
             )
-        unported = {
-            "mesh": mesh is not None,
-            f"role={role!r}": role != "unified",
-            "kv_transfer": kv_transfer is not None,
-        }
-        asked = [name for name, on in unported.items() if on]
-        if asked:
-            raise NotImplementedError(
-                f"not ported to the PyTorch engine yet: {', '.join(asked)}"
+        if role == "prefill" and kv_transfer is None:
+            raise ValueError(
+                "role='prefill' requires a kv_transfer client to ship"
+                " finished prefills to (see workloads/kv_transfer.py)"
             )
+        if mesh is not None:
+            raise NotImplementedError(
+                "not ported to the PyTorch engine yet: mesh")
         require_dense(config)
         self.device = resolve_device(device)
         # The kernel cache (workloads/compile_cache.py) honours
@@ -459,7 +498,7 @@ class ServingEngine:
         self.params = detach_params(params)
         self.slots = slots
         self.max_len = max_len or config.max_seq_len
-        self.role = "unified"
+        self.role = role
         self.recorder = FlightRecorder(
             capacity=trace_ring, slow_ms=trace_slow_ms, role=self.role
         )
@@ -700,10 +739,36 @@ class ServingEngine:
         self._stop = False
         self._failed: Optional[BaseException] = None
         self._lock = threading.Lock()
+        # -- prefill/decode disaggregation (role != "unified") -------------
+        # A prefill engine's finalized tasks divert to _handoff_q, where a
+        # sender thread ships them through `kv_transfer` (a
+        # kv_transfer.TransferClient or anything with .send(KVHandoff)). A
+        # decode engine queues handoffs from submit_prefilled() under
+        # _prefilled_pending; the loop thread admits them into fresh blocks
+        # of its own pool. Epoch fencing: a payload whose stamp is not the
+        # decode side's handoff_epoch is rejected (bump_handoff_epoch).
+        self._kv_transfer = kv_transfer
+        self.handoff_epoch = 1
+        self._handoff_seq = 0
+        self._handoff_q: "queue.Queue[Optional[_PrefillTask]]" = queue.Queue()
+        # (handoff, out queue, receipt time, trace) awaiting a slot and
+        # blocks on the decode side; guarded by _lock.
+        self._prefilled_pending: List[Tuple[KVHandoff, Any, float, Any]] = []
+        self._handoffs_sent = 0
+        self._handoffs_received = 0
+        self._handoff_stale_rejected = 0
+        self._kv_transfer_bytes = 0
+        self._kv_transfer_hist = HistogramData()
         self._deliver_thread = threading.Thread(
             target=self._deliver_loop, daemon=True
         )
         self._deliver_thread.start()
+        self._handoff_thread: Optional[threading.Thread] = None
+        if role == "prefill":
+            self._handoff_thread = threading.Thread(
+                target=self._handoff_loop, daemon=True
+            )
+            self._handoff_thread.start()
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
 
@@ -720,9 +785,12 @@ class ServingEngine:
         """Build the kernel and run every program the scheduler can
         dispatch once — the decode step, every chunk bucket, and with
         speculation the drafter's chunk buckets, the draft and verify for
-        every k in 1..spec_max_draft and the drafter's block copy — so
-        the first request meets no build, kernel plan or allocation that
-        warmup did not make. Each run is a no-op on an idle engine: an
+        every k in 1..spec_max_draft and the drafter's block copy, and the
+        role's side of the KV-transfer seam (a prefill engine's gather into
+        page-locked host tensors, a decode engine's scatter, at each pow-2
+        block count up to max_blocks, on the discard block) — so the first
+        request meets no build, kernel plan or allocation that warmup did
+        not make. Each run is a no-op on an idle engine: an
         all-inactive decode step or round and n_valid=0 chunks write only
         to the discard block and touch no slot field. Only legal on an
         idle engine (RuntimeError otherwise).
@@ -739,7 +807,7 @@ class ServingEngine:
             busy = (any(r is not None for r in self._live) or self._tasks
                     or self._admitting or self._pending_activation
                     or self._swapped or self._next_req is not None
-                    or not self._pending.empty())
+                    or self._prefilled_pending or not self._pending.empty())
             if busy:
                 raise RuntimeError(
                     "warmup requires an idle engine: call it before serving"
@@ -802,6 +870,21 @@ class ServingEngine:
                 programs += 1
             self._copy_block(self.state, 0, 0)
             programs += 1
+            if self.role != "unified":
+                n_pad = 1
+                while True:
+                    ids = [self._num_blocks] * n_pad
+                    if self.role == "prefill":
+                        self._gather_payload(ids).get()
+                    else:
+                        self._inject_chain(
+                            {name: torch.zeros((pool.shape[0], n_pad) + pool.shape[2:],
+                                               dtype=pool.dtype)
+                             for name, pool in self._pools()}, ids)
+                    programs += 1
+                    if n_pad >= self._max_blocks:
+                        break
+                    n_pad *= 2
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             auto_stage("compile_end")
@@ -830,10 +913,16 @@ class ServingEngine:
                traceparent: Optional[str] = None,
                x_request_id: Optional[str] = None,
                tenant: Optional[str] = None,
-               adapter: Optional[str] = None) -> "queue.Queue[object]":
+               adapter: Optional[str] = None,
+               t_arrival: Optional[float] = None) -> "queue.Queue[object]":
         """Enqueue a request; returns its output queue (ints, then None;
         an Exception on engine failure). `temperature` (0 = greedy) and
-        `top_p` override the engine defaults for this request. `tenant`
+        `top_p` override the engine defaults for this request.
+        `traceparent` and `x_request_id` thread the caller's trace
+        identity into the flight recorder (and onto a KV handoff);
+        `t_arrival` backdates the timeline to HTTP arrival, so the
+        server's QoS admission shows as its own `qos_admission` phase.
+        `tenant`
         keys qos_weights: on a host-tier engine a heavier tenant's request
         may preempt a lighter one's live slot instead of queueing.
         `adapter` selects a loaded LoRA adapter by name: ValueError on an
@@ -867,8 +956,13 @@ class ServingEngine:
         out: "queue.Queue[object]" = queue.Queue()
         rec = None
         if self.recorder.enabled:
-            rec = self.recorder.begin(request_id, x_request_id=x_request_id,
-                                      traceparent=traceparent)
+            t_sub = time.monotonic()
+            rec = self.recorder.begin(
+                request_id, x_request_id=x_request_id, traceparent=traceparent,
+                first_phase="queue_wait" if t_arrival is None else "qos_admission",
+                t0=t_sub if t_arrival is None else t_arrival)
+            if t_arrival is not None:
+                rec.mark("queue_wait", t_sub)
         with self._lock:
             if self._failed is not None:
                 raise RuntimeError(f"serving engine failed: {self._failed}")
@@ -896,7 +990,7 @@ class ServingEngine:
             self._pending.put(_Request(
                 list(tokens), max_new_tokens, out, float(temperature),
                 float(top_p), time.monotonic(), request_id, rec, tenant,
-                adapter, adapter_ix,
+                adapter, adapter_ix, traceparent,
             ))
             self._inflight.add(out)
         self._wake.set()
@@ -960,9 +1054,24 @@ class ServingEngine:
         self._wake.set()
 
     def affinity_sketch(self, limit: int = 512) -> Dict[str, Any]:
-        """The reference's cache-affinity sketch: not ported yet."""
-        raise NotImplementedError(
-            "the affinity sketch is not ported to the PyTorch engine yet")
+        """Cache-affinity sketch for fleet routing: the bounded set of
+        resident prefix chain-head digests (device pool, then host tier;
+        namespace-seeded as BlockAllocator._ns_seed chains them) and the
+        loaded adapters, taken under the engine lock as one consistent
+        snapshot. A router that recomputes the same chain over the same
+        block boundaries scores this replica by expected matched blocks."""
+        with self._lock:
+            device = self._alloc.affinity_digests(limit)
+            host = (self._host_tier.affinity_digests(limit)
+                    if self._host_tier is not None else [])
+            adapters = [] if self._lora is None else sorted(self._lora.loaded())
+        # Device digests win the bound (they match without a swap-in);
+        # host digests fill the room left. The router scores by set
+        # membership, so order carries nothing.
+        seen = set(device)
+        merged = (device + [d for d in host if d not in seen])[:limit]
+        return {"block_size": self._block_size, "digests": merged,
+                "adapters": adapters}
 
     # -- multi-tenant adapters ----------------------------------------------
 
@@ -1088,7 +1197,19 @@ class ServingEngine:
             "compile_cache_hits_total": cc["cache_hits"],
             "compile_cache_misses_total": cc["cache_misses"],
             "compile_seconds_total": round(cc["compile_seconds"], 4),
+            # Disaggregation: which half of the split this engine is (the
+            # TTFT/TPT series carry it as a label: a split request's legs
+            # are different quantities) and the handoff counters on both
+            # sides of the transfer seam.
             "role": self.role,
+            "handoff_epoch": self.handoff_epoch,
+            "kv_handoffs_sent_total": self._handoffs_sent,
+            "kv_handoffs_received_total": self._handoffs_received,
+            "kv_handoffs_stale_rejected_total": self._handoff_stale_rejected,
+            "kv_transfer_bytes_total": self._kv_transfer_bytes,
+            "kv_transfer_hist": self._kv_transfer_hist.to_dict(),
+            "kv_transfer_queue_depth": (self._handoff_q.qsize()
+                                        + len(self._prefilled_pending)),
             "tpt_hist": self._tpt_hist.to_dict(),
             # Speculative decoding: draft/verify seconds, token fates
             # (proposed = accepted + rejected; the correction or bonus token
@@ -1115,6 +1236,9 @@ class ServingEngine:
             "adapters_loaded": 0 if self._lora is None else self._lora.loaded_count,
             "trace": self.recorder.stats(),
             "phase_hists": self.recorder.phase_histograms(),
+            # Resident prefix chain-head digests and loaded adapters, the
+            # payload fleet routers score replicas by (GET /v1/affinity).
+            "affinity": self.affinity_sketch(),
         }
 
     def request_trace(self, key: Any) -> Optional[Dict[str, Any]]:
@@ -1130,6 +1254,9 @@ class ServingEngine:
         self._thread.join(timeout=10)
         self._deliver_q.put(None)
         self._deliver_thread.join(timeout=10)
+        if self._handoff_thread is not None:
+            self._handoff_q.put(None)
+            self._handoff_thread.join(timeout=10)
         # In-flight requests get an exception, not the clean-end None: a
         # truncated generation must not read as a complete one.
         self._flush_all(RuntimeError("serving engine closed mid-generation"))
@@ -1161,6 +1288,13 @@ class ServingEngine:
                 self.recorder.finish(self._next_req.trace, "error")
                 self._next_req.out.put(sentinel)
                 self._next_req = None
+            # Handoffs queued but not yet admitted (decode role). A
+            # prefill-role request whose handoff is in flight is still in
+            # _admitting, answered above.
+            for _h, h_out, _t, h_rec in self._prefilled_pending:
+                self.recorder.finish(h_rec, "error")
+                h_out.put(sentinel)
+            self._prefilled_pending.clear()
             # Every in-flight adapter ref dies with its consumer.
             for out in list(self._adapter_holds):
                 self._release_adapter(out)
@@ -1376,12 +1510,16 @@ class ServingEngine:
             progressed = True
             if final:
                 task.first = _FirstToken(first)
+                # Prefill role: a request with decode budget left never
+                # goes live here; it hands off and decodes on the other
+                # tier. One-token requests complete locally.
+                handoff = self.role == "prefill" and task.req.max_new_tokens > 1
                 with self._lock:
                     # Publish the prompt's full blocks now: stream order
                     # puts these writes before any later matcher's reads.
                     self._alloc.insert_full(task.req.tokens, task.table,
                                             namespace=_namespace(task.req))
-                    if task.req.max_new_tokens > 1:
+                    if task.req.max_new_tokens > 1 and not handoff:
                         self._live[task.slot] = task.req
                         self._admitting.remove(task.req)
                         self._lengths_host[task.slot] = len(task.req.tokens)
@@ -1392,8 +1530,16 @@ class ServingEngine:
                     # One-token requests never go live: the reader thread
                     # completes them and releases their blocks.
                 self._tasks.remove(task)
-                self._pending_activation.append(task)
-                self._deliver_q.put(task)
+                if handoff:
+                    # Gather the blocks now, on the loop thread and in
+                    # stream order, before a later chunk can rewrite them.
+                    # The request stays in _admitting (capacity and
+                    # _flush_all) until its handoff resolves.
+                    task.kv_payload = self._gather_payload(task.table)
+                    self._handoff_q.put(task)
+                else:
+                    self._pending_activation.append(task)
+                    self._deliver_q.put(task)
         return progressed
 
     def _deliver_loop(self) -> None:
@@ -1450,6 +1596,298 @@ class ServingEngine:
             task.delivered.wait(timeout=60)
         self._pending_activation.clear()
 
+    # -- prefill/decode disaggregation ----------------------------------------
+
+    def _gather_payload(self, table: List[int]) -> _HostPayload:
+        """Dispatch the device -> host copy of a block chain out of every
+        pool (the drafter's too when speculating, so the decode tier's
+        drafter starts from real KV) into page-locked host tensors behind
+        one CUDA event; no host sync."""
+        ids = torch.tensor(table, dtype=torch.int64, device=self.device)
+        arrays, keep = {}, []
+        for name, pool in self._pools():
+            rows = pool[:, ids]
+            if self.device.type == "cuda":
+                host = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
+                host.copy_(rows, non_blocking=True)
+                keep.append(rows)
+                rows = host
+            arrays[name] = rows
+        return _HostPayload(arrays, keep)
+
+    def _handoff_loop(self) -> None:
+        """Prefill-role sender thread: ships each finalized task's KV to
+        the decode tier, then releases its blocks, so transfer time never
+        stalls the loop's next admission boundary."""
+        while True:
+            task = self._handoff_q.get()
+            if task is None:
+                return
+            try:
+                self._do_handoff(task)
+            except BaseException:
+                logging.getLogger(__name__).exception("kv handoff failed")
+                task.delivered.set()
+
+    def _do_handoff(self, task: _PrefillTask) -> None:
+        req = task.req
+
+        def _finish(result: object) -> None:
+            # Resolved (shipped, cancelled or failed): the prefill side's
+            # claim on the blocks ends here either way.
+            with self._lock:
+                for b in task.table:
+                    self._alloc.release(b)
+                task.table.clear()
+                self._cancelled.discard(req.out)
+                self._inflight.discard(req.out)
+                if req in self._admitting:
+                    self._admitting.remove(req)
+                self._release_adapter(req.out)
+            req.out.put(result)
+            task.delivered.set()
+
+        if self._stop or self._failed is not None:
+            task.delivered.set()  # _flush_all answers the consumer
+            return
+        try:
+            first = task.first.get()  # waits for the final chunk alone
+        except Exception:
+            # An engine failure mid-flight: the loop's own sync fails too
+            # and _flush_all answers the consumer.
+            task.delivered.set()
+            return
+        with self._lock:
+            dead = req.out in self._cancelled
+        if dead:
+            # Cancel mid-handoff: release everything, ship nothing.
+            self.recorder.finish(req.trace, "cancelled")
+            _finish(None)
+            return
+        t0 = time.monotonic()
+        if req.trace is not None:
+            req.trace.mark("kv_ship", t0)  # prefill closes here
+        try:
+            arrays = task.kv_payload.get()
+            if req.request_id is not None:
+                rid = req.request_id
+            else:
+                with self._lock:
+                    self._handoff_seq += 1
+                    rid = self._handoff_seq
+            h = KVHandoff(
+                request_id=rid, epoch=0,  # the transfer client stamps it
+                prompt=list(req.tokens), first_token=first,
+                max_new_tokens=req.max_new_tokens,
+                temperature=req.temperature, top_p=req.top_p,
+                k=arrays["k"], v=arrays["v"],
+                draft_k=arrays.get("draft_k"), draft_v=arrays.get("draft_v"),
+                traceparent=req.traceparent,
+            )
+            self._kv_transfer.send(h)
+        except Exception as e:
+            # The decode side is gone or churning: fail this request
+            # loudly; "prefilled but never decoded" must not read as a
+            # complete empty generation.
+            self.recorder.finish(req.trace, "error")
+            _finish(e)
+            return
+        now = time.monotonic()
+        with self._lock:
+            self._handoffs_sent += 1
+            self._kv_transfer_bytes += h.payload_bytes
+            self._kv_transfer_hist.observe(now - t0)
+            # Prefill-role TTFT: submit -> handoff acked (the decode tier
+            # owns the first token from here).
+            self._ttft_s = self._ewma_seed(self._ttft_s, now - req.t_submit)
+            self._n_admitted += 1
+            self._sum_ttft += now - req.t_submit
+            self._observe_ttft(now - req.t_submit)
+        if req.trace is not None:
+            req.trace.kv_payload_bytes += h.payload_bytes
+            self.recorder.finish(req.trace, "ok", now)
+        # The prefill tier's consumer gets no tokens, just the clean end:
+        # the decode tier streams them.
+        _finish(None)
+
+    def submit_prefilled(self, handoff: KVHandoff) -> "queue.Queue[object]":
+        """Decode-role admission of a prefill tier's finished KV blocks and
+        metadata; returns the token stream queue (the protocol of submit(),
+        the first token taken from the handoff). A payload stamped with
+        anything but the current `handoff_epoch` raises StaleEpochError.
+        Thread-safe (the transfer server's connection threads call it):
+        it only queues; the loop thread allocates and injects."""
+        if self.role != "decode":
+            raise RuntimeError(
+                f"submit_prefilled requires role='decode', engine has"
+                f" role={self.role!r}"
+            )
+        prompt = list(handoff.prompt)
+        if not prompt:
+            raise ValueError("empty handoff prompt")
+        if handoff.max_new_tokens < 1:
+            raise ValueError(
+                f"max_new_tokens must be >= 1, got {handoff.max_new_tokens}"
+            )
+        if len(prompt) + handoff.max_new_tokens > self.max_len:
+            raise ValueError(
+                f"prompt {len(prompt)} + max_new_tokens"
+                f" {handoff.max_new_tokens} must not exceed max_len"
+                f" {self.max_len}"
+            )
+        c = self.config
+        want = (c.n_layers, self._block_size, c.n_kv_heads, c.head_dim)
+        got = (handoff.k.shape[0],) + tuple(handoff.k.shape[2:])
+        if got != want or handoff.k.shape != handoff.v.shape:
+            raise ValueError(
+                f"handoff KV geometry {tuple(handoff.k.shape)} does not match"
+                f" this engine's pool (L, n, bs, KV, hd) ="
+                f" ({c.n_layers}, n, {self._block_size}, {c.n_kv_heads},"
+                f" {c.head_dim})"
+            )
+        expected = (len(prompt) - 1) // self._block_size + 1
+        if handoff.n_blocks != expected:
+            raise ValueError(
+                f"handoff carries {handoff.n_blocks} blocks but the"
+                f" prompt needs {expected}"
+            )
+        out: "queue.Queue[object]" = queue.Queue()
+        with self._lock:
+            if self._failed is not None:
+                raise RuntimeError(f"serving engine failed: {self._failed}")
+            if self._stop:
+                raise RuntimeError("serving engine is closed")
+            if handoff.epoch != self.handoff_epoch:
+                self._handoff_stale_rejected += 1
+                raise StaleEpochError(handoff.epoch, self.handoff_epoch)
+            t_recv = time.monotonic()
+            # The decode leg of the request's trace shares the prefill
+            # tier's trace_id through the handoff's traceparent.
+            rec = None
+            if self.recorder.enabled:
+                rec = self.recorder.begin(
+                    handoff.request_id, traceparent=handoff.traceparent,
+                    first_phase="queue_wait", t0=t_recv,
+                )
+            self._prefilled_pending.append((handoff, out, t_recv, rec))
+            self._inflight.add(out)
+        self._wake.set()
+        return out
+
+    def bump_handoff_epoch(self) -> int:
+        """Start a new handoff generation (decode role): payloads stamped
+        before the bump are rejected on arrival. A co-located
+        kv_transfer.TransferServer bumps in lockstep (its hello announces
+        the epoch)."""
+        with self._lock:
+            self.handoff_epoch += 1
+            return self.handoff_epoch
+
+    def _admit_prefilled(self) -> bool:
+        """Decode-role admission boundary (loop thread): queued handoffs in
+        arrival order into free slots — fresh blocks from this pool, the
+        payload scattered in, the prompt published to the prefix cache (in
+        the default namespace), the slot placed with the first token as
+        its next input, and that token delivered. A starved pool leaves
+        the handoff queued for the next boundary."""
+        progressed = False
+        while True:
+            with self._lock:
+                if not self._prefilled_pending:
+                    return progressed
+                h, out, t_recv, rec = self._prefilled_pending[0]
+                dead = out in self._cancelled
+                if dead:
+                    self._prefilled_pending.pop(0)
+                    self._cancelled.discard(out)
+                    self._inflight.discard(out)
+            if dead:
+                self.recorder.finish(rec, "cancelled")
+                out.put(None)
+                progressed = True
+                continue
+            busy = {t.slot for t in self._tasks}
+            live_n = sum(r is not None for r in self._live)
+            free = [s for s in range(self.slots)
+                    if self._live[s] is None and s not in busy]
+            if not free or live_n + len(busy) >= self._max_resident:
+                return progressed
+            with self._lock:
+                table: List[int] = []
+                for _ in range(h.n_blocks):
+                    b = self._alloc.alloc()
+                    if b is None:
+                        break
+                    table.append(b)
+                if len(table) < h.n_blocks:
+                    for b in table:
+                        self._alloc.release(b)
+                    return progressed  # pool starved: retry next boundary
+                self._prefilled_pending.pop(0)
+            if rec is not None:
+                rec.mark("kv_adopt")  # queue_wait closes here
+            arrays = {"k": h.k, "v": h.v}
+            if h.draft_k is not None:
+                arrays.update(draft_k=h.draft_k, draft_v=h.draft_v)
+            # A speculating engine fed by a prefill tier without a drafter
+            # decodes this slot's drafts from stale rows: verification
+            # keeps the stream exact, acceptance sinks.
+            self._inject_chain(arrays, table, require_all=False)
+            prompt = list(h.prompt)
+            first = int(h.first_token)
+            slot = free[0]
+            req = _Request(prompt, h.max_new_tokens, out, float(h.temperature),
+                           float(h.top_p), t_recv, h.request_id, rec,
+                           traceparent=h.traceparent)
+            with self._lock:
+                self._alloc.insert_full(prompt, table)
+                self._handoffs_received += 1
+                self._kv_transfer_bytes += h.payload_bytes
+                if rec is not None:
+                    rec.kv_payload_bytes += h.payload_bytes
+                if h.max_new_tokens > 1:
+                    self._live[slot] = req
+                    self._lengths_host[slot] = len(prompt)
+                    self._slot_tables[slot] = table
+                    self._slot_k[slot] = self._spec_init_k
+                    self._accept_ewma[slot] = None
+                    self._slot_t0[slot] = t_recv
+                else:
+                    # The prefill tier completes one-token requests itself;
+                    # a direct caller's budget is spent by the first token.
+                    for b in table:
+                        self._alloc.release(b)
+                    self._inflight.discard(out)
+            if h.max_new_tokens > 1:
+                self._place_slot(slot, table, len(prompt), first,
+                                 h.max_new_tokens - 1, h.temperature, h.top_p, -1)
+            now = time.monotonic()
+            with self._lock:
+                if out not in self._cancelled:
+                    out.put(first)
+                    if rec is not None:
+                        if h.max_new_tokens > 1:
+                            rec.mark("decode", now)  # kv_adopt closes here
+                        else:
+                            self.recorder.finish(rec, "ok", now)
+                    if h.max_new_tokens <= 1:
+                        out.put(None)
+                elif h.max_new_tokens <= 1:
+                    # Cancelled inside the admission window; a live slot
+                    # takes the fan-out's cancel path instead.
+                    self._cancelled.discard(out)
+                    self.recorder.finish(rec, "cancelled", now)
+                    out.put(None)
+                # Decode-role TTFT: handoff receipt -> first delivery.
+                self._ttft_s = self._ewma_seed(self._ttft_s, now - t_recv)
+                self._n_admitted += 1
+                self._sum_ttft += now - t_recv
+                self._observe_ttft(now - t_recv)
+                if not self._first_token_emitted:
+                    self._first_token_emitted = True
+                    auto_stage("first_token")
+            progressed = True
+
     # -- host tier and slot preemption --------------------------------------
 
     def _weight(self, req: _Request) -> float:
@@ -1485,17 +1923,20 @@ class ServingEngine:
         return out
 
     def _inject_chain(self, arrays: Dict[str, torch.Tensor],
-                      table: List[int]) -> None:
+                      table: List[int], require_all: bool = True) -> None:
         """Host -> device: scatter a gathered chain into the blocks of
         `table`, in every pool (the lossless inverse of _gather_chain). A
-        payload that lacks a pool's rows raises: the drafter must never
-        decode from stale rows."""
+        host-tier payload that lacks a pool's rows raises: the drafter
+        must never decode from stale rows of its own engine. A handoff
+        (`require_all=False`) may come without the drafter's rows."""
         missing = [name for name, _ in self._pools() if name not in arrays]
-        if missing:
+        if missing and require_all:
             raise RuntimeError(f"host KV payload lacks {missing}")
         ids = torch.tensor(table, dtype=torch.int64, device=self.device)
         for name, pool in self._pools():
-            pool[:, ids] = arrays[name].to(self.device, non_blocking=True)
+            if name in arrays:
+                pool[:, ids] = arrays[name].to(self.device, pool.dtype,
+                                               non_blocking=True)
 
     def _spill_block(self, key: tuple, b: int) -> None:
         """Allocator eviction hook: ship the victim block's KV to the host
@@ -1822,7 +2263,8 @@ class ServingEngine:
                 has_live = any(r is not None for r in self._live)
                 if not has_live and not self._tasks:
                     with self._lock:
-                        waiting = bool(self._swapped) or self._next_req is not None
+                        waiting = (bool(self._swapped) or self._next_req is not None
+                                   or bool(self._prefilled_pending))
                     if self._pending.empty() and not waiting:
                         t_w = time.monotonic()
                         self._wake.wait(timeout=0.2)
@@ -1836,9 +2278,11 @@ class ServingEngine:
                     t_p = time.monotonic()
                     progressed = self._readmit_swapped()
                     progressed |= self._advance_prefills()
+                    progressed |= self._admit_prefilled()
                     self._wait_activations()
                     self._t_prefill += time.monotonic() - t_p
-                    if not progressed and (self._tasks or self._swapped):
+                    if not progressed and (self._tasks or self._swapped
+                                           or self._prefilled_pending):
                         time.sleep(0.001)  # pool starved, nothing live
                     continue
                 # 1) Prefill chunks first, so first-token readbacks land
@@ -1848,6 +2292,7 @@ class ServingEngine:
                 self._readmit_swapped()
                 self._process_preempt_requests()
                 self._advance_prefills()
+                self._admit_prefilled()
                 if self._spec and self._spec_cooldown == 0:
                     toks, still, t_pf = self._spec_round()
                     if toks is None:
@@ -2024,8 +2469,10 @@ class ServingEngine:
 
 def prometheus_metrics(stats: Dict[str, Any]) -> str:
     """Render a stats() snapshot in Prometheus text exposition format,
-    under the same series names as the JAX engine (the subset of features
-    the port serves)."""
+    under the same series names as the JAX engine. The latency histograms
+    carry the engine's role as a label: a split request's prefill leg
+    (submit -> handoff acked), decode leg (receipt -> first delivery) and
+    a unified engine's TTFT are different quantities."""
     series = [
         ("dstack_tpu_serving_slots_active", "gauge", stats["active"]),
         ("dstack_tpu_serving_pending_requests", "gauge", stats["pending"]),
@@ -2078,6 +2525,17 @@ def prometheus_metrics(stats: Dict[str, Any]) -> str:
         ("dstack_tpu_serving_spec_accept_rate_ewma", "gauge",
          stats["spec_accept_rate_ewma"]),
         ("dstack_tpu_serving_spec_draft_len_mean", "gauge", stats["spec_draft_len_mean"]),
+        # Prefill/decode disaggregation (zero on a unified engine).
+        ("dstack_tpu_serving_kv_handoffs_sent_total", "counter",
+         stats["kv_handoffs_sent_total"]),
+        ("dstack_tpu_serving_kv_handoffs_received_total", "counter",
+         stats["kv_handoffs_received_total"]),
+        ("dstack_tpu_serving_kv_handoffs_stale_rejected_total", "counter",
+         stats["kv_handoffs_stale_rejected_total"]),
+        ("dstack_tpu_serving_kv_transfer_bytes_total", "counter",
+         stats["kv_transfer_bytes_total"]),
+        ("dstack_tpu_serving_kv_transfer_queue_depth", "gauge",
+         stats["kv_transfer_queue_depth"]),
         # Multi-tenant LoRA (zero without lora_max_adapters).
         ("dstack_tpu_serving_adapters_loaded", "gauge", stats["adapters_loaded"]),
         # The kernel cache: library loads found on disk, nvcc builds, and
@@ -2115,6 +2573,7 @@ def prometheus_metrics(stats: Dict[str, Any]) -> str:
         _render_hist("dstack_tpu_serving_ttft_seconds", stats["ttft_cold_hist"],
                      hist_role="cold_start", emit_type=False)
     _render_hist("dstack_tpu_serving_tpt_seconds", stats["tpt_hist"])
+    _render_hist("dstack_tpu_serving_kv_transfer_seconds", stats["kv_transfer_hist"])
     # Host-tier swap-in latency (block swap-ins and slot readmissions).
     _render_hist("dstack_tpu_serving_kv_swap_in_seconds", stats["swap_in_hist"])
     wh = stats["warmup_hist"]

@@ -314,20 +314,33 @@ def tiny():
 def test_near_tie_rule_passes_a_tie_and_fails_a_genuine_divergence(tiny):
     """At the first differing position the rule reads the dense forward's
     gap between the two tokens against tol x max |logit|: the runner-up
-    token passes at a tol just above its gap (and fails just below it),
-    whatever follows it; the lowest-logit token fails at bf16's tol; equal
-    streams pass and a short stream fails."""
+    token, followed by the dense argmax on its own prefix, passes at a tol
+    just above its gap (and fails just below it); the same tie followed
+    by tokens off the dense argmax fails on its own prefix; the
+    lowest-logit token fails at bf16's tol; equal streams pass and a short
+    stream fails."""
+    from dstack_tpu_torch.workloads.generate import generate
+
     cfg, params, prompt, stream = tiny
     at = 5
     logits = cs.dense_logits(cfg, params, prompt + stream[:at])
     assert int(logits.argmax()) == stream[at]
     runner_up = int(logits.topk(2).indices[1])
     gap = float((logits[stream[at]] - logits[runner_up]) / logits.abs().max())
-    tie = stream[:at] + [runner_up] + [0] * (len(stream) - at - 1)
+    head = prompt + stream[:at] + [runner_up]
+    tie = stream[:at] + [runner_up] + generate(
+        cfg, params, torch.tensor([head]), max_new_tokens=len(stream) - at - 1)[0].tolist()
+    assert len(tie) == len(stream) and tie[at + 1:] != stream[at + 1:]
     r = cs.near_tie(cfg, params, prompt, stream, tie, gap * 1.001)
     assert r["ok"] and r["diverged"] and r["at"] == at and r["gap"] == pytest.approx(gap)
+    # worst reads the dense forward one token at a time, gap in one pass
+    assert r["worst"] == pytest.approx(gap, rel=1e-4)
     assert not cs.near_tie(cfg, params, prompt, stream, tie, gap * 0.999)["ok"]
-    assert cs.near_tie(cfg, params, prompt, stream, stream, 0.0) == dict(diverged=False, ok=True)
+    off = tie[:at + 1] + [int(cs.dense_logits(cfg, params, head).argmin())] + tie[at + 2:]
+    r = cs.near_tie(cfg, params, prompt, stream, off, gap * 1.001)
+    assert not r["ok"] and r["gap"] == pytest.approx(gap) and r["worst"] > 10 * gap
+    assert cs.near_tie(cfg, params, prompt, stream, stream, 0.0) == dict(
+        diverged=False, worst=0.0, ok=True)
     assert not cs.near_tie(cfg, params, prompt, stream, stream[:-1], 1.0)["ok"]
     tol = cs.ENGINE_LOGIT_TOL[torch.bfloat16]
     bad = cs.rule_fails_a_genuine_divergence(cfg, params, prompt, stream, tol)
@@ -337,7 +350,8 @@ def test_near_tie_rule_passes_a_tie_and_fails_a_genuine_divergence(tiny):
                         [stream[:6] + [int(logits.argmin())] + stream[7:]], tol, "test")
     held = cs.hold_streams(cfg, params, [prompt] * 2, [stream] * 2, [stream, tie],
                            gap * 1.001, "test")
-    assert held == dict(divergences=1, max_gap=pytest.approx(gap), of=2, at=[at])
+    assert held == dict(divergences=1, max_gap=pytest.approx(gap), of=2, at=[at],
+                        worst=pytest.approx(gap, rel=1e-4))
 
 
 def test_service_argv_is_service_yml_verbatim_but_the_checkpoint():
@@ -485,3 +499,186 @@ def test_lora_drain_phase_drains_resumes_and_serves_the_merged_export():
     assert r["launch1"]["rc"] == 113 and r["launch1"]["checkpoint_groups"] == ["lora", "mu", "nu"]
     assert r["launch2"]["rc"] == 0 and r["serve"] == {**r["serve"], "code": 200,
                                                      "weights_via": "packed"}
+
+
+# -- phases 5 and 11: affinity, QoS, disaggregation ---------------------------------
+
+
+def test_affinity_check_finds_the_served_chain_and_fails_a_missing_one():
+    from dstack_tpu_torch.workloads.kv_blocks import BlockAllocator
+
+    tokens = cs.byte_prompt(5, 40)
+    a = BlockAllocator(8, 16)
+    a.insert_full(tokens, [a.alloc() for _ in range(3)])
+    sketch = {"block_size": 16, "digests": a.affinity_digests(), "adapters": []}
+    assert cs.chain_digests(tokens, 16) == sketch["digests"]
+    assert cs.affinity_check(sketch, tokens) is sketch
+    with pytest.raises(AssertionError, match="lacks the served prompt"):
+        cs.affinity_check({**sketch, "digests": sketch["digests"][:1]}, tokens)
+    with pytest.raises(AssertionError, match="lacks the served prompt"):
+        cs.affinity_check(sketch, cs.byte_prompt(6, 40))
+    # Another namespace chains other digests.
+    assert cs.chain_digests(tokens, 16, b"t1")[0] not in sketch["digests"]
+
+
+@pytest.mark.parametrize("codes,ok", [
+    ([(200, None), (429, "1"), (429, "2")], True),
+    ([(200, None)] * 6, False),            # no shed: the gate is off
+    ([(200, None), (429, None)], False),   # a 429 without Retry-After
+    ([(200, None), (429, "1"), (500, None)], False),
+])
+def test_qos_check(codes, ok):
+    if ok:
+        cs.qos_check(codes)
+    else:
+        with pytest.raises(AssertionError):
+            cs.qos_check(codes)
+
+
+@pytest.mark.parametrize("rate,ok", [(1.0, True), (0.0, False)])
+def test_qos_phase_sheds_a_burst_and_fails_without_the_gate(rate, ok):
+    """Phase 5's QoS run at tiny on the CPU: with --qos-rate 1 --qos-burst 2
+    the burst gets 429s and the other tenant a 200; with the gate off the
+    phase fails."""
+    from dstack_tpu_torch.workloads.config import PRESETS
+    from dstack_tpu_torch.workloads.transformer import init_params
+
+    params = init_params(PRESETS["tiny"], 0, "cpu")
+    if ok:
+        r = cs.run_qos(params, qos_rate=rate, preset="tiny")
+        assert r["other"] == 200 and r["qos"]["shed_total"]["flood"] >= 1
+    else:
+        with pytest.raises(AssertionError, match="no 429"):
+            cs.run_qos(params, qos_rate=rate, preset="tiny")
+
+
+def test_disagg_requests_carry_the_awkward_lengths():
+    reqs = cs.disagg_requests(32)
+    assert [len(p) for p, _ in reqs[:8]] == [len(p) for p in cs.engine_prompts()]
+    (p1, n1), (p2, n2), (p3, n3), (p4, n4) = reqs[8:]
+    assert len(p1) % 16 and len(p2) % 128 == 2
+    assert len(p3) % 16 == 0 and (len(p3) + n3 - 1) // 16 > len(p3) // 16
+    assert n4 == 1
+
+
+def test_tier_launch_and_byte_gates():
+    cs.check_tier_launches(10, {"prefill": 4, "decode": 6})
+    for launches, by_tier in ((0, {"prefill": 0, "decode": 0}),
+                              (10, {"prefill": 10, "decode": 0}),
+                              (11, {"prefill": 4, "decode": 6})):
+        with pytest.raises(AssertionError):
+            cs.check_tier_launches(launches, by_tier)
+    cs.check_bytes(100, 100, 100)
+    for sent, got, wire in ((0, 0, 0), (100, 99, 100), (100, 100, 101)):
+        with pytest.raises(AssertionError):
+            cs.check_bytes(sent, got, wire)
+
+
+@pytest.fixture(scope="module")
+def handoff():
+    """A tiny f32 prefill tier's handoff of a 45-token prompt (3 blocks of
+    16, a tail of 13)."""
+    from dstack_tpu_torch.workloads.config import PRESETS
+    from dstack_tpu_torch.workloads.serving import ServingEngine
+    from dstack_tpu_torch.workloads.transformer import init_params
+
+    cfg = PRESETS["tiny"].with_(dtype="float32")
+    params = init_params(cfg, 0, "cpu")
+    got = []
+
+    class Capture:
+        def send(self, h):
+            got.append(h)
+
+    eng = ServingEngine(cfg, params, device="cpu", role="prefill", kv_transfer=Capture(),
+                        slots=2, max_len=128, kv_block_size=16)
+    try:
+        out = eng.submit(cs.byte_prompt(8, 45), 4, request_id=1)
+        assert out.get(timeout=60) is None
+    finally:
+        eng.close()
+    return cfg, params, got[0]
+
+
+def test_handoff_gate_passes_the_payload_and_fails_its_faults(handoff):
+    """The sound handoff reads within tol; the tail block exchanged with a
+    full one and a zeroed block read beyond it. Two full blocks exchanged
+    read the sound value: the pairs carry their rope, so attention sees the
+    same set in another order."""
+    cfg, params, h = handoff
+    tol = cs.ENGINE_LOGIT_TOL[torch.float32]
+    r = cs.check_handoff_gate(cfg, params, h, tol)
+    assert r["sound"] <= tol and r["tail_swapped"] > tol and r["block_zeroed"] > tol
+    assert r["full_blocks_swapped"] == pytest.approx(r["sound"], abs=1e-6)
+    with pytest.raises(AssertionError, match="sound handoff"):
+        cs.check_handoff_gate(cfg, params, h._replace(k=h.k * 1.1), tol)
+
+
+def test_handoff_gate_fails_when_a_fault_reads_sound(handoff, monkeypatch):
+    cfg, params, h = handoff
+    monkeypatch.setattr(cs, "handoff_mutants", lambda h: {
+        "tail_swapped": h, "block_zeroed": h, "full_blocks_swapped": h})
+    with pytest.raises(AssertionError, match="passes a faulty payload"):
+        cs.check_handoff_gate(cfg, params, h, cs.ENGINE_LOGIT_TOL[torch.float32])
+
+
+def test_tail_swapped_handoff_through_the_decode_engine_fails_the_near_tie_rule():
+    """A sound handoff through the tiers streams the unified engine's
+    tokens; the same request with its handoff's tail block exchanged on
+    the way out goes through the decode engine's admission and its stream
+    fails the near-tie rule; both leave zero residue."""
+    from dstack_tpu_torch.workloads.config import PRESETS
+    from dstack_tpu_torch.workloads.serving import ServingEngine
+    from dstack_tpu_torch.workloads.transformer import init_params
+
+    cfg = PRESETS["tiny"].with_(dtype="float32")
+    params = init_params(cfg, 0, "cpu")
+    kw = dict(device="cpu", slots=2, max_len=128, kv_block_size=16)
+    p, n = cs.byte_prompt(40, 29), 20
+    uni = ServingEngine(cfg, params, **kw)
+    tiers = cs.Tiers(cfg, params, **kw)
+    try:
+        good = cs.drain(uni.submit(p, n, temperature=0.0))[0]
+        rid, q = tiers.submit(p, n)
+        assert tiers.collect(rid, q, n)[0] == good
+        rid, q = tiers.submit(p, n, fault="tail_swapped")
+        bad = tiers.collect(rid, q, n)[0]
+        assert not tiers.faults and len(bad) == n
+        tol = cs.ENGINE_LOGIT_TOL[torch.bfloat16]
+        with pytest.raises(AssertionError, match="past a near-tie"):
+            cs.hold_streams(cfg, params, [p], [good], [bad], tol, "test")
+        # The first divergence alone is a near-tie; the tokens after it
+        # are not (the rule's own-prefix check is what fails the fault).
+        r = cs.near_tie(cfg, params, p, good, bad, tol)
+        assert r["gap"] <= tol < r["worst"]
+        whole = cs.byte_prompt(41, 32)  # whole blocks: no tail to exchange
+        reqs = [(p, n), (whole, 8), (p, 1)]
+        refs = [good, cs.drain(uni.submit(whole, 8, temperature=0.0))[0], good[:1]]
+        sweep = cs.fault_sweep(cfg, params, tiers, reqs, refs, tol)
+        assert [s is not None for s in sweep["tail_swapped"]["streams"]] == [True, False, False]
+        assert sweep["tail_swapped"]["faults"] == 1
+        assert sweep["block_zeroed"]["faults"] == 2
+        for v in sweep.values():
+            assert v["near_tie_rule_passes"] <= v["first_divergence_rule_passes"]
+        cs.wait_zero_residue([tiers.pre, tiers.dec], timeout=5)
+    finally:
+        tiers.close()
+        uni.close()
+
+
+def test_zero_residue_gate_fails_a_leaked_block():
+    from dstack_tpu_torch.workloads.config import PRESETS
+    from dstack_tpu_torch.workloads.serving import ServingEngine
+    from dstack_tpu_torch.workloads.transformer import init_params
+
+    cfg = PRESETS["tiny"].with_(dtype="float32")
+    eng = ServingEngine(cfg, init_params(cfg, 0, "cpu"), device="cpu", slots=1,
+                        max_len=64)
+    try:
+        cs.wait_zero_residue([eng], timeout=0.1)
+        leaked = eng._alloc.alloc()
+        with pytest.raises(AssertionError, match="block residue"):
+            cs.wait_zero_residue([eng], timeout=0.1)
+        eng._alloc.release(leaked)
+    finally:
+        eng.close()

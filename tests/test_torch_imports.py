@@ -21,6 +21,7 @@ MODULES = (
     "dstack_tpu_torch.utils",
     "dstack_tpu_torch.utils.flight_recorder",
     "dstack_tpu_torch.utils.histogram",
+    "dstack_tpu_torch.utils.qos",
     "dstack_tpu_torch.utils.stagemarkers",
     "dstack_tpu_torch.utils.tracecontext",
     "dstack_tpu_torch.workloads",
@@ -35,11 +36,13 @@ MODULES = (
     "dstack_tpu_torch.workloads.generate",
     "dstack_tpu_torch.workloads.kv_blocks",
     "dstack_tpu_torch.workloads.kv_host_tier",
+    "dstack_tpu_torch.workloads.kv_transfer",
     "dstack_tpu_torch.workloads.lora",
     "dstack_tpu_torch.workloads.lora_serving",
     "dstack_tpu_torch.workloads.paged_attention",
     "dstack_tpu_torch.workloads.quant",
     "dstack_tpu_torch.workloads.serving",
+    "dstack_tpu_torch.workloads.serving_disagg",
     "dstack_tpu_torch.workloads.sharding",
     "dstack_tpu_torch.workloads.stages",
     "dstack_tpu_torch.workloads.train",
@@ -109,6 +112,7 @@ def _entry_points():
     from dstack_tpu_torch.workloads.train import init_train_state, synthetic_batch
     from dstack_tpu_torch.workloads.device import resolve_device
     from dstack_tpu_torch.workloads.serving import ServingEngine
+    from dstack_tpu_torch.workloads.serving_disagg import run_drill
     from dstack_tpu_torch.workloads.sharding import make_mesh
     from dstack_tpu_torch.workloads.transformer import init_params
     from dstack_tpu_torch.workloads.weights import load_packed, params_from_numpy
@@ -122,6 +126,11 @@ def _entry_points():
         "load_packed": lambda: load_packed("/nonexistent"),
         "ServingEngine": lambda: ServingEngine(cfg, cpu_params, slots=1, max_len=32),
         "native_server.Engine": lambda: Engine("tiny", 8),
+        "ServingEngine role=decode": lambda: ServingEngine(cfg, cpu_params, slots=1,
+                                                           max_len=32, role="decode"),
+        "native_server.Engine role=decode": lambda: Engine("tiny", 8, role="decode",
+                                                           kv_transfer_port=0),
+        "serving_disagg.run_drill": lambda: run_drill(verbose=False),
         "init_train_state": lambda: init_train_state(cfg, 0),
         "synthetic_batch": lambda: synthetic_batch(cfg, 2, 8),
         "BatchLoader": lambda: BatchLoader(_OneRow(), 1),
@@ -142,6 +151,9 @@ class _OneRow:
 @pytest.mark.parametrize("name", ["resolve_device", "init_params",
                                   "params_from_numpy", "load_packed",
                                   "ServingEngine", "native_server.Engine",
+                                  "ServingEngine role=decode",
+                                  "native_server.Engine role=decode",
+                                  "serving_disagg.run_drill",
                                   "init_train_state", "synthetic_batch",
                                   "BatchLoader", "make_mesh", "fine_tune",
                                   "fine_tune --lora-rank"])

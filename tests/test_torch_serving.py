@@ -1,8 +1,8 @@
 """The PyTorch ServingEngine on the CPU against the JAX ServingEngine
 (tiny, f32, bridged weights): identical temperature-0 token streams
 through chunked prefill, the prefix cache and paged decode; block
-accounting; refusal of unported options and validation of the ported
-ones; the native server in process, with service.yml's flags too."""
+accounting; refusal of the one unported option (a mesh) and validation
+of the ported ones; the native server in process, with service.yml's flags too."""
 
 import json
 import threading
@@ -155,23 +155,11 @@ def test_params_that_require_grad_serve_without_autograd(weights):
     assert out.tolist() == generate(TCFG, tp, prompt, max_new_tokens=4).tolist()
 
 
-@pytest.mark.parametrize("kw", [
-    {"mesh": object()}, {"role": "prefill"}, {"kv_transfer": object()},
-])
+@pytest.mark.parametrize("kw", [{"mesh": object()}])
 def test_unported_options_raise(weights, kw):
     _, tp = weights
     with pytest.raises(NotImplementedError):
         tsrv.ServingEngine(TCFG, tp, device="cpu", **{**ENGINE_KW, **kw})
-
-
-def test_affinity_sketch_is_refused(weights):
-    _, tp = weights
-    te = tsrv.ServingEngine(TCFG, tp, device="cpu", **ENGINE_KW)
-    try:
-        with pytest.raises(NotImplementedError):
-            te.affinity_sketch()
-    finally:
-        te.close()
 
 
 # Pool bytes of ENGINE_KW's pool (tiny f32: 2 layers x 48 blocks x 8 rows
@@ -513,7 +501,10 @@ def test_native_server_runs_service_yml_flags_on_cpu(monkeypatch):
             assert code == 200 and json.loads(text)["usage"]["completion_tokens"] == 6
         assert _post(base, MSG)[0] == 200
         assert tenants == ["besteffort", "paid", "default"]
-        assert _get_error(base + "/v1/affinity")[0] == 501
+        code, text = _http("GET", base + "/v1/affinity")
+        sketch = json.loads(text)
+        assert code == 200 and sketch["block_size"] == 32 and sketch["digests"]
+        assert sketch["digests"] == eng.serving.affinity_sketch()["digests"]
         code, text = _http("GET", base + "/metrics")
         stats = json.loads(text)
         assert code == 200 and stats["spec_rounds_total"] > 0 and stats["admitted_total"] == 3
@@ -542,13 +533,6 @@ def test_native_server_flag_validation(extra, message, capsys):
 
     with pytest.raises(SystemExit, match=message):
         native_server.main(["--preset", "tiny", "--device", "cpu"] + extra)
-
-
-def test_native_server_refuses_qos_rate():
-    from dstack_tpu_torch.native_server import Engine
-
-    with pytest.raises(NotImplementedError, match="qos-rate"):
-        Engine("tiny", 8, device="cpu", qos_rate=1.0)
 
 
 def test_native_server_preset_drafter_is_seeded():
