@@ -159,8 +159,30 @@ Phases (any failure fails the run; nothing is caught to exit 0):
                subprocesses: kv_handoff ack, /v1/handoffs/<id> streaming the
                unified server's tokens by the near-tie rule, the
                role-labelled series.
+  12. RL (Podracer) — (a) smol-1b Anakin, bf16, batch 8, 64-token
+               prompts x 64 new tokens (the target the token the untrained
+               policy samples most in a warm-up round), 3 updates over the
+               socket weight-refresh channel and 1 each over the
+               in-process and checkpoint channels: rollout seconds and env
+               steps/s (the paged kernel), the PPO step's ms (the flash
+               kernels forward and backward), the weights frame's bytes
+               and publish, pull and adopt seconds and GB/s, launches of
+               kernels #1-#4 per update; gates: the adopted engine weights
+               equal the published ones by sha1 per leaf (shown failing a
+               flipped bit), a learner update after a publish leaves the
+               published snapshot and the actor's engine weights unchanged
+               bit for bit (shown failing an engine that shares the
+               learner's tensors), clip_fraction 0 on each update's
+               on-policy batch (shown failing a scorer shifted by one
+               position), refresh_params refusing a busy engine; (b)
+               `run_anakin`'s defaults on the tiny RL policy (f32, hd 32)
+               twice: the last five updates' mean reward above the first
+               five's and above 0.3, and whether the two runs repeat bit
+               for bit; (c) `python -m dstack_tpu_torch.workloads.rl_drill
+               --updates-per-phase 1`: learner and actors as processes on
+               the one card, the reference drill's summary asserts.
 Phase 3b and 3c run after 3, 4b and 4c after 4, 5b after 5, 11 after
-5b, phases 6 to 10b after 11. The line before the
+5b, 12 after 11, phases 6 to 10b after 12. The line before the
 last is the `kernels` JSON; the last line is {"ok": true, "device": {...}}.
 Each phase logs its numbers on the way; details also go to
 chiprun_out/chip_smoke.json.
@@ -3826,6 +3848,535 @@ def run_disagg_http(cfg, params, n_new: int = 16) -> dict:
     return out
 
 
+# -- phase 12: Podracer RL ----------------------------------------------------
+
+RL_PRESET, RL_DEVICE = "smol-1b", "cuda"
+RL_ENV = dict(prompt_len=64, horizon=64)
+RL_BATCH = 8
+RL_UPDATES = {"socket": 3, "direct": 1, "checkpoint": 1}
+# A fine-tuning rate for a 1B policy at which a bf16 Adam step still moves
+# most weights by an ulp or more (run_anakin's 2e-2 is the tiny policy's).
+RL_LR = 1e-4
+RL_CLIP = 0.2
+
+
+def kernel_counts() -> dict:
+    """Launches of kernels #1-#4 so far (the paged kernel and the three
+    single-device flash kernels)."""
+    from dstack_tpu_torch.workloads import paged_attention as pa
+
+    fl = flash_counts()
+    return {"ragged_paged_attention": pa.LAUNCHES["ragged_paged_attention"],
+            **{k: fl[k] for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}}
+
+
+def zero_kernel_counts() -> None:
+    from dstack_tpu_torch.workloads import paged_attention as pa
+
+    pa.LAUNCHES["ragged_paged_attention"] = 0
+    zero_flash_counts()
+
+
+def leaf_digests(named) -> dict:
+    """name -> sha1 of the leaf's bytes (a host copy of each), the leaves
+    hashed on 8 threads (hashlib lets go of the GIL)."""
+    import hashlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(t):
+        raw = t.detach().to("cpu").contiguous().reshape(-1).view(torch.uint8).numpy()
+        return hashlib.sha1(raw).hexdigest()
+
+    named = list(named)
+    with ThreadPoolExecutor(8) as pool:
+        return dict(zip([n for n, _ in named], pool.map(one, [t for _, t in named])))
+
+
+def check_moved(before: dict, after: dict) -> None:
+    """A learner update changed some leaf (else an adoption check of its
+    publish would hold vacuously)."""
+    if before == after:
+        raise AssertionError("the learner update moved no weight")
+
+
+def check_adopted(published: dict, engine: dict) -> None:
+    """The engine's weights after an adoption are the published ones, leaf
+    for leaf by sha1."""
+    bad = sorted(k for k in set(published) | set(engine) if published.get(k) != engine.get(k))
+    if bad:
+        raise AssertionError(f"adopted weights differ from the published ones: {bad[:4]}")
+
+
+def check_unchanged(before: dict, now: dict, what: str) -> None:
+    """Step 0's isolation: `now` holds `before`'s bytes in every leaf (sha1
+    digests of leaf_digests)."""
+    bad = sorted(k for k in before if before[k] != now.get(k))
+    if bad:
+        raise AssertionError(f"{what} changed under a learner update: {bad[:4]}")
+
+
+def policy_clip_fraction(learner, batch) -> float:
+    """The clip_fraction the learner's PPO step reports for `batch` at its
+    current weights: the program's own loss on its own step batch, no step
+    taken."""
+    from dstack_tpu_torch.workloads import rl
+    from dstack_tpu_torch.workloads.attention import make_attention_fn
+
+    step_batch, _ = learner.step_batch([batch])
+    with torch.no_grad():
+        _, (_, _, clipped) = rl.ppo_loss(learner.config, learner.state.params, step_batch,
+                                         make_attention_fn(None), clip_eps=RL_CLIP)
+    return float(clipped)
+
+
+def check_on_policy(clip_frac: float) -> None:
+    """The first batch of an update is scored under the weights the
+    learner steps from: no ratio may clip."""
+    if clip_frac != 0.0:
+        raise AssertionError(f"on-policy clip_fraction {clip_frac}, expected 0")
+
+
+class TimedPoll:
+    """A refresh channel whose polls are timed (seconds of the last one
+    that returned weights), so an actor's adoption splits into pull and
+    adopt."""
+
+    def __init__(self, channel):
+        self.channel, self.pull_s = channel, []
+
+    def poll(self, have_epoch):
+        t0 = time.monotonic()
+        got = self.channel.poll(have_epoch)
+        if got is not None:
+            self.pull_s.append(time.monotonic() - t0)
+        return got
+
+    def close(self):
+        if hasattr(self.channel, "close"):
+            self.channel.close()
+
+
+def frame_bytes(mode: str, publisher, cdir: str) -> int:
+    """Bytes one adoption moved: the socket frame as it left the server,
+    the npz file, or the in-process snapshot's tensors."""
+    if mode == "socket":
+        return publisher.bytes_sent // max(publisher.pulls_served, 1)
+    if mode == "checkpoint":
+        return os.path.getsize(os.path.join(cdir, "weights.npz"))
+    return sum(t.numel() * t.element_size() for t in publisher.poll(0)[1].values())
+
+
+def rl_channel_run(cfg, mode: str, updates: int, cdir: str, isolation: bool,
+                   target=None) -> dict:
+    """Anakin at `cfg`'s width over one refresh channel, instrumented (the
+    env's target is `target`, or without one the token a warm-up round
+    samples most): each update adopts the last publish at the idle boundary
+    (pull and adopt timed; the engine's weights held against the published
+    ones by sha1),
+    rolls out a round through the paged engine (seconds, env steps/s),
+    takes one PPO step through the flash kernels (ms; clip_fraction 0 on
+    this on-policy batch, and the largest |logp - behavior| of the
+    learner's weights through the scorer, a probe whose launches are not
+    counted) and publishes (seconds; the device synchronised on both sides
+    of a publish and an adoption). The first update's batch with its
+    behavior log-probs one position off (an actor's scorer shifted) must
+    fail the on-policy gate through the learner's own loss. With
+    `isolation` (the socket channel), the learner takes a step on the
+    warm-up batch (which holds a reward, so the weights move: a random
+    policy's rounds may hold none), publishes, and the actor adopts; one
+    more learner update must leave the published snapshot (read back over
+    the wire) and the actor's engine weights unchanged bit for bit, while
+    the learner's tensors, which an engine sharing them would hold, fail
+    that; a last publish and adoption bring the moved weights. Gates
+    `refresh_params` on a busy engine first."""
+    import numpy as np
+
+    from dstack_tpu_torch.workloads import rl
+
+    env = rl.TargetTokenEnv(cfg.vocab_size, seed=0, **RL_ENV)
+    publisher, channel, server = rl.make_refresh_channel(mode, cdir)
+    client = TimedPoll(channel)
+    stats = rl.RLStats()
+    learner = rl.Learner(cfg, seed=0, learning_rate=RL_LR, clip_eps=RL_CLIP,
+                         refresh=publisher, stats=stats, device=RL_DEVICE)
+    actor = rl.Actor(cfg, learner.state.params, env, batch_size=RL_BATCH, seed=0,
+                     refresh=client, stats=stats, device=RL_DEVICE)
+    score = rl.make_sequence_scorer(cfg)
+    out = {"mode": mode, "updates": updates, "rollout_s": [], "env_steps_per_s": [],
+           "learn_step_ms": [], "publish_s": [], "adopt_s": [], "clip_fraction": [],
+           "max_logp_gap": [], "reward_mean": [], "loss": []}
+    probe = dict.fromkeys(kernel_counts(), 0)
+    published = None
+
+    def sync():
+        if RL_DEVICE == "cuda":
+            torch.cuda.synchronize()
+
+    def publish() -> dict:
+        sync()
+        t0 = time.monotonic()
+        learner.publish()
+        sync()
+        out["publish_s"].append(time.monotonic() - t0)
+        return leaf_digests(rl.named_params(learner.state.params))
+
+    def adopt() -> dict:
+        sync()
+        t0 = time.monotonic()
+        if not actor.maybe_refresh():
+            raise AssertionError(f"{mode}: the actor adopted no new epoch")
+        sync()
+        out["adopt_s"].append(time.monotonic() - t0 - client.pull_s[-1])
+        digests = leaf_digests(rl.named_params(actor.engine.params))
+        check_adopted(published, digests)
+        return digests
+
+    try:
+        # A warm-up round (uncounted) settles the engine's allocations and
+        # picks the target: the token the untrained policy samples most.
+        # Target 7 of 32768 would be drawn about once in 60 updates, every
+        # advantage would be 0 and no step would move a weight.
+        if target is None:
+            warm = actor.rollout()
+            drawn = torch.from_numpy(warm.actions).flatten().long()
+            target = int(torch.bincount(drawn, minlength=cfg.vocab_size).argmax())
+            out["target_share"] = float((drawn == target).float().mean())
+            # Its batch, rewarded for that target, holds at least one reward:
+            # the isolation check's extra update always moves the weights.
+            env.target = target
+            warm = warm._replace(rewards=env.token_rewards(warm.actions) * warm.mask)
+        env.target = out["target"] = target
+        if mode == "socket":
+            actor.engine.hold_admission()
+            q = actor.engine.submit([1, 2, 3], 2)
+            try:
+                actor.engine.refresh_params(learner.state.params)
+                raise AssertionError("refresh_params swapped a busy engine's weights")
+            except RuntimeError as e:
+                out["busy_refusal"] = str(e)[:120]
+            actor.engine.release_admission()
+            drain(q)
+        zero_kernel_counts()
+        for u in range(updates):
+            if u:
+                adopt()
+            t0 = time.monotonic()
+            batch = actor.rollout()
+            dt = time.monotonic() - t0
+            out["rollout_s"].append(dt)
+            out["env_steps_per_s"].append(batch.env_steps / dt)
+            before = kernel_counts()
+            tokens = torch.from_numpy(batch.tokens).to(learner.device)
+            logp = score(learner.state.params, tokens, 1.0)[:, env.prompt_len - 1:]
+            behavior = torch.from_numpy(batch.behavior_logprob).to(learner.device)
+            out["max_logp_gap"].append(float((logp - behavior).abs().max()))
+            if u == 0:
+                # An actor whose scorer is one position off.
+                shifted = batch._replace(behavior_logprob=np.roll(batch.behavior_logprob, 1, 1))
+                out["shifted_scorer_clip_fraction"] = policy_clip_fraction(learner, shifted)
+                out["on_policy_fault"] = must_fail(
+                    check_on_policy, out["shifted_scorer_clip_fraction"])
+            for k, v in kernel_counts().items():
+                probe[k] += v - before[k]
+            m = learner.update_from([batch])
+            out["learn_step_ms"].append(m["step_seconds"] * 1e3)
+            out["clip_fraction"].append(m["clip_fraction"])
+            out["reward_mean"].append(m["reward_mean"])
+            out["loss"].append(m["loss"])
+            check_on_policy(m["clip_fraction"])
+            published = publish()
+        total = kernel_counts()
+        out["launches"] = {k: total[k] - probe[k] for k in total}
+        out["launches_per_update"] = {k: v / updates for k, v in out["launches"].items()}
+        if isolation:
+            learner.update_from([warm])
+            moved, previous = publish(), published
+            check_moved(previous, moved)
+            out["moved_fault"] = must_fail(check_moved, moved, moved)
+            published = moved
+            # The actor adopts the learner's current weights; an engine that
+            # shared the learner's tensors would hold them too (live views),
+            # and up to here the two agree.
+            adopted = adopt()
+            aliased = rl.named_params(learner.state.params)
+            check_adopted(published, leaf_digests(aliased))
+            learner.update_from([warm])
+            reader = rl.WeightRefreshClient("127.0.0.1", server.port)
+            try:
+                _, snapshot = reader.poll(0)
+            finally:
+                reader.close()
+            check_adopted(published, leaf_digests(snapshot.items()))
+            check_unchanged(adopted, leaf_digests(rl.named_params(actor.engine.params)),
+                            "the actor's engine weights")
+            out["isolation_fault"] = must_fail(check_unchanged, adopted, leaf_digests(aliased),
+                                               "an engine sharing the learner's tensors")
+            del aliased, snapshot
+            published = publish()
+        engine_digests = adopt()
+        leaf = next(iter(engine_digests))
+        bad = dict(rl.named_params(actor.engine.params))[leaf].clone()
+        bad.view(torch.uint8).view(-1)[0] ^= 1
+        out["weights_fault"] = must_fail(
+            check_adopted, published, {**engine_digests, **leaf_digests([(leaf, bad)])})
+        out["pull_s"] = client.pull_s
+        out["frame_bytes"] = frame_bytes(mode, publisher, cdir)
+        # The in-process poll hands over the snapshot itself: no bytes move.
+        out["pull_gb_per_s"] = (None if mode == "direct" else
+                                [out["frame_bytes"] / s / 1e9 for s in client.pull_s])
+        out["adopt_gb_per_s"] = [out["frame_bytes"] / s / 1e9 for s in out["adopt_s"]]
+        out["publish_gb_per_s"] = [out["frame_bytes"] / s / 1e9 for s in out["publish_s"]]
+        out["adoptions"] = len(client.pull_s)
+    finally:
+        actor.close()
+        if server is not None:
+            server.close()
+    del learner, actor
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_rl_anakin() -> dict:
+    """Phase 12(a): smol-1b Anakin on the socket channel (RL_UPDATES), then
+    one update each on the in-process and checkpoint channels; the
+    launches of kernels #1-#4 on the socket run, which each must reach."""
+    import tempfile
+
+    from dstack_tpu_torch.workloads.config import PRESETS
+
+    cfg = PRESETS[RL_PRESET]
+    runs = {}
+    with tempfile.TemporaryDirectory() as cdir:
+        for mode, n in RL_UPDATES.items():
+            t0 = time.monotonic()
+            # The socket run picks the target; the others take it, as their
+            # untrained policy (the same seed) would pick it too.
+            runs[mode] = rl_channel_run(cfg, mode, n, cdir, isolation=mode == "socket",
+                                        target=runs.get("socket", {}).get("target"))
+            runs[mode]["seconds"] = time.monotonic() - t0
+            log(f"rl anakin ({mode})", json.dumps(runs[mode]))
+    launches = runs["socket"]["launches"]
+    if RL_DEVICE == "cuda" and not all(launches.values()):
+        raise AssertionError(f"a kernel of the RL path never launched: {launches}")
+    return {"preset": RL_PRESET, "batch": RL_BATCH, **RL_ENV, "runs": runs,
+            "launches": launches}
+
+
+# The RL path's attention shapes (policy, batch, prompt, horizon): the
+# scorer and the PPO forward run T - 1 = 127 positions at smol-1b (bf16, hd
+# 128) and 19 on the tiny policy (f32, hd 32), causal with a ragged last tile.
+RL_MODEL_CASES = (("smol-1b", RL_BATCH, RL_ENV["prompt_len"], RL_ENV["horizon"]),
+                  ("tiny-rl", 16, 4, 16))
+# max |logp kernels - logp plain| over the scorer's positions, about 10x
+# the f32 reading and 2x plain bf16's own gap to an f32 model (0.046) on
+# the H100.
+RL_LOGP_TOL = {torch.float32: 1e-5, torch.bfloat16: 0.1}
+BWD_ROWS = 64  # rows of a backward kernel's tile
+
+
+def rl_model_batch(cfg, B: int, prompt_len: int, horizon: int, seed: int, dev) -> dict:
+    """A PPO step batch at the RL path's shapes, from `seed`: random tokens,
+    episodes that end between horizon/2 and horizon (the mask), advantages
+    of mean 0.5 (so the loss is away from 0); behavior_logprob is left to
+    the caller."""
+    g = torch.Generator().manual_seed(seed)
+    tokens = torch.randint(1, cfg.vocab_size, (B, prompt_len + horizon), generator=g)
+    ends = torch.randint(horizon // 2, horizon + 1, (B, 1), generator=g)
+    mask = (torch.arange(horizon)[None] < ends).float()
+    adv = (torch.randn(B, horizon, generator=g) + 0.5) * mask
+    return {"tokens": tokens.to(dev), "mask": mask.to(dev), "advantage": adv.to(dev),
+            "temperature": 1.0}
+
+
+def rl_model_readings(cfg, params, batch, attn) -> dict:
+    """The RL path's two uses of attention on one batch with `attn`: the
+    scorer's log-probs (no grad) and the PPO loss with its grads."""
+    from dstack_tpu_torch.workloads import rl
+    from dstack_tpu_torch.workloads.weights import flatten_params
+
+    pairs = flatten_params(params)
+    with torch.no_grad():
+        logp = rl.token_logprobs(cfg, params, batch["tokens"], 1.0, attn)[1]
+    loss, (_, _, clipped) = rl.ppo_loss(cfg, params, batch, attn, clip_eps=RL_CLIP)
+    grads = torch.autograd.grad(loss, [t for _, t in pairs])
+    return {"logp": logp, "loss": float(loss.detach()), "clip_fraction": float(clipped),
+            "grads": {k: g for (k, _), g in zip(pairs, grads)}}
+
+
+def rl_model_gaps(got: dict, ref: dict) -> dict:
+    """Readings of the kernels' readings against plain attention's: the
+    scorer's max |delta logp|, the loss's relative gap and the worst leaf's
+    grad relative gap."""
+    grad_rel = {k: float((g.float() - ref["grads"][k].float()).norm()
+                         / ref["grads"][k].float().norm()) for k, g in got["grads"].items()}
+    worst = max(grad_rel, key=grad_rel.get)
+    return dict(logp_max_abs=float((got["logp"] - ref["logp"]).abs().max()),
+                loss=got["loss"], loss_ref=ref["loss"],
+                loss_rel=abs(got["loss"] - ref["loss"]) / abs(ref["loss"]),
+                clip_fraction=got["clip_fraction"], clip_fraction_ref=ref["clip_fraction"],
+                worst_grad_rel=grad_rel[worst], worst_leaf=worst)
+
+
+def check_rl_model(gaps: dict, dtype) -> None:
+    """The scorer's log-probs within RL_LOGP_TOL (max abs), the loss and
+    every leaf's grad within MODEL_TOL (relative), as phase 6b holds the
+    training loss."""
+    tol_loss, tol_grad = MODEL_TOL[dtype]
+    if not (gaps["logp_max_abs"] <= RL_LOGP_TOL[dtype] and gaps["loss_rel"] <= tol_loss
+            and gaps["worst_grad_rel"] <= tol_grad):
+        raise AssertionError(f"the RL path's kernels disagree with plain attention: {gaps}")
+
+
+def rl_attention_mutants(attn) -> dict:
+    """Faults the RL path's shapes could hide, each built on `attn`: the
+    causal mask one key late (row i sees key i + 1); the ragged last row
+    not stored; the backward's ragged last tile of dQ rows not stored (the
+    forward right)."""
+    from dstack_tpu_torch.workloads.attention import plain_attention
+
+    def mask_one_late(q, k, v):
+        # Against Sq + 1 keys, the plain causal mask lets row i see key i + 1.
+        return plain_attention(q, torch.cat([k, k[:, -1:]], 1), torch.cat([v, v[:, -1:]], 1))
+
+    def last_row_lost(q, k, v):
+        o = attn(q, k, v)
+        return torch.cat([o[:, :-1], torch.zeros_like(o[:, -1:])], 1)
+
+    def tail_dq_lost(q, k, v):
+        tail = (q.shape[1] - 1) // BWD_ROWS * BWD_ROWS
+        keep = (torch.arange(q.shape[1], device=q.device) < tail).to(q.dtype)[None, :, None, None]
+        return attn(q * keep + (q * (1 - keep)).detach(), k, v)
+
+    return {"mask_one_late": mask_one_late, "last_row_lost": last_row_lost,
+            "tail_dq_lost": tail_dq_lost}
+
+
+def run_rl_model_checks() -> dict:
+    """Phase 12's kernel gate at the RL path's own shapes (RL_MODEL_CASES, 2
+    layers at smol-1b's width): the scorer's log-probs and the PPO loss and
+    grads through make_attention_fn(None) (the flash kernels #2-#4) against
+    plain_attention, on an on-policy batch (behavior = plain's log-probs,
+    as an update's batch is); each of rl_attention_mutants must fail the
+    gate. A bf16 case also reads both against an f32 model (plain
+    attention, the params upcast), which says which of the two is nearer."""
+    from dstack_tpu_torch.workloads import rl
+    from dstack_tpu_torch.workloads.attention import make_attention_fn, plain_attention
+    from dstack_tpu_torch.workloads.config import PRESETS
+    from dstack_tpu_torch.workloads.transformer import init_params
+    from dstack_tpu_torch.workloads.weights import flatten_params, unflatten_params
+
+    out = {}
+    for policy, B, prompt_len, horizon in RL_MODEL_CASES:
+        cfg = (rl.tiny_rl_config() if policy == "tiny-rl"
+               else PRESETS[policy].with_(n_layers=2))
+        dtype = getattr(torch, cfg.dtype)
+        params = init_params(cfg, 1, RL_DEVICE)
+        for _, p in flatten_params(params):
+            p.requires_grad_(True)
+        batch = rl_model_batch(cfg, B, prompt_len, horizon, 1, RL_DEVICE)
+        with torch.no_grad():
+            logp = rl.token_logprobs(cfg, params, batch["tokens"], 1.0, plain_attention)[1]
+        batch["behavior_logprob"] = logp[:, prompt_len - 1:]
+        kern = make_attention_fn(None)
+        zero_flash_counts()
+        got = rl_model_readings(cfg, params, batch, kern)
+        launched = flash_counts()
+        ref = rl_model_readings(cfg, params, batch, plain_attention)
+        if RL_DEVICE == "cuda" and not all(
+                launched[k] for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")):
+            raise AssertionError(f"12: the RL model check ran no flash kernels: {launched}")
+        case = rl_model_gaps(got, ref)
+        check_rl_model(case, dtype)
+        case["mutants"] = {}
+        for name, fn in rl_attention_mutants(kern).items():
+            gaps = rl_model_gaps(rl_model_readings(cfg, params, batch, fn), ref)
+            case["mutants"][name] = {**gaps, "fails": must_fail(check_rl_model, gaps, dtype)}
+        if dtype != torch.float32:
+            p32 = unflatten_params((k, t.detach().float().requires_grad_(True))
+                                   for k, t in flatten_params(params))
+            ref32 = rl_model_readings(cfg.with_(dtype="float32"), p32, batch, plain_attention)
+            case["vs_f32"] = {name: rl_model_gaps(r, ref32)
+                              for name, r in (("kernels", got), ("plain", ref))}
+            del p32, ref32
+        case.update(dtype=cfg.dtype, batch=B, seq=prompt_len + horizon - 1,
+                    head_dim=cfg.head_dim)
+        out[policy] = case
+        log(f"rl model check ({policy})", json.dumps(case))
+        del params, batch, got, ref
+        if RL_DEVICE == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+RL_LEARN_GATE = 0.3
+
+
+def learning_gate(rewards) -> dict:
+    """12(b): the mean reward of the last five updates beats the first
+    five's and exceeds RL_LEARN_GATE."""
+    head, tail = sum(rewards[:5]) / 5, sum(rewards[-5:]) / 5
+    if not (tail > head and tail > RL_LEARN_GATE):
+        raise AssertionError(f"no learning: first five {head:.3f}, last five {tail:.3f}")
+    return {"head": head, "tail": tail}
+
+
+def first_difference(a: list, b: list):
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+
+def run_rl_learning() -> dict:
+    """Phase 12(b): `run_anakin`'s defaults on the tiny RL policy (f32, hd
+    32: the kernels at hd 32), twice: the learning gate, and whether the
+    two runs' rewards and losses repeat bit for bit (if not, the first
+    update where each differs)."""
+    from dstack_tpu_torch.workloads import rl
+
+    t0 = time.monotonic()
+    a = rl.run_anakin(rl.tiny_rl_config(), device=RL_DEVICE)
+    b = rl.run_anakin(rl.tiny_rl_config(), device=RL_DEVICE)
+    out = {"seconds": time.monotonic() - t0, "rewards": a["rewards"], "losses": a["losses"],
+           "gate": learning_gate(a["rewards"]),
+           "bit_exact": a["rewards"] == b["rewards"] and a["losses"] == b["losses"],
+           "first_reward_difference": first_difference(a["rewards"], b["rewards"]),
+           "first_loss_difference": first_difference(a["losses"], b["losses"]),
+           "learn_step_ms_mean": a["learn_step_s_mean"] * 1e3,
+           "env_steps_per_s": a["env_steps_per_s"], "refresh_s_mean": a["refresh_s_mean"],
+           "clip_fraction_first": a["metrics"][0]["clip_fraction"]}
+    log("rl learning (12b)", json.dumps(out))
+    return out
+
+
+def check_rl_drill(summary: dict) -> None:
+    """tests/test_rl.py's drill asserts."""
+    survivors = [k for k, v in summary["actor_final_epochs"].items()
+                 if v == summary["final_weight_epoch"]]
+    if not (summary["ok"] and summary["learner_restarts"] == 0
+            and summary["gang_resizes"] == 2 and summary["preemptions"] == 1
+            and len(survivors) >= 2):
+        raise AssertionError(f"the RL drill's summary: {summary}")
+
+
+def run_rl_drill(timeout: int = 600) -> dict:
+    """Phase 12(c): `python -m dstack_tpu_torch.workloads.rl_drill
+    --updates-per-phase 1`, the learner and its actors as separate
+    processes on the one card, tiny RL policy."""
+    argv = [sys.executable, "-m", "dstack_tpu_torch.workloads.rl_drill",
+            "--updates-per-phase", "1", "--device", RL_DEVICE]
+    t0 = time.monotonic()
+    r = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True, timeout=timeout)
+    seconds = time.monotonic() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"the RL drill exited {r.returncode}: "
+                             f"{r.stdout[-2000:]} {r.stderr[-2000:]}")
+    summary = json.loads(r.stdout[r.stdout.index("{"):])
+    check_rl_drill(summary)
+    out = {"seconds": seconds, **summary}
+    log("rl drill (12c)", json.dumps(out))
+    return out
+
+
 PAGED_TIMES = ("ms", "ms_one_launch", "plain_ms", "bound_ms", "bound_by", "library_ms",
                "library_ms_one_launch", "tflops", "bound_share", "other_plan",
                "host_us_per_call")
@@ -3951,6 +4502,16 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
 
+    # 12. Podracer RL: smol-1b Anakin over the three refresh channels,
+    # learning on the tiny policy, the Sebulba drill in processes
+    t0 = time.monotonic()
+    rl_checks = run_rl_model_checks()
+    rl = run_rl_anakin()
+    rl["model_checks"] = rl_checks
+    rl["learning"] = run_rl_learning()
+    rl["drill"] = run_rl_drill()
+    log(f"phase 12: {time.monotonic() - t0:.1f}s")
+
     # 6. train: smol-1b, full depth, B 8 x S 2048
     t0 = time.monotonic()
     train = run_train("smol-1b", 8, 2048)
@@ -4015,6 +4576,7 @@ def main() -> int:
         "lora_spec": lora_serving["spec"]["kernel_launches"],
         "disagg": disagg["launches"],
         "disagg_by_tier": disagg["launches_by_tier"],
+        "rl": rl["launches"]["ragged_paged_attention"],
     }
     # `ms` (and so `tflops` and `bound_share`) times launches back to back
     # (`cuda_ms`); `ms_one_launch` one launch from the host's call on an
@@ -4030,7 +4592,8 @@ def main() -> int:
             "replaces": replaces,
             "launches": run["launches"][kern],
             **({"launches_by_path": {"train": train["launches"][kern],
-                                     "lora_train": lora_train["launches"][kern]}}
+                                     "lora_train": lora_train["launches"][kern],
+                                     "rl": rl["launches"][kern]}}
                if kern != "flash_block_fwd" else {}),
             "max_abs_err": main_f["max_abs_err"],
             "ms": main_f["ms"],
@@ -4052,7 +4615,7 @@ def main() -> int:
                    "qos": qos, "service": service, "disagg": disagg, "flash": fres, "train": train,
                    "model_check": model, "ring_train": ring, "ring_model_check": ring_model,
                    "checkpoint": checkpoint, "drain": drain, "lora_serving": lora_serving,
-                   "lora_train": lora_train, "lora_checks": lora_checks,
+                   "lora_train": lora_train, "lora_checks": lora_checks, "rl": rl,
                    "build_s": _build.build_seconds}, f, indent=1)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {

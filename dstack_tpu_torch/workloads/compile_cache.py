@@ -95,6 +95,18 @@ def enable_from_env() -> Optional[str]:
     return enable(base)
 
 
+def prebuild(device) -> None:
+    """On a CUDA device, build (or find) the kernel library once before
+    spawning worker processes on it, so workers that start together load
+    it instead of each building it. A no-op elsewhere."""
+    import torch
+
+    if torch.device(device).type != "cuda":
+        return
+    enable_from_env()
+    _build.load_library()
+
+
 def enabled_dir() -> Optional[str]:
     """The active keyed leaf, or None when none was enabled."""
     with _lock:

@@ -341,6 +341,21 @@ class BlockAllocator:
         self._block_key[b] = key
         self._ref[b] += 1
 
+    def drop_cache(self) -> int:
+        """Forget every cached prefix entry (the cached KV became invalid
+        wholesale — e.g. a weight refresh: old-policy keys/values must
+        never graft under new params). Cache-only holds return to the
+        free list; table-held blocks just lose their cache entry and
+        free when the table retires. Nothing is spilled — KV that no
+        longer matches the model is not worth host RAM either. Returns
+        the number of entries dropped."""
+        n = len(self._cache)
+        for b in self._cache.values():
+            del self._block_key[b]
+            self.release(b)
+        self._cache.clear()
+        return n
+
     # Affinity-sketch digest width: 16 hex chars (64 bits) of the sha1
     # chain hash, as the reference and the fleet router cut them.
     DIGEST_HEX = 16

@@ -159,17 +159,22 @@ def _raw(t: torch.Tensor) -> memoryview:
     return memoryview(flat.view(torch.uint8).numpy())
 
 
+def array_manifest(named: List[Tuple[str, torch.Tensor]]) -> List[Dict[str, Any]]:
+    """The manifest (name / shape / dtype, in order) of named tensors,
+    without touching their bytes."""
+    return [
+        {"name": name, "shape": list(a.shape), "dtype": dtype_name(a.dtype)}
+        for name, a in named
+    ]
+
+
 def pack_arrays(
     named: List[Tuple[str, torch.Tensor]],
 ) -> Tuple[List[Dict[str, Any]], Tuple[bytes, ...]]:
     """Tensors -> (manifest, raw buffers) in manifest order. The inverse
     of `unpack_arrays`; `send_msg` puts the same bytes on the wire."""
-    manifest = [
-        {"name": name, "shape": list(a.shape), "dtype": dtype_name(a.dtype)}
-        for name, a in named
-    ]
     buffers = tuple(_raw(a).tobytes() for _, a in named)
-    return manifest, buffers
+    return array_manifest(named), buffers
 
 
 def _from_bytes(raw, dtype: torch.dtype, shape: Tuple[int, ...]) -> torch.Tensor:
@@ -212,13 +217,16 @@ def _read_exact(sock: socket.socket, n: int,
     return buf
 
 
+def encode_msg(header: Dict[str, Any], payloads: Tuple[torch.Tensor, ...] = ()) -> bytes:
+    """One framed message, as `send_msg` writes it."""
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    return b"".join([_LEN.pack(len(raw)), raw] + [_raw(a) for a in payloads])
+
+
 def send_msg(sock: socket.socket, header: Dict[str, Any],
              payloads: Tuple[torch.Tensor, ...] = ()) -> int:
     """Write one framed message; returns bytes put on the wire."""
-    raw = json.dumps(header, separators=(",", ":")).encode()
-    parts = [_LEN.pack(len(raw)), raw]
-    parts += [_raw(a) for a in payloads]
-    blob = b"".join(parts)
+    blob = encode_msg(header, payloads)
     sock.sendall(blob)
     return len(blob)
 
@@ -257,10 +265,7 @@ def pack_handoff(h: KVHandoff) -> Tuple[Dict[str, Any], Tuple[torch.Tensor, ...]
     named: List[Tuple[str, torch.Tensor]] = [("k", h.k), ("v", h.v)]
     if h.draft_k is not None:
         named += [("draft_k", h.draft_k), ("draft_v", h.draft_v)]
-    manifest = [
-        {"name": name, "shape": list(a.shape), "dtype": dtype_name(a.dtype)}
-        for name, a in named
-    ]
+    manifest = array_manifest(named)
     header = {
         "kind": "handoff",
         "request_id": h.request_id,

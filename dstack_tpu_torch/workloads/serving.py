@@ -98,6 +98,7 @@ from dstack_tpu_torch.workloads.paged_attention import (
 )
 from dstack_tpu_torch.workloads.quant import quantize_params
 from dstack_tpu_torch.workloads.transformer import (
+    copy_params,
     detach_params,
     layer_params,
     linear,
@@ -107,6 +108,7 @@ from dstack_tpu_torch.workloads.transformer import (
     project_qkv,
     rms_norm,
 )
+from dstack_tpu_torch.workloads.weights import flatten_params
 
 Params = Dict[str, Any]
 ATTN_PATHS = ("cuda", "plain")
@@ -493,9 +495,12 @@ class ServingEngine:
                 f" {self.device}"
             )
         self.config = config
-        # Detached views (no copy): params straight from a train state carry
-        # requires_grad, and serving must build no autograd graph.
-        self.params = detach_params(params)
+        # The engine's own copy, cut from autograd: params straight from a
+        # train state carry requires_grad, and the port's optimizer updates
+        # them in place, so a view would let a learner step rewrite the
+        # weights under a live request. refresh_params copies into these
+        # tensors; their addresses never change.
+        self.params = copy_params(params)
         self.slots = slots
         self.max_len = max_len or config.max_seq_len
         self.role = role
@@ -781,6 +786,84 @@ class ServingEngine:
             self._ttft_cold_hist.observe(dt)
             self._cold_over = True
 
+    def _busy(self) -> bool:
+        """Whether anything is in flight or queued (caller holds _lock):
+        a live slot, a prefill task, an admission, a parked or swapped
+        slot, a handoff awaiting admission, or a pending submit."""
+        return bool(any(r is not None for r in self._live) or self._tasks
+                    or self._admitting or self._pending_activation
+                    or self._swapped or self._next_req is not None
+                    or self._prefilled_pending or not self._pending.empty())
+
+    def hold_admission(self) -> None:
+        """Gate new-request admission (in-flight work continues).
+
+        A gang-synchronous caller (the RL actor, workloads/rl.py) wraps
+        each rollout round's submits in hold/release so the whole round
+        enters prefill as ONE admission wave. Without the gate the loop
+        thread races the submitting thread: a round may split across
+        admission waves, which changes how many prefill/decode chunks —
+        and therefore how many sampler draws — the round consumes, the
+        difference between a bit-reproducible seeded rollout and not.
+        submit() keeps enqueueing normally while held."""
+        self._hold_admission = True
+
+    def release_admission(self) -> None:
+        self._hold_admission = False
+        self._wake.set()
+
+    def refresh_params(self, params: Params) -> int:
+        """Adopt fresh parameter values (RL weight refresh), copied into
+        the engine's own tensors under no_grad: their addresses stay
+        fixed, and the caller's tensors are never aliased.
+
+        Legal only at an idle boundary: a live slot's KV (and any
+        finalized prefill's first token) was computed under the old
+        weights, so decoding its continuation under new ones yields a
+        sequence that belongs to NEITHER policy — the RL actor's
+        post-hoc behavior-logprob scorer would silently mis-score it.
+        Raises RuntimeError while anything is in flight; callers drain
+        first (the RL actor refreshes between rollout rounds, where the
+        engine is idle by construction).
+
+        The prefix cache is dropped on both tiers — device entries and
+        host-RAM spills — because cached KV embeds the old weights and
+        a post-swap prefix hit would graft stale keys/values under the
+        new policy. LoRA engines refuse: the AdapterRegistry holds
+        base-param references fixed at load time. A speculating engine's
+        default int8 drafter stays on the weights it was quantized from
+        at init, as the reference's does. Returns the number of cache
+        entries dropped."""
+        if self._lora is not None:
+            raise RuntimeError(
+                "refresh_params on a LoRA engine would orphan the"
+                " adapter registry's base-param bindings; rebuild the"
+                " engine instead"
+            )
+        new, old = flatten_params(params), flatten_params(self.params)
+        if [k for k, _ in new] != [k for k, _ in old] or any(
+                a.shape != b.shape or a.dtype != b.dtype
+                for (_, a), (_, b) in zip(new, old)):
+            raise ValueError(
+                "refreshed params do not match the engine's parameter"
+                " tree (structure / leaf shapes / dtypes must be equal)"
+            )
+        with self._lock:
+            if self._busy():
+                raise RuntimeError(
+                    "refresh_params requires an idle engine: drain"
+                    " in-flight requests first (a mid-request swap"
+                    " would decode a continuation no single policy"
+                    " generated)"
+                )
+            with torch.no_grad():
+                for (_, dst), (_, src) in zip(old, new):
+                    dst.copy_(src)
+            dropped = self._alloc.drop_cache()
+            if self._host_tier is not None:
+                dropped += self._host_tier.clear()
+        return dropped
+
     def warmup(self) -> Dict[str, Any]:
         """Build the kernel and run every program the scheduler can
         dispatch once — the decode step, every chunk bucket, and with
@@ -804,11 +887,7 @@ class ServingEngine:
         with self._lock:
             if self._failed is not None:
                 raise RuntimeError("engine already failed") from self._failed
-            busy = (any(r is not None for r in self._live) or self._tasks
-                    or self._admitting or self._pending_activation
-                    or self._swapped or self._next_req is not None
-                    or self._prefilled_pending or not self._pending.empty())
-            if busy:
+            if self._busy():
                 raise RuntimeError(
                     "warmup requires an idle engine: call it before serving"
                     " traffic (readiness gating) or after a drain"

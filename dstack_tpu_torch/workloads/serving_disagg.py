@@ -51,6 +51,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from dstack_tpu_torch.workloads import compile_cache
 from dstack_tpu_torch.workloads.kv_transfer import recv_msg, send_msg
 
 _REPO_ROOT = str(Path(__file__).resolve().parents[2])
@@ -223,6 +224,11 @@ def run_decode_worker(args) -> None:
 
 
 def run_prefill_worker(args) -> None:
+    if args.nice:
+        # The isolation mechanism on a shared host: the prefill worker runs
+        # CPU-deprioritised, so a prefill flood cannot take the cycles of a
+        # co-located decode worker's loop.
+        os.nice(args.nice)
     from dstack_tpu_torch.workloads.kv_transfer import TransferClient
 
     client = TransferClient("127.0.0.1", args.connect_port,
@@ -318,7 +324,7 @@ class WorkerProc:
                  prefill_chunk_tokens: int = 128, kv_block_size: int = 16,
                  transfer_port: Optional[int] = None,
                  connect_port: Optional[int] = None,
-                 retry_stale: bool = True, seed: int = 0):
+                 nice: int = 0, retry_stale: bool = True, seed: int = 0):
         self.role = role
         self.control_port = _free_port()
         self.transfer_port = transfer_port
@@ -341,6 +347,8 @@ class WorkerProc:
             argv += ["--transfer-port", str(transfer_port)]
         else:
             argv += ["--connect-port", str(connect_port)]
+            if nice:
+                argv += ["--nice", str(nice)]
             if not retry_stale:
                 argv.append("--no-retry-stale")
         env = dict(os.environ)
@@ -513,17 +521,6 @@ def near_tie(config, params, prompt, ref, got, tol) -> Dict[str, Any]:
     return dict(diverged=True, at=at, gap=gap, worst=worst, ok=gap <= tol and worst <= tol)
 
 
-def _prepare_device(device: str) -> None:
-    """On CUDA, build the kernel library once into the kernel cache, so
-    two workers that start together find it instead of both building."""
-    if torch.device(device).type != "cuda":
-        return
-    from dstack_tpu_torch.workloads import _build, compile_cache
-
-    compile_cache.enable_from_env()
-    _build.load_library()
-
-
 def run_drill(device: Optional[str] = None, mesh_model: int = 1, spec: bool = False,
               preset: str = "tiny", verbose: bool = True) -> Dict[str, Any]:
     """Returns a report dict; raises AssertionError on any failed check."""
@@ -554,7 +551,7 @@ def run_drill(device: Optional[str] = None, mesh_model: int = 1, spec: bool = Fa
         preset=preset, seed=0, mesh_model=1, slots=4,
         max_len=max_len, steps_per_sync=4, prefill_chunk_tokens=128,
         kv_block_size=16, spec=spec, device=device)
-    _prepare_device(device)
+    compile_cache.prebuild(device)
 
     log(f"reference: unified engine in the parent (device={device}, spec={spec})")
     ref_engine, params = _build_engine(args, role="unified")
@@ -731,6 +728,9 @@ def main(argv: Optional[list] = None) -> None:
                         help="decode worker: port the transfer server binds")
     parser.add_argument("--connect-port", type=int, default=0,
                         help="prefill worker: decode transfer port to dial")
+    parser.add_argument("--nice", type=int, default=0,
+                        help="prefill worker: CPU-deprioritise by this"
+                             " niceness (the bench's isolation mechanism)")
     parser.add_argument("--no-retry-stale", action="store_true",
                         help="prefill worker: fail handoffs on stale-epoch"
                              " rejects instead of refreshing and retrying")

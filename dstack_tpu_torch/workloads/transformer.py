@@ -100,6 +100,17 @@ def detach_params(tree: Any) -> Any:
     return tree.detach()
 
 
+def copy_params(tree: Any) -> Any:
+    """Detached copies of the params (a QTensor's fields too), on their
+    device: a serving engine owns the tensors it serves, so a trainer that
+    updates its params in place never rewrites them under a request."""
+    if isinstance(tree, dict):
+        return {k: copy_params(v) for k, v in tree.items()}
+    if isinstance(tree, QTensor):
+        return QTensor(tree.q.detach().clone(), tree.scale.detach().clone())
+    return tree.detach().clone()
+
+
 def params_device(params: Params) -> torch.device:
     return params["embed"].device
 

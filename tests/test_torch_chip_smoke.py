@@ -682,3 +682,141 @@ def test_zero_residue_gate_fails_a_leaked_block():
         eng._alloc.release(leaked)
     finally:
         eng.close()
+
+
+# -- phase 12: Podracer RL ----------------------------------------------------------
+
+
+def _tiny_rl_params(seed=0):
+    from dstack_tpu_torch.workloads.rl import tiny_rl_config
+    from dstack_tpu_torch.workloads.transformer import init_params
+
+    return init_params(tiny_rl_config(), seed, "cpu")
+
+
+def test_adoption_gate_holds_sha1_per_leaf_and_fails_a_flipped_bit():
+    from dstack_tpu_torch.workloads.rl import named_params
+
+    named = named_params(_tiny_rl_params())
+    published = cs.leaf_digests(named)
+    cs.check_adopted(published, cs.leaf_digests(named))
+    bad = named[0][1].clone()
+    bad.view(torch.uint8).view(-1)[5] ^= 1
+    with pytest.raises(AssertionError, match="differ"):
+        cs.check_adopted(published, {**published, **cs.leaf_digests([(named[0][0], bad)])})
+    with pytest.raises(AssertionError, match="differ"):
+        cs.check_adopted(published, dict(list(published.items())[1:]))
+
+
+def test_moved_gate_fails_an_update_that_moves_nothing():
+    cs.check_moved({"a": "1", "b": "2"}, {"a": "1", "b": "3"})
+    with pytest.raises(AssertionError, match="moved no weight"):
+        cs.check_moved({"a": "1"}, {"a": "1"})
+
+
+def test_isolation_gate_compares_bits():
+    a = {"x": torch.tensor([0.0, 1.0]), "y": torch.ones(3, dtype=torch.bfloat16)}
+    before = cs.leaf_digests(a.items())
+    cs.check_unchanged(before, cs.leaf_digests((k, v.clone()) for k, v in a.items()), "w")
+    with pytest.raises(AssertionError, match="w changed"):  # == but not bits
+        cs.check_unchanged(before, cs.leaf_digests({**a, "x": torch.tensor([-0.0, 1.0])}.items()),
+                           "w")
+
+
+def test_clip_fraction_is_the_ppo_steps_and_the_on_policy_gate_fails_a_shift():
+    import numpy as np
+
+    from dstack_tpu_torch.workloads import rl
+
+    cfg = rl.tiny_rl_config()
+    learner = rl.Learner(cfg, clip_eps=cs.RL_CLIP, device="cpu")
+    tokens = torch.randint(1, 64, (3, 12), generator=torch.Generator().manual_seed(0))
+    logp = rl.make_sequence_scorer(cfg)(learner.state.params, tokens, 1.0)[:, 3:]
+    batch = rl.TrajectoryBatch(tokens.numpy(), tokens[:, 4:].numpy(), logp.numpy(),
+                               np.ones((3, 8), np.float32), np.ones((3, 8), np.float32),
+                               4, 0, 0)
+    assert cs.policy_clip_fraction(learner, batch) == 0.0
+    cs.check_on_policy(0.0)
+    shifted = batch._replace(behavior_logprob=np.roll(batch.behavior_logprob, 1, 1))
+    frac = cs.policy_clip_fraction(learner, shifted)
+    assert "clip_fraction" in cs.must_fail(cs.check_on_policy, frac)
+    assert learner.update_from([shifted])["clip_fraction"] == pytest.approx(frac, abs=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rl_model_gate_passes_plain_and_fails_each_attention_mutant(monkeypatch, dtype):
+    """Phase 12's kernel gate at the RL shapes, on the CPU (where the
+    kernels' attention is plain, so the sound reading is exact): each
+    mutant of rl_attention_mutants fails it, at the smol-1b case's shapes
+    (tiny's width) and the tiny policy's."""
+    from dstack_tpu_torch.workloads.config import PRESETS
+
+    monkeypatch.setattr(cs, "RL_DEVICE", "cpu")
+    monkeypatch.setitem(PRESETS, "tiny-x", PRESETS["tiny"].with_(dtype=dtype))
+    monkeypatch.setattr(cs, "RL_MODEL_CASES", (("tiny-x", cs.RL_BATCH, 64, 64),
+                                               cs.RL_MODEL_CASES[1]))
+    out = cs.run_rl_model_checks()
+    assert ("vs_f32" in out["tiny-x"]) == (dtype == "bfloat16")
+    assert [c["seq"] for c in out.values()] == [127, 19]
+    for case in out.values():
+        assert case["logp_max_abs"] == 0.0 and case["loss_rel"] == 0.0
+        assert case["clip_fraction"] == 0.0  # on policy
+        assert sorted(case["mutants"]) == ["last_row_lost", "mask_one_late", "tail_dq_lost"]
+        assert all("disagree" in m["fails"] for m in case["mutants"].values())
+
+
+@pytest.mark.parametrize("rewards,ok", [
+    ([0.0] * 5 + [0.5] * 5, True),
+    ([0.0] * 5 + [0.2] * 5, False),      # improves but stays under 0.3
+    ([0.6] * 5 + [0.5] * 5, False),      # above 0.3 but no better than the start
+])
+def test_learning_gate(rewards, ok):
+    if ok:
+        assert cs.learning_gate(rewards)["tail"] == pytest.approx(0.5)
+    else:
+        with pytest.raises(AssertionError, match="no learning"):
+            cs.learning_gate(rewards)
+
+
+def test_first_difference():
+    assert cs.first_difference([1, 2, 3], [1, 2, 3]) is None
+    assert cs.first_difference([1, 2, 3], [1, 5, 3]) == 1
+
+
+def _drill_summary(**kw):
+    base = {"ok": True, "learner_restarts": 0, "gang_resizes": 2, "preemptions": 1,
+            "final_weight_epoch": 3, "actor_final_epochs": {"0": 3, "1": 0, "2": 3}}
+    return {**base, **kw}
+
+
+@pytest.mark.parametrize("kw,ok", [
+    ({}, True),
+    ({"gang_resizes": 1}, False),
+    ({"learner_restarts": 1}, False),
+    ({"actor_final_epochs": {"0": 3, "1": 0, "2": 2}}, False),
+    ({"ok": False}, False),
+])
+def test_rl_drill_summary_gate(kw, ok):
+    if ok:
+        cs.check_rl_drill(_drill_summary(**kw))
+    else:
+        with pytest.raises(AssertionError, match="drill"):
+            cs.check_rl_drill(_drill_summary(**kw))
+
+
+def test_rl_phase_runs_its_gates_on_the_cpu(monkeypatch, tmp_path):
+    """12(a)'s instrumented Anakin at tiny on the CPU (the kernels' launch
+    gate needs the card): adoptions held by sha1, isolation, and each new
+    gate failing its fault."""
+    monkeypatch.setattr(cs, "RL_DEVICE", "cpu")
+    from dstack_tpu_torch.workloads.config import PRESETS
+
+    out = cs.rl_channel_run(PRESETS["tiny"], "socket", 2, str(tmp_path), isolation=True)
+    assert out["clip_fraction"] == [0.0, 0.0] and out["max_logp_gap"] == [0.0, 0.0]
+    assert out["adoptions"] == 3 and len(out["pull_s"]) == 3
+    assert out["target_share"] > 0
+    for fault in ("isolation_fault", "weights_fault", "on_policy_fault", "busy_refusal",
+                  "moved_fault"):
+        assert out[fault], fault
+    assert out["frame_bytes"] > sum(t.numel() * t.element_size() for t in
+                                    _tiny_rl_params().values() if isinstance(t, torch.Tensor))

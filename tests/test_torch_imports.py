@@ -19,6 +19,7 @@ MODULES = (
     "dstack_tpu_torch.fine_tune",
     "dstack_tpu_torch.native_server",
     "dstack_tpu_torch.utils",
+    "dstack_tpu_torch.utils.accum",
     "dstack_tpu_torch.utils.flight_recorder",
     "dstack_tpu_torch.utils.histogram",
     "dstack_tpu_torch.utils.qos",
@@ -41,6 +42,8 @@ MODULES = (
     "dstack_tpu_torch.workloads.lora_serving",
     "dstack_tpu_torch.workloads.paged_attention",
     "dstack_tpu_torch.workloads.quant",
+    "dstack_tpu_torch.workloads.rl",
+    "dstack_tpu_torch.workloads.rl_drill",
     "dstack_tpu_torch.workloads.serving",
     "dstack_tpu_torch.workloads.serving_disagg",
     "dstack_tpu_torch.workloads.sharding",
@@ -111,6 +114,8 @@ def _entry_points():
     from dstack_tpu_torch.workloads.data import BatchLoader
     from dstack_tpu_torch.workloads.train import init_train_state, synthetic_batch
     from dstack_tpu_torch.workloads.device import resolve_device
+    from dstack_tpu_torch.workloads.rl import Learner, run_anakin, tiny_rl_config
+    from dstack_tpu_torch.workloads.rl_drill import run_drill as rl_drill
     from dstack_tpu_torch.workloads.serving import ServingEngine
     from dstack_tpu_torch.workloads.serving_disagg import run_drill
     from dstack_tpu_torch.workloads.sharding import make_mesh
@@ -131,6 +136,9 @@ def _entry_points():
         "native_server.Engine role=decode": lambda: Engine("tiny", 8, role="decode",
                                                            kv_transfer_port=0),
         "serving_disagg.run_drill": lambda: run_drill(verbose=False),
+        "rl.Learner": lambda: Learner(tiny_rl_config()),
+        "rl.run_anakin": lambda: run_anakin(updates=1),
+        "rl_drill.run_drill": lambda: rl_drill(updates_per_phase=1),
         "init_train_state": lambda: init_train_state(cfg, 0),
         "synthetic_batch": lambda: synthetic_batch(cfg, 2, 8),
         "BatchLoader": lambda: BatchLoader(_OneRow(), 1),
@@ -154,6 +162,7 @@ class _OneRow:
                                   "ServingEngine role=decode",
                                   "native_server.Engine role=decode",
                                   "serving_disagg.run_drill",
+                                  "rl.Learner", "rl.run_anakin", "rl_drill.run_drill",
                                   "init_train_state", "synthetic_batch",
                                   "BatchLoader", "make_mesh", "fine_tune",
                                   "fine_tune --lora-rank"])

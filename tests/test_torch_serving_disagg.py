@@ -668,3 +668,29 @@ def test_native_server_prefill_decode_pair_streams_the_unified_tokens():
             s.server_close()
         for e in (pre, dec, uni):
             e.close()
+
+
+def test_prefill_worker_runs_at_the_niceness_it_is_given():
+    """--nice (the reference's isolation of a prefill flood on a shared
+    host): WorkerProc passes it to the prefill worker only, and the worker
+    runs deprioritised by that much before it builds anything."""
+    from dstack_tpu_torch.workloads import serving_disagg
+
+    worker = serving_disagg.WorkerProc("prefill", device="cpu", connect_port=1, nice=5)
+    try:
+        assert worker.proc.args[worker.proc.args.index("--nice") + 1] == "5"
+        want = os.getpriority(os.PRIO_PROCESS, 0) + 5
+        deadline = time.monotonic() + 60
+        while os.getpriority(os.PRIO_PROCESS, worker.proc.pid) != want:
+            assert worker.proc.poll() is None, "the worker exited before renicing"
+            assert time.monotonic() < deadline, "the worker never reniced"
+            time.sleep(0.05)
+    finally:
+        worker.proc.kill()
+        worker.proc.wait(timeout=30)
+    decode = serving_disagg.WorkerProc("decode", device="cpu", transfer_port=1, nice=5)
+    try:
+        assert "--nice" not in decode.proc.args
+    finally:
+        decode.proc.kill()
+        decode.proc.wait(timeout=30)
