@@ -181,8 +181,32 @@ Phases (any failure fails the run; nothing is caught to exit 0):
                for bit; (c) `python -m dstack_tpu_torch.workloads.rl_drill
                --updates-per-phase 1`: learner and actors as processes on
                the one card, the reference drill's summary asserts.
+  13. MoE — smol-moe (8 experts, top-2, the preset's cf 1.25), bf16,
+               random from seed 0: (a) moe_mlp at one layer against a
+               per-expert f32 loop on its own routing (16 tokens at cf
+               n_experts/k = 4.0, where nothing drops; a 128-token chunk at
+               cf 0.5, where much does) and einsum against gather (1 x 128,
+               2 x 2048), the gate shown failing the second choice dropped,
+               the gate unnormalised and a dropped choice computed; both
+               dispatches timed, forward and forward + backward; (b) full
+               depth behind the paged engine, phase 4's requests: at cf 4.0
+               the dense check with the dense run pinned to the chunks'
+               routing (flips counted unpinned; shown failing a layer routed
+               to shifted experts), plain and spec (int8 MoE drafter) waves;
+               at cf 1.25 two plain waves identical, a 128-token chunk's
+               drop fraction; then in f32 at cf 4.0 the dense check and
+               plain and spec waves held by the near-tie rule (in bf16 the
+               two paths' rounding flips top-k for some tokens, whose MLP
+               output then jumps: the rule holds an MoE model only in f32);
+               decode tok/s, TTFT, paged launches; `native_server --preset
+               smol-moe --spec-enable` in a subprocess answers a chat; (c) training
+               at full depth, B 2 x S 2048, einsum, gather, gather, einsum:
+               step ms, tokens/s, MFU (active experts' FLOPs, not the
+               dispatch's), peak memory, router_aux, flash launches; at 2
+               layers the kernels against plain attention with the plain
+               run pinned to the kernel run's routing, f32 and bf16.
 Phase 3b and 3c run after 3, 4b and 4c after 4, 5b after 5, 11 after
-5b, 12 after 11, phases 6 to 10b after 12. The line before the
+5b, 12 after 11, phases 6 to 10b after 12, 13 after 10b. The line before the
 last is the `kernels` JSON; the last line is {"ok": true, "device": {...}}.
 Each phase logs its numbers on the way; details also go to
 chiprun_out/chip_smoke.json.
@@ -970,11 +994,12 @@ def expected_launches(cfg, remat, n_steps, seq_shards=1):
 
 
 def run_train(preset: str, B: int, S: int, seq_shards: int = 1, n_steps: int = 5,
-              profiled: bool = True):
-    """`preset` at full width and depth, B x S, bf16, random weights from
-    seed 0, on one fixed synthetic batch: the port's trainer end to end,
-    over a seq mesh of `seq_shards` (the ring) when that is > 1; then one
-    profiled step unless `profiled` is False."""
+              profiled: bool = True, overrides=None):
+    """`preset` (with the config fields in `overrides`) at full width and
+    depth, B x S, bf16, random weights from seed 0, on one fixed synthetic
+    batch: the port's trainer end to end, over a seq mesh of `seq_shards`
+    (the ring) when that is > 1; then one profiled step unless `profiled`
+    is False."""
     from dstack_tpu_torch.workloads.config import PRESETS
     from dstack_tpu_torch.workloads.sharding import device_shards, make_mesh
     from dstack_tpu_torch.workloads.train import (
@@ -983,7 +1008,7 @@ def run_train(preset: str, B: int, S: int, seq_shards: int = 1, n_steps: int = 5
         synthetic_batch,
     )
 
-    cfg = PRESETS[preset]
+    cfg = PRESETS[preset].with_(**(overrides or {}))
     mesh = make_mesh(seq=seq_shards) if seq_shards > 1 else None
     remat = cfg.resolve_remat(B * S, device_shards(mesh), seq_len=S)
     torch.cuda.reset_peak_memory_stats()
@@ -997,24 +1022,26 @@ def run_train(preset: str, B: int, S: int, seq_shards: int = 1, n_steps: int = 5
         state, m = step(state, batch)
     torch.cuda.synchronize()
     warm_s = time.monotonic() - t0
-    losses, norms = [], []
+    losses, norms, auxes = [], [], []
     t0 = time.monotonic()
     for _ in range(n_steps):
         state, m = step(state, batch)
         losses.append(m["loss"])
         norms.append(m["grad_norm"])
-    vals = torch.stack(losses + norms).tolist()  # the one host readback
+        auxes.append(m["router_aux"])
+    vals = torch.stack(losses + norms + auxes).tolist()  # the one host readback
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = flash_counts()
     peak = torch.cuda.max_memory_allocated()
-    losses, norms = vals[:n_steps], vals[n_steps:]
+    losses, norms = vals[:n_steps], vals[n_steps:2 * n_steps]
     want = expected_launches(cfg, remat, n_warm + n_steps, seq_shards)
     step_ms = wall / n_steps * 1e3
     tokens_s = B * S * n_steps / wall
     flops_step = cfg.flops_per_token(S) * B * S
     stats = dict(
-        preset=preset, layers=cfg.n_layers, batch=B, seq_len=S, seq_shards=seq_shards,
+        preset=preset, **(overrides or {}), layers=cfg.n_layers, batch=B, seq_len=S,
+        seq_shards=seq_shards,
         dtype=cfg.dtype, remat=remat, steps=n_steps, warmup_steps=n_warm,
         warmup_s=warm_s, step_ms=step_ms, tokens_per_s=tokens_s, flops_per_step=flops_step,
         mfu=cfg.flops_per_token(S) * tokens_s / H100_BF16_PEAK,
@@ -1022,7 +1049,7 @@ def run_train(preset: str, B: int, S: int, seq_shards: int = 1, n_steps: int = 5
         estimator_activation_gb=cfg.activation_bytes(B * S, device_shards(mesh),
                                                      seq_len=S) / 1e9,
         train_state_gb=sum(t.numel() * t.element_size() for _, t in state_leaves(state)) / 1e9,
-        losses=losses, grad_norms=norms, launches=launches,
+        losses=losses, grad_norms=norms, router_aux=vals[2 * n_steps:], launches=launches,
         launches_per_step={k: v // (n_warm + n_steps) for k, v in launches.items()})
     log(f"train stats ({preset}, {seq_shards} seq shards)", json.dumps(stats))
     if not all(math.isfinite(x) for x in losses + norms):
@@ -4377,6 +4404,531 @@ def run_rl_drill(timeout: int = 600) -> dict:
     return out
 
 
+# -- phase 13: mixture-of-experts ----------------------------------------------
+
+MOE_PRESET, MOE_DEVICE = "smol-moe", "cuda"
+# moe_mlp against a per-expert f32 loop on the same routing (13a), and the
+# einsum dispatch against the gather one: (rel_l2, row_rel) over token
+# rows, as flash_errors. The port rounds the up and down products and the
+# silu output to bf16 where the loop keeps f32; the einsum path also
+# rounds the gate to bf16. Limits ~3x the largest sound reading on the
+# H100 (PERF.md §6): loop 4.26e-3 and 8.91e-3, paths 2.90e-3 and
+# 7.81e-3; the faults read 0.47 and more.
+MOE_LOOP_TOL = (1.3e-2, 2.7e-2)
+MOE_PATHS_TOL = (9e-3, 2.4e-2)
+# The capacity factor of 13a's drop case, where the 128-token chunk drops
+# many choices (cf 1.25's drops depend on the draw).
+MOE_DROP_CF = 0.5
+
+
+def moe_cf_all(cfg) -> float:
+    """The capacity factor at which C = ceil(k*S*cf/E) >= S on every path,
+    so nothing drops and every path routes as the dense forward does."""
+    return cfg.n_experts / cfg.experts_per_token
+
+
+def moe_layer(cfg, seed: int, dev) -> dict:
+    """One layer's router and expert banks at cfg's width, random from
+    `seed` (init_params of a 1-layer copy of cfg)."""
+    from dstack_tpu_torch.workloads.transformer import init_params, layer_params
+
+    one = init_params(cfg.with_(n_layers=1), seed, dev)
+    return {k: v for k, v in layer_params(one, 0).items() if k.startswith(("router", "we_"))}
+
+
+def moe_loop_reference(c, h, p, choices=None, normalise=True, honour_drops=True):
+    """moe_mlp(c, h, p)'s function as a plain f32 loop over experts: each
+    expert's f32 SwiGLU of the bf16 values on the tokens that chose it,
+    weighted by the gate. Routing is the port's own route_assignments
+    (pinned: the loop checks dispatch, combine and the banks, the CPU
+    tests hold routing against JAX). Faults for the gate's checks:
+    `choices` keeps only the first n choices, normalise=False weighs by
+    the raw top-k probabilities, honour_drops=False computes the choices
+    capacity dropped. Returns (out (B,S,D) f32, routed choices dropped)."""
+    from dstack_tpu_torch.workloads import moe
+
+    B, S, D = h.shape
+    gate_vals, gate_idx, slot, _, _ = moe.route_assignments(c, h, p["router"])
+    keep = slot < moe.expert_capacity(c, S)
+    dropped = int((~keep).sum())
+    if not honour_drops:
+        keep = torch.ones_like(keep)
+    if choices is not None:
+        keep[..., choices:] = False
+    if not normalise:
+        probs = torch.softmax(h.float() @ p["router"].float(), dim=-1)
+        gate_vals = torch.gather(probs, -1, gate_idx)
+    x = h.reshape(B * S, D).float()
+    idx = gate_idx.reshape(B * S, -1)
+    w = (gate_vals * keep).reshape(B * S, -1)
+    keep = keep.reshape(B * S, -1)
+    out = torch.zeros_like(x)
+    for e in range(c.n_experts):
+        hit = (idx == e) & keep
+        rows = hit.any(-1).nonzero()[:, 0]
+        if rows.numel() == 0:
+            continue
+        xe = x[rows]
+        g = torch.nn.functional.silu(xe @ p["we_gate"][e].float())
+        y = (g * (xe @ p["we_up"][e].float())) @ p["we_down"][e].float()
+        out.index_add_(0, rows, (w * hit)[rows].sum(-1, keepdim=True) * y)
+    return out.reshape(B, S, D), dropped
+
+
+def moe_readings(got, ref) -> dict:
+    """flash_errors' readings over token rows."""
+    D = ref.shape[-1]
+    return dict(zip(("rel_l2", "row_rel", "max_abs_err", "ref_max"),
+                    flash_errors(got.reshape(-1, D), ref.reshape(-1, D))))
+
+
+def check_moe(readings: dict, tol: tuple, what: str = "moe") -> None:
+    if not (readings["rel_l2"] <= tol[0] and readings["row_rel"] <= tol[1]):
+        raise AssertionError(f"{what}: rel_l2 {readings['rel_l2']:.3e}, row_rel"
+                             f" {readings['row_rel']:.3e} past {tol}")
+
+
+def routing_flips(idx_a, idx_b) -> int:
+    """Tokens whose chosen experts (as sets) differ between two routings
+    (..., k)."""
+    a, b = idx_a.sort(dim=-1).values, idx_b.sort(dim=-1).values
+    return int((a != b).any(-1).sum())
+
+
+class RoutingSpy:
+    """Records every routed call's (seq_len, gate_idx, dropped choices)
+    in order, or with `pinned` (a list of gate_idx, one a call) routes
+    each call to those experts: probabilities, gate values, slots and the
+    aux loss still come from the call's own input (moe.assign_slots). A
+    test-only path for holding two runs on one routing: the package has
+    no knob for it."""
+
+    def __init__(self, pinned=None):
+        self.calls, self.pinned = [], pinned
+
+    def __enter__(self):
+        from dstack_tpu_torch.workloads import moe
+
+        self._moe, self._real = moe, moe.route_assignments
+
+        def spy(c, h, router):
+            if self.pinned is None:
+                out = self._real(c, h, router)
+            else:
+                # Modulo: a remat recompute routes the layers again in order.
+                idx = self.pinned[len(self.calls) % len(self.pinned)].to(h.device)
+                probs = torch.softmax(moe._router_logits(h, router), dim=-1)
+                out = moe.assign_slots(c, probs, idx)
+            C = moe.expert_capacity(c, h.shape[1])
+            self.calls.append((h.shape[1], out[1].detach(), int((out[2] >= C).sum())))
+            return out
+
+        moe.route_assignments = spy
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.route_assignments = self._real
+
+
+def moe_dispatch_times(cfg, p, shapes=((1, 128), (2, 2048)), n: int = 10) -> dict:
+    """Both dispatches' times at `cfg`'s width (one layer, bf16), in the
+    order einsum, gather, gather, einsum, by cuda_ms: the forward in one
+    CUDA graph (device time), and forward + backward of sum(out) + aux
+    into the router, the banks and the input eagerly (autograd is not
+    captured; host gaps count where the device waits for them)."""
+    from dstack_tpu_torch.workloads import moe
+
+    out = {}
+    dev = p["router"].device
+    for B, S in shapes:
+        g = torch.Generator(device=dev).manual_seed(B * S)
+        h = torch.randn((B, S, cfg.d_model), generator=g, device=dev).to(torch.bfloat16)
+        hg = h.clone().requires_grad_(True)
+        leaves = {k: v.clone().requires_grad_(True) for k, v in p.items()}
+        row = {}
+        for impl in ("einsum", "gather", "gather", "einsum"):
+            c = cfg.with_(moe_impl=impl)
+
+            def fwd(c=c):
+                with torch.no_grad():
+                    moe.moe_mlp(c, h, p)
+
+            def fwd_bwd(c=c):
+                o, aux = moe.moe_mlp(c, hg, leaves)
+                torch.autograd.grad(o.float().sum() + aux, [hg, *leaves.values()])
+
+            r = row.setdefault(impl, {"fwd_ms": [], "fwd_bwd_ms": []})
+            r["fwd_ms"].append(cuda_ms(fwd, n))
+            r["fwd_bwd_ms"].append(cuda_ms(fwd_bwd, n, graph=False))
+        out[f"{B}x{S}"] = dict(capacity=moe.expert_capacity(cfg, S), **row)
+        log(f"moe dispatch times {B}x{S} (einsum, gather, gather, einsum):", json.dumps(row))
+    return out
+
+
+def run_moe_module() -> dict:
+    """13a: moe_mlp at the preset's width, one layer, bf16, random from
+    seed 0: einsum against gather (1 x 128 and 2 x 2048 at the preset's
+    cf, aux equal; the gate shown failing a path that drops every second
+    choice), both against the per-expert f32 loop on 16 tokens at the
+    all-admitting cf and on a 128-token chunk at MOE_DROP_CF; the loop's
+    gate shown failing the second choice dropped, the gate left
+    unnormalised and a dropped choice computed; the two dispatches
+    timed."""
+    from dstack_tpu_torch.workloads import moe
+    from dstack_tpu_torch.workloads.config import PRESETS
+
+    cfg = PRESETS[MOE_PRESET]
+    p = moe_layer(cfg, 0, MOE_DEVICE)
+    gen = torch.Generator(device=MOE_DEVICE).manual_seed(13)
+
+    def hidden(B, S):
+        return torch.randn((B, S, cfg.d_model), generator=gen, device=MOE_DEVICE).to(
+            torch.bfloat16)
+
+    out = {"paths": {}, "loop": {}, "mutants": {}}
+    with torch.no_grad():
+        for B, S in ((1, 128), (2, 2048)):
+            h = hidden(B, S)
+            oe, ae = moe.moe_mlp(cfg, h, p)
+            og, ag = moe.moe_mlp(cfg.with_(moe_impl="gather"), h, p)
+            r = moe_readings(oe, og)
+            r["aux_equal"] = float(ae) == float(ag)
+            out["paths"][f"{B}x{S}"] = r
+            log(f"moe einsum vs gather {B}x{S}:", json.dumps(r), f"(tol {MOE_PATHS_TOL})")
+            check_moe(r, MOE_PATHS_TOL, f"einsum vs gather {B}x{S}")
+            if not r["aux_equal"]:
+                raise AssertionError(f"aux differs between the dispatches: {ae} vs {ag}")
+            if S == 128:
+                # The paths gate on a dispatch that drops every second choice.
+                bad, _ = moe_loop_reference(cfg, h, p, choices=1)
+                out["mutants"]["paths_second_choice_dropped"] = must_fail(
+                    check_moe, moe_readings(bad, oe), MOE_PATHS_TOL, "einsum vs a faulty path")
+                log(f"moe paths gate on a path dropping every second choice: fails, as it"
+                    f" must ({out['mutants']['paths_second_choice_dropped']})")
+        for name, c, (B, S) in (("all_admitted", cfg.with_(capacity_factor=moe_cf_all(cfg)),
+                                 (1, 16)),
+                                ("drops", cfg.with_(capacity_factor=MOE_DROP_CF), (1, 128))):
+            h = hidden(B, S)
+            ref, dropped = moe_loop_reference(c, h, p)
+            for impl in ("einsum", "gather"):
+                got, _ = moe.moe_mlp(c.with_(moe_impl=impl), h, p)
+                r = moe_readings(got, ref)
+                out["loop"][f"{name}_{impl}"] = dict(r, dropped=dropped, choices=B * S * 2)
+                log(f"moe {impl} vs loop, {name} (cf {c.capacity_factor:g}, {B}x{S},"
+                    f" {dropped} choices dropped):", json.dumps(r), f"(tol {MOE_LOOP_TOL})")
+                check_moe(r, MOE_LOOP_TOL, f"{impl} vs loop {name}")
+            mutants = ({"second_choice_dropped": dict(choices=1),
+                        "gate_unnormalised": dict(normalise=False)} if name == "all_admitted"
+                       else {"drop_not_zeroed": dict(honour_drops=False)})
+            if name == "drops" and not dropped:
+                raise AssertionError("the drop case dropped nothing")
+            for mname, kw in mutants.items():
+                bad, _ = moe_loop_reference(c, h, p, **kw)
+                out["mutants"][mname] = must_fail(check_moe, moe_readings(bad, ref),
+                                                  MOE_LOOP_TOL, mname)
+                log(f"moe gate on {mname}: fails, as it must ({out['mutants'][mname]})")
+    out["times"] = moe_dispatch_times(cfg, p)
+    return out
+
+
+def moe_dense_check(cfg, params, dtype) -> dict:
+    """dense_check on an MoE model at a cf that admits every token: a
+    200-token prompt through two chunk-prefill programs (the paged
+    kernel) against the dense plain `_forward_cached`, on the last
+    position's logits, with the dense run pinned to the chunks' routing
+    (RoutingSpy) so a token whose top-k flips under the two paths'
+    rounding does not read as a kernel fault; the unpinned dense run's
+    reading and its flips (prompt tokens routed to other experts, over all
+    layers) are recorded beside it."""
+    from dstack_tpu_torch.workloads import paged_attention as pa
+    from dstack_tpu_torch.workloads.generate import _forward_cached, init_cache
+    from dstack_tpu_torch.workloads.kv_blocks import init_paged_state, make_chunk_prefill
+
+    dev = params["embed"].device
+    prompt = byte_prompt(99, 200)
+    st = init_paged_state(cfg, 1, 256, 16, 16, dev)
+    table = list(range(13)) + [16] * 3
+    fn = make_chunk_prefill(cfg, 128)
+    before = pa.LAUNCHES["ragged_paged_attention"]
+    with torch.no_grad(), RoutingSpy() as chunks:
+        fn(params, st, 0, table, prompt[:128], 128, 0, 8, 0.0, 1.0, None, False)
+        _, first, logits = fn(params, st, 0, table, prompt[128:] + [0] * 56, 72, 128,
+                              8, 0.0, 1.0, None, True)
+    launched = pa.LAUNCHES["ragged_paged_attention"] - before
+    L = cfg.n_layers
+    pinned = [torch.cat([chunks.calls[i][1][:, :128], chunks.calls[L + i][1][:, :72]], dim=1)
+              for i in range(L)]
+    toks = torch.tensor([prompt], device=dev)
+    readings = {}
+    for name, spy in (("pinned", RoutingSpy(pinned)), ("unpinned", RoutingSpy())):
+        with torch.no_grad(), spy:
+            ref, _ = _forward_cached(cfg, params, toks, init_cache(cfg, 1, 200, dev))
+        readings[name] = dict(
+            rel=float((logits - ref[0]).abs().max() / ref[0].abs().max()),
+            top1_agrees=int(first) == int(ref[0].argmax()),
+            flips=sum(routing_flips(a, b[1]) for a, b in zip(pinned, spy.calls)),
+            dropped=sum(b[2] for b in spy.calls))
+    tag = "bf16" if dtype == torch.bfloat16 else "f32"
+    tol = ENGINE_LOGIT_TOL[dtype]
+    out = dict(readings, launches=launched, chunk_dropped=sum(c[2] for c in chunks.calls),
+               tol=tol)
+    log(f"moe dense check {tag} (cf {cfg.capacity_factor:g}):", json.dumps(out))
+    if launched != 2 * L:
+        raise AssertionError(f"moe dense check ran the kernel {launched} times")
+    if out["chunk_dropped"] or readings["pinned"]["dropped"] or readings["pinned"]["flips"]:
+        raise AssertionError(f"moe dense check: a choice dropped or a pin missed: {out}")
+    if not readings["pinned"]["rel"] <= tol:
+        raise AssertionError(f"moe chunked-prefill logits off by {readings['pinned']['rel']}")
+    # The gate on a routing fault: the dense run pinned to experts shifted
+    # by one in one layer must fail it.
+    shifted = list(pinned)
+    shifted[L // 2] = (pinned[L // 2] + 1) % cfg.n_experts
+    with torch.no_grad(), RoutingSpy(shifted):
+        bad, _ = _forward_cached(cfg, params, toks, init_cache(cfg, 1, 200, dev))
+    out["shifted_rel"] = float((logits - bad[0]).abs().max() / bad[0].abs().max())
+    log(f"moe dense check on a layer routed to shifted experts: rel {out['shifted_rel']:.3e}")
+    if out["shifted_rel"] <= tol:
+        raise AssertionError("the moe dense check passes a routing fault")
+    return out
+
+
+def two_runs_identical(a: list, b: list) -> None:
+    if a != b:
+        first = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        raise AssertionError(f"two runs of one wave differ (stream {first})")
+
+
+def moe_engine_wave(cfg, params, spec: bool, n_new: int, profiled: bool = False) -> dict:
+    """Phase 4's wave through a warm smol-moe engine (8 slots, block 16,
+    chunk 128; spec: the int8 drafter, k <= 4), then with `profiled` a
+    second wave under the profiler (profile_wave)."""
+    from dstack_tpu_torch.workloads.serving import ServingEngine
+
+    eng = ServingEngine(cfg, params, slots=8, steps_per_sync=4, prefill_chunk_tokens=128,
+                        kv_block_size=16, spec_enable=spec, spec_max_draft=4,
+                        device=params["embed"].device)
+    try:
+        w = eng.warmup()
+        r = serve_wave(eng, engine_prompts(), n_new)
+        r.update(spec=spec, warmup_s=w["seconds"])
+        if profiled:
+            r["profiled_wave"] = profile_wave(eng, cfg)
+    finally:
+        eng.close()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    st = r.pop("stats")
+    r.update({k: st[k] for k in SPEC_KEYS}, decode_seconds_total=st["decode_seconds_total"])
+    if any(len(t) != n_new for t in r["streams"]):
+        raise AssertionError(f"token counts {[len(t) for t in r['streams']]}")
+    if r["kernel_launches"] <= 0:
+        raise AssertionError("the moe wave launched the paged kernel 0 times")
+    if spec and not st["spec_tokens_accepted_total"] > 0:
+        raise AssertionError("the moe spec wave accepted no draft")
+    return r
+
+
+def moe_chunk_drops(cfg, params) -> dict:
+    """The drop fraction at the preset's cf: a 128-token prompt (no pad
+    lanes) through one chunk-prefill program, each layer's routed choices
+    that capacity dropped over all k*S (RoutingSpy on the real hidden
+    states); the finalize logits finite."""
+    from dstack_tpu_torch.workloads.kv_blocks import init_paged_state, make_chunk_prefill
+
+    dev = params["embed"].device
+    st = init_paged_state(cfg, 1, 256, 16, 16, dev)
+    with torch.no_grad(), RoutingSpy() as spy:
+        _, _, logits = make_chunk_prefill(cfg, 128)(
+            params, st, 0, list(range(8)) + [16] * 8, byte_prompt(7, 128), 128, 0, 8, 0.0,
+            1.0, None, True)
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("moe chunk logits not finite")
+    from dstack_tpu_torch.workloads.moe import expert_capacity
+
+    per_layer = [d / (cfg.experts_per_token * s) for s, _, d in spy.calls]
+    return dict(cf=cfg.capacity_factor, capacity=expert_capacity(cfg, 128),
+                drop_fraction=sum(per_layer) / len(per_layer), per_layer=per_layer)
+
+
+def run_moe_serving(cfg, n_new: int = 32) -> dict:
+    """13b: smol-moe at full depth (random from seed 0) behind the paged
+    engine, phase 4's 8 requests. bf16 at the all-admitting cf: the dense
+    check (pinned), plain and spec (int8 MoE drafter) waves. bf16 at the
+    preset's cf: two plain waves give identical streams (shown failing a
+    changed token), the drop fraction of a 128-token chunk, finite logits.
+    f32 at the all-admitting cf: the dense check, plain and spec waves
+    with every stream held by the near-tie rule against the dense forward,
+    the rule shown failing a genuine divergence. In bf16 the rule does
+    not apply to an MoE model: the kernel path and the dense path round
+    differently, top-k flips for some token-layers (the dense check
+    counts them) and a flipped token's MLP output jumps; f32 paths differ
+    by ~1e-6 and flip none. Decode tok/s, TTFT and paged launches per
+    wave for each, and a profiled bf16 plain wave."""
+    from dstack_tpu_torch.workloads.transformer import init_params
+
+    params = init_params(cfg, seed=0, device=MOE_DEVICE)
+    cf_all = cfg.with_(capacity_factor=moe_cf_all(cfg))
+    out = {"dense_check": moe_dense_check(cf_all, params, torch.bfloat16), "runs": {}}
+    runs = out["runs"]
+    for spec in (False, True):
+        r = moe_engine_wave(cf_all, params, spec, n_new, profiled=not spec)
+        r.pop("streams")
+        runs["spec_all" if spec else "plain_all"] = r
+        log(f"moe wave, bf16, cf {cf_all.capacity_factor:g}, {'spec' if spec else 'plain'}:",
+            json.dumps(r))
+    preset = [moe_engine_wave(cfg, params, False, n_new) for _ in range(2)]
+    two_runs_identical(preset[0]["streams"], preset[1]["streams"])
+    changed = [list(s) for s in preset[1]["streams"]]
+    changed[3][n_new // 2] = (changed[3][n_new // 2] + 1) % cfg.vocab_size
+    out["identical_check"] = must_fail(two_runs_identical, preset[0]["streams"], changed)
+    for r in preset:
+        streams = r.pop("streams")
+        if not all(0 <= t < cfg.vocab_size for s in streams for t in s):
+            raise AssertionError("token id out of range")
+        log(f"moe wave, bf16, cf {cfg.capacity_factor:g}, plain:", json.dumps(r))
+    runs["plain_preset"] = preset
+    out["drops"] = moe_chunk_drops(cfg, params)
+    log("moe chunk drops at the preset's cf:", json.dumps(out["drops"]))
+    p32 = {k: ({kk: vv.float() for kk, vv in v.items()} if isinstance(v, dict) else v.float())
+           for k, v in params.items()}
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    cf32 = cf_all.with_(dtype="float32")
+    out["dense_check_f32"] = moe_dense_check(cf32, p32, torch.float32)
+    tol = ENGINE_LOGIT_TOL[torch.float32]
+    prompts = engine_prompts()
+    streams = {}
+    for spec in (False, True):
+        r = moe_engine_wave(cf32, p32, spec, n_new)
+        streams[spec] = r.pop("streams")
+        r["near_tie"] = hold_streams(cf32, p32, prompts, streams[False], streams[spec], tol,
+                                     "moe f32 " + ("spec" if spec else "plain"))
+        runs["spec_f32" if spec else "plain_f32"] = r
+        log(f"moe wave, f32, cf {cf32.capacity_factor:g}, {'spec' if spec else 'plain'}:",
+            json.dumps(r), f"(tol {tol:g})")
+    out["rule_check"] = rule_fails_a_genuine_divergence(cf32, p32, prompts[1],
+                                                        streams[False][1], tol)
+    log(f"near-tie rule on an moe stream with a token replaced by the lowest-logit one:"
+        f" {json.dumps(out['rule_check'])}: fails, as it must")
+    del p32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_moe_http(preset: str = MOE_PRESET) -> dict:
+    """13b: `native_server --preset smol-moe --spec-enable` in a
+    subprocess (random weights from seed 0): one chat, a 200 with tokens."""
+    t0 = time.monotonic()
+    srv = ServerProc(["--preset", preset, "--device", MOE_DEVICE, "--seed", "0",
+                      "--host", "127.0.0.1", "--port", "0", "--max-new-tokens", "16",
+                      "--spec-enable"])
+    try:
+        base = srv.ready()
+        code, body = http("POST", base + "/v1/chat/completions", {
+            "messages": [{"role": "user", "content": "route me"}], "max_tokens": 16,
+            "temperature": 0.0})
+        usage = json.loads(body)["usage"]
+    finally:
+        srv.stop()
+    out = dict(code=code, completion_tokens=usage["completion_tokens"],
+               wall_s=time.monotonic() - t0)
+    log("moe native_server:", json.dumps(out))
+    if code != 200 or usage["completion_tokens"] < 1:
+        raise AssertionError(f"moe chat: {code} {body[:200]}")
+    return out
+
+
+def run_moe_model_check(B: int = 2, S: int = 2048) -> dict:
+    """13c: smol-moe width at 2 layers, B x S: loss_fn and grads through
+    the flash kernels, and through plain_attention with the routing
+    pinned to the kernel run's (RoutingSpy), f32 and bf16, at 6b's limits;
+    the unpinned plain run's flips recorded; the gate shown failing the
+    plain run pinned to experts shifted by one in one layer."""
+    from dstack_tpu_torch.workloads.attention import make_attention_fn, plain_attention
+    from dstack_tpu_torch.workloads.config import PRESETS
+    from dstack_tpu_torch.workloads.train import loss_fn, synthetic_batch
+    from dstack_tpu_torch.workloads.transformer import init_params
+    from dstack_tpu_torch.workloads.weights import flatten_params
+
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        cfg = PRESETS[MOE_PRESET].with_(n_layers=2, dtype=str(dtype).split(".")[1])
+        params = init_params(cfg, seed=1, device=MOE_DEVICE)
+        pairs = flatten_params(params)
+        for _, p in pairs:
+            p.requires_grad_(True)
+        batch = synthetic_batch(cfg, B, S, seed=1, device=MOE_DEVICE)
+        leaves = [p for _, p in pairs]
+
+        def run(attn, spy):
+            zero_flash_counts()
+            with spy:
+                loss, _ = loss_fn(cfg, params, batch, attn)
+                grads = torch.autograd.grad(loss, leaves)
+            return float(loss.detach()), grads, flash_counts(), spy
+
+        kern = run(make_attention_fn(), RoutingSpy())
+        pinned = [c[1] for c in kern[3].calls]
+        plain = run(plain_attention, RoutingSpy(pinned))
+        with torch.no_grad(), RoutingSpy() as free:
+            loss_fn(cfg, params, batch, plain_attention)
+        flips = sum(routing_flips(a, b[1]) for a, b in zip(pinned, free.calls))
+        want = expected_launches(cfg, cfg.resolve_remat(B * S, seq_len=S), 1)
+        if kern[2] != want or any(plain[2].values()):
+            raise AssertionError(f"moe model check {tag}: launches {kern[2]} (expected"
+                                 f" {want}) / {plain[2]}")
+        r = moe_model_gaps(pairs, kern, plain)
+        r.update(flips=flips, tokens=B * S * cfg.n_layers,
+                 dropped=sum(c[2] for c in kern[3].calls))
+        tol = MODEL_TOL[dtype]
+        log(f"moe model check {tag}: loss {kern[0]:.6f} vs {plain[0]:.6f} (rel"
+            f" {r['loss_rel']:.3e}, tol {tol[0]:g}); worst leaf grad rel {r['worst']:.3e}"
+            f" (tol {tol[1]:g}) at {r['worst_at']}; {flips} tokens flip unpinned,"
+            f" {r['dropped']} choices dropped")
+        check_moe_model(r, tol)
+        shifted = list(pinned)
+        shifted[-1] = (pinned[-1] + 1) % cfg.n_experts
+        bad = run(plain_attention, RoutingSpy(shifted))
+        r["shifted_check"] = must_fail(check_moe_model, moe_model_gaps(pairs, kern, bad), tol)
+        log(f"moe model check {tag} on a layer routed to shifted experts: fails, as it"
+            f" must ({r['shifted_check']})")
+        out[tag] = r
+        del params, pairs, leaves, batch, kern, plain, bad
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def moe_model_gaps(pairs, got, ref) -> dict:
+    """Loss |d|/|ref| and per-leaf grad ||g - r|| / ||r|| of two runs."""
+    grad_rel = {path: float((g.float() - r.float()).norm() / r.float().norm().clamp_min(1e-30))
+                for (path, _), g, r in zip(pairs, got[1], ref[1])}
+    worst_at = max(grad_rel, key=grad_rel.get)
+    return dict(loss_rel=abs(got[0] - ref[0]) / abs(ref[0]), grad_rel=grad_rel,
+                worst=grad_rel[worst_at], worst_at=worst_at)
+
+
+def check_moe_model(r: dict, tol: tuple) -> None:
+    if not (r["loss_rel"] <= tol[0] and r["worst"] <= tol[1]):
+        raise AssertionError(f"moe model check: loss rel {r['loss_rel']:.3e}, grad rel"
+                             f" {r['worst']:.3e} at {r['worst_at']} past {tol}")
+
+
+def run_moe_train() -> dict:
+    """13c: smol-moe at full width and depth, B 2 x S 2048, bf16, 5 steps
+    after 2 warm-up, the einsum then the gather dispatch then gather,
+    einsum (the first run profiled); then the 2-layer model check."""
+    runs = []
+    for i, impl in enumerate(("einsum", "gather", "gather", "einsum")):
+        runs.append(run_train(MOE_PRESET, 2, 2048, profiled=i == 0,
+                              overrides={"moe_impl": impl}))
+    return {"runs": runs, "model_check": run_moe_model_check()}
+
+
 PAGED_TIMES = ("ms", "ms_one_launch", "plain_ms", "bound_ms", "bound_by", "library_ms",
                "library_ms_one_launch", "tflops", "bound_share", "other_plan",
                "host_us_per_call")
@@ -4564,6 +5116,22 @@ def main() -> int:
     lora_checks["drain"] = run_lora_drain()
     log(f"phases 10-10b: {time.monotonic() - t0:.1f}s")
 
+    # 13. mixture-of-experts: the module, serving and training at smol-moe
+    t0 = time.monotonic()
+    moe_module = run_moe_module()
+    log(f"phase 13a: {time.monotonic() - t0:.1f}s")
+    t1 = time.monotonic()
+    mcfg = PRESETS[MOE_PRESET]
+    log(f"model: {MOE_PRESET}, {mcfg.param_count() / 1e9:.3f}B params, {mcfg.dtype},"
+        f" {mcfg.n_layers} layers, {mcfg.n_experts} experts, top-{mcfg.experts_per_token}")
+    moe_serving = run_moe_serving(mcfg)
+    moe_serving["http"] = run_moe_http()
+    log(f"phase 13b: {time.monotonic() - t1:.1f}s")
+    t1 = time.monotonic()
+    moe_train = run_moe_train()
+    log(f"phase 13c: {time.monotonic() - t1:.1f}s")
+    log(f"phase 13: {time.monotonic() - t0:.1f}s")
+
     log(f"total {time.monotonic() - t_all:.1f}s")
     kernels = {"kernels": [paged_entry(kres, launches, wave)]}
     # The paged kernel's launches on the speculative and host-tier paths
@@ -4577,6 +5145,8 @@ def main() -> int:
         "disagg": disagg["launches"],
         "disagg_by_tier": disagg["launches_by_tier"],
         "rl": rl["launches"]["ragged_paged_attention"],
+        "moe": moe_serving["runs"]["plain_all"]["kernel_launches"],
+        "moe_spec": moe_serving["runs"]["spec_all"]["kernel_launches"],
     }
     # `ms` (and so `tflops` and `bound_share`) times launches back to back
     # (`cuda_ms`); `ms_one_launch` one launch from the host's call on an
@@ -4593,7 +5163,8 @@ def main() -> int:
             "launches": run["launches"][kern],
             **({"launches_by_path": {"train": train["launches"][kern],
                                      "lora_train": lora_train["launches"][kern],
-                                     "rl": rl["launches"][kern]}}
+                                     "rl": rl["launches"][kern],
+                                     "moe_train": moe_train["runs"][0]["launches"][kern]}}
                if kern != "flash_block_fwd" else {}),
             "max_abs_err": main_f["max_abs_err"],
             "ms": main_f["ms"],
@@ -4616,7 +5187,8 @@ def main() -> int:
                    "model_check": model, "ring_train": ring, "ring_model_check": ring_model,
                    "checkpoint": checkpoint, "drain": drain, "lora_serving": lora_serving,
                    "lora_train": lora_train, "lora_checks": lora_checks, "rl": rl,
-                   "build_s": _build.build_seconds}, f, indent=1)
+                   "moe_module": moe_module, "moe_serving": moe_serving,
+                   "moe_train": moe_train, "build_s": _build.build_seconds}, f, indent=1)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

@@ -35,7 +35,10 @@ torch cannot draw the same numbers). Checkpoints hold the adapters and
 their moments; the export is the merged params, which native_server
 serves unchanged. It composes with --seq-parallel. The JAX LoRA step has
 no gradient accumulation, so --accum-steps > 1 with --lora-rank raises.
---model-parallel and --expert-parallel are not ported yet.
+An MoE preset (`--preset tiny-moe` / `smol-moe`) trains with its router
+loss in the objective (`router_aux_coef`), printed beside the loss.
+--model-parallel and --expert-parallel are not ported yet (they wait for
+sharding across devices, ROADMAP Queue 1 item 3).
 """
 
 import argparse
@@ -80,7 +83,8 @@ def main(argv: Optional[list] = None) -> None:
     if unported:
         raise NotImplementedError(
             f"not ported to PyTorch yet: {', '.join(unported)} (the port trains"
-            " dense models on one device, with --seq-parallel as its ring)")
+            " on one device, with --seq-parallel as its ring; more devices wait"
+            " for sharding, ROADMAP Queue 1 item 3)")
     if args.lora_rank > 0 and args.accum_steps > 1:
         raise NotImplementedError(
             f"--accum-steps {args.accum_steps} with --lora-rank: the LoRA step"
@@ -178,8 +182,11 @@ def main(argv: Optional[list] = None) -> None:
                 batch = next(loader)
             state, metrics = step(state, batch)
             if i % 10 == 0 or i == args.steps - 1:
+                # The LoRA step's metrics carry no router loss (as JAX's).
+                aux = (f" router_aux {float(metrics['router_aux']):.4f}"
+                       if config.n_experts > 0 and "router_aux" in metrics else "")
                 print(f"step {i}: loss {float(metrics['loss']):.4f}"
-                      f" grad_norm {float(metrics['grad_norm']):.4f}"
+                      f" grad_norm {float(metrics['grad_norm']):.4f}{aux}"
                       f" ({time.monotonic() - t0:.1f}s)", flush=True)
             if drain is not None and drain.draining:
                 drain.checkpoint_and_exit(args.checkpoint_dir, state)

@@ -28,8 +28,8 @@ class ModelConfig:
     max_seq_len: int = 2048
     dtype: str = "bfloat16"
     remat: Union[bool, str] = "auto"
-    # Sparse MoE fields are kept so presets compare equal across the two
-    # packages; the port serves dense models only (n_experts == 0).
+    # Sparse MoE (workloads/moe.py) when n_experts > 0; moe_impl picks the
+    # dispatch, "einsum" or "gather" (anything else raises ValueError there).
     n_experts: int = 0
     experts_per_token: int = 2
     capacity_factor: float = 1.25
@@ -188,11 +188,3 @@ PRESETS: Dict[str, ModelConfig] = {
     ),
 }
 
-
-def require_dense(config: ModelConfig) -> None:
-    """The port has no MoE block yet: refuse rather than run a dense MLP
-    over weights that were never built."""
-    if config.n_experts > 0:
-        raise NotImplementedError(
-            "MoE models (n_experts > 0) are not ported to PyTorch yet"
-        )

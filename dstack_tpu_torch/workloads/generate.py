@@ -7,6 +7,12 @@ temperature 0. The cache is updated in place (the JAX version returns a
 new cache from a functional update); `_forward_cached` still returns the
 cache so call sites read the same in both packages.
 
+MoE caveat (the reference's): capacity-based token dropping
+(workloads/moe.py) follows each call's own sequence length. A decode step
+(S 1) never drops, so MoE decode equals `transformer.forward` only when
+forward's capacity admits every token (a capacity_factor of at least
+n_experts / experts_per_token); the tests pin that regime.
+
 Random draws: `jax.random` keys become `torch.Generator`s. The two give
 different numbers, so sampled (temperature > 0) output matches the
 reference in distribution, not token for token.
@@ -18,12 +24,12 @@ from typing import Any, Dict, Optional, Tuple, Union
 import torch
 
 from dstack_tpu_torch.workloads.attention import NEG_INF, _repeat_kv
-from dstack_tpu_torch.workloads.config import ModelConfig, require_dense
+from dstack_tpu_torch.workloads.config import ModelConfig
 from dstack_tpu_torch.workloads.transformer import (
+    ffn_block,
     layer_params,
     linear,
     logits_linear,
-    mlp_block,
     params_device,
     project_qkv,
     rms_norm,
@@ -76,7 +82,6 @@ def _forward_cached(config: ModelConfig, params: Params, tokens: torch.Tensor,
     of the LAST position (B, V) and the cache, extended in place. Used for
     both prefill (S = prompt len, cache empty) and decode (S = 1)."""
     c = config
-    require_dense(c)
     b, s = tokens.shape
     start = cache.length
     dev = tokens.device
@@ -91,7 +96,7 @@ def _forward_cached(config: ModelConfig, params: Params, tokens: torch.Tensor,
         cv[:, start:start + s] = v.to(cv.dtype)
         attn = _cached_attention(q, ck, cv, valid_len)
         x = x + linear(attn, p["wo"])
-        x = mlp_block(c, x, p)
+        x = ffn_block(c, x, p)
     x = rms_norm(x, params["final_norm"], c.norm_eps)
     logits = logits_linear(x[:, -1], params["lm_head"])
     cache.length = start + s

@@ -41,7 +41,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from dstack_tpu_torch.workloads.config import ModelConfig, require_dense
+from dstack_tpu_torch.workloads.config import ModelConfig
 from dstack_tpu_torch.workloads.device import host_to_device
 from dstack_tpu_torch.workloads.generate import (
     _categorical,
@@ -50,10 +50,10 @@ from dstack_tpu_torch.workloads.generate import (
 )
 from dstack_tpu_torch.workloads.paged_attention import ragged_attention
 from dstack_tpu_torch.workloads.transformer import (
+    ffn_block,
     layer_params,
     linear,
     logits_linear,
-    mlp_block,
     project_qkv,
     rms_norm,
 )
@@ -460,7 +460,6 @@ def make_chunk_prefill(config: ModelConfig, chunk: int, lora: bool = False):
     reused by an adapter-free request resets).
     """
     c = config
-    require_dense(c)
 
     def _impl(params, state: PagedDecodeState, slot: int,
               table_row: Sequence[int], tokens: Sequence[int],
@@ -498,7 +497,7 @@ def make_chunk_prefill(config: ModelConfig, chunk: int, lora: bool = False):
             kp, vp = state.pools(layer)
             attn = ragged_attention(q, kp, vp, tables, valid_len)
             x = x + linear(attn, p["wo"])
-            x = mlp_block(c, x, p)
+            x = ffn_block(c, x, p)
 
         state.block_tables[slot] = row
         if not finalize:
@@ -554,7 +553,6 @@ def make_paged_decode_step(config: ModelConfig, steps: int = 1, lora: bool = Fal
     which costs one sync.
     """
     c = config
-    require_dense(c)
     from dstack_tpu_torch.workloads import serving as _serving
 
     def one_step(params, state: PagedDecodeState, generator, sampling, nucleus,
@@ -577,7 +575,7 @@ def make_paged_decode_step(config: ModelConfig, steps: int = 1, lora: bool = Fal
             kp, vp = state.pools(layer)
             attn = ragged_attention(q, kp, vp, state.block_tables, valid_len)
             x = x + linear(attn, p["wo"])
-            x = mlp_block(c, x, p)
+            x = ffn_block(c, x, p)
         h = rms_norm(x, params["final_norm"], c.norm_eps)
         logits = logits_linear(h[:, -1], params["lm_head"])
         next_token = _serving._select_next_token(
@@ -663,7 +661,6 @@ def make_spec_draft(config: ModelConfig, k: int):
     `sampling` / `nucleus` say whether any live slot samples / filters
     (host values; None reads them off the device)."""
     c = config
-    require_dense(c)
 
     def spec_draft(params, draft_state: PagedDecodeState, block_tables,
                    lengths, last_token, active, temps, top_ps,
@@ -690,7 +687,7 @@ def make_spec_draft(config: ModelConfig, k: int):
                 kp, vp = draft_state.pools(layer)
                 attn = ragged_attention(q, kp, vp, block_tables, valid_len)
                 x = x + linear(attn, p["wo"])
-                x = mlp_block(c, x, p)
+                x = ffn_block(c, x, p)
             h = rms_norm(x, params["final_norm"], c.norm_eps)
             logits = logits_linear(h[:, -1], params["lm_head"])  # (B, V)
             nxt = torch.argmax(logits, dim=-1).to(torch.int32)
@@ -734,7 +731,6 @@ def make_spec_verify(config: ModelConfig, k: int, lora: bool = False):
     accept test scores the tenant's own distribution; the drafter stays
     adapter-free, which lowers acceptance, never correctness."""
     c = config
-    require_dense(c)
     S = k + 1
 
     def _impl(params, state: PagedDecodeState, drafts, qlogits,
@@ -764,7 +760,7 @@ def make_spec_verify(config: ModelConfig, k: int, lora: bool = False):
             kp, vp = state.pools(layer)
             attn = ragged_attention(q, kp, vp, state.block_tables, valid_len)
             x = x + linear(attn, p["wo"])
-            x = mlp_block(c, x, p)
+            x = ffn_block(c, x, p)
         h = rms_norm(x, params["final_norm"], c.norm_eps)
         logits = logits_linear(h, params["lm_head"])                    # (B, S, V)
 

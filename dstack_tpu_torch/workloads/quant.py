@@ -18,7 +18,7 @@ class QTensor(NamedTuple):
     """int8 weights + f32 per-output-channel scales.
 
     q: (..., in, out) int8; scale: (..., 1, out) f32 — leading dims carry
-    the layer stack so stacked weights quantize as one leaf."""
+    the layer (and expert) stacks so stacked weights quantize as one leaf."""
 
     q: torch.Tensor
     scale: torch.Tensor

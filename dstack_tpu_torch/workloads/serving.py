@@ -68,7 +68,7 @@ from dstack_tpu_torch.utils.histogram import HistogramData
 from dstack_tpu_torch.utils.stagemarkers import auto_stage
 from dstack_tpu_torch.workloads import compile_cache
 from dstack_tpu_torch.workloads.attention import decode_attention
-from dstack_tpu_torch.workloads.config import ModelConfig, require_dense
+from dstack_tpu_torch.workloads.config import ModelConfig
 from dstack_tpu_torch.workloads.device import (
     DeviceLike,
     host_to_device,
@@ -100,10 +100,10 @@ from dstack_tpu_torch.workloads.quant import quantize_params
 from dstack_tpu_torch.workloads.transformer import (
     copy_params,
     detach_params,
+    ffn_block,
     layer_params,
     linear,
     logits_linear,
-    mlp_block,
     params_device,
     project_qkv,
     rms_norm,
@@ -232,7 +232,6 @@ def _decode_body(config: ModelConfig):
     """one_step(params, state, generator) -> tokens (B,) — the
     single-token dense decode body, state updated in place."""
     c = config
-    require_dense(c)
 
     def one_step(params, state: DecodeState, generator, sampling=None,
                  nucleus=None):
@@ -254,7 +253,7 @@ def _decode_body(config: ModelConfig):
             cv[rows, at] = torch.where(ok[:, None, None], v[:, 0].to(cv.dtype), cv[rows, at])
             attn = decode_attention(q, ck, cv, lengths + 1)
             x = x + linear(attn, p["wo"])
-            x = mlp_block(c, x, p)
+            x = ffn_block(c, x, p)
         h = rms_norm(x, params["final_norm"], c.norm_eps)
         logits = logits_linear(h[:, -1], params["lm_head"])
         next_token = _select_next_token(state, logits, generator,
@@ -481,7 +480,6 @@ class ServingEngine:
         if mesh is not None:
             raise NotImplementedError(
                 "not ported to the PyTorch engine yet: mesh")
-        require_dense(config)
         self.device = resolve_device(device)
         # The kernel cache (workloads/compile_cache.py) honours
         # DSTACK_TPU_COMPILE_CACHE before warmup or a first request builds
@@ -647,7 +645,6 @@ class ServingEngine:
                        if self._spec else "")
                 )
         if self._spec:
-            require_dense(self._draft_config)
             # Default drafter: weight-only int8 of the target (QTensor
             # leaves dispatch in transformer.linear), so every program runs
             # unchanged on it.

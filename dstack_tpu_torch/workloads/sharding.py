@@ -21,7 +21,7 @@ AXES = ("data", "fsdp", "seq", "model", "expert")
 
 _UNPORTED = ("the port runs one device with a seq axis (the ring's shards take"
              " turns on it); other axes and more devices belong to the sharding"
-             " slice (torch.distributed), not ported yet")
+             " slice (torch.distributed; ROADMAP Queue 1 item 3), not ported yet")
 
 
 @dataclass(frozen=True)

@@ -1,5 +1,6 @@
 """Llama-family decoder in PyTorch (port of
-`dstack_tpu.workloads.transformer`, dense models).
+`dstack_tpu.workloads.transformer`), dense or mixture-of-experts
+(workloads/moe.py when `n_experts > 0`).
 
 Params keep the JAX package's layout: one stacked tensor per weight kind
 with a leading layer dim (`(L, in, out)`), so a checkpoint bridged from
@@ -30,8 +31,9 @@ from torch.utils.checkpoint import (
 )
 
 from dstack_tpu_torch.workloads.attention import plain_attention
-from dstack_tpu_torch.workloads.config import ModelConfig, require_dense
+from dstack_tpu_torch.workloads.config import ModelConfig
 from dstack_tpu_torch.workloads.device import DeviceLike, resolve_device
+from dstack_tpu_torch.workloads.moe import moe_block
 from dstack_tpu_torch.workloads.quant import QTensor
 from dstack_tpu_torch.workloads.sharding import device_shards
 
@@ -45,9 +47,10 @@ def init_params(config: ModelConfig, seed: int = 0,
     N(0, 1/fan_in) drawn in f32 then cast, norms at 1 in f32. Drawn on
     `device` from a `torch.Generator` seeded with `seed` (the JAX package
     draws from `jax.random`, so the values differ; parity tests bridge
-    JAX weights instead, see weights.py)."""
+    JAX weights instead, see weights.py). An MoE config draws the
+    reference's leaves in place of the dense MLP's: router (L, D, E) f32,
+    then we_gate and we_up (L, E, D, F) and we_down (L, E, F, D)."""
     c = config
-    require_dense(c)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     dt = c.activation_dtype
@@ -69,10 +72,19 @@ def init_params(config: ModelConfig, seed: int = 0,
         "wo": dense((L, c.n_heads * hd, D), c.n_heads * hd),
         "attn_norm": norm((L, D)),
         "mlp_norm": norm((L, D)),
-        "w_gate": dense((L, D, F), D),
-        "w_up": dense((L, D, F), D),
-        "w_down": dense((L, F, D), F),
     }
+    if c.n_experts > 0:
+        E = c.n_experts
+        # The router stays f32: routing decisions are precision-sensitive.
+        layers["router"] = torch.randn((L, D, E), generator=gen, device=dev,
+                                       dtype=torch.float32) * D ** -0.5
+        layers["we_gate"] = dense((L, E, D, F), D)
+        layers["we_up"] = dense((L, E, D, F), D)
+        layers["we_down"] = dense((L, E, F, D), F)
+    else:
+        layers["w_gate"] = dense((L, D, F), D)
+        layers["w_up"] = dense((L, D, F), D)
+        layers["w_down"] = dense((L, F, D), F)
     return {
         "embed": embed,
         "layers": layers,
@@ -200,6 +212,17 @@ def mlp_block(c: ModelConfig, x: torch.Tensor, p: Params) -> torch.Tensor:
     return x + linear(gate * up, p["w_down"])
 
 
+def ffn_block(c: ModelConfig, x: torch.Tensor, p: Params) -> torch.Tensor:
+    """The block's MLP half on a cached path: the dense MLP, or the MoE
+    block with its router loss dropped. Capacity follows the call's own
+    sequence length (a decode step's 1, a chunk's padded length), so a
+    cached path drops tokens as the reference's does, not as `forward`
+    over the whole sequence would."""
+    if c.n_experts > 0:
+        return moe_block(c, x, p)[0]
+    return mlp_block(c, x, p)
+
+
 def _dots_policy(ctx, op, *args, **kwargs):
     """Selective checkpointing that keeps the outputs of matmuls without
     batch dims (the reference's `dots_with_no_batch_dims_saveable`) and
@@ -231,12 +254,14 @@ def apply_remat(body, c: ModelConfig, n_tokens: int, mesh=None,
 
 def _block(c: ModelConfig, x: torch.Tensor, p: Params, positions: torch.Tensor,
            attention_fn: AttentionFn):
-    """One decoder block -> (x, router_aux); aux is 0 for dense models."""
+    """One decoder block -> (x, router_aux); aux is None for dense models."""
     b, s, _ = x.shape
     q, k, v = project_qkv(c, x, p, positions)
     attn = attention_fn(q, k, v).reshape(b, s, c.n_heads * c.head_dim)
     x = x + linear(attn, p["wo"])
-    return mlp_block(c, x, p)
+    if c.n_experts > 0:
+        return moe_block(c, x, p)
+    return mlp_block(c, x, p), None
 
 
 def _layer_slices(params: Params, n_layers: int):
@@ -258,16 +283,16 @@ def forward(config: ModelConfig, params: Params, tokens: torch.Tensor, *,
             return_aux: bool = False, return_hidden: bool = False):
     """tokens (B, S) int -> logits (B, S, V) in f32.
 
-    With return_aux=True returns (logits, aux), aux the summed router
-    loss (0 for dense models). With return_hidden=True the lm-head matmul
-    is skipped and the final-norm hidden states (B, S, D) come back in
-    place of logits (the chunked CE applies the head itself).
+    With return_aux=True returns (logits, aux), aux the router loss
+    summed over the layers (0 for dense models). With return_hidden=True
+    the lm-head matmul is skipped and the final-norm hidden states
+    (B, S, D) come back in place of logits (the chunked CE applies the
+    head itself).
 
     A seq `mesh` (sharding.make_mesh) is read by the remat estimate; the
     ring itself lives inside `attention_fn` (make_attention_fn(mesh)), and
     positions stay 0..S-1 since the whole sequence is on the device."""
     c = config
-    require_dense(c)
     attn = attention_fn or plain_attention
     dev = tokens.device
     if positions is None:
@@ -286,9 +311,11 @@ def forward(config: ModelConfig, params: Params, tokens: torch.Tensor, *,
 
     body = apply_remat(body, c, tokens.shape[0] * tokens.shape[1], mesh,
                        seq_len=tokens.shape[1], attn_scores=attn_scores)
-    for p in _layer_slices(params, c.n_layers):
-        x = body(x, p)
     aux = torch.zeros((), dtype=torch.float32, device=dev)
+    for p in _layer_slices(params, c.n_layers):
+        x, layer_aux = body(x, p)
+        if layer_aux is not None:
+            aux = aux + layer_aux
 
     x = rms_norm(x, params["final_norm"], c.norm_eps)
     if return_hidden:

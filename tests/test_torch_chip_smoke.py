@@ -820,3 +820,133 @@ def test_rl_phase_runs_its_gates_on_the_cpu(monkeypatch, tmp_path):
         assert out[fault], fault
     assert out["frame_bytes"] > sum(t.numel() * t.element_size() for t in
                                     _tiny_rl_params().values() if isinstance(t, torch.Tensor))
+
+
+# -- phase 13: mixture-of-experts --------------------------------------------
+
+
+def _moe_layer(cf, dtype="bfloat16"):
+    from dstack_tpu_torch.workloads.config import PRESETS
+
+    c = PRESETS["tiny-moe"].with_(capacity_factor=cf, dtype=dtype)
+    return c, cs.moe_layer(c, 0, "cpu")
+
+
+def test_routing_flips_counts_tokens_whose_expert_sets_differ():
+    a = torch.tensor([[[0, 1], [2, 3], [1, 0], [3, 2]]])
+    b = torch.tensor([[[1, 0], [2, 1], [1, 0], [0, 2]]])
+    assert cs.routing_flips(a, a) == 0
+    assert cs.routing_flips(a, b) == 2  # the order within a token is no flip
+
+
+@pytest.mark.parametrize("impl", ["einsum", "gather"])
+def test_moe_loop_reference_holds_moe_mlp_and_fails_each_mutant(impl):
+    """The per-expert f32 loop against moe_mlp on the CPU at bf16 (the
+    13a gate's limits) with nothing dropped and with drops, and each of
+    13a's faults failing the gate."""
+    from dstack_tpu_torch.workloads import moe
+
+    for cf, S, faults in ((2.0, 16, {"choices": 1, "normalise": False}),
+                          (cs.MOE_DROP_CF, 128, {"honour_drops": False})):
+        c, p = _moe_layer(cf)
+        h = torch.randn((1, S, c.d_model), generator=torch.Generator().manual_seed(S)).to(
+            torch.bfloat16)
+        ref, dropped = cs.moe_loop_reference(c, h, p)
+        assert (dropped > 0) == (cf < 2.0)
+        got, _ = moe.moe_mlp(c.with_(moe_impl=impl), h, p)
+        cs.check_moe(cs.moe_readings(got, ref), cs.MOE_LOOP_TOL)
+        for name, kw in faults.items():
+            bad, _ = cs.moe_loop_reference(c, h, p, **{name: kw})
+            assert "past" in cs.must_fail(cs.check_moe, cs.moe_readings(bad, ref),
+                                          cs.MOE_LOOP_TOL, name)
+
+
+def test_moe_loop_reference_equals_moe_mlp_in_f32():
+    from dstack_tpu_torch.workloads import moe
+
+    c, p = _moe_layer(1.25, "float32")
+    p = {k: v.float() for k, v in p.items()}
+    h = torch.randn((2, 32, c.d_model), generator=torch.Generator().manual_seed(1))
+    ref, dropped = cs.moe_loop_reference(c, h, p)
+    got, _ = moe.moe_mlp(c, h, p)
+    assert dropped > 0
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+
+
+def test_routing_spy_records_and_pins():
+    """RoutingSpy records each call's routing; pinned to a run's own
+    routing it reproduces that run bit for bit, pinned to other experts it
+    does not, and its calls wrap around (a remat recompute)."""
+    from dstack_tpu_torch.workloads import moe
+    from dstack_tpu_torch.workloads.config import PRESETS
+    from dstack_tpu_torch.workloads.transformer import forward, init_params
+
+    c = PRESETS["tiny-moe"].with_(dtype="float32")
+    params = init_params(c, 0, "cpu")
+    tok = torch.randint(0, c.vocab_size, (1, 24), generator=torch.Generator().manual_seed(0))
+    real = moe.route_assignments
+    with torch.no_grad(), cs.RoutingSpy() as spy:
+        want = forward(c, params, tok)
+    assert moe.route_assignments is real
+    assert [s for s, _, _ in spy.calls] == [24] * c.n_layers
+    pinned = [idx for _, idx, _ in spy.calls]
+    with torch.no_grad(), cs.RoutingSpy(pinned) as again:
+        assert torch.equal(forward(c, params, tok), want)
+        assert torch.equal(forward(c, params, tok), want)
+    assert len(again.calls) == 2 * c.n_layers
+    shifted = [pinned[0], (pinned[1] + 1) % c.n_experts]
+    with torch.no_grad(), cs.RoutingSpy(shifted):
+        assert not torch.allclose(forward(c, params, tok), want)
+    assert cs.routing_flips(pinned[1], shifted[1]) == 24
+
+
+def test_two_runs_gate_and_the_model_gate_fail_their_faults():
+    streams = [[1, 2, 3], [4, 5, 6]]
+    cs.two_runs_identical(streams, [list(s) for s in streams])
+    assert "differ" in cs.must_fail(cs.two_runs_identical, streams, [[1, 2, 3], [4, 9, 6]])
+    good = {"loss_rel": 1e-6, "worst": 1e-3, "worst_at": "embed"}
+    cs.check_moe_model(good, cs.MODEL_TOL[torch.bfloat16])
+    for bad in ({**good, "loss_rel": 1e-2}, {**good, "worst": 0.3}):
+        assert "past" in cs.must_fail(cs.check_moe_model, bad, cs.MODEL_TOL[torch.bfloat16])
+
+
+def test_moe_cf_all_admits_every_token_on_every_path():
+    from dstack_tpu_torch.workloads.config import PRESETS
+    from dstack_tpu_torch.workloads.moe import expert_capacity
+
+    for name in ("tiny-moe", "smol-moe"):
+        c = PRESETS[name]
+        c = c.with_(capacity_factor=cs.moe_cf_all(c))
+        for S in (1, 5, 128, 200, 2048):
+            assert expert_capacity(c, S) >= S
+
+
+def test_moe_model_check_runs_its_gates_on_the_cpu(monkeypatch):
+    """13c's 2-layer check at tiny-moe's width on the CPU (the kernels'
+    attention is plain here, so the sound reading is exact and flips are
+    0): the pinned gate passes, the shifted-experts fault fails it."""
+    from dstack_tpu_torch.workloads.config import PRESETS
+
+    monkeypatch.setattr(cs, "MOE_PRESET", "tiny-moe")
+    monkeypatch.setattr(cs, "MOE_DEVICE", "cpu")
+    monkeypatch.setattr(cs, "expected_launches", lambda *a, **k: cs.flash_counts())
+    assert PRESETS["tiny-moe"].n_layers == 2
+    out = cs.run_moe_model_check(B=1, S=64)
+    for tag in ("f32", "bf16"):
+        assert out[tag]["loss_rel"] == 0.0 and out[tag]["flips"] == 0
+        assert "past" in out[tag]["shifted_check"]
+
+
+def test_moe_module_phase_runs_its_gates_on_the_cpu(monkeypatch):
+    """13a at tiny-moe's width on the CPU (timing stubbed: it needs the
+    card): both dispatches within the gates, and each of the four faults
+    failing its gate."""
+    monkeypatch.setattr(cs, "MOE_PRESET", "tiny-moe")
+    monkeypatch.setattr(cs, "MOE_DEVICE", "cpu")
+    monkeypatch.setattr(cs, "cuda_ms", lambda fns, n, graph=True: 0.0)
+    out = cs.run_moe_module()
+    assert all(r["aux_equal"] for r in out["paths"].values())
+    assert sorted(out["mutants"]) == ["drop_not_zeroed", "gate_unnormalised",
+                                      "paths_second_choice_dropped", "second_choice_dropped"]
+    assert out["loop"]["drops_einsum"]["dropped"] > 0
+    assert out["loop"]["all_admitted_gather"]["dropped"] == 0

@@ -40,6 +40,7 @@ MODULES = (
     "dstack_tpu_torch.workloads.kv_transfer",
     "dstack_tpu_torch.workloads.lora",
     "dstack_tpu_torch.workloads.lora_serving",
+    "dstack_tpu_torch.workloads.moe",
     "dstack_tpu_torch.workloads.paged_attention",
     "dstack_tpu_torch.workloads.quant",
     "dstack_tpu_torch.workloads.rl",

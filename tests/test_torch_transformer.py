@@ -215,7 +215,7 @@ def test_init_params_matches_reference_layout(model):
 @pytest.mark.parametrize("name", sorted(JPRESETS))
 def test_presets_and_derived_sizes_match_jax(name):
     """Same preset names, fields and derived sizes as the JAX config (the
-    port lists every reference preset; MoE ones are refused at use)."""
+    port lists every reference preset, the MoE ones included)."""
     assert set(PRESETS) == set(JPRESETS)
     j, t = JPRESETS[name], PRESETS[name]
     fields = ("vocab_size", "d_model", "n_layers", "n_heads", "n_kv_heads",
@@ -297,9 +297,18 @@ def test_silu_grads_match_jax_custom_vjp(dtype):
 
 
 def test_forward_refuses_moe_and_meshes():
-    cfg = PRESETS["tiny-moe"]
-    with pytest.raises(NotImplementedError, match="MoE"):
-        ttr.forward(cfg, {}, torch.zeros((1, 4), dtype=torch.int32))
+    """An MoE config runs (its forward and router loss equal JAX's, f32
+    1e-5; tests/test_torch_moe.py holds the rest); a mesh beyond the
+    port's one device is still refused."""
+    jcfg, cfg = JPRESETS["tiny-moe"].with_(dtype="float32"), PRESETS["tiny-moe"].with_(
+        dtype="float32")
+    jparams = jtr.init_params(jcfg, jax.random.PRNGKey(0))
+    tok = _tokens(cfg, seed=2, b=1, s=32)
+    want, want_aux = jtr.forward(jcfg, jparams, jnp.asarray(tok), return_aux=True)
+    got, aux = ttr.forward(cfg, params_from_numpy(_to_np(jparams), "cpu"),
+                           torch.from_numpy(tok), return_aux=True)
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=1e-5, atol=1e-5)
+    assert float(aux) == pytest.approx(float(want_aux), rel=1e-5) and float(aux) > 0
     tcfg = PRESETS["tiny"]
     with pytest.raises(NotImplementedError):
         ttr.forward(tcfg, ttr.init_params(tcfg, 0, "cpu"),
