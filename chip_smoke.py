@@ -205,8 +205,22 @@ Phases (any failure fails the run; nothing is caught to exit 0):
                dispatch's), peak memory, router_aux, flash launches; at 2
                layers the kernels against plain attention with the plain
                run pinned to the kernel run's routing, f32 and bf16.
+  14. tensor parallelism — (c) the paged kernel against its plain version
+               at a rank's heads of smol-1b on a model axis of 2 (H 8, KV 4),
+               decode and chunk, bf16 and f32, the bf16 decode timed; two
+               processes of this script (--tp-rank 0/1) over gloo on the one
+               card serve smol-1b at full depth sharded, bf16, f32 and a
+               mutant: (a) 8 streams by the near-tie rule against the
+               unsharded engine (bit-for-bit count printed), (b) each rank's
+               prompt-block pools against its heads of the unsharded pool,
+               (d) 16 paged launches per decode step on each rank, (e) both
+               gates failing the two ranks' heads swapped in the attention
+               output's all-gather; decode tok/s, TTFT and the staged
+               all-gathers per decode step recorded (gloo, two ranks on one
+               card: not a TP speed); (f) a world-1 NCCL group's short wave
+               in a process of its own (--tp-nccl).
 Phase 3b and 3c run after 3, 4b and 4c after 4, 5b after 5, 11 after
-5b, 12 after 11, phases 6 to 10b after 12, 13 after 10b. The line before the
+5b, 12 after 11, phases 6 to 10b after 12, 13 after 10b, 14 after 13. The line before the
 last is the `kernels` JSON; the last line is {"ok": true, "device": {...}}.
 Each phase logs its numbers on the way; details also go to
 chiprun_out/chip_smoke.json.
@@ -4934,6 +4948,363 @@ PAGED_TIMES = ("ms", "ms_one_launch", "plain_ms", "bound_ms", "bound_by", "libra
                "host_us_per_call")
 
 
+# -- phase 14: tensor-parallel serving across ranks --------------------------------
+
+TP_RANKS = 2
+# The model and the one card both ranks share (a CPU dry run of the rank
+# processes swaps in a small preset and "cpu").
+TP_PRESET, TP_DEVICE = "smol-1b", "cuda:0"
+# Each rank process's limit (seconds): start-up, three cases, the pool
+# gathers; killed past it.
+TP_TIMEOUT = 600
+TP_NEW = 32
+TP_ENGINE_KW = dict(slots=8, steps_per_sync=4, prefill_chunk_tokens=128, kv_block_size=16)
+# The cases of 14(a), (b) and (e): bf16 and f32 held against the unsharded
+# engine, and bf16 with the two ranks' shards swapped in the attention
+# output's all-gather, which both gates must fail.
+TP_CASES = (("bf16", "bfloat16", False), ("f32", "float32", False),
+            ("mutant", "bfloat16", True))
+# 14(b): each rank's pool shard against its heads of the unsharded engine's
+# pool, over the prompt blocks both prefix caches hold (rows of hd), by
+# flash_errors' (rel_l2, row_rel): about 3x the sound reading on the H100
+# (PERF.md, phase 14: bf16 8.26e-3 and 2.82e-2, f32 1.89e-6 and 5.56e-6;
+# the swapped all-gather reads 1.37 and 2.89).
+TP_POOL_TOL = {"bfloat16": (2.5e-2, 8.5e-2), "float32": (6e-6, 1.7e-5)}
+# 14(c): the per-rank geometry of smol-1b at model 2 (H 8, KV 4, hd 128).
+TP_GEO = dict(H=8, KV=4, hd=128, bs=16, MB=128, NB=1024)
+
+
+def tp_kernel_cases(flush) -> list:
+    """14(c): the paged kernel against its plain version at each rank's
+    heads, the engine's decode and chunk shapes, bf16 and f32; times of
+    the bf16 decode case."""
+    from dstack_tpu_torch.workloads import paged_attention as pa
+
+    decode_lens = [37, 200, 513, 1000, 1499, 1801, 2046, 64]
+    results = []
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        for case in (paged_case(f"tp_decode_{tag}", dtype, B=8, S=1, **TP_GEO,
+                                start=decode_lens, seed=11),
+                     paged_case(f"tp_chunk_{tag}", dtype, B=1, S=128, **TP_GEO,
+                                start=[384], seed=12)):
+            args = (case["q"], case["k"], case["v"], case["tables"], case["vlen"])
+            got = pa._ragged_attention_cuda(*args)
+            ref = pa._ragged_attention_plain(*args)
+            torch.cuda.synchronize()
+            if not torch.isfinite(got.float()).all():
+                raise AssertionError(f"{case['name']}: kernel output not finite")
+            r = dict(case=case["name"], **paged_readings(got, ref, case["q"].shape[2]),
+                     split_plan=paged_plan(pa, case)._asdict())
+            tol = PAGED_TOL[dtype]
+            log(f"kernel {case['name']} (a rank's heads): " + json.dumps(r) + f" (tol {tol})")
+            if not within(r, tol):
+                raise AssertionError(f"{case['name']}: readings {r} past {tol}")
+            if case["name"] == "tp_decode_bf16":
+                r.update(paged_times(pa, case, ref, flush))
+                log("kernel timing", json.dumps(r))
+            results.append(r)
+    return results
+
+
+def tp_swap_attn_out():
+    """The mutant of 14(e): the attention output's all-gather concatenates
+    the two ranks' heads in reverse rank order. Returns the undo."""
+    from dstack_tpu_torch.workloads import kv_blocks, sharding
+    from dstack_tpu_torch.workloads.transformer import linear
+
+    orig = kv_blocks.attn_out
+
+    def swapped(attn, p, mesh=None):
+        g = sharding.all_gather(attn, -1, mesh)
+        g = torch.cat(g.chunk(sharding.model_shards(mesh), -1)[::-1], -1)
+        return sharding.all_gather(linear(g, p["wo"]), -1, mesh)
+
+    kv_blocks.attn_out = swapped
+    return lambda: setattr(kv_blocks, "attn_out", orig)
+
+
+def tp_count_ops(serving, pa, mesh):
+    """Per-rank counters through the op layer: an op of the smoke's own
+    (`_op("tp_zero_counts")`, never the idle heartbeat's no-op) zeroes the
+    paged kernel's launch count and the mesh's collective counts on every
+    rank at one point of the op stream; each decode op records its
+    launches, all-gathers and all-gather seconds per decode step.
+    Returns (counts, undo)."""
+    cls = serving.ServingEngine
+    orig_decode = cls._op_decode
+
+    def fresh():
+        return dict(per_step=[], decode_ops=0, decode_gathers=0, decode_gather_s=0.0,
+                    stats0=dict(mesh.stats))
+
+    counts = fresh()
+
+    def zero_counts(self):
+        pa.LAUNCHES["ragged_paged_attention"] = 0
+        counts.update(fresh())
+
+    def decode(self, *a):
+        before = pa.LAUNCHES["ragged_paged_attention"]
+        g0, s0 = mesh.stats["all_gathers"], mesh.stats["all_gather_seconds"]
+        out = orig_decode(self, *a)
+        counts["per_step"].append(
+            (pa.LAUNCHES["ragged_paged_attention"] - before) / self._steps_per_sync)
+        counts["decode_ops"] += 1
+        counts["decode_gathers"] += mesh.stats["all_gathers"] - g0
+        counts["decode_gather_s"] += mesh.stats["all_gather_seconds"] - s0
+        return out
+
+    cls._op_tp_zero_counts, cls._op_decode = zero_counts, decode
+
+    def undo():
+        del cls._op_tp_zero_counts
+        cls._op_decode = orig_decode
+    return counts, undo
+
+
+def tp_prompt_blocks(state, blocks) -> torch.Tensor:
+    """(2, L, n, bs, KV_rank, hd): k and v of `blocks` in every layer."""
+    ids = torch.tensor(blocks, dtype=torch.int64, device=state.k.device)
+    return torch.stack([state.k[:, ids], state.v[:, ids]])
+
+
+def tp_rank_main(rank: int, init: str) -> int:
+    """One rank of phase 14, a process of its own: the cases of TP_CASES
+    on two gloo ranks sharing cuda:0. Rank 0 drives each engine, runs the
+    unsharded engine beside it and prints its readings as one JSON line;
+    rank 1 follows."""
+    from dstack_tpu_torch.workloads import paged_attention as pa
+    from dstack_tpu_torch.workloads import serving, sharding
+    from dstack_tpu_torch.workloads.config import PRESETS
+    from dstack_tpu_torch.workloads.transformer import init_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sharding.init_ranks(TP_RANKS, rank, init, backend="gloo", device=TP_DEVICE)
+    mesh = sharding.make_mesh([TP_DEVICE], model=TP_RANKS)
+    prompts = engine_prompts()
+    out, refs = {}, {}
+    for name, dtype, mutant in TP_CASES:
+        cfg = PRESETS[TP_PRESET].with_(dtype=dtype)
+        params = init_params(cfg, seed=0, device=TP_DEVICE)
+        counts, undo_counts = tp_count_ops(serving, pa, mesh)
+        undo_swap = tp_swap_attn_out() if mutant else (lambda: None)
+        try:
+            if rank == 0:
+                eng = serving.ServingEngine(cfg, params, mesh=mesh, **TP_ENGINE_KW)
+                try:
+                    eng.warmup()
+                    eng._op("tp_zero_counts")  # every rank's counters from here
+                    wave = serve_wave(eng, prompts, TP_NEW)
+                finally:
+                    eng.close()
+                state, cache = eng.state, eng._alloc._cache
+            else:
+                state = serving.run_follower(mesh, cfg, params, **TP_ENGINE_KW).state
+        finally:
+            undo_swap()
+            undo_counts()
+        stats = {k: mesh.stats[k] - counts["stats0"][k] for k in mesh.stats}
+        # The prompt blocks both prefix caches hold, keyed by chain key.
+        keys = sharding.broadcast_object(
+            sorted(k for k in cache if k[0] == "F") if rank == 0 else None, mesh)
+        blocks = sharding.broadcast_object([cache[k] for k in keys] if rank == 0 else None,
+                                           mesh)
+        pool = sharding.all_gather(tp_prompt_blocks(state, blocks), 4, mesh)
+        ranks = [None] * TP_RANKS
+        torch.distributed.all_gather_object(
+            ranks, dict(launches=pa.LAUNCHES["ragged_paged_attention"], **stats,
+                        **{k: v for k, v in counts.items() if k != "stats0"}))
+        if rank:
+            del state, pool, params
+            torch.cuda.empty_cache()
+            continue
+        if not mutant:
+            ref = serving.ServingEngine(cfg, params, device=TP_DEVICE, **TP_ENGINE_KW)
+            try:
+                ref.warmup()
+                ref_wave = serve_wave(ref, prompts, TP_NEW)
+            finally:
+                ref.close()
+            ref_pool = tp_prompt_blocks(ref.state, [ref._alloc._cache[k] for k in keys])
+            refs[dtype] = (ref_wave["streams"], dict(zip(keys, ref_pool.unbind(2))))
+            del ref
+        ref_streams, ref_blocks = refs[dtype]
+        shared = [i for i, k in enumerate(keys) if k in ref_blocks]
+        got = pool[:, :, shared]
+        want = torch.stack([ref_blocks[keys[i]] for i in shared], dim=2)
+        rel_l2, row_rel, max_abs, ref_max = flash_errors(got, want)
+        tol = ENGINE_LOGIT_TOL[cfg.activation_dtype]
+        try:
+            held = hold_streams(cfg, params, prompts, ref_streams, wave["streams"], tol,
+                                f"phase 14 {name}")
+            held_error = None
+        except AssertionError as e:
+            held, held_error = None, str(e)
+        steps = max(ranks[0]["decode_ops"] * TP_ENGINE_KW["steps_per_sync"], 1)
+        out[name] = dict(
+            dtype=dtype, mutant=mutant, n_layers=cfg.n_layers,
+            bit_exact_streams=sum(a == b for a, b in zip(ref_streams, wave["streams"])),
+            streams_held=held, streams_error=held_error,
+            pool=dict(rel_l2=rel_l2, row_rel=row_rel, max_abs_err=max_abs, ref_max=ref_max,
+                      blocks=len(shared), tol=TP_POOL_TOL[dtype]),
+            ranks=ranks,
+            decode_tokens_per_s=wave["decode_tokens_per_s"], ttft_p50_s=wave["ttft_p50_s"],
+            all_gathers_per_step=ranks[0]["decode_gathers"] / steps,
+            all_gather_ms_per_step=ranks[0]["decode_gather_s"] * 1e3 / steps,
+            unsharded=None if mutant else dict(
+                decode_tokens_per_s=ref_wave["decode_tokens_per_s"],
+                ttft_p50_s=ref_wave["ttft_p50_s"]),
+            token_counts=[len(t) for t in wave["streams"]])
+        log(f"phase 14 {name}: " + json.dumps(out[name]))
+        del eng, state, pool, params, got, want
+        torch.cuda.empty_cache()
+    if rank == 0:
+        print("TP_RESULT " + json.dumps(out), flush=True)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def check_tp(res: dict) -> None:
+    """The gates of 14(a), (b), (d) and (e) on rank 0's readings."""
+    for name, r in res.items():
+        per_step = [x for rk in r["ranks"] for x in rk["per_step"]]
+        if not per_step or any(x != r["n_layers"] for x in per_step):
+            raise AssertionError(f"phase 14 {name}: launches per decode step {per_step},"
+                                 f" not the {r['n_layers']} layers on each rank")
+        if any(rk["launches"] <= 0 for rk in r["ranks"]):
+            raise AssertionError(f"phase 14 {name}: a rank launched the kernel 0 times")
+        if r["token_counts"] != [TP_NEW] * len(r["token_counts"]):
+            raise AssertionError(f"phase 14 {name}: token counts {r['token_counts']}")
+        p = r["pool"]
+        pool_ok = p["rel_l2"] <= p["tol"][0] and p["row_rel"] <= p["tol"][1]
+        streams_ok = r["streams_held"] is not None
+        if r["mutant"]:
+            if streams_ok or pool_ok:
+                raise AssertionError(f"phase 14: the swapped all-gather passes a gate:"
+                                     f" streams {streams_ok}, pool {pool_ok} ({p})")
+        elif not (streams_ok and pool_ok):
+            raise AssertionError(f"phase 14 {name}: streams {r['streams_error']},"
+                                 f" pool {p}")
+
+
+def run_tp_nccl(n_new: int = 8) -> dict:
+    """14(f): a world-1 NCCL group on cuda:0 serves a short wave through
+    the op layer (every op broadcast over NCCL). Runs in a process of its
+    own (`--tp-nccl`, started by `launch_tp_nccl`), so no NCCL state
+    outlives it in the smoke's process."""
+    from dstack_tpu_torch.workloads import sharding
+    from dstack_tpu_torch.workloads.config import PRESETS
+    from dstack_tpu_torch.workloads.serving import ServingEngine
+    from dstack_tpu_torch.workloads.transformer import init_params
+
+    cfg = PRESETS["smol-1b"]
+    params = init_params(cfg, seed=0)
+    sharding.init_ranks(1, 0, sharding.loopback_rendezvous(), backend="nccl", device="cuda:0")
+    try:
+        mesh = sharding.make_mesh(["cuda:0"], model=1)
+        eng = ServingEngine(cfg, params, mesh=mesh, **TP_ENGINE_KW)
+        try:
+            eng.warmup()
+            streams = [drain(eng.submit(p, n_new, temperature=0.0))[0]
+                       for p in engine_prompts()[:2]]
+        finally:
+            eng.close()
+        r = dict(backend=mesh.backend, broadcasts=mesh.stats["broadcasts"],
+                 token_counts=[len(s) for s in streams])
+    finally:
+        torch.distributed.destroy_process_group()
+    if r["backend"] != "nccl" or r["broadcasts"] <= 0 or r["token_counts"] != [n_new] * 2:
+        raise AssertionError(f"phase 14(f): {r}")
+    print("TP_NCCL " + json.dumps(r), flush=True)
+    return r
+
+
+def launch_tp_nccl(timeout: float = TP_TIMEOUT) -> dict:
+    """14(f) in a process of its own, killed past `timeout`."""
+    path = "chiprun_out/phase14_nccl.log"
+    with open(path, "w") as f:
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--tp-nccl"],
+                                stdout=f, stderr=subprocess.STDOUT, start_new_session=True)
+        code = wait_ranks([proc], timeout)[0]
+    text = open(path).read()
+    if code != 0:
+        raise AssertionError(f"phase 14(f) exited {code}:\n{text[-4000:]}")
+    r = json.loads(next(ln for ln in text.splitlines()
+                        if ln.startswith("TP_NCCL "))[len("TP_NCCL "):])
+    log("phase 14(f) nccl world 1: " + json.dumps(r))
+    return r
+
+
+def wait_ranks(procs, timeout: float) -> list:
+    """Wait for every rank process until `timeout` seconds in all, then
+    kill the process group of any still running; returns the exit codes
+    (a killed rank's is negative)."""
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            try:
+                p.wait(timeout=max(0.1, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, 9)
+                p.wait()
+    return [p.returncode for p in procs]
+
+
+def launch_tp_ranks(timeout: float = TP_TIMEOUT) -> dict:
+    """Start both ranks of phase 14 as processes (this script with
+    --tp-rank), each killed past `timeout`; a rank that fails fails the
+    phase. Returns rank 0's readings; the ranks' logs go to chiprun_out/."""
+    from dstack_tpu_torch.workloads.sharding import loopback_rendezvous
+
+    init = loopback_rendezvous()
+    os.makedirs(os.path.dirname(OUT), exist_ok=True)
+    paths = [f"chiprun_out/phase14_rank{r}.log" for r in range(TP_RANKS)]
+    logs = [open(path, "w") for path in paths]
+    try:
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--tp-rank",
+                                   str(r), "--dist-init", init], stdout=logs[r],
+                                  stderr=subprocess.STDOUT, start_new_session=True)
+                 for r in range(TP_RANKS)]
+        codes = wait_ranks(procs, timeout)
+    finally:
+        for f in logs:
+            f.close()
+    for r, code in enumerate(codes):
+        if code != 0:
+            text = open(paths[r]).read()
+            raise AssertionError(f"phase 14 rank {r} exited {code}:\n{text[-4000:]}")
+    line = next(ln for ln in open(paths[0]).read().splitlines() if ln.startswith("TP_RESULT "))
+    return json.loads(line[len("TP_RESULT "):])
+
+
+def run_tp() -> dict:
+    """Phase 14: (a, b, d, e) in two rank processes, (c) and (f) here."""
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    t0 = time.monotonic()
+    kernels = tp_kernel_cases(flush)
+    del flush
+    t1 = time.monotonic()
+    ranks = launch_tp_ranks()
+    check_tp(ranks)
+    t2 = time.monotonic()
+    nccl = launch_tp_nccl()
+    t3 = time.monotonic()
+    for name, r in ranks.items():
+        log(f"phase 14 {name} (gloo, two ranks on one card: not a TP speed):"
+            f" decode {r['decode_tokens_per_s']:.1f} tok/s, TTFT p50"
+            f" {r['ttft_p50_s'] * 1e3:.1f} ms, {r['all_gathers_per_step']:.1f} staged"
+            f" all-gathers per decode step taking {r['all_gather_ms_per_step']:.2f} ms,"
+            f" streams bit for bit {r['bit_exact_streams']}/8")
+    log(f"phase 14: kernels {t1 - t0:.1f}s, ranks {t2 - t1:.1f}s, nccl {t3 - t2:.1f}s")
+    return dict(kernels=kernels, ranks=ranks, nccl=nccl,
+                seconds=dict(kernels=t1 - t0, ranks=t2 - t1, nccl=t3 - t2))
+
+
 def paged_entry(kres, launches, wave) -> dict:
     """The paged kernel's entry of the `kernels` line: the bf16 decode
     case's times, the bf16 short-slot decode and chunk cases' beside them,
@@ -5132,6 +5503,12 @@ def main() -> int:
     log(f"phase 13c: {time.monotonic() - t1:.1f}s")
     log(f"phase 13: {time.monotonic() - t0:.1f}s")
 
+    # 14. tensor-parallel serving: smol-1b over two gloo ranks on the card,
+    # kernel #1 at a rank's heads, a world-1 NCCL wave
+    t0 = time.monotonic()
+    tp = run_tp()
+    log(f"phase 14: {time.monotonic() - t0:.1f}s")
+
     log(f"total {time.monotonic() - t_all:.1f}s")
     kernels = {"kernels": [paged_entry(kres, launches, wave)]}
     # The paged kernel's launches on the speculative and host-tier paths
@@ -5147,7 +5524,13 @@ def main() -> int:
         "rl": rl["launches"]["ragged_paged_attention"],
         "moe": moe_serving["runs"]["plain_all"]["kernel_launches"],
         "moe_spec": moe_serving["runs"]["spec_all"]["kernel_launches"],
+        # Each rank of phase 14's bf16 wave, on its 8 q / 4 KV heads.
+        **{f"tp_rank{r}": rk["launches"] for r, rk in enumerate(tp["ranks"]["bf16"]["ranks"])},
     }
+    kernels["kernels"][0]["per_rank"] = {
+        r["case"]: {k: r[k] for k in ("rel_l2", "row_rel", "row_l2", "max_abs_err",
+                                      *[t for t in PAGED_TIMES if t in r])}
+        for r in tp["kernels"]}
     # `ms` (and so `tflops` and `bound_share`) times launches back to back
     # (`cuda_ms`); `ms_one_launch` one launch from the host's call on an
     # idle card and a cold L2, which for a short kernel is mostly latency.
@@ -5188,7 +5571,16 @@ def main() -> int:
                    "checkpoint": checkpoint, "drain": drain, "lora_serving": lora_serving,
                    "lora_train": lora_train, "lora_checks": lora_checks, "rl": rl,
                    "moe_module": moe_module, "moe_serving": moe_serving,
-                   "moe_train": moe_train, "build_s": _build.build_seconds}, f, indent=1)
+                   "moe_train": moe_train, "tp": tp, "build_s": _build.build_seconds},
+                  f, indent=1)
+    # What could hold the interpreter's exit: threads that are not daemons
+    # and child processes still running (every phase stops its own).
+    left = [t.name for t in threading.enumerate()
+            if t is not threading.main_thread() and not t.daemon]
+    kids = subprocess.run(["ps", "--ppid", str(os.getpid()), "-o", "pid=,args="],
+                          capture_output=True, text=True).stdout.split("\n")
+    log(f"at exit: non-daemon threads {left}, children"
+        f" {[k for k in kids if k.strip() and 'ps --ppid' not in k]}")
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
@@ -5197,4 +5589,12 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if "--tp-rank" in sys.argv:  # a rank of phase 14, started by run_tp
+        argv = sys.argv[1:]
+        sys.exit(tp_rank_main(int(argv[argv.index("--tp-rank") + 1]),
+                              argv[argv.index("--dist-init") + 1]))
+    if "--tp-nccl" in sys.argv:  # phase 14(f), started by run_tp
+        torch.backends.cuda.matmul.allow_tf32 = False
+        run_tp_nccl()
+        sys.exit(0)
     sys.exit(main())

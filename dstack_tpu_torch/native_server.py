@@ -49,7 +49,21 @@ decode --kv-transfer-port P` admits handoffs on a KV transfer server at P
 each one at `GET /v1/handoffs/<id>` (SSE, one claim per id); `--role
 prefill --kv-transfer-connect HOST:P` prefills and ships the KV, and its
 chat answers with `finish_reason: "kv_handoff"` and the `handoff_id`.
-`--mesh-model` is accepted only as 1 (the device mesh is not ported).
+
+Tensor parallelism, as the JAX server's `--mesh-model N`: the server is
+rank 0 of a `torch.distributed` group of N ranks and starts ranks 1..N-1
+itself, as fresh interpreters of this module (`--rank r --dist-init
+tcp://127.0.0.1:<port>`, a loopback port the server picks), so a service
+command stays one process. Rank r runs on `cuda:r`, or on `--device` for
+every rank when it is given. Each rank loads the same weights and serves
+its columns of them (workloads/sharding.py); the ranks of the split roles
+do the same. `--dist-backend` is the port's transport switch: `nccl` (the
+default on CUDA) for one rank per card, `gloo` (the default on the CPU)
+for ranks that share a card; nccl with every rank on one card refuses
+and names gloo. SIGTERM stops taking requests, waits for in-flight ones
+(up to DRAIN_S), closes the engine, which stops the followers, and
+reaps them: no rank outlives the server, and a follower whose server
+disappears exits.
 
 Multi-tenant LoRA, as the JAX server: `--adapter NAME=PATH` (repeatable)
 preloads an adapter, PATH a `save_adapter` npz of either package or
@@ -70,6 +84,8 @@ import codecs
 import itertools
 import json
 import math
+import signal
+import sys
 import threading
 import time
 import zlib
@@ -102,7 +118,9 @@ from dstack_tpu_torch.workloads.serving import (
     EngineOverloadedError,
     ServingEngine,
     prometheus_metrics,
+    run_follower,
 )
+from dstack_tpu_torch.workloads import sharding
 from dstack_tpu_torch.workloads.transformer import init_params
 
 # Prompts are bucketed to powers of two as in the JAX server, so both
@@ -110,6 +128,8 @@ from dstack_tpu_torch.workloads.transformer import init_params
 MIN_BUCKET = 32
 # Seconds a built affinity sketch is served before it is rebuilt.
 AFFINITY_TTL_S = 0.25
+# Seconds SIGTERM waits for in-flight requests before the engine closes.
+DRAIN_S = 30.0
 
 
 def encode_text(text: str, vocab_size: int, max_seq_len: int,
@@ -140,7 +160,10 @@ def chat_text(messages) -> str:
 
 
 class Engine:
-    """Model + serving engine + byte tokenizer."""
+    """Model + serving engine + byte tokenizer. With a `mesh` over ranks
+    (sharding.make_mesh), rank 0's Engine drives the tensor-parallel
+    engine; on ranks 1.. the constructor loads the same weights, follows
+    rank 0's engine until it closes, and returns with `serving` None."""
 
     def __init__(self, preset: str, max_new_tokens: int,
                  checkpoint_dir: str = "", quantize: str = "none",
@@ -155,13 +178,9 @@ class Engine:
                  qos_weights=None, qos_rate: float = 0.0, qos_burst: float = 20.0,
                  qos_tenant_cap: int = 64, lora_max_adapters: int = 0,
                  lora_rank: int = 8, adapters=(), role: str = "unified",
-                 mesh_model: int = 1, kv_transfer_connect: str = "",
+                 mesh=None, kv_transfer_connect: str = "",
                  kv_transfer_port: Optional[int] = None,
                  kv_transfer_host: str = "0.0.0.0"):
-        if mesh_model != 1:
-            raise NotImplementedError(
-                f"--mesh-model {mesh_model}: the device mesh is not ported to"
-                " the PyTorch server yet (only 1 is accepted)")
         self.config = PRESETS[preset]
         if max_new_tokens >= self.config.max_seq_len:
             raise ValueError(
@@ -169,7 +188,8 @@ class Engine:
                 f" max_seq_len {self.config.max_seq_len} for {preset}"
             )
         self.max_new_tokens = max_new_tokens
-        self.device = resolve_device(device)
+        self.device = resolve_device(device) if mesh is None else mesh.device
+        leader = mesh is None or mesh.rank == 0
         auto_stage("weights_start")
         t0 = time.monotonic()
         weights_via = "given"
@@ -209,7 +229,7 @@ class Engine:
         # A prefill tier ships finished KV blocks to the decode tier's
         # transfer server; its chat acks with finish_reason "kv_handoff".
         kv_transfer = None
-        if role == "prefill":
+        if role == "prefill" and leader:
             if not kv_transfer_connect:
                 raise SystemExit(
                     "--role prefill requires --kv-transfer-connect host:port")
@@ -221,8 +241,8 @@ class Engine:
                     f"--kv-transfer-connect {kv_transfer_connect!r} is not"
                     " host:port")
         self._handoff_ids = itertools.count(1)
-        self.serving = ServingEngine(
-            self.config, params, slots=slots, temperature=0.8,
+        kw = dict(
+            slots=slots, temperature=0.8,
             max_pending=max_pending, steps_per_sync=steps_per_sync,
             max_prefills_per_chunk=max_prefills_per_chunk,
             prefill_chunk_tokens=prefill_chunk_tokens,
@@ -237,6 +257,11 @@ class Engine:
             lora_max_adapters=lora_max_adapters, lora_rank=lora_rank,
             role=role, kv_transfer=kv_transfer,
         )
+        if not leader:
+            run_follower(mesh, self.config, params, **kw)
+            self.serving = None
+            return
+        self.serving = ServingEngine(self.config, params, mesh=mesh, **kw)
         self.params = self.serving.params  # detached: serving builds no graph
         # --adapter NAME=PATH entries: "random" makes a demo adapter in
         # process; anything else is a save_adapter npz with its own rank
@@ -792,6 +817,19 @@ def make_server(engine: Engine, host: str, port: int,
         # admission control (429), not a kernel-level refusal.
         request_queue_size = 64
         daemon_threads = True
+        # Requests being answered (HTTP/1.0: one per connection), which a
+        # draining server waits for.
+        active = 0
+        _active_lock = threading.Lock()
+
+        def process_request_thread(self, request, client_address):
+            with self._active_lock:
+                self.active += 1
+            try:
+                super().process_request_thread(request, client_address)
+            finally:
+                with self._active_lock:
+                    self.active -= 1
 
     return ModelHTTPServer((host, port), Handler), ready
 
@@ -896,8 +934,14 @@ def main(argv: Optional[list] = None) -> None:
                              " KV blocks to the decode tier; decode admits"
                              " handed-off requests on --kv-transfer-port")
     parser.add_argument("--mesh-model", type=int, default=1,
-                        help="tensor-parallel shards; the device mesh is not"
-                             " ported, so only 1 is accepted")
+                        help="tensor-parallel ranks: the server starts ranks"
+                             " 1..N-1 itself, rank r on cuda:r (or on --device)")
+    parser.add_argument("--dist-backend", choices=sharding.BACKENDS, default=None,
+                        help="transport between the ranks of --mesh-model:"
+                             " nccl (default on CUDA, one rank per card) or gloo"
+                             " (default on the CPU; ranks that share a card)")
+    parser.add_argument("--rank", type=int, default=0, help=argparse.SUPPRESS)
+    parser.add_argument("--dist-init", default="", help=argparse.SUPPRESS)
     parser.add_argument("--kv-transfer-port", type=int, default=None,
                         help="decode role: port the KV transfer server"
                              " listens on (0 picks a free one)")
@@ -916,7 +960,10 @@ def main(argv: Optional[list] = None) -> None:
     parser.add_argument("--lora-rank", type=int, default=8,
                         help="rank of the device adapter bank; every loaded"
                              " adapter must match it")
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parser.parse_args(argv)
+    if args.mesh_model < 1:
+        raise SystemExit(f"--mesh-model must be >= 1, got {args.mesh_model}")
     if args.adapter and args.lora_max_adapters <= 0:
         args.lora_max_adapters = len(args.adapter)
     if args.spec_max_draft <= 0:
@@ -950,6 +997,16 @@ def main(argv: Optional[list] = None) -> None:
     # first request builds the kernel library.
     if args.compile_cache_dir:
         compile_cache.enable(args.compile_cache_dir)
+    mesh, followers = None, []
+    if args.mesh_model > 1:
+        config = PRESETS[args.preset]
+        try:
+            sharding.check_heads(args.mesh_model, config)
+            mesh, followers = sharding.join_ranks(
+                args.mesh_model, args.rank, args.dist_init, args.dist_backend, args.device,
+                ["-m", "dstack_tpu_torch.native_server", *argv])
+        except ValueError as e:
+            raise SystemExit(f"invalid serving configuration: {e}")
     try:
         engine = Engine(
             args.preset, args.max_new_tokens, args.checkpoint_dir,
@@ -968,12 +1025,17 @@ def main(argv: Optional[list] = None) -> None:
             qos_weights=qos_weights, qos_rate=args.qos_rate,
             qos_burst=args.qos_burst, qos_tenant_cap=args.qos_tenant_cap,
             lora_max_adapters=args.lora_max_adapters, lora_rank=args.lora_rank,
-            adapters=args.adapter, role=args.role, mesh_model=args.mesh_model,
+            adapters=args.adapter, role=args.role, mesh=mesh,
             kv_transfer_connect=args.kv_transfer_connect,
             kv_transfer_port=args.kv_transfer_port, kv_transfer_host=args.host,
         )
-    except ValueError as e:
-        raise SystemExit(f"invalid serving configuration: {e}")
+    except BaseException as e:
+        sharding.stop_followers(followers, timeout=0)
+        if isinstance(e, ValueError):
+            raise SystemExit(f"invalid serving configuration: {e}")
+        raise
+    if engine.serving is None:
+        return  # a follower rank: its leader closed the engine
     leaf = engine.serving.stats()["compile_cache_dir"]
     if leaf:
         print(f"compile cache: {leaf}", flush=True)
@@ -986,11 +1048,36 @@ def main(argv: Optional[list] = None) -> None:
         ready.set()
     else:
         start_warmup(engine, ready)
+    stopping = threading.Event()
+
+    def _on_sigterm(signum, frame):
+        # serve_forever returns once shutdown() runs in another thread.
+        stopping.set()
+        threading.Thread(target=server.shutdown, daemon=True).start()
+
+    if threading.current_thread() is threading.main_thread():
+        signal.signal(signal.SIGTERM, _on_sigterm)
     try:
         server.serve_forever()
     finally:
+        if stopping.is_set():
+            drain(server, engine.serving, DRAIN_S)
         server.server_close()
         engine.close()
+        sharding.stop_followers(followers)
+
+
+def drain(server, serving: ServingEngine, timeout: float) -> bool:
+    """After `server` stopped accepting: wait until the engine has nothing
+    in flight or queued and every response is written (True), or
+    `timeout` seconds."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if serving.idle() and server.active == 0:
+            return True
+        time.sleep(0.05)
+    return False
+
 
 
 if __name__ == "__main__":

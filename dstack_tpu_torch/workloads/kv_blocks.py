@@ -22,6 +22,14 @@ adapter, as a host value (the engine knows it from its requests; None
 reads it off the device, one sync); without one they run the plain
 projection. The drafter stays adapter-free.
 
+Tensor parallelism. With a model `mesh` (sharding.make_mesh over ranks)
+each program runs on a rank's column slices of the weights and its KV/n
+heads of the pools, so `ragged_attention` launches at per-rank geometry
+and its split plan follows the local shapes; the activations are gathered
+where the column-parallel layout needs them whole (`transformer.attn_out`,
+`mlp_block`, the logits after the lm-head), each gather moving bits. The
+copy-on-write copy needs no mesh: each rank copies its own heads.
+
 Writes. The JAX programs donate the pools and scatter with
 `mode="drop"`, so a lane aimed at the out-of-range sentinel vanishes.
 torch has no dropping scatter (an out-of-range index raises or corrupts
@@ -49,10 +57,11 @@ from dstack_tpu_torch.workloads.generate import (
     sample_logits_row,
 )
 from dstack_tpu_torch.workloads.paged_attention import ragged_attention
+from dstack_tpu_torch.workloads.sharding import all_gather
 from dstack_tpu_torch.workloads.transformer import (
+    attn_out,
     ffn_block,
     layer_params,
-    linear,
     logits_linear,
     project_qkv,
     rms_norm,
@@ -437,7 +446,8 @@ def _has_lora(state: "PagedDecodeState", active: torch.Tensor,
     return has_lora
 
 
-def make_chunk_prefill(config: ModelConfig, chunk: int, lora: bool = False):
+def make_chunk_prefill(config: ModelConfig, chunk: int, lora: bool = False,
+                       mesh=None):
     """chunk_prefill(params, state, slot, table_row (MB,), tokens (C,),
     n_valid, start, budget, temp, top_p, generator, finalize) ->
     (state, first, logits).
@@ -496,15 +506,15 @@ def make_chunk_prefill(config: ModelConfig, chunk: int, lora: bool = False):
             _write_rows(state.v[layer], blk, off, v[0, :n_valid])
             kp, vp = state.pools(layer)
             attn = ragged_attention(q, kp, vp, tables, valid_len)
-            x = x + linear(attn, p["wo"])
-            x = ffn_block(c, x, p)
+            x = x + attn_out(attn, p, mesh)
+            x = ffn_block(c, x, p, mesh)
 
         state.block_tables[slot] = row
         if not finalize:
             return state, None, None
         h_last = rms_norm(x[0, max(min(n_valid - 1, chunk - 1), 0)],
                           params["final_norm"], c.norm_eps)
-        logits = logits_linear(h_last[None], params["lm_head"])[0]
+        logits = all_gather(logits_linear(h_last[None], params["lm_head"]), -1, mesh)[0]
         first = sample_logits_row(logits, temp, top_p, generator)
         state.lengths[slot] = start + n_valid
         state.last_token[slot] = first
@@ -532,7 +542,8 @@ def make_chunk_prefill(config: ModelConfig, chunk: int, lora: bool = False):
     return chunk_prefill
 
 
-def make_paged_decode_step(config: ModelConfig, steps: int = 1, lora: bool = False):
+def make_paged_decode_step(config: ModelConfig, steps: int = 1, lora: bool = False,
+                           mesh=None):
     """decode_steps(params, state, generator, sampling=None, nucleus=None)
     -> (state, tokens (B, steps) int32, active (B,)) over a
     PagedDecodeState, updated in place — the paged twin of
@@ -574,10 +585,10 @@ def make_paged_decode_step(config: ModelConfig, steps: int = 1, lora: bool = Fal
             _write_rows(state.v[layer], blk, off, v[:, 0])
             kp, vp = state.pools(layer)
             attn = ragged_attention(q, kp, vp, state.block_tables, valid_len)
-            x = x + linear(attn, p["wo"])
-            x = ffn_block(c, x, p)
+            x = x + attn_out(attn, p, mesh)
+            x = ffn_block(c, x, p, mesh)
         h = rms_norm(x, params["final_norm"], c.norm_eps)
-        logits = logits_linear(h[:, -1], params["lm_head"])
+        logits = all_gather(logits_linear(h[:, -1], params["lm_head"]), -1, mesh)
         next_token = _serving._select_next_token(
             state, logits, generator, sampling=sampling, nucleus=nucleus)
 
@@ -641,7 +652,7 @@ def _sampling_probs(logits: torch.Tensor, temps: torch.Tensor,
     return torch.softmax(scaled, dim=-1)
 
 
-def make_spec_draft(config: ModelConfig, k: int):
+def make_spec_draft(config: ModelConfig, k: int, mesh=None):
     """spec_draft(params, draft_state, block_tables, lengths, last_token,
     active, temps, top_ps, generator, sampling=None, nucleus=None) ->
     (drafts (B, k) int32, qlogits (B, k, V) f32).
@@ -686,10 +697,10 @@ def make_spec_draft(config: ModelConfig, k: int):
                 _write_rows(draft_state.v[layer], blk[:, 0], off[:, 0], vv[:, 0])
                 kp, vp = draft_state.pools(layer)
                 attn = ragged_attention(q, kp, vp, block_tables, valid_len)
-                x = x + linear(attn, p["wo"])
-                x = ffn_block(c, x, p)
+                x = x + attn_out(attn, p, mesh)
+                x = ffn_block(c, x, p, mesh)
             h = rms_norm(x, params["final_norm"], c.norm_eps)
-            logits = logits_linear(h[:, -1], params["lm_head"])  # (B, V)
+            logits = all_gather(logits_linear(h[:, -1], params["lm_head"]), -1, mesh)
             nxt = torch.argmax(logits, dim=-1).to(torch.int32)
             if sampling:
                 probs = _sampling_probs(logits[:, None], temps, top_ps, nucleus)[:, 0]
@@ -703,7 +714,7 @@ def make_spec_draft(config: ModelConfig, k: int):
     return spec_draft
 
 
-def make_spec_verify(config: ModelConfig, k: int, lora: bool = False):
+def make_spec_verify(config: ModelConfig, k: int, lora: bool = False, mesh=None):
     """spec_verify(params, state, drafts (B, k), qlogits (B, k, V),
     generator, sampling=None, nucleus=None) -> (state, emitted (B, k+1),
     accepted (B,), active (B,)), state updated in place.
@@ -759,10 +770,10 @@ def make_spec_verify(config: ModelConfig, k: int, lora: bool = False):
             _write_rows(state.v[layer], blk, off, vv.reshape(B * S, *vv.shape[2:]))
             kp, vp = state.pools(layer)
             attn = ragged_attention(q, kp, vp, state.block_tables, valid_len)
-            x = x + linear(attn, p["wo"])
-            x = ffn_block(c, x, p)
+            x = x + attn_out(attn, p, mesh)
+            x = ffn_block(c, x, p, mesh)
         h = rms_norm(x, params["final_norm"], c.norm_eps)
-        logits = logits_linear(h, params["lm_head"])                    # (B, S, V)
+        logits = all_gather(logits_linear(h, params["lm_head"]), -1, mesh)  # (B, S, V)
 
         temps = state.temperature
         if sampling is None:

@@ -153,9 +153,9 @@ def project_qkv_lora(c: ModelConfig, x: torch.Tensor, p: Params,
             return y
 
         q, k, v = proj("wq"), proj("wk"), proj("wv")
-    q = q.reshape(b, s, c.n_heads, hd)
-    k = k.reshape(b, s, c.n_kv_heads, hd)
-    v = v.reshape(b, s, c.n_kv_heads, hd)
+    q = q.reshape(b, s, -1, hd)
+    k = k.reshape(b, s, -1, hd)
+    v = v.reshape(b, s, -1, hd)
     return _rope(q, positions, c.rope_theta), _rope(k, positions, c.rope_theta), v
 
 
@@ -165,16 +165,20 @@ class AdapterRegistry:
     Thread-unsafe by design: `ServingEngine` serialises scheduler state
     behind one lock, and the registry lives inside it. `load` and `unload`
     write the bank in place on the current CUDA stream (the engine's, under
-    its lock), so a step already queued reads the bank as it was."""
+    its lock), so a step already queued reads the bank as it was. They
+    write through `writer(ix, layers, scale)` when one is given (layers
+    None zeroes the slot): a tensor-parallel engine routes the write to
+    every rank, each cutting its columns of B."""
 
     def __init__(self, config: ModelConfig, base: Params, *, max_adapters: int,
-                 rank: int, targets: Sequence[str] = DEFAULT_TARGETS):
+                 rank: int, targets: Sequence[str] = DEFAULT_TARGETS, writer=None):
         self.config = config
         self.max_adapters = max_adapters
         self.rank = rank
         self.targets = tuple(targets)
         self.bank = make_lora_bank(config, base, max_adapters=max_adapters,
                                    rank=rank, targets=targets)
+        self._write = writer or self._write_bank
         self._slots: Dict[str, int] = {}
         self._refs: Dict[str, int] = {}
         self._alphas: Dict[str, float] = {}
@@ -248,11 +252,7 @@ class AdapterRegistry:
             ix = self._free.pop() if self._free else self._evict_one()
             self._slots[name] = ix
             self._refs[name] = 0
-        with torch.no_grad():
-            for key in expect:
-                leaf = self.bank["layers"][key]
-                leaf[:, ix].copy_(torch.as_tensor(layers[key]).to(leaf.device, leaf.dtype))
-            self.bank["scale"][ix] = float(alpha) / self.rank
+        self._write(ix, {key: layers[key] for key in expect}, float(alpha) / self.rank)
         self._alphas[name] = float(alpha)
         self._lru[name] = None
         self._lru.move_to_end(name)
@@ -284,11 +284,19 @@ class AdapterRegistry:
         self._lru.pop(name, None)
         # Zero the vacated slot: a stale gather against a freed index must
         # read zeros, not the unloaded tenant's weights.
-        with torch.no_grad():
-            for leaf in self.bank["layers"].values():
-                leaf[:, ix].zero_()
-            self.bank["scale"][ix] = 0.0
+        self._write(ix, None, 0.0)
         self._free.append(ix)
+
+    def _write_bank(self, ix: int, layers: Optional[Params], scale: float) -> None:
+        """Bank slot `ix` := `layers` cast to the bank's dtype (zeros for
+        None), and its scale."""
+        with torch.no_grad():
+            for key, leaf in self.bank["layers"].items():
+                if layers is None:
+                    leaf[:, ix].zero_()
+                else:
+                    leaf[:, ix].copy_(torch.as_tensor(layers[key]).to(leaf.device, leaf.dtype))
+            self.bank["scale"][ix] = scale
 
     # ------------------------------------------------------------ refcounts
 

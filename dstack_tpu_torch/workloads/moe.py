@@ -19,8 +19,11 @@ is set. The einsum path casts dispatch and combine to the activation
 dtype, so its combine rounds the gate to bf16, where the gather path
 keeps it f32: in bf16 the two are slightly different functions.
 
-The expert-parallel layout (the "expert" mesh axis) is not ported:
-`sharding.Mesh` refuses any axis above 1 but seq (ROADMAP Queue 1 item 3).
+Tensor-parallel serving: on a `model` mesh the expert banks carry their
+output columns per rank (`we_*` take "model" on their last dim) and the
+router is replicated, so the expert FFN gathers where the dense MLP does.
+The expert-parallel layout (the "expert" mesh axis, all-to-all dispatch)
+is not ported: `sharding.Mesh` refuses it (ROADMAP Queue 1 item 3).
 There is no kernel here: the reference computes these products in XLA.
 """
 
@@ -31,6 +34,7 @@ import torch
 
 from dstack_tpu_torch.workloads.config import ModelConfig
 from dstack_tpu_torch.workloads.quant import QTensor, dequantize_tensor
+from dstack_tpu_torch.workloads.sharding import all_gather
 
 Params = Dict[str, Any]
 
@@ -149,40 +153,44 @@ def _bank(w, dtype: torch.dtype) -> torch.Tensor:
     return dequantize_tensor(w, dtype) if isinstance(w, QTensor) else w
 
 
-def _expert_ffn(h_dtype: torch.dtype, expert_in: torch.Tensor, p: Params
-                ) -> torch.Tensor:
+def _expert_ffn(h_dtype: torch.dtype, expert_in: torch.Tensor, p: Params,
+                mesh=None) -> torch.Tensor:
     """SwiGLU over the expert bank: (E,B,C,D) -> (E,B,C,D). The gate
     product has an f32 result and silu runs in f32, cast back; the up and
-    down products are in the activation dtype."""
+    down products are in the activation dtype. On a model `mesh` each
+    bank holds a rank's output columns: the activation is gathered before
+    we_down and we_down's output after it, as the dense MLP's."""
     E, B, C, D = expert_in.shape
     x = expert_in.reshape(E, B * C, D)
     gate = _bmm_f32_result(x, _bank(p["we_gate"], h_dtype))
     up = torch.bmm(x, _bank(p["we_up"], h_dtype))
-    act = torch.nn.functional.silu(gate).to(h_dtype) * up
-    out = torch.bmm(act, _bank(p["we_down"], h_dtype))
+    act = all_gather(torch.nn.functional.silu(gate).to(h_dtype) * up, -1, mesh)
+    out = all_gather(torch.bmm(act, _bank(p["we_down"], h_dtype)), -1, mesh)
     return out.reshape(E, B, C, -1)
 
 
-def moe_mlp(c: ModelConfig, h: torch.Tensor, p: Params
+def moe_mlp(c: ModelConfig, h: torch.Tensor, p: Params, mesh=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The routed SwiGLU experts on a normed input h -> (out, aux_loss).
 
     p carries router (D,E) f32, we_gate/we_up (E,D,F), we_down (E,F,D).
     `config.moe_impl` picks the dispatch: "einsum" (dense dispatch and
     combine products, 2*E*C*D FLOPs a token each way) or "gather" (the
-    same permutation by gathers, no dispatch FLOPs)."""
+    same permutation by gathers, no dispatch FLOPs). The router is
+    replicated, so every rank of a model `mesh` routes alike; the banks
+    are column slices (`_expert_ffn`)."""
     if c.moe_impl == "gather":
-        return _moe_mlp_gather(c, h, p)
+        return _moe_mlp_gather(c, h, p, mesh)
     if c.moe_impl != "einsum":
         raise ValueError(f'moe_impl={c.moe_impl!r}: expected "einsum" or "gather"')
     dispatch, combine, aux = route(c, h, p["router"])
     expert_in = torch.einsum("bsec,bsd->ebcd", dispatch.to(h.dtype), h)
-    expert_out = _expert_ffn(h.dtype, expert_in, p)
+    expert_out = _expert_ffn(h.dtype, expert_in, p, mesh)
     out = torch.einsum("bsec,ebcd->bsd", combine.to(h.dtype), expert_out)
     return out, aux
 
 
-def _moe_mlp_gather(c: ModelConfig, h: torch.Tensor, p: Params
+def _moe_mlp_gather(c: ModelConfig, h: torch.Tensor, p: Params, mesh=None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Gather dispatch: the einsum path's permutation without its FLOPs.
 
@@ -207,7 +215,7 @@ def _moe_mlp_gather(c: ModelConfig, h: torch.Tensor, p: Params
     h_pad = torch.cat([h, h.new_zeros(B, 1, D)], dim=1)
     expert_in = torch.gather(h_pad, 1, src[:, :, None].expand(B, E * C, D))
     expert_in = expert_in.reshape(B, E, C, D).transpose(0, 1)
-    expert_out = _expert_ffn(h.dtype, expert_in, p)
+    expert_out = _expert_ffn(h.dtype, expert_in, p, mesh)
 
     flat = expert_out.transpose(0, 1).reshape(B, E * C, D)
     flat = torch.cat([flat, flat.new_zeros(B, 1, D)], dim=1)
@@ -217,11 +225,11 @@ def _moe_mlp_gather(c: ModelConfig, h: torch.Tensor, p: Params
     return out.to(h.dtype), aux
 
 
-def moe_block(c: ModelConfig, x: torch.Tensor, p: Params
+def moe_block(c: ModelConfig, x: torch.Tensor, p: Params, mesh=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pre-norm MoE block with residual: x -> (x + moe(norm(x)), aux)."""
     from dstack_tpu_torch.workloads.transformer import rms_norm
 
     h = rms_norm(x, p["mlp_norm"], c.norm_eps)
-    out, aux = moe_mlp(c, h, p)
+    out, aux = moe_mlp(c, h, p, mesh)
     return x + out, aux

@@ -42,6 +42,22 @@ takes handoffs at `submit_prefilled`, scatters them into fresh blocks of
 its own pool and decodes from there. Both tiers' chunk prefill, decode
 and verify run the paged kernel.
 
+Tensor-parallel serving (`mesh`, sharding.make_mesh over the ranks of a
+process group): rank r holds its column slices of every weight and its
+KV heads (sharding.SERVING_PARAM_SPECS, SERVING_KV_POOL_SPEC), and every
+program gathers activations at the column-parallel layout's points
+(kv_blocks.py), so a rank computes its columns as the unsharded program
+does. The host loop runs on rank 0 only. Every device program call and
+every host write into device state goes through one op layer (`_op`):
+rank 0 broadcasts the op and its host inputs, then runs it itself; each
+follower rank (`run_follower`) builds the same state from its shards and
+runs the ops it receives until a shutdown op. Every rank samples from the
+same gathered logits with the same seeded generator, so the ranks' token
+ids agree; followers never read a result back. Each rank launches the
+paged kernel on its own KV/n heads; the JAX engine runs `lax_ragged`
+under a model mesh (`pallas_call` has no SPMD rule), so the port's
+`attn_path` stays "cuda" there: a divergence, recorded in ROADMAP.
+
 Host syncs: one readback per decode chunk of `steps_per_sync` tokens (or
 per speculation round, plus one between its draft and verify that splits
 their times), and one per finalized prefill's first token, which a
@@ -58,6 +74,7 @@ import math
 import queue
 import threading
 import time
+import weakref
 from dataclasses import dataclass
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
@@ -97,6 +114,16 @@ from dstack_tpu_torch.workloads.paged_attention import (
     dispatch_path as attn_dispatch_path,
 )
 from dstack_tpu_torch.workloads.quant import quantize_params
+from dstack_tpu_torch.workloads.sharding import (
+    SERVING_KV_POOL_SPEC,
+    all_gather,
+    broadcast_object,
+    check_heads,
+    model_shards,
+    rank_params,
+    shard,
+    to_host,
+)
 from dstack_tpu_torch.workloads.transformer import (
     copy_params,
     detach_params,
@@ -112,6 +139,12 @@ from dstack_tpu_torch.workloads.weights import flatten_params
 
 Params = Dict[str, Any]
 ATTN_PATHS = ("cuda", "plain")
+# A mesh leader idle this long sends its followers a no-op, so a follower
+# waiting for its next op never meets the process group's timeout.
+HEARTBEAT_S = 30.0
+# The key of a mesh host-tier payload's id (a host int64 scalar beside its
+# arrays), which names the followers' shards of the same payload.
+PAYLOAD_ID = "payload_id"
 
 
 # -- dense reference -----------------------------------------------------------
@@ -425,8 +458,11 @@ class ServingEngine:
     token ids as they decode (None terminates); a decode-role engine's
     submit_prefilled() does the same for a handed-off request.
 
-    The one unported feature of the JAX engine, a device mesh, is
-    refused with NotImplementedError, never ignored."""
+    `mesh` (sharding.make_mesh over ranks) serves tensor-parallel: this
+    object is rank 0's leader, and every other rank runs `run_follower`
+    with the same arguments. An object that is not a mesh of the port
+    raises NotImplementedError; heads that do not divide the model axis
+    raise ValueError, as the reference's."""
 
     def __init__(
         self,
@@ -472,14 +508,41 @@ class ServingEngine:
                 "adapter multiplexing requires role='unified' (KV"
                 " handoffs do not carry adapter identity yet)"
             )
-        if role == "prefill" and kv_transfer is None:
+        # -- tensor-parallel serving (mesh over ranks) ----------------------
+        # `_tp` is the mesh whose ranks the op layer drives (a world of 1
+        # too); None on one device. Only rank 0 leads: it runs the host
+        # loop and the reader threads, the others follow ops.
+        model_shards(mesh)  # NotImplementedError for an object that is not a mesh
+        if mesh is not None and any(n > 1 for a, n in mesh.shape.items() if a != "model"):
+            raise NotImplementedError(
+                f"serving over mesh {mesh.shape}: the engine serves over a model"
+                " axis only (tensor parallelism); a seq axis is the ring's, for"
+                " training")
+        self.mesh = mesh
+        self._tp = mesh if mesh is not None and mesh.ranked else None
+        self._leader = self._tp is None or mesh.rank == 0
+        if mesh is not None:
+            check_heads(mesh, config, "target")
+            if spec_enable:
+                check_heads(mesh, spec_draft_config or config, "drafter")
+            if device is not None and resolve_device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh rank's {mesh.device}")
+            device = mesh.device
+        if role == "prefill" and kv_transfer is None and self._leader:
             raise ValueError(
                 "role='prefill' requires a kv_transfer client to ship"
                 " finished prefills to (see workloads/kv_transfer.py)"
             )
-        if mesh is not None:
-            raise NotImplementedError(
-                "not ported to the PyTorch engine yet: mesh")
+        self._op_lock = threading.Lock()
+        self._op_broken = False
+        self._last_op = time.monotonic()
+        # Host-tier payloads by rank: rank 0 keeps its shard in the tier,
+        # with its payload id beside the arrays (PAYLOAD_ID); a follower
+        # keeps its shard of each live payload here. A payload rank 0
+        # drops is dropped on the followers with the next op.
+        self._next_payload = 0
+        self._dead_payloads: List[int] = []
+        self._rank_payloads: Dict[int, Dict[str, torch.Tensor]] = {}
         self.device = resolve_device(device)
         # The kernel cache (workloads/compile_cache.py) honours
         # DSTACK_TPU_COMPILE_CACHE before warmup or a first request builds
@@ -497,8 +560,9 @@ class ServingEngine:
         # train state carry requires_grad, and the port's optimizer updates
         # them in place, so a view would let a learner step rewrite the
         # weights under a live request. refresh_params copies into these
-        # tensors; their addresses never change.
-        self.params = copy_params(params)
+        # tensors; their addresses never change. A mesh rank copies only
+        # its slices of the whole params it was given.
+        self.params = copy_params(params if mesh is None else rank_params(mesh, params))
         self.slots = slots
         self.max_len = max_len or config.max_seq_len
         self.role = role
@@ -573,10 +637,10 @@ class ServingEngine:
         self.prefill_chunk_tokens = prefill_chunk_tokens
         self._chunk_cache: Dict[Any, Any] = {}
         self.state = init_paged_state(
-            config, slots, self.max_len, kv_block_size, self._num_blocks,
-            self.device,
+            self._rank_config(config), slots, self.max_len, kv_block_size,
+            self._num_blocks, self.device,
         )
-        self._step = make_paged_decode_step(config, steps=steps_per_sync)
+        self._step = make_paged_decode_step(config, steps=steps_per_sync, mesh=mesh)
         # -- multi-tenant LoRA (lora_max_adapters > 0) ----------------------
         # A refcounted host registry over a device adapter bank. The LoRA
         # twins of the programs run while any request holds an adapter ref
@@ -584,12 +648,16 @@ class ServingEngine:
         self._lora: Optional[AdapterRegistry] = None
         self._step_lora = None
         if lora_max_adapters > 0:
+            # The bank is made from this rank's base columns, so its B
+            # leaves hold the rank's output columns (SERVING_LORA_SPECS);
+            # every bank write goes through the op layer.
             self._lora = AdapterRegistry(
                 config, self.params, max_adapters=lora_max_adapters,
                 rank=lora_rank, targets=lora_targets or ("wq", "wv"),
+                writer=self._write_adapter,
             )
             self._step_lora = make_paged_decode_step(config, steps=steps_per_sync,
-                                                     lora=True)
+                                                     lora=True, mesh=mesh)
         # out-queue -> adapter name of every in-flight adapter request;
         # _release_adapter pops it once, on whichever terminal path.
         self._adapter_holds: Dict[Any, str] = {}
@@ -601,6 +669,8 @@ class ServingEngine:
         self._copy_block = make_copy_block()
         # Which ragged-attention implementation this engine runs (decided
         # by its device) and how many chunk/decode/spec dispatches ran it.
+        # Under a model mesh it is still the kernel, on each rank's heads
+        # (the JAX engine answers lax_ragged there; see the docstring).
         self._attn_path = attn_dispatch_path(self.device, config.head_dim)
         self._attn_dispatch = {p: 0 for p in ATTN_PATHS}
         # -- speculative decoding ------------------------------------------
@@ -648,9 +718,13 @@ class ServingEngine:
             # Default drafter: weight-only int8 of the target (QTensor
             # leaves dispatch in transformer.linear), so every program runs
             # unchanged on it.
+            # On a mesh rank the int8 drafter quantizes the rank's columns,
+            # which gives the columns of the whole model's quantization
+            # (the scales are per output column).
             self._draft_params = detach_params(
-                spec_draft_params if spec_draft_params is not None
-                else quantize_params(self.params))
+                quantize_params(self.params) if spec_draft_params is None
+                else spec_draft_params if mesh is None
+                else rank_params(mesh, spec_draft_params))
             if params_device(self._draft_params) != self.device:
                 raise ValueError(
                     f"drafter params live on {params_device(self._draft_params)},"
@@ -660,8 +734,8 @@ class ServingEngine:
             # indexed through the same block tables: one allocator drives
             # both. Its own table and scalar fields are unused.
             self._draft_state = init_paged_state(
-                self._draft_config, slots, self.max_len, kv_block_size,
-                self._num_blocks, self.device,
+                self._rank_config(self._draft_config), slots, self.max_len,
+                kv_block_size, self._num_blocks, self.device,
             )
             self._draft_chunk_cache: Dict[int, Any] = {}
             self._spec_draft_fns: Dict[int, Any] = {}
@@ -761,11 +835,13 @@ class ServingEngine:
         self._handoff_stale_rejected = 0
         self._kv_transfer_bytes = 0
         self._kv_transfer_hist = HistogramData()
+        self._handoff_thread: Optional[threading.Thread] = None
+        if not self._leader:
+            return  # a follower runs ops (_follow), no loop or reader threads
         self._deliver_thread = threading.Thread(
             target=self._deliver_loop, daemon=True
         )
         self._deliver_thread.start()
-        self._handoff_thread: Optional[threading.Thread] = None
         if role == "prefill":
             self._handoff_thread = threading.Thread(
                 target=self._handoff_loop, daemon=True
@@ -773,6 +849,212 @@ class ServingEngine:
             self._handoff_thread.start()
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
+
+    # -- the op layer (tensor-parallel serving) --------------------------------
+
+    def _rank_config(self, config: ModelConfig) -> ModelConfig:
+        """The geometry of this rank's KV pools: its KV/n heads."""
+        n = model_shards(self.mesh)
+        return config if n == 1 else config.with_(n_kv_heads=config.n_kv_heads // n)
+
+    def _op(self, name: str, *args, **local):
+        """Run device op `name` (method `_op_<name>`) with host inputs
+        `args`. On a mesh, rank 0 first broadcasts the op, its inputs and
+        the host-tier payloads that died since the last op, under one lock
+        so that every rank sees the ops of all threads in one order; the
+        keyword `local` inputs stay on rank 0. On one device it is the
+        call itself."""
+        fn = getattr(self, "_op_" + name)
+        if self._tp is None:
+            return fn(*args, **local)
+        with self._op_lock:
+            if self._op_broken:
+                raise RuntimeError("the engine's mesh is closed or failed mid-op")
+            dead = []
+            while self._dead_payloads:  # pops race no finalizer's append
+                dead.append(self._dead_payloads.pop())
+            try:
+                broadcast_object((name, args, dead), self._tp)
+                self._last_op = time.monotonic()
+                return fn(*args, **local)
+            except BaseException:
+                # The ranks may be out of step: no op follows.
+                self._op_broken = True
+                raise
+
+    def _follow(self) -> None:
+        """A follower rank's loop: run rank 0's ops in its order until the
+        shutdown op. A leader that disappears fails the next collective,
+        which raises here."""
+        while True:
+            name, args, dead = broadcast_object(None, self._tp)
+            for pid in dead:
+                self._rank_payloads.pop(pid, None)
+            if name == "shutdown":
+                return
+            getattr(self, "_op_" + name)(*args)
+
+    def _op_noop(self) -> None:
+        pass
+
+    def _op_shutdown(self) -> None:
+        self._op_broken = True  # rank 0: no op follows the shutdown
+
+    def _op_decode(self, lora: bool, sampling: bool, nucleus: bool, has_lora: bool):
+        if lora:
+            _, tokens, active = self._step_lora(
+                self.params, self.state, self._gen, self._lora.bank,
+                sampling=sampling, nucleus=nucleus, has_lora=has_lora)
+        else:
+            _, tokens, active = self._step(self.params, self.state, self._gen,
+                                           sampling=sampling, nucleus=nucleus)
+        return tokens, active
+
+    def _op_chunk(self, n_padded: int, slot: int, row: List[int], tokens: List[int],
+                  n: int, pos: int, budget: int, temp: float, top_p: float,
+                  final: bool, adapter_ix: int):
+        args = (self.params, self.state, slot, row, tokens, n, pos, budget, temp,
+                top_p, self._gen, final)
+        if adapter_ix >= 0:
+            _, first, _ = self._chunk_fn(n_padded, lora=True)(*args, adapter_ix,
+                                                              self._lora.bank)
+        else:
+            _, first, _ = self._chunk_fn(n_padded)(*args)
+        return first
+
+    def _op_draft_chunk(self, n_padded: int, slot: int, row: List[int],
+                        tokens: List[int], n: int, pos: int, budget: int,
+                        temp: float, top_p: float) -> None:
+        # The drafter never samples here: its first token is unused.
+        self._draft_chunk_fn(n_padded)(self._draft_params, self._draft_state, slot, row,
+                                       tokens, n, pos, budget, temp, top_p,
+                                       self._gen_draft, False)
+
+    def _op_spec_draft(self, k: int, sampling: bool, nucleus: bool):
+        st = self.state
+        self._drafts = self._spec_draft_fn(k)(
+            self._draft_params, self._draft_state, st.block_tables, st.lengths,
+            st.last_token, st.active, st.temperature, st.top_p, self._gen_draft,
+            sampling=sampling, nucleus=nucleus)
+        return self._drafts
+
+    def _op_spec_verify(self, k: int, lora: bool, sampling: bool, nucleus: bool,
+                        has_lora: bool):
+        drafts, qlogits = self._drafts
+        if lora:
+            _, emitted, accepted, active = self._spec_verify_fn(k, lora=True)(
+                self.params, self.state, drafts, qlogits, self._gen, self._lora.bank,
+                sampling=sampling, nucleus=nucleus, has_lora=has_lora)
+        else:
+            _, emitted, accepted, active = self._spec_verify_fn(k)(
+                self.params, self.state, drafts, qlogits, self._gen,
+                sampling=sampling, nucleus=nucleus)
+        return emitted, accepted, active
+
+    def _op_copy_block(self, src: int, dst: int) -> None:
+        """Copy-on-write's device half, in every pool the allocator
+        indexes (the drafter's moves with the target's)."""
+        self._copy_block(self.state, src, dst)
+        if self._spec:
+            self._copy_block(self._draft_state, src, dst)
+
+    def _op_set_table(self, slot: int, row: List[int]) -> None:
+        self.state.block_tables[slot] = host_to_device(row, torch.int32, self.device)
+
+    def _op_place_slot(self, slot: int, row: List[int], length: int, last_token: int,
+                       remaining: int, temperature: float, top_p: float,
+                       adapter_ix: int) -> None:
+        st = self.state
+        st.block_tables[slot] = host_to_device(row, torch.int32, self.device)
+        st.lengths[slot] = length
+        st.last_token[slot] = last_token
+        st.active[slot] = remaining > 0
+        st.remaining[slot] = remaining
+        st.temperature[slot] = temperature
+        st.top_p[slot] = top_p
+        st.adapter_ix[slot] = adapter_ix
+
+    def _op_retire(self, slot: int) -> None:
+        # adapter_ix too: the plain chunk program of a request that reuses
+        # the slot resets it only at its finalize.
+        self.state.active[slot] = False
+        self.state.remaining[slot] = 0
+        self.state.adapter_ix[slot] = -1
+
+    def _op_gather_chain(self, table: List[int], pid: Optional[int]):
+        """Device -> host copy of a block chain out of every pool, this
+        rank's heads, page-locked on CUDA; returns after the copies land.
+        A follower keeps its shard under payload id `pid`."""
+        ids = torch.tensor(table, dtype=torch.int64, device=self.device)
+        out = {}
+        for name, pool in self._pools():
+            rows = pool[:, ids]
+            if self.device.type == "cuda":
+                host = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
+                host.copy_(rows, non_blocking=True)
+                rows = host
+            out[name] = rows
+        self._sync()
+        if not self._leader:
+            self._rank_payloads[pid] = out
+        return out
+
+    def _op_gather_payload(self, table: List[int]):
+        """The prefill tier's handoff gather: every pool's rows of the chain
+        with all KV heads (gathered across ranks on the head dim), copied
+        into page-locked host tensors behind a CUDA event on rank 0."""
+        ids = torch.tensor(table, dtype=torch.int64, device=self.device)
+        arrays, keep = {}, []
+        for name, pool in self._pools():
+            rows = all_gather(pool[:, ids], 3, self.mesh)
+            if not self._leader:
+                continue
+            if self.device.type == "cuda":
+                host = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
+                host.copy_(rows, non_blocking=True)
+                keep.append(rows)
+                rows = host
+            arrays[name] = rows
+        return _HostPayload(arrays, keep) if self._leader else None
+
+    def _op_inject(self, table: List[int], arrays: Dict[str, torch.Tensor],
+                   heads: bool) -> None:
+        """Host -> device: scatter a gathered chain into the blocks of
+        `table` in every pool `arrays` has; with `heads` the arrays carry
+        every KV head and each rank takes its own (SERVING_KV_POOL_SPEC)."""
+        ids = torch.tensor(table, dtype=torch.int64, device=self.device)
+        for name, pool in self._pools():
+            if name in arrays:
+                a = shard(arrays[name], SERVING_KV_POOL_SPEC, self.mesh) if heads \
+                    else arrays[name]
+                pool[:, ids] = a.to(self.device, pool.dtype, non_blocking=True)
+
+    def _op_inject_stored(self, table: List[int], pid: Optional[int],
+                          arrays: Optional[Dict[str, torch.Tensor]] = None) -> None:
+        """The host tier's swap-in: rank 0 scatters `arrays`, a follower
+        its own shard of payload `pid`."""
+        self._op_inject(table, arrays if arrays is not None else self._rank_payloads[pid],
+                        False)
+
+    def _op_refresh(self, params: Params) -> None:
+        src = params if self.mesh is None else rank_params(self.mesh, params)
+        with torch.no_grad():
+            for (_, dst), (_, s) in zip(flatten_params(self.params), flatten_params(src)):
+                dst.copy_(s)
+
+    def _op_adapter(self, ix: int, layers: Optional[Params], scale: float) -> None:
+        """Write bank slot `ix` (layers None zeroes it): A whole, B this
+        rank's columns."""
+        if layers is not None and self.mesh is not None:
+            layers = rank_params(self.mesh, {"layers": layers})["layers"]
+        self._lora._write_bank(ix, layers, scale)
+
+    def _write_adapter(self, ix: int, layers: Optional[Params], scale: float) -> None:
+        """The registry's bank writer, through the op layer (whole adapter
+        host tensors on a mesh; each rank cuts its columns)."""
+        if layers is not None and self._tp is not None:
+            layers = to_host(layers)
+        self._op("adapter", ix, layers, scale)
 
     # -- public surface -----------------------------------------------------
 
@@ -792,6 +1074,12 @@ class ServingEngine:
                     or self._swapped or self._next_req is not None
                     or self._prefilled_pending or not self._pending.empty())
 
+    def idle(self) -> bool:
+        """Whether nothing is in flight or queued (a draining server waits
+        for this before it closes the engine)."""
+        with self._lock:
+            return not self._busy()
+
     def hold_admission(self) -> None:
         """Gate new-request admission (in-flight work continues).
 
@@ -802,7 +1090,12 @@ class ServingEngine:
         admission waves, which changes how many prefill/decode chunks —
         and therefore how many sampler draws — the round consumes, the
         difference between a bit-reproducible seeded rollout and not.
-        submit() keeps enqueueing normally while held."""
+        submit() keeps enqueueing normally while held. Over a model mesh it
+        raises: RL across ranks belongs to the training slice."""
+        if model_shards(self.mesh) > 1:
+            raise NotImplementedError(
+                "hold_admission over a model mesh: RL across ranks belongs to"
+                " the next sharding slice (ROADMAP Queue 1 item 3)")
         self._hold_admission = True
 
     def release_admission(self) -> None:
@@ -837,7 +1130,9 @@ class ServingEngine:
                 " adapter registry's base-param bindings; rebuild the"
                 " engine instead"
             )
-        new, old = flatten_params(params), flatten_params(self.params)
+        new = flatten_params(params if self.mesh is None
+                             else rank_params(self.mesh, params))
+        old = flatten_params(self.params)
         if [k for k, _ in new] != [k for k, _ in old] or any(
                 a.shape != b.shape or a.dtype != b.dtype
                 for (_, a), (_, b) in zip(new, old)):
@@ -853,9 +1148,8 @@ class ServingEngine:
                     " would decode a continuation no single policy"
                     " generated)"
                 )
-            with torch.no_grad():
-                for (_, dst), (_, src) in zip(old, new):
-                    dst.copy_(src)
+            # On a mesh every rank cuts its slices of the whole params.
+            self._op("refresh", params if self._tp is None else to_host(params))
             dropped = self._alloc.drop_cache()
             if self._host_tier is not None:
                 dropped += self._host_tier.clear()
@@ -896,65 +1190,52 @@ class ServingEngine:
         programs = 0
         lora = self._lora is not None
         try:
-            self._step(self.params, self.state, self._gen,
-                       sampling=False, nucleus=False)
+            self._op("decode", False, False, False, False)
             programs += 1
             if lora:
                 # The LoRA twins with the delta on (the bank's zero slot:
                 # an all-inactive batch writes only the discard block).
-                self._step_lora(self.params, self.state, self._gen, self._lora.bank,
-                                sampling=False, nucleus=False, has_lora=True)
+                self._op("decode", True, False, False, True)
                 programs += 1
             row = self._pad_table([])
             buckets = sorted({self._pad_chunk(n)
                               for n in range(1, self.prefill_chunk_tokens + 1)})
             for b in buckets:
-                self._chunk_fn(b)(self.params, self.state, 0, row, [0] * b,
-                                  0, 0, 0, 1.0, 1.0, self._gen, False)
+                self._op("chunk", b, 0, row, [0] * b, 0, 0, 0, 1.0, 1.0, False, -1)
                 programs += 1
                 if lora:
-                    self._chunk_fn(b, lora=True)(
-                        self.params, self.state, 0, row, [0] * b, 0, 0, 0, 1.0,
-                        1.0, self._gen, False, self._lora.max_adapters,
-                        self._lora.bank)
+                    self._op("chunk", b, 0, row, [0] * b, 0, 0, 0, 1.0, 1.0, False,
+                             self._lora.max_adapters)
                     programs += 1
                 if self._spec:
-                    self._draft_chunk_fn(b)(self._draft_params, self._draft_state,
-                                            0, row, [0] * b, 0, 0, 0, 1.0, 1.0,
-                                            self._gen_draft, False)
+                    self._op("draft_chunk", b, 0, row, [0] * b, 0, 0, 0, 1.0, 1.0)
                     programs += 1
-            self.state.block_tables[0] = self._num_blocks
+            self._op("set_table", 0, row)
             if self._spec:
                 # The speculation ladder: every draft length adaptation
                 # can reach, on the all-inactive batch.
-                st = self.state
                 for k in range(1, self._spec_max_draft + 1):
-                    drafts, qlogits = self._spec_draft_fn(k)(
-                        self._draft_params, self._draft_state, st.block_tables,
-                        st.lengths, st.last_token, st.active, st.temperature,
-                        st.top_p, self._gen_draft, sampling=False, nucleus=False)
-                    self._spec_verify_fn(k)(self.params, st, drafts, qlogits,
-                                            self._gen, sampling=False, nucleus=False)
+                    self._op("spec_draft", k, False, False)
+                    self._op("spec_verify", k, False, False, False, False)
                     programs += 2
                     if lora:
-                        self._spec_verify_fn(k, lora=True)(
-                            self.params, st, drafts, qlogits, self._gen,
-                            self._lora.bank, sampling=False, nucleus=False,
-                            has_lora=True)
+                        self._op("spec_verify", k, True, False, False, True)
                         programs += 1
-                self._copy_block(self._draft_state, 0, 0)
-                programs += 1
-            self._copy_block(self.state, 0, 0)
+                programs += 1  # the drafter's block copy, with the target's
+            self._op("copy_block", 0, 0)
             programs += 1
             if self.role != "unified":
+                n = model_shards(self.mesh)
                 n_pad = 1
                 while True:
                     ids = [self._num_blocks] * n_pad
                     if self.role == "prefill":
                         self._gather_payload(ids).get()
                     else:
-                        self._inject_chain(
-                            {name: torch.zeros((pool.shape[0], n_pad) + pool.shape[2:],
+                        # A handoff's payload carries every KV head.
+                        self._inject_handoff(
+                            {name: torch.zeros((pool.shape[0], n_pad) + pool.shape[2:3]
+                                               + (pool.shape[3] * n,) + pool.shape[4:],
                                                dtype=pool.dtype)
                              for name, pool in self._pools()}, ids)
                     programs += 1
@@ -1304,6 +1585,7 @@ class ServingEngine:
             "spec_draft_seconds_total": round(self._t_spec_draft, 4),
             "spec_verify_seconds_total": round(self._t_spec_verify, 4),
             "attn_path": self._attn_path,
+            "model_shards": model_shards(self.mesh),
             **{f"attn_dispatch_{p}_total": n
                for p, n in self._attn_dispatch.items()},
             # Multi-tenant LoRA: bank occupancy for the adapters_loaded gauge.
@@ -1336,6 +1618,10 @@ class ServingEngine:
         # In-flight requests get an exception, not the clean-end None: a
         # truncated generation must not read as a complete one.
         self._flush_all(RuntimeError("serving engine closed mid-generation"))
+        # The followers leave their op loops. After a failed op the ranks
+        # may be out of step; they exit when this process's group goes.
+        if self._tp is not None and not self._op_broken:
+            self._op("shutdown")
 
     def _flush_all(self, error: Optional[BaseException]) -> None:
         """Terminate every consumer so no out.get() hangs forever."""
@@ -1391,7 +1677,7 @@ class ServingEngine:
         chunk dispatches."""
         fn = self._chunk_cache.get((n_padded, lora))
         if fn is None:
-            fn = make_chunk_prefill(self.config, n_padded, lora=lora)
+            fn = make_chunk_prefill(self.config, n_padded, lora=lora, mesh=self.mesh)
             self._chunk_cache[(n_padded, lora)] = fn
         return fn
 
@@ -1399,14 +1685,14 @@ class ServingEngine:
         """The drafter's twin of _chunk_fn."""
         fn = self._draft_chunk_cache.get(n_padded)
         if fn is None:
-            fn = make_chunk_prefill(self._draft_config, n_padded)
+            fn = make_chunk_prefill(self._draft_config, n_padded, mesh=self.mesh)
             self._draft_chunk_cache[n_padded] = fn
         return fn
 
     def _spec_draft_fn(self, k: int):
         fn = self._spec_draft_fns.get(k)
         if fn is None:
-            fn = make_spec_draft(self._draft_config, k)
+            fn = make_spec_draft(self._draft_config, k, mesh=self.mesh)
             self._spec_draft_fns[k] = fn
         return fn
 
@@ -1415,16 +1701,12 @@ class ServingEngine:
         wrap this to gate or spy on rounds)."""
         fn = self._spec_verify_fns.get((k, lora))
         if fn is None:
-            fn = make_spec_verify(self.config, k, lora=lora)
+            fn = make_spec_verify(self.config, k, lora=lora, mesh=self.mesh)
             self._spec_verify_fns[(k, lora)] = fn
         return fn
 
     def _copy_both(self, src: int, dst: int) -> None:
-        """Copy-on-write's device half, in every pool the allocator
-        indexes (the drafter's moves with the target's)."""
-        self._copy_block(self.state, src, dst)
-        if self._spec:
-            self._copy_block(self._draft_state, src, dst)
+        self._op("copy_block", src, dst)
 
     def _pad_chunk(self, n: int) -> int:
         """Pow-2 bucket (min 8) capped at the chunk budget, as the JAX
@@ -1554,27 +1836,17 @@ class ServingEngine:
             final = task.pos + n == len(task.req.tokens)
             n_padded = self._pad_chunk(n)
             chunk = task.req.tokens[task.pos:task.pos + n]
-            args = (self.params, self.state, task.slot,
-                    self._pad_table(task.table), chunk + [0] * (n_padded - n),
-                    n, task.pos, task.req.max_new_tokens, task.req.temperature,
-                    task.req.top_p, self._gen, final)
-            if task.req.adapter_ix >= 0:
-                # Target only: the drafter below never applies LoRA.
-                _, first, _ = self._chunk_fn(n_padded, lora=True)(
-                    *args, task.req.adapter_ix, self._lora.bank)
-            else:
-                _, first, _ = self._chunk_fn(n_padded)(*args)
+            args = (n_padded, task.slot, self._pad_table(task.table),
+                    chunk + [0] * (n_padded - n), n, task.pos,
+                    task.req.max_new_tokens, task.req.temperature, task.req.top_p)
+            # Target only takes the adapter: the drafter never applies LoRA.
+            first = self._op("chunk", *args, final, task.req.adapter_ix)
             self._attn_dispatch[self._attn_path] += 1
             if self._spec:
                 # The drafter prefills the same chunk into its pool through
                 # the same table (a prefix hit skips both models' prefill
-                # alike). It never samples here: its first token is unused.
-                self._draft_chunk_fn(n_padded)(
-                    self._draft_params, self._draft_state, task.slot,
-                    self._pad_table(task.table), chunk + [0] * (n_padded - n),
-                    n, task.pos, task.req.max_new_tokens, task.req.temperature,
-                    task.req.top_p, self._gen_draft, False,
-                )
+                # alike).
+                self._op("draft_chunk", *args)
                 self._attn_dispatch[self._attn_path] += 1
             task.pos += n
             budget -= n
@@ -1678,18 +1950,9 @@ class ServingEngine:
         """Dispatch the device -> host copy of a block chain out of every
         pool (the drafter's too when speculating, so the decode tier's
         drafter starts from real KV) into page-locked host tensors behind
-        one CUDA event; no host sync."""
-        ids = torch.tensor(table, dtype=torch.int64, device=self.device)
-        arrays, keep = {}, []
-        for name, pool in self._pools():
-            rows = pool[:, ids]
-            if self.device.type == "cuda":
-                host = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
-                host.copy_(rows, non_blocking=True)
-                keep.append(rows)
-                rows = host
-            arrays[name] = rows
-        return _HostPayload(arrays, keep)
+        one CUDA event; no host sync. On a mesh the ranks' heads are
+        gathered first, so the frame is the unsharded tier's."""
+        return self._op("gather_payload", table)
 
     def _handoff_loop(self) -> None:
         """Prefill-role sender thread: ships each finalized task's KV to
@@ -1908,7 +2171,7 @@ class ServingEngine:
             # A speculating engine fed by a prefill tier without a drafter
             # decodes this slot's drafts from stale rows: verification
             # keeps the stream exact, acceptance sinks.
-            self._inject_chain(arrays, table, require_all=False)
+            self._inject_handoff(arrays, table)
             prompt = list(h.prompt)
             first = int(h.first_token)
             slot = free[0]
@@ -1985,34 +2248,34 @@ class ServingEngine:
         """Device -> host copy of a block chain out of every pool, as host
         tensors (L, n, bs, KV, hd), page-locked on CUDA. Returns after the
         copies have landed, so the blocks may be freed and rewritten at
-        once."""
-        ids = torch.tensor(table, dtype=torch.int64, device=self.device)
-        out = {}
-        for name, pool in self._pools():
-            rows = pool[:, ids]
-            if self.device.type == "cuda":
-                host = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
-                host.copy_(rows, non_blocking=True)
-                rows = host
-            out[name] = rows
-        self._sync()
+        once. On a mesh each rank parks its own heads: rank 0's shard
+        comes back with its payload id under PAYLOAD_ID, and when that
+        dies the followers drop theirs."""
+        if self._tp is None:
+            return self._op("gather_chain", table, None)
+        pid, self._next_payload = self._next_payload, self._next_payload + 1
+        out = self._op("gather_chain", table, pid)
+        out[PAYLOAD_ID] = torch.tensor(pid, dtype=torch.int64)
+        weakref.finalize(out[PAYLOAD_ID], self._dead_payloads.append, pid)
         return out
 
     def _inject_chain(self, arrays: Dict[str, torch.Tensor],
-                      table: List[int], require_all: bool = True) -> None:
-        """Host -> device: scatter a gathered chain into the blocks of
-        `table`, in every pool (the lossless inverse of _gather_chain). A
-        host-tier payload that lacks a pool's rows raises: the drafter
-        must never decode from stale rows of its own engine. A handoff
-        (`require_all=False`) may come without the drafter's rows."""
+                      table: List[int]) -> None:
+        """Host -> device: scatter a host-tier payload (`_gather_chain`'s)
+        into the blocks of `table`, in every pool, each rank its own
+        shard. A payload that lacks a pool's rows raises: the drafter must
+        never decode from stale rows of its own engine."""
         missing = [name for name, _ in self._pools() if name not in arrays]
-        if missing and require_all:
+        if missing:
             raise RuntimeError(f"host KV payload lacks {missing}")
-        ids = torch.tensor(table, dtype=torch.int64, device=self.device)
-        for name, pool in self._pools():
-            if name in arrays:
-                pool[:, ids] = arrays[name].to(self.device, pool.dtype,
-                                               non_blocking=True)
+        pid = int(arrays[PAYLOAD_ID]) if self._tp is not None else None
+        self._op("inject_stored", table, pid, arrays=arrays)
+
+    def _inject_handoff(self, arrays: Dict[str, torch.Tensor], table: List[int]) -> None:
+        """Scatter a handoff's chain (every KV head) into the blocks of
+        `table`; each rank of a mesh keeps its heads. A handoff may come
+        without the drafter's rows."""
+        self._op("inject", table, arrays, True)
 
     def _spill_block(self, key: tuple, b: int) -> None:
         """Allocator eviction hook: ship the victim block's KV to the host
@@ -2044,16 +2307,8 @@ class ServingEngine:
         """The device state a final prefill chunk would leave in `slot`:
         table row, length, next token, the budget left, sampling params,
         adapter identity."""
-        st = self.state
-        st.block_tables[slot] = host_to_device(self._pad_table(table), torch.int32,
-                                               self.device)
-        st.lengths[slot] = length
-        st.last_token[slot] = last_token
-        st.active[slot] = remaining > 0
-        st.remaining[slot] = remaining
-        st.temperature[slot] = temperature
-        st.top_p[slot] = top_p
-        st.adapter_ix[slot] = adapter_ix
+        self._op("place_slot", slot, self._pad_table(table), length, last_token,
+                 remaining, temperature, top_p, adapter_ix)
 
     def _preempt_slot(self, slot: int) -> bool:
         """Swap a live slot's whole chain out to the host tier at a chunk
@@ -2230,8 +2485,7 @@ class ServingEngine:
                 ))
                 continue
             if grew:
-                self.state.block_tables[slot] = host_to_device(
-                    self._pad_table(table), torch.int32, self.device)
+                self._op("set_table", slot, self._pad_table(table))
 
     def _ensure_spec_writable(self, k: int) -> None:
         """Copy-on-write over each live slot's speculation window (rows
@@ -2263,8 +2517,7 @@ class ServingEngine:
                     table[idx] = b
                     changed = True
             if changed and self._slot_tables[slot] is table:
-                self.state.block_tables[slot] = host_to_device(
-                    self._pad_table(table), torch.int32, self.device)
+                self._op("set_table", slot, self._pad_table(table))
 
     def _force_retire(self, slot: int, error: BaseException) -> None:
         req = self._live[slot]
@@ -2296,11 +2549,7 @@ class ServingEngine:
         self._lengths_host[slot] = 0
 
     def _retire(self, slot: int) -> None:
-        # adapter_ix too: the plain chunk program of a request that reuses
-        # the slot resets it only at its finalize.
-        self.state.active[slot] = False
-        self.state.remaining[slot] = 0
-        self.state.adapter_ix[slot] = -1
+        self._op("retire", slot)
 
     def _ewma(self, prev: float, sample: float, alpha: float = 0.2) -> float:
         return prev + alpha * (sample - prev)
@@ -2322,13 +2571,7 @@ class ServingEngine:
         per `steps_per_sync` tokens."""
         sampling, nucleus = self._sampling_flags()
         lora, has_lora = self._lora_live()
-        if lora:
-            _, tokens, active = self._step_lora(
-                self.params, self.state, self._gen, self._lora.bank,
-                sampling=sampling, nucleus=nucleus, has_lora=has_lora)
-        else:
-            _, tokens, active = self._step(self.params, self.state, self._gen,
-                                           sampling=sampling, nucleus=nucleus)
+        tokens, active = self._op("decode", lora, sampling, nucleus, has_lora)
         self._attn_dispatch[self._attn_path] += 1
         both = torch.cat([tokens, active[:, None].to(tokens.dtype)], dim=1).cpu()
         return both[:, :-1].tolist(), [bool(x) for x in both[:, -1]]
@@ -2346,6 +2589,9 @@ class ServingEngine:
                         self._wake.wait(timeout=0.2)
                         self._wake.clear()
                         self._t_idle += time.monotonic() - t_w
+                        if (self._tp is not None
+                                and time.monotonic() - self._last_op > HEARTBEAT_S):
+                            self._op("noop")
                         continue
                 if not has_live:
                     # Nothing decoding: admission runs alone; the next
@@ -2420,22 +2666,12 @@ class ServingEngine:
             return None, None, time.monotonic()
         t_pf = time.monotonic()
         sampling, nucleus = self._sampling_flags()
-        st = self.state
-        drafts, qlogits = self._spec_draft_fn(k_cur)(
-            self._draft_params, self._draft_state, st.block_tables, st.lengths,
-            st.last_token, st.active, st.temperature, st.top_p, self._gen_draft,
-            sampling=sampling, nucleus=nucleus)
+        self._op("spec_draft", k_cur, sampling, nucleus)
         self._sync()  # splits the draft's time from the verify's
         t_draft = time.monotonic()
         lora, has_lora = self._lora_live()
-        if lora:
-            _, emitted, accepted, active = self._spec_verify_fn(k_cur, lora=True)(
-                self.params, st, drafts, qlogits, self._gen, self._lora.bank,
-                sampling=sampling, nucleus=nucleus, has_lora=has_lora)
-        else:
-            _, emitted, accepted, active = self._spec_verify_fn(k_cur)(
-                self.params, st, drafts, qlogits, self._gen,
-                sampling=sampling, nucleus=nucleus)
+        emitted, accepted, active = self._op("spec_verify", k_cur, lora, sampling,
+                                             nucleus, has_lora)
         both = torch.cat([emitted, accepted[:, None], active[:, None].to(emitted.dtype)],
                          dim=1).cpu().tolist()
         t_sync = time.monotonic()
@@ -2541,6 +2777,21 @@ class ServingEngine:
                 req.out.put(tok)
         if total_emitted:
             self._tpt_hist.observe(self._last_chunk_s / total_emitted)
+
+
+def run_follower(mesh, config: ModelConfig, params: Params, **engine_kw) -> "ServingEngine":
+    """A follower rank of a tensor-parallel engine: build the engine's
+    state from this rank's slices of `params` (the whole params, as rank
+    0 was given them) with the leader's `engine_kw`, then run the leader's
+    ops until it closes. Returns the follower's engine (its state is this
+    rank's) when the leader sends shutdown; raises when the leader's
+    process disappears (the next collective fails)."""
+    if mesh is None or not mesh.ranked or mesh.rank == 0:
+        raise ValueError("run_follower runs ranks 1.. of a mesh over ranks;"
+                         " rank 0 is the ServingEngine(mesh=) leader")
+    engine = ServingEngine(config, params, mesh=mesh, **engine_kw)
+    engine._follow()
+    return engine
 
 
 def prometheus_metrics(stats: Dict[str, Any]) -> str:

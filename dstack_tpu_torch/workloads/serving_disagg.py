@@ -25,8 +25,14 @@ device, and the drill checks that the three sets are equal (a sha1 of
 every leaf's bytes). On CUDA the parent builds the kernel library into
 the kernel cache before it spawns the workers, so neither pays the build.
 
-`--device` defaults to CUDA; `--mesh-model` above 1 raises
-NotImplementedError (the device mesh is the sharding slice's work).
+`--device` defaults to CUDA. `--mesh-model N` makes each worker
+tensor-parallel: a worker is rank 0 of its own group of N ranks and
+starts ranks 1..N-1 itself (sharding.join_ranks), over `--dist-backend`
+(nccl, one rank per card, by default on CUDA; gloo on the CPU and for
+ranks that share a card). The prefill tier gathers every rank's KV heads
+into the handoff, so the frame is the unsharded tier's, and each rank of
+the decode tier keeps its heads of it. The parent's unified reference
+stays on one device.
 
 Control plane: each worker listens on a control socket speaking the
 kv_transfer framing (length-prefixed JSON, no arrays). The prefill worker
@@ -113,21 +119,28 @@ def params_digest(params) -> str:
     return h.hexdigest()
 
 
-def _build_engine(args, role: str, kv_transfer=None):
+def _build_engine(args, role: str, kv_transfer=None, argv=()):
     """Engine construction shared by both workers and the parent's unified
-    reference: weights from the seed on the process's own device."""
+    reference: weights from the seed on the process's own device. With
+    `--mesh-model N` the worker is rank 0 of N (`argv`, its own command
+    line, starts the others) and the engine is tensor-parallel; on ranks
+    1.. this follows rank 0's engine until it closes and returns engine
+    None. Returns (engine, params, the follower processes started)."""
+    from dstack_tpu_torch.workloads import sharding
     from dstack_tpu_torch.workloads.config import PRESETS
-    from dstack_tpu_torch.workloads.serving import ServingEngine
+    from dstack_tpu_torch.workloads.serving import ServingEngine, run_follower
     from dstack_tpu_torch.workloads.transformer import init_params
 
-    if args.mesh_model > 1:
-        raise NotImplementedError(
-            f"--mesh-model {args.mesh_model}: the device mesh is not ported to"
-            " the PyTorch engine yet (ROADMAP Queue 1, item 11, sharding)")
     config = PRESETS[args.preset]
-    params = init_params(config, args.seed, args.device)
-    engine = ServingEngine(
-        config, params,
+    mesh, followers, device = None, [], args.device
+    if args.mesh_model > 1:
+        sharding.check_heads(args.mesh_model, config)
+        mesh, followers = sharding.join_ranks(
+            args.mesh_model, args.rank, args.dist_init, args.dist_backend, args.device,
+            ["-m", "dstack_tpu_torch.workloads.serving_disagg", *argv])
+        device = mesh.device
+    params = init_params(config, args.seed, device)
+    kw = dict(
         slots=args.slots,
         max_len=args.max_len,
         steps_per_sync=args.steps_per_sync,
@@ -136,9 +149,11 @@ def _build_engine(args, role: str, kv_transfer=None):
         spec_enable=args.spec,
         role=role,
         kv_transfer=kv_transfer,
-        device=args.device,
     )
-    return engine, params
+    if mesh is not None and mesh.rank > 0:
+        run_follower(mesh, config, params, **kw)
+        return None, params, followers
+    return ServingEngine(config, params, mesh=mesh, device=device, **kw), params, followers
 
 
 def _accept_control(port: int) -> ControlConn:
@@ -162,10 +177,13 @@ def _common_reply(engine, params, msg) -> Optional[Dict[str, Any]]:
     return None
 
 
-def run_decode_worker(args) -> None:
+def run_decode_worker(args, argv=()) -> None:
     from dstack_tpu_torch.workloads.kv_transfer import TransferServer
+    from dstack_tpu_torch.workloads.sharding import stop_followers
 
-    engine, params = _build_engine(args, role="decode")
+    engine, params, followers = _build_engine(args, role="decode", argv=argv)
+    if engine is None:
+        return  # a follower rank: its leader closed the engine
     engine.warmup()
     ctrl = _accept_control(args.control_port)
 
@@ -220,20 +238,26 @@ def run_decode_worker(args) -> None:
     finally:
         server.close()
         engine.close()
+        stop_followers(followers)
         ctrl.close()
 
 
-def run_prefill_worker(args) -> None:
+def run_prefill_worker(args, argv=()) -> None:
     if args.nice:
         # The isolation mechanism on a shared host: the prefill worker runs
         # CPU-deprioritised, so a prefill flood cannot take the cycles of a
         # co-located decode worker's loop.
         os.nice(args.nice)
     from dstack_tpu_torch.workloads.kv_transfer import TransferClient
+    from dstack_tpu_torch.workloads.sharding import stop_followers
 
+    if args.rank > 0:
+        _build_engine(args, role="prefill", argv=argv)
+        return  # a follower rank: rank 0 ships the handoffs
     client = TransferClient("127.0.0.1", args.connect_port,
                             retry_stale=not args.no_retry_stale)
-    engine, params = _build_engine(args, role="prefill", kv_transfer=client)
+    engine, params, followers = _build_engine(args, role="prefill", kv_transfer=client,
+                                              argv=argv)
     engine.warmup()
     ctrl = _accept_control(args.control_port)
     outs: Dict[int, "queue.Queue[object]"] = {}
@@ -302,6 +326,7 @@ def run_prefill_worker(args) -> None:
         return
     finally:
         engine.close()
+        stop_followers(followers)
         client.close()
         ctrl.close()
 
@@ -309,8 +334,50 @@ def run_prefill_worker(args) -> None:
 # -- parent-side worker handle ------------------------------------------------
 
 
+def worker_argv(role: str, control_port: int, *, device: Optional[str] = None,
+                preset: str = "tiny", spec: bool = False, slots: int = 4,
+                mesh_model: int = 1, dist_backend: Optional[str] = None,
+                max_len: int = 256, steps_per_sync: int = 4,
+                prefill_chunk_tokens: int = 128, kv_block_size: int = 16,
+                transfer_port: Optional[int] = None,
+                connect_port: Optional[int] = None,
+                nice: int = 0, retry_stale: bool = True, seed: int = 0) -> List[str]:
+    """One worker's command line. `device` None leaves `--device` out, so
+    the worker takes the default device and, under `--mesh-model N`, its
+    rank r takes cuda:r (sharding.join_ranks)."""
+    argv = [
+        sys.executable, "-m", "dstack_tpu_torch.workloads.serving_disagg",
+        "--worker", role,
+        "--preset", preset,
+        "--control-port", str(control_port),
+        "--slots", str(slots),
+        "--max-len", str(max_len),
+        "--steps-per-sync", str(steps_per_sync),
+        "--prefill-chunk-tokens", str(prefill_chunk_tokens),
+        "--kv-block-size", str(kv_block_size),
+        "--seed", str(seed),
+        "--mesh-model", str(mesh_model),
+    ]
+    if device is not None:
+        argv += ["--device", device]
+    if dist_backend:
+        argv += ["--dist-backend", dist_backend]
+    if spec:
+        argv.append("--spec")
+    if role == "decode":
+        argv += ["--transfer-port", str(transfer_port)]
+    else:
+        argv += ["--connect-port", str(connect_port)]
+        if nice:
+            argv += ["--nice", str(nice)]
+        if not retry_stale:
+            argv.append("--no-retry-stale")
+    return argv
+
+
 class WorkerProc:
-    """Spawn and control one worker process. Token and completion events
+    """Spawn and control one worker process (its command line from
+    `worker_argv`, which takes the keywords). Token and completion events
     go to per-request queues through a reader thread; command replies
     (stats_reply, bump_reply, trace_reply, digest_reply, bye) to a reply
     queue."""
@@ -318,39 +385,11 @@ class WorkerProc:
     _EVENT_KINDS = ("token", "done", "error",
                     "prefill_done", "prefill_tokens", "prefill_error")
 
-    def __init__(self, role: str, *, device: str, preset: str = "tiny",
-                 spec: bool = False, slots: int = 4,
-                 max_len: int = 256, steps_per_sync: int = 4,
-                 prefill_chunk_tokens: int = 128, kv_block_size: int = 16,
-                 transfer_port: Optional[int] = None,
-                 connect_port: Optional[int] = None,
-                 nice: int = 0, retry_stale: bool = True, seed: int = 0):
+    def __init__(self, role: str, **kw):
         self.role = role
         self.control_port = _free_port()
-        self.transfer_port = transfer_port
-        argv = [
-            sys.executable, "-m", "dstack_tpu_torch.workloads.serving_disagg",
-            "--worker", role,
-            "--device", device,
-            "--preset", preset,
-            "--control-port", str(self.control_port),
-            "--slots", str(slots),
-            "--max-len", str(max_len),
-            "--steps-per-sync", str(steps_per_sync),
-            "--prefill-chunk-tokens", str(prefill_chunk_tokens),
-            "--kv-block-size", str(kv_block_size),
-            "--seed", str(seed),
-        ]
-        if spec:
-            argv.append("--spec")
-        if role == "decode":
-            argv += ["--transfer-port", str(transfer_port)]
-        else:
-            argv += ["--connect-port", str(connect_port)]
-            if nice:
-                argv += ["--nice", str(nice)]
-            if not retry_stale:
-                argv.append("--no-retry-stale")
+        self.transfer_port = kw.get("transfer_port")
+        argv = worker_argv(role, self.control_port, **kw)
         env = dict(os.environ)
         env["PYTHONPATH"] = os.pathsep.join(
             p for p in (_REPO_ROOT, env.get("PYTHONPATH")) if p
@@ -522,7 +561,8 @@ def near_tie(config, params, prompt, ref, got, tol) -> Dict[str, Any]:
 
 
 def run_drill(device: Optional[str] = None, mesh_model: int = 1, spec: bool = False,
-              preset: str = "tiny", verbose: bool = True) -> Dict[str, Any]:
+              preset: str = "tiny", verbose: bool = True,
+              dist_backend: Optional[str] = None) -> Dict[str, Any]:
     """Returns a report dict; raises AssertionError on any failed check."""
     from dstack_tpu_torch.workloads.device import resolve_device
 
@@ -530,12 +570,17 @@ def run_drill(device: Optional[str] = None, mesh_model: int = 1, spec: bool = Fa
         if verbose:
             print(f"[drill] {msg}", flush=True)
 
+    from dstack_tpu_torch.workloads.config import PRESETS
+    from dstack_tpu_torch.workloads.sharding import check_backend, check_heads
+
+    named = None if device is None else torch.device(device)
     if mesh_model > 1:
-        raise NotImplementedError(
-            f"--mesh-model {mesh_model}: the device mesh is not ported to the"
-            " PyTorch engine yet (ROADMAP Queue 1, item 11, sharding)")
+        # Refused here, before any worker starts, for the device the caller
+        # named (none: each worker's rank r on cuda:r).
+        check_heads(mesh_model, PRESETS[preset])
+        check_backend(dist_backend or ("gloo" if named is not None and named.type == "cpu"
+                                       else "nccl"), mesh_model, named)
     dev = resolve_device(device)
-    device = str(dev)
     max_len = 256
     # Awkward on purpose: 32 = exactly two 16-blocks; 29 ends mid-block;
     # 130 crosses the 128-token chunk budget with a remainder of 2;
@@ -548,13 +593,13 @@ def run_drill(device: Optional[str] = None, mesh_model: int = 1, spec: bool = Fa
         {"prompt": list(range(2, 50)), "max_new": 47},    # long decode
     ]
     args = argparse.Namespace(
-        preset=preset, seed=0, mesh_model=1, slots=4,
+        preset=preset, seed=0, mesh_model=1, rank=0, slots=4,
         max_len=max_len, steps_per_sync=4, prefill_chunk_tokens=128,
-        kv_block_size=16, spec=spec, device=device)
-    compile_cache.prebuild(device)
+        kv_block_size=16, spec=spec, device=str(dev))
+    compile_cache.prebuild(str(dev))
 
-    log(f"reference: unified engine in the parent (device={device}, spec={spec})")
-    ref_engine, params = _build_engine(args, role="unified")
+    log(f"reference: unified engine in the parent (device={dev}, spec={spec})")
+    ref_engine, params, _ = _build_engine(args, role="unified")
     config = ref_engine.config
     try:
         ref = [_drain(ref_engine.submit(sc["prompt"], sc["max_new"]))
@@ -565,13 +610,14 @@ def run_drill(device: Optional[str] = None, mesh_model: int = 1, spec: bool = Fa
     log(f"reference lens: {[len(r) for r in ref]}")
 
     transfer_port = _free_port()
-    kw = dict(device=device, preset=preset, spec=spec, max_len=max_len)
-    log("spawning decode + prefill workers")
+    kw = dict(device=device, preset=preset, spec=spec, max_len=max_len,
+              mesh_model=mesh_model, dist_backend=dist_backend)
+    log(f"spawning decode + prefill workers (mesh_model={mesh_model})")
     dec = WorkerProc("decode", transfer_port=transfer_port, **kw)
     pre = WorkerProc("prefill", connect_port=transfer_port, **kw)
-    report: Dict[str, Any] = {"device": device, "preset": preset,
+    report: Dict[str, Any] = {"device": str(dev), "preset": preset,
                               "n_layers": config.n_layers, "spec": spec,
-                              "checks": {}}
+                              "mesh_model": mesh_model, "checks": {}}
     try:
         dec.connect()
         pre.connect()
@@ -713,8 +759,14 @@ def main(argv: Optional[list] = None) -> None:
     parser.add_argument("--preset", default="tiny")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--mesh-model", type=int, default=1,
-                        help="tensor-parallel shards per worker; only 1 (the"
-                             " device mesh is not ported)")
+                        help="tensor-parallel ranks per worker (each worker"
+                             " starts its ranks 1..N-1 itself)")
+    parser.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
+                        help="transport between a worker's ranks: nccl (default"
+                             " on CUDA, one rank per card) or gloo (default on"
+                             " the CPU; ranks that share a card)")
+    parser.add_argument("--rank", type=int, default=0, help=argparse.SUPPRESS)
+    parser.add_argument("--dist-init", default="", help=argparse.SUPPRESS)
     parser.add_argument("--spec", action="store_true",
                         help="speculative decoding on (drafter KV rides the"
                              " handoff)")
@@ -735,15 +787,16 @@ def main(argv: Optional[list] = None) -> None:
                         help="prefill worker: fail handoffs on stale-epoch"
                              " rejects instead of refreshing and retrying")
     parser.add_argument("--out", default="", help="write the drill report JSON here")
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parser.parse_args(argv)
     if args.worker == "decode":
-        run_decode_worker(args)
+        run_decode_worker(args, argv)
         return
     if args.worker == "prefill":
-        run_prefill_worker(args)
+        run_prefill_worker(args, argv)
         return
     report = run_drill(device=args.device, mesh_model=args.mesh_model, spec=args.spec,
-                       preset=args.preset)
+                       preset=args.preset, dist_backend=args.dist_backend)
     blob = json.dumps(report, indent=2, default=str)
     if args.out:
         Path(args.out).write_text(blob)

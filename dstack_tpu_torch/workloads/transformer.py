@@ -35,7 +35,7 @@ from dstack_tpu_torch.workloads.config import ModelConfig
 from dstack_tpu_torch.workloads.device import DeviceLike, resolve_device
 from dstack_tpu_torch.workloads.moe import moe_block
 from dstack_tpu_torch.workloads.quant import QTensor
-from dstack_tpu_torch.workloads.sharding import device_shards
+from dstack_tpu_torch.workloads.sharding import all_gather, device_shards
 
 Params = Dict[str, Any]
 AttentionFn = Callable[..., torch.Tensor]
@@ -171,13 +171,15 @@ def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tenso
 
 def project_qkv(c: ModelConfig, x: torch.Tensor, p: Params,
                 positions: torch.Tensor):
-    """Pre-norm QKV projection with rope, shared by every cached path."""
+    """Pre-norm QKV projection with rope, shared by every cached path.
+    The head counts come from the weights' widths, so a rank of a model
+    mesh projects its own heads (sharding.rank_params)."""
     b, s, _ = x.shape
     hd = c.head_dim
     h = rms_norm(x, p["attn_norm"], c.norm_eps)
-    q = linear(h, p["wq"]).reshape(b, s, c.n_heads, hd)
-    k = linear(h, p["wk"]).reshape(b, s, c.n_kv_heads, hd)
-    v = linear(h, p["wv"]).reshape(b, s, c.n_kv_heads, hd)
+    q = linear(h, p["wq"]).reshape(b, s, -1, hd)
+    k = linear(h, p["wk"]).reshape(b, s, -1, hd)
+    v = linear(h, p["wv"]).reshape(b, s, -1, hd)
     return _rope(q, positions, c.rope_theta), _rope(k, positions, c.rope_theta), v
 
 
@@ -204,23 +206,33 @@ def _silu(x: torch.Tensor) -> torch.Tensor:
     return _SiLU.apply(x)
 
 
-def mlp_block(c: ModelConfig, x: torch.Tensor, p: Params) -> torch.Tensor:
-    """Pre-norm SwiGLU MLP with residual."""
+def mlp_block(c: ModelConfig, x: torch.Tensor, p: Params, mesh=None) -> torch.Tensor:
+    """Pre-norm SwiGLU MLP with residual. On a model `mesh` (a serving
+    rank's column slices) the activation is gathered before w_down and
+    w_down's output before the residual; without one both are no-ops."""
     h = rms_norm(x, p["mlp_norm"], c.norm_eps)
     gate = _silu(linear(h, p["w_gate"]))
     up = linear(h, p["w_up"])
-    return x + linear(gate * up, p["w_down"])
+    act = all_gather(gate * up, -1, mesh)
+    return x + all_gather(linear(act, p["w_down"]), -1, mesh)
 
 
-def ffn_block(c: ModelConfig, x: torch.Tensor, p: Params) -> torch.Tensor:
+def attn_out(attn: torch.Tensor, p: Params, mesh=None) -> torch.Tensor:
+    """The attention half's output projection on a cached path: a rank's
+    heads gathered before wo, wo's columns gathered after (no-ops
+    without a model mesh)."""
+    return all_gather(linear(all_gather(attn, -1, mesh), p["wo"]), -1, mesh)
+
+
+def ffn_block(c: ModelConfig, x: torch.Tensor, p: Params, mesh=None) -> torch.Tensor:
     """The block's MLP half on a cached path: the dense MLP, or the MoE
     block with its router loss dropped. Capacity follows the call's own
     sequence length (a decode step's 1, a chunk's padded length), so a
     cached path drops tokens as the reference's does, not as `forward`
     over the whole sequence would."""
     if c.n_experts > 0:
-        return moe_block(c, x, p)[0]
-    return mlp_block(c, x, p)
+        return moe_block(c, x, p, mesh)[0]
+    return mlp_block(c, x, p, mesh)
 
 
 def _dots_policy(ctx, op, *args, **kwargs):

@@ -950,3 +950,106 @@ def test_moe_module_phase_runs_its_gates_on_the_cpu(monkeypatch):
                                       "paths_second_choice_dropped", "second_choice_dropped"]
     assert out["loop"]["drops_einsum"]["dropped"] > 0
     assert out["loop"]["all_admitted_gather"]["dropped"] == 0
+
+
+# -- phase 14: tensor-parallel serving ------------------------------------------------
+
+
+def test_tp_rank_launcher_kills_a_rank_past_its_timeout():
+    import subprocess
+    import sys
+    import time
+
+    procs = [subprocess.Popen([sys.executable, "-c", code], start_new_session=True)
+             for code in ("import time; time.sleep(60)", "pass")]
+    t0 = time.monotonic()
+    codes = cs.wait_ranks(procs, timeout=2.0)
+    assert time.monotonic() - t0 < 20
+    assert codes[0] < 0 and codes[1] == 0  # the sleeper was killed
+    assert all(p.poll() is not None for p in procs)
+
+
+def test_tp_swap_mutant_reverses_the_ranks_heads_and_undoes():
+    from dstack_tpu_torch.workloads import kv_blocks, sharding, transformer
+
+    mesh = sharding.Mesh(torch.device("cpu"), dict(zip(sharding.AXES, (1, 1, 1, 2, 1))),
+                         group=object(), rank=0, backend="gloo")
+    attn = torch.arange(4.0).reshape(1, 1, 4)        # rank 0's two heads of width 2
+    other = attn + 100                               # rank 1's
+    wo = torch.eye(8)                                # (H*hd, D/2 of each rank): identity
+    calls = []
+
+    def fake_gather(x, dim, m):                      # two ranks: x then its twin
+        calls.append(x.shape)
+        return torch.cat([x, x + 100 if len(calls) == 1 else x], dim)
+
+    orig_gather, orig_out = sharding.all_gather, kv_blocks.attn_out
+    sharding.all_gather = transformer.all_gather = fake_gather
+    try:
+        want = kv_blocks.attn_out(attn, {"wo": wo}, mesh)
+        calls.clear()
+        undo = cs.tp_swap_attn_out()
+        got = kv_blocks.attn_out(attn, {"wo": wo}, mesh)
+        undo()
+    finally:
+        sharding.all_gather = transformer.all_gather = orig_gather
+    assert kv_blocks.attn_out is orig_out
+    assert torch.equal(want[..., :8], torch.cat([attn, other], -1))
+    assert torch.equal(got[..., :8], torch.cat([other, attn], -1))
+
+
+def test_tp_counters_survive_the_heartbeat_and_zero_on_their_own_op():
+    """The idle heartbeat's no-op leaves phase 14's counts alone; only the
+    smoke's own op zeroes them, and undo removes that op."""
+    from dstack_tpu_torch.workloads import paged_attention as pa
+    from dstack_tpu_torch.workloads import serving
+
+    class FakeMesh:
+        stats = {"all_gathers": 0, "all_gather_seconds": 0.0, "broadcasts": 0}
+
+    class Eng:
+        _steps_per_sync = 2
+
+    mesh, eng, cls = FakeMesh(), Eng(), serving.ServingEngine
+    orig_decode, saved = cls._op_decode, pa.LAUNCHES["ragged_paged_attention"]
+
+    def fake_decode(self, *a):
+        pa.LAUNCHES["ragged_paged_attention"] += 4
+        mesh.stats["all_gathers"] += 3
+
+    cls._op_decode = fake_decode
+    try:
+        counts, undo = cs.tp_count_ops(serving, pa, mesh)
+        cls._op_decode(eng)
+        cls._op_noop(eng)                       # a heartbeat in the window
+        assert counts["per_step"] == [2.0] and counts["decode_gathers"] == 3
+        assert pa.LAUNCHES["ragged_paged_attention"] == saved + 4
+        cls._op_tp_zero_counts(eng)
+        assert counts["per_step"] == [] and pa.LAUNCHES["ragged_paged_attention"] == 0
+        undo()
+        assert not hasattr(cls, "_op_tp_zero_counts") and cls._op_decode is fake_decode
+    finally:
+        cls._op_decode = orig_decode
+        pa.LAUNCHES["ragged_paged_attention"] = saved
+
+
+def _tp_result(**kw):
+    r = dict(mutant=False, n_layers=16, streams_held={"divergences": 0}, streams_error=None,
+             pool=dict(rel_l2=0.0, row_rel=0.0, tol=(1e-2, 1e-1)),
+             ranks=[dict(per_step=[16.0] * 3, launches=48)] * 2, token_counts=[cs.TP_NEW] * 8)
+    r.update(kw)
+    return r
+
+
+@pytest.mark.parametrize("bad", [
+    dict(ranks=[dict(per_step=[16.0, 15.0], launches=31), dict(per_step=[16.0], launches=16)]),
+    dict(pool=dict(rel_l2=0.5, row_rel=0.0, tol=(1e-2, 1e-1))),
+    dict(streams_held=None, streams_error="stream 0 diverges past a near-tie"),
+    dict(mutant=True),                                  # a mutant both gates pass
+    dict(mutant=True, streams_held=None, streams_error="x"),  # the pool gate passes it
+    dict(token_counts=[cs.TP_NEW - 1] + [cs.TP_NEW] * 7),
+])
+def test_tp_gates_fail_what_they_must(bad):
+    cs.check_tp({"good": _tp_result()})
+    with pytest.raises(AssertionError):
+        cs.check_tp({"bad": _tp_result(**bad)})

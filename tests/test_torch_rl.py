@@ -331,6 +331,11 @@ def test_weights_frame_is_the_reference_frame_byte_for_byte(dtype):
         got = _pull_raw(ts.port)
         assert got == want
         assert b'"dtype":"bfloat16"' in got if dtype == "bfloat16" else True
+        # The reference counts a pull after its send returns, so the client
+        # may hold the frame before the count lands.
+        deadline = time.monotonic() + 30
+        while js.pulls_served < 1 and time.monotonic() < deadline:
+            time.sleep(0.01)
         assert ts.pulls_served == 1 and ts.bytes_sent == js.bytes_sent
     finally:
         js.close()

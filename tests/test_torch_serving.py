@@ -155,9 +155,16 @@ def test_params_that_require_grad_serve_without_autograd(weights):
     assert out.tolist() == generate(TCFG, tp, prompt, max_new_tokens=4).tolist()
 
 
-@pytest.mark.parametrize("kw", [{"mesh": object()}])
+@pytest.mark.parametrize("kw", [{"mesh": object()}, {"mesh": "seq"}])
 def test_unported_options_raise(weights, kw):
+    """A mesh serves over ranks (tests/test_torch_sharding.py); an object
+    that is not a mesh of the port, and a one-device seq mesh (the ring's,
+    a training axis), are refused."""
     _, tp = weights
+    if kw["mesh"] == "seq":
+        from dstack_tpu_torch.workloads.sharding import make_mesh
+
+        kw = {"mesh": make_mesh(["cpu"], seq=2)}
     with pytest.raises(NotImplementedError):
         tsrv.ServingEngine(TCFG, tp, device="cpu", **{**ENGINE_KW, **kw})
 

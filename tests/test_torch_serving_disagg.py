@@ -492,10 +492,54 @@ def test_drill_runs_as_two_processes_on_cpu(tmp_path):
 
 
 def test_drill_refuses_a_model_mesh():
+    """A model axis the heads do not split over (tiny: 4 q / 2 KV heads
+    on 3 ranks) is refused before any worker starts; two ranks per worker
+    serve (the next test)."""
     from dstack_tpu_torch.workloads import serving_disagg
 
-    with pytest.raises(NotImplementedError, match="mesh"):
-        serving_disagg.main(["--device", "cpu", "--mesh-model", "2"])
+    with pytest.raises(ValueError, match="must divide the mesh's model axis"):
+        serving_disagg.main(["--device", "cpu", "--mesh-model", "3"])
+
+
+def test_drill_leaves_each_rank_its_own_card(monkeypatch):
+    """With no --device the drill names none to its workers, so each
+    worker's rank r goes to cuda:r (sharding.join_ranks), and the nccl
+    check counts cards instead of refusing every rank on one device."""
+    from dstack_tpu_torch.workloads import serving_disagg
+
+    argv = serving_disagg.worker_argv("decode", 1, mesh_model=2, transfer_port=2)
+    assert "--device" not in argv
+    argv = serving_disagg.worker_argv("decode", 1, device="cpu", transfer_port=2)
+    assert argv[argv.index("--device") + 1] == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="2 ranks on 1 card"):
+        serving_disagg.run_drill(None, mesh_model=2, dist_backend="nccl", verbose=False)
+    with pytest.raises(ValueError, match="every rank on cuda:0.*gloo"):
+        serving_disagg.run_drill("cuda:0", mesh_model=2, dist_backend="nccl",
+                                 verbose=False)
+
+
+def test_drill_runs_two_ranks_per_worker_on_cpu(tmp_path):
+    """Each tier tensor-parallel over two gloo ranks: the drill's own
+    checks (bit-exact against the unified engine, zero residue, trace
+    continuity, stale epoch, cancel) and no process left behind."""
+    out = tmp_path / "drill.json"
+    r = subprocess.run(
+        [sys.executable, "-m", "dstack_tpu_torch.workloads.serving_disagg",
+         "--device", "cpu", "--preset", "tiny", "--mesh-model", "2", "--out", str(out)],
+        cwd=ROOT, capture_output=True, text=True, timeout=120,
+        env={**os.environ, "OMP_NUM_THREADS": "1"},
+    )
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
+    report = json.loads(out.read_text())
+    checks = report["checks"]
+    assert report["ok"] and report["mesh_model"] == 2
+    assert checks["bit_exact"] and checks["params_equal"] and checks["zero_residue"]
+    left = subprocess.run(["pgrep", "-af", "^[^ ]*python[^ ]* -m dstack_tpu_torch.workloads"
+                           ".serving_disagg .*--dist-init"],
+                          capture_output=True, text=True).stdout.splitlines()
+    assert not left, left
 
 
 # -- the cache-affinity sketch ----------------------------------------------------
@@ -607,10 +651,12 @@ def test_native_server_role_flag_validation(extra, message):
 
 
 def test_native_server_refuses_a_model_mesh():
+    """--mesh-model 2 serves (tests/test_torch_sharding.py); a model axis
+    the heads do not split over is refused before any rank starts."""
     from dstack_tpu_torch import native_server
 
-    with pytest.raises(NotImplementedError, match="mesh"):
-        native_server.main(["--preset", "tiny", "--device", "cpu", "--mesh-model", "2"])
+    with pytest.raises(SystemExit, match="must divide the mesh's model axis"):
+        native_server.main(["--preset", "tiny", "--device", "cpu", "--mesh-model", "3"])
 
 
 def _serve(engine):
