@@ -188,8 +188,8 @@ Phases (any failure fails the run; nothing is caught to exit 0):
                cf 0.5, where much does) and einsum against gather (1 x 128,
                2 x 2048), the gate shown failing the second choice dropped,
                the gate unnormalised and a dropped choice computed; both
-               dispatches timed, forward and forward + backward; (b) full
-               depth behind the paged engine, phase 4's requests: at cf 4.0
+               dispatches timed, forward and forward + backward; (b) 8
+               layers behind the paged engine, phase 4's requests: at cf 4.0
                the dense check with the dense run pinned to the chunks'
                routing (flips counted unpinned; shown failing a layer routed
                to shifted experts), plain and spec (int8 MoE drafter) waves;
@@ -208,19 +208,40 @@ Phases (any failure fails the run; nothing is caught to exit 0):
   14. tensor parallelism — (c) the paged kernel against its plain version
                at a rank's heads of smol-1b on a model axis of 2 (H 8, KV 4),
                decode and chunk, bf16 and f32, the bf16 decode timed; two
-               processes of this script (--tp-rank 0/1) over gloo on the one
-               card serve smol-1b at full depth sharded, bf16, f32 and a
+               processes of this script (--tp-rank, --rank 0/1) over gloo on
+               the one card serve smol-1b at 8 layers sharded, bf16, f32 and a
                mutant: (a) 8 streams by the near-tie rule against the
                unsharded engine (bit-for-bit count printed), (b) each rank's
                prompt-block pools against its heads of the unsharded pool,
-               (d) 16 paged launches per decode step on each rank, (e) both
+               (d) a launch per layer per decode step on each rank, (e) both
                gates failing the two ranks' heads swapped in the attention
                output's all-gather; decode tok/s, TTFT and the staged
                all-gathers per decode step recorded (gloo, two ranks on one
                card: not a TP speed); (f) a world-1 NCCL group's short wave
                in a process of its own (--tp-nccl).
+  15. training across ranks — (c) the three flash kernels against their
+               plain versions at a rank's geometry of smol-1b's training
+               step (B*H 64, S 2048, hd 128: 8 rows x 8 q heads at model 2,
+               4 rows x 16 at fsdp 2), bf16 and f32, timed; two processes of
+               this script (--tr-rank, --rank 0/1) over gloo on the one card
+               train smol-1b at full width and depth at fsdp 2 and model 2
+               on a global batch of 8 x 2048, against the unsharded step on
+               the same card, weights and batch: (a) the first step's loss
+               and grad_norm, (b) every param after 2 steps (rel_l2,
+               row_rel), the same at 2 layers in f32 with tight limits, and
+               a checkpoint saved from the fsdp-2 ranks restored on one
+               device with equal params, (d) 16 launches of each kernel per
+               step on each rank at the rank's geometry, (e) the param gate
+               failing a step whose fsdp reduce-scatter keeps each rank's
+               own grads and one whose row-parallel sums are skipped; step
+               ms, collectives per step and their ms, peak memory per rank
+               recorded (gloo, two ranks on one card: a check, not a
+               parallel speed); (f) a world-1 NCCL training step, its
+               checkpoint saved and restored, in a process of its own
+               (--tr-nccl).
 Phase 3b and 3c run after 3, 4b and 4c after 4, 5b after 5, 11 after
-5b, 12 after 11, phases 6 to 10b after 12, 13 after 10b, 14 after 13. The line before the
+5b, 12 after 11, phases 6 to 10b after 12, 13 after 10b, 14 after 13, 15
+after 14. The line before the
 last is the `kernels` JSON; the last line is {"ok": true, "device": {...}}.
 Each phase logs its numbers on the way; details also go to
 chiprun_out/chip_smoke.json.
@@ -801,20 +822,23 @@ def check_flash(r, tol) -> None:
             raise AssertionError(f"{r['case']} {r['kernel']} {out}: {r[out]} past {tol}")
 
 
-def run_flash(timed: bool = True):
+def run_flash(timed: bool = True, cases=None):
     """Each flash kernel against its plain version on the same inputs;
-    the SDPA yardstick (forward, and backward for dQ + dK/dV together) at
-    the bf16 training shape. Returns one result per (case, kernel)."""
+    the SDPA yardstick (forward, and backward for dQ + dK/dV together) and
+    the stale-stage mutants at each bf16 causal hd-128 case (by default
+    the training shape). `cases`: (name, dtype, B*H, S, hd, causal), by
+    default phase 3b's. Returns one result per (case, kernel)."""
     from dstack_tpu_torch.workloads import _build
     from dstack_tpu_torch.workloads import flash_attention as fa
 
     ptxas = kernel_ptxas(_build.build_log)
 
-    cases = []
-    for dtype in (torch.bfloat16, torch.float32):
-        tag = "bf16" if dtype == torch.bfloat16 else "f32"
-        cases.append((f"train_{tag}", dtype, 128, 2048, 128, True))
-        cases.append((f"ragged_{tag}", dtype, 16, 1000, 64, False))
+    if cases is None:
+        cases = []
+        for dtype in (torch.bfloat16, torch.float32):
+            tag = "bf16" if dtype == torch.bfloat16 else "f32"
+            cases.append((f"train_{tag}", dtype, 128, 2048, 128, True))
+            cases.append((f"ragged_{tag}", dtype, 16, 1000, 64, False))
     results = []
     for name, dtype, bh, s, hd, causal in cases:
         g = torch.Generator(device="cuda").manual_seed(7)
@@ -842,7 +866,7 @@ def run_flash(timed: bool = True):
                 lambda: fa._flash_bwd_dkv_cuda(q, k, v, do, lse_ref, delta, causal),
                 lambda: fa._flash_bwd_dkv_plain(q, k, v, do, lse_ref, delta, causal)),
         }
-        main_case = dtype == torch.bfloat16 and name.startswith("train")
+        main_case = dtype == torch.bfloat16 and causal and hd == 128
         lib = library_flash_ms(q, k, v, do, causal) if timed and main_case else {}
         checked = [flash_readings(name, kern, pairs) for kern, pairs in outs.items()]
         if main_case:
@@ -4421,6 +4445,10 @@ def run_rl_drill(timeout: int = 600) -> dict:
 # -- phase 13: mixture-of-experts ----------------------------------------------
 
 MOE_PRESET, MOE_DEVICE = "smol-moe", "cuda"
+# 13b's engines run smol-moe at full width and half its depth: at 16
+# layers the whole smoke's command passed 1100 s of its 1200 s limit once
+# phase 15 came (PERF.md, PR 14); 13c trains at full depth.
+MOE_SERVING_LAYERS = 8
 # moe_mlp against a per-expert f32 loop on the same routing (13a), and the
 # einsum dispatch against the gather one: (rel_l2, row_rel) over token
 # rows, as flash_errors. The port rounds the up and down products and the
@@ -4766,8 +4794,8 @@ def moe_chunk_drops(cfg, params) -> dict:
 
 
 def run_moe_serving(cfg, n_new: int = 32) -> dict:
-    """13b: smol-moe at full depth (random from seed 0) behind the paged
-    engine, phase 4's 8 requests. bf16 at the all-admitting cf: the dense
+    """13b: smol-moe at full width (random from seed 0; MOE_SERVING_LAYERS
+    deep) behind the paged engine, phase 4's 8 requests. bf16 at the all-admitting cf: the dense
     check (pinned), plain and spec (int8 MoE drafter) waves. bf16 at the
     preset's cf: two plain waves give identical streams (shown failing a
     changed token), the drop fraction of a 128-token chunk, finite logits.
@@ -4954,6 +4982,10 @@ TP_RANKS = 2
 # The model and the one card both ranks share (a CPU dry run of the rank
 # processes swaps in a small preset and "cpu").
 TP_PRESET, TP_DEVICE = "smol-1b", "cuda:0"
+# smol-1b at full width and half its depth: at 16 layers the whole smoke's
+# command passed 1100 s of its 1200 s limit once phase 15 came (PERF.md,
+# PR 14).
+TP_LAYERS = 8
 # Each rank process's limit (seconds): start-up, three cases, the pool
 # gathers; killed past it.
 TP_TIMEOUT = 600
@@ -5085,7 +5117,7 @@ def tp_rank_main(rank: int, init: str) -> int:
     prompts = engine_prompts()
     out, refs = {}, {}
     for name, dtype, mutant in TP_CASES:
-        cfg = PRESETS[TP_PRESET].with_(dtype=dtype)
+        cfg = PRESETS[TP_PRESET].with_(dtype=dtype, n_layers=TP_LAYERS)
         params = init_params(cfg, seed=0, device=TP_DEVICE)
         counts, undo_counts = tp_count_ops(serving, pa, mesh)
         undo_swap = tp_swap_attn_out() if mutant else (lambda: None)
@@ -5191,7 +5223,7 @@ def check_tp(res: dict) -> None:
 def run_tp_nccl(n_new: int = 8) -> dict:
     """14(f): a world-1 NCCL group on cuda:0 serves a short wave through
     the op layer (every op broadcast over NCCL). Runs in a process of its
-    own (`--tp-nccl`, started by `launch_tp_nccl`), so no NCCL state
+    own (`--tp-nccl`, started by `run_tp`), so no NCCL state
     outlives it in the smoke's process."""
     from dstack_tpu_torch.workloads import sharding
     from dstack_tpu_torch.workloads.config import PRESETS
@@ -5220,22 +5252,6 @@ def run_tp_nccl(n_new: int = 8) -> dict:
     return r
 
 
-def launch_tp_nccl(timeout: float = TP_TIMEOUT) -> dict:
-    """14(f) in a process of its own, killed past `timeout`."""
-    path = "chiprun_out/phase14_nccl.log"
-    with open(path, "w") as f:
-        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--tp-nccl"],
-                                stdout=f, stderr=subprocess.STDOUT, start_new_session=True)
-        code = wait_ranks([proc], timeout)[0]
-    text = open(path).read()
-    if code != 0:
-        raise AssertionError(f"phase 14(f) exited {code}:\n{text[-4000:]}")
-    r = json.loads(next(ln for ln in text.splitlines()
-                        if ln.startswith("TP_NCCL "))[len("TP_NCCL "):])
-    log("phase 14(f) nccl world 1: " + json.dumps(r))
-    return r
-
-
 def wait_ranks(procs, timeout: float) -> list:
     """Wait for every rank process until `timeout` seconds in all, then
     kill the process group of any still running; returns the exit codes
@@ -5255,33 +5271,6 @@ def wait_ranks(procs, timeout: float) -> list:
     return [p.returncode for p in procs]
 
 
-def launch_tp_ranks(timeout: float = TP_TIMEOUT) -> dict:
-    """Start both ranks of phase 14 as processes (this script with
-    --tp-rank), each killed past `timeout`; a rank that fails fails the
-    phase. Returns rank 0's readings; the ranks' logs go to chiprun_out/."""
-    from dstack_tpu_torch.workloads.sharding import loopback_rendezvous
-
-    init = loopback_rendezvous()
-    os.makedirs(os.path.dirname(OUT), exist_ok=True)
-    paths = [f"chiprun_out/phase14_rank{r}.log" for r in range(TP_RANKS)]
-    logs = [open(path, "w") for path in paths]
-    try:
-        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--tp-rank",
-                                   str(r), "--dist-init", init], stdout=logs[r],
-                                  stderr=subprocess.STDOUT, start_new_session=True)
-                 for r in range(TP_RANKS)]
-        codes = wait_ranks(procs, timeout)
-    finally:
-        for f in logs:
-            f.close()
-    for r, code in enumerate(codes):
-        if code != 0:
-            text = open(paths[r]).read()
-            raise AssertionError(f"phase 14 rank {r} exited {code}:\n{text[-4000:]}")
-    line = next(ln for ln in open(paths[0]).read().splitlines() if ln.startswith("TP_RESULT "))
-    return json.loads(line[len("TP_RESULT "):])
-
-
 def run_tp() -> dict:
     """Phase 14: (a, b, d, e) in two rank processes, (c) and (f) here."""
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
@@ -5289,10 +5278,11 @@ def run_tp() -> dict:
     kernels = tp_kernel_cases(flush)
     del flush
     t1 = time.monotonic()
-    ranks = launch_tp_ranks()
+    ranks = launch_procs(["--tp-rank"], "phase14", TP_RANKS, "TP_RESULT", TP_TIMEOUT)
     check_tp(ranks)
     t2 = time.monotonic()
-    nccl = launch_tp_nccl()
+    nccl = launch_procs(["--tp-nccl"], "phase14_nccl", 1, "TP_NCCL", TP_TIMEOUT)
+    log("phase 14(f) nccl world 1: " + json.dumps(nccl))
     t3 = time.monotonic()
     for name, r in ranks.items():
         log(f"phase 14 {name} (gloo, two ranks on one card: not a TP speed):"
@@ -5301,6 +5291,364 @@ def run_tp() -> dict:
             f" all-gathers per decode step taking {r['all_gather_ms_per_step']:.2f} ms,"
             f" streams bit for bit {r['bit_exact_streams']}/8")
     log(f"phase 14: kernels {t1 - t0:.1f}s, ranks {t2 - t1:.1f}s, nccl {t3 - t2:.1f}s")
+    return dict(kernels=kernels, ranks=ranks, nccl=nccl,
+                seconds=dict(kernels=t1 - t0, ranks=t2 - t1, nccl=t3 - t2))
+
+
+# -- phase 15: training across ranks -----------------------------------------------
+
+TR_RANKS = 2
+# The model and the one card both ranks share (a CPU dry run of the rank
+# processes swaps in a small preset and "cpu").
+TR_PRESET, TR_DEVICE = "smol-1b", "cuda:0"
+# The global batch, the largest that fits the two ranks on one card: 8 x
+# 2048, 4 rows a rank at fsdp 2 (each model-2 rank holds all 8). The ranks
+# peak at 25.0 and 27.0 GB and the unsharded step at 46.6 GB on the H100
+# (PERF.md, phase 15); 12 rows would take ~77 GB for the two model-2 ranks
+# by the per-row slope. TR_STEPS steps per case.
+TR_B, TR_S, TR_STEPS = 8, 2048, 2
+# Each rank process's limit (seconds): start-up, every case, the gathers.
+TR_TIMEOUT = 600
+# The two layouts over the two ranks.
+TR_LAYOUTS = {"fsdp2": {"fsdp": 2}, "model2": {"model": 2}}
+# (case, layout, mutation): the two layouts, and each with the sum its
+# collective owes skipped, which the param gate must fail.
+TR_CASES = (("fsdp2", "fsdp2", None), ("model2", "model2", None),
+            ("fsdp2_rs_unsummed", "fsdp2", "fsdp"),
+            ("model2_row_unsummed", "model2", "model"))
+# The f32 check's depth (smol-1b's width, TF32 off).
+TR_F32_LAYERS = 2
+# Sharded against unsharded on one card (15a, 15b), per (dtype, layout):
+# the first step's loss by relative difference, grad_norm likewise, and
+# every param after TR_STEPS steps by flash_errors' (rel_l2, row_rel) over
+# its leaf. Each limit is ~3x the larger sound reading of two runs on the
+# H100 (B 4 and B 8, PERF.md phase 15); a reading of 0 gets ~3 f32 ulps.
+# bf16 fsdp 2: loss 8.8e-8, grad_norm 5.1e-4, params 8.7e-4 / 1.99e-2;
+# model 2 (its row-parallel sums round their bf16 partials): 3.4e-5,
+# 1.3e-4, 4.4e-3 / 3.1e-2. The two mutants read params rel_l2 3.3e-2
+# and 4.9e-2. f32 at 2 layers: loss and grad_norm <= 8.8e-8; params
+# fsdp 2 4.4e-6 / 1.2e-3, model 2 7.6e-6 / 2.2e-3 (row_rel takes the
+# row of an element whose grad sits near Adam's eps).
+TR_TOL = {("bfloat16", "fsdp2"): dict(loss=3e-7, grad_norm=1.5e-3, params=(2.6e-3, 6e-2)),
+          ("bfloat16", "model2"): dict(loss=1e-4, grad_norm=4e-4, params=(1.3e-2, 9.4e-2)),
+          ("float32", "fsdp2"): dict(loss=3e-7, grad_norm=3e-7, params=(1.4e-5, 3.6e-3)),
+          ("float32", "model2"): dict(loss=3e-7, grad_norm=3e-7, params=(2.3e-5, 6.6e-3))}
+# (B*H, S, hd) of kernels #2-#4 on a rank, both layouts: the model-2 rank's
+# 8 rows x 8 q heads and the fsdp-2 rank's 4 rows x 16 q heads (15c).
+TR_KERNEL_CASES = (("rank_bf16", torch.bfloat16, TR_B * 8, TR_S, 128, True),
+                   ("rank_f32", torch.float32, TR_B * 8, TR_S, 128, True))
+
+
+def tr_mutate(kind):
+    """15(e): skip the sum a collective owes. "fsdp": the fsdp gather's
+    backward keeps the rank's own block of its grad, unsummed; "model":
+    the blocks' row-parallel products (wo, w_down) are not summed over
+    the model axis. Returns the undo."""
+    from dstack_tpu_torch.workloads import sharding, transformer
+
+    if kind == "fsdp":
+        orig = sharding.reduce_scatter
+
+        def own_block(x, dim, mesh, axes):
+            n = mesh.shape["fsdp"]
+            size = x.shape[dim] // n
+            return x.narrow(dim, mesh.coords["fsdp"] * size, size).contiguous()
+
+        sharding.reduce_scatter = own_block
+        return lambda: setattr(sharding, "reduce_scatter", orig)
+    if kind == "model":
+        orig = transformer.reduce_model
+        transformer.reduce_model = lambda x, mesh: x
+        return lambda: setattr(transformer, "reduce_model", orig)
+    return lambda: None
+
+
+def tr_launch_spy():
+    """The shapes (B*H, S, hd) each flash kernel launched at, recorded by
+    a wrapper of `flash_attention._launch` (counting is the wrapper's own,
+    untouched). Returns (shapes, undo)."""
+    from dstack_tpu_torch.workloads import flash_attention as fa
+
+    orig, shapes = fa._launch, {}
+
+    def spy(name, tensors, causal):
+        shapes.setdefault(name, set()).add(tuple(tensors[0].shape))
+        return orig(name, tensors, causal)
+
+    fa._launch = spy
+    return shapes, lambda: setattr(fa, "_launch", orig)
+
+
+def tr_steps(cfg, mesh, device):
+    """TR_STEPS steps of the port's trainer from seed 0's params on the
+    global batch of seed 0 (this rank's rows on a mesh): the first step's
+    metrics, each step's wall ms, the flash launches and the collectives
+    of the steps, the peak memory. Returns (state, readings)."""
+    from dstack_tpu_torch.workloads import train
+
+    torch.cuda.reset_peak_memory_stats()
+    state = train.init_train_state(cfg, seed=0, device=None if mesh else device, mesh=mesh)
+    step = train.make_train_step(cfg, mesh)
+    batch = train.synthetic_batch(cfg, TR_B, TR_S, seed=0,
+                                  device=None if mesh else device, mesh=mesh)
+    stats0 = dict(mesh.stats) if mesh else {}
+    zero_flash_counts()
+    metrics, step_ms = [], []
+    for _ in range(TR_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        state, m = step(state, batch)
+        vals = [float(m["loss"]), float(m["grad_norm"]), float(m["router_aux"])]
+        torch.cuda.synchronize()
+        step_ms.append((time.monotonic() - t0) * 1e3)
+        metrics.append(vals)
+    r = dict(loss=metrics[0][0], grad_norm=metrics[0][1], router_aux=metrics[0][2],
+             losses=[v[0] for v in metrics], step_ms=step_ms,
+             launches_per_step={k: v / TR_STEPS for k, v in flash_counts().items()},
+             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+             rows=int(batch["inputs"].shape[0]))
+    if mesh:
+        delta = {k: mesh.stats[k] - stats0[k] for k in mesh.stats}
+        r["collectives_per_step"] = {k: v / TR_STEPS for k, v in delta.items()
+                                     if not k.endswith("seconds") and k != "broadcasts"}
+        r["collective_ms_per_step"] = sum(v for k, v in delta.items()
+                                          if k.endswith("seconds")) * 1e3 / TR_STEPS
+    del batch
+    return state, r
+
+
+def tr_param_gaps(got, ref) -> dict:
+    """Every param leaf's flash_errors (rel_l2, row_rel) against the
+    unsharded run's; the largest of each and where."""
+    from dstack_tpu_torch.workloads.weights import flatten_params
+
+    ref = dict(ref)
+    worst = dict(rel_l2=0.0, row_rel=0.0, rel_l2_leaf=None, row_rel_leaf=None)
+    for name, t in flatten_params(got):
+        rel_l2, row_rel = flash_errors(t.detach(), ref[name].to(t.device))[:2]
+        for key, val in (("rel_l2", rel_l2), ("row_rel", row_rel)):
+            if val > worst[key]:
+                worst[key], worst[key + "_leaf"] = val, name
+    return worst
+
+
+def tr_compare(r, ref, tol) -> dict:
+    return dict(loss_rel=abs(r["loss"] - ref["loss"]) / abs(ref["loss"]),
+                grad_norm_rel=abs(r["grad_norm"] - ref["grad_norm"]) / abs(ref["grad_norm"]),
+                tol=tol)
+
+
+def tr_run_cases(cfg, rank, mesh_of, cases, device, ckpt_case=None) -> dict:
+    """Rank 0 runs the unsharded steps (rank 1 waits), then every rank
+    runs each case on its mesh; rank 0 holds the whole params against the
+    unsharded ones. `ckpt_case`: after that case's steps the state is
+    saved from every rank's shards and rank 0 restores it on one device."""
+    import tempfile
+
+    from dstack_tpu_torch.workloads import checkpoint as ckpt
+    from dstack_tpu_torch.workloads import sharding, train
+    from dstack_tpu_torch.workloads.weights import flatten_params
+
+    dtype = cfg.dtype
+    out, ref, ref_params = {}, None, None
+    if rank == 0:
+        state, ref = tr_steps(cfg, None, device)
+        ref_params = [(k, t.detach().to("cpu", copy=True)) for k, t in flatten_params(state.params)]
+        del state
+        torch.cuda.empty_cache()
+        log(f"phase 15 unsharded {dtype}: " + json.dumps(ref))
+    torch.distributed.barrier()
+    for name, layout, mutation in cases:
+        mesh = mesh_of[layout]
+        shapes, undo_spy = tr_launch_spy()
+        undo = tr_mutate(mutation)
+        try:
+            state, r = tr_steps(cfg, mesh, device)
+        finally:
+            undo()
+            undo_spy()
+        r["kernel_shapes"] = {k: sorted(v) for k, v in shapes.items()}
+        whole = sharding.unshard_tree(mesh, state.params)
+        if name == ckpt_case:
+            d = tempfile.mkdtemp(prefix="phase15-ckpt-") if rank == 0 else None
+            d = sharding.broadcast_object(d, mesh)
+            ckpt.save(d, state, wait=True, mesh=mesh)
+            ckpt.close_all()
+        every = [None] * TR_RANKS
+        torch.distributed.all_gather_object(every, r)
+        if rank == 0:
+            res = dict(ranks=every, layout=layout, mutation=mutation, dtype=dtype,
+                       n_layers=cfg.n_layers,
+                       **tr_compare(every[0], ref, TR_TOL[(dtype, layout)]),
+                       params=tr_param_gaps(whole, ref_params))
+            if name == ckpt_case:
+                tmpl = train.init_train_state(cfg, seed=1, device=device)
+                restored = ckpt.restore_latest(d, tmpl)
+                res["checkpoint"] = dict(
+                    step=restored.step,
+                    equal=all(torch.equal(a.detach(), b) for (_, a), (_, b) in zip(
+                        flatten_params(restored.params), flatten_params(whole))))
+                import shutil
+
+                shutil.rmtree(d, ignore_errors=True)
+                del tmpl, restored
+            out[name] = res
+            log(f"phase 15 {name} ({dtype}, {cfg.n_layers} layers): " + json.dumps(res))
+        del state, whole
+        torch.cuda.empty_cache()
+    if rank == 0:
+        out["unsharded"] = ref
+    return out
+
+
+def tr_rank_main(rank: int, init: str) -> int:
+    """One rank of phase 15, a process of its own: smol-1b at full width
+    and depth on two gloo ranks sharing cuda:0, fsdp 2 and model 2 and
+    their mutants against the unsharded step on the same card, then the
+    f32 check at TR_F32_LAYERS layers with the checkpoint from fsdp 2.
+    Rank 0 prints its readings as one JSON line."""
+    from dstack_tpu_torch.workloads import sharding
+    from dstack_tpu_torch.workloads.config import PRESETS
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sharding.init_ranks(TR_RANKS, rank, init, backend="gloo", device=TR_DEVICE)
+    meshes = {name: sharding.make_mesh([TR_DEVICE], layout="training", **axes)
+              for name, axes in TR_LAYOUTS.items()}
+    cfg = PRESETS[TR_PRESET]
+    out = {"bf16": tr_run_cases(cfg, rank, meshes, TR_CASES, TR_DEVICE)}
+    cfg32 = cfg.with_(n_layers=TR_F32_LAYERS, dtype="float32")
+    out["f32"] = tr_run_cases(cfg32, rank, meshes, TR_CASES[:2], TR_DEVICE, ckpt_case="fsdp2")
+    if rank == 0:
+        print("TR_RESULT " + json.dumps(out), flush=True)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def check_train_ranks(res: dict) -> None:
+    """The gates of 15(a), (b), (d) and (e) on rank 0's readings."""
+    from dstack_tpu_torch.workloads.config import PRESETS
+
+    cfg = PRESETS[TR_PRESET]
+    # Either layout: B/2 rows x H heads, or B rows x H/2 heads.
+    rank_shape = (TR_B * cfg.n_heads // TR_RANKS, TR_S, cfg.head_dim)
+    for dtype_tag, cases in res.items():
+        for name, r in cases.items():
+            if name == "unsharded":
+                continue
+            tol, p = r["tol"], r["params"]
+            within = (p["rel_l2"] <= tol["params"][0] and p["row_rel"] <= tol["params"][1])
+            if r["mutation"]:
+                if within:
+                    raise AssertionError(f"phase 15 {name}: the param gate passes the"
+                                         f" mutant ({p}, tol {tol['params']})")
+                continue
+            if not (r["loss_rel"] <= tol["loss"] and r["grad_norm_rel"] <= tol["grad_norm"]
+                    and within):
+                raise AssertionError(f"phase 15 {name} {dtype_tag}: loss {r['loss_rel']},"
+                                     f" grad_norm {r['grad_norm_rel']}, params {p}; tol {tol}")
+            if dtype_tag == "f32" and name == "fsdp2" and not r["checkpoint"]["equal"]:
+                raise AssertionError(f"phase 15: the fsdp-2 checkpoint restores other params"
+                                     f" on one device: {r['checkpoint']}")
+            for rk, rr in enumerate(r["ranks"]):
+                if [rr["loss"], rr["grad_norm"]] != [r["ranks"][0]["loss"],
+                                                     r["ranks"][0]["grad_norm"]]:
+                    raise AssertionError(f"phase 15 {name}: rank {rk}'s metrics differ")
+                want = r["n_layers"]
+                got = {k: rr["launches_per_step"][k]
+                       for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+                if any(v != want for v in got.values()):
+                    raise AssertionError(f"phase 15 {name} rank {rk}: flash launches per step"
+                                         f" {got}, not {want}")
+                if dtype_tag == "bf16":
+                    shapes = {tuple(s) for v in rr["kernel_shapes"].values() for s in v}
+                    if shapes != {rank_shape}:
+                        raise AssertionError(f"phase 15 {name} rank {rk}: kernel shapes"
+                                             f" {rr['kernel_shapes']}, not a rank's")
+
+
+def run_train_nccl() -> dict:
+    """15(f): a world-1 NCCL group on cuda:0 takes a training step at
+    TR_F32_LAYERS layers of smol-1b on the training layout, saves and
+    restores its checkpoint through the mesh (the restore's barrier runs
+    over NCCL). At world 1 the step's collectives have one shard and
+    return their inputs. A process of its own (`--tr-nccl`)."""
+    import tempfile
+
+    from dstack_tpu_torch.workloads import checkpoint as ckpt
+    from dstack_tpu_torch.workloads import sharding, train
+    from dstack_tpu_torch.workloads.config import PRESETS
+
+    cfg = PRESETS["smol-1b"].with_(n_layers=TR_F32_LAYERS)
+    sharding.init_ranks(1, 0, sharding.loopback_rendezvous(), backend="nccl", device="cuda:0")
+    try:
+        mesh = sharding.make_mesh(["cuda:0"], layout="training")
+        state = train.init_train_state(cfg, seed=0, mesh=mesh)
+        step = train.make_train_step(cfg, mesh)
+        state, m = step(state, train.synthetic_batch(cfg, 2, TR_S, seed=0, mesh=mesh))
+        d = tempfile.mkdtemp(prefix="phase15-nccl-")
+        ckpt.save(d, state, wait=True, mesh=mesh)
+        restored = ckpt.restore_latest(d, state, mesh)
+        ckpt.close_all()
+        r = dict(backend=mesh.backend, loss=float(m["loss"]), step=restored.step,
+                 layout=mesh.layout)
+    finally:
+        torch.distributed.destroy_process_group()
+    if r["backend"] != "nccl" or not math.isfinite(r["loss"]) or r["step"] != 1:
+        raise AssertionError(f"phase 15(f): {r}")
+    print("TR_NCCL " + json.dumps(r), flush=True)
+    return r
+
+
+def launch_procs(argv, tag: str, n: int, marker: str, timeout: float) -> str:
+    """Start `n` processes of this script with `argv` (+ the rank and a
+    loopback rendezvous when n > 1), each killed past `timeout`; a process
+    that fails fails the phase. Returns the value of rank 0's `marker`
+    line; the logs go to chiprun_out/<tag>_rank<r>.log."""
+    from dstack_tpu_torch.workloads.sharding import loopback_rendezvous
+
+    os.makedirs(os.path.dirname(OUT), exist_ok=True)
+    init = loopback_rendezvous()
+    paths = [f"chiprun_out/{tag}_rank{r}.log" for r in range(n)]
+    logs = [open(path, "w") for path in paths]
+    try:
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), *argv,
+             *(["--rank", str(r), "--dist-init", init] if n > 1 else [])],
+            stdout=logs[r], stderr=subprocess.STDOUT, start_new_session=True)
+            for r in range(n)]
+        codes = wait_ranks(procs, timeout)
+    finally:
+        for f in logs:
+            f.close()
+    for r, code in enumerate(codes):
+        if code != 0:
+            text = open(paths[r]).read()
+            raise AssertionError(f"{tag} rank {r} exited {code}:\n{text[-4000:]}")
+    line = next(ln for ln in open(paths[0]).read().splitlines() if ln.startswith(marker + " "))
+    return json.loads(line[len(marker) + 1:])
+
+
+def run_train_ranks() -> dict:
+    """Phase 15: (c) kernels #2-#4 at a rank's geometry here, (a, b, d,
+    e) in two rank processes, (f) in a process of its own."""
+    t0 = time.monotonic()
+    kernels = run_flash(cases=TR_KERNEL_CASES)
+    t1 = time.monotonic()
+    ranks = launch_procs(["--tr-rank"], "phase15", TR_RANKS, "TR_RESULT", TR_TIMEOUT)
+    check_train_ranks(ranks)
+    t2 = time.monotonic()
+    nccl = launch_procs(["--tr-nccl"], "phase15_nccl", 1, "TR_NCCL", TR_TIMEOUT)
+    t3 = time.monotonic()
+    for name in ("fsdp2", "model2"):
+        r, ref = ranks["bf16"][name], ranks["bf16"]["unsharded"]
+        log(f"phase 15 {name} (gloo, two ranks on one card: a check, not a parallel"
+            f" speed): step {r['ranks'][0]['step_ms'][-1]:.1f} ms against unsharded"
+            f" {ref['step_ms'][-1]:.1f}; collectives per step"
+            f" {r['ranks'][0]['collectives_per_step']} taking"
+            f" {r['ranks'][0]['collective_ms_per_step']:.1f} ms; peak"
+            f" {[round(x['peak_mem_gb'], 2) for x in r['ranks']]} GB per rank")
+    log(f"phase 15: kernels {t1 - t0:.1f}s, ranks {t2 - t1:.1f}s, nccl {t3 - t2:.1f}s")
     return dict(kernels=kernels, ranks=ranks, nccl=nccl,
                 seconds=dict(kernels=t1 - t0, ranks=t2 - t1, nccl=t3 - t2))
 
@@ -5492,7 +5840,7 @@ def main() -> int:
     moe_module = run_moe_module()
     log(f"phase 13a: {time.monotonic() - t0:.1f}s")
     t1 = time.monotonic()
-    mcfg = PRESETS[MOE_PRESET]
+    mcfg = PRESETS[MOE_PRESET].with_(n_layers=MOE_SERVING_LAYERS)
     log(f"model: {MOE_PRESET}, {mcfg.param_count() / 1e9:.3f}B params, {mcfg.dtype},"
         f" {mcfg.n_layers} layers, {mcfg.n_experts} experts, top-{mcfg.experts_per_token}")
     moe_serving = run_moe_serving(mcfg)
@@ -5508,6 +5856,12 @@ def main() -> int:
     t0 = time.monotonic()
     tp = run_tp()
     log(f"phase 14: {time.monotonic() - t0:.1f}s")
+
+    # 15. training across ranks: smol-1b over two gloo ranks on the card at
+    # fsdp 2 and model 2, kernels #2-#4 at a rank's geometry, NCCL world 1
+    t0 = time.monotonic()
+    tr = run_train_ranks()
+    log(f"phase 15: {time.monotonic() - t0:.1f}s")
 
     log(f"total {time.monotonic() - t_all:.1f}s")
     kernels = {"kernels": [paged_entry(kres, launches, wave)]}
@@ -5544,10 +5898,15 @@ def main() -> int:
             "source": FLASH_KERNEL_SOURCE,
             "replaces": replaces,
             "launches": run["launches"][kern],
-            **({"launches_by_path": {"train": train["launches"][kern],
-                                     "lora_train": lora_train["launches"][kern],
-                                     "rl": rl["launches"][kern],
-                                     "moe_train": moe_train["runs"][0]["launches"][kern]}}
+            **({"launches_by_path": {
+                "train": train["launches"][kern],
+                "lora_train": lora_train["launches"][kern],
+                "rl": rl["launches"][kern],
+                "moe_train": moe_train["runs"][0]["launches"][kern],
+                # Each rank of phase 15's bf16 layouts over its TR_STEPS steps.
+                **{f"train_{name}_rank{r}": int(rr["launches_per_step"][kern] * TR_STEPS)
+                   for name in ("fsdp2", "model2")
+                   for r, rr in enumerate(tr["ranks"]["bf16"][name]["ranks"])}}}
                if kern != "flash_block_fwd" else {}),
             "max_abs_err": main_f["max_abs_err"],
             "ms": main_f["ms"],
@@ -5563,6 +5922,14 @@ def main() -> int:
             **({"whole_backward": main_f["whole_backward"]} if "whole_backward" in main_f
                else {}),
         })
+        if kern != "flash_block_fwd":
+            # Phase 15c: at a rank's geometry (B*H 64, S 2048, hd 128).
+            rank_f = next(r for r in tr["kernels"]
+                          if r["case"] == "rank_bf16" and r["kernel"] == kern)
+            kernels["kernels"][-1]["per_rank"] = {
+                k: rank_f[k] for k in ("max_abs_err", "ms", "ms_one_launch", "plain_ms",
+                                       "bound_ms", "bound_by", "library_ms",
+                                       "library_ms_one_launch", "tflops", "bound_share")}
     os.makedirs(os.path.dirname(OUT), exist_ok=True)
     with open(OUT, "w") as f:
         json.dump({"device": smi, "paged": kres, "spec": spec, "host_tier": host_tier,
@@ -5571,7 +5938,8 @@ def main() -> int:
                    "checkpoint": checkpoint, "drain": drain, "lora_serving": lora_serving,
                    "lora_train": lora_train, "lora_checks": lora_checks, "rl": rl,
                    "moe_module": moe_module, "moe_serving": moe_serving,
-                   "moe_train": moe_train, "tp": tp, "build_s": _build.build_seconds},
+                   "moe_train": moe_train, "tp": tp, "train_ranks": tr,
+                   "build_s": _build.build_seconds},
                   f, indent=1)
     # What could hold the interpreter's exit: threads that are not daemons
     # and child processes still running (every phase stops its own).
@@ -5589,12 +5957,15 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if "--tp-rank" in sys.argv:  # a rank of phase 14, started by run_tp
-        argv = sys.argv[1:]
-        sys.exit(tp_rank_main(int(argv[argv.index("--tp-rank") + 1]),
-                              argv[argv.index("--dist-init") + 1]))
-    if "--tp-nccl" in sys.argv:  # phase 14(f), started by run_tp
+    argv = sys.argv[1:]
+    rank_args = (lambda: (int(argv[argv.index("--rank") + 1]),
+                          argv[argv.index("--dist-init") + 1]))
+    if "--tp-rank" in argv:  # a rank of phase 14, started by run_tp
+        sys.exit(tp_rank_main(*rank_args()))
+    if "--tr-rank" in argv:  # a rank of phase 15, started by run_train_ranks
+        sys.exit(tr_rank_main(*rank_args()))
+    if "--tp-nccl" in argv or "--tr-nccl" in argv:  # 14(f) and 15(f), in their own process
         torch.backends.cuda.matmul.allow_tf32 = False
-        run_tp_nccl()
+        run_tp_nccl() if "--tp-nccl" in argv else run_train_nccl()
         sys.exit(0)
     sys.exit(main())

@@ -8,8 +8,15 @@ per-step math and the same merge, in the same order, as the reference's
 `shard_map` over n devices, where the "hop" of K/V to the next device is
 here the read of the next shard's slice. Each step runs the ring-step
 kernel on a CUDA device and the plain `_block_attend` on the CPU (as the
-reference does off the TPU). Transport between ranks over
-`torch.distributed` belongs to the sharding slice.
+reference does off the TPU). The ring's hop between ranks over
+`torch.distributed` is ROADMAP Queue 1 item 3c.
+
+On a training mesh over ranks (data, fsdp and model; seq 1) attention is
+the one-device path on the rank's own rows and heads: the flash kernels
+at B/(data*fsdp) rows and H/model q with KV/model KV heads. The
+reference's Pallas kernel has no SPMD partitioning rule
+(`dstack_tpu/workloads/flash_attention.py:94-103`); the port launches its
+kernels on each rank's own heads (ROADMAP Queue 3).
 
 Products the reference computes with an f32 result
 (`preferred_element_type=f32`) upcast their operands here: bf16 x bf16
@@ -142,7 +149,8 @@ def _ring_attention_local(q, k, v, *, n_shards: int, causal: bool):
 
 def make_attention_fn(mesh: Optional[Any] = None, *, seq_axis: str = "seq",
                       causal: bool = True):
-    """The attention for a mesh. No mesh, or a `seq` axis of size 1: the
+    """The attention for a mesh. No mesh, or a `seq` axis of size 1 (a
+    training mesh over ranks too, on the rank's rows and heads): the
     single-device path, which runs the flash kernels on a CUDA device and
     `plain_attention` on the CPU (as the JAX package does off the TPU). A
     `seq` axis of n > 1 in `mesh.shape` (axis -> size): the ring over n

@@ -36,6 +36,15 @@ and moments in place, so `save` copies every leaf to the host before it
 returns (on the CPU too, where `.cpu()` would alias the live storage);
 only the file write runs on the directory's background writer, and saves
 to one directory are written in order.
+
+A sharded state (a training mesh over ranks, sharding.py) saves and
+restores layout-free: `save(mesh=)`, a collective every rank calls, gathers
+each leaf whole from every rank's slices (sharding.unshard) and rank 0
+writes the one-device format above; `restore_latest(mesh=)` reads the
+whole leaves on every rank and keeps the rank's slices. So a checkpoint
+saved on one mesh restores on another mesh or on one device bit for bit
+(the reference's elastic width change), and `export_params(mesh=)` writes
+the whole params `native_server` serves.
 """
 
 import json
@@ -50,6 +59,7 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import torch
 
 from dstack_tpu_torch.workloads.device import DeviceLike, resolve_device
+from dstack_tpu_torch.workloads.sharding import global_shape, param_specs, shard, unshard
 from dstack_tpu_torch.workloads.weights import (  # noqa: F401  (load_packed re-exported)
     dtype_name,
     flatten_params,
@@ -127,6 +137,21 @@ def _leaves(state) -> List[Tuple[str, torch.Tensor]]:
             for path, t in flatten_params(tree)]
 
 
+def _leaf_specs(state) -> Dict[str, Tuple]:
+    """Each leaf's PARAM_SPECS / LORA_SPECS entry, by its `_leaves` name
+    (the moments mirror their params)."""
+    opt = state.opt_state
+    groups, first = ((_LORA_GROUPS, state.lora) if _is_lora(state)
+                     else (_GROUPS, state.params))
+    return {f"{group}/{path}": spec
+            for group, tree in zip(groups, (first, opt.mu, opt.nu))
+            for path, spec in flatten_params(param_specs(tree))}
+
+
+def _ranked(mesh) -> bool:
+    return mesh is not None and mesh.ranked
+
+
 def _fsync_dir(path: Path) -> None:
     fd = os.open(path, os.O_RDONLY)
     try:
@@ -170,14 +195,27 @@ def _write(root: Path, step: int, leaves, meta: Dict[str, int]) -> None:
         shutil.rmtree(root / str(old_step), ignore_errors=True)
 
 
-def save(directory: Union[str, Path], state, *, wait: bool = False) -> int:
+def save(directory: Union[str, Path], state, *, wait: bool = False, mesh=None) -> int:
     """Write a checkpoint of `state` for `state.step`; returns the step.
 
     Every leaf is copied to the host before this returns, so the caller
     may step (in place) at once; the write drains in the background unless
-    `wait` (or `close_all()` at job end) blocks until it is on disk."""
+    `wait` (or `close_all()` at job end) blocks until it is on disk. On a
+    training mesh over ranks every rank calls this: each leaf is gathered
+    whole, leaf by leaf, and rank 0 writes."""
     step = int(state.step)
-    snapshot = [(name, t.detach().to("cpu", copy=True)) for name, t in _leaves(state)]
+    if _ranked(mesh):
+        specs = _leaf_specs(state)
+        snapshot = []
+        for name, t in _leaves(state):
+            whole = unshard(t.detach(), specs[name], mesh)
+            if mesh.rank == 0:
+                snapshot.append((name, whole.to("cpu", copy=True)))
+            del whole
+        if mesh.rank:
+            return step
+    else:
+        snapshot = [(name, t.detach().to("cpu", copy=True)) for name, t in _leaves(state)]
     meta = {"format": FORMAT, "step": step, "count": int(state.opt_state.count)}
     w = _writer(directory)
     w.submit(lambda: _write(Path(directory), step, snapshot, meta))
@@ -186,10 +224,14 @@ def save(directory: Union[str, Path], state, *, wait: bool = False) -> int:
     return step
 
 
-def _load_into(path: Path, manifest, targets: List[Tuple[str, torch.Tensor]]) -> None:
+def _load_into(path: Path, manifest, targets: List[Tuple[str, torch.Tensor]],
+               mesh=None, leaf_specs: Optional[Dict[str, Tuple]] = None) -> None:
     """Copy the leaves of `path` into `targets` [(name, tensor)] in place,
     after checking that names, shapes and dtypes all match (so a mismatch
-    leaves the targets untouched)."""
+    leaves the targets untouched). On a mesh over ranks the targets are
+    the rank's slices (`leaf_specs`): the whole leaves are checked against
+    their whole shapes and each target takes its slice."""
+    cut = _ranked(mesh)
     specs = {s["name"]: s for s in manifest}
     want = dict(targets)
     if set(specs) != set(want):
@@ -198,15 +240,16 @@ def _load_into(path: Path, manifest, targets: List[Tuple[str, torch.Tensor]]) ->
                          f" missing {missing[:5]}, unexpected {extra[:5]}")
     for name, t in want.items():
         s = specs[name]
-        if list(s["shape"]) != list(t.shape) or s["dtype"] != dtype_name(t.dtype):
+        shape = global_shape(t, leaf_specs[name], mesh) if cut else tuple(t.shape)
+        if list(s["shape"]) != list(shape) or s["dtype"] != dtype_name(t.dtype):
             raise ValueError(f"checkpoint {path}: `{name}` is {s['dtype']} {s['shape']},"
-                             f" the template's {dtype_name(t.dtype)} {list(t.shape)}")
+                             f" the template's {dtype_name(t.dtype)} {list(shape)}")
     with torch.no_grad():
         for name, host in read_leaves(path, manifest, keep=want.__contains__):
-            want[name].copy_(host)
+            want[name].copy_(shard(host, leaf_specs[name], mesh) if cut else host)
 
 
-def restore_latest(directory: Union[str, Path], template):
+def restore_latest(directory: Union[str, Path], template, mesh=None):
     """Restore the newest checkpoint into `template` (a TrainState of the
     same config, e.g. from `init_train_state`, or a lora.LoraState from
     `init_lora_state`), or None when the volume holds no checkpoint yet
@@ -214,7 +257,10 @@ def restore_latest(directory: Union[str, Path], template):
 
     The leaves are read into the template's tensors in place (its device,
     dtypes and shapes; no second state on the device), and the returned
-    state carries them with the saved step and optimizer count."""
+    state carries them with the saved step and optimizer count. On a
+    training mesh over ranks (`mesh`, every rank calls this) the template
+    holds the rank's slices and each takes its slice of the whole leaf,
+    whatever mesh the checkpoint was saved on."""
     from dstack_tpu_torch.workloads.lora import LoraState
     from dstack_tpu_torch.workloads.train import AdamState, TrainState
 
@@ -222,6 +268,8 @@ def restore_latest(directory: Union[str, Path], template):
     w = _writer(root, create=False)
     if w is not None:
         w.wait()  # this process's own saves first
+    if _ranked(mesh):
+        torch.distributed.barrier(group=mesh.group)  # and rank 0's, on a mesh
     steps = _steps(root)
     if not steps:
         return None
@@ -230,7 +278,8 @@ def restore_latest(directory: Union[str, Path], template):
     if meta.get("format") != FORMAT:
         raise ValueError(f"checkpoint {path}: format {meta.get('format')!r},"
                          f" this reader knows {FORMAT}")
-    _load_into(path, read_manifest(path), _leaves(template))
+    _load_into(path, read_manifest(path), _leaves(template), mesh,
+               _leaf_specs(template) if _ranked(mesh) else None)
     opt = template.opt_state
     adam = AdamState(int(meta["count"]), opt.mu, opt.nu)
     if _is_lora(template):
@@ -257,12 +306,21 @@ def restore_latest_params(directory: Union[str, Path],
     return unflatten_params(pairs) if pairs else None
 
 
-def export_params(directory: Union[str, Path], state) -> Path:
+def export_params(directory: Union[str, Path], state, mesh=None) -> Path:
     """Write the params-only serving export (`<dir>/packed`, the layout
     both packages' servers load): a serving host need not read the Adam
     moments (~3x the bf16 parameter bytes). A LoRA run exports the merged
-    params (`lora.merge_lora`) through a TrainState that carries them."""
-    return save_packed(directory, state.params)
+    params (`lora.merge_lora`) through a TrainState that carries them. On
+    a training mesh over ranks every rank calls this: the params are
+    gathered whole and rank 0 writes them."""
+    if not _ranked(mesh):
+        return save_packed(directory, state.params)
+    specs = dict(flatten_params(param_specs(state.params)))
+    whole = [(name, unshard(t.detach(), specs[name], mesh).to("cpu"))
+             for name, t in flatten_params(state.params)]
+    if mesh.rank:
+        return Path(directory) / "packed"
+    return save_packed(directory, unflatten_params(whole))
 
 
 def restore_exported_params(directory: Union[str, Path], params_template: Params

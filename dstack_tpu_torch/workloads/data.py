@@ -1,5 +1,5 @@
-"""Training data pipeline, single device (port of
-`dstack_tpu.workloads.data`, lines 37-215, without the mesh).
+"""Training data pipeline (port of `dstack_tpu.workloads.data`, lines
+37-215).
 
 - `TokenDataset`: a flat int32 token .npy, memmapped, cut into rows of
   `seq_len + 1` tokens; each epoch's row order is a permutation from a
@@ -10,7 +10,11 @@
 - `encode_bytes` / `write_token_file`: build the .npy from raw text
   (byte-level, the example tokenizer).
 
-Sharded placement (`make_array_from_callback` over a mesh) is not ported.
+On a training mesh over ranks (`BatchLoader(mesh=)`) every rank derives
+the same global batch order and reads only the rows BATCH_SPEC gives its
+(data, fsdp) coordinate, as the reference's shard callback
+(`data.py:128-140`) reads only its devices' windows; the global batch is
+unchanged.
 """
 
 import queue
@@ -21,6 +25,7 @@ import numpy as np
 import torch
 
 from dstack_tpu_torch.workloads.device import DeviceLike, resolve_device
+from dstack_tpu_torch.workloads.sharding import BATCH_SPEC, batch_shards, shard, training_mesh
 
 
 def encode_bytes(text: str, vocab_size: int) -> np.ndarray:
@@ -78,19 +83,23 @@ def _global_batches(ds: TokenDataset, batch_size: int, seed: int,
 
 
 class BatchLoader:
-    """Background-prefetched batches on `device` (default: the card)."""
+    """Background-prefetched batches on `device` (default: the card).
+    `batch_size` is the global batch; on a training `mesh` over ranks
+    each batch holds this rank's rows of it, on the mesh's device."""
 
     def __init__(self, dataset: TokenDataset, batch_size: int, *,
                  device: DeviceLike = None, seed: int = 0, start_step: int = 0,
                  prefetch: int = 2, vocab_size: Optional[int] = None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError("sharded batch placement is not ported to PyTorch yet")
         self.dataset = dataset
         # Fail fast: the generator body would only run on the prefetch thread.
         if dataset.n_rows < batch_size:
             raise ValueError(f"dataset has {dataset.n_rows} rows < batch_size {batch_size}")
+        self.mesh = training_mesh(mesh) if mesh is not None and mesh.ranked else None
+        if batch_size % batch_shards(self.mesh):
+            raise ValueError(f"batch_size {batch_size} does not split over the"
+                             f" {batch_shards(self.mesh)} data x fsdp ranks")
         self.batch_size = batch_size
-        self.device = resolve_device(device)
+        self.device = resolve_device(device) if self.mesh is None else self.mesh.device
         self._source = _global_batches(dataset, batch_size, seed, start_step)
         self._vocab_size = vocab_size
         self._q: "queue.Queue[object]" = queue.Queue(maxsize=prefetch)
@@ -112,6 +121,8 @@ class BatchLoader:
         return t.pin_memory().to(self.device, non_blocking=True)
 
     def _place(self, idx: np.ndarray) -> Dict[str, torch.Tensor]:
+        # This rank's rows of the global batch (all of them off a mesh).
+        idx = shard(torch.from_numpy(idx), BATCH_SPEC[:1], self.mesh).numpy()
         rows = self.dataset.rows(idx)
         self._check_vocab(rows)
         return {"inputs": self._to_device(rows[:, :-1]),

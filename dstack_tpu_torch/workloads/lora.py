@@ -17,6 +17,18 @@ quantization: quantize the merged tree).
 torch cannot reproduce `jax.random`: `lora_init` draws A from a
 `torch.Generator`, so the two packages' adapters differ for one seed;
 parity tests bridge a JAX LoraState (weights.lora_state_from_numpy).
+
+On a training mesh over ranks the frozen base is cut by PARAM_SPECS
+(sharding.shard_tree), A by LORA_SPECS' (None, "fsdp", None) and B by
+(None, None, "model"). A target's base block (fsdp i, model j) plus
+scale * A_i @ B_j is the merged weight's block (i, j), so the merge runs on
+each rank's slices with no collective, and the merged slices go through
+the sharded forward (train.py). A_i's grad sums G_ij @ B_j over the model
+axis and B_j's A_i @ G_ij over fsdp, so after the backward A's grads are
+summed over (data, model) and B's over (data, fsdp). Only column-parallel
+targets (wq, wk, wv, w_gate, w_up: "fsdp" on the input dim, "model" on the
+output) merge that way; a row-parallel target (wo, w_down) over ranks
+raises.
 """
 
 from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple, Union
@@ -27,6 +39,13 @@ from dstack_tpu_torch.utils.stagemarkers import auto_stage
 from dstack_tpu_torch.workloads import compile_cache
 from dstack_tpu_torch.workloads.attention import make_attention_fn
 from dstack_tpu_torch.workloads.config import ModelConfig
+from dstack_tpu_torch.workloads.sharding import (
+    PARAM_SPECS,
+    batch_sum,
+    global_shape,
+    reduce_grads,
+    shard_tree,
+)
 from dstack_tpu_torch.workloads.train import (
     AdamState,
     _device_of,
@@ -34,6 +53,7 @@ from dstack_tpu_torch.workloads.train import (
     global_norm,
     loss_fn,
     make_optimizer,
+    ranked_mesh,
 )
 from dstack_tpu_torch.workloads.transformer import detach_params, params_device
 from dstack_tpu_torch.workloads.weights import flatten_params, unflatten_params
@@ -56,10 +76,12 @@ def _generator(seed: Union[int, torch.Generator], device: torch.device) -> torch
 
 
 def lora_init(config: ModelConfig, base: Params, seed: Union[int, torch.Generator],
-              *, rank: int = 8, targets: Sequence[str] = DEFAULT_TARGETS) -> Params:
+              *, rank: int = 8, targets: Sequence[str] = DEFAULT_TARGETS,
+              mesh=None) -> Params:
     """Adapters for `targets`: A ~ N(0, 1)·d_in^-0.5 drawn in f32 from a
     generator (seeded with `seed`, or `seed` itself) on the base's device
-    and cast to the weight's dtype, one target after the other; B zeros."""
+    and cast to the weight's dtype, one target after the other; B zeros.
+    Whole adapters, sized by the whole weights of a base cut for `mesh`."""
     dev = params_device(base)
     gen = _generator(seed, dev)
     layers: Params = {}
@@ -67,7 +89,7 @@ def lora_init(config: ModelConfig, base: Params, seed: Union[int, torch.Generato
         w = base["layers"][t]
         if not isinstance(w, torch.Tensor):
             raise ValueError(f"target {t!r} is not a plain weight (quantized base?)")
-        n_layers, d_in, d_out = w.shape
+        n_layers, d_in, d_out = global_shape(w, PARAM_SPECS["layers"][t], mesh)
         a = torch.randn((n_layers, d_in, rank), generator=gen, device=dev,
                         dtype=torch.float32)
         layers[f"{t}_a"] = (a * d_in ** -0.5).to(w.dtype)
@@ -102,18 +124,23 @@ def init_lora_state(config: ModelConfig, base: Params, seed: Union[int, torch.Ge
                     *, rank: int = 8, targets: Sequence[str] = DEFAULT_TARGETS,
                     mesh=None, learning_rate: float = 1e-4,
                     lora: Optional[Params] = None) -> LoraState:
-    """Adapters (from `seed`, or the given `lora`, e.g. bridged from JAX)
-    on the base's device, marked for grad, and zero AdamW moments. `mesh`
-    is None or the port's one-device seq mesh (sharding.make_mesh), whose
-    device must hold the base. On the card the kernel cache is enabled
-    from DSTACK_TPU_COMPILE_CACHE first; `tpu_init` marks the first touch
-    of the device, as in train.init_train_state."""
+    """Adapters (from `seed`, or the given whole `lora`, e.g. bridged from
+    JAX) on the base's device, marked for grad, and zero AdamW moments.
+    `mesh` is None, the port's one-device seq mesh (sharding.make_mesh),
+    whose device must hold the base, or a training mesh over ranks, on
+    which `base` holds the rank's slices (sharding.shard_tree) and the
+    whole adapters are drawn, then cut to the rank's slices. On the card
+    the kernel cache is enabled from DSTACK_TPU_COMPILE_CACHE first;
+    `tpu_init` marks the first touch of the device, as in
+    train.init_train_state."""
     dev = _device_of(params_device(base), mesh)
+    ranked = _column_targets(config, mesh, targets)
     if dev.type == "cuda":
         compile_cache.enable_from_env()
     auto_stage("tpu_init")
     if lora is None:
-        lora = lora_init(config, base, seed, rank=rank, targets=targets)
+        lora = lora_init(config, base, seed, rank=rank, targets=targets, mesh=ranked)
+    lora = shard_tree(ranked, lora)
     for _, t in flatten_params(lora):
         if t.device != dev:
             raise ValueError(f"adapters live on {t.device}, the base on {dev}")
@@ -121,25 +148,48 @@ def init_lora_state(config: ModelConfig, base: Params, seed: Union[int, torch.Ge
     return LoraState(0, lora, make_optimizer(learning_rate).init(lora))
 
 
+def _column_targets(config: ModelConfig, mesh, targets: Sequence[str]):
+    """`train.ranked_mesh(config, mesh)`, after checking that every target
+    merges on a rank's slices (module docstring) when it is a mesh."""
+    ranked = ranked_mesh(config, mesh)
+    rows = [t for t in targets if PARAM_SPECS["layers"][t] != (None, "fsdp", "model")]
+    if ranked is not None and rows:
+        raise NotImplementedError(
+            f"LoRA on the row-parallel {rows} over ranks: an A cut over fsdp meets a"
+            " weight cut over model on its input dim (ROADMAP Queue 1 item 3)")
+    return ranked
+
+
+# The axes a LoRA grad is summed over after the backward (module docstring).
+_LORA_GRAD_AXES = {"_a": ("data", "model"), "_b": ("data", "fsdp")}
+
+
 def make_lora_train_step(config: ModelConfig, mesh=None, *, rank: int = 8,
                          alpha: float = 16.0, learning_rate: float = 1e-4):
     """step(state, base, batch) -> (state, metrics): merge, the port's
-    `loss_fn` (the flash kernels, or the ring over a seq `mesh`), the
-    gradients of the adapter leaves only, and one AdamW update of them in
-    place (weight decay as the reference's default). The base is frozen:
-    it is read through `detach_params`, so no autograd state reaches it.
-    Metrics are 0-d device tensors `loss` and `grad_norm`. The first call
-    carries the compile/first-step stage markers, as the full step."""
+    `loss_fn` (the flash kernels, or the ring over a seq `mesh`, or the
+    sharded forward on a training mesh over ranks), the gradients of the
+    adapter leaves only, and one AdamW update of them in place (weight
+    decay as the reference's default). The base is frozen: it is read
+    through `detach_params`, so no autograd state reaches it. Metrics are
+    0-d device tensors `loss` and `grad_norm`, equal on every rank of a
+    mesh. The first call carries the compile/first-step stage markers, as
+    the full step."""
     optimizer = make_optimizer(learning_rate)
     attention_fn = make_attention_fn(mesh)
+    ranked = ranked_mesh(config, mesh)
 
     def step(state: LoraState, base: Params, batch) -> Tuple[LoraState, Dict]:
+        _column_targets(config, mesh, [k[:-2] for k in state.lora["layers"]])
         pairs = flatten_params(state.lora)
         merged = merge_lora(detach_params(base), state.lora, rank=rank, alpha=alpha)
         loss, _ = loss_fn(config, merged, batch, attention_fn, mesh)
         grads = torch.autograd.grad(loss, [t for _, t in pairs])
-        grads = unflatten_params((k, g) for (k, _), g in zip(pairs, grads))
-        gnorm = global_norm(grads)
+        grads = reduce_grads([(k, g) for (k, _), g in zip(pairs, grads)], ranked,
+                             lambda k: _LORA_GRAD_AXES[k[-2:]])
+        loss = batch_sum(loss, ranked)
+        grads = unflatten_params(grads)
+        gnorm = global_norm(grads, ranked)
         opt_state = optimizer.apply(state.lora, grads, state.opt_state)
         return (LoraState(state.step + 1, state.lora, opt_state),
                 {"loss": loss.detach(), "grad_norm": gnorm})

@@ -518,6 +518,10 @@ class ServingEngine:
                 f"serving over mesh {mesh.shape}: the engine serves over a model"
                 " axis only (tensor parallelism); a seq axis is the ring's, for"
                 " training")
+        if mesh is not None and mesh.ranked and mesh.layout != "serving":
+            raise ValueError(
+                f"mesh cut for the {mesh.layout!r} layout: the engine serves on the"
+                " column-parallel layout (make_mesh(model=n))")
         self.mesh = mesh
         self._tp = mesh if mesh is not None and mesh.ranked else None
         self._leader = self._tp is None or mesh.rank == 0

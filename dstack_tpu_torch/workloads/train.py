@@ -11,6 +11,27 @@ JAX state is as dead after a step as the old tensors here are). Metrics
 stay on the device: the step makes no host readback; callers read what
 they print.
 
+On a training mesh over ranks (sharding.make_mesh(data=, fsdp=, model=,
+layout="training")) each rank holds its slices of the params and AdamW
+moments under PARAM_SPECS (`init_train_state(mesh=)` draws the whole
+params from the seed and cuts them, as the reference's `shard_tree` after
+init) and its rows of the batch (`synthetic_batch(mesh=)`,
+`data.BatchLoader(mesh=)`), and the step runs the collectives of
+sharding.py (module docstring) where GSPMD puts them in the reference's
+jitted step. The loss is the global mean: each rank backpropagates its
+rows' summed CE over the whole batch's mask count (`loss_fn`), never a
+mean of per-rank means, which differ when `loss_mask` is uneven. After the
+backward each grad is summed over the batch axes the fsdp reduce-scatter
+did not cover (`sharding.grad_axes`); AdamW then updates every shard in
+place, its moments cut as their params. `global_norm` sums the shards'
+squares and counts a replicated leaf once. `loss`, `grad_norm` and
+`router_aux` come out equal on every rank. With `accum_steps` a rank's
+microbatch j is its own rows' j-th slice (the reference slices the global
+batch); the loss and grads are the same sums, over other groupings of
+rows, which matters only where `loss_mask` weights microbatches unevenly.
+Mixture-of-experts configs over ranks raise (expert parallelism, ROADMAP
+Queue 1 item 3d).
+
 The optimizer is AdamW written out on tensors rather than
 `torch.optim.AdamW`, because its state must match optax's: `mu` in f32,
 `nu` in the param dtype, every scalar of optax's arithmetic rounded to the
@@ -46,6 +67,20 @@ from dstack_tpu_torch.workloads import compile_cache
 from dstack_tpu_torch.workloads.attention import make_attention_fn
 from dstack_tpu_torch.workloads.config import ModelConfig
 from dstack_tpu_torch.workloads.device import DeviceLike, resolve_device
+from dstack_tpu_torch.workloads.sharding import (
+    AXES,
+    all_reduce,
+    batch_sum,
+    gather_fsdp,
+    grad_axes,
+    param_specs,
+    reduce_grads,
+    reduce_model,
+    replicas,
+    shard_batch,
+    shard_tree,
+    training_mesh,
+)
 from dstack_tpu_torch.workloads.transformer import forward, init_params, logits_linear
 from dstack_tpu_torch.workloads.weights import flatten_params, unflatten_params
 
@@ -177,21 +212,41 @@ def _device_of(device: DeviceLike, mesh) -> torch.device:
     return mesh.device
 
 
+def ranked_mesh(config: ModelConfig, mesh):
+    """The training mesh over ranks `mesh` is, or None for no mesh and the
+    one-device seq mesh. A mesh cut for serving raises ValueError, and an
+    MoE config over ranks NotImplementedError."""
+    mesh = training_mesh(mesh)
+    if mesh is None or not mesh.ranked:
+        return None
+    if config.n_experts > 0:
+        raise NotImplementedError(
+            "mixture-of-experts training over ranks is expert parallelism (ROADMAP"
+            " Queue 1 item 3d, not ported yet): the expert axis, the token"
+            " all-to-all and the router aux over the global batch")
+    return mesh
+
+
 def init_train_state(config: ModelConfig, seed: int = 0, device: DeviceLike = None,
                      learning_rate: float = 3e-4, *, warmup_steps: int = 0,
                      decay_steps: int = 0, params: Optional[Params] = None,
                      mesh=None) -> TrainState:
     """Params (random from `seed` on `device` or the mesh's, or the given
-    `params`, e.g. bridged from JAX) marked for grad, and zero optimizer
-    moments. On the card, the kernel cache (workloads/compile_cache.py) is
-    enabled from DSTACK_TPU_COMPILE_CACHE before anything builds; the
-    `tpu_init` stage marker marks the first touch of the device."""
+    whole `params`, e.g. bridged from JAX) marked for grad, and zero
+    optimizer moments. On a training mesh over ranks each rank keeps its
+    slices of the whole params (sharding.shard_tree), so a rank's params
+    are the unsharded params' slices. On the card, the kernel cache
+    (workloads/compile_cache.py) is enabled from DSTACK_TPU_COMPILE_CACHE
+    before anything builds; the `tpu_init` stage marker marks the first
+    touch of the device."""
     dev = _device_of(device, mesh)
+    ranked = ranked_mesh(config, mesh)
     if dev.type == "cuda":
         compile_cache.enable_from_env()
     auto_stage("tpu_init")
     if params is None:
         params = init_params(config, seed, dev)
+    params = shard_tree(ranked, params)
     for _, p in flatten_params(params):
         if p.device != dev:
             raise ValueError(f"params live on {p.device}, device is {dev}")
@@ -201,12 +256,30 @@ def init_train_state(config: ModelConfig, seed: int = 0, device: DeviceLike = No
     return TrainState(0, params, opt.init(params))
 
 
+def token_nll(logits: torch.Tensor, targets: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Per-token softmax cross-entropy from f32 logits in lse form: lse -
+    logits[target], never the normalised log-probs. On a training mesh's
+    model axis the logits are this rank's V/m vocab columns (lm_head is
+    column-parallel), and the CE is vocab-parallel: the rows' max over
+    model, their sum of exps and the target's logit summed over model."""
+    if mesh is None or not mesh.training or mesh.shape["model"] == 1:
+        lse = torch.logsumexp(logits, dim=-1)
+        return lse - torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    v = logits.shape[-1]
+    m = all_reduce(logits.detach().amax(dim=-1), mesh, ("model",), op="max")
+    sum_exp = reduce_model(torch.sum(torch.exp(logits - m[..., None]), dim=-1), mesh)
+    local = targets.long() - mesh.coords["model"] * v
+    mine = (local >= 0) & (local < v)
+    tgt = torch.gather(logits, -1, local.clamp(0, v - 1)[..., None])[..., 0]
+    return m + torch.log(sum_exp) - reduce_model(
+        torch.where(mine, tgt, torch.zeros_like(tgt)), mesh)
+
+
 def ce_from_logits(logits: torch.Tensor, targets: torch.Tensor,
                    mask: Optional[torch.Tensor]) -> torch.Tensor:
     """Masked-mean softmax cross-entropy from (..., V) f32 logits, in lse
     form: logits[target] - lse, never the normalised log-probs."""
-    lse = torch.logsumexp(logits, dim=-1)
-    nll = lse - torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    nll = token_nll(logits, targets)
     if mask is not None:
         mask = mask.to(torch.float32)
         return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
@@ -214,20 +287,18 @@ def ce_from_logits(logits: torch.Tensor, targets: torch.Tensor,
 
 
 def _chunked_ce(hidden: torch.Tensor, lm_head, targets: torch.Tensor,
-                mask: Optional[torch.Tensor], chunk: int):
+                mask: Optional[torch.Tensor], chunk: int, mesh=None):
     """Softmax cross-entropy over sequence chunks -> (nll_sum, denom). Each
     chunk's head matmul and logsumexp run under torch.utils.checkpoint, so
     one (B, chunk, V) f32 logits buffer is live at a time and nothing
-    vocab-sized is saved for backward."""
+    vocab-sized is saved for backward (vocab-parallel on a training
+    mesh's model axis, `token_nll`)."""
     b, s, _ = hidden.shape
     ms = (torch.ones((b, s), dtype=torch.float32, device=hidden.device)
           if mask is None else mask.to(torch.float32))
 
     def body(xi, ti, mi):
-        logits = logits_linear(xi, lm_head)
-        lse = torch.logsumexp(logits, dim=-1)
-        tgt = torch.gather(logits, -1, ti.long()[..., None])[..., 0]
-        return torch.sum((lse - tgt) * mi)
+        return torch.sum(token_nll(logits_linear(xi, lm_head), ti, mesh) * mi)
 
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for i in range(0, s, chunk):
@@ -241,29 +312,52 @@ def loss_fn(config: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
             attention_fn=None, mesh=None):
     """Next-token cross-entropy -> (loss, router_aux). batch: inputs and
     targets (B, S) int, pre-shifted; optional loss_mask (B, S). `mesh`
-    reaches the remat estimate; `attention_fn` carries the ring."""
+    reaches the remat estimate; `attention_fn` carries the ring. On a
+    training mesh over ranks the loss is this rank's share of the global
+    mean: its rows' summed CE over the mask count of the whole batch
+    (summed over data x fsdp), so the shares summed over the batch axes
+    (sharding.batch_sum) are the loss and their grads sum to its grad."""
     inputs, targets = batch["inputs"], batch["targets"]
     mask = batch.get("loss_mask")
     if config.ce_chunk > 0 and inputs.shape[1] % config.ce_chunk == 0:
         hidden, aux = forward(config, params, inputs, attention_fn=attention_fn,
                               mesh=mesh, return_aux=True, return_hidden=True)
-        total, denom = _chunked_ce(hidden, params["lm_head"], targets, mask,
-                                   config.ce_chunk)
-        ce = total / torch.clamp(denom, min=1.0)
+        total, denom = _chunked_ce(hidden, gather_fsdp(params["lm_head"], 0, mesh),
+                                   targets, mask, config.ce_chunk, mesh)
+        ce = total / torch.clamp(batch_sum(denom, mesh), min=1.0)
         return ce + config.router_aux_coef * aux, aux
     logits, aux = forward(config, params, inputs, attention_fn=attention_fn,
                           mesh=mesh, return_aux=True)
-    ce = ce_from_logits(logits, targets, mask)
+    if mesh is None or not mesh.training:
+        ce = ce_from_logits(logits, targets, mask)
+        return ce + config.router_aux_coef * aux, aux
+    nll = token_nll(logits, targets, mesh)
+    if mask is None:
+        total, denom = torch.sum(nll), torch.tensor(float(nll.numel()), device=nll.device)
+    else:
+        mask = mask.to(torch.float32)
+        total, denom = torch.sum(nll * mask), torch.sum(mask)
+    ce = total / torch.clamp(batch_sum(denom, mesh), min=1.0)
     return ce + config.router_aux_coef * aux, aux
 
 
-def global_norm(tree: Params) -> torch.Tensor:
+def global_norm(tree: Params, mesh=None) -> torch.Tensor:
     """optax.global_norm: sqrt of the sum over leaves (sorted order) of
-    each leaf's sum of squares, each in its leaf's dtype."""
+    each leaf's sum of squares, each in its leaf's dtype. On a training
+    mesh over ranks `tree` holds the rank's slices: each slice's sum of
+    squares in f32, divided by the count of ranks that hold the same
+    slice, summed over every rank, so a replicated leaf counts once."""
+    if mesh is None or not mesh.training:
+        total = 0
+        for _, g in flatten_params(tree):
+            total = total + torch.sum(g * g)
+        return torch.sqrt(total)
+    specs = dict(flatten_params(param_specs(tree)))
     total = 0
-    for _, g in flatten_params(tree):
-        total = total + torch.sum(g * g)
-    return torch.sqrt(total)
+    for k, g in flatten_params(tree):
+        gf = g.to(torch.float32)
+        total = total + torch.sum(gf * gf) / replicas(specs[k], mesh)
+    return torch.sqrt(all_reduce(total, mesh, AXES))
 
 
 def make_train_step(config: ModelConfig, mesh=None, learning_rate: float = 3e-4, *,
@@ -272,9 +366,12 @@ def make_train_step(config: ModelConfig, mesh=None, learning_rate: float = 3e-4,
     0-d device tensors `loss`, `grad_norm`, `router_aux`. accum_steps > 1
     cuts the batch into that many microbatches, sums their grads in f32 and
     makes one optimizer update with the mean. A seq `mesh` runs attention
-    as the ring (make_attention_fn(mesh))."""
+    as the ring (make_attention_fn(mesh)); a training mesh over ranks runs
+    the sharded step of the module docstring, attention on each rank's
+    heads and rows through the one-device path."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    ranked = ranked_mesh(config, mesh)
     optimizer = make_optimizer(learning_rate, warmup_steps=warmup_steps,
                                decay_steps=decay_steps)
     attention_fn = make_attention_fn(mesh)
@@ -312,8 +409,12 @@ def make_train_step(config: ModelConfig, mesh=None, learning_rate: float = 3e-4,
             loss, aux, grads = accumulated_grads(state.params, batch)
         else:
             loss, aux, grads = grads_of(state.params, batch)
+        if ranked is not None:
+            specs = dict(flatten_params(param_specs(state.params)))
+            grads = reduce_grads(grads, ranked, lambda k: grad_axes(specs[k]))
+            loss = batch_sum(loss, ranked)
         grads = unflatten_params(grads)
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads, ranked)
         opt_state = optimizer.apply(state.params, grads, state.opt_state)
         new_state = TrainState(state.step + 1, state.params, opt_state)
         return new_state, {"loss": loss, "grad_norm": gnorm, "router_aux": aux}
@@ -402,9 +503,13 @@ class DrainHandler:
         self._prior = {}
 
     def checkpoint_and_exit(self, directory, state,
-                            grace_seconds: Optional[float] = None) -> None:
+                            grace_seconds: Optional[float] = None, mesh=None) -> None:
         """Save a checkpoint of `state` (a TrainState, or a lora.LoraState:
         the adapters and their moments), wait until it is on disk, and exit
+        DRAIN_EXIT_CODE. On a training mesh over ranks every rank calls
+        this at the same step (fine_tune agrees on it with
+        sharding.any_rank): one checkpoint is written from every rank's
+        shards (checkpoint.save(mesh=)), and every rank exits
         DRAIN_EXIT_CODE. `grace_seconds` is the drain window the runner
         allows; a save that overran it is reported on stderr (the runner
         may have killed sibling processes by then: size the grace to the
@@ -412,7 +517,7 @@ class DrainHandler:
         from dstack_tpu_torch.workloads import checkpoint as ckpt
 
         t0 = time.monotonic()
-        step = ckpt.save(directory, state, wait=True)
+        step = ckpt.save(directory, state, wait=True, mesh=mesh)
         ckpt.close_all()
         elapsed = time.monotonic() - t0
         if grace_seconds is not None and elapsed > grace_seconds:
@@ -421,8 +526,9 @@ class DrainHandler:
                   " hard-killed this job before the save completed. Raise the"
                   " drain grace or shrink the checkpoint",
                   file=sys.stderr, flush=True)
-        print(f"drain: checkpoint saved at step {step} in {elapsed:.3f}s; exiting",
-              flush=True)
+        if mesh is None or mesh.rank == 0:
+            print(f"drain: checkpoint saved at step {step} in {elapsed:.3f}s; exiting",
+                  flush=True)
         sys.exit(DRAIN_EXIT_CODE)
 
 
@@ -455,10 +561,12 @@ def synthetic_batch(config: ModelConfig, batch_size: int, seq_len: Optional[int]
                     mesh=None) -> Dict[str, torch.Tensor]:
     """Deterministic fake pre-shifted int32 batch: inputs/targets (B, S),
     drawn from a torch.Generator seeded with `seed` on `device` or the
-    mesh's (not the reference's jax.random draw)."""
+    mesh's (not the reference's jax.random draw). On a training mesh over
+    ranks: this rank's rows (BATCH_SPEC) of the same global batch."""
     dev = _device_of(device, mesh)
     s = (seq_len or config.max_seq_len) + 1
     gen = torch.Generator(device=dev).manual_seed(seed)
     tokens = torch.randint(0, config.vocab_size, (batch_size, s), generator=gen,
                            device=dev, dtype=torch.int32)
-    return {"inputs": tokens[:, :-1], "targets": tokens[:, 1:]}
+    return shard_batch({"inputs": tokens[:, :-1], "targets": tokens[:, 1:]},
+                       training_mesh(mesh))

@@ -18,6 +18,25 @@ over a seq mesh), with the remat policy of `config.resolve_remat` mapped
 to torch.utils.checkpoint.
 Where JAX scans one traced block over the layer stack, this loops over
 the layers eagerly.
+
+On a training mesh over ranks (sharding.make_mesh(..., layout="training"))
+`forward` runs on the rank's slices of the params (sharding.shard_tree) and
+its rows of the batch, with the collectives GSPMD puts into the
+reference's jitted step: each layer's weights are gathered whole over
+`fsdp` inside the block body (`sharding.gather_layer`; embed and lm_head
+likewise), wq/wk/wv/w_gate/w_up run column-parallel on `model` behind
+Megatron's f (`enter_model` on the normed input) and wo/w_down
+row-parallel with their partial sums summed over `model` (`reduce_model`),
+so a rank attends with its H/m q and KV/m KV heads. Whether a gathered
+weight is gathered again in backward follows the remat policy: with
+"none" autograd keeps every layer's gathered weights from forward to
+backward, so a rank holds its model shard of the params whole, 1/model of
+the unsharded weights, for the step (fsdp then saves the grads' and
+AdamW's memory, not the weights'); under "full" and "dots" (which saves
+matmul outputs, not their weight operands) the block body is recomputed
+in backward and gathers again, so one layer's gathered weights are live
+at a time, for a second all-gather per layer. Rope positions are 0..S-1 on every rank:
+there is no seq axis over ranks here.
 """
 
 import functools
@@ -35,7 +54,15 @@ from dstack_tpu_torch.workloads.config import ModelConfig
 from dstack_tpu_torch.workloads.device import DeviceLike, resolve_device
 from dstack_tpu_torch.workloads.moe import moe_block
 from dstack_tpu_torch.workloads.quant import QTensor
-from dstack_tpu_torch.workloads.sharding import all_gather, device_shards
+from dstack_tpu_torch.workloads.sharding import (
+    all_gather,
+    batch_shards,
+    device_shards,
+    enter_model,
+    gather_fsdp,
+    gather_layer,
+    reduce_model,
+)
 
 Params = Dict[str, Any]
 AttentionFn = Callable[..., torch.Tensor]
@@ -170,13 +197,14 @@ def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tenso
 
 
 def project_qkv(c: ModelConfig, x: torch.Tensor, p: Params,
-                positions: torch.Tensor):
+                positions: torch.Tensor, mesh=None):
     """Pre-norm QKV projection with rope, shared by every cached path.
     The head counts come from the weights' widths, so a rank of a model
-    mesh projects its own heads (sharding.rank_params)."""
+    mesh projects its own heads (sharding.rank_params). On a training
+    `mesh` the normed input enters the model axis (Megatron's f)."""
     b, s, _ = x.shape
     hd = c.head_dim
-    h = rms_norm(x, p["attn_norm"], c.norm_eps)
+    h = enter_model(rms_norm(x, p["attn_norm"], c.norm_eps), mesh)
     q = linear(h, p["wq"]).reshape(b, s, -1, hd)
     k = linear(h, p["wk"]).reshape(b, s, -1, hd)
     v = linear(h, p["wv"]).reshape(b, s, -1, hd)
@@ -249,8 +277,10 @@ def apply_remat(body, c: ModelConfig, n_tokens: int, mesh=None,
     """Wrap a block body per the resolved remat policy: "none" leaves it,
     "full" checkpoints the whole block, "dots" checkpoints it keeping the
     matmul outputs. `attn_scores` marks the plain O(S^2)-memory attention."""
-    policy = c.resolve_remat(n_tokens, device_shards(mesh), seq_len=seq_len,
-                             attn_scores=attn_scores)
+    # A rank of a training mesh holds 1/(data*fsdp) of the batch; the
+    # estimate, like the reference's, starts from the global batch.
+    policy = c.resolve_remat(n_tokens * batch_shards(mesh), device_shards(mesh),
+                             seq_len=seq_len, attn_scores=attn_scores)
     if policy == "none":
         return body
     kw = {}
@@ -265,15 +295,21 @@ def apply_remat(body, c: ModelConfig, n_tokens: int, mesh=None,
 
 
 def _block(c: ModelConfig, x: torch.Tensor, p: Params, positions: torch.Tensor,
-           attention_fn: AttentionFn):
-    """One decoder block -> (x, router_aux); aux is None for dense models."""
+           attention_fn: AttentionFn, mesh=None):
+    """One decoder block -> (x, router_aux); aux is None for dense models.
+    On a training `mesh` the layer's fsdp shards are gathered first and
+    the attention and MLP halves run Megatron's pair on `model` (both are
+    no-ops elsewhere)."""
     b, s, _ = x.shape
-    q, k, v = project_qkv(c, x, p, positions)
-    attn = attention_fn(q, k, v).reshape(b, s, c.n_heads * c.head_dim)
-    x = x + linear(attn, p["wo"])
+    p = gather_layer(p, mesh)
+    q, k, v = project_qkv(c, x, p, positions, mesh)
+    attn = attention_fn(q, k, v).reshape(b, s, -1)
+    x = x + reduce_model(linear(attn, p["wo"]), mesh)
     if c.n_experts > 0:
         return moe_block(c, x, p)
-    return mlp_block(c, x, p), None
+    h = enter_model(rms_norm(x, p["mlp_norm"], c.norm_eps), mesh)
+    act = _silu(linear(h, p["w_gate"])) * linear(h, p["w_up"])
+    return x + reduce_model(linear(act, p["w_down"]), mesh), None
 
 
 def _layer_slices(params: Params, n_layers: int):
@@ -303,13 +339,16 @@ def forward(config: ModelConfig, params: Params, tokens: torch.Tensor, *,
 
     A seq `mesh` (sharding.make_mesh) is read by the remat estimate; the
     ring itself lives inside `attention_fn` (make_attention_fn(mesh)), and
-    positions stay 0..S-1 since the whole sequence is on the device."""
+    positions stay 0..S-1 since the whole sequence is on the device. On a
+    training mesh over ranks (module docstring) `params` are the rank's
+    slices and `tokens` its rows, and the logits are the rank's vocab
+    columns (lm_head is column-parallel on `model`)."""
     c = config
     attn = attention_fn or plain_attention
     dev = tokens.device
     if positions is None:
         positions = torch.arange(tokens.shape[1], device=dev)
-    x = params["embed"][tokens]
+    x = gather_fsdp(params["embed"], 1, mesh)[tokens]
 
     quadratic = getattr(attn, "memory_is_quadratic", None)
     if quadratic is not None:
@@ -319,7 +358,7 @@ def forward(config: ModelConfig, params: Params, tokens: torch.Tensor, *,
         attn_scores = attn is plain_attention
 
     def body(x, p):
-        return _block(c, x, p, positions, attn)
+        return _block(c, x, p, positions, attn, mesh)
 
     body = apply_remat(body, c, tokens.shape[0] * tokens.shape[1], mesh,
                        seq_len=tokens.shape[1], attn_scores=attn_scores)
@@ -329,8 +368,8 @@ def forward(config: ModelConfig, params: Params, tokens: torch.Tensor, *,
         if layer_aux is not None:
             aux = aux + layer_aux
 
-    x = rms_norm(x, params["final_norm"], c.norm_eps)
+    x = enter_model(rms_norm(x, params["final_norm"], c.norm_eps), mesh)
     if return_hidden:
         return (x, aux) if return_aux else x
-    logits = logits_linear(x, params["lm_head"])
+    logits = logits_linear(x, gather_fsdp(params["lm_head"], 0, mesh))
     return (logits, aux) if return_aux else logits

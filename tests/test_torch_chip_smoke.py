@@ -1053,3 +1053,175 @@ def test_tp_gates_fail_what_they_must(bad):
     cs.check_tp({"good": _tp_result()})
     with pytest.raises(AssertionError):
         cs.check_tp({"bad": _tp_result(**bad)})
+
+
+# -- phase 15: training across ranks ----------------------------------------------------
+
+
+def _train_mesh(rank=0, **axes):
+    from dstack_tpu_torch.workloads import sharding
+
+    shape = {a: axes.get(a, 1) for a in sharding.AXES}
+    return sharding.Mesh(torch.device("cpu"), shape, group=object(), rank=rank,
+                         backend="gloo", layout="training")
+
+
+def test_tr_mutants_skip_their_sums_and_undo():
+    from dstack_tpu_torch.workloads import sharding, transformer
+
+    orig_rs, orig_rm = sharding.reduce_scatter, transformer.reduce_model
+    undo = cs.tr_mutate("fsdp")
+    try:
+        x = torch.arange(12.0).reshape(3, 4)
+        got = sharding.reduce_scatter(x, 1, _train_mesh(rank=1, fsdp=2), ("fsdp",))
+        assert torch.equal(got, x[:, 2:])   # rank 1's own block, not summed
+    finally:
+        undo()
+    assert sharding.reduce_scatter is orig_rs
+    undo = cs.tr_mutate("model")
+    try:
+        y = torch.ones(2)
+        assert transformer.reduce_model(y, _train_mesh(model=2)) is y
+    finally:
+        undo()
+    assert transformer.reduce_model is orig_rm
+    cs.tr_mutate(None)()
+
+
+def _tr_case(**kw):
+    rank = dict(loss=10.0, grad_norm=3.0, launches_per_step=dict(
+        flash_fwd=16.0, flash_bwd_dq=16.0, flash_bwd_dkv=16.0, flash_block_fwd=0.0),
+        kernel_shapes={"flash_fwd": [[cs.TR_B * 8, cs.TR_S, 128]]})
+    r = dict(ranks=[dict(rank), dict(rank)], layout="fsdp2", mutation=None, dtype="bfloat16",
+             n_layers=16, loss_rel=0.0, grad_norm_rel=0.0,
+             tol=dict(loss=1e-6, grad_norm=1e-3, params=(1e-3, 1e-2)),
+             params=dict(rel_l2=1e-4, row_rel=1e-3))
+    r.update(kw)
+    return r
+
+
+def _tr_result(bad=None, where="fsdp2"):
+    bf16 = {name: _tr_case(layout=layout, mutation=mutation,
+                           params=dict(rel_l2=0.5, row_rel=0.5) if mutation else
+                           dict(rel_l2=1e-4, row_rel=1e-3))
+            for name, layout, mutation in cs.TR_CASES}
+    f32 = {name: _tr_case(layout=name, dtype="float32", n_layers=2,
+                          ranks=[dict(_tr_case()["ranks"][0], launches_per_step=dict(
+                              flash_fwd=2.0, flash_bwd_dq=2.0, flash_bwd_dkv=2.0))] * 2,
+                          checkpoint=dict(step=2, equal=True))
+           for name in cs.TR_LAYOUTS}
+    if bad:
+        (f32 if where.startswith("f32") else bf16)[where.split(":")[-1]].update(bad)
+    return {"bf16": {**bf16, "unsharded": {}}, "f32": {**f32, "unsharded": {}}}
+
+
+@pytest.mark.parametrize("where,bad", [
+    ("fsdp2", dict(loss_rel=1e-3)),
+    ("model2", dict(grad_norm_rel=1e-2)),
+    ("fsdp2", dict(params=dict(rel_l2=2e-3, row_rel=1e-3))),
+    ("model2", dict(params=dict(rel_l2=1e-4, row_rel=2e-2))),
+    ("fsdp2_rs_unsummed", dict(params=dict(rel_l2=1e-4, row_rel=1e-3))),   # a mutant passes
+    ("model2_row_unsummed", dict(params=dict(rel_l2=1e-4, row_rel=1e-3))),
+    ("f32:fsdp2", dict(checkpoint=dict(step=2, equal=False))),
+    ("fsdp2", dict(ranks=[_tr_case()["ranks"][0], dict(_tr_case()["ranks"][0], loss=10.5)])),
+    ("model2", dict(ranks=[_tr_case()["ranks"][0], dict(
+        _tr_case()["ranks"][0], launches_per_step=dict(flash_fwd=16.0, flash_bwd_dq=15.0,
+                                                       flash_bwd_dkv=16.0))])),
+    ("fsdp2", dict(ranks=[dict(_tr_case()["ranks"][0], kernel_shapes={
+        "flash_fwd": [[cs.TR_B * 16, cs.TR_S, 128]]})] * 2)),           # a whole step's heads
+])
+def test_train_rank_gates_fail_what_they_must(monkeypatch, where, bad):
+    monkeypatch.setattr(cs, "TR_PRESET", "smol-1b")
+    cs.check_train_ranks(_tr_result())
+    with pytest.raises(AssertionError, match="phase 15"):
+        cs.check_train_ranks(_tr_result(bad, where))
+
+
+TR_DRY_RUN = r'''
+import sys
+import torch
+import chip_smoke as cs
+from dstack_tpu_torch.workloads import flash_attention as fa
+from dstack_tpu_torch.workloads.config import PRESETS
+
+# Phase 15's rank process at tiny on the CPU: no card, so the device hooks
+# are no-ops and the flash path's plain versions count as launches.
+PRESETS["tiny-2k"] = PRESETS["tiny"].with_(max_seq_len=2048)
+cs.TR_PRESET, cs.TR_DEVICE, cs.TR_B, cs.TR_S = "tiny-2k", "cpu", 4, 64
+torch.cuda.synchronize = lambda *a: None
+torch.cuda.reset_peak_memory_stats = lambda *a: None
+torch.cuda.max_memory_allocated = lambda *a: 0
+fa.use_flash = lambda s, hd, dev: True
+
+
+def count(name, tensors, causal):
+    fa.LAUNCHES[name] += 1
+
+
+fa._launch = count
+fwd, bwd = fa._flash_fwd_plain, fa._flash_bwd_plain
+
+
+def counted_fwd(q, k, v, c):
+    fa._launch("flash_fwd", (q,), c)
+    return fwd(q, k, v, c)
+
+
+def counted_bwd(q, k, v, o, lse, do, delta, c):
+    fa._launch("flash_bwd_dq", (q,), c)
+    fa._launch("flash_bwd_dkv", (q,), c)
+    return bwd(q, k, v, o, lse, do, delta, c)
+
+
+fa._flash_fwd_plain, fa._flash_bwd_plain = counted_fwd, counted_bwd
+sys.exit(cs.tr_rank_main(int(sys.argv[1]), sys.argv[2]))
+'''
+
+
+def test_train_rank_phase_runs_on_the_cpu(tmp_path):
+    """Phase 15's two rank processes at tiny on the CPU over gloo: every
+    case runs, the readings come back from rank 0, launches are counted at
+    a rank's geometry, the fsdp-2 checkpoint restores equal on one device,
+    and each mutant reads further from the unsharded run than its layout."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(cs.__file__).resolve().parent
+    script = tmp_path / "tr_rank.py"
+    script.write_text(TR_DRY_RUN)
+    init = f"file://{tmp_path / 'rendezvous'}"
+    env = {**os.environ, "OMP_NUM_THREADS": "1", "PYTHONPATH": str(root)}
+    procs = [subprocess.Popen([sys.executable, str(script), str(r), init],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                              env=env, cwd=str(tmp_path), start_new_session=True)
+             for r in range(cs.TR_RANKS)]
+    try:
+        outs = [p.communicate(timeout=120) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, (_, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+    line = next(ln for ln in outs[0][0].splitlines() if ln.startswith("TR_RESULT "))
+    res = json.loads(line[len("TR_RESULT "):])
+    assert sorted(res["bf16"]) == sorted([c[0] for c in cs.TR_CASES] + ["unsharded"])
+    for tag, n_layers in (("bf16", 2), ("f32", cs.TR_F32_LAYERS)):
+        for name in cs.TR_LAYOUTS:
+            r = res[tag][name]
+            for rank in r["ranks"]:
+                assert rank["launches_per_step"]["flash_fwd"] == n_layers
+                assert rank["kernel_shapes"]["flash_bwd_dkv"] == [[8, 64, 32]]  # 4 x 4 heads / 2
+                assert rank["loss"] == r["ranks"][0]["loss"]
+            assert r["params"]["rel_l2"] < 1e-2 and r["loss_rel"] < 1e-3
+    assert res["f32"]["fsdp2"]["checkpoint"] == {"step": 2, "equal": True}
+    for name, layout, mutation in cs.TR_CASES:
+        if mutation:
+            assert (res["bf16"][name]["params"]["rel_l2"]
+                    > 5 * res["bf16"][layout]["params"]["rel_l2"]), name
+    assert res["bf16"]["fsdp2"]["ranks"][0]["collectives_per_step"]["reduce_scatters"] == 16
+    assert res["bf16"]["model2"]["ranks"][0]["collectives_per_step"]["all_reduces"] == 13

@@ -335,8 +335,16 @@ def test_fine_tune_cli_trains_tiny_and_exports_what_native_server_serves(tmp_pat
 @pytest.mark.parametrize("flag", [["--model-parallel", "2"],
                                   ["--seq-parallel", "2", "--expert-parallel", "2"],
                                   ["--expert-parallel", "2"]])
-def test_fine_tune_refuses_unported_options(flag):
+def test_fine_tune_refuses_unported_options(flag, capsys):
+    """--expert-parallel stays unported; --model-parallel 2 now trains over
+    two gloo ranks (rank 0 in this process starts rank 1)."""
     from dstack_tpu_torch import fine_tune
 
+    if "--expert-parallel" not in flag:
+        fine_tune.main(["--device", "cpu", "--preset", "tiny", "--steps", "2",
+                        "--seq-len", "32", "--batch-size", "2", *flag])
+        out = capsys.readouterr().out
+        assert "2 ranks over gloo (model 2)" in out and "training complete" in out
+        return
     with pytest.raises(NotImplementedError, match="not ported"):
         fine_tune.main(["--device", "cpu", "--preset", "tiny", *flag])
