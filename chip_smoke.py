@@ -159,7 +159,7 @@ Phases (any failure fails the run; nothing is caught to exit 0):
                subprocesses: kv_handoff ack, /v1/handoffs/<id> streaming the
                unified server's tokens by the near-tie rule, the
                role-labelled series.
-  12. RL (Podracer) — (a) smol-1b Anakin, bf16, batch 8, 64-token
+  12. RL (Podracer) — (a) smol-1b at 8 of its 16 layers Anakin, bf16, batch 8, 64-token
                prompts x 64 new tokens (the target the token the untrained
                policy samples most in a warm-up round), 3 updates over the
                socket weight-refresh channel and 1 each over the
@@ -239,9 +239,38 @@ Phases (any failure fails the run; nothing is caught to exit 0):
                parallel speed); (f) a world-1 NCCL training step, its
                checkpoint saved and restored, in a process of its own
                (--tr-nccl).
+  16. the ring across ranks — four processes of this script (--rg-rank,
+               --rank 0-3) over gloo on the one card train smol-1b-8k at
+               full width and depth, B 1 x S 8192, at seq 4 (2048 positions
+               a rank, the ring's K/V hops between the processes) against
+               phase 7's one-device ring on the same card, weights and
+               batch: (a) the first step's loss and grad_norm, (b) every
+               param after 2 steps (rel_l2, row_rel) and the four ranks'
+               replicas equal, the same at 2 layers in f32, (d) kernel #5
+               launched i + 1 times a layer on rank i (10 over the ranks,
+               each at phase 3c's B*H 16, S 2048) and 7 hops a layer on
+               each, (e) the gates failing every hop sent to the wrong
+               neighbour and the dK/dV accumulators stopped one hop short
+               of home (in f32 at 2 layers); step ms, hops and their MB and
+               ms, the grad all-reduce over seq, peak memory per rank
+               recorded (gloo, four ranks on one card: a check, not a
+               parallel speed).
+  17. the pipeline — (c) kernels #2-#4 against their plain versions at a
+               stage's geometry (B*H 32: a 2-row microbatch), bf16 and f32,
+               timed; two processes of this script (--pp-rank) over gloo
+               on the one card train smol-1b in two stages of 8 layers, B 8
+               x 2048 in 4 microbatches, against phase 6's unsharded step
+               on the same card, weights and batch: (a) the first step's
+               loss and grad_norm, (b) every param after 2 steps and the
+               shared leaves equal on both stages bit for bit, the same at
+               2 layers in f32, (d) 32 launches of each of #2-#4 a stage a
+               step at B*H 32 and 8 exchanges a stage a step, (e) the gates
+               failing a microbatch collected one tick early and the shared
+               grads not summed over pipe (f32, 2 layers); step ms,
+               exchanges and their MB and ms, peak memory per stage.
 Phase 3b and 3c run after 3, 4b and 4c after 4, 5b after 5, 11 after
 5b, 12 after 11, phases 6 to 10b after 12, 13 after 10b, 14 after 13, 15
-after 14. The line before the
+after 14, 16 and 17 after 15. The line before the
 last is the `kernels` JSON; the last line is {"ok": true, "device": {...}}.
 Each phase logs its numbers on the way; details also go to
 chiprun_out/chip_smoke.json.
@@ -3916,6 +3945,9 @@ def run_disagg_http(cfg, params, n_new: int = 16) -> dict:
 # -- phase 12: Podracer RL ----------------------------------------------------
 
 RL_PRESET, RL_DEVICE = "smol-1b", "cuda"
+# 12(a)'s depth: 8 of smol-1b's 16 layers at full width, since the whole
+# smoke neared its limit once phases 16 and 17 came (PERF.md, PR 15).
+RL_LAYERS = 8
 RL_ENV = dict(prompt_len=64, horizon=64)
 RL_BATCH = 8
 RL_UPDATES = {"socket": 3, "direct": 1, "checkpoint": 1}
@@ -4212,6 +4244,7 @@ def run_rl_anakin() -> dict:
     from dstack_tpu_torch.workloads.config import PRESETS
 
     cfg = PRESETS[RL_PRESET]
+    cfg = cfg.with_(n_layers=min(RL_LAYERS, cfg.n_layers))
     runs = {}
     with tempfile.TemporaryDirectory() as cdir:
         for mode, n in RL_UPDATES.items():
@@ -5653,6 +5686,442 @@ def run_train_ranks() -> dict:
                 seconds=dict(kernels=t1 - t0, ranks=t2 - t1, nccl=t3 - t2))
 
 
+# -- phase 16: the ring across ranks ----------------------------------------------
+
+RG_RANKS = 4
+# The model and the one card the four ranks share (a CPU dry run swaps in
+# a small preset and "cpu").
+RG_PRESET, RG_DEVICE = "smol-1b-8k", "cuda:0"
+# Phase 7's shape: B 1 x S 8192, S 2048 a rank; RG_STEPS steps per case.
+RG_B, RG_S, RG_STEPS = 1, 8192, 2
+# Each rank process's limit (seconds). The four ranks peak at 12.1-12.3 GB
+# each on the card (PERF.md, phase 16).
+RG_TIMEOUT = 600
+# The f32 check's depth (smol-1b-8k's width, TF32 off), where the mutants
+# run too.
+RG_F32_LAYERS = 2
+# (case, mutation): the sound ring at full depth in bf16, then at
+# RG_F32_LAYERS in f32 the sound ring and its two mutants, which the param
+# gate must fail: every hop sent to the previous rank instead of the next,
+# and the backward's last hop (the dK/dV accumulators' way home) skipped.
+RG_MUTANTS = ("wrong_neighbour", "short_of_home")
+# The ranks against phase 7's one-device ring on one card (16a, 16b), per
+# dtype: the first step's loss and grad_norm by relative difference, every
+# param after RG_STEPS steps by flash_errors' (rel_l2, row_rel) over its
+# leaf. Each limit is ~3x the sound reading on the H100 (PERF.md, phase
+# 16); a reading of 0 gets ~3 f32 ulps. bf16: loss 8.75e-8, grad_norm
+# 1.35e-4 (four bf16 partials summed over seq against one GEMM), params
+# 2.13e-3 / 2.92e-2; f32 at 2 layers: loss and grad_norm 0, params
+# 8.24e-6 / 2.12e-3. The mutants read loss 1.2e-3 and params 3.6e-2 (the
+# wrong neighbour), grad_norm 3.7e-2 and params 3.2e-2 (short of home).
+RG_TOL = {"bfloat16": dict(loss=3e-7, grad_norm=4e-4, params=(6.4e-3, 9e-2)),
+          "float32": dict(loss=3e-7, grad_norm=3e-7, params=(2.5e-5, 6.4e-3))}
+
+
+def rg_mutate(kind):
+    """16(e): a hop to the wrong neighbour (every ppermute by -shift), or
+    the dK/dV accumulators stopped one hop short of home. Returns the undo."""
+    from dstack_tpu_torch.workloads import attention, sharding
+
+    if kind == "wrong_neighbour":
+        orig = sharding.ppermute
+        sharding.ppermute = lambda xs, mesh, axis, shift=1: orig(xs, mesh, axis, -shift)
+        return lambda: setattr(sharding, "ppermute", orig)
+    if kind == "short_of_home":
+        orig = attention._RankRing.home
+        attention._RankRing.home = staticmethod(lambda acc, mesh: acc)
+        return lambda: setattr(attention._RankRing, "home", orig)
+    return lambda: None
+
+
+def leaf_digest(params) -> float:
+    """A float64 sum over every leaf: equal on ranks whose replicas are
+    equal bit for bit (a check that the replicas did not part)."""
+    from dstack_tpu_torch.workloads.weights import flatten_params
+
+    return float(sum(t.detach().double().sum() for _, t in flatten_params(params)))
+
+
+def rank_steps(cfg, make_state, make_step, batch, mesh, n_steps):
+    """`n_steps` steps: the first step's metrics, each step's wall ms, the
+    flash launches, hops and collectives per step, the peak memory.
+    Returns (state, readings)."""
+    torch.cuda.reset_peak_memory_stats()
+    state = make_state()
+    step = make_step()
+    stats0 = dict(mesh.stats) if mesh is not None else {}
+    zero_flash_counts()
+    metrics, step_ms = [], []
+    for _ in range(n_steps):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        state, m = step(state, batch)
+        metrics.append([float(m["loss"]), float(m["grad_norm"])])
+        torch.cuda.synchronize()
+        step_ms.append((time.monotonic() - t0) * 1e3)
+    r = dict(loss=metrics[0][0], grad_norm=metrics[0][1], losses=[v[0] for v in metrics],
+             step_ms=step_ms,
+             launches_per_step={k: v / n_steps for k, v in flash_counts().items()},
+             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if mesh is not None:
+        delta = {k: mesh.stats[k] - stats0[k] for k in mesh.stats}
+        kinds = ("all_gather", "all_reduce", "reduce_scatter")
+        r["hops_per_step"] = delta["hops"] / n_steps
+        r["hop_ms_per_step"] = delta["hop_seconds"] * 1e3 / n_steps
+        r["hop_mb_per_step"] = delta["hop_bytes"] / 1e6 / n_steps
+        r["collectives_per_step"] = {k + "s": delta[k + "s"] / n_steps for k in kinds}
+        r["collective_ms_per_step"] = sum(delta[k + "_seconds"] for k in kinds) * 1e3 / n_steps
+    return state, r
+
+
+def rg_run(cfg, rank, mesh, device, mutations) -> dict:
+    """Rank 0 runs phase 7's one-device ring (the others wait), then every
+    rank runs the ring across the ranks, sound and with each of
+    `mutations`; rank 0 holds its params against the one-device run's."""
+    from dstack_tpu_torch.workloads import sharding, train
+
+    ref = ref_params = None
+    if rank == 0:
+        one = sharding.Mesh(torch.device(device), dict(zip(sharding.AXES, (1, 1, RG_RANKS, 1, 1))))
+        batch = train.synthetic_batch(cfg, RG_B, RG_S, seed=0, device=device)
+        state, ref = rank_steps(cfg, lambda: train.init_train_state(cfg, seed=0, mesh=one),
+                                lambda: train.make_train_step(cfg, one), batch, None, RG_STEPS)
+        ref_params = state_host(state)
+        del state, batch
+        torch.cuda.empty_cache()
+        log(f"phase 16 one-device ring {cfg.dtype}: " + json.dumps(ref))
+    torch.distributed.barrier()
+    out = {}
+    batch = train.synthetic_batch(cfg, RG_B, RG_S, seed=0, mesh=mesh)
+    for mutation in (None, *mutations):
+        shapes, undo_spy = tr_launch_spy()
+        undo = rg_mutate(mutation)
+        try:
+            state, r = rank_steps(cfg, lambda: train.init_train_state(cfg, seed=0, mesh=mesh),
+                                  lambda: train.make_train_step(cfg, mesh), batch, mesh,
+                                  RG_STEPS)
+        finally:
+            undo()
+            undo_spy()
+        r["kernel_shapes"] = {k: sorted(v) for k, v in shapes.items()}
+        r["digest"] = leaf_digest(state.params)
+        every = [None] * RG_RANKS
+        torch.distributed.all_gather_object(every, r)
+        if rank == 0:
+            res = dict(ranks=every, mutation=mutation, dtype=cfg.dtype, n_layers=cfg.n_layers,
+                       **tr_compare(every[0], ref, RG_TOL[cfg.dtype]),
+                       params=tr_param_gaps(state.params, ref_params))
+            out[mutation or "sound"] = res
+            log(f"phase 16 {mutation or 'sound'} ({cfg.dtype}, {cfg.n_layers} layers): "
+                + json.dumps(res))
+        del state
+        torch.cuda.empty_cache()
+    if rank == 0:
+        out["one_device"] = ref
+    return out
+
+
+def state_host(state):
+    """[(name, host copy)] of a train state's params."""
+    from dstack_tpu_torch.workloads.weights import flatten_params
+
+    return [(k, t.detach().to("cpu", copy=True)) for k, t in flatten_params(state.params)]
+
+
+def rg_rank_main(rank: int, init: str) -> int:
+    """One rank of phase 16, a process of its own: smol-1b-8k at full
+    width and depth on four gloo ranks sharing cuda:0, a seq axis of 4 (the
+    ring across the ranks), against phase 7's one-device ring on the same
+    card, weights and batch; then at RG_F32_LAYERS in f32 with the two
+    mutants. Rank 0 prints its readings as one JSON line."""
+    from dstack_tpu_torch.workloads import sharding
+    from dstack_tpu_torch.workloads.config import PRESETS
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sharding.init_ranks(RG_RANKS, rank, init, backend="gloo", device=RG_DEVICE)
+    mesh = sharding.make_mesh([RG_DEVICE], layout="training", seq=RG_RANKS)
+    cfg = PRESETS[RG_PRESET]
+    out = {"bf16": rg_run(cfg, rank, mesh, RG_DEVICE, ())}
+    cfg32 = cfg.with_(n_layers=RG_F32_LAYERS, dtype="float32")
+    out["f32"] = rg_run(cfg32, rank, mesh, RG_DEVICE, RG_MUTANTS)
+    if rank == 0:
+        print("RG_RESULT " + json.dumps(out), flush=True)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def gates_pass(r: dict) -> bool:
+    """Whether a case's first loss, grad_norm and params are within its
+    tolerances (and, where read, the shared replicas equal)."""
+    tol, p = r["tol"], r["params"]
+    return (r["loss_rel"] <= tol["loss"] and r["grad_norm_rel"] <= tol["grad_norm"]
+            and p["rel_l2"] <= tol["params"][0] and p["row_rel"] <= tol["params"][1]
+            and r.get("shared_equal", True))
+
+
+def check_ring_ranks(res: dict) -> None:
+    """The gates of 16(a), (b), (d) and (e) on rank 0's readings."""
+    from dstack_tpu_torch.workloads.config import PRESETS
+
+    cfg = PRESETS[RG_PRESET]
+    shape = (RG_B * cfg.n_heads, RG_S // RG_RANKS, cfg.head_dim)
+    for dtype_tag, cases in res.items():
+        for name, r in cases.items():
+            if name == "one_device":
+                continue
+            tol, p = r["tol"], r["params"]
+            if r["mutation"]:
+                if gates_pass(r):
+                    raise AssertionError(f"phase 16 {name}: the gates pass the mutant (loss"
+                                         f" {r['loss_rel']}, grad_norm {r['grad_norm_rel']},"
+                                         f" params {p}, tol {tol})")
+                continue
+            if not gates_pass(r):
+                raise AssertionError(f"phase 16 {dtype_tag}: loss {r['loss_rel']}, grad_norm"
+                                     f" {r['grad_norm_rel']}, params {p}; tol {tol}")
+            first = r["ranks"][0]
+            for rk, rr in enumerate(r["ranks"]):
+                if [rr["loss"], rr["grad_norm"], rr["digest"]] != [
+                        first["loss"], first["grad_norm"], first["digest"]]:
+                    raise AssertionError(f"phase 16: rank {rk}'s metrics or params differ")
+                # Rank i attends shards 0..i: i + 1 ring steps a layer and
+                # forward, no other flash kernel (the backward is plain).
+                want = dict.fromkeys(FLASH_REPLACES, 0.0)
+                want["flash_block_fwd"] = float((rk + 1) * r["n_layers"])
+                if rr["launches_per_step"] != want:
+                    raise AssertionError(f"phase 16 rank {rk}: launches per step"
+                                         f" {rr['launches_per_step']}, not {want}")
+                # n - 1 hops a layer forward, n backward.
+                hops = float(r["n_layers"] * (2 * RG_RANKS - 1))
+                if rr["hops_per_step"] != hops:
+                    raise AssertionError(f"phase 16 rank {rk}: {rr['hops_per_step']} hops a"
+                                         f" step, not {hops}")
+                if dtype_tag == "bf16" and rr["kernel_shapes"] != {
+                        "flash_block_fwd": [list(shape)]}:
+                    raise AssertionError(f"phase 16 rank {rk}: kernel shapes"
+                                         f" {rr['kernel_shapes']}, not {shape}")
+
+
+def run_ring_ranks() -> dict:
+    """Phase 16: four rank processes over gloo on the card (kernel #5 at
+    their geometry is phase 3c's)."""
+    t0 = time.monotonic()
+    res = launch_procs(["--rg-rank"], "phase16", RG_RANKS, "RG_RESULT", RG_TIMEOUT)
+    check_ring_ranks(res)
+    r, ref = res["bf16"]["sound"], res["bf16"]["one_device"]
+    log(f"phase 16 (gloo, four ranks on one card: a check, not a parallel speed): step"
+        f" {[round(x['step_ms'][-1], 1) for x in r['ranks']]} ms against the one-device"
+        f" ring's {ref['step_ms'][-1]:.1f}; hops per step {r['ranks'][0]['hops_per_step']}"
+        f" ({r['ranks'][0]['hop_mb_per_step']:.1f} MB, {r['ranks'][0]['hop_ms_per_step']:.1f}"
+        f" ms), collectives {r['ranks'][0]['collectives_per_step']}"
+        f" ({r['ranks'][0]['collective_ms_per_step']:.1f} ms); peak"
+        f" {[round(x['peak_mem_gb'], 2) for x in r['ranks']]} GB per rank;"
+        f" {time.monotonic() - t0:.1f}s")
+    return dict(ranks=res, seconds=time.monotonic() - t0)
+
+
+# -- phase 17: the GPipe pipeline ---------------------------------------------------
+
+PP_RANKS = 2
+PP_PRESET, PP_DEVICE = "smol-1b", "cuda:0"
+# Phase 6's shape: B 8 x S 2048 in PP_MICRO microbatches of 2 rows.
+PP_B, PP_S, PP_MICRO, PP_STEPS = 8, 2048, 4, 2
+PP_TIMEOUT = 600
+PP_F32_LAYERS = 2
+# The mutants the param gate must fail (at PP_F32_LAYERS in f32): each
+# microbatch's output collected one tick early (slot m takes microbatch
+# m - 1's), and the shared leaves' grads not summed over pipe.
+PP_MUTANTS = ("early_collect", "shared_unsummed")
+# The stages against phase 6's unsharded step (17a, 17b), as RG_TOL: ~3x
+# the sound reading on the H100 (PERF.md, phase 17). bf16: loss 0 (the
+# microbatches' rows run the same kernels), grad_norm 1.96e-5, params
+# 9.66e-4 / 2.73e-2; f32 at 2 layers: loss 0, grad_norm 6.5e-8, params
+# 3.8e-6 / 7.8e-4. The mutants read loss 3.5e-4 and params 2.3e-2 (the
+# early collect), grad_norm 1.9e-2, params 2.3e-2 and parted replicas
+# (the shared grads unsummed).
+PP_TOL = {"bfloat16": dict(loss=3e-7, grad_norm=6e-5, params=(2.9e-3, 8.2e-2)),
+          "float32": dict(loss=3e-7, grad_norm=3e-7, params=(1.2e-5, 2.4e-3))}
+# (B*H, S, hd) of kernels #2-#4 on a stage: a microbatch's 2 rows x 16 heads.
+PP_KERNEL_CASES = (("stage_bf16", torch.bfloat16, PP_B // PP_MICRO * 16, PP_S, 128, True),
+                   ("stage_f32", torch.float32, PP_B // PP_MICRO * 16, PP_S, 128, True))
+
+
+def pp_mutate(kind):
+    """17(e): the mutants of PP_MUTANTS. Returns the undo."""
+    from dstack_tpu_torch.workloads import pipeline
+
+    if kind == "early_collect":
+        orig = pipeline.collect
+        pipeline.collect = lambda outs: [outs[0]] + list(outs[:-1])
+        return lambda: setattr(pipeline, "collect", orig)
+    if kind == "shared_unsummed":
+        orig = pipeline.sum_shared_grads
+        pipeline.sum_shared_grads = lambda grads, mesh: grads
+        return lambda: setattr(pipeline, "sum_shared_grads", orig)
+    return lambda: None
+
+
+def gather_stages(cfg, params, mesh):
+    """On rank 0: the whole params, its stage's layers and every other
+    stage's, received leaf by leaf over the pipe line, plus whether every
+    stage's shared leaves equal rank 0's bit for bit. Other ranks send
+    theirs and get (None, None)."""
+    from dstack_tpu_torch.workloads.pipeline import SHARED
+    from dstack_tpu_torch.workloads.sharding import exchange
+    from dstack_tpu_torch.workloads.weights import flatten_params
+
+    stage, n = mesh.coords["pipe"], mesh.shape["pipe"]
+    whole, equal = [], True
+    for k, t in flatten_params(params):
+        t = t.detach()
+        if stage:
+            exchange(mesh, "pipe", send=t, dst=0)
+            continue
+        parts = [t] + [exchange(mesh, "pipe", recv_like=t, src=s) for s in range(1, n)]
+        if k.split("/")[0] in SHARED:
+            equal = equal and all(torch.equal(p, t) for p in parts)
+            whole.append((k, t))
+        else:
+            cat = torch.cat(parts)
+            whole.append((k, cat.reshape(cfg.n_layers, *cat.shape[2:])))
+    return (whole, equal) if stage == 0 else (None, None)
+
+
+def pp_run(cfg, rank, mesh, device, mutations) -> dict:
+    """Rank 0 runs phase 6's unsharded step (the other waits), then both
+    stages run the pipeline, sound and with each of `mutations`; rank 0
+    gathers the stages' params and holds them against the unsharded run's."""
+    from dstack_tpu_torch.workloads import pipeline, train
+    from dstack_tpu_torch.workloads.weights import unflatten_params
+
+    ref = ref_params = None
+    if rank == 0:
+        batch = train.synthetic_batch(cfg, PP_B, PP_S, seed=0, device=device)
+        state, ref = rank_steps(cfg, lambda: train.init_train_state(cfg, seed=0, device=device),
+                                lambda: train.make_train_step(cfg), batch, None, PP_STEPS)
+        ref_params = state_host(state)
+        del state, batch
+        torch.cuda.empty_cache()
+        log(f"phase 17 unsharded {cfg.dtype}: " + json.dumps(ref))
+    torch.distributed.barrier()
+    out = {}
+    batch = pipeline.pipeline_batch(cfg, PP_B, PP_S, mesh, seed=0)
+    for mutation in (None, *mutations):
+        shapes, undo_spy = tr_launch_spy()
+        undo = pp_mutate(mutation)
+        try:
+            state, r = rank_steps(
+                cfg, lambda: pipeline.init_pipeline_state(cfg, 0, mesh),
+                lambda: pipeline.make_pipeline_train_step(cfg, mesh, PP_MICRO), batch, mesh,
+                PP_STEPS)
+        finally:
+            undo()
+            undo_spy()
+        r["kernel_shapes"] = {k: sorted(v) for k, v in shapes.items()}
+        whole, equal = gather_stages(cfg, state.params, mesh)
+        every = [None] * PP_RANKS
+        torch.distributed.all_gather_object(every, r)
+        if rank == 0:
+            res = dict(ranks=every, mutation=mutation, dtype=cfg.dtype, n_layers=cfg.n_layers,
+                       shared_equal=equal, **tr_compare(every[0], ref, PP_TOL[cfg.dtype]),
+                       params=tr_param_gaps(unflatten_params(whole), ref_params))
+            out[mutation or "sound"] = res
+            log(f"phase 17 {mutation or 'sound'} ({cfg.dtype}, {cfg.n_layers} layers): "
+                + json.dumps(res))
+        del state, whole
+        torch.cuda.empty_cache()
+    if rank == 0:
+        out["unsharded"] = ref
+    return out
+
+
+def pp_rank_main(rank: int, init: str) -> int:
+    """One stage of phase 17, a process of its own: smol-1b at full width
+    and depth cut into two stages of 8 layers on two gloo ranks sharing
+    cuda:0, B 8 x 2048 in 4 microbatches, against phase 6's unsharded step
+    on the same card, weights and batch; then at PP_F32_LAYERS in f32 with
+    the two mutants. Rank 0 prints its readings as one JSON line."""
+    from dstack_tpu_torch.workloads import pipeline, sharding
+    from dstack_tpu_torch.workloads.config import PRESETS
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sharding.init_ranks(PP_RANKS, rank, init, backend="gloo", device=PP_DEVICE)
+    mesh = pipeline.make_pipeline_mesh([PP_DEVICE], data=1, pipe=PP_RANKS)
+    cfg = PRESETS[PP_PRESET]
+    out = {"bf16": pp_run(cfg, rank, mesh, PP_DEVICE, ())}
+    cfg32 = cfg.with_(n_layers=PP_F32_LAYERS, dtype="float32")
+    out["f32"] = pp_run(cfg32, rank, mesh, PP_DEVICE, PP_MUTANTS)
+    if rank == 0:
+        print("PP_RESULT " + json.dumps(out), flush=True)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def check_pipeline(res: dict) -> None:
+    """The gates of 17(a), (b), (d) and (e) on rank 0's readings."""
+    from dstack_tpu_torch.workloads.config import PRESETS
+
+    cfg = PRESETS[PP_PRESET]
+    shape = (PP_B // PP_MICRO * cfg.n_heads, PP_S, cfg.head_dim)
+    for dtype_tag, cases in res.items():
+        for name, r in cases.items():
+            if name == "unsharded":
+                continue
+            tol, p = r["tol"], r["params"]
+            if r["mutation"]:
+                if gates_pass(r):
+                    raise AssertionError(f"phase 17 {name}: the gates pass the mutant (loss"
+                                         f" {r['loss_rel']}, grad_norm {r['grad_norm_rel']},"
+                                         f" params {p}, tol {tol})")
+                continue
+            if not gates_pass(r):
+                raise AssertionError(f"phase 17 {dtype_tag}: loss {r['loss_rel']}, grad_norm"
+                                     f" {r['grad_norm_rel']}, params {p}, shared replicas"
+                                     f" equal {r['shared_equal']}; tol {tol}")
+            for rk, rr in enumerate(r["ranks"]):
+                if [rr["loss"], rr["grad_norm"]] != [r["ranks"][0]["loss"],
+                                                     r["ranks"][0]["grad_norm"]]:
+                    raise AssertionError(f"phase 17: rank {rk}'s metrics differ")
+                # Each stage: its L/P layers for every microbatch.
+                n = float(r["n_layers"] // PP_RANKS * PP_MICRO)
+                want = dict(flash_fwd=n, flash_bwd_dq=n, flash_bwd_dkv=n, flash_block_fwd=0.0)
+                if rr["launches_per_step"] != want:
+                    raise AssertionError(f"phase 17 stage {rk}: launches per step"
+                                         f" {rr['launches_per_step']}, not {want}")
+                # A microbatch's activations on, its grads back: 2 a microbatch.
+                if rr["hops_per_step"] != 2.0 * PP_MICRO:
+                    raise AssertionError(f"phase 17 stage {rk}: {rr['hops_per_step']}"
+                                         " exchanges a step")
+                if dtype_tag == "bf16":
+                    shapes = {tuple(s) for v in rr["kernel_shapes"].values() for s in v}
+                    if shapes != {shape}:
+                        raise AssertionError(f"phase 17 stage {rk}: kernel shapes"
+                                             f" {rr['kernel_shapes']}, not {shape}")
+
+
+def run_pipeline() -> dict:
+    """Phase 17: (c) kernels #2-#4 at a stage's geometry here, (a, b, d, e)
+    in two stage processes."""
+    t0 = time.monotonic()
+    kernels = run_flash(cases=PP_KERNEL_CASES)
+    t1 = time.monotonic()
+    res = launch_procs(["--pp-rank"], "phase17", PP_RANKS, "PP_RESULT", PP_TIMEOUT)
+    check_pipeline(res)
+    t2 = time.monotonic()
+    r, ref = res["bf16"]["sound"], res["bf16"]["unsharded"]
+    log(f"phase 17 (gloo, two stages on one card: a check, not a pipeline speed): step"
+        f" {[round(x['step_ms'][-1], 1) for x in r['ranks']]} ms against unsharded"
+        f" {ref['step_ms'][-1]:.1f}; exchanges per step {r['ranks'][0]['hops_per_step']}"
+        f" ({r['ranks'][0]['hop_mb_per_step']:.1f} MB sent by stage 0,"
+        f" {r['ranks'][0]['hop_ms_per_step']:.1f} ms), collectives"
+        f" {r['ranks'][0]['collectives_per_step']}; peak"
+        f" {[round(x['peak_mem_gb'], 2) for x in r['ranks']]} GB per stage")
+    log(f"phase 17: kernels {t1 - t0:.1f}s, stages {t2 - t1:.1f}s")
+    return dict(kernels=kernels, ranks=res, seconds=dict(kernels=t1 - t0, stages=t2 - t1))
+
+
 def paged_entry(kres, launches, wave) -> dict:
     """The paged kernel's entry of the `kernels` line: the bf16 decode
     case's times, the bf16 short-slot decode and chunk cases' beside them,
@@ -5863,6 +6332,17 @@ def main() -> int:
     tr = run_train_ranks()
     log(f"phase 15: {time.monotonic() - t0:.1f}s")
 
+    # 16. the ring across ranks: smol-1b-8k over four gloo ranks on the card
+    # at seq 4; 17. the GPipe pipeline: smol-1b in two stages on two ranks
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    ring_ranks = run_ring_ranks()
+    log(f"phase 16: {time.monotonic() - t0:.1f}s")
+    t0 = time.monotonic()
+    pipe = run_pipeline()
+    log(f"phase 17: {time.monotonic() - t0:.1f}s")
+
     log(f"total {time.monotonic() - t_all:.1f}s")
     kernels = {"kernels": [paged_entry(kres, launches, wave)]}
     # The paged kernel's launches on the speculative and host-tier paths
@@ -5906,8 +6386,14 @@ def main() -> int:
                 # Each rank of phase 15's bf16 layouts over its TR_STEPS steps.
                 **{f"train_{name}_rank{r}": int(rr["launches_per_step"][kern] * TR_STEPS)
                    for name in ("fsdp2", "model2")
-                   for r, rr in enumerate(tr["ranks"]["bf16"][name]["ranks"])}}}
-               if kern != "flash_block_fwd" else {}),
+                   for r, rr in enumerate(tr["ranks"]["bf16"][name]["ranks"])},
+                # Each stage of phase 17's bf16 pipeline over its PP_STEPS steps.
+                **{f"pipeline_stage{r}": int(rr["launches_per_step"][kern] * PP_STEPS)
+                   for r, rr in enumerate(pipe["ranks"]["bf16"]["sound"]["ranks"])}}}
+               if kern != "flash_block_fwd" else {"launches_by_path": {
+                   # Each rank of phase 16's bf16 ring over its RG_STEPS steps.
+                   f"ring_rank{r}": int(rr["launches_per_step"][kern] * RG_STEPS)
+                   for r, rr in enumerate(ring_ranks["ranks"]["bf16"]["sound"]["ranks"])}}),
             "max_abs_err": main_f["max_abs_err"],
             "ms": main_f["ms"],
             "ms_one_launch": main_f["ms_one_launch"],
@@ -5926,10 +6412,13 @@ def main() -> int:
             # Phase 15c: at a rank's geometry (B*H 64, S 2048, hd 128).
             rank_f = next(r for r in tr["kernels"]
                           if r["case"] == "rank_bf16" and r["kernel"] == kern)
-            kernels["kernels"][-1]["per_rank"] = {
-                k: rank_f[k] for k in ("max_abs_err", "ms", "ms_one_launch", "plain_ms",
-                                       "bound_ms", "bound_by", "library_ms",
-                                       "library_ms_one_launch", "tflops", "bound_share")}
+            stage_f = next(r for r in pipe["kernels"]
+                           if r["case"] == "stage_bf16" and r["kernel"] == kern)
+            keys = ("max_abs_err", "ms", "ms_one_launch", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "library_ms_one_launch", "tflops", "bound_share")
+            kernels["kernels"][-1]["per_rank"] = {k: rank_f[k] for k in keys}
+            # Phase 17c: at a stage's geometry (B*H 32: a 2-row microbatch).
+            kernels["kernels"][-1]["per_stage"] = {k: stage_f[k] for k in keys}
     os.makedirs(os.path.dirname(OUT), exist_ok=True)
     with open(OUT, "w") as f:
         json.dump({"device": smi, "paged": kres, "spec": spec, "host_tier": host_tier,
@@ -5939,6 +6428,7 @@ def main() -> int:
                    "lora_train": lora_train, "lora_checks": lora_checks, "rl": rl,
                    "moe_module": moe_module, "moe_serving": moe_serving,
                    "moe_train": moe_train, "tp": tp, "train_ranks": tr,
+                   "ring_ranks": ring_ranks, "pipeline": pipe,
                    "build_s": _build.build_seconds},
                   f, indent=1)
     # What could hold the interpreter's exit: threads that are not daemons
@@ -5964,6 +6454,10 @@ if __name__ == "__main__":
         sys.exit(tp_rank_main(*rank_args()))
     if "--tr-rank" in argv:  # a rank of phase 15, started by run_train_ranks
         sys.exit(tr_rank_main(*rank_args()))
+    if "--rg-rank" in argv:  # a rank of phase 16, started by run_ring_ranks
+        sys.exit(rg_rank_main(*rank_args()))
+    if "--pp-rank" in argv:  # a stage of phase 17, started by run_pipeline
+        sys.exit(pp_rank_main(*rank_args()))
     if "--tp-nccl" in argv or "--tr-nccl" in argv:  # 14(f) and 15(f), in their own process
         torch.backends.cuda.matmul.allow_tf32 = False
         run_tp_nccl() if "--tp-nccl" in argv else run_train_nccl()

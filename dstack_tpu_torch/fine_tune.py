@@ -12,34 +12,40 @@ of examples/fine-tuning/jax/train.py).
     python -m dstack_tpu_torch.fine_tune --model-parallel 2
     # 4 ranks on 4 cards: model 2 x fsdp 2
     python -m dstack_tpu_torch.fine_tune --model-parallel 2 --ranks 4
+    # the ring across 4 ranks (one seq shard each), four ranks on one card
+    python -m dstack_tpu_torch.fine_tune --preset smol-1b-8k --seq-len 8192 \
+        --batch-size 1 --seq-parallel 4 --ranks 4 --device cuda:0 --dist-backend gloo
     # two ranks sharing one card (gloo), or the CPU
     python -m dstack_tpu_torch.fine_tune --model-parallel 2 --device cuda:0 \
         --dist-backend gloo
     python -m dstack_tpu_torch.fine_tune --device cpu --preset tiny --model-parallel 2
 
 Training across ranks. `--ranks N` sets the trainer's world, its number of
-ranks (default: `--model-parallel`, one rank per model shard): rank 0
-starts ranks 1..N-1 itself, as fresh interpreters of this module (`--rank
-r --dist-init tcp://127.0.0.1:<port>`, a loopback port rank 0 picks), so a
+ranks (default: `--model-parallel` x `--seq-parallel` when
+`--model-parallel` > 1, one rank per model and seq shard): rank 0 starts
+ranks 1..N-1 itself, as fresh interpreters of this module (`--rank r
+--dist-init tcp://127.0.0.1:<port>`, a loopback port rank 0 picks), so a
 job command stays one process. The mesh is the reference's training layout
 over those ranks (workloads/sharding.py, `layout="training"`): a model axis
-of `--model-parallel` and fsdp taking what is left, as the JAX trainer's
-mesh over `jax.devices()`; the global batch is rounded up to a multiple of
-data x fsdp, as the JAX trainer rounds it. Rank r runs on `cuda:r`, or on
+of `--model-parallel`, a seq axis of `--seq-parallel` (the ring across the
+ranks, each holding one stretch of the sequence) and fsdp taking what is
+left, as the JAX trainer's mesh over `jax.devices()`; the global batch is
+rounded up to a multiple of data x fsdp, as the JAX trainer rounds it. Rank r runs on `cuda:r`, or on
 `--device` for every rank when it is given; `--dist-backend` is nccl (the
 default on CUDA, one rank per card) or gloo (the default on the CPU, and
 the transport for ranks that share a card). Every rank draws the same
 whole params from seed 0 and keeps its slices; checkpoints and the export
 are written whole by rank 0 from every rank's shards, so a run resumes on
-any number of ranks. Only rank 0 prints. A seq axis and an expert axis
-over ranks, and MoE presets over ranks, raise (ROADMAP Queue 1 items 3c,
-3d); so does `--seq-parallel` with more than one rank. Multi-host
-rendezvous from the orchestrator's injected coordinator env is a later
-slice (ROADMAP Queue 1 item 3).
+any number of ranks. Only rank 0 prints. An expert axis over ranks and MoE
+presets over ranks raise (ROADMAP Queue 1 item 3d); so does a multi-host
+rendezvous from the orchestrator's injected coordinator env
+(`JAX_NUM_PROCESSES` > 1, ROADMAP Queue 1 item 3f).
 
-`--seq-parallel n` builds a seq mesh whose n sequence shards take turns on
-the one device through the ring (workloads/attention.py); it works on the
-CPU too (`--device cpu --preset tiny --seq-parallel 4 --seq-len 256`).
+`--seq-parallel n` alone (one rank) builds a seq mesh whose n sequence
+shards take turns on the one device through the ring
+(workloads/attention.py); it works on the CPU too (`--device cpu --preset
+tiny --seq-parallel 4 --seq-len 256`). With `--ranks` or
+`--model-parallel` > 1 the seq axis runs over the ranks instead.
 
 `--checkpoint-dir` (default `$CHECKPOINT_DIR`, a directory on a mounted
 volume) makes a run resumable, as the JAX example trainer: the newest
@@ -88,6 +94,7 @@ from dstack_tpu_torch.workloads.sharding import (
     check_heads,
     join_ranks,
     make_mesh,
+    refuse_multi_host,
     shard_tree,
     stop_followers,
     unshard_tree,
@@ -117,8 +124,10 @@ def main(argv: Optional[list] = None) -> None:
     parser.add_argument("--expert-parallel", type=int, default=1)
     parser.add_argument("--ranks", type=int, default=None,
                         help="the trainer's world: ranks 1..N-1 are started by rank 0"
-                             " (default: --model-parallel); fsdp takes N /"
-                             " --model-parallel")
+                             " (default: --model-parallel x --seq-parallel when"
+                             " --model-parallel > 1, else 1); the seq axis runs over"
+                             " the ranks and fsdp takes N / (--model-parallel x"
+                             " --seq-parallel)")
     parser.add_argument("--dist-backend", choices=BACKENDS, default=None,
                         help="transport between ranks: nccl (default on CUDA, one"
                              " rank per card) or gloo (default on the CPU; ranks"
@@ -130,20 +139,20 @@ def main(argv: Optional[list] = None) -> None:
                              " (0 = full fine-tune)")
     argv = sys.argv[1:] if argv is None else list(argv)
     args = parser.parse_args(argv)
-    world = args.model_parallel if args.ranks is None else args.ranks
+    refuse_multi_host()
+    if args.ranks is not None:
+        world = args.ranks
+    else:  # --seq-parallel alone keeps the one-device ring
+        world = args.model_parallel * (args.seq_parallel if args.model_parallel > 1 else 1)
 
     if args.expert_parallel > 1:
         raise NotImplementedError(
             f"not ported to PyTorch yet: --expert-parallel {args.expert_parallel}"
             " (expert parallelism, ROADMAP Queue 1 item 3d)")
-    if args.seq_parallel > 1 and world > 1:
-        raise NotImplementedError(
-            f"not ported to PyTorch yet: --seq-parallel {args.seq_parallel} over"
-            f" {world} ranks (the ring's hop across ranks, ROADMAP Queue 1 item 3c);"
-            " the ring runs its shards on one device")
-    if args.model_parallel < 1 or world % args.model_parallel:
-        raise SystemExit(f"--model-parallel {args.model_parallel} must divide the"
-                         f" {world} ranks")
+    cut = args.model_parallel * (args.seq_parallel if world > 1 else 1)
+    if args.model_parallel < 1 or args.seq_parallel < 1 or world % cut:
+        raise SystemExit(f"--model-parallel {args.model_parallel} x --seq-parallel"
+                         f" {args.seq_parallel} must divide the {world} ranks")
     if args.lora_rank > 0 and args.accum_steps > 1:
         raise NotImplementedError(
             f"--accum-steps {args.accum_steps} with --lora-rank: the LoRA step"
@@ -154,10 +163,10 @@ def main(argv: Optional[list] = None) -> None:
     if seq_len > config.max_seq_len:
         raise SystemExit(f"--seq-len > {config.max_seq_len} for {args.preset}")
     mesh, followers = None, []
-    if args.seq_parallel > 1:
-        if seq_len % args.seq_parallel:
-            raise SystemExit(f"--seq-parallel {args.seq_parallel} must divide"
-                             f" --seq-len {seq_len}")
+    if seq_len % args.seq_parallel:
+        raise SystemExit(f"--seq-parallel {args.seq_parallel} must divide"
+                         f" --seq-len {seq_len}")
+    if world == 1 and args.seq_parallel > 1:
         mesh = make_mesh(None if args.device is None else [args.device],
                          seq=args.seq_parallel)
     elif world > 1:
@@ -170,7 +179,7 @@ def main(argv: Optional[list] = None) -> None:
             mesh, followers = join_ranks(
                 world, args.rank, args.dist_init, args.dist_backend, args.device,
                 ["-m", "dstack_tpu_torch.fine_tune", *argv], layout="training",
-                model=args.model_parallel)
+                model=args.model_parallel, seq=args.seq_parallel)
         except ValueError as e:
             raise SystemExit(f"invalid training configuration: {e}")
     try:

@@ -13,8 +13,9 @@
 On a training mesh over ranks (`BatchLoader(mesh=)`) every rank derives
 the same global batch order and reads only the rows BATCH_SPEC gives its
 (data, fsdp) coordinate, as the reference's shard callback
-(`data.py:128-140`) reads only its devices' windows; the global batch is
-unchanged.
+(`data.py:128-140`) reads only its devices' windows, and keeps the
+stretch of the sequence its seq coordinate gives it (inputs and targets
+alike); the global batch is unchanged.
 """
 
 import queue
@@ -25,7 +26,13 @@ import numpy as np
 import torch
 
 from dstack_tpu_torch.workloads.device import DeviceLike, resolve_device
-from dstack_tpu_torch.workloads.sharding import BATCH_SPEC, batch_shards, shard, training_mesh
+from dstack_tpu_torch.workloads.sharding import (
+    BATCH_SPEC,
+    batch_shards,
+    seq_ranks,
+    shard,
+    training_mesh,
+)
 
 
 def encode_bytes(text: str, vocab_size: int) -> np.ndarray:
@@ -98,6 +105,9 @@ class BatchLoader:
         if batch_size % batch_shards(self.mesh):
             raise ValueError(f"batch_size {batch_size} does not split over the"
                              f" {batch_shards(self.mesh)} data x fsdp ranks")
+        if dataset.seq_len % seq_ranks(self.mesh):
+            raise ValueError(f"seq_len {dataset.seq_len} does not split over the"
+                             f" {seq_ranks(self.mesh)} seq ranks")
         self.batch_size = batch_size
         self.device = resolve_device(device) if self.mesh is None else self.mesh.device
         self._source = _global_batches(dataset, batch_size, seed, start_step)
@@ -121,12 +131,17 @@ class BatchLoader:
         return t.pin_memory().to(self.device, non_blocking=True)
 
     def _place(self, idx: np.ndarray) -> Dict[str, torch.Tensor]:
-        # This rank's rows of the global batch (all of them off a mesh).
+        # This rank's rows of the global batch and its stretch of their
+        # sequence (all of both off a mesh).
         idx = shard(torch.from_numpy(idx), BATCH_SPEC[:1], self.mesh).numpy()
         rows = self.dataset.rows(idx)
         self._check_vocab(rows)
-        return {"inputs": self._to_device(rows[:, :-1]),
-                "targets": self._to_device(rows[:, 1:])}
+
+        def cut(a):
+            return shard(torch.from_numpy(a), (None, BATCH_SPEC[1]), self.mesh).numpy()
+
+        return {"inputs": self._to_device(cut(rows[:, :-1])),
+                "targets": self._to_device(cut(rows[:, 1:]))}
 
     def _fill(self) -> None:
         try:

@@ -25,7 +25,8 @@ scale * A_i @ B_j is the merged weight's block (i, j), so the merge runs on
 each rank's slices with no collective, and the merged slices go through
 the sharded forward (train.py). A_i's grad sums G_ij @ B_j over the model
 axis and B_j's A_i @ G_ij over fsdp, so after the backward A's grads are
-summed over (data, model) and B's over (data, fsdp). Only column-parallel
+summed over (data, seq, model) and B's over (data, fsdp, seq) (every seq
+rank saw other positions of the same rows). Only column-parallel
 targets (wq, wk, wv, w_gate, w_up: "fsdp" on the input dim, "model" on the
 output) merge that way; a row-parallel target (wo, w_down) over ranks
 raises.
@@ -161,7 +162,7 @@ def _column_targets(config: ModelConfig, mesh, targets: Sequence[str]):
 
 
 # The axes a LoRA grad is summed over after the backward (module docstring).
-_LORA_GRAD_AXES = {"_a": ("data", "model"), "_b": ("data", "fsdp")}
+_LORA_GRAD_AXES = {"_a": ("data", "seq", "model"), "_b": ("data", "fsdp", "seq")}
 
 
 def make_lora_train_step(config: ModelConfig, mesh=None, *, rank: int = 8,

@@ -14,7 +14,7 @@ Three mesh shapes run here:
   Rank r holds its slice of every weight and its KV heads, and the
   engine's host loop on rank 0 drives the same device programs on every
   rank.
-- a training mesh (`make_mesh(data=, fsdp=, model=, layout="training")`
+- a training mesh (`make_mesh(data=, fsdp=, seq=, model=, layout="training")`
   over the ranks): the trainer (`train.make_train_step(config, mesh)`) on
   the reference's PARAM_SPECS. Rank r's coordinates are its row-major index
   in AXES order, the reference's `np.array(devices).reshape(shape)`, so rank
@@ -28,14 +28,17 @@ computes its columns of every product as the unsharded program would, and
 the gathered activations are the unsharded ones.
 
 The training layout is the reference's scaling-book one, written out as
-the collectives GSPMD would insert: batch rows over (data, fsdp); weights
-cut over fsdp on their input dim and whole again at use (`gather_fsdp`,
-whose backward is the reduce-scatter of the grads); wq/wk/wv/w_gate/w_up
-column-parallel and wo/w_down row-parallel on `model` with Megatron's pair
-around each (`enter_model`: identity forward, grads summed over model in
-backward; `reduce_model`: partial sums summed over model forward, identity
-backward); the data axis's grad all-reduce after the backward
-(`reduce_grads`).
+the collectives GSPMD would insert: batch rows over (data, fsdp) and the
+sequence over seq (BATCH_SPEC); weights cut over fsdp on their input dim
+and whole again at use (`gather_fsdp`, whose backward is the
+reduce-scatter of the grads); wq/wk/wv/w_gate/w_up column-parallel and
+wo/w_down row-parallel on `model` with Megatron's pair around each
+(`enter_model`: identity forward, grads summed over model in backward;
+`reduce_model`: partial sums summed over model forward, identity
+backward); attention over the seq axis as the ring across ranks
+(`attention._RankRing`, its K/V hops through `ppermute`); the grad
+all-reduce over data, seq and what fsdp's reduce-scatter did not cover
+after the backward (`reduce_grads`, `grad_axes`).
 
 Specs are tuples of axis names (None: not sharded; a tuple of names: the
 axes' combined index, row-major), one entry per dim; `()` is replicated.
@@ -47,10 +50,14 @@ only some collectives on CUDA tensors and has no reduce-scatter, so under
 gloo the helpers here copy a CUDA tensor through pinned host memory and
 back, and a reduce-scatter is an all-reduce of which each rank keeps its
 block: the one-card transport, chosen by the backend the caller named,
-never by catching an error.
+never by catching an error. `ppermute` is the reference's `lax.ppermute`
+by a shift along one axis line (send to the next rank, receive from the
+previous one, both posted before either waits); it has no autograd of its
+own: the ring and the pipeline call it from explicit schedules that are
+the same on every rank, forward and backward.
 
-A seq axis over ranks (the ring's hop) and an expert axis over ranks
-(expert parallelism) are ROADMAP Queue 1 items 3c and 3d, and raise.
+An expert axis over ranks (expert parallelism) is ROADMAP Queue 1 item
+3d, and raises.
 """
 
 import datetime
@@ -82,19 +89,19 @@ LAYOUTS = ("serving", "training")
 # heartbeat, serving.HEARTBEAT_S, keeps its followers well inside it).
 GROUP_TIMEOUT = datetime.timedelta(minutes=30)
 
-_NEXT_SLICE = ("a seq axis over ranks (the ring's hop) and an expert axis over ranks"
-               " (expert parallelism) are ROADMAP Queue 1 items 3c and 3d, not ported"
-               " yet")
+_NEXT_SLICE = ("an expert axis over ranks (expert parallelism) is ROADMAP Queue 1"
+               " item 3d, not ported yet")
 _ONE_DEVICE = ("without a process group the port runs one device with a seq axis"
-               " (the ring's shards take turns on it); the model, data and fsdp axes"
-               " run over the ranks of sharding.init_ranks (the sharding slices,"
+               " (the ring's shards take turns on it); the model, data, fsdp and seq"
+               " axes run over the ranks of sharding.init_ranks (the sharding slices,"
                " ROADMAP Queue 1 item 3), and " + _NEXT_SLICE)
 
 
 def _stats() -> Dict[str, float]:
     return {"all_gathers": 0, "all_gather_seconds": 0.0, "broadcasts": 0,
             "all_reduces": 0, "all_reduce_seconds": 0.0,
-            "reduce_scatters": 0, "reduce_scatter_seconds": 0.0}
+            "reduce_scatters": 0, "reduce_scatter_seconds": 0.0,
+            "hops": 0, "hop_seconds": 0.0, "hop_bytes": 0}
 
 
 @dataclass(frozen=True)
@@ -126,11 +133,12 @@ class Mesh:
             if any(n > 1 for a, n in self.shape.items() if a != "seq"):
                 raise NotImplementedError(f"mesh {self.shape}: {_ONE_DEVICE}")
             return
-        if self.shape["seq"] > 1 or self.shape["expert"] > 1:
+        if self.shape["expert"] > 1:
             raise NotImplementedError(f"mesh {self.shape} over ranks: {_NEXT_SLICE}")
-        if self.layout == "serving" and self.shape["data"] * self.shape["fsdp"] > 1:
+        if self.layout == "serving" and (
+                self.shape["data"] * self.shape["fsdp"] * self.shape["seq"] > 1):
             raise ValueError(f"mesh {self.shape}: the serving layout shards the model"
-                             " axis only; a data or fsdp axis is the trainer's"
+                             " axis only; a data, fsdp or seq axis is the trainer's"
                              " (make_mesh(..., layout='training'))")
 
     @property
@@ -149,6 +157,11 @@ class Mesh:
         """gloo carries CUDA tensors through host memory (the one-card
         transport); NCCL takes them where they are."""
         return self.backend == "gloo" and self.device.type == "cuda"
+
+    @property
+    def axes(self) -> Tuple[str, ...]:
+        """The mesh's axis names, in the row-major order of its ranks."""
+        return AXES
 
     @property
     def coords(self) -> Dict[str, int]:
@@ -205,8 +218,8 @@ def make_mesh(devices: Optional[Sequence[DeviceLike]] = None, *, data: int = 1,
     """A mesh over `devices`. Without a process group: one device
     (default: the CUDA device) with a seq axis. After `init_ranks`: a mesh
     over every rank of the group, cut for `layout` ("serving": a model
-    axis, the tensor-parallel engine's; "training": data, fsdp and model,
-    the trainer's), whose axis sizes multiply to the world; `devices` is
+    axis, the tensor-parallel engine's; "training": data, fsdp, seq and
+    model, the trainer's), whose axis sizes multiply to the world; `devices` is
     None (`cuda:<rank>`) or one device for every rank. `fsdp=None` takes
     the factor left after the other axes, as the reference's (`:45-49`).
     A training mesh makes one sub-group per line of ranks along each set
@@ -245,22 +258,23 @@ def make_mesh(devices: Optional[Sequence[DeviceLike]] = None, *, data: int = 1,
     return mesh
 
 
-def _line_groups(shape: Dict[str, int], rank: int) -> Dict[Tuple[str, ...], Any]:
+def _line_groups(shape: Dict[str, int], rank: int,
+                 order: Sequence[str] = AXES) -> Dict[Tuple[str, ...], Any]:
     """For each set of the axes above 1, the group of ranks that differ
     from this one only along those axes (its ranks in ascending order,
-    which is their row-major index over the set). Every rank calls
-    `new_group` for every line in the same order; the whole world is the
-    default group."""
-    sizes = [shape[a] for a in AXES]
+    which is their row-major index over the set; ranks are row-major over
+    `order`). Every rank calls `new_group` for every line in the same
+    order; the whole world is the default group."""
+    sizes = [shape[a] for a in order]
     world = math.prod(sizes)
     coords = [np.unravel_index(r, sizes) for r in range(world)]
-    live = [a for a in AXES if shape[a] > 1]
+    live = [a for a in order if shape[a] > 1]
     out = {}
     for k in range(1, len(live) + 1):
         for axes in itertools.combinations(live, k):
             lines: Dict[Tuple[int, ...], List[int]] = {}
             for r, c in enumerate(coords):
-                key = tuple(int(c[i]) for i, a in enumerate(AXES) if a not in axes)
+                key = tuple(int(c[i]) for i, a in enumerate(order) if a not in axes)
                 lines.setdefault(key, []).append(r)
             for key in sorted(lines):
                 ranks = lines[key]
@@ -299,9 +313,9 @@ def device_shards(mesh: Optional[Mesh]) -> Optional[Dict[str, int]]:
     each of its devices holds 1/n of the sequence; on the one-device mesh
     the n seq shards take turns on one device, which holds them all: a seq
     factor of 1. On a training mesh over ranks each rank holds 1/(data *
-    fsdp) of the batch and 1/(fsdp * model) of the weights, the mesh's own
-    shape (the caller sizes the activations by the global batch, as the
-    reference's traced shapes are)."""
+    fsdp) of the batch rows, 1/seq of the sequence and 1/(fsdp * model) of
+    the weights, the mesh's own shape (the caller sizes the activations by
+    the global batch, as the reference's traced shapes are)."""
     if training_mesh(mesh) is None:
         return None
     if mesh.ranked:
@@ -312,6 +326,14 @@ def device_shards(mesh: Optional[Mesh]) -> Optional[Dict[str, int]]:
 def batch_shards(mesh: Optional[Mesh]) -> int:
     """How many ranks split the batch rows (data x fsdp; 1 off a mesh)."""
     return 1 if mesh is None else mesh.shape["data"] * mesh.shape["fsdp"]
+
+
+def seq_ranks(mesh: Optional[Mesh]) -> int:
+    """How many ranks split the sequence (a training mesh's seq axis; 1
+    off a mesh and on the one-device seq mesh, whose device holds every
+    shard). Anything that is not a mesh of the port raises."""
+    model_shards(mesh)
+    return mesh.shape["seq"] if mesh is not None and mesh.training else 1
 
 
 # -- the column-parallel serving layout -----------------------------------------
@@ -453,7 +475,8 @@ def shard(x: torch.Tensor, spec: Tuple, mesh: Optional[Mesh]) -> torch.Tensor:
     carries axes cut into equal contiguous blocks, this rank's block by
     its row-major index on those axes, as `NamedSharding.devices_indices_map`
     places them; `x` itself when the spec replicates or there is one shard."""
-    if model_shards(mesh) * batch_shards(mesh) == 1 or not any(spec):
+    model_shards(mesh)
+    if mesh is None or not mesh.ranked or not any(spec):
         return x
     for dim, entry in enumerate(spec):
         n, idx = _extent(mesh, _axes_of(entry))
@@ -567,7 +590,8 @@ def unshard_tree(mesh: Optional[Mesh], tree: Any) -> Any:
 
 
 def shard_batch(batch: Dict[str, torch.Tensor], mesh: Optional[Mesh]) -> Dict[str, torch.Tensor]:
-    """This rank's rows of a global batch under BATCH_SPEC (views)."""
+    """This rank's block of a global batch under BATCH_SPEC (views): its
+    rows over (data, fsdp) and its stretch of the sequence over seq."""
     return {k: shard(v, BATCH_SPEC[:v.dim()], mesh) for k, v in batch.items()}
 
 
@@ -576,8 +600,9 @@ def shard_batch(batch: Dict[str, torch.Tensor], mesh: Optional[Mesh]) -> Dict[st
 
 def _group(mesh: Mesh, axes: Sequence[str]) -> Tuple[Any, int]:
     """The process group of this rank's line along `axes` (the axes above
-    1, in AXES order) and its size: the whole group on a serving mesh."""
-    live = tuple(a for a in AXES if a in axes and mesh.shape[a] > 1)
+    1, in the mesh's axis order) and its size: the whole group on a
+    serving mesh."""
+    live = tuple(a for a in mesh.axes if a in axes and mesh.shape[a] > 1)
     n = math.prod(mesh.shape[a] for a in live)
     if n == 1:
         return None, 1
@@ -634,6 +659,66 @@ def gather_axes(x: torch.Tensor, dim: int, mesh: Mesh, axes: Sequence[str]) -> t
     row-major order over those axes (`x` itself over one shard)."""
     group, n = _group(mesh, axes)
     return x if n == 1 else _gather(x, dim, mesh, group, n)
+
+
+def _p2p(mesh: Mesh, group: Any, sends, recvs) -> List[torch.Tensor]:
+    """Post every send [(tensor, group rank)] and every receive [(template,
+    group rank)] of this rank on `group` (`batch_isend_irecv`), then wait
+    for all of them; returns the received tensors on the mesh's device.
+    Peers are named by their global ranks (`get_global_rank`). Under gloo a
+    CUDA tensor goes through pinned host memory both ways. Counts one hop,
+    its bytes sent and its seconds in `mesh.stats`."""
+    t0 = time.perf_counter()
+    out = [x.detach().contiguous() for x, _ in sends]
+    if mesh.staged:
+        out = [_pinned_like(x).copy_(x) for x in out]
+    into = [_pinned_like(x) if mesh.staged else torch.empty_like(x) for x, _ in recvs]
+    ops = ([dist.P2POp(dist.isend, x, dist.get_global_rank(group, r), group)
+            for x, (_, r) in zip(out, sends)]
+           + [dist.P2POp(dist.irecv, x, dist.get_global_rank(group, r), group)
+              for x, (_, r) in zip(into, recvs)])
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    if mesh.staged:
+        into = [x.to(mesh.device, non_blocking=True) for x in into]
+    mesh.stats["hop_bytes"] += sum(x.numel() * x.element_size() for x in out)
+    _count(mesh, "hop", t0)
+    return into
+
+
+def ppermute(xs, mesh: Mesh, axis: str, shift: int = 1):
+    """The reference's `lax.ppermute` by `shift` along `axis`: each tensor
+    of `xs` (one tensor or a list) goes to the rank `shift` further on this
+    rank's line of `axis` (wrapping), and the same-shaped tensors of the
+    rank `shift` back arrive in their place. Every send and receive is
+    posted before any is waited on, so a ring of any size, 2 included,
+    cannot block on itself. No autograd: callers run it from an explicit
+    schedule that every rank of the line follows in the same order."""
+    single = torch.is_tensor(xs)
+    xs = [xs] if single else list(xs)
+    group, n = _group(mesh, (axis,))
+    if n == 1:
+        return xs[0] if single else xs
+    me = mesh.coords[axis]
+    got = _p2p(mesh, group, [(x, (me + shift) % n) for x in xs],
+               [(x, (me - shift) % n) for x in xs])
+    return got[0] if single else got
+
+
+def exchange(mesh: Mesh, axis: str, *, send: Optional[torch.Tensor] = None,
+             dst: Optional[int] = None, recv_like: Optional[torch.Tensor] = None,
+             src: Optional[int] = None) -> Optional[torch.Tensor]:
+    """A point-to-point exchange on this rank's line of `axis`: `send` to
+    the rank at coordinate `dst` and/or a tensor shaped like `recv_like`
+    from the rank at coordinate `src`, both posted before either waits;
+    returns what arrived (None without `recv_like`). The pipeline's
+    neighbour exchange; no autograd, as `ppermute`."""
+    group, n = _group(mesh, (axis,))
+    if n == 1:
+        raise ValueError(f"no exchange on an {axis} axis of one rank")
+    got = _p2p(mesh, group, [] if send is None else [(send, dst)],
+               [] if recv_like is None else [(recv_like, src)])
+    return got[0] if got else None
 
 
 def all_reduce(x: torch.Tensor, mesh: Optional[Mesh], axes: Sequence[str],
@@ -760,11 +845,12 @@ def gather_layer(p: Dict[str, Any], mesh: Optional[Mesh]) -> Dict[str, Any]:
 
 def grad_axes(spec: Tuple) -> Tuple[str, ...]:
     """The axes a leaf's grad is still summed over after the backward:
-    data always (each data row of ranks saw other rows), and fsdp for a
-    leaf the fsdp gather's reduce-scatter did not reach. The model axis
+    data and seq always (each data row of ranks saw other rows, each seq
+    rank other positions; every leaf is replicated over seq), and fsdp for
+    a leaf the fsdp gather's reduce-scatter did not reach. The model axis
     needs none: Megatron's pair leaves a leaf replicated over model with
     the same whole grad on every model rank."""
-    return ("data",) if "fsdp" in spec else ("data", "fsdp")
+    return ("data", "seq") if "fsdp" in spec else ("data", "fsdp", "seq")
 
 
 def reduce_grads(grads: List[Tuple[str, torch.Tensor]], mesh: Optional[Mesh],
@@ -777,10 +863,11 @@ def reduce_grads(grads: List[Tuple[str, torch.Tensor]], mesh: Optional[Mesh],
 
 
 def batch_sum(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
-    """`x` summed over the batch axes (data, fsdp) of a training mesh."""
+    """`x` summed over the axes that split the batch's tokens (data, fsdp
+    and seq) of a training mesh."""
     if mesh is None or not mesh.training:
         return x
-    return all_reduce(x, mesh, ("data", "fsdp"))
+    return all_reduce(x, mesh, ("data", "fsdp", "seq"))
 
 
 def replicas(spec: Tuple, mesh: Mesh) -> int:
@@ -853,6 +940,18 @@ def join_ranks(world: int, rank: int, init_method: str, backend: Optional[str],
     except BaseException:
         stop_followers(followers, timeout=0)
         raise
+
+
+def refuse_multi_host() -> None:
+    """An entry point's ranks start on one host (`join_ranks`); a job the
+    orchestrator spread over hosts (JAX_NUM_PROCESSES > 1, the coordinator
+    env the JAX trainers join with `jax.distributed.initialize()`) raises."""
+    n = int(os.environ.get("JAX_NUM_PROCESSES", "1"))
+    if n > 1:
+        raise NotImplementedError(
+            f"JAX_NUM_PROCESSES={n}: a multi-host rendezvous from the orchestrator's"
+            " coordinator env is ROADMAP Queue 1 item 3f, not ported yet; the port's"
+            " ranks start on one host (--ranks)")
 
 
 def loopback_rendezvous() -> str:

@@ -11,18 +11,22 @@ JAX state is as dead after a step as the old tensors here are). Metrics
 stay on the device: the step makes no host readback; callers read what
 they print.
 
-On a training mesh over ranks (sharding.make_mesh(data=, fsdp=, model=,
-layout="training")) each rank holds its slices of the params and AdamW
-moments under PARAM_SPECS (`init_train_state(mesh=)` draws the whole
-params from the seed and cuts them, as the reference's `shard_tree` after
-init) and its rows of the batch (`synthetic_batch(mesh=)`,
-`data.BatchLoader(mesh=)`), and the step runs the collectives of
-sharding.py (module docstring) where GSPMD puts them in the reference's
-jitted step. The loss is the global mean: each rank backpropagates its
-rows' summed CE over the whole batch's mask count (`loss_fn`), never a
-mean of per-rank means, which differ when `loss_mask` is uneven. After the
-backward each grad is summed over the batch axes the fsdp reduce-scatter
-did not cover (`sharding.grad_axes`); AdamW then updates every shard in
+On a training mesh over ranks (sharding.make_mesh(data=, fsdp=, seq=,
+model=, layout="training")) each rank holds its slices of the params and
+AdamW moments under PARAM_SPECS (`init_train_state(mesh=)` draws the
+whole params from the seed and cuts them, as the reference's `shard_tree`
+after init) and its block of the batch, its rows and its stretch of the
+sequence (`synthetic_batch(mesh=)`, `data.BatchLoader(mesh=)`), and the
+step runs the collectives of sharding.py (module docstring) where GSPMD
+puts them in the reference's jitted step, attention over seq as the ring
+across the ranks. The loss is the global token mean: each rank
+backpropagates its tokens' summed CE over the whole batch's mask count,
+summed over data, fsdp and seq (`loss_fn`), never a mean of per-rank
+means, which differ when `loss_mask` is uneven. (The reference's chunked
+CE gathers each chunk off the seq shards; here each rank takes the CE of
+its own tokens: the same sum in another order.) After the backward each
+grad is summed over the axes the fsdp reduce-scatter did not cover, seq
+included (`sharding.grad_axes`); AdamW then updates every shard in
 place, its moments cut as their params. `global_norm` sums the shards'
 squares and counts a replicated leaf once. `loss`, `grad_norm` and
 `router_aux` come out equal on every rank. With `accum_steps` a rank's
@@ -78,6 +82,7 @@ from dstack_tpu_torch.workloads.sharding import (
     reduce_model,
     replicas,
     shard_batch,
+    seq_ranks,
     shard_tree,
     training_mesh,
 )
@@ -213,9 +218,10 @@ def _device_of(device: DeviceLike, mesh) -> torch.device:
 
 
 def ranked_mesh(config: ModelConfig, mesh):
-    """The training mesh over ranks `mesh` is, or None for no mesh and the
-    one-device seq mesh. A mesh cut for serving raises ValueError, and an
-    MoE config over ranks NotImplementedError."""
+    """The training mesh over ranks `mesh` is (any of data, fsdp, seq and
+    model), or None for no mesh and the one-device seq mesh. A mesh cut
+    for serving raises ValueError, and an MoE config over ranks
+    NotImplementedError."""
     mesh = training_mesh(mesh)
     if mesh is None or not mesh.ranked:
         return None
@@ -315,11 +321,14 @@ def loss_fn(config: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
     reaches the remat estimate; `attention_fn` carries the ring. On a
     training mesh over ranks the loss is this rank's share of the global
     mean: its rows' summed CE over the mask count of the whole batch
-    (summed over data x fsdp), so the shares summed over the batch axes
-    (sharding.batch_sum) are the loss and their grads sum to its grad."""
+    (summed over data x fsdp x seq), so the shares summed over those axes
+    (sharding.batch_sum) are the loss and their grads sum to its grad. The
+    chunked CE is chosen by the whole sequence's length, as the
+    reference's; a seq rank chunks its own stretch."""
     inputs, targets = batch["inputs"], batch["targets"]
     mask = batch.get("loss_mask")
-    if config.ce_chunk > 0 and inputs.shape[1] % config.ce_chunk == 0:
+    s_whole = inputs.shape[1] * seq_ranks(mesh)
+    if config.ce_chunk > 0 and s_whole % config.ce_chunk == 0:
         hidden, aux = forward(config, params, inputs, attention_fn=attention_fn,
                               mesh=mesh, return_aux=True, return_hidden=True)
         total, denom = _chunked_ce(hidden, gather_fsdp(params["lm_head"], 0, mesh),
@@ -368,7 +377,8 @@ def make_train_step(config: ModelConfig, mesh=None, learning_rate: float = 3e-4,
     makes one optimizer update with the mean. A seq `mesh` runs attention
     as the ring (make_attention_fn(mesh)); a training mesh over ranks runs
     the sharded step of the module docstring, attention on each rank's
-    heads and rows through the one-device path."""
+    heads and rows through the one-device path, or with a seq axis as the
+    ring across the ranks."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     ranked = ranked_mesh(config, mesh)
@@ -562,7 +572,8 @@ def synthetic_batch(config: ModelConfig, batch_size: int, seq_len: Optional[int]
     """Deterministic fake pre-shifted int32 batch: inputs/targets (B, S),
     drawn from a torch.Generator seeded with `seed` on `device` or the
     mesh's (not the reference's jax.random draw). On a training mesh over
-    ranks: this rank's rows (BATCH_SPEC) of the same global batch."""
+    ranks: this rank's block (BATCH_SPEC: rows over data x fsdp, the
+    sequence over seq) of the same global batch."""
     dev = _device_of(device, mesh)
     s = (seq_len or config.max_seq_len) + 1
     gen = torch.Generator(device=dev).manual_seed(seed)

@@ -35,8 +35,11 @@ the unsharded weights, for the step (fsdp then saves the grads' and
 AdamW's memory, not the weights'); under "full" and "dots" (which saves
 matmul outputs, not their weight operands) the block body is recomputed
 in backward and gathers again, so one layer's gathered weights are live
-at a time, for a second all-gather per layer. Rope positions are 0..S-1 on every rank:
-there is no seq axis over ranks here.
+at a time, for a second all-gather per layer. With a seq axis over the
+ranks each rank holds S/seq positions of the sequence, and its rope
+positions are its stretch of the whole sequence, `coords["seq"] * S_local
++ arange(S_local)` (attention over the seq line is the ring across the
+ranks, `attention._RankRing`).
 """
 
 import functools
@@ -62,6 +65,7 @@ from dstack_tpu_torch.workloads.sharding import (
     gather_fsdp,
     gather_layer,
     reduce_model,
+    seq_ranks,
 )
 
 Params = Dict[str, Any]
@@ -341,18 +345,23 @@ def forward(config: ModelConfig, params: Params, tokens: torch.Tensor, *,
     ring itself lives inside `attention_fn` (make_attention_fn(mesh)), and
     positions stay 0..S-1 since the whole sequence is on the device. On a
     training mesh over ranks (module docstring) `params` are the rank's
-    slices and `tokens` its rows, and the logits are the rank's vocab
-    columns (lm_head is column-parallel on `model`)."""
+    slices and `tokens` its rows and, with a seq axis, its stretch of the
+    sequence (positions offset to it; the remat estimate sees the whole
+    sequence, as the reference's traced shapes are), and the logits are the
+    rank's vocab columns (lm_head is column-parallel on `model`)."""
     c = config
     attn = attention_fn or plain_attention
     dev = tokens.device
+    n_seq = seq_ranks(mesh)
+    s_local = tokens.shape[1]
     if positions is None:
-        positions = torch.arange(tokens.shape[1], device=dev)
+        start = mesh.coords["seq"] * s_local if n_seq > 1 else 0
+        positions = torch.arange(start, start + s_local, device=dev)
     x = gather_fsdp(params["embed"], 1, mesh)[tokens]
 
     quadratic = getattr(attn, "memory_is_quadratic", None)
     if quadratic is not None:
-        attn_scores = quadratic(tokens.shape[1], c.head_dim, c.dtype_bytes,
+        attn_scores = quadratic(s_local * n_seq, c.head_dim, c.dtype_bytes,
                                 device=params_device(params))
     else:
         attn_scores = attn is plain_attention
@@ -360,8 +369,8 @@ def forward(config: ModelConfig, params: Params, tokens: torch.Tensor, *,
     def body(x, p):
         return _block(c, x, p, positions, attn, mesh)
 
-    body = apply_remat(body, c, tokens.shape[0] * tokens.shape[1], mesh,
-                       seq_len=tokens.shape[1], attn_scores=attn_scores)
+    body = apply_remat(body, c, tokens.shape[0] * s_local * n_seq, mesh,
+                       seq_len=s_local * n_seq, attn_scores=attn_scores)
     aux = torch.zeros((), dtype=torch.float32, device=dev)
     for p in _layer_slices(params, c.n_layers):
         x, layer_aux = body(x, p)

@@ -13,6 +13,9 @@ init. Entry points:
   `TrainState` (step, params, and optax's AdamW state: count, mu, nu)
   with numpy leaves becomes the port's, so a state trained or
   checkpointed in JAX continues in the port;
+- `stage_state_from_numpy(state, stage, device)`: the JAX package's
+  pipeline TrainState (params staged (P, L/P, ...), AdamW over them)
+  becomes stage `stage`'s share of it, as the port's pipeline holds it;
 - `lora_from_numpy(tree, device)` / `lora_state_from_numpy(state,
   device)`: the JAX package's adapter tree, or its whole `LoraState`
   (step, adapters, AdamW count/mu/nu), becomes the port's, so both
@@ -276,3 +279,22 @@ def lora_state_from_numpy(state: Any, device: DeviceLike = None):
     for _, t in flatten_params(lora):
         t.requires_grad_(True)
     return LoraState(int(state.step), lora, _adam_from_numpy(state.opt_state, dev))
+
+
+def stage_state_from_numpy(state: Any, stage: int, device: DeviceLike = None):
+    """The JAX package's pipeline `TrainState` (params staged as (P, L/P,
+    ...) by `pipeline.stage_params`, and optax's AdamW state over them)
+    with numpy leaves -> stage `stage`'s port TrainState, as
+    `pipeline.init_pipeline_state` lays it out: the stage's (1, L/P, ...)
+    slice of every layer leaf and of its moments, the shared leaves whole,
+    params marked for grad."""
+    from dstack_tpu_torch.workloads.pipeline import stage_slice
+    from dstack_tpu_torch.workloads.train import AdamState, TrainState
+
+    whole = train_state_from_numpy(state, device)
+    params = stage_slice(whole.params, stage)
+    for _, p in flatten_params(params):
+        p.requires_grad_(True)
+    opt = whole.opt_state
+    return TrainState(whole.step, params, AdamState(opt.count, stage_slice(opt.mu, stage),
+                                                    stage_slice(opt.nu, stage)))

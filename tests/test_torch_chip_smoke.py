@@ -1225,3 +1225,136 @@ def test_train_rank_phase_runs_on_the_cpu(tmp_path):
                     > 5 * res["bf16"][layout]["params"]["rel_l2"]), name
     assert res["bf16"]["fsdp2"]["ranks"][0]["collectives_per_step"]["reduce_scatters"] == 16
     assert res["bf16"]["model2"]["ranks"][0]["collectives_per_step"]["all_reduces"] == 13
+
+
+RANKS_DRY_RUN = r'''
+import sys
+import torch
+import chip_smoke as cs
+from dstack_tpu_torch.workloads import flash_attention as fa
+from dstack_tpu_torch.workloads.config import PRESETS
+
+# Phase 16's and 17's rank processes at tiny on the CPU: no card, so the
+# device hooks are no-ops and the kernels' plain versions count as launches.
+PRESETS["tiny-2k"] = PRESETS["tiny"].with_(max_seq_len=2048)
+cs.RG_PRESET, cs.RG_DEVICE, cs.RG_B, cs.RG_S = "tiny-2k", "cpu", 1, 128
+cs.PP_PRESET, cs.PP_DEVICE, cs.PP_B, cs.PP_S = "tiny-2k", "cpu", 4, 64
+cs.PP_MICRO = 2
+torch.cuda.synchronize = lambda *a: None
+torch.cuda.reset_peak_memory_stats = lambda *a: None
+torch.cuda.max_memory_allocated = lambda *a: 0
+torch.cuda.empty_cache = lambda *a: None
+fa.use_flash = lambda s, hd, dev: True
+
+
+def count(name, tensors, causal):
+    fa.LAUNCHES[name] += 1
+
+
+fa._launch = count
+fwd, bwd, block = fa._flash_fwd_plain, fa._flash_bwd_plain, fa._block_ref_bh
+
+
+def counted_fwd(q, k, v, c):
+    fa._launch("flash_fwd", (q,), c)
+    return fwd(q, k, v, c)
+
+
+def counted_bwd(q, k, v, o, lse, do, delta, c):
+    fa._launch("flash_bwd_dq", (q,), c)
+    fa._launch("flash_bwd_dkv", (q,), c)
+    return bwd(q, k, v, o, lse, do, delta, c)
+
+
+def counted_block(q, k, v, c):
+    if not torch.is_grad_enabled():  # the ring step's forward, not its recompute
+        fa._launch("flash_block_fwd", (q,), c)
+    return block(q, k, v, c)
+
+
+fa._flash_fwd_plain, fa._flash_bwd_plain, fa._block_ref_bh = counted_fwd, counted_bwd, counted_block
+main = cs.rg_rank_main if sys.argv[3] == "ring" else cs.pp_rank_main
+sys.exit(main(int(sys.argv[1]), sys.argv[2]))
+'''
+
+
+def _dry_run_ranks(tmp_path, phase, n, marker):
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(cs.__file__).resolve().parent
+    script = tmp_path / "ranks.py"
+    script.write_text(RANKS_DRY_RUN)
+    init = f"file://{tmp_path / 'rendezvous'}"
+    env = {**os.environ, "OMP_NUM_THREADS": "1", "PYTHONPATH": str(root)}
+    procs = [subprocess.Popen([sys.executable, str(script), str(r), init, phase],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                              env=env, cwd=str(tmp_path), start_new_session=True)
+             for r in range(n)]
+    try:
+        outs = [p.communicate(timeout=150) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, (_, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+    line = next(ln for ln in outs[0][0].splitlines() if ln.startswith(marker + " "))
+    return json.loads(line[len(marker) + 1:])
+
+
+def test_ring_rank_phase_runs_on_the_cpu(tmp_path, monkeypatch):
+    """Phase 16's four rank processes at tiny on the CPU over gloo: the
+    ring across the ranks against the one-device ring, rank i's i + 1 ring
+    steps a layer, 2n - 1 hops a layer, each mutant read far past the sound
+    ring, and the phase's gates pass it and fail the mutants."""
+    res = _dry_run_ranks(tmp_path, "ring", cs.RG_RANKS, "RG_RESULT")
+    assert sorted(res["f32"]) == sorted(["sound", "one_device", *cs.RG_MUTANTS])
+    for tag in ("bf16", "f32"):
+        r = res[tag]["sound"]
+        for rank, rr in enumerate(r["ranks"]):
+            assert rr["launches_per_step"]["flash_block_fwd"] == 2 * (rank + 1)
+            assert rr["hops_per_step"] == 2 * 7
+            assert rr["digest"] == r["ranks"][0]["digest"]
+    assert res["f32"]["sound"]["params"]["rel_l2"] < 1e-5
+    assert res["f32"]["sound"]["ranks"][0]["kernel_shapes"] == {"flash_block_fwd": [[4, 32, 32]]}
+    for m in cs.RG_MUTANTS:
+        assert res["f32"][m]["params"]["rel_l2"] > 100 * res["f32"]["sound"]["params"]["rel_l2"]
+    # The gates at the dry run's shapes: bf16 on the CPU is not the card's,
+    # so hold the f32 cases only.
+    monkeypatch.setattr(cs, "RG_PRESET", "tiny")
+    monkeypatch.setattr(cs, "RG_S", 128)
+    cs.check_ring_ranks({"f32": res["f32"]})
+    bad = {**res["f32"], "sound": {**res["f32"]["sound"], "grad_norm_rel": 1.0}}
+    with pytest.raises(AssertionError, match="phase 16"):
+        cs.check_ring_ranks({"f32": bad})
+
+
+def test_pipeline_phase_runs_on_the_cpu(tmp_path, monkeypatch):
+    """Phase 17's two stage processes at tiny on the CPU over gloo: the
+    pipeline against the unsharded step, each stage's launches and
+    exchanges, the shared replicas equal, each mutant failing the gates."""
+    res = _dry_run_ranks(tmp_path, "pipe", cs.PP_RANKS, "PP_RESULT")
+    assert sorted(res["f32"]) == sorted(["sound", "unsharded", *cs.PP_MUTANTS])
+    for tag in ("bf16", "f32"):
+        r = res[tag]["sound"]
+        assert r["shared_equal"]
+        for rr in r["ranks"]:
+            assert rr["launches_per_step"]["flash_fwd"] == 1 * 2  # a layer a stage, 2 micro
+            assert rr["hops_per_step"] == 4
+            assert rr["loss"] == r["ranks"][0]["loss"]
+    assert res["f32"]["sound"]["params"]["rel_l2"] < 1e-5
+    assert res["f32"]["sound"]["ranks"][0]["kernel_shapes"]["flash_fwd"] == [[8, 64, 32]]
+    monkeypatch.setattr(cs, "PP_PRESET", "tiny")
+    monkeypatch.setattr(cs, "PP_B", 4)
+    monkeypatch.setattr(cs, "PP_S", 64)
+    monkeypatch.setattr(cs, "PP_MICRO", 2)
+    cs.check_pipeline({"f32": res["f32"]})
+    assert not res["f32"]["shared_unsummed"]["shared_equal"]
+    bad = {**res["f32"], "sound": {**res["f32"]["sound"], "shared_equal": False}}
+    with pytest.raises(AssertionError, match="phase 17"):
+        cs.check_pipeline({"f32": bad})

@@ -18,6 +18,7 @@ MODULES = (
     "dstack_tpu_torch",
     "dstack_tpu_torch.fine_tune",
     "dstack_tpu_torch.native_server",
+    "dstack_tpu_torch.train_pipeline",
     "dstack_tpu_torch.utils",
     "dstack_tpu_torch.utils.accum",
     "dstack_tpu_torch.utils.flight_recorder",
@@ -42,6 +43,7 @@ MODULES = (
     "dstack_tpu_torch.workloads.lora_serving",
     "dstack_tpu_torch.workloads.moe",
     "dstack_tpu_torch.workloads.paged_attention",
+    "dstack_tpu_torch.workloads.pipeline",
     "dstack_tpu_torch.workloads.quant",
     "dstack_tpu_torch.workloads.rl",
     "dstack_tpu_torch.workloads.rl_drill",

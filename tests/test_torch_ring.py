@@ -296,6 +296,8 @@ def test_fine_tune_trains_through_the_ring_on_the_cpu(capsys):
     with pytest.raises(SystemExit, match="divide"):
         fine_tune.main(["--device", "cpu", "--preset", "tiny", "--seq-parallel", "3",
                         "--seq-len", "64"])
-    with pytest.raises(NotImplementedError, match="not ported"):
+    # With ranks the seq axis runs over them (tests/test_torch_ring_ranks.py),
+    # so it must divide their number.
+    with pytest.raises(SystemExit, match="must divide the 3 ranks"):
         fine_tune.main(["--device", "cpu", "--preset", "tiny", "--seq-parallel", "2",
-                        "--model-parallel", "2"])
+                        "--ranks", "3"])

@@ -190,14 +190,34 @@ def test_meshes_without_ranks_still_refuse_every_axis_but_seq(kw):
 
 
 def test_training_axes_over_ranks_raise():
-    """A seq axis and an expert axis over ranks stay refused (ROADMAP
-    Queue 1 items 3c, 3d); the data, fsdp and model axes train since the
-    training slice (tests/test_torch_train_sharded.py)."""
-    for shape in (dict(zip(tsh.AXES, (1, 1, 2, 1, 1))), dict(zip(tsh.AXES, (1, 1, 1, 1, 2)))):
-        for layout in tsh.LAYOUTS:
-            with pytest.raises(NotImplementedError, match="Queue 1 items 3c and 3d"):
-                tsh.Mesh(torch.device("cpu"), shape, group=object(), backend="gloo",
-                         layout=layout)
+    """An expert axis over ranks stays refused (ROADMAP Queue 1 item 3d);
+    the data, fsdp and model axes train since the training slice
+    (tests/test_torch_train_sharded.py), seq since the ring's
+    (tests/test_torch_ring_ranks.py)."""
+    shape = dict(zip(tsh.AXES, (1, 1, 1, 1, 2)))
+    for layout in tsh.LAYOUTS:
+        with pytest.raises(NotImplementedError, match="Queue 1 item 3d"):
+            tsh.Mesh(torch.device("cpu"), shape, group=object(), backend="gloo",
+                     layout=layout)
+
+
+def test_a_seq_axis_over_ranks_is_a_training_mesh():
+    """seq over ranks builds a training mesh (row-major coordinates in
+    AXES order, the rank's stretch of a batch, grads summed over seq); the
+    serving layout refuses it."""
+    shape = dict(zip(tsh.AXES, (1, 2, 2, 1, 1)))
+    mesh = tsh.Mesh(torch.device("cpu"), shape, group=object(), rank=3, backend="gloo",
+                    layout="training")
+    assert mesh.coords == dict(data=0, fsdp=1, seq=1, model=0, expert=0)
+    assert tsh.seq_ranks(mesh) == 2 and tsh.batch_shards(mesh) == 2
+    batch = {"inputs": torch.arange(4 * 8).reshape(4, 8)}
+    assert tsh.shard_batch(batch, mesh)["inputs"].tolist() == [[20, 21, 22, 23],
+                                                                [28, 29, 30, 31]]
+    assert tsh.grad_axes((None, "fsdp")) == ("data", "seq")
+    assert tsh.grad_axes((None,)) == ("data", "fsdp", "seq")
+    assert tsh.seq_ranks(tsh.make_mesh(["cpu"], seq=4)) == 1  # the one-device ring
+    with pytest.raises(ValueError, match="seq axis is the trainer's"):
+        tsh.Mesh(torch.device("cpu"), shape, group=object(), backend="gloo")
 
 
 @pytest.mark.parametrize("world,device", [(2, "cuda:0"), (2, None)])

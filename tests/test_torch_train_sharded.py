@@ -564,7 +564,6 @@ def test_fine_tune_over_four_ranks_trains_exports_and_resumes(tmp_path):
 
 
 @pytest.mark.parametrize("flag,what", [
-    (["--model-parallel", "2", "--seq-parallel", "2"], "3c"),
     (["--model-parallel", "2", "--expert-parallel", "2"], "3d"),
     (["--preset", "tiny-moe", "--model-parallel", "2"], "3d"),
 ])
