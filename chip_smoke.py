@@ -4586,14 +4586,14 @@ class RoutingSpy:
 
         self._moe, self._real = moe, moe.route_assignments
 
-        def spy(c, h, router):
+        def spy(c, h, router, mesh=None):
             if self.pinned is None:
-                out = self._real(c, h, router)
+                out = self._real(c, h, router, mesh)
             else:
                 # Modulo: a remat recompute routes the layers again in order.
                 idx = self.pinned[len(self.calls) % len(self.pinned)].to(h.device)
                 probs = torch.softmax(moe._router_logits(h, router), dim=-1)
-                out = moe.assign_slots(c, probs, idx)
+                out = moe.assign_slots(c, probs, idx, mesh)
             C = moe.expert_capacity(c, h.shape[1])
             self.calls.append((h.shape[1], out[1].detach(), int((out[2] >= C).sum())))
             return out
@@ -5744,8 +5744,8 @@ def leaf_digest(params) -> float:
 
 def rank_steps(cfg, make_state, make_step, batch, mesh, n_steps):
     """`n_steps` steps: the first step's metrics, each step's wall ms, the
-    flash launches, hops and collectives per step, the peak memory.
-    Returns (state, readings)."""
+    flash launches, hops and collectives per step (each kind's count, MB
+    put in and ms), the peak memory. Returns (state, readings)."""
     torch.cuda.reset_peak_memory_stats()
     state = make_state()
     step = make_step()
@@ -5756,11 +5756,12 @@ def rank_steps(cfg, make_state, make_step, batch, mesh, n_steps):
         torch.cuda.synchronize()
         t0 = time.monotonic()
         state, m = step(state, batch)
-        metrics.append([float(m["loss"]), float(m["grad_norm"])])
+        metrics.append([float(m["loss"]), float(m["grad_norm"]),
+                        float(m.get("router_aux", 0.0))])
         torch.cuda.synchronize()
         step_ms.append((time.monotonic() - t0) * 1e3)
-    r = dict(loss=metrics[0][0], grad_norm=metrics[0][1], losses=[v[0] for v in metrics],
-             step_ms=step_ms,
+    r = dict(loss=metrics[0][0], grad_norm=metrics[0][1], router_aux=metrics[0][2],
+             losses=[v[0] for v in metrics], step_ms=step_ms,
              launches_per_step={k: v / n_steps for k, v in flash_counts().items()},
              peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     if mesh is not None:
@@ -5771,6 +5772,8 @@ def rank_steps(cfg, make_state, make_step, batch, mesh, n_steps):
         r["hop_mb_per_step"] = delta["hop_bytes"] / 1e6 / n_steps
         r["collectives_per_step"] = {k + "s": delta[k + "s"] / n_steps for k in kinds}
         r["collective_ms_per_step"] = sum(delta[k + "_seconds"] for k in kinds) * 1e3 / n_steps
+        r["collective_mb_per_step"] = {k: delta[k + "_bytes"] / 1e6 / n_steps for k in kinds}
+        r["collective_ms_by_kind"] = {k: delta[k + "_seconds"] * 1e3 / n_steps for k in kinds}
     return state, r
 
 
@@ -6122,6 +6125,236 @@ def run_pipeline() -> dict:
     return dict(kernels=kernels, ranks=res, seconds=dict(kernels=t1 - t0, stages=t2 - t1))
 
 
+# -- phase 18: expert parallelism ---------------------------------------------------
+
+EP_RANKS = 2
+# The model and the one card both ranks share (a CPU dry run of the rank
+# processes swaps in a small preset and "cpu").
+EP_PRESET, EP_DEVICE = "smol-moe", "cuda:0"
+# 13c's batch, B 2 x S 2048 (every rank of the expert line holds all of
+# it), EP_STEPS steps a case.
+EP_B, EP_S, EP_STEPS = 2, 2048, 2
+# The bf16 run's depth: at 16 layers the two ranks would hold ~37 GB each
+# (state and grads 25.5 GB for 2.55 B params, activations ~11.7 GB) and
+# leave < 8 GB of the 80 GB beside the smoke's own process, so the phase
+# runs 8 of smol-moe's 16 layers at full width, against an unsharded
+# 8-layer run of its own on the same card (PERF.md sections 4 and 6).
+EP_LAYERS = 8
+# The f32 check's depth, with the mutants.
+EP_F32_LAYERS = 2
+# Each rank process's limit (seconds): start-up, every case.
+EP_TIMEOUT = 600
+# The faults of the expert line, each run after the sound layout.
+EP_MUTANTS = ("block_off", "enter_unsummed", "gather_summed")
+# The gate each mutant must fail: the shifted block computes other
+# experts' outputs (the loss moves); the tokens' grad left unsummed over
+# the line moves every weight before the experts (params); the gathered
+# outputs' grad summed over the line doubles the banks' grads (grad_norm).
+EP_GUARDS = {"block_off": "loss", "enter_unsummed": "params", "gather_summed": "grad_norm"}
+# Expert 2 against the unsharded run on one card, per dtype: the first
+# step's loss, grad_norm and router_aux by relative difference, and every
+# param after EP_STEPS steps by flash_errors' (rel_l2, row_rel) over its
+# leaf. Each limit is ~3x the sound run's reading on the H100 (PERF.md,
+# phase 18); a reading of 0 gets ~3 f32 ulps. Each expert's products run
+# alone either way and a token's grad sums at most k nonzero terms, so the
+# loss, the aux and every param read 0 in both dtypes; grad_norm reads
+# 2.69e-4 in bf16 (the unsharded norm sums each leaf in bf16, optax's
+# order, a rank's shards in f32) and 6.0e-8 in f32. The mutants read: the
+# block off by one, loss 1.56e-3; the tokens' grad unsummed, params
+# 2.12e-2; the gathered outputs' grad summed, grad_norm 2.01.
+EP_TOL = {"bfloat16": dict(loss=3.6e-7, grad_norm=8e-4, router_aux=3.6e-7,
+                           params=(3.6e-7, 3.6e-7)),
+          "float32": dict(loss=3.6e-7, grad_norm=1.8e-7, router_aux=3.6e-7,
+                          params=(3.6e-7, 3.6e-7))}
+
+
+def ep_mutate(kind):
+    """18(b): a fault of the expert line. "block_off": a rank dispatches to
+    the next rank's block of experts (its banks stay its own); "enter_unsummed":
+    the tokens' grad is not summed over the expert line; "gather_summed":
+    the gathered outputs' backward sums the grad over the line before it
+    takes the rank's block. Returns the undo."""
+    from dstack_tpu_torch.workloads import moe, sharding
+
+    if kind == "block_off":
+        orig = moe.expert_block
+
+        def next_block(n, mesh):
+            e0, e1 = orig(n, mesh)
+            return e1 % n, e1 % n + (e1 - e0)
+
+        moe.expert_block = next_block
+        return lambda: setattr(moe, "expert_block", orig)
+    if kind == "enter_unsummed":
+        orig = moe.enter_expert
+        moe.enter_expert = lambda x, mesh: x
+        return lambda: setattr(moe, "enter_expert", orig)
+    if kind == "gather_summed":
+        cls = sharding._GatherExperts
+        orig = cls.__dict__["backward"]
+
+        def summed(ctx, g):
+            g = sharding.all_reduce(g, ctx.mesh, ("expert",))
+            return g.narrow(ctx.dim, ctx.mesh.coords["expert"] * ctx.size, ctx.size), None, None
+
+        cls.backward = staticmethod(summed)
+        return lambda: setattr(cls, "backward", orig)
+    return lambda: None
+
+
+def ep_compare(r, ref, tol) -> dict:
+    return dict(**{f"{k}_rel": abs(r[k] - ref[k]) / abs(ref[k])
+                   for k in ("loss", "grad_norm", "router_aux")}, tol=tol)
+
+
+def ep_run(cfg, rank, mesh, device, mutations) -> dict:
+    """Rank 0 runs the unsharded steps (rank 1 waits), then both ranks run
+    the sound expert-2 steps and each mutant's; rank 0 holds the whole
+    params after them against the unsharded ones."""
+    from dstack_tpu_torch.workloads import sharding, train
+
+    dtype = cfg.dtype
+    out, ref, ref_params = {}, None, None
+    if rank == 0:
+        batch = train.synthetic_batch(cfg, EP_B, EP_S, seed=0, device=device)
+        state, ref = rank_steps(cfg, lambda: train.init_train_state(cfg, seed=0, device=device),
+                                lambda: train.make_train_step(cfg), batch, None, EP_STEPS)
+        ref_params = state_host(state)
+        del state, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"phase 18 unsharded {dtype}: " + json.dumps(ref))
+    torch.distributed.barrier()
+    # Every rank of the expert line holds all of the global batch's rows.
+    batch = train.synthetic_batch(cfg, EP_B, EP_S, seed=0, mesh=mesh)
+    for name, mutation in [("sound", None)] + [(m, m) for m in mutations]:
+        shapes, undo_spy = tr_launch_spy()
+        undo = ep_mutate(mutation)
+        try:
+            state, r = rank_steps(cfg, lambda: train.init_train_state(cfg, seed=0, mesh=mesh),
+                                  lambda: train.make_train_step(cfg, mesh), batch, mesh,
+                                  EP_STEPS)
+        finally:
+            undo()
+            undo_spy()
+        r["kernel_shapes"] = {k: sorted(v) for k, v in shapes.items()}
+        whole = sharding.unshard_tree(mesh, state.params)
+        del state
+        every = [None] * EP_RANKS
+        torch.distributed.all_gather_object(every, r)
+        if rank == 0:
+            res = dict(ranks=every, mutation=mutation, dtype=dtype, n_layers=cfg.n_layers,
+                       **ep_compare(every[0], ref, EP_TOL[dtype]),
+                       params=tr_param_gaps(whole, ref_params))
+            out[name] = res
+            log(f"phase 18 {name} ({dtype}, {cfg.n_layers} layers): " + json.dumps(res))
+        del whole
+        gc.collect()
+        torch.cuda.empty_cache()
+    if rank == 0:
+        out["unsharded"] = ref
+    del batch
+    return out
+
+
+def ep_rank_main(rank: int, init: str) -> int:
+    """One rank of phase 18, a process of its own: smol-moe at full width
+    and EP_LAYERS layers on an expert axis of two gloo ranks sharing
+    cuda:0 (each rank 4 of the 8 experts), einsum dispatch, bf16, against
+    the unsharded steps on the same card, weights and batch; then at
+    EP_F32_LAYERS in f32 with the mutants. Rank 0 prints its readings as
+    one JSON line."""
+    from dstack_tpu_torch.workloads import sharding
+    from dstack_tpu_torch.workloads.config import PRESETS
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sharding.init_ranks(EP_RANKS, rank, init, backend="gloo", device=EP_DEVICE)
+    mesh = sharding.make_mesh([EP_DEVICE], layout="training", expert=EP_RANKS)
+    cfg = PRESETS[EP_PRESET].with_(n_layers=EP_LAYERS)
+    out = {"bf16": ep_run(cfg, rank, mesh, EP_DEVICE, ())}
+    cfg32 = cfg.with_(n_layers=EP_F32_LAYERS, dtype="float32")
+    out["f32"] = ep_run(cfg32, rank, mesh, EP_DEVICE, EP_MUTANTS)
+    if rank == 0:
+        print("EP_RESULT " + json.dumps(out), flush=True)
+    sharding.leave_ranks(mesh)
+    return 0
+
+
+def ep_gates(r: dict) -> dict:
+    """Each of 18's gates on one case's readings: True where it passes."""
+    tol, p = r["tol"], r["params"]
+    gates = {k: r[f"{k}_rel"] <= tol[k] for k in ("loss", "grad_norm", "router_aux")}
+    gates["params"] = p["rel_l2"] <= tol["params"][0] and p["row_rel"] <= tol["params"][1]
+    return gates
+
+
+def check_expert_ranks(res: dict) -> None:
+    """The gates of 18(a) and (b) on rank 0's readings: the sound run
+    within every gate, each mutant failing the gate that guards it, the
+    ranks' metrics equal, and #2-#4 launched once a layer a step on each
+    rank at a rank's geometry (attention is replicated over expert)."""
+    from dstack_tpu_torch.workloads.config import PRESETS
+
+    cfg = PRESETS[EP_PRESET]
+    shape = (EP_B * cfg.n_heads, EP_S, cfg.head_dim)
+    for dtype_tag, cases in res.items():
+        for name, r in cases.items():
+            if name == "unsharded":
+                continue
+            gates = ep_gates(r)
+            if r["mutation"]:
+                guard = EP_GUARDS[r["mutation"]]
+                if gates[guard]:
+                    raise AssertionError(f"phase 18 {name}: its {guard} gate passes the mutant"
+                                         f" ({r}, tol {r['tol']})")
+                continue
+            if not all(gates.values()):
+                raise AssertionError(f"phase 18 {name} {dtype_tag}: gates {gates}; loss"
+                                     f" {r['loss_rel']}, grad_norm {r['grad_norm_rel']},"
+                                     f" router_aux {r['router_aux_rel']}, params"
+                                     f" {r['params']}; tol {r['tol']}")
+            for rk, rr in enumerate(r["ranks"]):
+                keys = ("loss", "grad_norm", "router_aux", "losses")
+                if any(rr[k] != r["ranks"][0][k] for k in keys):
+                    raise AssertionError(f"phase 18 {name}: rank {rk}'s metrics differ")
+                want = float(r["n_layers"])
+                got = {k: rr["launches_per_step"][k]
+                       for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+                if any(v != want for v in got.values()):
+                    raise AssertionError(f"phase 18 {name} rank {rk}: flash launches per step"
+                                         f" {got}, not {want}")
+                if dtype_tag == "bf16":
+                    shapes = {tuple(s) for v in rr["kernel_shapes"].values() for s in v}
+                    if shapes != {shape}:
+                        raise AssertionError(f"phase 18 {name} rank {rk}: kernel shapes"
+                                             f" {rr['kernel_shapes']}, not {shape}")
+
+
+def run_expert_parallel() -> dict:
+    """Phase 18: (a) and (b) in two rank processes. The kernels at the
+    ranks' geometry (B*H 32, S 2048, hd 128) are phase 17c's."""
+    t0 = time.monotonic()
+    res = launch_procs(["--ep-rank"], "phase18", EP_RANKS, "EP_RESULT", EP_TIMEOUT)
+    check_expert_ranks(res)
+    r, ref = res["bf16"]["sound"], res["bf16"]["unsharded"]
+    r0 = r["ranks"][0]
+    log(f"phase 18 (gloo, two expert ranks on one card: a check, not an expert-parallel"
+        f" speed): step {[round(x['step_ms'][-1], 1) for x in r['ranks']]} ms against"
+        f" unsharded {ref['step_ms'][-1]:.1f}; collectives per step"
+        f" {r0['collectives_per_step']}, MB put in {r0['collective_mb_per_step']}, ms"
+        f" {r0['collective_ms_by_kind']} (rank 0); peak"
+        f" {[round(x['peak_mem_gb'], 2) for x in r['ranks']]} GB per rank (unsharded"
+        f" {ref['peak_mem_gb']:.2f}); #2-#4 per rank a step"
+        f" {r['ranks'][0]['launches_per_step']} at {r['ranks'][0]['kernel_shapes']}")
+    for m in EP_MUTANTS:
+        g = ep_gates(res["f32"][m])
+        log(f"phase 18 mutant {m}: fails {[k for k, ok in g.items() if not ok]}, as its"
+            f" {EP_GUARDS[m]} gate must")
+    log(f"phase 18: ranks {time.monotonic() - t0:.1f}s")
+    return dict(ranks=res, seconds=time.monotonic() - t0)
+
+
 def paged_entry(kres, launches, wave) -> dict:
     """The paged kernel's entry of the `kernels` line: the bf16 decode
     case's times, the bf16 short-slot decode and chunk cases' beside them,
@@ -6343,6 +6576,14 @@ def main() -> int:
     pipe = run_pipeline()
     log(f"phase 17: {time.monotonic() - t0:.1f}s")
 
+    # 18. expert parallelism: smol-moe (8 of 16 layers) over an expert axis
+    # of two gloo ranks on the card, against its unsharded steps
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    expert = run_expert_parallel()
+    log(f"phase 18: {time.monotonic() - t0:.1f}s")
+
     log(f"total {time.monotonic() - t_all:.1f}s")
     kernels = {"kernels": [paged_entry(kres, launches, wave)]}
     # The paged kernel's launches on the speculative and host-tier paths
@@ -6389,7 +6630,10 @@ def main() -> int:
                    for r, rr in enumerate(tr["ranks"]["bf16"][name]["ranks"])},
                 # Each stage of phase 17's bf16 pipeline over its PP_STEPS steps.
                 **{f"pipeline_stage{r}": int(rr["launches_per_step"][kern] * PP_STEPS)
-                   for r, rr in enumerate(pipe["ranks"]["bf16"]["sound"]["ranks"])}}}
+                   for r, rr in enumerate(pipe["ranks"]["bf16"]["sound"]["ranks"])},
+                # Each expert rank of phase 18's bf16 run over its EP_STEPS steps.
+                **{f"expert_rank{r}": int(rr["launches_per_step"][kern] * EP_STEPS)
+                   for r, rr in enumerate(expert["ranks"]["bf16"]["sound"]["ranks"])}}}
                if kern != "flash_block_fwd" else {"launches_by_path": {
                    # Each rank of phase 16's bf16 ring over its RG_STEPS steps.
                    f"ring_rank{r}": int(rr["launches_per_step"][kern] * RG_STEPS)
@@ -6417,7 +6661,8 @@ def main() -> int:
             keys = ("max_abs_err", "ms", "ms_one_launch", "plain_ms", "bound_ms", "bound_by",
                     "library_ms", "library_ms_one_launch", "tflops", "bound_share")
             kernels["kernels"][-1]["per_rank"] = {k: rank_f[k] for k in keys}
-            # Phase 17c: at a stage's geometry (B*H 32: a 2-row microbatch).
+            # Phase 17c: at a stage's geometry (B*H 32: a 2-row microbatch),
+            # which is also an expert rank's in phase 18 (B 2 x 16 heads).
             kernels["kernels"][-1]["per_stage"] = {k: stage_f[k] for k in keys}
     os.makedirs(os.path.dirname(OUT), exist_ok=True)
     with open(OUT, "w") as f:
@@ -6428,7 +6673,7 @@ def main() -> int:
                    "lora_train": lora_train, "lora_checks": lora_checks, "rl": rl,
                    "moe_module": moe_module, "moe_serving": moe_serving,
                    "moe_train": moe_train, "tp": tp, "train_ranks": tr,
-                   "ring_ranks": ring_ranks, "pipeline": pipe,
+                   "ring_ranks": ring_ranks, "pipeline": pipe, "expert_parallel": expert,
                    "build_s": _build.build_seconds},
                   f, indent=1)
     # What could hold the interpreter's exit: threads that are not daemons
@@ -6458,6 +6703,8 @@ if __name__ == "__main__":
         sys.exit(rg_rank_main(*rank_args()))
     if "--pp-rank" in argv:  # a stage of phase 17, started by run_pipeline
         sys.exit(pp_rank_main(*rank_args()))
+    if "--ep-rank" in argv:  # a rank of phase 18, started by run_expert_parallel
+        sys.exit(ep_rank_main(*rank_args()))
     if "--tp-nccl" in argv or "--tr-nccl" in argv:  # 14(f) and 15(f), in their own process
         torch.backends.cuda.matmul.allow_tf32 = False
         run_tp_nccl() if "--tp-nccl" in argv else run_train_nccl()

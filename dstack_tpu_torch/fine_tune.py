@@ -19,27 +19,35 @@ of examples/fine-tuning/jax/train.py).
     python -m dstack_tpu_torch.fine_tune --model-parallel 2 --device cuda:0 \
         --dist-backend gloo
     python -m dstack_tpu_torch.fine_tune --device cpu --preset tiny --model-parallel 2
+    # expert parallelism: smol-moe's 8 experts over 2 ranks, 4 each
+    python -m dstack_tpu_torch.fine_tune --preset smol-moe --expert-parallel 2
+    python -m dstack_tpu_torch.fine_tune --device cpu --preset tiny-moe \
+        --expert-parallel 2 --ranks 4 --seq-len 64
 
 Training across ranks. `--ranks N` sets the trainer's world, its number of
-ranks (default: `--model-parallel` x `--seq-parallel` when
-`--model-parallel` > 1, one rank per model and seq shard): rank 0 starts
+ranks (default: `--model-parallel` x `--expert-parallel` x `--seq-parallel`
+when `--model-parallel` x `--expert-parallel` > 1, one rank per model,
+expert and seq shard): rank 0 starts
 ranks 1..N-1 itself, as fresh interpreters of this module (`--rank r
 --dist-init tcp://127.0.0.1:<port>`, a loopback port rank 0 picks), so a
 job command stays one process. The mesh is the reference's training layout
 over those ranks (workloads/sharding.py, `layout="training"`): a model axis
-of `--model-parallel`, a seq axis of `--seq-parallel` (the ring across the
-ranks, each holding one stretch of the sequence) and fsdp taking what is
-left, as the JAX trainer's mesh over `jax.devices()`; the global batch is
+of `--model-parallel`, an expert axis of `--expert-parallel` (each rank
+holding E/expert of every expert bank; the ranks of an expert line hold
+the same rows), a seq axis of `--seq-parallel` (the ring across the ranks,
+each holding one stretch of the sequence) and fsdp taking what is left, as
+the JAX trainer's mesh over `jax.devices()`; the global batch is
 rounded up to a multiple of data x fsdp, as the JAX trainer rounds it. Rank r runs on `cuda:r`, or on
 `--device` for every rank when it is given; `--dist-backend` is nccl (the
 default on CUDA, one rank per card) or gloo (the default on the CPU, and
 the transport for ranks that share a card). Every rank draws the same
 whole params from seed 0 and keeps its slices; checkpoints and the export
 are written whole by rank 0 from every rank's shards, so a run resumes on
-any number of ranks. Only rank 0 prints. An expert axis over ranks and MoE
-presets over ranks raise (ROADMAP Queue 1 item 3d); so does a multi-host
-rendezvous from the orchestrator's injected coordinator env
-(`JAX_NUM_PROCESSES` > 1, ROADMAP Queue 1 item 3f).
+any number of ranks. Only rank 0 prints. `--expert-parallel` must divide
+the preset's n_experts, as the JAX trainer checks. An MoE preset over a seq
+axis of ranks raises (ROADMAP Queue 1 item 3h), as does LoRA over ranks on
+an MoE preset or an expert axis (3j) and a multi-host rendezvous from the
+orchestrator's injected coordinator env (`JAX_NUM_PROCESSES` > 1, 3f).
 
 `--seq-parallel n` alone (one rank) builds a seq mesh whose n sequence
 shards take turns on the one device through the ring
@@ -71,8 +79,8 @@ serves unchanged. It composes with --seq-parallel and with ranks. The JAX
 LoRA step has no gradient accumulation, so --accum-steps > 1 with
 --lora-rank raises. An MoE preset (`--preset tiny-moe` / `smol-moe`)
 trains with its router loss in the objective (`router_aux_coef`), printed
-beside the loss. --expert-parallel is not ported yet (expert parallelism,
-ROADMAP Queue 1 item 3d).
+beside the loss; over ranks the loss and the printed `router_aux` are the
+global batch's (workloads/moe.py, `switch_aux`).
 """
 
 import argparse
@@ -93,6 +101,7 @@ from dstack_tpu_torch.workloads.sharding import (
     batch_shards,
     check_heads,
     join_ranks,
+    leave_ranks,
     make_mesh,
     refuse_multi_host,
     shard_tree,
@@ -124,9 +133,10 @@ def main(argv: Optional[list] = None) -> None:
     parser.add_argument("--expert-parallel", type=int, default=1)
     parser.add_argument("--ranks", type=int, default=None,
                         help="the trainer's world: ranks 1..N-1 are started by rank 0"
-                             " (default: --model-parallel x --seq-parallel when"
-                             " --model-parallel > 1, else 1); the seq axis runs over"
-                             " the ranks and fsdp takes N / (--model-parallel x"
+                             " (default: --model-parallel x --expert-parallel x"
+                             " --seq-parallel when --model-parallel x --expert-parallel"
+                             " > 1, else 1); the seq axis runs over the ranks and fsdp"
+                             " takes N / (--model-parallel x --expert-parallel x"
                              " --seq-parallel)")
     parser.add_argument("--dist-backend", choices=BACKENDS, default=None,
                         help="transport between ranks: nccl (default on CUDA, one"
@@ -140,25 +150,33 @@ def main(argv: Optional[list] = None) -> None:
     argv = sys.argv[1:] if argv is None else list(argv)
     args = parser.parse_args(argv)
     refuse_multi_host()
+    parallel = args.model_parallel * args.expert_parallel
     if args.ranks is not None:
         world = args.ranks
     else:  # --seq-parallel alone keeps the one-device ring
-        world = args.model_parallel * (args.seq_parallel if args.model_parallel > 1 else 1)
+        world = parallel * (args.seq_parallel if parallel > 1 else 1)
 
-    if args.expert_parallel > 1:
-        raise NotImplementedError(
-            f"not ported to PyTorch yet: --expert-parallel {args.expert_parallel}"
-            " (expert parallelism, ROADMAP Queue 1 item 3d)")
-    cut = args.model_parallel * (args.seq_parallel if world > 1 else 1)
-    if args.model_parallel < 1 or args.seq_parallel < 1 or world % cut:
-        raise SystemExit(f"--model-parallel {args.model_parallel} x --seq-parallel"
-                         f" {args.seq_parallel} must divide the {world} ranks")
+    cut = parallel * (args.seq_parallel if world > 1 else 1)
+    if min(args.model_parallel, args.expert_parallel, args.seq_parallel) < 1 or world % cut:
+        raise SystemExit(f"--model-parallel {args.model_parallel} x --expert-parallel"
+                         f" {args.expert_parallel} x --seq-parallel {args.seq_parallel}"
+                         f" must divide the {world} ranks")
     if args.lora_rank > 0 and args.accum_steps > 1:
         raise NotImplementedError(
             f"--accum-steps {args.accum_steps} with --lora-rank: the LoRA step"
             " has no gradient accumulation (as the JAX package's)")
 
     config = PRESETS[args.preset]
+    if args.expert_parallel > 1 and config.n_experts % args.expert_parallel:
+        raise SystemExit("--expert-parallel must divide the preset's n_experts")
+    if world > 1 and config.n_experts > 0 and args.seq_parallel > 1:
+        raise NotImplementedError(
+            f"{args.preset} (mixture-of-experts) over --seq-parallel {args.seq_parallel}"
+            " ranks is ROADMAP Queue 1 item 3h, not ported yet")
+    if world > 1 and args.lora_rank > 0 and (config.n_experts > 0 or args.expert_parallel > 1):
+        raise NotImplementedError(
+            f"--lora-rank over ranks with {args.preset} or --expert-parallel"
+            f" {args.expert_parallel} is ROADMAP Queue 1 item 3j, not ported yet")
     seq_len = args.seq_len or min(2048, config.max_seq_len)
     if seq_len > config.max_seq_len:
         raise SystemExit(f"--seq-len > {config.max_seq_len} for {args.preset}")
@@ -170,23 +188,20 @@ def main(argv: Optional[list] = None) -> None:
         mesh = make_mesh(None if args.device is None else [args.device],
                          seq=args.seq_parallel)
     elif world > 1:
-        if config.n_experts > 0:
-            raise NotImplementedError(
-                f"not ported to PyTorch yet: {args.preset} (mixture-of-experts) over"
-                f" {world} ranks (expert parallelism, ROADMAP Queue 1 item 3d)")
         try:
             check_heads(args.model_parallel, config)
             mesh, followers = join_ranks(
                 world, args.rank, args.dist_init, args.dist_backend, args.device,
                 ["-m", "dstack_tpu_torch.fine_tune", *argv], layout="training",
-                model=args.model_parallel, seq=args.seq_parallel)
+                model=args.model_parallel, seq=args.seq_parallel,
+                expert=args.expert_parallel)
         except ValueError as e:
             raise SystemExit(f"invalid training configuration: {e}")
     try:
         _train(args, config, seq_len, mesh)
     finally:
         if mesh is not None and mesh.ranked:
-            dist.destroy_process_group()
+            leave_ranks(mesh)
         stop_followers(followers)
 
 

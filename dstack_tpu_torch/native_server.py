@@ -1034,8 +1034,9 @@ def main(argv: Optional[list] = None) -> None:
         if isinstance(e, ValueError):
             raise SystemExit(f"invalid serving configuration: {e}")
         raise
-    if engine.serving is None:
-        return  # a follower rank: its leader closed the engine
+    if engine.serving is None:  # a follower rank: its leader closed the engine
+        sharding.leave_ranks(mesh)
+        return
     leaf = engine.serving.stats()["compile_cache_dir"]
     if leaf:
         print(f"compile cache: {leaf}", flush=True)
@@ -1064,6 +1065,8 @@ def main(argv: Optional[list] = None) -> None:
             drain(server, engine.serving, DRAIN_S)
         server.server_close()
         engine.close()
+        if mesh is not None:
+            sharding.leave_ranks(mesh)
         sharding.stop_followers(followers)
 
 

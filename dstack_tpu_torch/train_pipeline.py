@@ -30,7 +30,6 @@ import time
 from typing import Optional
 
 import torch
-import torch.distributed as dist
 
 from dstack_tpu_torch.workloads.config import PRESETS
 from dstack_tpu_torch.workloads.sharding import (
@@ -38,6 +37,7 @@ from dstack_tpu_torch.workloads.sharding import (
     check_backend,
     exit_with_parent,
     init_ranks,
+    leave_ranks,
     loopback_rendezvous,
     refuse_multi_host,
     spawn_followers,
@@ -98,8 +98,8 @@ def main(argv: Optional[list] = None) -> None:
             init_ranks(world, args.rank, init, backend, args.device)
         _train(args, config, world)
     finally:
-        if world > 1 and dist.is_initialized():
-            dist.destroy_process_group()
+        if world > 1:
+            leave_ranks()
         stop_followers(followers)
 
 

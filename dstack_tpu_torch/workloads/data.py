@@ -15,7 +15,8 @@ the same global batch order and reads only the rows BATCH_SPEC gives its
 (data, fsdp) coordinate, as the reference's shard callback
 (`data.py:128-140`) reads only its devices' windows, and keeps the
 stretch of the sequence its seq coordinate gives it (inputs and targets
-alike); the global batch is unchanged.
+alike); the global batch is unchanged. The ranks of a model or expert line
+share a (data, fsdp) coordinate, so they read the same rows.
 """
 
 import queue

@@ -151,8 +151,13 @@ def init_lora_state(config: ModelConfig, base: Params, seed: Union[int, torch.Ge
 
 def _column_targets(config: ModelConfig, mesh, targets: Sequence[str]):
     """`train.ranked_mesh(config, mesh)`, after checking that every target
-    merges on a rank's slices (module docstring) when it is a mesh."""
+    merges on a rank's slices (module docstring) when it is a mesh; an MoE
+    config or an expert axis over ranks raises."""
     ranked = ranked_mesh(config, mesh)
+    if ranked is not None and (config.n_experts > 0 or ranked.shape["expert"] > 1):
+        raise NotImplementedError(
+            f"LoRA over ranks on a mixture-of-experts config or an expert axis (mesh"
+            f" {ranked.shape}) is ROADMAP Queue 1 item 3j, not ported yet")
     rows = [t for t in targets if PARAM_SPECS["layers"][t] != (None, "fsdp", "model")]
     if ranked is not None and rows:
         raise NotImplementedError(

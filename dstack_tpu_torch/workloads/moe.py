@@ -22,8 +22,23 @@ keeps it f32: in bf16 the two are slightly different functions.
 Tensor-parallel serving: on a `model` mesh the expert banks carry their
 output columns per rank (`we_*` take "model" on their last dim) and the
 router is replicated, so the expert FFN gathers where the dense MLP does.
-The expert-parallel layout (the "expert" mesh axis, all-to-all dispatch)
-is not ported: `sharding.Mesh` refuses it (ROADMAP Queue 1 item 3).
+
+Training across ranks (a training mesh, sharding.py): the reference's
+layout, where the batch rides (data, fsdp) only and the expert inputs and
+outputs are constrained to P("expert", ("data", "fsdp"), None, None)
+(`moe.py:150-154`). Every rank of an expert line holds the same tokens and
+routes them alike from the replicated router; it dispatches only to its
+own block of E/expert experts (`sharding.expert_block`), runs its banks
+(Megatron's pair on a model axis: `enter_model` before the gate and up
+products, `reduce_model` after we_down; the fsdp dims come whole through
+`gather_layer`), and gathers every expert's output (`gather_experts`)
+before the combine, which runs whole on every rank. The tokens that enter
+the experts go through `enter_expert`, whose backward sums their grad over
+the line; the router's input does not (its grad is already whole on every
+rank). The forward's gathers move bits, so a rank's output equals the
+unsharded one. The router aux on a training mesh is a rank's share of the
+reference's global Switch loss (`switch_aux`): the shares summed over the
+batch axes give the global value and its grad.
 There is no kernel here: the reference computes these products in XLA.
 """
 
@@ -34,7 +49,15 @@ import torch
 
 from dstack_tpu_torch.workloads.config import ModelConfig
 from dstack_tpu_torch.workloads.quant import QTensor, dequantize_tensor
-from dstack_tpu_torch.workloads.sharding import all_gather
+from dstack_tpu_torch.workloads.sharding import (
+    all_gather,
+    batch_sum,
+    enter_expert,
+    enter_model,
+    expert_block,
+    gather_experts,
+    reduce_model,
+)
 
 Params = Dict[str, Any]
 
@@ -54,8 +77,8 @@ def _router_logits(h: torch.Tensor, router: torch.Tensor) -> torch.Tensor:
     return torch.matmul(h.to(torch.float32), router.to(torch.float32))
 
 
-def route_assignments(c: ModelConfig, h: torch.Tensor, router: torch.Tensor
-                      ) -> Tuple[torch.Tensor, ...]:
+def route_assignments(c: ModelConfig, h: torch.Tensor, router: torch.Tensor,
+                      mesh=None) -> Tuple[torch.Tensor, ...]:
     """Top-k routing -> (gate_vals (B,S,k) f32, gate_idx (B,S,k) int64,
     slot (B,S,k) int64, sel (B,S,k,E) f32 one-hot, aux 0-d f32).
     slot >= C marks a dropped token.
@@ -63,19 +86,40 @@ def route_assignments(c: ModelConfig, h: torch.Tensor, router: torch.Tensor
     The top-k is a stable descending sort, so of two equal probabilities
     the lower expert index comes first, as `lax.top_k` orders them.
     Gradients flow through gate_vals and the aux loss's mean
-    probabilities."""
+    probabilities. On a training `mesh` the aux is this rank's share
+    (`switch_aux`)."""
     probs = torch.softmax(_router_logits(h, router), dim=-1)      # (B,S,E) f32
     order = torch.sort(probs, dim=-1, descending=True, stable=True).indices
-    return assign_slots(c, probs, order[..., :c.experts_per_token])
+    return assign_slots(c, probs, order[..., :c.experts_per_token], mesh)
 
 
-def assign_slots(c: ModelConfig, probs: torch.Tensor, gate_idx: torch.Tensor
-                 ) -> Tuple[torch.Tensor, ...]:
+def switch_aux(probs: torch.Tensor, sel: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The Switch load-balance loss E * sum_e mean_prob_e * top1_share_e,
+    its means over the (B, S) tokens of `probs` (B,S,E) and the first
+    choices `sel[:, :, 0]`. On a training mesh over ranks the means are
+    the global batch's and a rank returns its share: the top-1 counts
+    summed over the batch axes (no grad; their total is the global token
+    count N, every token having one first choice), and the share
+    E * sum_e (sum of this rank's probs_e / N) * top1_share_e. The shares
+    summed over data x fsdp x seq are the global loss, and so are their
+    grads."""
+    E = probs.shape[-1]
+    top1 = sel[:, :, 0, :]
+    if mesh is None or not mesh.training:
+        return float(E) * torch.sum(probs.mean(dim=(0, 1)) * top1.mean(dim=(0, 1)))
+    counts = batch_sum(top1.sum(dim=(0, 1)), mesh)
+    n = counts.sum()
+    return float(E) * torch.sum(probs.sum(dim=(0, 1)) / n * (counts / n))
+
+
+def assign_slots(c: ModelConfig, probs: torch.Tensor, gate_idx: torch.Tensor,
+                 mesh=None) -> Tuple[torch.Tensor, ...]:
     """route_assignments' outputs for router probabilities `probs`
     (B,S,E) f32 and a choice of experts `gate_idx` (B,S,k): the gate
     renormalised with max(sum, 1e-9), the slots from one integer cumsum
     over the choice-major token axis (every first choice is placed before
-    any second choice; exact at any length), and the Switch aux loss."""
+    any second choice; exact at any length), and the Switch aux loss
+    (`switch_aux`, a rank's share on a training `mesh`)."""
     B, S, E = probs.shape
     k = gate_idx.shape[-1]
     gate_vals = torch.gather(probs, -1, gate_idx)
@@ -89,12 +133,7 @@ def assign_slots(c: ModelConfig, probs: torch.Tensor, gate_idx: torch.Tensor
     pos = pos_flat.reshape(B, k, S, E).transpose(1, 2)             # (B,S,k,E)
     slot = (pos * sel_i).sum(dim=-1)                               # (B,S,k)
     sel = sel_i.to(torch.float32)
-
-    # Switch-style load-balance loss: E * sum_e mean_prob_e * top1_share_e.
-    mean_prob = probs.mean(dim=(0, 1))
-    top1_share = sel[:, :, 0, :].mean(dim=(0, 1))
-    aux = float(E) * torch.sum(mean_prob * top1_share)
-    return gate_vals, gate_idx, slot, sel, aux
+    return gate_vals, gate_idx, slot, sel, switch_aux(probs, sel, mesh)
 
 
 def _slot_one_hot(slot: torch.Tensor, C: int) -> torch.Tensor:
@@ -102,11 +141,11 @@ def _slot_one_hot(slot: torch.Tensor, C: int) -> torch.Tensor:
     return (slot[..., None] == torch.arange(C, device=slot.device)).to(torch.float32)
 
 
-def route(c: ModelConfig, h: torch.Tensor, router: torch.Tensor
+def route(c: ModelConfig, h: torch.Tensor, router: torch.Tensor, mesh=None
           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Top-k routing -> (dispatch (B,S,E,C), combine (B,S,E,C), aux)."""
     C = expert_capacity(c, h.shape[1])
-    gate_vals, _, slot, sel, aux = route_assignments(c, h, router)
+    gate_vals, _, slot, sel, aux = route_assignments(c, h, router, mesh)
     slot_oh = _slot_one_hot(slot, C)                               # (B,S,k,C)
     dispatch = torch.einsum("bske,bskc->bsec", sel, slot_oh)
     combine = torch.einsum("bsk,bske,bskc->bsec", gate_vals, sel, slot_oh)
@@ -157,15 +196,22 @@ def _expert_ffn(h_dtype: torch.dtype, expert_in: torch.Tensor, p: Params,
                 mesh=None) -> torch.Tensor:
     """SwiGLU over the expert bank: (E,B,C,D) -> (E,B,C,D). The gate
     product has an f32 result and silu runs in f32, cast back; the up and
-    down products are in the activation dtype. On a model `mesh` each
-    bank holds a rank's output columns: the activation is gathered before
-    we_down and we_down's output after it, as the dense MLP's."""
+    down products are in the activation dtype. On a serving model `mesh`
+    each bank holds a rank's output columns: the activation is gathered
+    before we_down and we_down's output after it, as the dense MLP's. On
+    a training mesh the banks follow PARAM_SPECS (gate/up column-parallel
+    and down row-parallel on model): Megatron's pair, as the dense MLP's."""
+    training = mesh is not None and mesh.training
     E, B, C, D = expert_in.shape
-    x = expert_in.reshape(E, B * C, D)
+    x = (enter_model(expert_in, mesh) if training else expert_in).reshape(E, B * C, D)
     gate = _bmm_f32_result(x, _bank(p["we_gate"], h_dtype))
     up = torch.bmm(x, _bank(p["we_up"], h_dtype))
-    act = all_gather(torch.nn.functional.silu(gate).to(h_dtype) * up, -1, mesh)
-    out = all_gather(torch.bmm(act, _bank(p["we_down"], h_dtype)), -1, mesh)
+    act = torch.nn.functional.silu(gate).to(h_dtype) * up
+    if training:
+        out = reduce_model(torch.bmm(act, _bank(p["we_down"], h_dtype)), mesh)
+    else:
+        act = all_gather(act, -1, mesh)
+        out = all_gather(torch.bmm(act, _bank(p["we_down"], h_dtype)), -1, mesh)
     return out.reshape(E, B, C, -1)
 
 
@@ -177,15 +223,19 @@ def moe_mlp(c: ModelConfig, h: torch.Tensor, p: Params, mesh=None
     `config.moe_impl` picks the dispatch: "einsum" (dense dispatch and
     combine products, 2*E*C*D FLOPs a token each way) or "gather" (the
     same permutation by gathers, no dispatch FLOPs). The router is
-    replicated, so every rank of a model `mesh` routes alike; the banks
-    are column slices (`_expert_ffn`)."""
+    replicated, so every rank of a `mesh` routes alike; on a serving mesh
+    the banks are column slices (`_expert_ffn`), on a training mesh a
+    rank dispatches to its block of experts and gathers their outputs
+    (module docstring)."""
     if c.moe_impl == "gather":
         return _moe_mlp_gather(c, h, p, mesh)
     if c.moe_impl != "einsum":
         raise ValueError(f'moe_impl={c.moe_impl!r}: expected "einsum" or "gather"')
-    dispatch, combine, aux = route(c, h, p["router"])
-    expert_in = torch.einsum("bsec,bsd->ebcd", dispatch.to(h.dtype), h)
-    expert_out = _expert_ffn(h.dtype, expert_in, p, mesh)
+    dispatch, combine, aux = route(c, h, p["router"], mesh)
+    e0, e1 = expert_block(c.n_experts, mesh)
+    expert_in = torch.einsum("bsec,bsd->ebcd", dispatch[:, :, e0:e1].to(h.dtype),
+                             enter_expert(h, mesh))
+    expert_out = gather_experts(_expert_ffn(h.dtype, expert_in, p, mesh), 0, mesh)
     out = torch.einsum("bsec,ebcd->bsd", combine.to(h.dtype), expert_out)
     return out, aux
 
@@ -198,11 +248,13 @@ def _moe_mlp_gather(c: ModelConfig, h: torch.Tensor, p: Params, mesh=None
     from one integer scatter; rows move by gathers. Dropped tokens aim at
     a dummy column E*C (sliced off) going in and a zero pad row coming
     back, so they contribute 0 as in the einsum path; empty slots read
-    the zero pad row S. The gate multiply stays f32."""
+    the zero pad row S. The gate multiply stays f32. On a training mesh a
+    rank gathers the source rows of its own experts' slots only."""
     B, S, D = h.shape
     E, k = c.n_experts, c.experts_per_token
     C = expert_capacity(c, S)
-    gate_vals, gate_idx, slot, _, aux = route_assignments(c, h, p["router"])
+    gate_vals, gate_idx, slot, _, aux = route_assignments(c, h, p["router"], mesh)
+    e0, e1 = expert_block(E, mesh)
 
     # Flat slot id; an overflowing choice writes the trailing dummy column.
     sid = torch.where(slot < C, gate_idx * C + slot, torch.full_like(slot, E * C))
@@ -210,12 +262,13 @@ def _moe_mlp_gather(c: ModelConfig, h: torch.Tensor, p: Params, mesh=None
     # src[b, e*C+c] = s. A slot goes to at most one token (the cumsum), so
     # only the dummy column sees several writes.
     src = torch.full((B, E * C + 1), S, dtype=torch.int64, device=h.device)
-    src = src.scatter(1, sid.reshape(B, S * k), s_ix.reshape(B, S * k))[:, :E * C]
+    src = src.scatter(1, sid.reshape(B, S * k), s_ix.reshape(B, S * k))[:, e0 * C:e1 * C]
 
-    h_pad = torch.cat([h, h.new_zeros(B, 1, D)], dim=1)
-    expert_in = torch.gather(h_pad, 1, src[:, :, None].expand(B, E * C, D))
-    expert_in = expert_in.reshape(B, E, C, D).transpose(0, 1)
-    expert_out = _expert_ffn(h.dtype, expert_in, p, mesh)
+    h_in = enter_expert(h, mesh)
+    h_pad = torch.cat([h_in, h_in.new_zeros(B, 1, D)], dim=1)
+    expert_in = torch.gather(h_pad, 1, src[:, :, None].expand(B, (e1 - e0) * C, D))
+    expert_in = expert_in.reshape(B, e1 - e0, C, D).transpose(0, 1)
+    expert_out = gather_experts(_expert_ffn(h.dtype, expert_in, p, mesh), 0, mesh)
 
     flat = expert_out.transpose(0, 1).reshape(B, E * C, D)
     flat = torch.cat([flat, flat.new_zeros(B, 1, D)], dim=1)

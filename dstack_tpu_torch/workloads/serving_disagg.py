@@ -516,23 +516,16 @@ def own_prefix_gaps(config, params, prompt, stream) -> List[float]:
     """At each position of a temperature-0 stream, the dense plain
     forward's f32 gap between its largest logit and the stream's token,
     over max |logit|, read on the stream's own prefix (prompt +
-    stream[:j]): 0 where the token is the dense argmax."""
-    from dstack_tpu_torch.workloads.generate import _forward_cached, init_cache
+    stream[:j]): 0 where the token is the dense argmax. One causal forward
+    over prompt + stream[:-1] reads every prefix's logits at once."""
+    from dstack_tpu_torch.workloads.transformer import forward
 
     if not stream:
         return []
     dev = params["embed"].device
-    cache = init_cache(config, 1, len(prompt) + len(stream), dev)
-    rows = []
+    tokens = torch.tensor([list(prompt) + list(stream[:-1])], device=dev)
     with torch.no_grad():
-        logits, cache = _forward_cached(config, params, torch.tensor([list(prompt)], device=dev),
-                                        cache)
-        for t in stream[:-1]:
-            rows.append(logits[0])
-            logits, cache = _forward_cached(config, params, torch.tensor([[t]], device=dev),
-                                            cache)
-        rows.append(logits[0])
-    logits = torch.stack(rows).float()
+        logits = forward(config, params, tokens)[0, len(prompt) - 1:].float()
     got = logits.gather(1, torch.tensor(list(stream), device=dev)[:, None])[:, 0]
     return ((logits.max(1).values - got) / logits.abs().amax(1)).tolist()
 

@@ -14,11 +14,12 @@ Three mesh shapes run here:
   Rank r holds its slice of every weight and its KV heads, and the
   engine's host loop on rank 0 drives the same device programs on every
   rank.
-- a training mesh (`make_mesh(data=, fsdp=, seq=, model=, layout="training")`
-  over the ranks): the trainer (`train.make_train_step(config, mesh)`) on
-  the reference's PARAM_SPECS. Rank r's coordinates are its row-major index
-  in AXES order, the reference's `np.array(devices).reshape(shape)`, so rank
-  r holds the slices JAX device r holds under the same `NamedSharding`.
+- a training mesh (`make_mesh(data=, fsdp=, seq=, model=, expert=,
+  layout="training")` over the ranks): the trainer
+  (`train.make_train_step(config, mesh)`) on the reference's PARAM_SPECS.
+  Rank r's coordinates are its row-major index in AXES order, the
+  reference's `np.array(devices).reshape(shape)`, so rank r holds the
+  slices JAX device r holds under the same `NamedSharding`.
 
 The serving layout is the reference's column-parallel one: `model` rides
 output dims only, so every contraction stays whole on each rank and the
@@ -38,7 +39,15 @@ wo/w_down row-parallel on `model` with Megatron's pair around each
 backward); attention over the seq axis as the ring across ranks
 (`attention._RankRing`, its K/V hops through `ppermute`); the grad
 all-reduce over data, seq and what fsdp's reduce-scatter did not cover
-after the backward (`reduce_grads`, `grad_axes`).
+after the backward (`reduce_grads`, `grad_axes`). The expert axis holds
+each rank's block of E/expert experts of every bank (`we_*` on "expert")
+while the batch stays on (data, fsdp) only, as the reference's BATCH_SPEC
+and its constraints around the expert FFN (`moe.py:150-154`) lay it out:
+every rank of an expert line holds the same tokens, dispatches them to
+its own experts behind `enter_expert` (identity forward, the tokens' grad
+summed over expert in backward) and gathers every expert's output with
+`gather_experts` (an all-gather forward whose backward takes this rank's
+block and sums nothing). At that layout there is no token all-to-all.
 
 Specs are tuples of axis names (None: not sharded; a tuple of names: the
 axes' combined index, row-major), one entry per dim; `()` is replicated.
@@ -56,11 +65,11 @@ previous one, both posted before either waits); it has no autograd of its
 own: the ring and the pipeline call it from explicit schedules that are
 the same on every rank, forward and backward.
 
-An expert axis over ranks (expert parallelism) is ROADMAP Queue 1 item
-3d, and raises.
+An expert axis on a serving mesh is ROADMAP Queue 1 item 3i, and raises.
 """
 
 import datetime
+import gc
 import itertools
 import math
 import os
@@ -89,19 +98,20 @@ LAYOUTS = ("serving", "training")
 # heartbeat, serving.HEARTBEAT_S, keeps its followers well inside it).
 GROUP_TIMEOUT = datetime.timedelta(minutes=30)
 
-_NEXT_SLICE = ("an expert axis over ranks (expert parallelism) is ROADMAP Queue 1"
-               " item 3d, not ported yet")
+_SERVING_EXPERT = ("an expert axis on a serving mesh (the tensor-parallel engine's"
+                   " expert-sharded banks) is ROADMAP Queue 1 item 3i, not ported yet;"
+                   " the trainer takes one (make_mesh(..., layout='training'))")
 _ONE_DEVICE = ("without a process group the port runs one device with a seq axis"
-               " (the ring's shards take turns on it); the model, data, fsdp and seq"
-               " axes run over the ranks of sharding.init_ranks (the sharding slices,"
-               " ROADMAP Queue 1 item 3), and " + _NEXT_SLICE)
+               " (the ring's shards take turns on it); the model, data, fsdp, seq and"
+               " expert axes run over the ranks of sharding.init_ranks (the sharding"
+               " slices, ROADMAP Queue 1 item 3)")
 
 
 def _stats() -> Dict[str, float]:
-    return {"all_gathers": 0, "all_gather_seconds": 0.0, "broadcasts": 0,
-            "all_reduces": 0, "all_reduce_seconds": 0.0,
-            "reduce_scatters": 0, "reduce_scatter_seconds": 0.0,
-            "hops": 0, "hop_seconds": 0.0, "hop_bytes": 0}
+    return {"all_gathers": 0, "all_gather_seconds": 0.0, "all_gather_bytes": 0,
+            "broadcasts": 0, "all_reduces": 0, "all_reduce_seconds": 0.0,
+            "all_reduce_bytes": 0, "reduce_scatters": 0, "reduce_scatter_seconds": 0.0,
+            "reduce_scatter_bytes": 0, "hops": 0, "hop_seconds": 0.0, "hop_bytes": 0}
 
 
 @dataclass(frozen=True)
@@ -113,7 +123,8 @@ class Mesh:
     the group's backend, the layout it was cut for, and a training mesh's
     sub-group for each set of axes (`groups`, axes tuple -> group, every
     rank's line of ranks along those axes). `stats` counts the collectives
-    this rank ran through the helpers below."""
+    this rank ran through the helpers below, their seconds and the bytes
+    this rank put into them."""
 
     device: torch.device
     shape: Dict[str, int]
@@ -133,8 +144,8 @@ class Mesh:
             if any(n > 1 for a, n in self.shape.items() if a != "seq"):
                 raise NotImplementedError(f"mesh {self.shape}: {_ONE_DEVICE}")
             return
-        if self.shape["expert"] > 1:
-            raise NotImplementedError(f"mesh {self.shape} over ranks: {_NEXT_SLICE}")
+        if self.shape["expert"] > 1 and self.layout == "serving":
+            raise NotImplementedError(f"mesh {self.shape} over ranks: {_SERVING_EXPERT}")
         if self.layout == "serving" and (
                 self.shape["data"] * self.shape["fsdp"] * self.shape["seq"] > 1):
             raise ValueError(f"mesh {self.shape}: the serving layout shards the model"
@@ -218,8 +229,8 @@ def make_mesh(devices: Optional[Sequence[DeviceLike]] = None, *, data: int = 1,
     """A mesh over `devices`. Without a process group: one device
     (default: the CUDA device) with a seq axis. After `init_ranks`: a mesh
     over every rank of the group, cut for `layout` ("serving": a model
-    axis, the tensor-parallel engine's; "training": data, fsdp, seq and
-    model, the trainer's), whose axis sizes multiply to the world; `devices` is
+    axis, the tensor-parallel engine's; "training": data, fsdp, seq,
+    model and expert, the trainer's), whose axis sizes multiply to the world; `devices` is
     None (`cuda:<rank>`) or one device for every rank. `fsdp=None` takes
     the factor left after the other axes, as the reference's (`:45-49`).
     A training mesh makes one sub-group per line of ranks along each set
@@ -314,8 +325,10 @@ def device_shards(mesh: Optional[Mesh]) -> Optional[Dict[str, int]]:
     the n seq shards take turns on one device, which holds them all: a seq
     factor of 1. On a training mesh over ranks each rank holds 1/(data *
     fsdp) of the batch rows, 1/seq of the sequence and 1/(fsdp * model) of
-    the weights, the mesh's own shape (the caller sizes the activations by
-    the global batch, as the reference's traced shapes are)."""
+    the weights (1/expert more of the expert banks, which the reference's
+    estimate, `config.py:114`, spreads over every weight), the mesh's own
+    shape (the caller sizes the activations by the global batch, as the
+    reference's traced shapes are)."""
     if training_mesh(mesh) is None:
         return None
     if mesh.ranked:
@@ -324,7 +337,8 @@ def device_shards(mesh: Optional[Mesh]) -> Optional[Dict[str, int]]:
 
 
 def batch_shards(mesh: Optional[Mesh]) -> int:
-    """How many ranks split the batch rows (data x fsdp; 1 off a mesh)."""
+    """How many ranks split the batch rows (data x fsdp; 1 off a mesh):
+    every rank of an expert line holds the same rows."""
     return 1 if mesh is None else mesh.shape["data"] * mesh.shape["fsdp"]
 
 
@@ -613,9 +627,10 @@ def _group(mesh: Mesh, axes: Sequence[str]) -> Tuple[Any, int]:
     return mesh.groups[live], n
 
 
-def _count(mesh: Mesh, kind: str, t0: float) -> None:
+def _count(mesh: Mesh, kind: str, t0: float, x: torch.Tensor) -> None:
     mesh.stats[kind + "s"] += 1
     mesh.stats[kind + "_seconds"] += time.perf_counter() - t0
+    mesh.stats[kind + "_bytes"] += x.numel() * x.element_size()
 
 
 def _pinned_like(x: torch.Tensor) -> torch.Tensor:
@@ -639,7 +654,7 @@ def _gather(x: torch.Tensor, dim: int, mesh: Mesh, group: Any, n: int) -> torch.
         out = torch.cat(parts, dim=dim, out=torch.empty(shape, dtype=src.dtype,
                                                          pin_memory=True))
         out = out.to(x.device, non_blocking=True)
-    _count(mesh, "all_gather", t0)
+    _count(mesh, "all_gather", t0, src)
     return out
 
 
@@ -681,8 +696,9 @@ def _p2p(mesh: Mesh, group: Any, sends, recvs) -> List[torch.Tensor]:
         work.wait()
     if mesh.staged:
         into = [x.to(mesh.device, non_blocking=True) for x in into]
+    mesh.stats["hops"] += 1
+    mesh.stats["hop_seconds"] += time.perf_counter() - t0
     mesh.stats["hop_bytes"] += sum(x.numel() * x.element_size() for x in out)
-    _count(mesh, "hop", t0)
     return into
 
 
@@ -736,7 +752,7 @@ def all_reduce(x: torch.Tensor, mesh: Optional[Mesh], axes: Sequence[str],
            else x.detach().clone(memory_format=torch.contiguous_format))
     dist.all_reduce(buf, op=red, group=group)
     out = buf.to(x.device, non_blocking=True) if mesh.staged else buf
-    _count(mesh, "all_reduce", t0)
+    _count(mesh, "all_reduce", t0, buf)
     return out
 
 
@@ -762,7 +778,7 @@ def reduce_scatter(x: torch.Tensor, dim: int, mesh: Mesh, axes: Sequence[str]) -
         dist.all_reduce(buf, group=group)
         out = buf.narrow(dim, rank * size, size)
         out = out.to(x.device, non_blocking=True) if mesh.staged else out.contiguous()
-    _count(mesh, "reduce_scatter", t0)
+    _count(mesh, "reduce_scatter", t0, x)
     return out
 
 
@@ -792,6 +808,39 @@ class _EnterModel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return all_reduce(g, ctx.mesh, ("model",)), None
+
+
+class _EnterExpert(torch.autograd.Function):
+    """The tokens that enter a rank's experts: identity forward; the
+    backward sums the grad over the expert axis (each rank's experts
+    contribute their part of the tokens' grad)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.mesh, ("expert",)), None
+
+
+class _GatherExperts(torch.autograd.Function):
+    """Every rank's block of experts' outputs along `dim`, in expert order;
+    the backward takes this rank's block of the grad and sums nothing: the
+    combine that reads the gathered outputs runs alike on every rank of
+    the expert line, so the grad that reaches here is the same whole grad
+    on each of them."""
+
+    @staticmethod
+    def forward(ctx, x, dim, mesh):
+        ctx.dim, ctx.mesh, ctx.size = dim, mesh, x.shape[dim]
+        return gather_axes(x, dim, mesh, ("expert",))
+
+    @staticmethod
+    def backward(ctx, g):
+        start = ctx.mesh.coords["expert"] * ctx.size
+        return g.narrow(ctx.dim, start, ctx.size), None, None
 
 
 class _ReduceModel(torch.autograd.Function):
@@ -833,6 +882,34 @@ def reduce_model(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
     return _ReduceModel.apply(x, mesh) if _splits(mesh, "model") else x
 
 
+def enter_expert(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """The tokens dispatched to this rank's experts on a training mesh's
+    expert axis (identity forward, grad summed over expert); `x` itself
+    elsewhere. Only what enters the experts goes through it, never the
+    router's input, whose grad is already whole on every rank."""
+    return _EnterExpert.apply(x, mesh) if _splits(mesh, "expert") else x
+
+
+def gather_experts(x: torch.Tensor, dim: int, mesh: Optional[Mesh]) -> torch.Tensor:
+    """Every rank's experts' outputs concatenated along `dim` on a training
+    mesh's expert axis (backward: this rank's block, unsummed); `x` itself
+    elsewhere."""
+    return _GatherExperts.apply(x, dim, mesh) if _splits(mesh, "expert") else x
+
+
+def expert_block(n_experts: int, mesh: Optional[Mesh]) -> Tuple[int, int]:
+    """[e0, e1): the experts this rank's banks hold, its block of
+    `n_experts` by its expert coordinate on a training mesh; all of them
+    elsewhere. An expert axis that does not divide them raises ValueError."""
+    if not _splits(mesh, "expert"):
+        return 0, n_experts
+    n = mesh.shape["expert"]
+    if n_experts % n:
+        raise ValueError(f"the expert axis ({n}) must divide n_experts ({n_experts})")
+    size = n_experts // n
+    return mesh.coords["expert"] * size, (mesh.coords["expert"] + 1) * size
+
+
 def gather_layer(p: Dict[str, Any], mesh: Optional[Mesh]) -> Dict[str, Any]:
     """A layer's weights (its slice of the stacks) whole over fsdp, each
     on the dim its PARAM_SPECS entry puts "fsdp" on."""
@@ -849,7 +926,11 @@ def grad_axes(spec: Tuple) -> Tuple[str, ...]:
     rank other positions; every leaf is replicated over seq), and fsdp for
     a leaf the fsdp gather's reduce-scatter did not reach. The model axis
     needs none: Megatron's pair leaves a leaf replicated over model with
-    the same whole grad on every model rank."""
+    the same whole grad on every model rank. Nor does the expert axis: the
+    ranks of an expert line hold the same rows, an expert bank's grad is
+    its own block's (no other rank holds those experts), and a leaf
+    replicated over expert gets the same whole grad on every expert rank
+    once `enter_expert` has summed the tokens' grad over the line."""
     return ("data", "seq") if "fsdp" in spec else ("data", "fsdp", "seq")
 
 
@@ -940,6 +1021,23 @@ def join_ranks(world: int, rank: int, init_method: str, backend: Optional[str],
     except BaseException:
         stop_followers(followers, timeout=0)
         raise
+
+
+def leave_ranks(mesh: Optional[Mesh] = None) -> None:
+    """Leave the process group for good, after the last collective: drop
+    `mesh`'s handles on its groups (the mesh is unusable after), collect
+    what else held one, then destroy every group. The backend joins a
+    group's threads when the last handle on it goes, and destroying the
+    groups does not drop a handle a Python object still holds; a gloo
+    group whose last handle goes only at interpreter teardown aborts the
+    process there ("terminate called without an active exception", exit
+    134) one exit in a few dozen."""
+    if mesh is not None:
+        mesh.groups.clear()
+        object.__setattr__(mesh, "group", None)
+    gc.collect()
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def refuse_multi_host() -> None:

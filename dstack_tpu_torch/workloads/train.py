@@ -12,7 +12,7 @@ stay on the device: the step makes no host readback; callers read what
 they print.
 
 On a training mesh over ranks (sharding.make_mesh(data=, fsdp=, seq=,
-model=, layout="training")) each rank holds its slices of the params and
+model=, expert=, layout="training")) each rank holds its slices of the params and
 AdamW moments under PARAM_SPECS (`init_train_state(mesh=)` draws the
 whole params from the seed and cuts them, as the reference's `shard_tree`
 after init) and its block of the batch, its rows and its stretch of the
@@ -29,12 +29,17 @@ grad is summed over the axes the fsdp reduce-scatter did not cover, seq
 included (`sharding.grad_axes`); AdamW then updates every shard in
 place, its moments cut as their params. `global_norm` sums the shards'
 squares and counts a replicated leaf once. `loss`, `grad_norm` and
-`router_aux` come out equal on every rank. With `accum_steps` a rank's
-microbatch j is its own rows' j-th slice (the reference slices the global
-batch); the loss and grads are the same sums, over other groupings of
-rows, which matters only where `loss_mask` weights microbatches unevenly.
-Mixture-of-experts configs over ranks raise (expert parallelism, ROADMAP
-Queue 1 item 3d).
+`router_aux` come out equal on every rank. With `accum_steps` microbatch
+j is the reference's, rows [j*B/accum, (j+1)*B/accum) of the global batch,
+cut over (data, fsdp) as BATCH_SPEC cuts a batch: each rank gathers the
+batch's rows over those axes (token ids, a few KB) and takes its block of
+each microbatch, so every microbatch's mean CE and router aux group the
+rows as the reference's `lax.scan` does. A mixture-of-experts config runs
+its rank's block of experts on the expert axis (workloads/moe.py); its
+router aux is a rank's share of the global batch's (moe.switch_aux), which
+the loss adds as the CE's share is, and the `router_aux` metric is the
+shares' sum. MoE over a seq axis of ranks raises (ROADMAP Queue 1 item
+3h): capacity and the slot cumsum run over a row's whole sequence.
 
 The optimizer is AdamW written out on tensors rather than
 `torch.optim.AdamW`, because its state must match optax's: `mu` in f32,
@@ -73,14 +78,18 @@ from dstack_tpu_torch.workloads.config import ModelConfig
 from dstack_tpu_torch.workloads.device import DeviceLike, resolve_device
 from dstack_tpu_torch.workloads.sharding import (
     AXES,
+    BATCH_SPEC,
     all_reduce,
+    batch_shards,
     batch_sum,
+    gather_axes,
     gather_fsdp,
     grad_axes,
     param_specs,
     reduce_grads,
     reduce_model,
     replicas,
+    shard,
     shard_batch,
     seq_ranks,
     shard_tree,
@@ -218,18 +227,22 @@ def _device_of(device: DeviceLike, mesh) -> torch.device:
 
 
 def ranked_mesh(config: ModelConfig, mesh):
-    """The training mesh over ranks `mesh` is (any of data, fsdp, seq and
-    model), or None for no mesh and the one-device seq mesh. A mesh cut
-    for serving raises ValueError, and an MoE config over ranks
-    NotImplementedError."""
+    """The training mesh over ranks `mesh` is (any of data, fsdp, seq,
+    model and expert), or None for no mesh and the one-device seq mesh. A
+    mesh cut for serving, or an expert axis that does not divide the
+    config's experts, raises ValueError; an MoE config over a seq axis of
+    ranks NotImplementedError."""
     mesh = training_mesh(mesh)
     if mesh is None or not mesh.ranked:
         return None
-    if config.n_experts > 0:
+    if config.n_experts % mesh.shape["expert"]:
+        raise ValueError(f"the expert axis ({mesh.shape['expert']}) must divide the"
+                         f" config's n_experts ({config.n_experts})")
+    if config.n_experts > 0 and mesh.shape["seq"] > 1:
         raise NotImplementedError(
-            "mixture-of-experts training over ranks is expert parallelism (ROADMAP"
-            " Queue 1 item 3d, not ported yet): the expert axis, the token"
-            " all-to-all and the router aux over the global batch")
+            f"mixture-of-experts over a seq axis of {mesh.shape['seq']} ranks is ROADMAP"
+            " Queue 1 item 3h, not ported yet: a row's capacity and slot cumsum run"
+            " over its whole sequence, and a seq rank holds one stretch of it")
     return mesh
 
 
@@ -322,9 +335,11 @@ def loss_fn(config: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
     training mesh over ranks the loss is this rank's share of the global
     mean: its rows' summed CE over the mask count of the whole batch
     (summed over data x fsdp x seq), so the shares summed over those axes
-    (sharding.batch_sum) are the loss and their grads sum to its grad. The
-    chunked CE is chosen by the whole sequence's length, as the
-    reference's; a seq rank chunks its own stretch."""
+    (sharding.batch_sum) are the loss and their grads sum to its grad; the
+    router aux it adds and returns is likewise the rank's share of the
+    global one (moe.switch_aux). The chunked CE is chosen by the whole
+    sequence's length, as the reference's; a seq rank chunks its own
+    stretch."""
     inputs, targets = batch["inputs"], batch["targets"]
     mask = batch.get("loss_mask")
     s_whole = inputs.shape[1] * seq_ranks(mesh)
@@ -393,16 +408,9 @@ def make_train_step(config: ModelConfig, mesh=None, learning_rate: float = 3e-4,
         return loss.detach(), aux.detach(), [(k, g) for (k, _), g in zip(pairs, grads)]
 
     def accumulated_grads(params, batch):
-        b = next(iter(batch.values())).shape[0]
-        if b % accum_steps:
-            raise ValueError(
-                f"batch size {b} is not divisible by accum_steps {accum_steps};"
-                " gradient accumulation needs equal microbatches")
-        mb = b // accum_steps
         loss_sum = aux_sum = 0.0
         sums = None
-        for i in range(accum_steps):
-            micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+        for micro in _microbatches(batch, accum_steps, ranked):
             loss, aux, grads = grads_of(params, micro)
             loss_sum, aux_sum = loss_sum + loss, aux_sum + aux
             if sums is None:
@@ -422,7 +430,7 @@ def make_train_step(config: ModelConfig, mesh=None, learning_rate: float = 3e-4,
         if ranked is not None:
             specs = dict(flatten_params(param_specs(state.params)))
             grads = reduce_grads(grads, ranked, lambda k: grad_axes(specs[k]))
-            loss = batch_sum(loss, ranked)
+            loss, aux = batch_sum(loss, ranked), batch_sum(aux, ranked)
         grads = unflatten_params(grads)
         gnorm = global_norm(grads, ranked)
         opt_state = optimizer.apply(state.params, grads, state.opt_state)
@@ -430,6 +438,28 @@ def make_train_step(config: ModelConfig, mesh=None, learning_rate: float = 3e-4,
         return new_state, {"loss": loss, "grad_norm": gnorm, "router_aux": aux}
 
     return _staged_step(train_step)
+
+
+def _microbatches(batch: Dict[str, torch.Tensor], accum_steps: int, mesh=None):
+    """The reference's microbatches of a batch: microbatch j holds rows
+    [j*B/accum, (j+1)*B/accum) of the global batch of B rows. On a mesh
+    whose (data, fsdp) ranks split the rows, `batch` is this rank's block:
+    the rows are gathered over those axes and each microbatch cut again by
+    BATCH_SPEC's rows, so a rank yields its block of each."""
+    dp = batch_shards(mesh)
+    if dp > 1:
+        batch = {k: gather_axes(v, 0, mesh, ("data", "fsdp")) for k, v in batch.items()}
+    b = next(iter(batch.values())).shape[0]
+    if b % accum_steps:
+        raise ValueError(
+            f"batch size {b} is not divisible by accum_steps {accum_steps};"
+            " gradient accumulation needs equal microbatches")
+    mb = b // accum_steps
+    if mb % dp:
+        raise ValueError(f"a microbatch of {mb} rows does not split over the {dp}"
+                         " data x fsdp ranks")
+    for i in range(accum_steps):
+        yield {k: shard(v[i * mb:(i + 1) * mb], BATCH_SPEC[:1], mesh) for k, v in batch.items()}
 
 
 def _staged_step(step_fn):

@@ -27,7 +27,9 @@ reference's jitted step: each layer's weights are gathered whole over
 likewise), wq/wk/wv/w_gate/w_up run column-parallel on `model` behind
 Megatron's f (`enter_model` on the normed input) and wo/w_down
 row-parallel with their partial sums summed over `model` (`reduce_model`),
-so a rank attends with its H/m q and KV/m KV heads. Whether a gathered
+so a rank attends with its H/m q and KV/m KV heads; an MoE block runs its
+rank's block of experts (workloads/moe.py) and returns its share of the
+router aux. Whether a gathered
 weight is gathered again in backward follows the remat policy: with
 "none" autograd keeps every layer's gathered weights from forward to
 backward, so a rank holds its model shard of the params whole, 1/model of
@@ -303,14 +305,15 @@ def _block(c: ModelConfig, x: torch.Tensor, p: Params, positions: torch.Tensor,
     """One decoder block -> (x, router_aux); aux is None for dense models.
     On a training `mesh` the layer's fsdp shards are gathered first and
     the attention and MLP halves run Megatron's pair on `model` (both are
-    no-ops elsewhere)."""
+    no-ops elsewhere); an MoE half runs this rank's experts and its aux is
+    the rank's share (moe.switch_aux)."""
     b, s, _ = x.shape
     p = gather_layer(p, mesh)
     q, k, v = project_qkv(c, x, p, positions, mesh)
     attn = attention_fn(q, k, v).reshape(b, s, -1)
     x = x + reduce_model(linear(attn, p["wo"]), mesh)
     if c.n_experts > 0:
-        return moe_block(c, x, p)
+        return moe_block(c, x, p, mesh)
     h = enter_model(rms_norm(x, p["mlp_norm"], c.norm_eps), mesh)
     act = _silu(linear(h, p["w_gate"])) * linear(h, p["w_up"])
     return x + reduce_model(linear(act, p["w_down"]), mesh), None

@@ -333,7 +333,7 @@ def test_near_tie_rule_passes_a_tie_and_fails_a_genuine_divergence(tiny):
     assert len(tie) == len(stream) and tie[at + 1:] != stream[at + 1:]
     r = cs.near_tie(cfg, params, prompt, stream, tie, gap * 1.001)
     assert r["ok"] and r["diverged"] and r["at"] == at and r["gap"] == pytest.approx(gap)
-    # worst reads the dense forward one token at a time, gap in one pass
+    # worst reads every prefix in one causal forward, gap the prefix's own
     assert r["worst"] == pytest.approx(gap, rel=1e-4)
     assert not cs.near_tie(cfg, params, prompt, stream, tie, gap * 0.999)["ok"]
     off = tie[:at + 1] + [int(cs.dense_logits(cfg, params, head).argmin())] + tie[at + 2:]
@@ -1273,7 +1273,11 @@ def counted_block(q, k, v, c):
 
 
 fa._flash_fwd_plain, fa._flash_bwd_plain, fa._block_ref_bh = counted_fwd, counted_bwd, counted_block
-main = cs.rg_rank_main if sys.argv[3] == "ring" else cs.pp_rank_main
+if sys.argv[3] == "expert":
+    # Phase 18's rank processes at tiny-moe (4 experts, 2 layers) on the CPU.
+    PRESETS["tiny-moe-2k"] = PRESETS["tiny-moe"].with_(max_seq_len=2048)
+    cs.EP_PRESET, cs.EP_DEVICE, cs.EP_B, cs.EP_S, cs.EP_LAYERS = "tiny-moe-2k", "cpu", 2, 64, 2
+main = {"ring": cs.rg_rank_main, "pipe": cs.pp_rank_main, "expert": cs.ep_rank_main}[sys.argv[3]]
 sys.exit(main(int(sys.argv[1]), sys.argv[2]))
 '''
 
@@ -1358,3 +1362,106 @@ def test_pipeline_phase_runs_on_the_cpu(tmp_path, monkeypatch):
     bad = {**res["f32"], "sound": {**res["f32"]["sound"], "shared_equal": False}}
     with pytest.raises(AssertionError, match="phase 17"):
         cs.check_pipeline({"f32": bad})
+
+
+def test_expert_rank_phase_runs_on_the_cpu(tmp_path, monkeypatch):
+    """Phase 18's two rank processes at tiny-moe on the CPU over gloo: the
+    expert-2 steps against the unsharded steps, #2-#4 once a layer a step
+    on each rank at the whole batch's geometry, the expert gathers and the
+    tokens' all-reduces counted with their bytes, each mutant failing the
+    gate that guards it, and the phase's checks passing the sound run."""
+    res = _dry_run_ranks(tmp_path, "expert", cs.EP_RANKS, "EP_RESULT")
+    assert sorted(res["f32"]) == sorted(["sound", "unsharded", *cs.EP_MUTANTS])
+    assert sorted(res["bf16"]) == ["sound", "unsharded"]
+    for tag, nbytes in (("bf16", 2), ("f32", 4)):
+        r = res[tag]["sound"]
+        for rr in r["ranks"]:
+            assert rr["losses"] == r["ranks"][0]["losses"]
+            assert rr["router_aux"] == r["ranks"][0]["router_aux"] > 0
+            assert rr["launches_per_step"]["flash_fwd"] == 2
+            # A gather of the experts' outputs and an all-reduce of the
+            # tokens' grad a layer (and global_norm's); a rank's outputs of
+            # a layer are (2 experts, B 2, C 40, D 128).
+            coll = rr["collectives_per_step"]
+            assert coll["all_gathers"] == 2 and coll["all_reduces"] == 3
+            assert coll["reduce_scatters"] == 0
+            assert rr["collective_mb_per_step"]["all_gather"] == pytest.approx(
+                2 * 2 * 2 * 40 * 128 * nbytes / 1e6)
+    assert res["bf16"]["sound"]["ranks"][0]["kernel_shapes"]["flash_fwd"] == [[8, 64, 32]]
+    sound = res["f32"]["sound"]
+    assert sound["loss_rel"] < 1e-6 and sound["params"]["rel_l2"] < 1e-5
+    for m, guard in cs.EP_GUARDS.items():
+        assert not cs.ep_gates(res["f32"][m])[guard], m
+    monkeypatch.setattr(cs, "EP_PRESET", "tiny-moe")
+    monkeypatch.setattr(cs, "EP_B", 2)
+    monkeypatch.setattr(cs, "EP_S", 64)
+    cs.check_expert_ranks({"f32": res["f32"]})
+    bad = {**res["f32"], "block_off": {**res["f32"]["block_off"], "loss_rel": 0.0}}
+    with pytest.raises(AssertionError, match="phase 18 block_off"):
+        cs.check_expert_ranks({"f32": bad})
+
+
+EXPERT_PAIR = r'''
+import json, os, sys
+import torch, torch.distributed as dist
+from dstack_tpu_torch.workloads import sharding
+
+rank, init = int(sys.argv[1]), sys.argv[2]
+sharding.init_ranks(2, rank, init, backend="gloo", device="cpu")
+mesh = sharding.make_mesh(["cpu"], layout="training", expert=2)
+gen = torch.Generator().manual_seed(0)
+x = torch.randn(3, 5, 4, generator=gen, dtype=torch.float64)
+w = torch.randn(4, 6, generator=gen, dtype=torch.float64)
+c = torch.randn(3, 5, 6, generator=gen, dtype=torch.float64)
+# The whole product on one rank: y = x @ w, its grads by autograd.
+xw, ww = x.clone().requires_grad_(), w.clone().requires_grad_()
+torch.autograd.backward(xw @ ww, c)
+# The same on the expert line: this rank's 3 columns ("experts") of w,
+# the tokens behind enter_expert, the columns gathered on the last dim.
+xr, wr = x.clone().requires_grad_(), w[:, 3 * rank:3 * rank + 3].clone().requires_grad_()
+y = sharding.gather_experts(sharding.enter_expert(xr, mesh) @ wr, -1, mesh)
+torch.autograd.backward(y, c)
+out = {"y": torch.equal(y, (x @ w)), "x_grad": float((xr.grad - xw.grad).abs().max()),
+       "w_grad": float((wr.grad - ww.grad[:, 3 * rank:3 * rank + 3]).abs().max()),
+       "stats": {k: mesh.stats[k] for k in ("all_gathers", "all_reduces")}}
+print("PAIR " + json.dumps(out), flush=True)
+sharding.leave_ranks(mesh)
+sys.stdout.flush()
+os._exit(0)
+'''
+
+
+def test_enter_expert_and_gather_experts_against_autograd_on_the_whole_tensor(tmp_path):
+    """Two gloo ranks: the expert line's product (tokens behind
+    enter_expert, each rank's block of columns, the outputs gathered)
+    equals the whole product, and its grads autograd's on the whole
+    tensors: the tokens' grad summed over the line, each block's grad its
+    own slice of the whole, unsummed."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(cs.__file__).resolve().parent
+    script = tmp_path / "pair.py"
+    script.write_text(EXPERT_PAIR)
+    init = f"file://{tmp_path / 'rendezvous'}"
+    env = {**os.environ, "OMP_NUM_THREADS": "1", "PYTHONPATH": str(root)}
+    procs = [subprocess.Popen([sys.executable, str(script), str(r), init],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                              env=env, cwd=str(tmp_path), start_new_session=True)
+             for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=120) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+        got = json.loads(next(ln for ln in out.splitlines() if ln.startswith("PAIR "))[5:])
+        assert got["y"]
+        assert got["x_grad"] < 1e-12 and got["w_grad"] < 1e-12
+        assert got["stats"] == {"all_gathers": 1, "all_reduces": 1}

@@ -320,10 +320,16 @@ def test_train_step_single_device():
 
 
 def test_an_expert_mesh_is_refused():
-    from dstack_tpu_torch.workloads.sharding import make_mesh
+    """An expert axis without ranks, and on a serving mesh over ranks
+    (ROADMAP Queue 1 item 3i), is refused; the trainer's expert mesh runs
+    in tests/test_torch_expert_parallel.py."""
+    from dstack_tpu_torch.workloads.sharding import AXES, Mesh, make_mesh
 
     with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
         make_mesh(["cpu"], expert=2)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3i"):
+        Mesh(torch.device("cpu"), dict(zip(AXES, (1, 1, 1, 1, 2))), group=object(),
+             backend="gloo")
 
 
 def test_decode_matches_forward():
@@ -516,8 +522,8 @@ def route_log(monkeypatch):
     log = []
     real = tmoe.route_assignments
 
-    def spy(c, h, router):
-        out = real(c, h, router)
+    def spy(c, h, router, mesh=None):
+        out = real(c, h, router, mesh)
         if h.shape[1] > 1:
             C = tmoe.expert_capacity(c, h.shape[1])
             log.append((h.shape[1], C, int((out[2] >= C).sum())))
@@ -587,9 +593,12 @@ def test_fine_tune_trains_tiny_moe_and_refuses_expert_parallel(capsys):
                     "--batch-size", "2", "--seq-len", "32"])
     out = capsys.readouterr().out
     assert "step 1: loss" in out and "router_aux" in out and "training complete" in out
-    with pytest.raises(NotImplementedError, match="--expert-parallel 2"):
+    # Expert parallelism trains (tests/test_torch_expert_parallel.py); LoRA
+    # over an expert mesh stays refused, before any rank starts.
+    with pytest.raises(NotImplementedError, match="--expert-parallel 2 is ROADMAP Queue 1"
+                                                  " item 3j"):
         fine_tune.main(["--device", "cpu", "--preset", "tiny-moe",
-                        "--expert-parallel", "2"])
+                        "--expert-parallel", "2", "--lora-rank", "4"])
 
 
 def test_native_server_engine_serves_tiny_moe():

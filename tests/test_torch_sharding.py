@@ -10,8 +10,12 @@ adapters, refresh_params, the host KV tier, sampling, and the split
 roles on two groups); rank 0 also runs each case on the port's unsharded
 engine. Their streams are held against the JAX engine on
 `make_mesh(jax.devices()[:2], model=2)` where the reference pins one, and
-against the port's unsharded engine everywhere. Every run has its own
-rendezvous file, a join timeout and a kill.
+against the port's unsharded engine everywhere. The cases run in three
+pairs of rank processes (`RUNS`, a module fixture each), so each pair has
+its own deadline; every pair has its own rendezvous file, a join timeout
+and a kill. Each rank writes a line to stderr as it starts and ends each
+case, with the seconds taken, and a pair past its deadline fails with both
+ranks' stderr tails.
 """
 
 import json
@@ -53,7 +57,12 @@ ROOT = Path(__file__).resolve().parents[1]
 JCFG = JPRESETS["tiny"].with_(dtype="float32")
 JMCFG = JPRESETS["tiny-moe"].with_(dtype="float32")
 TCFG = PRESETS["tiny"].with_(dtype="float32")
-JOIN_S = 120
+JOIN_S = 150
+# The worker's cases, split over three pairs of rank processes (module
+# fixtures), each within its own JOIN_S.
+RUNS = {"tp_serve": ["plain", "moe", "spec", "lora"],
+        "tp_features": ["refresh", "tier", "sampled"],
+        "tp_split": ["split"]}
 # test_sharded_serving_bitexact_subprocess's engine and scenarios, and
 # test_disagg_sharded_bitexact's (tests/test_serving_*.py).
 KW = dict(slots=2, max_len=128, kv_block_size=16)
@@ -190,15 +199,30 @@ def test_meshes_without_ranks_still_refuse_every_axis_but_seq(kw):
 
 
 def test_training_axes_over_ranks_raise():
-    """An expert axis over ranks stays refused (ROADMAP Queue 1 item 3d);
-    the data, fsdp and model axes train since the training slice
+    """An expert axis on a serving mesh stays refused (ROADMAP Queue 1 item
+    3i); on a training mesh it builds (tests/test_torch_expert_parallel.py
+    trains on it): each rank's block of the experts by its expert
+    coordinate, the same rows on every rank of an expert line, and an
+    expert axis that does not divide the experts refused. The data, fsdp
+    and model axes train since the training slice
     (tests/test_torch_train_sharded.py), seq since the ring's
     (tests/test_torch_ring_ranks.py)."""
-    shape = dict(zip(tsh.AXES, (1, 1, 1, 1, 2)))
-    for layout in tsh.LAYOUTS:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 3d"):
-            tsh.Mesh(torch.device("cpu"), shape, group=object(), backend="gloo",
-                     layout=layout)
+    shape = dict(zip(tsh.AXES, (1, 2, 1, 1, 2)))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3i"):
+        tsh.Mesh(torch.device("cpu"), shape, group=object(), backend="gloo")
+    mesh = tsh.Mesh(torch.device("cpu"), shape, group=object(), rank=3, backend="gloo",
+                    layout="training")
+    assert mesh.coords == dict(data=0, fsdp=1, seq=0, model=0, expert=1)
+    assert tsh.expert_block(8, mesh) == (4, 8) and tsh.expert_block(8, None) == (0, 8)
+    with pytest.raises(ValueError, match="must divide n_experts"):
+        tsh.expert_block(3, mesh)
+    assert tsh.batch_shards(mesh) == 2
+    batch = {"inputs": torch.arange(4 * 8).reshape(4, 8)}
+    twin = tsh.Mesh(torch.device("cpu"), shape, group=object(), rank=2, backend="gloo",
+                    layout="training")
+    assert torch.equal(tsh.shard_batch(batch, mesh)["inputs"],
+                       tsh.shard_batch(batch, twin)["inputs"])
+    assert tsh.device_shards(mesh)["expert"] == 2
 
 
 def test_a_seq_axis_over_ranks_is_a_training_mesh():
@@ -236,7 +260,7 @@ def test_all_gather_of_one_shard_is_its_input():
 # -- the engine as two ranks over gloo ------------------------------------------------
 
 WORKER = r'''
-import hashlib, json, sys, threading
+import hashlib, json, os, sys, threading, time
 import numpy as np, torch, torch.distributed as dist
 from dstack_tpu_torch.workloads import serving, sharding
 from dstack_tpu_torch.workloads.config import PRESETS
@@ -245,6 +269,12 @@ from dstack_tpu_torch.workloads.lora_serving import demo_adapter
 
 rank, init, wdir = int(sys.argv[1]), sys.argv[2], sys.argv[3]
 cases = set(sys.argv[4].split(","))
+T0 = time.monotonic()
+
+
+def note(what):
+    """A line on stderr: what this rank is doing, and when."""
+    print(f"rank {rank} {what} at {time.monotonic() - T0:.1f}s", file=sys.stderr, flush=True)
 
 
 def load(name):
@@ -276,8 +306,10 @@ KW = json.loads(sys.argv[5])
 SC = json.loads(sys.argv[6])
 SPLIT_KW = json.loads(sys.argv[7])
 SPLIT_SC = json.loads(sys.argv[8])
+note("joining")
 sharding.init_ranks(2, rank, init, backend="gloo", device="cpu")
 mesh = sharding.make_mesh(["cpu"], model=2)
+note("joined")
 results = {}
 
 
@@ -384,6 +416,8 @@ def spy(name):
 for name, cfg, params, kw, serve in CASES:
     if name not in cases:
         continue
+    t_case = time.monotonic()
+    note(f"case {name} starts")
     params = load("tiny_moe") if params is None else params
     patched = []
     if name == "sampled":
@@ -419,6 +453,7 @@ for name, cfg, params, kw, serve in CASES:
         results[name] = res
     for op, orig in patched:
         setattr(serving.ServingEngine, op, orig)
+    note(f"case {name} ends after {time.monotonic() - t_case:.1f}s")
 
 
 class Bridge:
@@ -455,6 +490,8 @@ def split(pre_mesh, dec_mesh):
 
 
 if "split" in cases:
+    t_case = time.monotonic()
+    note("case split starts")
     # Two engines serve at once over the same two ranks: a group each.
     ma, mb = (sharding.Mesh(torch.device("cpu"), mesh.shape, group=dist.new_group([0, 1]),
                             rank=rank, backend="gloo") for _ in range(2))
@@ -469,9 +506,18 @@ if "split" in cases:
     else:
         results["split"] = split(ma, mb)
         results["split"]["unsharded"] = split(None, None)
+    note(f"case split ends after {time.monotonic() - t_case:.1f}s")
 
 if rank == 0:
     print("RESULT " + json.dumps(results), flush=True)
+# End as every rank worker of the suite ends: leave the group, flush, and
+# skip the interpreter's teardown, where a gloo group's threads can abort
+# the process (exit 134).
+dist.destroy_process_group()
+note("done")
+sys.stdout.flush()
+sys.stderr.flush()
+os._exit(0)
 '''
 
 
@@ -489,10 +535,17 @@ def _save_npz(path, tree):
     np.savez(path, **flat)
 
 
+def _tails(procs, outs) -> str:
+    return "\n".join(f"--- rank {r} (exit {p.returncode}) stderr:\n{err[-3000:]}"
+                     for r, (p, (_, err)) in enumerate(zip(procs, outs)))
+
+
 def run_ranks(tmp: Path, cases, timeout: float = JOIN_S) -> dict:
     """Rank 0 and rank 1 of WORKER as subprocesses over gloo, with a
     rendezvous file of their own; both joined within `timeout` seconds or
-    killed. Returns rank 0's results."""
+    killed. A rank that fails, or a pair past its deadline, fails with both
+    ranks' stderr tails (which case each was in, and for how long).
+    Returns rank 0's results."""
     script = tmp / "worker.py"
     script.write_text(WORKER)
     rdv = tmp / f"rendezvous-{time.monotonic_ns()}"
@@ -504,33 +557,59 @@ def run_ranks(tmp: Path, cases, timeout: float = JOIN_S) -> dict:
                               env=env, cwd=str(ROOT), start_new_session=True)
              for r in (0, 1)]
     deadline = time.monotonic() + timeout
-    outs = []
+    late = False
     try:
         for p in procs:
-            outs.append(p.communicate(timeout=max(1.0, deadline - time.monotonic())))
+            try:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                late = True
+                break
     finally:
         for p in procs:
             if p.poll() is None:
                 os.killpg(p.pid, signal.SIGKILL)
-                p.wait()
-    for p, (out, err) in zip(procs, outs):
-        assert p.returncode == 0, err[-3000:]
+    # Every pipe is read to its end once the ranks are gone.
+    outs = [p.communicate() for p in procs]
+    if late:
+        pytest.fail(f"cases {cases}: the ranks were not done within {timeout:.0f}s\n"
+                    + _tails(procs, outs))
+    for p in procs:
+        assert p.returncode == 0, _tails(procs, outs)
     line = next(ln for ln in outs[0][0].splitlines() if ln.startswith("RESULT "))
     return json.loads(line[len("RESULT "):])
 
 
-@pytest.fixture(scope="module")
-def tp_run(tmp_path_factory, jparams, jmoe):
-    tmp = tmp_path_factory.mktemp("tp")
+def _tp_run(tmp_path_factory, jparams, jmoe, name) -> dict:
+    tmp = tmp_path_factory.mktemp(name)
     _save_npz(tmp / "tiny.npz", jparams)
     _save_npz(tmp / "tiny_moe.npz", jmoe)
     t0 = time.monotonic()
-    res = run_ranks(tmp, ["plain", "moe", "spec", "lora", "refresh", "tier", "sampled",
-                          "split"])
+    res = run_ranks(tmp, RUNS[name])
     res["_seconds"] = time.monotonic() - t0
     res["_dir"] = str(tmp)
-    print(f"two ranks, every case: {res['_seconds']:.1f}s")
+    print(f"two ranks, cases {RUNS[name]}: {res['_seconds']:.1f}s")
     return res
+
+
+@pytest.fixture(scope="module")
+def tp_serve(tmp_path_factory, jparams, jmoe):
+    return _tp_run(tmp_path_factory, jparams, jmoe, "tp_serve")
+
+
+@pytest.fixture(scope="module")
+def tp_features(tmp_path_factory, jparams, jmoe):
+    return _tp_run(tmp_path_factory, jparams, jmoe, "tp_features")
+
+
+@pytest.fixture(scope="module")
+def tp_split(tmp_path_factory, jparams, jmoe):
+    return _tp_run(tmp_path_factory, jparams, jmoe, "tp_split")
+
+
+def _case(request, case: str) -> dict:
+    """The results of `case`, from the fixture of the run that serves it."""
+    return request.getfixturevalue(next(n for n, cs in RUNS.items() if case in cs))[case]
 
 
 def _drain(q):
@@ -544,14 +623,14 @@ def _drain(q):
         out.append(int(t))
 
 
-def test_two_rank_streams_and_pools_equal_the_jax_sharded_engine(tp_run, jparams, jmesh):
+def test_two_rank_streams_and_pools_equal_the_jax_sharded_engine(tp_serve, jparams, jmesh):
     eng = jsrv.ServingEngine(JCFG, jparams, mesh=jmesh, **KW)
     try:
         want = [_drain(eng.submit(p, n)) for p, n in SCENARIOS]
         jpools = {"k": np.asarray(eng.state.k), "v": np.asarray(eng.state.v)}
     finally:
         eng.close()
-    plain = tp_run["plain"]
+    plain = tp_serve["plain"]
     assert plain["model_shards"] == 2
     assert plain["streams"] == want and all(want)
     assert plain["unsharded"]["streams"] == want
@@ -563,14 +642,14 @@ def test_two_rank_streams_and_pools_equal_the_jax_sharded_engine(tp_run, jparams
     for name, jpool in jpools.items():
         nb = jpool.shape[1]
         for rank in (0, 1):
-            pool = np.load(Path(tp_run["_dir"]) / f"pool_rank{rank}.npz")[name][:, :nb]
+            pool = np.load(Path(tp_serve["_dir"]) / f"pool_rank{rank}.npz")[name][:, :nb]
             heads = jpool[:, :, :, rank:rank + 1]   # tiny's 2 KV heads, one per rank
             np.testing.assert_allclose(pool, heads, rtol=1e-5, atol=1e-5,
                                        err_msg=f"{name} pool, rank {rank}")
 
 
-def test_two_rank_pools_are_the_unsharded_pools_head_slices(tp_run):
-    d = Path(tp_run["_dir"])
+def test_two_rank_pools_are_the_unsharded_pools_head_slices(tp_serve):
+    d = Path(tp_serve["_dir"])
     for name in ("k", "v"):
         whole = np.load(d / "pool_unsharded.npz")[name]
         got = np.concatenate([np.load(d / f"pool_rank{r}.npz")[name] for r in (0, 1)],
@@ -579,13 +658,14 @@ def test_two_rank_pools_are_the_unsharded_pools_head_slices(tp_run):
 
 
 @pytest.mark.parametrize("case", ["plain", "moe", "spec", "lora", "refresh", "tier"])
-def test_two_rank_streams_equal_the_unsharded_engine(tp_run, case):
-    r = tp_run[case]
+def test_two_rank_streams_equal_the_unsharded_engine(request, case):
+    r = _case(request, case)
     assert r["streams"] == r["unsharded"]["streams"]
     assert all(r["streams"])
 
 
-def test_two_rank_features_ran(tp_run):
+def test_two_rank_features_ran(tp_serve, tp_features):
+    tp_run = {**tp_serve, **tp_features}
     assert tp_run["plain"]["hold_refused"] and tp_run["moe"]["hold_refused"]
     assert tp_run["spec"]["rounds"] > 0
     assert tp_run["refresh"]["dropped"] > 0
@@ -598,15 +678,15 @@ def test_two_rank_features_ran(tp_run):
     assert lora[0] != lora[2]  # an adapter changes the stream of one prompt
 
 
-def test_sampling_ranks_agree_at_every_step(tp_run):
-    r = tp_run["sampled"]
+def test_sampling_ranks_agree_at_every_step(tp_features):
+    r = tp_features["sampled"]
     assert r["agree"] and all(r["agree"])
     assert all(r["streams"])
 
 
-def test_two_rank_split_roles_equal_the_jax_split_and_the_unsharded_frames(tp_run, jparams,
+def test_two_rank_split_roles_equal_the_jax_split_and_the_unsharded_frames(tp_split, jparams,
                                                                            jmesh):
-    split = tp_run["split"]
+    split = tp_split["split"]
     dec = jsrv.ServingEngine(JCFG, jparams, **SPLIT_KW, role="decode", mesh=jmesh)
 
     class Bridge:
@@ -632,6 +712,57 @@ def test_two_rank_split_roles_equal_the_jax_split_and_the_unsharded_frames(tp_ru
     assert split["unsharded"]["streams"] == want
     assert split["frames"] == split["unsharded"]["frames"] and split["frames"]
     assert split["residue"] == [0, 0]
+
+
+LEAVE = r'''
+import os, sys
+import torch
+from dstack_tpu_torch.workloads import sharding
+
+rank, init = int(sys.argv[1]), sys.argv[2]
+
+
+def gloo_threads():
+    names = [open(f"/proc/self/task/{t}/comm").read().strip()
+             for t in os.listdir("/proc/self/task")]
+    return sum(n.startswith(("gloo", "pt_gloo")) for n in names)
+
+
+sharding.init_ranks(4, rank, init, backend="gloo", device="cpu")
+mesh = sharding.make_mesh(["cpu"], layout="training", expert=2, model=2)
+sharding.gather_experts(torch.ones(3), 0, mesh)
+sharding.all_reduce(torch.ones(3), mesh, ("model",))
+before = gloo_threads()
+sharding.leave_ranks(mesh)
+print(f"LEAVE {before} {gloo_threads()} {mesh.ranked}", flush=True)
+'''
+
+
+def test_leave_ranks_joins_the_gloo_threads_before_interpreter_exit(tmp_path):
+    """A rank that leaves through `leave_ranks` (the mesh still referenced)
+    has no gloo thread left afterwards and exits 0: a group whose handle
+    outlives destroy_process_group keeps its threads until interpreter
+    teardown, where they can abort the process (exit 134)."""
+    script = tmp_path / "leave.py"
+    script.write_text(LEAVE)
+    init = f"file://{tmp_path / 'rendezvous'}"
+    env = {**os.environ, "OMP_NUM_THREADS": "1", "PYTHONPATH": str(ROOT)}
+    procs = [subprocess.Popen([sys.executable, str(script), str(r), init],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                              env=env, cwd=str(ROOT), start_new_session=True)
+             for r in range(4)]
+    try:
+        outs = [p.communicate(timeout=JOIN_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+        before, after, ranked = next(ln for ln in out.splitlines()
+                                     if ln.startswith("LEAVE ")).split()[1:]
+        assert int(before) > 0 and int(after) == 0 and ranked == "False"
 
 
 # -- native_server --mesh-model 2 -------------------------------------------------------

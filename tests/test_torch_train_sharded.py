@@ -564,8 +564,11 @@ def test_fine_tune_over_four_ranks_trains_exports_and_resumes(tmp_path):
 
 
 @pytest.mark.parametrize("flag,what", [
-    (["--model-parallel", "2", "--expert-parallel", "2"], "3d"),
-    (["--preset", "tiny-moe", "--model-parallel", "2"], "3d"),
+    # MoE over a seq axis of ranks, and LoRA on an expert mesh; the expert
+    # axis and MoE over ranks train since the expert slice
+    # (tests/test_torch_expert_parallel.py).
+    (["--preset", "tiny-moe", "--model-parallel", "2", "--seq-parallel", "2"], "3h"),
+    (["--preset", "tiny-moe", "--expert-parallel", "2", "--lora-rank", "4"], "3j"),
 ])
 def test_fine_tune_over_ranks_still_refuses_seq_expert_and_moe(flag, what):
     from dstack_tpu_torch import fine_tune
