@@ -268,9 +268,35 @@ Phases (any failure fails the run; nothing is caught to exit 0):
                failing a microbatch collected one tick early and the shared
                grads not summed over pipe (f32, 2 layers); step ms,
                exchanges and their MB and ms, peak memory per stage.
+  18. expert parallelism — two processes of this script (--ep-rank) over
+               gloo on the one card train smol-moe at full width and 8 of its
+               16 layers (einsum, bf16, B 2 x 2048) on an expert axis of 2
+               (4 experts a rank) against an unsharded 8-layer run on the same
+               card, weights and batch: (a) the first step's loss, grad_norm
+               and router_aux, (b) every param after 2 steps, the same at 2
+               layers in f32 with three mutants (the expert block off by one,
+               enter_expert without its all-reduce, gather_experts' backward
+               summed), each failing the gate that guards it; (d) 8 launches
+               of each of #2-#4 a step on each rank at B*H 32; step ms,
+               collectives per step with their MB and ms, peak memory per rank.
+  19. the gang — (a) `python -m dstack_tpu_torch.fine_tune --ranks 2
+               --device cuda:0 --dist-backend gloo` (smol-1b at full width and
+               depth, B 8 x 2048, fsdp 2, 2 steps, --checkpoint-dir) on one
+               host, then the same command as two host processes
+               (`chip_smoke.py --gang-host`, which runs fine_tune's main and
+               counts around it) given JAX_COORDINATOR_ADDRESS, JAX_PROCESS_ID
+               0 and 1 and JAX_NUM_PROCESSES=2, one rank each: both exit 0,
+               each prints its process line, the gang's export equals the one
+               host's byte for byte and its step lines the one host's; each
+               host's step ms, peak memory and #2-#4 launches a step (16 each
+               at B*H 64); (b) `python -m dstack_tpu_torch.run_rl --mode
+               sebulba --updates 3` as the learner and one actor
+               (DSTACK_NODE_RANK 0 and 1, DSTACK_NODES_NUM=2): both exit 0,
+               the epochs reach 4, the seconds. gloo on one card: a check of
+               the rendezvous, not a speed.
 Phase 3b and 3c run after 3, 4b and 4c after 4, 5b after 5, 11 after
 5b, 12 after 11, phases 6 to 10b after 12, 13 after 10b, 14 after 13, 15
-after 14, 16 and 17 after 15. The line before the
+after 14, 16 and 17 after 15, 18 after 17, 19 after 18. The line before the
 last is the `kernels` JSON; the last line is {"ok": true, "device": {...}}.
 Each phase logs its numbers on the way; details also go to
 chiprun_out/chip_smoke.json.
@@ -6355,6 +6381,282 @@ def run_expert_parallel() -> dict:
     return dict(ranks=res, seconds=time.monotonic() - t0)
 
 
+# -- phase 19: the gang on the card ----------------------------------------------------
+
+GANG_HOSTS = 2
+# fine_tune across two "hosts", one rank each, sharing the card over gloo:
+# phase 15's smol-1b at full width and depth, B 8 x 2048, fsdp 2 (a CPU dry
+# run swaps in a small preset, "cpu" and a short batch).
+GANG_PRESET, GANG_DEVICE = "smol-1b", "cuda:0"
+GANG_B, GANG_S, GANG_STEPS = 8, 2048, 2
+# Each process's limit (seconds).
+GANG_TIMEOUT = 600
+# run_rl's Sebulba gang: the learner and one actor, on the card (None).
+GANG_RL_UPDATES, GANG_RL_DEVICE = 3, None
+# What the orchestrator injects into every host of a gang.
+GANG_VARS = ("JAX_COORDINATOR_ADDRESS", "JAX_PROCESS_ID", "JAX_NUM_PROCESSES")
+
+
+def gang_argv(ckpt: str) -> list:
+    """fine_tune's command in phase 19(a), the same on every host."""
+    return ["--preset", GANG_PRESET, "--batch-size", str(GANG_B), "--seq-len", str(GANG_S),
+            "--steps", str(GANG_STEPS), "--ranks", str(GANG_HOSTS), "--device", GANG_DEVICE,
+            "--dist-backend", "gloo", "--checkpoint-dir", ckpt]
+
+
+def gang_env(**extra) -> dict:
+    """This process's environment less any gang, with the repo importable."""
+    env = {k: v for k, v in os.environ.items() if k not in GANG_VARS}
+    env["PYTHONPATH"] = os.pathsep.join([ROOT] + [x for x in [os.environ.get("PYTHONPATH")]
+                                                  if x])
+    return {**env, **extra}
+
+
+def free_port(pair: bool = False) -> int:
+    """A loopback port free right now (with the next one free too: `pair`)."""
+    import socket
+
+    while True:
+        socks = [socket.socket() for _ in range(2 if pair else 1)]
+        try:
+            socks[0].bind(("127.0.0.1", 0))
+            port = socks[0].getsockname()[1]
+            if pair:
+                socks[1].bind(("127.0.0.1", port + 1))
+            return port
+        except OSError:
+            continue
+        finally:
+            for sk in socks:
+                sk.close()
+
+
+def start_logged(cmds, envs, tags) -> list:
+    """Start each command with its environment and its output in
+    chiprun_out/<tag>.log, all at once; returns [(process, log path,
+    start time)] for `wait_logged`."""
+    os.makedirs(os.path.dirname(OUT), exist_ok=True)
+    started = []
+    for cmd, env, tag in zip(cmds, envs, tags):
+        path = f"chiprun_out/{tag}.log"
+        with open(path, "w") as f:
+            proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT, env=env,
+                                    cwd=ROOT, start_new_session=True)
+        started.append((proc, path, time.monotonic()))
+    return started
+
+
+def wait_logged(started, timeout: float) -> list:
+    """Wait for `start_logged`'s processes (each killed `timeout` seconds
+    after its start); returns each one's (exit code, output, seconds)."""
+    ends = {}
+    try:
+        while len(ends) < len(started):
+            for i, (proc, _, t0) in enumerate(started):
+                if i in ends:
+                    continue
+                if proc.poll() is not None:
+                    ends[i] = time.monotonic() - t0
+                elif time.monotonic() - t0 > timeout:
+                    os.killpg(proc.pid, 9)
+                    proc.wait()
+                    ends[i] = time.monotonic() - t0
+            time.sleep(0.1)
+    finally:
+        for proc, _, _ in started:
+            if proc.poll() is None:
+                os.killpg(proc.pid, 9)
+                proc.wait()
+    return [(proc.returncode, open(path).read(), ends.get(i))
+            for i, (proc, path, _) in enumerate(started)]
+
+
+def gang_host_main(ft_argv) -> int:
+    """One host of phase 19(a), a process of its own given its host's gang
+    variables: fine_tune's main on `ft_argv`, each train step timed between
+    synchronisations, the flash kernels' launches counted (zeroed just
+    before, read just after) with their shapes; prints its readings as
+    one JSON line."""
+    from dstack_tpu_torch import fine_tune
+    from dstack_tpu_torch.workloads import train
+
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+    make, step_ms = train.make_train_step, []
+
+    def timed_make(*a, **kw):
+        step = make(*a, **kw)
+
+        def timed(state, batch):
+            sync()
+            t0 = time.monotonic()
+            out = step(state, batch)
+            sync()
+            step_ms.append((time.monotonic() - t0) * 1e3)
+            return out
+
+        return timed
+
+    train.make_train_step = timed_make
+    shapes, undo = tr_launch_spy()
+    zero_flash_counts()
+    fine_tune.main(list(ft_argv))
+    launches = flash_counts()
+    undo()
+    r = dict(host=int(os.environ["JAX_PROCESS_ID"]), step_ms=step_ms, launches=launches,
+             launches_per_step={k: v / max(len(step_ms), 1) for k, v in launches.items()},
+             kernel_shapes={k: sorted(v) for k, v in shapes.items()},
+             peak_mem_gb=(torch.cuda.max_memory_allocated() / 1e9
+                          if torch.cuda.is_available() else 0.0))
+    print("GANG_RESULT " + json.dumps(r), flush=True)
+    return 0
+
+
+def same_bytes(a: str, b: str, chunk: int = 64 << 20) -> bool:
+    """Whether two files hold the same bytes."""
+    if os.path.getsize(a) != os.path.getsize(b):
+        return False
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        while True:
+            x = fa.read(chunk)
+            if x != fb.read(chunk):
+                return False
+            if not x:
+                return True
+
+
+def run_gang_fine_tune() -> dict:
+    """19(a): `fine_tune --ranks 2` on one host (rank 0 starts rank 1),
+    then the same command as a gang of two host processes given
+    JAX_COORDINATOR_ADDRESS / JAX_PROCESS_ID / JAX_NUM_PROCESSES (each host
+    one rank; `chip_smoke.py --gang-host`, which runs fine_tune's main and
+    counts around it). Both runs' exports are compared byte for byte."""
+    import shutil
+    import tempfile
+
+    base = tempfile.mkdtemp(prefix="phase19-")
+    one, two = os.path.join(base, "one"), os.path.join(base, "two")
+    try:
+        [(code, text, one_s)] = wait_logged(start_logged(
+            [[sys.executable, "-m", "dstack_tpu_torch.fine_tune", *gang_argv(one)]],
+            [gang_env()], ["phase19_one_host"]), GANG_TIMEOUT)
+        if code != 0:
+            raise AssertionError(f"phase 19(a) one host exited {code}:\n{text[-4000:]}")
+        # Only the export is compared: the one-host train state goes.
+        for d in os.listdir(one):
+            if d.isdigit():
+                shutil.rmtree(os.path.join(one, d))
+        port = free_port()
+        hosts = wait_logged(start_logged(
+            [[sys.executable, os.path.abspath(__file__), "--gang-host", *gang_argv(two)]
+             for _ in range(GANG_HOSTS)],
+            [gang_env(JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}", JAX_PROCESS_ID=str(h),
+                      JAX_NUM_PROCESSES=str(GANG_HOSTS)) for h in range(GANG_HOSTS)],
+            [f"phase19_host{h}" for h in range(GANG_HOSTS)]), GANG_TIMEOUT)
+        for h, (code, out, _) in enumerate(hosts):
+            if code != 0:
+                raise AssertionError(f"phase 19(a) host {h} exited {code}:\n{out[-4000:]}")
+            want = f"process {h}/{GANG_HOSTS} runs ranks {h}-{h} of {GANG_HOSTS}"
+            if want not in out.splitlines():
+                raise AssertionError(f"phase 19(a) host {h} did not print {want!r}")
+        files = sorted(os.listdir(os.path.join(one, "packed")))
+        equal = {f: same_bytes(os.path.join(one, "packed", f), os.path.join(two, "packed", f))
+                 for f in files}
+        equal["files"] = files == sorted(os.listdir(os.path.join(two, "packed")))
+        res = [json.loads(next(ln for ln in out.splitlines()
+                               if ln.startswith("GANG_RESULT "))[len("GANG_RESULT "):])
+               for _, out, _ in hosts]
+        return dict(export_equal=equal, hosts=res,
+                    one_host_steps=[ln for ln in text.splitlines() if ln.startswith("step ")],
+                    gang_steps=[ln for ln in hosts[0][1].splitlines()
+                                if ln.startswith("step ")],
+                    export_bytes=sum(os.path.getsize(os.path.join(two, "packed", f))
+                                     for f in files),
+                    seconds=dict(one_host=one_s, gang=max(s for _, _, s in hosts)))
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+
+
+def start_gang_rl() -> list:
+    """19(b): `run_rl --mode sebulba` as the learner and one actor
+    (DSTACK_NODE_RANK 0 and 1 of DSTACK_NODES_NUM=2) on the card, their
+    refresh address on loopback; `gang_rl_result` waits for them."""
+    port = free_port(pair=True)  # the refresh server's and the sink's
+    argv = [sys.executable, "-m", "dstack_tpu_torch.run_rl", "--mode", "sebulba",
+            "--updates", str(GANG_RL_UPDATES), "--timeout", str(GANG_TIMEOUT),
+            *(["--device", GANG_RL_DEVICE] if GANG_RL_DEVICE else [])]
+    return start_logged(
+        [argv, argv],
+        [gang_env(DSTACK_NODE_RANK=str(n), DSTACK_NODES_NUM="2",
+                  DSTACK_TPU_RL_REFRESH_ADDR=f"127.0.0.1:{port}") for n in range(2)],
+        ["phase19_rl_learner", "phase19_rl_actor"])
+
+
+def gang_rl_result(started) -> dict:
+    nodes = wait_logged(started, GANG_TIMEOUT)
+    for n, (code, out, _) in enumerate(nodes):
+        if code != 0:
+            raise AssertionError(f"phase 19(b) node {n} exited {code}:\n{out[-4000:]}")
+    lines = nodes[0][1].splitlines()
+    updates = [ln for ln in lines if ln.startswith("update ")]
+    return dict(updates=updates, epochs=[int(ln.rsplit("epoch=", 1)[1]) for ln in updates],
+                seconds=[s for _, _, s in nodes],
+                metrics_block=any(ln.startswith("dstack_tpu_rl_env_steps_total")
+                                  for ln in lines))
+
+
+def check_gang(ft: dict, rl: dict) -> None:
+    """The gates of phase 19: the gang's export equal to one host's byte for
+    byte; on each host #2-#4 once a layer a step at a rank's geometry of
+    fsdp 2; both hosts' step lines the one-host run's; the RL gang's epochs
+    2..GANG_RL_UPDATES + 1 and its metrics block."""
+    from dstack_tpu_torch.workloads.config import PRESETS
+
+    if not all(ft["export_equal"].values()):
+        raise AssertionError(f"phase 19(a): the gang's export differs from one host's:"
+                             f" {ft['export_equal']}")
+    if [ln.rsplit(" (", 1)[0] for ln in ft["gang_steps"]] != [
+            ln.rsplit(" (", 1)[0] for ln in ft["one_host_steps"]]:
+        raise AssertionError(f"phase 19(a): step lines {ft['gang_steps']} against one"
+                             f" host's {ft['one_host_steps']}")
+    cfg = PRESETS[GANG_PRESET]
+    shape = [GANG_B * cfg.n_heads // GANG_HOSTS, GANG_S, cfg.head_dim]
+    for r in ft["hosts"]:
+        got = {k: r["launches_per_step"][k] for k in ("flash_fwd", "flash_bwd_dq",
+                                                     "flash_bwd_dkv")}
+        if any(v != cfg.n_layers for v in got.values()) or len(r["step_ms"]) != GANG_STEPS:
+            raise AssertionError(f"phase 19(a) host {r['host']}: flash launches per step"
+                                 f" {got} over {len(r['step_ms'])} steps, not"
+                                 f" {cfg.n_layers} over {GANG_STEPS}")
+        shapes = {tuple(s) for v in r["kernel_shapes"].values() for s in v}
+        if shapes != {tuple(shape)}:
+            raise AssertionError(f"phase 19(a) host {r['host']}: kernel shapes"
+                                 f" {r['kernel_shapes']}, not {shape}")
+    if rl["epochs"] != list(range(2, GANG_RL_UPDATES + 2)) or not rl["metrics_block"]:
+        raise AssertionError(f"phase 19(b): {rl['updates']}, metrics block"
+                             f" {rl['metrics_block']}")
+
+
+def run_gang() -> dict:
+    """Phase 19: (b) run_rl's Sebulba learner and actor started first, (a)
+    fine_tune on one host and as a gang of two host processes beside
+    them, all on the card."""
+    t0 = time.monotonic()
+    rl = start_gang_rl()
+    ft = run_gang_fine_tune()
+    rl = gang_rl_result(rl)
+    check_gang(ft, rl)
+    log(f"phase 19(a) (gloo, two host processes of one rank each on one card: a check of"
+        f" the rendezvous, not a speed): export {ft['export_bytes'] / 1e9:.3f} GB byte for"
+        f" byte the one host's; step {[[round(x, 1) for x in r['step_ms']] for r in ft['hosts']]}"
+        f" ms by host; peak {[round(r['peak_mem_gb'], 2) for r in ft['hosts']]} GB a rank;"
+        f" #2-#4 a step {ft['hosts'][0]['launches_per_step']} at"
+        f" {ft['hosts'][0]['kernel_shapes'].get('flash_fwd')}; one host"
+        f" {ft['seconds']['one_host']:.1f}s (beside 19(b)), the gang {ft['seconds']['gang']:.1f}s")
+    log(f"phase 19(b): {rl['updates']}; learner and actor {rl['seconds']} s")
+    log(f"phase 19: {time.monotonic() - t0:.1f}s")
+    return dict(fine_tune=ft, rl=rl, seconds=time.monotonic() - t0)
+
+
 def paged_entry(kres, launches, wave) -> dict:
     """The paged kernel's entry of the `kernels` line: the bf16 decode
     case's times, the bf16 short-slot decode and chunk cases' beside them,
@@ -6584,6 +6886,12 @@ def main() -> int:
     expert = run_expert_parallel()
     log(f"phase 18: {time.monotonic() - t0:.1f}s")
 
+    # 19. the gang: fine_tune as two host processes joined from the
+    # orchestrator's variables against one host; run_rl's Sebulba pair
+    gc.collect()
+    torch.cuda.empty_cache()
+    gang = run_gang()
+
     log(f"total {time.monotonic() - t_all:.1f}s")
     kernels = {"kernels": [paged_entry(kres, launches, wave)]}
     # The paged kernel's launches on the speculative and host-tier paths
@@ -6633,7 +6941,10 @@ def main() -> int:
                    for r, rr in enumerate(pipe["ranks"]["bf16"]["sound"]["ranks"])},
                 # Each expert rank of phase 18's bf16 run over its EP_STEPS steps.
                 **{f"expert_rank{r}": int(rr["launches_per_step"][kern] * EP_STEPS)
-                   for r, rr in enumerate(expert["ranks"]["bf16"]["sound"]["ranks"])}}}
+                   for r, rr in enumerate(expert["ranks"]["bf16"]["sound"]["ranks"])},
+                # Each host process of phase 19's gang over its GANG_STEPS steps.
+                **{f"gang_host{r['host']}": r["launches"][kern]
+                   for r in gang["fine_tune"]["hosts"]}}}
                if kern != "flash_block_fwd" else {"launches_by_path": {
                    # Each rank of phase 16's bf16 ring over its RG_STEPS steps.
                    f"ring_rank{r}": int(rr["launches_per_step"][kern] * RG_STEPS)
@@ -6674,7 +6985,7 @@ def main() -> int:
                    "moe_module": moe_module, "moe_serving": moe_serving,
                    "moe_train": moe_train, "tp": tp, "train_ranks": tr,
                    "ring_ranks": ring_ranks, "pipeline": pipe, "expert_parallel": expert,
-                   "build_s": _build.build_seconds},
+                   "gang": gang, "build_s": _build.build_seconds},
                   f, indent=1)
     # What could hold the interpreter's exit: threads that are not daemons
     # and child processes still running (every phase stops its own).
@@ -6693,6 +7004,8 @@ def main() -> int:
 
 if __name__ == "__main__":
     argv = sys.argv[1:]
+    if argv[:1] == ["--gang-host"]:  # a host of phase 19(a), started by run_gang_fine_tune
+        sys.exit(gang_host_main(argv[1:]))
     rank_args = (lambda: (int(argv[argv.index("--rank") + 1]),
                           argv[argv.index("--dist-init") + 1]))
     if "--tp-rank" in argv:  # a rank of phase 14, started by run_tp

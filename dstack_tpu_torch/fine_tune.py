@@ -23,6 +23,10 @@ of examples/fine-tuning/jax/train.py).
     python -m dstack_tpu_torch.fine_tune --preset smol-moe --expert-parallel 2
     python -m dstack_tpu_torch.fine_tune --device cpu --preset tiny-moe \
         --expert-parallel 2 --ranks 4 --seq-len 64
+    # one host of a two-host gang (the orchestrator sets these on every host;
+    # host 1 runs the same command with JAX_PROCESS_ID=1)
+    JAX_COORDINATOR_ADDRESS=10.0.0.1:8476 JAX_PROCESS_ID=0 JAX_NUM_PROCESSES=2 \
+        python -m dstack_tpu_torch.fine_tune --model-parallel 2
 
 Training across ranks. `--ranks N` sets the trainer's world, its number of
 ranks (default: `--model-parallel` x `--expert-parallel` x `--seq-parallel`
@@ -46,8 +50,26 @@ are written whole by rank 0 from every rank's shards, so a run resumes on
 any number of ranks. Only rank 0 prints. `--expert-parallel` must divide
 the preset's n_experts, as the JAX trainer checks. An MoE preset over a seq
 axis of ranks raises (ROADMAP Queue 1 item 3h), as does LoRA over ranks on
-an MoE preset or an expert axis (3j) and a multi-host rendezvous from the
-orchestrator's injected coordinator env (`JAX_NUM_PROCESSES` > 1, 3f).
+an MoE preset or an expert axis (3j).
+
+Across hosts. A job the orchestrator spreads over hosts runs the same
+command on every host with `JAX_COORDINATOR_ADDRESS`, `JAX_PROCESS_ID` and
+`JAX_NUM_PROCESSES` set (the variables the JAX trainer's
+`jax.distributed.initialize()` reads); with `JAX_NUM_PROCESSES` > 1 the
+hosts form one gang. `--ranks` then defaults to `JAX_NUM_PROCESSES` x
+the host's cards (every card of every host, the JAX trainer's
+`jax.device_count()`; one rank a host with `--device`), and a given
+`--ranks` must be a multiple of the hosts. Each host's process starts its
+host's `--ranks / JAX_NUM_PROCESSES` ranks, rank = `JAX_PROCESS_ID` x
+that + the rank's index on its host, on `cuda:<index>` (or `--device`);
+every rank of every host joins one group at the coordinator's address
+(global rank 0 hosts it) and checks that every host runs the same
+command. The mesh axes are cut over the whole world as on one host. Each
+host's process prints `process h/N runs ranks a-b of W`; only global rank
+0 prints the training lines. SIGTERM to any host's process drains every
+rank at one step. Every host must see `--checkpoint-dir` and `--data`
+(one volume mounted on each host, as the JAX trainer's checkpoints need):
+rank 0 writes the checkpoints and every rank reads them on resume.
 
 `--seq-parallel n` alone (one rank) builds a seq mesh whose n sequence
 shards take turns on the one device through the ring
@@ -100,10 +122,10 @@ from dstack_tpu_torch.workloads.sharding import (
     any_rank,
     batch_shards,
     check_heads,
+    gang_world,
     join_ranks,
     leave_ranks,
     make_mesh,
-    refuse_multi_host,
     shard_tree,
     stop_followers,
     unshard_tree,
@@ -119,9 +141,9 @@ def main(argv: Optional[list] = None) -> None:
                         help="default 2048, or the preset's max_seq_len if shorter")
     parser.add_argument("--accum-steps", type=int, default=1)
     parser.add_argument("--device", default=None,
-                        help="torch device (default: the CUDA device, cuda:<rank> on"
-                             " ranks; 'cpu' runs the plain PyTorch path); with"
-                             " --ranks > 1 every rank runs on it")
+                        help="torch device (default: the CUDA device, on ranks the"
+                             " rank's card on its host; 'cpu' runs the plain PyTorch"
+                             " path); with --ranks > 1 every rank runs on it")
     parser.add_argument("--data", default="",
                         help="flat int32 token .npy (workloads/data.py); synthetic if unset")
     parser.add_argument("--checkpoint-dir", default=os.environ.get("CHECKPOINT_DIR", ""),
@@ -135,7 +157,8 @@ def main(argv: Optional[list] = None) -> None:
                         help="the trainer's world: ranks 1..N-1 are started by rank 0"
                              " (default: --model-parallel x --expert-parallel x"
                              " --seq-parallel when --model-parallel x --expert-parallel"
-                             " > 1, else 1); the seq axis runs over the ranks and fsdp"
+                             " > 1, else 1; in a gang of hosts, JAX_NUM_PROCESSES x the"
+                             " host's cards); the seq axis runs over the ranks and fsdp"
                              " takes N / (--model-parallel x --expert-parallel x"
                              " --seq-parallel)")
     parser.add_argument("--dist-backend", choices=BACKENDS, default=None,
@@ -149,12 +172,12 @@ def main(argv: Optional[list] = None) -> None:
                              " (0 = full fine-tune)")
     argv = sys.argv[1:] if argv is None else list(argv)
     args = parser.parse_args(argv)
-    refuse_multi_host()
     parallel = args.model_parallel * args.expert_parallel
-    if args.ranks is not None:
-        world = args.ranks
-    else:  # --seq-parallel alone keeps the one-device ring
-        world = parallel * (args.seq_parallel if parallel > 1 else 1)
+    try:  # --seq-parallel alone keeps the one-device ring
+        world, gang = gang_world(os.environ, args.ranks, args.device,
+                                 parallel * (args.seq_parallel if parallel > 1 else 1))
+    except ValueError as e:
+        raise SystemExit(f"invalid gang: {e}")
 
     cut = parallel * (args.seq_parallel if world > 1 else 1)
     if min(args.model_parallel, args.expert_parallel, args.seq_parallel) < 1 or world % cut:
@@ -193,10 +216,12 @@ def main(argv: Optional[list] = None) -> None:
             mesh, followers = join_ranks(
                 world, args.rank, args.dist_init, args.dist_backend, args.device,
                 ["-m", "dstack_tpu_torch.fine_tune", *argv], layout="training",
-                model=args.model_parallel, seq=args.seq_parallel,
+                gang=gang, model=args.model_parallel, seq=args.seq_parallel,
                 expert=args.expert_parallel)
         except ValueError as e:
             raise SystemExit(f"invalid training configuration: {e}")
+        if gang is not None and not args.dist_init:
+            print(gang.describe(world), flush=True)
     try:
         _train(args, config, seq_len, mesh)
     finally:

@@ -7,6 +7,9 @@ counterpart of examples/fine-tuning/jax/train_pipeline.py).
         --dist-backend gloo
     python -m dstack_tpu_torch.train_pipeline --device cpu --preset tiny --stages 2 \\
         --ranks 4 --seq-len 64 --steps 3
+    # one host of a two-host gang, two stages a host (host 1: JAX_PROCESS_ID=1)
+    JAX_COORDINATOR_ADDRESS=10.0.0.1:8476 JAX_PROCESS_ID=0 JAX_NUM_PROCESSES=2 \\
+        python -m dstack_tpu_torch.train_pipeline --stages 2 --ranks 4
 
 workloads/pipeline.py cuts the layer stack into `--stages` and streams
 `--microbatches` through the explicit GPipe schedule; the ranks left over
@@ -19,28 +22,32 @@ given; `--dist-backend` is nccl (the default on CUDA, one rank per card)
 or gloo (the default on the CPU, and the transport for ranks that share a
 card). The batch rounds up to a multiple of microbatches x data, as the
 JAX trainer rounds it; every rank draws the same whole params from seed 0
-and keeps its stage. A multi-host rendezvous from the orchestrator's
-injected coordinator env (`JAX_NUM_PROCESSES` > 1) raises (ROADMAP Queue
-1 item 3f).
+and keeps its stage.
+
+Across hosts, as fine_tune: with the orchestrator's
+`JAX_COORDINATOR_ADDRESS` / `JAX_PROCESS_ID` / `JAX_NUM_PROCESSES` (> 1) on
+every host, `--ranks` defaults to the hosts x each host's cards (one rank a
+host with `--device`) and must be a multiple of the hosts; each host's
+process starts its host's ranks (rank = `JAX_PROCESS_ID` x ranks a host +
+the rank's index there, on `cuda:<index>`), every rank joins one group at
+the coordinator's address after checking that every host runs the same
+command, and each host's process prints which ranks it runs. The stages
+and the data axis are cut over the whole world as on one host.
 """
 
 import argparse
+import os
 import sys
 import time
 from typing import Optional
 
-import torch
-
 from dstack_tpu_torch.workloads.config import PRESETS
 from dstack_tpu_torch.workloads.sharding import (
     BACKENDS,
-    check_backend,
-    exit_with_parent,
-    init_ranks,
+    gang_world,
     leave_ranks,
-    loopback_rendezvous,
-    refuse_multi_host,
-    spawn_followers,
+    rank_device,
+    start_ranks,
     stop_followers,
 )
 
@@ -55,9 +62,11 @@ def main(argv: Optional[list] = None) -> None:
     parser.add_argument("--microbatches", type=int, default=8)
     parser.add_argument("--ranks", type=int, default=None,
                         help="the world: ranks 1..N-1 are started by rank 0 (default:"
-                             " --stages); data takes N / --stages")
+                             " --stages; in a gang of hosts, JAX_NUM_PROCESSES x the"
+                             " host's cards); data takes N / --stages")
     parser.add_argument("--device", default=None,
-                        help="torch device (default cuda:<rank>); every rank runs on it"
+                        help="torch device (default: the rank's card on its host);"
+                             " every rank runs on it"
                              " when given ('cpu' runs the plain PyTorch path)")
     parser.add_argument("--dist-backend", choices=BACKENDS, default=None,
                         help="nccl (default on CUDA, one rank per card) or gloo (default"
@@ -66,10 +75,12 @@ def main(argv: Optional[list] = None) -> None:
     parser.add_argument("--dist-init", default="", help=argparse.SUPPRESS)
     argv = sys.argv[1:] if argv is None else list(argv)
     args = parser.parse_args(argv)
-    refuse_multi_host()
 
     config = PRESETS[args.preset]
-    world = args.stages if args.ranks is None else args.ranks
+    try:
+        world, gang = gang_world(os.environ, args.ranks, args.device, args.stages)
+    except ValueError as e:
+        raise SystemExit(f"invalid gang: {e}")
     if args.stages < 1 or world % args.stages:
         raise SystemExit(f"--stages {args.stages} must divide {world} ranks")
     if config.n_layers % args.stages:
@@ -77,33 +88,26 @@ def main(argv: Optional[list] = None) -> None:
                          f" {config.n_layers} layers")
     if args.seq_len > config.max_seq_len:
         raise SystemExit(f"--seq-len > {config.max_seq_len} for {args.preset}")
-    backend = args.dist_backend or (
-        "gloo" if args.device is not None and args.device.startswith("cpu") else "nccl")
-    followers = []
+    followers, device = [], args.device
     if world > 1:
         try:
-            check_backend(backend, world,
-                          None if args.device is None else torch.device(args.device))
+            rank, followers = start_ranks(
+                world, args.rank, args.dist_init, args.dist_backend, args.device,
+                ["-m", "dstack_tpu_torch.train_pipeline", *argv], gang)
         except ValueError as e:
             raise SystemExit(f"invalid pipeline configuration: {e}")
-        init = args.dist_init
-        if args.rank == 0:
-            init = loopback_rendezvous()
-            followers = spawn_followers(world, ["-m", "dstack_tpu_torch.train_pipeline",
-                                                *argv], init)
-        else:
-            exit_with_parent()
+        if gang is not None and not args.dist_init:
+            print(gang.describe(world), flush=True)
+        device = rank_device(rank, gang, args.device)
     try:
-        if world > 1:
-            init_ranks(world, args.rank, init, backend, args.device)
-        _train(args, config, world)
+        _train(args, config, world, device)
     finally:
         if world > 1:
             leave_ranks()
         stop_followers(followers)
 
 
-def _train(args, config, world: int) -> None:
+def _train(args, config, world: int, device) -> None:
     from dstack_tpu_torch.workloads.pipeline import (
         init_pipeline_state,
         make_pipeline_mesh,
@@ -111,7 +115,7 @@ def _train(args, config, world: int) -> None:
         pipeline_batch,
     )
 
-    mesh = make_pipeline_mesh(None if args.device is None else [args.device],
+    mesh = make_pipeline_mesh(None if device is None else [device],
                               data=world // args.stages, pipe=args.stages)
     say = print if mesh.rank == 0 else (lambda *a, **k: None)
     state = init_pipeline_state(config, 0, mesh)

@@ -126,7 +126,9 @@ def make_pipeline_mesh(devices: Optional[Sequence[DeviceLike]] = None, *, data: 
                        pipe: int = 2) -> PipelineMesh:
     """A (data, pipe) mesh over every rank of the process group
     (sharding.init_ranks first; a mesh of one rank needs no group).
-    `devices` is None (`cuda:<rank>`) or one device for every rank. Every
+    `devices` is None (`cuda:<rank>`, one host) or this rank's one device
+    (the same for every rank on one card; a gang's rank passes its own,
+    `sharding.rank_device`). Every
     rank creates every line's sub-group in the same order."""
     shape = {"data": data, "pipe": pipe}
     if data < 1 or pipe < 1:

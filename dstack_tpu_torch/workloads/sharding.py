@@ -65,6 +65,17 @@ previous one, both posted before either waits); it has no autograd of its
 own: the ring and the pipeline call it from explicit schedules that are
 the same on every rank, forward and backward.
 
+Hosts. An entry point's ranks start on one host (its rank 0 starts the
+others) or, in a job the orchestrator spread over hosts, as a gang
+(`Gang`, `gang_from_env`): from the variables the orchestrator injects
+into every host (`JAX_COORDINATOR_ADDRESS`, `JAX_PROCESS_ID`,
+`JAX_NUM_PROCESSES`, which `jax.distributed.initialize()` reads) each
+host's process starts its host's ranks, rank = process id x ranks a host
++ the rank's index on its host, and every rank joins one group at the
+coordinator's address (`start_ranks`). A rank's card is its index on its
+host. Everything above holds across hosts as it does on one: groups,
+rows and collectives follow global ranks.
+
 An expert axis on a serving mesh is ROADMAP Queue 1 item 3i, and raises.
 """
 
@@ -80,7 +91,7 @@ import sys
 import threading
 import time
 from dataclasses import dataclass, field, fields, replace
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -181,10 +192,12 @@ class Mesh:
         return {a: int(i) for a, i in zip(AXES, idx)}
 
 
-def check_backend(backend: str, world: int, device: Optional[torch.device]) -> None:
+def check_backend(backend: str, world: int, device: Optional[torch.device],
+                  gang: Optional["Gang"] = None) -> None:
     """Refuse a backend that cannot carry `world` ranks: nccl off CUDA, or
-    with fewer cards than ranks, or with every rank on the one `device`
-    (NCCL refuses two ranks on one card); the message names gloo."""
+    with fewer cards than this host's ranks (all `world` of them on one
+    host, `gang.per_host` in a gang), or with those ranks all on the one
+    `device` (NCCL refuses two ranks on one card); the message names gloo."""
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
     if backend != "nccl":
@@ -192,28 +205,31 @@ def check_backend(backend: str, world: int, device: Optional[torch.device]) -> N
     if device is not None and device.type != "cuda":
         raise ValueError(f"backend 'nccl' runs on CUDA devices, not {device};"
                          " use backend='gloo' on the CPU")
+    here = world if gang is None else gang.per_host
     cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
-    if cards < world or (device is not None and world > 1):
+    if cards < here or (device is not None and here > 1):
         where = f"every rank on {device}" if device is not None else f"{cards} card(s)"
+        ranks = f"{here} ranks" + ("" if gang is None else " of this host")
         raise ValueError(
-            f"backend 'nccl' runs one rank per card: {world} ranks on {where};"
+            f"backend 'nccl' runs one rank per card: {ranks} on {where};"
             " NCCL refuses two ranks on one device, pass backend='gloo' (the"
             " one-card transport) for ranks that share a card")
 
 
 def init_ranks(world: int, rank: int, init_method: str, backend: Optional[str] = None,
-               device: DeviceLike = None) -> torch.device:
+               device: DeviceLike = None, gang: Optional["Gang"] = None) -> torch.device:
     """Join a process group of `world` ranks as `rank`, rendezvous at
-    `init_method` (`tcp://127.0.0.1:<port>` or `file://<path>`), and
+    `init_method` (`tcp://<host>:<port>` or `file://<path>`), and
     return this rank's device: `device` for every rank when one is named
-    (the one-card smoke, the CPU tests), else `cuda:<rank>`. `backend`
-    defaults to nccl for CUDA and gloo for the CPU; nccl with fewer cards
-    than ranks, or with every rank on one named card, raises and names
-    gloo. Nothing switches the backend on its own."""
-    dev = torch.device(device) if device is not None else torch.device("cuda", rank)
+    (the one-card smoke, the CPU tests), else `cuda:<index>` by the rank's
+    index on its host (`rank_device`; the rank itself on one host).
+    `backend` defaults to nccl for CUDA and gloo for the CPU; nccl with
+    fewer cards than this host's ranks, or with every rank on one named
+    card, raises and names gloo. Nothing switches the backend on its own."""
+    dev = rank_device(rank, gang, device)
     if backend is None:
         backend = "nccl" if dev.type == "cuda" else "gloo"
-    check_backend(backend, world, torch.device(device) if device is not None else None)
+    check_backend(backend, world, torch.device(device) if device is not None else None, gang)
     dev = resolve_device(dev)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
@@ -231,7 +247,8 @@ def make_mesh(devices: Optional[Sequence[DeviceLike]] = None, *, data: int = 1,
     over every rank of the group, cut for `layout` ("serving": a model
     axis, the tensor-parallel engine's; "training": data, fsdp, seq,
     model and expert, the trainer's), whose axis sizes multiply to the world; `devices` is
-    None (`cuda:<rank>`) or one device for every rank. `fsdp=None` takes
+    None (`cuda:<rank>`, one host) or this rank's one device (the same for
+    every rank on one card; a gang's rank passes its own, `rank_device`). `fsdp=None` takes
     the factor left after the other axes, as the reference's (`:45-49`).
     A training mesh makes one sub-group per line of ranks along each set
     of its axes, every rank creating every group in the same order. (Two
@@ -989,33 +1006,218 @@ def to_host(tree: Any) -> Any:
     return torch.as_tensor(tree).detach().cpu()
 
 
-# -- follower processes --------------------------------------------------------------
+# -- the gang: one process per host ---------------------------------------------------
+
+# The orchestrator's contract with every host of a gang, the variables
+# `jax.distributed.initialize()` reads (the port's own copy of
+# dstack_tpu/parallel/env.py's `make_cluster_env` and `jax_initialize_kwargs`).
+COORDINATOR_ENV = "JAX_COORDINATOR_ADDRESS"
+PROCESS_ID_ENV = "JAX_PROCESS_ID"
+NUM_PROCESSES_ENV = "JAX_NUM_PROCESSES"
+
+
+class Gang(NamedTuple):
+    """A job the orchestrator spread over `hosts` hosts, one process each:
+    this host's index (`JAX_PROCESS_ID`), the coordinator's `host:port`
+    (`JAX_COORDINATOR_ADDRESS`) and how many ranks each host runs. Global
+    rank = host_id x per_host + the rank's index on its host: JAX's device
+    order, process 0's devices first."""
+
+    hosts: int
+    host_id: int
+    coordinator: str
+    per_host: int
+
+    @property
+    def ranks(self) -> range:
+        """This host's global ranks."""
+        return range(self.host_id * self.per_host, (self.host_id + 1) * self.per_host)
+
+    @property
+    def init_method(self) -> str:
+        """The rendezvous every rank of every host joins; global rank 0
+        hosts its store."""
+        return f"tcp://{self.coordinator}"
+
+    def local(self, rank: int) -> int:
+        """`rank`'s index on this host; a rank of another host raises."""
+        if rank not in self.ranks:
+            raise ValueError(f"rank {rank} is not one of host {self.host_id}'s ranks"
+                             f" {self.ranks.start}-{self.ranks.stop - 1}"
+                             f" ({PROCESS_ID_ENV}={self.host_id})")
+        return rank - self.ranks.start
+
+    def describe(self, world: int) -> str:
+        """A host leader's line, in the manner of the JAX trainer's."""
+        return (f"process {self.host_id}/{self.hosts} runs ranks {self.ranks.start}-"
+                f"{self.ranks.stop - 1} of {world}")
+
+
+def gang_hosts(env: Mapping[str, str]) -> int:
+    """The hosts of the gang, `JAX_NUM_PROCESSES` (1 when unset); a value
+    that is not a count raises ValueError naming the variable."""
+    raw = env.get(NUM_PROCESSES_ENV) or "1"
+    if not raw.isdigit() or int(raw) < 1:
+        raise ValueError(f"{NUM_PROCESSES_ENV}={raw!r} is not a number of hosts")
+    return int(raw)
+
+
+def gang_from_env(env: Mapping[str, str], world: int) -> Optional[Gang]:
+    """The gang the orchestrator's variables describe for a world of
+    `world` ranks, or None when `JAX_NUM_PROCESSES` is 1 or unset (the JAX
+    trainers' own test). A missing or malformed `JAX_COORDINATOR_ADDRESS`
+    (host:port), a `JAX_PROCESS_ID` missing or outside 0..N-1, or a world
+    that is not a multiple of the hosts raises ValueError naming the
+    variable, before anything starts."""
+    hosts = gang_hosts(env)
+    if hosts == 1:
+        return None
+    coordinator = env.get(COORDINATOR_ENV, "")
+    host, _, port = coordinator.rpartition(":")
+    if not host or not port.isdigit() or not 0 < int(port) < 65536:
+        raise ValueError(f"{COORDINATOR_ENV}={coordinator!r}: a gang of {hosts} hosts"
+                         " joins at the coordinator's host:port")
+    raw = env.get(PROCESS_ID_ENV, "")
+    if not raw.isdigit() or int(raw) >= hosts:
+        raise ValueError(f"{PROCESS_ID_ENV}={raw!r}: this host's index must be one of"
+                         f" 0..{hosts - 1} ({NUM_PROCESSES_ENV}={hosts})")
+    if world < hosts or world % hosts:
+        raise ValueError(f"{world} ranks over {NUM_PROCESSES_ENV}={hosts} hosts: the"
+                         " ranks must be a multiple of the hosts")
+    return Gang(hosts, int(raw), coordinator, world // hosts)
+
+
+def gang_world(env: Mapping[str, str], ranks: Optional[int], device: DeviceLike,
+               one_host: int) -> Tuple[int, Optional[Gang]]:
+    """An entry point's world and its gang (`gang_from_env`): `ranks` when
+    given; else in a gang every card of every host (the JAX trainer's
+    `jax.device_count()`), or one rank a host when every rank runs on one
+    named device; else `one_host`. Raises ValueError as `gang_from_env`."""
+    hosts = gang_hosts(env)
+    if ranks is None and hosts == 1:
+        ranks = one_host
+    elif ranks is None:
+        cards = (1 if device is not None else
+                 torch.cuda.device_count() if torch.cuda.is_available() else 0)
+        if cards == 0:
+            raise ValueError("no CUDA device on this host: name the ranks and their device")
+        ranks = hosts * cards
+    return ranks, gang_from_env(env, ranks)
+
+
+def rank_device(rank: int, gang: Optional[Gang] = None,
+                device: DeviceLike = None) -> torch.device:
+    """A rank's device: `device` for every rank when one is named, else
+    `cuda:<its index on its host>` (`cuda:<rank>` on one host)."""
+    if device is not None:
+        return torch.device(device)
+    return torch.device("cuda", rank if gang is None else gang.local(rank))
+
+
+def own_command(argv: Sequence[str]) -> List[str]:
+    """An entry point's command less the rank flags its leader adds."""
+    out, skip = [], False
+    for a in argv:
+        if skip:
+            skip = False
+        elif a in ("--rank", "--dist-init"):
+            skip = True
+        elif not a.startswith(("--rank=", "--dist-init=")):
+            out.append(a)
+    return out
+
+
+def first_difference(a: Sequence[str], b: Sequence[str]) -> str:
+    """The flag at which two commands first part: the flag itself, or the
+    flag whose value differs."""
+    for i, (x, y) in enumerate(itertools.zip_longest(a, b)):
+        if x == y:
+            continue
+        for t in (x, y):
+            if t is not None and t.startswith("-"):
+                return t.split("=")[0]
+        if i and a[i - 1].startswith("-"):
+            return a[i - 1]
+        return repr(x if x is not None else y)
+    return ""
+
+
+def same_command(argv: Sequence[str], gang: Gang) -> None:
+    """Every rank's command against global rank 0's, in one gather of
+    objects: hosts that run different commands would otherwise hang in
+    mismatched collectives until GROUP_TIMEOUT. A mismatch raises
+    ValueError on every rank, naming the first flag that differs."""
+    every: List[Any] = [None] * dist.get_world_size()
+    dist.all_gather_object(every, own_command(argv))
+    for r, cmd in enumerate(every):
+        if cmd != every[0]:
+            raise ValueError(
+                f"the hosts run different commands: rank {r} (host {r // gang.per_host})"
+                f" differs from rank 0 at {first_difference(every[0], cmd)}:"
+                f" {' '.join(cmd)} against {' '.join(every[0])}")
+
+
+def start_ranks(world: int, rank: int, init_method: str, backend: Optional[str],
+                device: DeviceLike, argv: List[str], gang: Optional[Gang] = None
+                ) -> Tuple[int, List[subprocess.Popen]]:
+    """Join this process to an entry point's `world` ranks; returns (its
+    global rank, the followers it started).
+
+    On one host (`gang` None) rank 0 is the leader: it picks a loopback
+    rendezvous and starts ranks 1..world-1. In a gang every host's process
+    is its host's leader (started without `--dist-init`): it takes its
+    host's first rank, starts the host's other ranks, and every rank of
+    every host joins at `tcp://$JAX_COORDINATOR_ADDRESS`; a rank's card is
+    its index on its host. Followers run `python <argv> --rank r
+    --dist-init <rendezvous>`, inherit the environment, refuse a rank that
+    is not their host's, and end themselves when their leader goes. In a
+    gang every rank then checks that it runs global rank 0's command
+    (`same_command`). The backend is checked before anything starts: nccl
+    with ranks that share a card raises and names gloo."""
+    dev = None if device is None else torch.device(device)
+    if backend is None:
+        backend = "gloo" if dev is not None and dev.type == "cpu" else "nccl"
+    check_backend(backend, world, dev, gang)
+    if gang is None:
+        leader, ranks = rank == 0, range(1, world)
+        if leader:
+            init_method = loopback_rendezvous()
+    else:
+        leader, ranks = not init_method, gang.ranks[1:]
+        if leader:
+            rank, init_method = gang.ranks.start, gang.init_method
+        gang.local(rank)  # a follower given another host's rank raises
+    followers = spawn_followers(ranks, argv, init_method) if leader else []
+    if not leader:
+        exit_with_parent()
+    try:
+        init_ranks(world, rank, init_method, backend, dev, gang)
+    except BaseException:
+        stop_followers(followers, timeout=0)
+        raise
+    if gang is not None:
+        try:
+            same_command(argv, gang)
+        except BaseException:
+            # Every rank raises here: the followers end on their own.
+            leave_ranks()
+            stop_followers(followers)
+            raise
+    return rank, followers
 
 
 def join_ranks(world: int, rank: int, init_method: str, backend: Optional[str],
                device: DeviceLike, argv: List[str], *, layout: str = "serving",
+               gang: Optional[Gang] = None,
                **axes: Optional[int]) -> Tuple[Mesh, List[subprocess.Popen]]:
-    """An entry point's ranks: rank 0 starts ranks 1..world-1 as `python
-    <argv> --rank r --dist-init <rendezvous>` on a loopback rendezvous it
-    picks, then every rank joins the group and builds the mesh for
-    `layout` over `axes` (`make_mesh`'s; default: a model axis of the
-    world), on `device` for every rank, else `cuda:<rank>`. A follower
-    ends itself when its leader's process goes. Returns (mesh, the
-    followers rank 0 started). The backend is checked before anything
-    starts: nccl with ranks that share a card raises and names gloo."""
-    dev = None if device is None else torch.device(device)
-    if backend is None:
-        backend = "gloo" if dev is not None and dev.type == "cpu" else "nccl"
-    check_backend(backend, world, dev)
-    followers = []
-    if rank == 0:
-        init_method = loopback_rendezvous()
-        followers = spawn_followers(world, argv, init_method)
-    else:
-        exit_with_parent()
+    """An entry point's ranks (`start_ranks`, on one host or over the
+    hosts of `gang`), then the mesh for `layout` over `axes` (`make_mesh`'s;
+    default: a model axis of the world), on `device` for every rank, else
+    each rank's card on its host. Returns (mesh, the followers this
+    process started)."""
+    rank, followers = start_ranks(world, rank, init_method, backend, device, argv, gang)
     try:
-        init_ranks(world, rank, init_method, backend, dev)
-        mesh = make_mesh(None if dev is None else [dev], layout=layout,
+        mesh = make_mesh([rank_device(rank, gang, device)], layout=layout,
                          **(axes or {"model": world}))
         return mesh, followers
     except BaseException:
@@ -1040,18 +1242,6 @@ def leave_ranks(mesh: Optional[Mesh] = None) -> None:
         dist.destroy_process_group()
 
 
-def refuse_multi_host() -> None:
-    """An entry point's ranks start on one host (`join_ranks`); a job the
-    orchestrator spread over hosts (JAX_NUM_PROCESSES > 1, the coordinator
-    env the JAX trainers join with `jax.distributed.initialize()`) raises."""
-    n = int(os.environ.get("JAX_NUM_PROCESSES", "1"))
-    if n > 1:
-        raise NotImplementedError(
-            f"JAX_NUM_PROCESSES={n}: a multi-host rendezvous from the orchestrator's"
-            " coordinator env is ROADMAP Queue 1 item 3f, not ported yet; the port's"
-            " ranks start on one host (--ranks)")
-
-
 def loopback_rendezvous() -> str:
     """A `tcp://127.0.0.1:<port>` rendezvous on a port free right now."""
     s = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
@@ -1061,16 +1251,17 @@ def loopback_rendezvous() -> str:
     return f"tcp://127.0.0.1:{port}"
 
 
-def spawn_followers(world: int, argv: List[str], init_method: str) -> List[subprocess.Popen]:
-    """Start ranks 1..world-1 as fresh interpreters (never a fork of a
-    process that may have initialised CUDA): `python <argv> --rank r
-    --dist-init <init_method>`, in their own process group so a signal to
-    the leader's terminal does not reach them before the leader stops
-    them (`stop_followers`)."""
+def spawn_followers(ranks: Sequence[int], argv: List[str],
+                    init_method: str) -> List[subprocess.Popen]:
+    """Start `ranks` as fresh interpreters (never a fork of a process that
+    may have initialised CUDA): `python <argv> --rank r --dist-init
+    <init_method>`, in their own process group so a signal to the
+    leader's terminal does not reach them before the leader stops them
+    (`stop_followers`)."""
     return [subprocess.Popen([sys.executable, *argv, "--rank", str(r),
                               "--dist-init", init_method],
                              start_new_session=True)
-            for r in range(1, world)]
+            for r in ranks]
 
 
 def exit_with_parent(poll_s: float = 1.0) -> None:

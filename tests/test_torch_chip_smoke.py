@@ -1465,3 +1465,53 @@ def test_enter_expert_and_gather_experts_against_autograd_on_the_whole_tensor(tm
         assert got["y"]
         assert got["x_grad"] < 1e-12 and got["w_grad"] < 1e-12
         assert got["stats"] == {"all_gathers": 1, "all_reduces": 1}
+
+
+def test_gang_phase_runs_on_the_cpu(tmp_path, monkeypatch):
+    """Phase 19 at tiny on the CPU: `fine_tune --ranks 2` on one host and
+    as a gang of two `chip_smoke.py --gang-host` processes given the
+    orchestrator's variables, exports byte for byte equal, each host one
+    rank printing its process line and its steps; run_rl's learner and
+    actor to epoch 4; the phase's gates pass the run (with the launches
+    the card's kernels would count) and fail a differing export, a missing
+    launch and an epoch short."""
+    import copy
+
+    monkeypatch.chdir(tmp_path)
+    for name, value in (("GANG_PRESET", "tiny"), ("GANG_DEVICE", "cpu"), ("GANG_B", 2),
+                        ("GANG_S", 32), ("GANG_RL_DEVICE", "cpu"), ("GANG_TIMEOUT", 150)):
+        monkeypatch.setattr(cs, name, value)
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    check = cs.check_gang
+    monkeypatch.setattr(cs, "check_gang", lambda ft, rl: None)  # the CPU counts no launch
+    res = cs.run_gang()
+    ft, rl = res["fine_tune"], res["rl"]
+    assert all(ft["export_equal"].values()) and ft["export_equal"]["files"]
+    assert [r["host"] for r in ft["hosts"]] == [0, 1]
+    assert all(len(r["step_ms"]) == cs.GANG_STEPS for r in ft["hosts"])
+    assert len(ft["gang_steps"]) == cs.GANG_STEPS == len(ft["one_host_steps"])
+    assert rl["epochs"] == [2, 3, 4] and rl["metrics_block"] and len(rl["seconds"]) == 2
+    for h in range(2):
+        assert (tmp_path / f"chiprun_out/phase19_host{h}.log").exists()
+    # The CPU runs the plain attention: give the hosts what the card counts.
+    from dstack_tpu_torch.workloads.config import PRESETS
+
+    cfg = PRESETS["tiny"]
+    sound = copy.deepcopy(ft)
+    for r in sound["hosts"]:
+        r["launches_per_step"] = dict.fromkeys(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+                                               float(cfg.n_layers))
+        r["kernel_shapes"] = {"flash_fwd": [[cfg.n_heads, 32, cfg.head_dim]]}
+    check(sound, rl)
+    bad = copy.deepcopy(sound)
+    bad["export_equal"]["weights.bin"] = False
+    with pytest.raises(AssertionError, match="export differs"):
+        check(bad, rl)
+    bad = copy.deepcopy(sound)
+    bad["hosts"][1]["launches_per_step"]["flash_bwd_dq"] = 0.0
+    with pytest.raises(AssertionError, match="host 1: flash launches"):
+        check(bad, rl)
+    with pytest.raises(AssertionError, match="phase 19.b"):
+        check(sound, {**rl, "epochs": [2, 3]})
+    with pytest.raises(AssertionError, match="step lines"):
+        check({**sound, "gang_steps": sound["gang_steps"][:1]}, rl)

@@ -18,6 +18,7 @@ MODULES = (
     "dstack_tpu_torch",
     "dstack_tpu_torch.fine_tune",
     "dstack_tpu_torch.native_server",
+    "dstack_tpu_torch.run_rl",
     "dstack_tpu_torch.train_pipeline",
     "dstack_tpu_torch.utils",
     "dstack_tpu_torch.utils.accum",
@@ -111,7 +112,7 @@ def test_chip_smoke_imports_nothing_of_jax():
 
 
 def _entry_points():
-    from dstack_tpu_torch import fine_tune
+    from dstack_tpu_torch import fine_tune, run_rl
     from dstack_tpu_torch.native_server import Engine
     from dstack_tpu_torch.workloads.config import PRESETS
     from dstack_tpu_torch.workloads.data import BatchLoader
@@ -149,6 +150,7 @@ def _entry_points():
         "fine_tune": lambda: fine_tune.main(["--preset", "tiny", "--steps", "1"]),
         "fine_tune --lora-rank": lambda: fine_tune.main(["--preset", "tiny", "--steps", "1",
                                                          "--lora-rank", "4"]),
+        "run_rl": lambda: run_rl.main(["--updates", "1"]),
     }
 
 
@@ -168,7 +170,7 @@ class _OneRow:
                                   "rl.Learner", "rl.run_anakin", "rl_drill.run_drill",
                                   "init_train_state", "synthetic_batch",
                                   "BatchLoader", "make_mesh", "fine_tune",
-                                  "fine_tune --lora-rank"])
+                                  "fine_tune --lora-rank", "run_rl"])
 def test_entry_points_default_to_cuda_and_raise_without_it(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: device=None is valid here")

@@ -391,14 +391,6 @@ def test_exchanges_per_step(runs):
             assert h == steps * N_MICRO * 2 * sides, (case, r)
 
 
-def test_refusals_name_their_roadmap_items(monkeypatch):
-    from dstack_tpu_torch import train_pipeline
-
-    monkeypatch.setenv("JAX_NUM_PROCESSES", "2")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3f"):
-        train_pipeline.main(["--device", "cpu", "--preset", "tiny", "--stages", "2"])
-
-
 def test_pipeline_mesh_needs_the_world():
     with pytest.raises(ValueError, match="data\\*pipe"):
         tpipe.make_pipeline_mesh(["cpu"], data=1, pipe=2)
