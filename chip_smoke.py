@@ -89,8 +89,8 @@ Phases (any failure fails the run; nothing is caught to exit 0):
   7b. ring model — smol-1b-8k width at 2 layers, B 1 x S 8192: loss and
                grads through the ring against plain_attention and against
                the single-device flash kernels, f32 and bf16;
-  8. checkpoint — smol-1b at full width and depth, B 8 x S 2048, bf16: the
-               train state after two steps saved (seconds, GB/s, the
+  8. checkpoint — smol-1b at full width and 8 of its 16 layers, B 8 x
+               S 2048, bf16: the train state after two steps saved (seconds, GB/s, the
                device-to-host share) and restored into a fresh template,
                bit for bit; one step from the saved state in memory, one
                from each of two restores (both bit for bit): the step from
@@ -200,7 +200,7 @@ Phases (any failure fails the run; nothing is caught to exit 0):
                output then jumps: the rule holds an MoE model only in f32);
                decode tok/s, TTFT, paged launches; `native_server --preset
                smol-moe --spec-enable` in a subprocess answers a chat; (c) training
-               at full depth, B 2 x S 2048, einsum, gather, gather, einsum:
+               at 8 of its 16 layers, B 2 x S 2048, einsum, gather, gather, einsum:
                step ms, tokens/s, MFU (active experts' FLOPs, not the
                dispatch's), peak memory, router_aux, flash launches; at 2
                layers the kernels against plain attention with the plain
@@ -238,7 +238,14 @@ Phases (any failure fails the run; nothing is caught to exit 0):
                recorded (gloo, two ranks on one card: a check, not a
                parallel speed); (f) a world-1 NCCL training step, its
                checkpoint saved and restored, in a process of its own
-               (--tr-nccl).
+               (--tr-nccl); (g) in the same rank processes, LoRA rank 8 on the
+               row-parallel wo and w_down over model 2 (each rank gathers both
+               factors whole) against the unsharded LoRA run, 2 steps at full
+               depth in bf16 and at 2 layers in f32: the first step's loss and
+               grad_norm, the adapters after the steps, #2 once a layer a
+               step on each rank and #3, #4 once a layer but the first (no
+               target sits before its attention); the grad_norm gate failing the whole
+               factors' grads summed over the column targets' axes (f32).
   16. the ring across ranks — four processes of this script (--rg-rank,
                --rank 0-3) over gloo on the one card train smol-1b-8k at
                full width and depth, B 1 x S 8192, at seq 4 (2048 positions
@@ -278,7 +285,11 @@ Phases (any failure fails the run; nothing is caught to exit 0):
                enter_expert without its all-reduce, gather_experts' backward
                summed), each failing the gate that guards it; (d) 8 launches
                of each of #2-#4 a step on each rank at B*H 32; step ms,
-               collectives per step with their MB and ms, peak memory per rank.
+               collectives per step with their MB and ms, peak memory per rank;
+               (g) in the same rank processes, LoRA rank 8 on wq/wv over the
+               expert axis against the unsharded LoRA run, 2 steps at 8 layers
+               in bf16 and at 2 layers in f32, the grad_norm gate failing the
+               grads also summed over the expert line (f32).
   19. the gang — (a) `python -m dstack_tpu_torch.fine_tune --ranks 2
                --device cuda:0 --dist-backend gloo` (smol-1b at full width and
                depth, B 8 x 2048, fsdp 2, 2 steps, --checkpoint-dir) on one
@@ -294,9 +305,28 @@ Phases (any failure fails the run; nothing is caught to exit 0):
                (DSTACK_NODE_RANK 0 and 1, DSTACK_NODES_NUM=2): both exit 0,
                the epochs reach 4, the seconds. gloo on one card: a check of
                the rendezvous, not a speed.
+  20. MoE over a seq axis of ranks — (c) kernel #5 against its plain
+               version at a seq rank's geometry (B*H 32, S 1024, hd 128),
+               diagonal and full, bf16 and f32, timed; two processes of this
+               script (--ms-rank) over gloo on the one card train smol-moe at
+               full width and 4 of its 16 layers (einsum, bf16, B 2 x 2048,
+               the preset's cf 1.25, where choices drop) at seq 2 (each rank
+               1024 positions of each row, routed at the whole row's capacity
+               and slots) against the one-device seq-2 ring on the same card,
+               weights and batch, each layer of the ranks pinned to its
+               routing (RoutingSpy; the flips under the pin counted): (a) the
+               first step's loss, grad_norm and router_aux, (b) every param
+               after 2 steps and both ranks' replicas equal, the same at 2
+               layers in f32 with three mutants (the capacity from a rank's
+               stretch, the slots without the earlier rank's picks, the slots
+               without the earlier choices' picks), each failing the loss
+               gate; (d) #5 launched i + 1 times a layer on seq rank i and no
+               other flash kernel, 3 hops and one all-gather of the routing
+               counts a layer; step ms, hops and collectives with their MB and
+               ms, peak memory per rank, the drops a layer.
 Phase 3b and 3c run after 3, 4b and 4c after 4, 5b after 5, 11 after
 5b, 12 after 11, phases 6 to 10b after 12, 13 after 10b, 14 after 13, 15
-after 14, 16 and 17 after 15, 18 after 17, 19 after 18. The line before the
+after 14, 16 and 17 after 15, 18 after 17, 19 after 18, 20 after 19. The line before the
 last is the `kernels` JSON; the last line is {"ok": true, "device": {...}}.
 Each phase logs its numbers on the way; details also go to
 chiprun_out/chip_smoke.json.
@@ -984,22 +1014,24 @@ def library_flash_ms(q, k, v, do, causal):
 # -- phase 3c: the ring-step kernel -------------------------------------------
 
 
-def run_ring_block(timed: bool = True):
+def run_ring_block(timed: bool = True, cases=None):
     """The ring-step kernel against `_block_ref_bh` on the same inputs: o,
     m and l held each on its own (a missed rescale of o cancels in o / l
-    when l carries it too). Returns one result per case."""
+    when l carries it too), at phase 3c's cases or `cases` ((name, dtype,
+    B*H, S, hd, causal), as phase 20's). Returns one result per case."""
     from dstack_tpu_torch.workloads import _build
     from dstack_tpu_torch.workloads import flash_attention as fa
 
     ptxas = kernel_ptxas(_build.build_log)["flash_block_fwd"]
 
     s_shard = 8192 // RING_SHARDS
-    cases = []
-    for dtype in (torch.bfloat16, torch.float32):
-        tag = "bf16" if dtype == torch.bfloat16 else "f32"
-        cases.append((f"ring_full_{tag}", dtype, 16, s_shard, 128, False))
-        cases.append((f"ring_diag_{tag}", dtype, 16, s_shard, 128, True))
-        cases.append((f"ragged_{tag}", dtype, 16, 1000, 64, False))
+    if cases is None:
+        cases = []
+        for dtype in (torch.bfloat16, torch.float32):
+            tag = "bf16" if dtype == torch.bfloat16 else "f32"
+            cases.append((f"ring_full_{tag}", dtype, 16, s_shard, 128, False))
+            cases.append((f"ring_diag_{tag}", dtype, 16, s_shard, 128, True))
+            cases.append((f"ragged_{tag}", dtype, 16, 1000, 64, False))
     results = []
     for name, dtype, bh, s, hd, causal in cases:
         g = torch.Generator(device="cuda").manual_seed(11)
@@ -1027,7 +1059,7 @@ def run_ring_block(timed: bool = True):
             bound_ms, bound_by = flash_bound("flash_block_fwd", bh, s, hd, dtype, causal)
             iters = (50, 5) if dtype == torch.bfloat16 else (10, 3)
             lib = (library_block_ms(q, k, v, causal)
-                   if dtype == torch.bfloat16 and name.startswith("ring") else None)
+                   if dtype == torch.bfloat16 and not name.startswith("ragged") else None)
             kfn = lambda: fa._ring_block_cuda(q, k, v, causal)  # noqa: E731
             r.update(ms=cuda_ms(kfn, iters[0]), ms_one_launch=cuda_ms_one(kfn, iters[0]),
                      plain_ms=cuda_ms_one(lambda: fa._block_ref_bh(q, k, v, causal), iters[1]),
@@ -2231,8 +2263,15 @@ def check_restore(state, saved: dict, saved_at) -> int:
     return len(leaves)
 
 
+# Phase 8's depth: 8 of smol-1b's 16 layers at full width (a preset of
+# fewer keeps its own), to make room in the smoke's budget (PERF.md section
+# 4); its gates are bit for bit.
+CKPT_LAYERS = 8
+
+
 def run_checkpoint(preset: str = "smol-1b", B: int = 8, S: int = 2048):
-    """`preset` at full width and depth, B x S, bf16: two train steps, then
+    """`preset` at full width and CKPT_LAYERS layers, B x S, bf16: two
+    train steps, then
     save the state (params, AdamW moments, step, count) and restore it into
     a fresh template, bit for bit. Continuation: one step from the state in
     memory at the save (a), one from a restore (b), one more from a second
@@ -2251,7 +2290,7 @@ def run_checkpoint(preset: str = "smol-1b", B: int = 8, S: int = 2048):
         synthetic_batch,
     )
 
-    cfg = PRESETS[preset]
+    cfg = PRESETS[preset].with_(n_layers=min(CKPT_LAYERS, PRESETS[preset].n_layers))
     step = make_train_step(cfg)
     batch = synthetic_batch(cfg, B, S, seed=0)
     state = init_train_state(cfg, seed=0)
@@ -4600,12 +4639,13 @@ class RoutingSpy:
     """Records every routed call's (seq_len, gate_idx, dropped choices)
     in order, or with `pinned` (a list of gate_idx, one a call) routes
     each call to those experts: probabilities, gate values, slots and the
-    aux loss still come from the call's own input (moe.assign_slots). A
-    test-only path for holding two runs on one routing: the package has
+    aux loss still come from the call's own input (moe.assign_slots), and
+    `flips` counts the call's tokens whose own top-k differs from the pin.
+    A test-only path for holding two runs on one routing: the package has
     no knob for it."""
 
     def __init__(self, pinned=None):
-        self.calls, self.pinned = [], pinned
+        self.calls, self.pinned, self.flips = [], pinned, []
 
     def __enter__(self):
         from dstack_tpu_torch.workloads import moe
@@ -4620,7 +4660,9 @@ class RoutingSpy:
                 idx = self.pinned[len(self.calls) % len(self.pinned)].to(h.device)
                 probs = torch.softmax(moe._router_logits(h, router), dim=-1)
                 out = moe.assign_slots(c, probs, idx, mesh)
-            C = moe.expert_capacity(c, h.shape[1])
+                own = torch.sort(probs, dim=-1, descending=True, stable=True).indices
+                self.flips.append(routing_flips(own[..., :c.experts_per_token], idx))
+            C = moe.row_capacity(c, h.shape[1], mesh)
             self.calls.append((h.shape[1], out[1].detach(), int((out[2] >= C).sum())))
             return out
 
@@ -5019,14 +5061,20 @@ def check_moe_model(r: dict, tol: tuple) -> None:
                              f" {r['worst']:.3e} at {r['worst_at']} past {tol}")
 
 
+# 13c's training depth: 8 of smol-moe's 16 layers at full width, 13b's and
+# 18's depth, to make room in the smoke's budget (PERF.md section 4).
+MOE_TRAIN_LAYERS = 8
+
+
 def run_moe_train() -> dict:
-    """13c: smol-moe at full width and depth, B 2 x S 2048, bf16, 5 steps
-    after 2 warm-up, the einsum then the gather dispatch then gather,
-    einsum (the first run profiled); then the 2-layer model check."""
+    """13c: smol-moe at full width and MOE_TRAIN_LAYERS layers, B 2 x S
+    2048, bf16, 5 steps after 2 warm-up, the einsum then the gather
+    dispatch then gather, einsum (the first run profiled); then the
+    2-layer model check."""
     runs = []
     for i, impl in enumerate(("einsum", "gather", "gather", "einsum")):
         runs.append(run_train(MOE_PRESET, 2, 2048, profiled=i == 0,
-                              overrides={"moe_impl": impl}))
+                              overrides={"moe_impl": impl, "n_layers": MOE_TRAIN_LAYERS}))
     return {"runs": runs, "model_check": run_moe_model_check()}
 
 
@@ -5392,6 +5440,22 @@ TR_TOL = {("bfloat16", "fsdp2"): dict(loss=3e-7, grad_norm=1.5e-3, params=(2.6e-
           ("bfloat16", "model2"): dict(loss=1e-4, grad_norm=4e-4, params=(1.3e-2, 9.4e-2)),
           ("float32", "fsdp2"): dict(loss=3e-7, grad_norm=3e-7, params=(1.4e-5, 3.6e-3)),
           ("float32", "model2"): dict(loss=3e-7, grad_norm=3e-7, params=(2.3e-5, 6.6e-3))}
+# LoRA on the row-parallel targets (LR_ROW_TARGETS) over model 2 against
+# the unsharded LoRA run, per dtype: the first step's loss and grad_norm by
+# relative difference and the adapters after TR_STEPS steps by
+# flash_errors' (rel_l2, row_rel) over each leaf; ~3x the sound reading on
+# the H100 (PERF.md, phase 15), a reading of 0 ~3 f32 ulps. bf16: loss
+# 1.25e-5, grad_norm 1.08e-3 (the unsharded norm sums each bf16 leaf in
+# bf16), adapters rel_l2 0.134; f32 at 2 layers: loss and grad_norm 0,
+# adapters 1.68e-4 / 2.1e-2. The adapters start from B = 0, so after two
+# steps B is two of Adam's normalised steps, ~lr an element whatever the
+# grad's size: an element whose tiny grad the model-2 ranks' bf16 partial
+# sums round to the other sign lands ~2 lr away, and any row holding one
+# reads row_rel ~2 (1.99 in bf16). So the bf16 adapters are held by
+# rel_l2 alone (None: no row_rel limit); f32 holds both. The column-axes
+# mutant reads grad_norm 0.287, adapters 1.01.
+TR_LORA_TOL = {"bfloat16": dict(loss=3.8e-5, grad_norm=3.2e-3, params=(0.4, None)),
+               "float32": dict(loss=3.6e-7, grad_norm=3.6e-7, params=(5e-4, 6.3e-2))}
 # (B*H, S, hd) of kernels #2-#4 on a rank, both layouts: the model-2 rank's
 # 8 rows x 8 q heads and the fsdp-2 rank's 4 rows x 16 q heads (15c).
 TR_KERNEL_CASES = (("rank_bf16", torch.bfloat16, TR_B * 8, TR_S, 128, True),
@@ -5564,8 +5628,10 @@ def tr_rank_main(rank: int, init: str) -> int:
     """One rank of phase 15, a process of its own: smol-1b at full width
     and depth on two gloo ranks sharing cuda:0, fsdp 2 and model 2 and
     their mutants against the unsharded step on the same card, then the
-    f32 check at TR_F32_LAYERS layers with the checkpoint from fsdp 2.
-    Rank 0 prints its readings as one JSON line."""
+    f32 check at TR_F32_LAYERS layers with the checkpoint from fsdp 2;
+    then LoRA on the row targets over model 2 against the unsharded LoRA
+    run, at full depth and in f32 with the column-axes mutant. Rank 0
+    prints its readings as one JSON line."""
     from dstack_tpu_torch.workloads import sharding
     from dstack_tpu_torch.workloads.config import PRESETS
 
@@ -5578,6 +5644,12 @@ def tr_rank_main(rank: int, init: str) -> int:
     out = {"bf16": tr_run_cases(cfg, rank, meshes, TR_CASES, TR_DEVICE)}
     cfg32 = cfg.with_(n_layers=TR_F32_LAYERS, dtype="float32")
     out["f32"] = tr_run_cases(cfg32, rank, meshes, TR_CASES[:2], TR_DEVICE, ckpt_case="fsdp2")
+    shape = (TR_B, TR_S, TR_STEPS)
+    out["lora"] = {"bf16": lora_rank_run(cfg, rank, meshes["model2"], TR_DEVICE, LR_ROW_TARGETS,
+                                         shape, (), TR_LORA_TOL["bfloat16"]),
+                   "f32": lora_rank_run(cfg32, rank, meshes["model2"], TR_DEVICE,
+                                        LR_ROW_TARGETS, shape, ("column_axes",),
+                                        TR_LORA_TOL["float32"])}
     if rank == 0:
         print("TR_RESULT " + json.dumps(out), flush=True)
     torch.distributed.destroy_process_group()
@@ -5585,13 +5657,17 @@ def tr_rank_main(rank: int, init: str) -> int:
 
 
 def check_train_ranks(res: dict) -> None:
-    """The gates of 15(a), (b), (d) and (e) on rank 0's readings."""
+    """The gates of 15(a), (b), (d), (e) and (g) on rank 0's readings."""
     from dstack_tpu_torch.workloads.config import PRESETS
 
     cfg = PRESETS[TR_PRESET]
     # Either layout: B/2 rows x H heads, or B rows x H/2 heads.
     rank_shape = (TR_B * cfg.n_heads // TR_RANKS, TR_S, cfg.head_dim)
+    if "lora" in res:
+        check_lora_ranks(res["lora"], "15", rank_shape)
     for dtype_tag, cases in res.items():
+        if dtype_tag == "lora":
+            continue
         for name, r in cases.items():
             if name == "unsharded":
                 continue
@@ -5699,6 +5775,13 @@ def run_train_ranks() -> dict:
     t2 = time.monotonic()
     nccl = launch_procs(["--tr-nccl"], "phase15_nccl", 1, "TR_NCCL", TR_TIMEOUT)
     t3 = time.monotonic()
+    r, ref = ranks["lora"]["bf16"]["sound"], ranks["lora"]["bf16"]["unsharded"]
+    log(f"phase 15 LoRA on {list(LR_ROW_TARGETS)} over model 2: step"
+        f" {r['ranks'][0]['step_ms'][-1]:.1f} ms against unsharded {ref['step_ms'][-1]:.1f};"
+        f" loss {r['loss_rel']:.3e}, grad_norm {r['grad_norm_rel']:.3e}, adapters"
+        f" {r['params']}; collectives {r['ranks'][0]['collectives_per_step']}; peak"
+        f" {[round(x['peak_mem_gb'], 2) for x in r['ranks']]} GB per rank; the column-axes"
+        f" mutant's grad_norm {ranks['lora']['f32']['column_axes']['grad_norm_rel']:.3e}")
     for name in ("fsdp2", "model2"):
         r, ref = ranks["bf16"][name], ranks["bf16"]["unsharded"]
         log(f"phase 15 {name} (gloo, two ranks on one card: a check, not a parallel"
@@ -6194,6 +6277,16 @@ EP_TOL = {"bfloat16": dict(loss=3.6e-7, grad_norm=8e-4, router_aux=3.6e-7,
                           params=(3.6e-7, 3.6e-7))}
 
 
+# LoRA on wq/wv (LORA_TARGETS) over expert 2 against the unsharded LoRA
+# run, per dtype, as TR_LORA_TOL reads; ~3x the sound reading on the H100
+# (PERF.md, phase 18), a reading of 0 ~3 f32 ulps. Attention is whole on
+# every expert rank, so loss and adapters read 0 in both dtypes; grad_norm
+# 7.7e-4 in bf16 (the unsharded norm's bf16 sums), 0 in f32. The
+# summed-over-expert mutant reads grad_norm 1.0 (doubled).
+EP_LORA_TOL = {"bfloat16": dict(loss=3.6e-7, grad_norm=2.3e-3, params=(3.6e-7, 3.6e-7)),
+               "float32": dict(loss=3.6e-7, grad_norm=3.6e-7, params=(3.6e-7, 3.6e-7))}
+
+
 def ep_mutate(kind):
     """18(b): a fault of the expert line. "block_off": a rank dispatches to
     the next rank's block of experts (its banks stay its own); "enter_unsummed":
@@ -6288,8 +6381,9 @@ def ep_rank_main(rank: int, init: str) -> int:
     and EP_LAYERS layers on an expert axis of two gloo ranks sharing
     cuda:0 (each rank 4 of the 8 experts), einsum dispatch, bf16, against
     the unsharded steps on the same card, weights and batch; then at
-    EP_F32_LAYERS in f32 with the mutants. Rank 0 prints its readings as
-    one JSON line."""
+    EP_F32_LAYERS in f32 with the mutants; then LoRA on wq/wv against the
+    unsharded LoRA run, at EP_LAYERS and in f32 with the summed-over-expert
+    mutant. Rank 0 prints its readings as one JSON line."""
     from dstack_tpu_torch.workloads import sharding
     from dstack_tpu_torch.workloads.config import PRESETS
 
@@ -6301,6 +6395,11 @@ def ep_rank_main(rank: int, init: str) -> int:
     out = {"bf16": ep_run(cfg, rank, mesh, EP_DEVICE, ())}
     cfg32 = cfg.with_(n_layers=EP_F32_LAYERS, dtype="float32")
     out["f32"] = ep_run(cfg32, rank, mesh, EP_DEVICE, EP_MUTANTS)
+    shape = (EP_B, EP_S, EP_STEPS)
+    out["lora"] = {"bf16": lora_rank_run(cfg, rank, mesh, EP_DEVICE, LORA_TARGETS, shape, (),
+                                         EP_LORA_TOL["bfloat16"]),
+                   "f32": lora_rank_run(cfg32, rank, mesh, EP_DEVICE, LORA_TARGETS, shape,
+                                        ("summed_over_expert",), EP_LORA_TOL["float32"])}
     if rank == 0:
         print("EP_RESULT " + json.dumps(out), flush=True)
     sharding.leave_ranks(mesh)
@@ -6308,10 +6407,13 @@ def ep_rank_main(rank: int, init: str) -> int:
 
 
 def ep_gates(r: dict) -> dict:
-    """Each of 18's gates on one case's readings: True where it passes."""
+    """Each of 18's (and 20's) gates on one case's readings: True where it
+    passes; a run without a params reading (a phase-20 mutant's single
+    step) has no params gate."""
     tol, p = r["tol"], r["params"]
     gates = {k: r[f"{k}_rel"] <= tol[k] for k in ("loss", "grad_norm", "router_aux")}
-    gates["params"] = p["rel_l2"] <= tol["params"][0] and p["row_rel"] <= tol["params"][1]
+    if p is not None:
+        gates["params"] = p["rel_l2"] <= tol["params"][0] and p["row_rel"] <= tol["params"][1]
     return gates
 
 
@@ -6324,7 +6426,11 @@ def check_expert_ranks(res: dict) -> None:
 
     cfg = PRESETS[EP_PRESET]
     shape = (EP_B * cfg.n_heads, EP_S, cfg.head_dim)
+    if "lora" in res:
+        check_lora_ranks(res["lora"], "18", shape)
     for dtype_tag, cases in res.items():
+        if dtype_tag == "lora":
+            continue
         for name, r in cases.items():
             if name == "unsharded":
                 continue
@@ -6377,6 +6483,13 @@ def run_expert_parallel() -> dict:
         g = ep_gates(res["f32"][m])
         log(f"phase 18 mutant {m}: fails {[k for k, ok in g.items() if not ok]}, as its"
             f" {EP_GUARDS[m]} gate must")
+    r, ref = res["lora"]["bf16"]["sound"], res["lora"]["bf16"]["unsharded"]
+    log(f"phase 18 LoRA on {list(LORA_TARGETS)} over expert 2: step"
+        f" {r['ranks'][0]['step_ms'][-1]:.1f} ms against unsharded {ref['step_ms'][-1]:.1f};"
+        f" loss {r['loss_rel']:.3e}, grad_norm {r['grad_norm_rel']:.3e}, adapters"
+        f" {r['params']}; peak {[round(x['peak_mem_gb'], 2) for x in r['ranks']]} GB per rank;"
+        f" the summed-over-expert mutant's grad_norm"
+        f" {res['lora']['f32']['summed_over_expert']['grad_norm_rel']:.3e}")
     log(f"phase 18: ranks {time.monotonic() - t0:.1f}s")
     return dict(ranks=res, seconds=time.monotonic() - t0)
 
@@ -6657,6 +6770,399 @@ def run_gang() -> dict:
     return dict(fine_tune=ft, rl=rl, seconds=time.monotonic() - t0)
 
 
+# -- LoRA over ranks (in phases 15 and 18) -----------------------------------------
+
+# The targets of phase 15's LoRA cell: the two row-parallel weights ("model"
+# on the input dim, "fsdp" on the output), whose factors a rank gathers.
+LR_ROW_TARGETS = ("wo", "w_down")
+# The gate each mutant must fail: the column targets' grads summed over the
+# expert line double them; a row target's whole-factor grads summed over the
+# column targets' axes miss the other model ranks' blocks of B. Adam's
+# normalised step hides a doubled grad from the params, not from grad_norm.
+LR_GUARDS = {"summed_over_expert": "grad_norm", "column_axes": "grad_norm"}
+
+
+def lr_mutate(kind):
+    """A fault of LoRA's grad sums over ranks. "summed_over_expert": the
+    column targets' grads also summed over the expert line, each of whose
+    ranks already holds the whole grad; "column_axes": a row target's
+    whole-factor grads summed over the column targets' axes. Returns the
+    undo."""
+    from dstack_tpu_torch.workloads import lora
+
+    if kind == "summed_over_expert":
+        orig = lora._LORA_GRAD_AXES
+        lora._LORA_GRAD_AXES = {k: v + ("expert",) for k, v in orig.items()}
+        return lambda: setattr(lora, "_LORA_GRAD_AXES", orig)
+    if kind == "column_axes":
+        orig = lora._gathered_grad_axes
+        lora._gathered_grad_axes = lambda spec, suffix: lora._LORA_GRAD_AXES[suffix]
+        return lambda: setattr(lora, "_gathered_grad_axes", orig)
+    return lambda: None
+
+
+def lora_rank_run(cfg, rank, mesh, device, targets, shape, mutations, tol) -> dict:
+    """Rank 0 runs the unsharded LoRA steps (the others wait), then every
+    rank runs them on `mesh`, sound and with each of `mutations`; rank 0
+    holds the whole adapters after them against the unsharded ones. As
+    fine_tune: the base is init_params(seed 0), the rank-8 adapters come
+    from seed 1, the batch is the synthetic one of seed 0 (`shape`: B, S
+    and the steps)."""
+    from dstack_tpu_torch.workloads import lora, sharding, train
+    from dstack_tpu_torch.workloads.transformer import init_params
+    from dstack_tpu_torch.workloads.weights import flatten_params
+
+    B, S, n_steps = shape
+
+    def steps(m, batch):
+        base = sharding.shard_tree(m, init_params(cfg, seed=0, device=device))
+
+        def make_step():
+            step = lora.make_lora_train_step(cfg, m, rank=LORA_RANK)
+            return lambda st, b: step(st, base, b)
+
+        return rank_steps(cfg, lambda: lora.init_lora_state(
+            cfg, base, 1, rank=LORA_RANK, targets=targets, mesh=m), make_step, batch, m, n_steps)
+
+    out, ref, ref_lora = {}, None, None
+    if rank == 0:
+        state, ref = steps(None, train.synthetic_batch(cfg, B, S, seed=0, device=device))
+        ref_lora = [(k, t.detach().to("cpu", copy=True)) for k, t in flatten_params(state.lora)]
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"LoRA on {list(targets)} unsharded {cfg.dtype}: " + json.dumps(ref))
+    torch.distributed.barrier()
+    batch = train.synthetic_batch(cfg, B, S, seed=0, mesh=mesh)
+    for mutation in (None, *mutations):
+        shapes, undo_spy = tr_launch_spy()
+        undo = lr_mutate(mutation)
+        try:
+            state, r = steps(mesh, batch)
+        finally:
+            undo()
+            undo_spy()
+        r["kernel_shapes"] = {k: sorted(v) for k, v in shapes.items()}
+        whole = sharding.unshard_tree(mesh, state.lora)
+        del state
+        every = [None] * math.prod(mesh.shape.values())
+        torch.distributed.all_gather_object(every, r)
+        if rank == 0:
+            res = dict(ranks=every, mutation=mutation, dtype=cfg.dtype, n_layers=cfg.n_layers,
+                       targets=list(targets), **tr_compare(every[0], ref, tol),
+                       params=tr_param_gaps(whole, ref_lora))
+            out[mutation or "sound"] = res
+            log(f"LoRA on {list(targets)} over {mesh.shape} {mutation or 'sound'} ({cfg.dtype},"
+                f" {cfg.n_layers} layers): " + json.dumps(res))
+        del whole
+        gc.collect()
+        torch.cuda.empty_cache()
+    if rank == 0:
+        out["unsharded"] = ref
+    del batch
+    return out
+
+
+def lora_gates(r: dict) -> dict:
+    """Each LoRA-over-ranks gate on one case's readings: True where it
+    passes (the first step's loss and grad_norm, the adapters after the
+    steps; a row_rel limit of None holds them by rel_l2 alone)."""
+    tol, p = r["tol"], r["params"]
+    rel_l2, row_rel = tol["params"]
+    return {"loss": r["loss_rel"] <= tol["loss"], "grad_norm": r["grad_norm_rel"] <= tol["grad_norm"],
+            "params": p["rel_l2"] <= rel_l2 and (row_rel is None or p["row_rel"] <= row_rel)}
+
+
+def check_lora_ranks(res: dict, phase: str, shape) -> None:
+    """The gates of a phase's LoRA cell on rank 0's readings: the sound
+    run within every gate with the ranks' metrics equal and #2-#4 launched
+    once a layer a step on each rank (#3 and #4 one fewer without a target
+    before the first attention) at `shape` (B*H, S, hd) in bf16; each
+    mutant failing the gate that guards it."""
+    for dtype_tag, cases in res.items():
+        for name, r in cases.items():
+            if name == "unsharded":
+                continue
+            gates = lora_gates(r)
+            if r["mutation"]:
+                guard = LR_GUARDS[r["mutation"]]
+                if gates[guard]:
+                    raise AssertionError(f"phase {phase} LoRA {name}: its {guard} gate passes"
+                                         f" the mutant ({r['grad_norm_rel']}, tol {r['tol']})")
+                continue
+            if not all(gates.values()):
+                raise AssertionError(f"phase {phase} LoRA {dtype_tag}: gates {gates}; loss"
+                                     f" {r['loss_rel']}, grad_norm {r['grad_norm_rel']}, params"
+                                     f" {r['params']}; tol {r['tol']}")
+            for rk, rr in enumerate(r["ranks"]):
+                if [rr["loss"], rr["grad_norm"], rr["losses"]] != [
+                        r["ranks"][0]["loss"], r["ranks"][0]["grad_norm"], r["ranks"][0]["losses"]]:
+                    raise AssertionError(f"phase {phase} LoRA: rank {rk}'s metrics differ")
+                # Autograd runs the first layer's attention backward only for
+                # a target before it (wq, wk, wv); wo and w_down take their
+                # grads after it.
+                first = 1 if set(r["targets"]) & {"wq", "wk", "wv"} else 0
+                want = {"flash_fwd": r["n_layers"], "flash_bwd_dq": r["n_layers"] - 1 + first,
+                        "flash_bwd_dkv": r["n_layers"] - 1 + first}
+                got = {k: rr["launches_per_step"][k] for k in want}
+                if got != want:
+                    raise AssertionError(f"phase {phase} LoRA rank {rk}: flash launches per"
+                                         f" step {got}, not {want}")
+                if dtype_tag == "bf16":
+                    shapes = {tuple(s) for v in rr["kernel_shapes"].values() for s in v}
+                    if shapes != {tuple(shape)}:
+                        raise AssertionError(f"phase {phase} LoRA rank {rk}: kernel shapes"
+                                             f" {rr['kernel_shapes']}, not {shape}")
+
+
+# -- phase 20: MoE over a seq axis of ranks --------------------------------------------
+
+MS_RANKS = 2
+# The model and the one card both ranks share (a CPU dry run of the rank
+# processes swaps in a small preset and "cpu").
+MS_PRESET, MS_DEVICE = "smol-moe", "cuda:0"
+# 13c's batch, B 2 x S 2048, at seq 2: each rank holds 1024 positions of
+# each row, routed at the whole row's capacity (640 at the preset's cf
+# 1.25, where choices drop). MS_STEPS steps for the sound run, one for a
+# mutant (its guard reads the first step).
+MS_B, MS_S, MS_STEPS = 2, 2048, 2
+# The bf16 run's depth: 4 of smol-moe's 16 layers at full width. The grads'
+# all-reduce over seq moves every grad through host memory (phase 16 spent
+# ~94% of a ranked ring step there, on 1.78 GB); at 4 layers the grads are
+# ~2.6 GB (1.29 B params), at 8 ~4.9 GB.
+MS_LAYERS = 4
+# The f32 check's depth, with the mutants.
+MS_F32_LAYERS = 2
+# Each rank process's limit (seconds): start-up, every case.
+MS_TIMEOUT = 600
+# The faults of the whole row's routing, each run after the sound ranks:
+# the capacity from the rank's own stretch, the slots without the earlier
+# seq ranks' picks, the slots without the earlier choices' picks. Each
+# drops other choices than the reference (or puts two tokens in one slot),
+# so the first step's loss moves.
+MS_MUTANTS = ("local_capacity", "no_rank_prefix", "no_choice_offset")
+MS_GUARDS = dict.fromkeys(MS_MUTANTS, "loss")
+# (name, dtype, B*H, S, hd, causal) of kernel #5 on a seq rank: B 2 x 16
+# heads, the rank's 1024 positions, the diagonal step causal.
+MS_KERNEL_CASES = tuple((f"seq_rank_{part}_{tag}", dtype, MS_B * 16, MS_S // MS_RANKS, 128,
+                         part == "diag")
+                        for tag, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32))
+                        for part in ("full", "diag"))
+# The seq ranks against the one-device seq-2 ring on one card (20a, 20b),
+# per dtype: the first step's loss, grad_norm and router_aux by relative
+# difference, every param after MS_STEPS steps by flash_errors' (rel_l2,
+# row_rel) over its leaf. Each limit is ~3x the sound reading on the H100
+# (PERF.md, phase 20); a reading of 0 gets ~3 f32 ulps. bf16: loss 1.39e-6
+# (the dense products of 1024 rows round apart from 2048's), grad_norm
+# 6.34e-4, router_aux 4.0e-7, params 2.06e-3 / 4.0e-2; f32 at 2 layers:
+# loss 8.7e-8, grad_norm and aux 0, params 9.8e-6 / 2.75e-3. The mutants
+# read loss 7.5e-4 (local capacity), 3.5e-5 (no rank prefix), 8.5e-4 (no
+# choice offset).
+MS_TOL = {"bfloat16": dict(loss=4.2e-6, grad_norm=1.9e-3, router_aux=1.2e-6,
+                           params=(6.2e-3, 1.2e-1)),
+          "float32": dict(loss=2.6e-7, grad_norm=3.6e-7, router_aux=3.6e-7,
+                          params=(3e-5, 8.3e-3))}
+
+
+def ms_mutate(kind):
+    """20(b): a fault of a seq rank's routing (MS_MUTANTS). Returns the undo."""
+    from dstack_tpu_torch.workloads import moe
+
+    capacity, offsets = moe.row_capacity, moe.slot_offsets
+
+    def local_capacity(c, s_local, mesh=None):
+        return moe.expert_capacity(c, s_local)
+
+    def no_rank_prefix(counts, mesh=None):
+        earlier_ranks, earlier_choices = offsets(counts, mesh)
+        return torch.zeros_like(earlier_ranks), earlier_choices
+
+    def no_choice_offset(counts, mesh=None):
+        earlier_ranks, earlier_choices = offsets(counts, mesh)
+        return earlier_ranks, torch.zeros_like(earlier_choices)
+
+    if kind == "local_capacity":
+        moe.row_capacity = local_capacity
+    elif kind in ("no_rank_prefix", "no_choice_offset"):
+        moe.slot_offsets = no_rank_prefix if kind == "no_rank_prefix" else no_choice_offset
+
+    def undo():
+        moe.row_capacity, moe.slot_offsets = capacity, offsets
+
+    return undo
+
+
+def ms_run(cfg, rank, mesh, device, mutations) -> dict:
+    """Rank 0 runs the one-device seq-2 ring (the others wait), recording
+    its routing; then every rank runs the seq ranks with each layer pinned
+    to that routing (the bf16 products of a rank's 1024 rows and of 2048
+    round apart and flip top-k near-ties; the flips are counted), sound and
+    with each of `mutations`; rank 0 holds its params against the
+    one-device run's."""
+    from dstack_tpu_torch.workloads import sharding, train
+
+    ref = ref_params = pinned = None
+    if rank == 0:
+        one = sharding.Mesh(torch.device(device), dict(zip(sharding.AXES, (1, 1, MS_RANKS, 1, 1))))
+        batch = train.synthetic_batch(cfg, MS_B, MS_S, seed=0, device=device)
+        with RoutingSpy() as spy:
+            state, ref = rank_steps(cfg, lambda: train.init_train_state(cfg, seed=0, mesh=one),
+                                    lambda: train.make_train_step(cfg, one), batch, None,
+                                    MS_STEPS)
+        ref.update(route_calls=len(spy.calls), dropped=[c[2] for c in spy.calls])
+        pinned = [c[1].cpu() for c in spy.calls]
+        ref_params = state_host(state)
+        del state, batch, spy
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"phase 20 one-device ring {cfg.dtype}: " + json.dumps(ref))
+    pinned = sharding.broadcast_object(pinned, mesh)
+    s_local = MS_S // MS_RANKS
+    lo = mesh.coords["seq"] * s_local
+    mine = [p[:, lo:lo + s_local] for p in pinned]
+    out = {}
+    batch = train.synthetic_batch(cfg, MS_B, MS_S, seed=0, mesh=mesh)
+    for mutation in (None, *mutations):
+        shapes, undo_spy = tr_launch_spy()
+        undo = ms_mutate(mutation)
+        try:
+            with RoutingSpy(mine) as spy:
+                state, r = rank_steps(cfg, lambda: train.init_train_state(cfg, seed=0, mesh=mesh),
+                                      lambda: train.make_train_step(cfg, mesh), batch, mesh,
+                                      MS_STEPS if mutation is None else 1)
+        finally:
+            undo()
+            undo_spy()
+        r.update(kernel_shapes={k: sorted(v) for k, v in shapes.items()},
+                 digest=leaf_digest(state.params), route_calls=len(spy.calls),
+                 flips=sum(spy.flips), dropped=[c[2] for c in spy.calls])
+        every = [None] * MS_RANKS
+        torch.distributed.all_gather_object(every, r)
+        if rank == 0:
+            res = dict(ranks=every, mutation=mutation, dtype=cfg.dtype, n_layers=cfg.n_layers,
+                       **ep_compare(every[0], ref, MS_TOL[cfg.dtype]),
+                       params=None if mutation else tr_param_gaps(state.params, ref_params))
+            out[mutation or "sound"] = res
+            log(f"phase 20 {mutation or 'sound'} ({cfg.dtype}, {cfg.n_layers} layers): "
+                + json.dumps(res))
+        del state, spy
+        gc.collect()
+        torch.cuda.empty_cache()
+    if rank == 0:
+        out["one_device"] = ref
+    del batch
+    return out
+
+
+def ms_rank_main(rank: int, init: str) -> int:
+    """One rank of phase 20, a process of its own: smol-moe at full width
+    and MS_LAYERS layers on a seq axis of two gloo ranks sharing cuda:0
+    (each rank 1024 positions of each row; the ring across the ranks),
+    einsum dispatch, bf16, against the one-device seq-2 ring on the same
+    card, weights and batch; then at MS_F32_LAYERS in f32 with the
+    mutants. Rank 0 prints its readings as one JSON line."""
+    from dstack_tpu_torch.workloads import sharding
+    from dstack_tpu_torch.workloads.config import PRESETS
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sharding.init_ranks(MS_RANKS, rank, init, backend="gloo", device=MS_DEVICE)
+    mesh = sharding.make_mesh([MS_DEVICE], layout="training", seq=MS_RANKS)
+    cfg = PRESETS[MS_PRESET].with_(n_layers=MS_LAYERS)
+    out = {"bf16": ms_run(cfg, rank, mesh, MS_DEVICE, ())}
+    cfg32 = cfg.with_(n_layers=MS_F32_LAYERS, dtype="float32")
+    out["f32"] = ms_run(cfg32, rank, mesh, MS_DEVICE, MS_MUTANTS)
+    if rank == 0:
+        print("MS_RESULT " + json.dumps(out), flush=True)
+    sharding.leave_ranks(mesh)
+    return 0
+
+
+def check_moe_seq_ranks(res: dict) -> None:
+    """The gates of 20(a) and (b) on rank 0's readings: the one-device
+    run dropped choices; the sound ranks within every gate, routed in as
+    many calls as the one-device run, their metrics and params equal; each
+    mutant failing the gate that guards it; kernel #5 launched i + 1 times
+    a layer and forward on seq rank i at a rank's geometry and no other
+    flash kernel (the ranked ring's backward is plain), 2n - 1 hops and
+    one all-gather of the routing counts a layer."""
+    from dstack_tpu_torch.workloads.config import PRESETS
+
+    cfg = PRESETS[MS_PRESET]
+    shape = [MS_B * cfg.n_heads, MS_S // MS_RANKS, cfg.head_dim]
+    for dtype_tag, cases in res.items():
+        ref = cases["one_device"]
+        if not sum(ref["dropped"]) > 0:
+            raise AssertionError(f"phase 20 {dtype_tag}: the one-device run dropped no"
+                                 f" choice ({ref['dropped']}): capacity decides nothing")
+        for name, r in cases.items():
+            if name == "one_device":
+                continue
+            gates = ep_gates(r)
+            if r["mutation"]:
+                guard = MS_GUARDS[r["mutation"]]
+                if gates[guard]:
+                    raise AssertionError(f"phase 20 {name}: its {guard} gate passes the mutant"
+                                         f" ({r['loss_rel']}, tol {r['tol']})")
+                continue
+            if not all(gates.values()):
+                raise AssertionError(f"phase 20 {dtype_tag}: gates {gates}; loss {r['loss_rel']},"
+                                     f" grad_norm {r['grad_norm_rel']}, router_aux"
+                                     f" {r['router_aux_rel']}, params {r['params']}; tol"
+                                     f" {r['tol']}")
+            first = r["ranks"][0]
+            for rk, rr in enumerate(r["ranks"]):
+                keys = ("loss", "grad_norm", "router_aux", "losses", "digest")
+                if any(rr[k] != first[k] for k in keys):
+                    raise AssertionError(f"phase 20: rank {rk}'s metrics or params differ")
+                if rr["route_calls"] != ref["route_calls"]:
+                    raise AssertionError(f"phase 20 rank {rk}: {rr['route_calls']} routed calls,"
+                                         f" the one-device run {ref['route_calls']}")
+                want = dict.fromkeys(FLASH_REPLACES, 0.0)
+                want["flash_block_fwd"] = float((rk + 1) * r["n_layers"])
+                if rr["launches_per_step"] != want:
+                    raise AssertionError(f"phase 20 rank {rk}: launches per step"
+                                         f" {rr['launches_per_step']}, not {want}")
+                hops = float(r["n_layers"] * (2 * MS_RANKS - 1))
+                gathers = float(r["n_layers"])
+                if (rr["hops_per_step"], rr["collectives_per_step"]["all_gathers"]) != (
+                        hops, gathers):
+                    raise AssertionError(f"phase 20 rank {rk}: {rr['hops_per_step']} hops and"
+                                         f" {rr['collectives_per_step']['all_gathers']}"
+                                         f" all-gathers a step, not {hops} and {gathers}")
+                if dtype_tag == "bf16" and rr["kernel_shapes"] != {"flash_block_fwd": [shape]}:
+                    raise AssertionError(f"phase 20 rank {rk}: kernel shapes"
+                                         f" {rr['kernel_shapes']}, not {shape}")
+
+
+def run_moe_seq_ranks() -> dict:
+    """Phase 20: (c) kernel #5 against its plain version at a seq rank's
+    geometry (B*H 32, S 1024, hd 128), timed; (a, b, d) in two rank
+    processes over gloo on the card."""
+    t0 = time.monotonic()
+    kernels = run_ring_block(cases=MS_KERNEL_CASES)
+    res = launch_procs(["--ms-rank"], "phase20", MS_RANKS, "MS_RESULT", MS_TIMEOUT)
+    check_moe_seq_ranks(res)
+    r, ref = res["bf16"]["sound"], res["bf16"]["one_device"]
+    r0 = r["ranks"][0]
+    log(f"phase 20 (gloo, two seq ranks on one card: a check, not a parallel speed): step"
+        f" {[round(x['step_ms'][-1], 1) for x in r['ranks']]} ms against the one-device"
+        f" ring's {ref['step_ms'][-1]:.1f}; hops per step {r0['hops_per_step']}"
+        f" ({r0['hop_mb_per_step']:.1f} MB, {r0['hop_ms_per_step']:.1f} ms), collectives"
+        f" {r0['collectives_per_step']} ({r0['collective_ms_per_step']:.1f} ms, MB"
+        f" {r0['collective_mb_per_step']}); peak {[round(x['peak_mem_gb'], 2) for x in r['ranks']]}"
+        f" GB per rank (one device {ref['peak_mem_gb']:.2f}); #5 per step"
+        f" {[x['launches_per_step']['flash_block_fwd'] for x in r['ranks']]}; dropped choices"
+        f" {ref['dropped']} of {MS_B * MS_S * 2} a layer; flips under the pin"
+        f" {[x['flips'] for x in r['ranks']]}")
+    for m in MS_MUTANTS:
+        g = ep_gates(res["f32"][m])
+        log(f"phase 20 mutant {m}: fails {[k for k, ok in g.items() if not ok]}, as its"
+            f" {MS_GUARDS[m]} gate must (loss {res['f32'][m]['loss_rel']:.3e})")
+    log(f"phase 20: {time.monotonic() - t0:.1f}s")
+    return dict(kernels=kernels, ranks=res, seconds=time.monotonic() - t0)
+
+
 def paged_entry(kres, launches, wave) -> dict:
     """The paged kernel's entry of the `kernels` line: the bf16 decode
     case's times, the bf16 short-slot decode and chunk cases' beside them,
@@ -6892,6 +7398,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     gang = run_gang()
 
+    # 20. MoE over a seq axis of ranks: smol-moe (4 of 16 layers) over two
+    # gloo ranks on the card at seq 2, against the one-device seq-2 ring
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_seq = run_moe_seq_ranks()
+
     log(f"total {time.monotonic() - t_all:.1f}s")
     kernels = {"kernels": [paged_entry(kres, launches, wave)]}
     # The paged kernel's launches on the speculative and host-tier paths
@@ -6944,11 +7456,20 @@ def main() -> int:
                    for r, rr in enumerate(expert["ranks"]["bf16"]["sound"]["ranks"])},
                 # Each host process of phase 19's gang over its GANG_STEPS steps.
                 **{f"gang_host{r['host']}": r["launches"][kern]
-                   for r in gang["fine_tune"]["hosts"]}}}
+                   for r in gang["fine_tune"]["hosts"]},
+                # Each rank of phase 15's LoRA on the row targets over model 2
+                # and of phase 18's LoRA over expert 2, bf16, over their steps.
+                **{f"lora_model_rank{r}": int(rr["launches_per_step"][kern] * TR_STEPS)
+                   for r, rr in enumerate(tr["ranks"]["lora"]["bf16"]["sound"]["ranks"])},
+                **{f"lora_expert_rank{r}": int(rr["launches_per_step"][kern] * EP_STEPS)
+                   for r, rr in enumerate(expert["ranks"]["lora"]["bf16"]["sound"]["ranks"])}}}
                if kern != "flash_block_fwd" else {"launches_by_path": {
                    # Each rank of phase 16's bf16 ring over its RG_STEPS steps.
-                   f"ring_rank{r}": int(rr["launches_per_step"][kern] * RG_STEPS)
-                   for r, rr in enumerate(ring_ranks["ranks"]["bf16"]["sound"]["ranks"])}}),
+                   **{f"ring_rank{r}": int(rr["launches_per_step"][kern] * RG_STEPS)
+                      for r, rr in enumerate(ring_ranks["ranks"]["bf16"]["sound"]["ranks"])},
+                   # Each seq rank of phase 20's bf16 MoE over its MS_STEPS steps.
+                   **{f"moe_seq_rank{r}": int(rr["launches_per_step"][kern] * MS_STEPS)
+                      for r, rr in enumerate(moe_seq["ranks"]["bf16"]["sound"]["ranks"])}}}),
             "max_abs_err": main_f["max_abs_err"],
             "ms": main_f["ms"],
             "ms_one_launch": main_f["ms_one_launch"],
@@ -6963,14 +7484,18 @@ def main() -> int:
             **({"whole_backward": main_f["whole_backward"]} if "whole_backward" in main_f
                else {}),
         })
+        keys = ("max_abs_err", "ms", "ms_one_launch", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "library_ms_one_launch", "tflops", "bound_share")
+        if kern == "flash_block_fwd":
+            # Phase 20c: at a seq rank's geometry (B*H 32, S 1024, hd 128).
+            seq_f = next(r for r in moe_seq["kernels"] if r["case"] == "seq_rank_full_bf16")
+            kernels["kernels"][-1]["per_seq_rank"] = {k: seq_f[k] for k in keys}
         if kern != "flash_block_fwd":
             # Phase 15c: at a rank's geometry (B*H 64, S 2048, hd 128).
             rank_f = next(r for r in tr["kernels"]
                           if r["case"] == "rank_bf16" and r["kernel"] == kern)
             stage_f = next(r for r in pipe["kernels"]
                            if r["case"] == "stage_bf16" and r["kernel"] == kern)
-            keys = ("max_abs_err", "ms", "ms_one_launch", "plain_ms", "bound_ms", "bound_by",
-                    "library_ms", "library_ms_one_launch", "tflops", "bound_share")
             kernels["kernels"][-1]["per_rank"] = {k: rank_f[k] for k in keys}
             # Phase 17c: at a stage's geometry (B*H 32: a 2-row microbatch),
             # which is also an expert rank's in phase 18 (B 2 x 16 heads).
@@ -6985,7 +7510,7 @@ def main() -> int:
                    "moe_module": moe_module, "moe_serving": moe_serving,
                    "moe_train": moe_train, "tp": tp, "train_ranks": tr,
                    "ring_ranks": ring_ranks, "pipeline": pipe, "expert_parallel": expert,
-                   "gang": gang, "build_s": _build.build_seconds},
+                   "gang": gang, "moe_seq_ranks": moe_seq, "build_s": _build.build_seconds},
                   f, indent=1)
     # What could hold the interpreter's exit: threads that are not daemons
     # and child processes still running (every phase stops its own).
@@ -7018,6 +7543,8 @@ if __name__ == "__main__":
         sys.exit(pp_rank_main(*rank_args()))
     if "--ep-rank" in argv:  # a rank of phase 18, started by run_expert_parallel
         sys.exit(ep_rank_main(*rank_args()))
+    if "--ms-rank" in argv:  # a rank of phase 20, started by run_moe_seq_ranks
+        sys.exit(ms_rank_main(*rank_args()))
     if "--tp-nccl" in argv or "--tr-nccl" in argv:  # 14(f) and 15(f), in their own process
         torch.backends.cuda.matmul.allow_tf32 = False
         run_tp_nccl() if "--tp-nccl" in argv else run_train_nccl()

@@ -48,9 +48,10 @@ the transport for ranks that share a card). Every rank draws the same
 whole params from seed 0 and keeps its slices; checkpoints and the export
 are written whole by rank 0 from every rank's shards, so a run resumes on
 any number of ranks. Only rank 0 prints. `--expert-parallel` must divide
-the preset's n_experts, as the JAX trainer checks. An MoE preset over a seq
-axis of ranks raises (ROADMAP Queue 1 item 3h), as does LoRA over ranks on
-an MoE preset or an expert axis (3j).
+the preset's n_experts, as the JAX trainer checks. An MoE preset trains
+over a seq axis of ranks (each rank routes its stretch of a row at the
+row's whole capacity and slots, workloads/moe.py), and LoRA trains over
+ranks on an MoE preset and an expert axis.
 
 Across hosts. A job the orchestrator spreads over hosts runs the same
 command on every host with `JAX_COORDINATOR_ADDRESS`, `JAX_PROCESS_ID` and
@@ -192,14 +193,6 @@ def main(argv: Optional[list] = None) -> None:
     config = PRESETS[args.preset]
     if args.expert_parallel > 1 and config.n_experts % args.expert_parallel:
         raise SystemExit("--expert-parallel must divide the preset's n_experts")
-    if world > 1 and config.n_experts > 0 and args.seq_parallel > 1:
-        raise NotImplementedError(
-            f"{args.preset} (mixture-of-experts) over --seq-parallel {args.seq_parallel}"
-            " ranks is ROADMAP Queue 1 item 3h, not ported yet")
-    if world > 1 and args.lora_rank > 0 and (config.n_experts > 0 or args.expert_parallel > 1):
-        raise NotImplementedError(
-            f"--lora-rank over ranks with {args.preset} or --expert-parallel"
-            f" {args.expert_parallel} is ROADMAP Queue 1 item 3j, not ported yet")
     seq_len = args.seq_len or min(2048, config.max_seq_len)
     if seq_len > config.max_seq_len:
         raise SystemExit(f"--seq-len > {config.max_seq_len} for {args.preset}")

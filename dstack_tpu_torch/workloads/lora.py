@@ -19,17 +19,30 @@ torch cannot reproduce `jax.random`: `lora_init` draws A from a
 parity tests bridge a JAX LoraState (weights.lora_state_from_numpy).
 
 On a training mesh over ranks the frozen base is cut by PARAM_SPECS
-(sharding.shard_tree), A by LORA_SPECS' (None, "fsdp", None) and B by
-(None, None, "model"). A target's base block (fsdp i, model j) plus
-scale * A_i @ B_j is the merged weight's block (i, j), so the merge runs on
-each rank's slices with no collective, and the merged slices go through
-the sharded forward (train.py). A_i's grad sums G_ij @ B_j over the model
-axis and B_j's A_i @ G_ij over fsdp, so after the backward A's grads are
-summed over (data, seq, model) and B's over (data, fsdp, seq) (every seq
-rank saw other positions of the same rows). Only column-parallel
-targets (wq, wk, wv, w_gate, w_up: "fsdp" on the input dim, "model" on the
-output) merge that way; a row-parallel target (wo, w_down) over ranks
-raises.
+(sharding.shard_tree), and A by LORA_SPECS' (None, "fsdp", None) and B by
+(None, None, "model") for every target, as the reference's `_lora_specs`,
+so a checkpoint holds the same slices whatever the target. A column
+target (wq, wk, wv, w_gate, w_up: "fsdp" on the input dim, "model" on the
+output) has its base block (fsdp i, model j) plus scale * A_i @ B_j as the
+merged weight's block (i, j), so the merge runs on each rank's slices with
+no collective, and the merged slices go through the sharded forward
+(train.py). A_i's grad sums G_ij @ B_j over the model axis and B_j's
+A_i @ G_ij over fsdp, so after the backward A's grads are summed over
+(data, seq, model) and B's over (data, fsdp, seq) (every seq rank saw
+other positions of the same rows). Any other target (the row-parallel wo
+and w_down: "model" on the input dim, "fsdp" on the output) needs other
+parts of the factors than the rank holds: block (i, j) of the weight takes
+A's rows of model block i and B's columns of fsdp block j. So the rank
+gathers both factors whole (A over fsdp, B over model), merges with their
+slices cut the weight's way, and takes the grads of the whole factors:
+each rank fills only its block's rows of A and columns of B, so the whole
+grads are summed over data, fsdp and seq, and over model where the weight
+is cut on it (`_gathered_grad_axes`), then each rank keeps its own slice.
+On an expert axis every rank of an expert line holds the same tokens and
+the attention weights are replicated over it; `enter_expert`'s backward
+already leaves the whole grad of every weight before the experts on each
+of those ranks, so no adapter grad is summed over expert. An MoE loss
+carries the rank's share of the router aux, as the full step's does.
 """
 
 from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple, Union
@@ -41,11 +54,14 @@ from dstack_tpu_torch.workloads import compile_cache
 from dstack_tpu_torch.workloads.attention import make_attention_fn
 from dstack_tpu_torch.workloads.config import ModelConfig
 from dstack_tpu_torch.workloads.sharding import (
+    LORA_SPECS,
     PARAM_SPECS,
+    all_reduce,
     batch_sum,
     global_shape,
-    reduce_grads,
+    shard,
     shard_tree,
+    unshard,
 )
 from dstack_tpu_torch.workloads.train import (
     AdamState,
@@ -135,7 +151,7 @@ def init_lora_state(config: ModelConfig, base: Params, seed: Union[int, torch.Ge
     `tpu_init` marks the first touch of the device, as in
     train.init_train_state."""
     dev = _device_of(params_device(base), mesh)
-    ranked = _column_targets(config, mesh, targets)
+    ranked = ranked_mesh(config, mesh)
     if dev.type == "cuda":
         compile_cache.enable_from_env()
     auto_stage("tpu_init")
@@ -149,25 +165,40 @@ def init_lora_state(config: ModelConfig, base: Params, seed: Union[int, torch.Ge
     return LoraState(0, lora, make_optimizer(learning_rate).init(lora))
 
 
-def _column_targets(config: ModelConfig, mesh, targets: Sequence[str]):
-    """`train.ranked_mesh(config, mesh)`, after checking that every target
-    merges on a rank's slices (module docstring) when it is a mesh; an MoE
-    config or an expert axis over ranks raises."""
-    ranked = ranked_mesh(config, mesh)
-    if ranked is not None and (config.n_experts > 0 or ranked.shape["expert"] > 1):
-        raise NotImplementedError(
-            f"LoRA over ranks on a mixture-of-experts config or an expert axis (mesh"
-            f" {ranked.shape}) is ROADMAP Queue 1 item 3j, not ported yet")
-    rows = [t for t in targets if PARAM_SPECS["layers"][t] != (None, "fsdp", "model")]
-    if ranked is not None and rows:
-        raise NotImplementedError(
-            f"LoRA on the row-parallel {rows} over ranks: an A cut over fsdp meets a"
-            " weight cut over model on its input dim (ROADMAP Queue 1 item 3)")
-    return ranked
-
-
-# The axes a LoRA grad is summed over after the backward (module docstring).
+# The axes a column target's adapter grads are summed over after the
+# backward (module docstring).
 _LORA_GRAD_AXES = {"_a": ("data", "seq", "model"), "_b": ("data", "fsdp", "seq")}
+_COLUMN = (None, "fsdp", "model")
+
+
+def _gathered_grad_axes(spec: Tuple, suffix: str) -> Tuple[str, ...]:
+    """The axes the whole grad of a gathered factor (`suffix` "_a" or
+    "_b") of a target with base spec `spec` is summed over: every rank
+    fills its own block's part, and each batch axis saw other tokens;
+    model only where the weight is cut on it (a weight replicated over
+    model has the same whole grad on every model rank)."""
+    return ("data", "fsdp", "seq") + (("model",) if "model" in spec else ())
+
+
+def _rank_factors(lora: Params, mesh) -> Tuple[Params, Dict[str, torch.Tensor]]:
+    """(the adapters this rank merges, {name: whole factor}): a column
+    target's slices as they are; any other target's factors gathered
+    whole (fresh leaves that take the grads) and cut the weight's way, A
+    along the weight's input dim, B along its output dim (module
+    docstring). Every rank gathers the same factors in the same order."""
+    if mesh is None:
+        return lora, {}
+    layers, whole = {}, {}
+    for name, t in sorted(lora["layers"].items()):
+        spec = PARAM_SPECS["layers"][name[:-2]]
+        if spec == _COLUMN:
+            layers[name] = t
+            continue
+        w = unshard(t.detach(), LORA_SPECS[name[-2:]], mesh).requires_grad_(True)
+        dim = 1 if name.endswith("_a") else 2
+        whole[name] = w
+        layers[name] = shard(w, tuple(spec[dim] if i == dim else None for i in range(3)), mesh)
+    return {"layers": layers}, whole
 
 
 def make_lora_train_step(config: ModelConfig, mesh=None, *, rank: int = 8,
@@ -186,15 +217,23 @@ def make_lora_train_step(config: ModelConfig, mesh=None, *, rank: int = 8,
     ranked = ranked_mesh(config, mesh)
 
     def step(state: LoraState, base: Params, batch) -> Tuple[LoraState, Dict]:
-        _column_targets(config, mesh, [k[:-2] for k in state.lora["layers"]])
         pairs = flatten_params(state.lora)
-        merged = merge_lora(detach_params(base), state.lora, rank=rank, alpha=alpha)
+        factors, whole = _rank_factors(state.lora, ranked)
+        merged = merge_lora(detach_params(base), factors, rank=rank, alpha=alpha)
         loss, _ = loss_fn(config, merged, batch, attention_fn, mesh)
-        grads = torch.autograd.grad(loss, [t for _, t in pairs])
-        grads = reduce_grads([(k, g) for (k, _), g in zip(pairs, grads)], ranked,
-                             lambda k: _LORA_GRAD_AXES[k[-2:]])
+        names = [k.rsplit("/", 1)[-1] for k, _ in pairs]
+        grads = torch.autograd.grad(loss, [whole.get(n, t) for n, (_, t) in zip(names, pairs)])
+        summed = []
+        for n, (k, _), g in zip(names, pairs, grads):
+            if n in whole:  # a gathered factor: sum the whole grad, keep this rank's slice
+                spec = PARAM_SPECS["layers"][n[:-2]]
+                g = shard(all_reduce(g, ranked, _gathered_grad_axes(spec, n[-2:])),
+                          LORA_SPECS[n[-2:]], ranked)
+            else:
+                g = all_reduce(g, ranked, _LORA_GRAD_AXES[n[-2:]])
+            summed.append((k, g))
         loss = batch_sum(loss, ranked)
-        grads = unflatten_params(grads)
+        grads = unflatten_params(summed)
         gnorm = global_norm(grads, ranked)
         opt_state = optimizer.apply(state.lora, grads, state.opt_state)
         return (LoraState(state.step + 1, state.lora, opt_state),

@@ -39,6 +39,19 @@ rank). The forward's gathers move bits, so a rank's output equals the
 unsharded one. The router aux on a training mesh is a rank's share of the
 reference's global Switch loss (`switch_aux`): the shares summed over the
 batch axes give the global value and its grad.
+
+A seq axis over ranks: a seq rank holds one stretch of each batch row,
+while the reference routes a row over its whole sequence (GSPMD runs the
+cumsum and the capacity across the shards). So a rank takes C from the
+whole length (`row_capacity`), and a token's slot is where the row's one
+choice-major cumsum would put it: the local running count of its choice
+of that expert, plus the picks of that expert as that choice on the seq
+ranks before this one, plus its picks as every earlier choice over the
+whole row (`slot_offsets`: one all-gather over the seq line of the
+rank's (B, k, E) integer counts a layer, no grad). The expert FFN works
+row by row, so a rank runs only its own tokens, at their global slots,
+and no token crosses ranks; each rank still runs all E*C slot rows, most
+of them empty (ROADMAP: compact a seq rank's slots).
 There is no kernel here: the reference computes these products in XLA.
 """
 
@@ -55,8 +68,10 @@ from dstack_tpu_torch.workloads.sharding import (
     enter_expert,
     enter_model,
     expert_block,
+    gather_axes,
     gather_experts,
     reduce_model,
+    seq_ranks,
 )
 
 Params = Dict[str, Any]
@@ -66,6 +81,27 @@ def expert_capacity(c: ModelConfig, seq_len: int) -> int:
     """Per-expert slot count for one batch row's sequence (static)."""
     return max(1, int(math.ceil(
         c.experts_per_token * seq_len * c.capacity_factor / c.n_experts)))
+
+
+def row_capacity(c: ModelConfig, s_local: int, mesh=None) -> int:
+    """expert_capacity of a batch row whose `s_local` positions are this
+    rank's stretch of seq_ranks(mesh) equal stretches (the whole row off a
+    seq axis of ranks)."""
+    return expert_capacity(c, s_local * seq_ranks(mesh))
+
+
+def slot_offsets(counts: torch.Tensor, mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(earlier_ranks, earlier_choices), each (B, k, E), from this rank's
+    picks `counts` (B, k, E) of each expert as each choice: the picks of
+    expert e as choice j on the seq ranks before this one, and the picks
+    of e as any choice before j over the whole row. One all-gather over
+    the seq line of a training mesh (integers, no grad); without a seq
+    axis of ranks the first is 0 and the second comes from `counts`."""
+    n = seq_ranks(mesh)
+    every = gather_axes(counts[None], 0, mesh, ("seq",)) if n > 1 else counts[None]
+    earlier_ranks = every[:mesh.coords["seq"]].sum(dim=0) if n > 1 else torch.zeros_like(counts)
+    total = every.sum(dim=0)
+    return earlier_ranks, torch.cumsum(total, dim=1) - total
 
 
 def _router_logits(h: torch.Tensor, router: torch.Tensor) -> torch.Tensor:
@@ -116,10 +152,12 @@ def assign_slots(c: ModelConfig, probs: torch.Tensor, gate_idx: torch.Tensor,
                  mesh=None) -> Tuple[torch.Tensor, ...]:
     """route_assignments' outputs for router probabilities `probs`
     (B,S,E) f32 and a choice of experts `gate_idx` (B,S,k): the gate
-    renormalised with max(sum, 1e-9), the slots from one integer cumsum
-    over the choice-major token axis (every first choice is placed before
-    any second choice; exact at any length), and the Switch aux loss
-    (`switch_aux`, a rank's share on a training `mesh`)."""
+    renormalised with max(sum, 1e-9), the slots of the reference's one
+    integer cumsum over the row's choice-major token axis (every first
+    choice is placed before any second choice; exact at any length) as a
+    running count per choice along the sequence plus `slot_offsets` (the
+    whole row's on a seq rank), and the Switch aux loss (`switch_aux`, a
+    rank's share on a training `mesh`)."""
     B, S, E = probs.shape
     k = gate_idx.shape[-1]
     gate_vals = torch.gather(probs, -1, gate_idx)
@@ -127,10 +165,11 @@ def assign_slots(c: ModelConfig, probs: torch.Tensor, gate_idx: torch.Tensor,
 
     # One-hot by comparison: F.one_hot checks its input on the host.
     sel_i = (gate_idx[..., None] == torch.arange(E, device=probs.device)).long()
-    # Choice-major flatten so the cumsum hands out slots first-choices-first.
-    sel_flat = sel_i.transpose(1, 2).reshape(B, k * S, E)
-    pos_flat = torch.cumsum(sel_flat, dim=1) * sel_flat - 1
-    pos = pos_flat.reshape(B, k, S, E).transpose(1, 2)             # (B,S,k,E)
+    # Choice-major: every pick of an expert as choice j comes after all its
+    # picks as earlier choices, and in sequence order within choice j.
+    running = torch.cumsum(sel_i, dim=1)                           # (B,S,k,E)
+    earlier_ranks, earlier_choices = slot_offsets(running[:, -1], mesh)
+    pos = running - 1 + (earlier_ranks + earlier_choices)[:, None]
     slot = (pos * sel_i).sum(dim=-1)                               # (B,S,k)
     sel = sel_i.to(torch.float32)
     return gate_vals, gate_idx, slot, sel, switch_aux(probs, sel, mesh)
@@ -143,8 +182,9 @@ def _slot_one_hot(slot: torch.Tensor, C: int) -> torch.Tensor:
 
 def route(c: ModelConfig, h: torch.Tensor, router: torch.Tensor, mesh=None
           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Top-k routing -> (dispatch (B,S,E,C), combine (B,S,E,C), aux)."""
-    C = expert_capacity(c, h.shape[1])
+    """Top-k routing -> (dispatch (B,S,E,C), combine (B,S,E,C), aux); C
+    is the whole row's (`row_capacity`)."""
+    C = row_capacity(c, h.shape[1], mesh)
     gate_vals, _, slot, sel, aux = route_assignments(c, h, router, mesh)
     slot_oh = _slot_one_hot(slot, C)                               # (B,S,k,C)
     dispatch = torch.einsum("bske,bskc->bsec", sel, slot_oh)
@@ -249,10 +289,11 @@ def _moe_mlp_gather(c: ModelConfig, h: torch.Tensor, p: Params, mesh=None
     a dummy column E*C (sliced off) going in and a zero pad row coming
     back, so they contribute 0 as in the einsum path; empty slots read
     the zero pad row S. The gate multiply stays f32. On a training mesh a
-    rank gathers the source rows of its own experts' slots only."""
+    rank gathers the source rows of its own experts' slots only; on a seq
+    rank the slots its tokens do not hold read the pad row."""
     B, S, D = h.shape
     E, k = c.n_experts, c.experts_per_token
-    C = expert_capacity(c, S)
+    C = row_capacity(c, S, mesh)
     gate_vals, gate_idx, slot, _, aux = route_assignments(c, h, p["router"], mesh)
     e0, e1 = expert_block(E, mesh)
 

@@ -38,8 +38,10 @@ rows as the reference's `lax.scan` does. A mixture-of-experts config runs
 its rank's block of experts on the expert axis (workloads/moe.py); its
 router aux is a rank's share of the global batch's (moe.switch_aux), which
 the loss adds as the CE's share is, and the `router_aux` metric is the
-shares' sum. MoE over a seq axis of ranks raises (ROADMAP Queue 1 item
-3h): capacity and the slot cumsum run over a row's whole sequence.
+shares' sum. Over a seq axis of ranks an MoE layer routes each row over
+its whole sequence as the reference's does: the capacity from the whole
+length and each token's slot in the row's one choice-major cumsum
+(workloads/moe.py, `row_capacity`, `slot_offsets`).
 
 The optimizer is AdamW written out on tensors rather than
 `torch.optim.AdamW`, because its state must match optax's: `mu` in f32,
@@ -230,19 +232,13 @@ def ranked_mesh(config: ModelConfig, mesh):
     """The training mesh over ranks `mesh` is (any of data, fsdp, seq,
     model and expert), or None for no mesh and the one-device seq mesh. A
     mesh cut for serving, or an expert axis that does not divide the
-    config's experts, raises ValueError; an MoE config over a seq axis of
-    ranks NotImplementedError."""
+    config's experts, raises ValueError."""
     mesh = training_mesh(mesh)
     if mesh is None or not mesh.ranked:
         return None
     if config.n_experts % mesh.shape["expert"]:
         raise ValueError(f"the expert axis ({mesh.shape['expert']}) must divide the"
                          f" config's n_experts ({config.n_experts})")
-    if config.n_experts > 0 and mesh.shape["seq"] > 1:
-        raise NotImplementedError(
-            f"mixture-of-experts over a seq axis of {mesh.shape['seq']} ranks is ROADMAP"
-            " Queue 1 item 3h, not ported yet: a row's capacity and slot cumsum run"
-            " over its whole sequence, and a seq rank holds one stretch of it")
     return mesh
 
 

@@ -1225,6 +1225,13 @@ def test_train_rank_phase_runs_on_the_cpu(tmp_path):
                     > 5 * res["bf16"][layout]["params"]["rel_l2"]), name
     assert res["bf16"]["fsdp2"]["ranks"][0]["collectives_per_step"]["reduce_scatters"] == 16
     assert res["bf16"]["model2"]["ranks"][0]["collectives_per_step"]["all_reduces"] == 13
+    # 15(g): LoRA on the row targets over model 2 against the unsharded run.
+    lora = res["lora"]
+    assert sorted(lora["f32"]) == ["column_axes", "sound", "unsharded"]
+    assert lora["bf16"]["sound"]["targets"] == list(cs.LR_ROW_TARGETS)
+    assert lora["f32"]["sound"]["loss_rel"] < 1e-6 and lora["f32"]["sound"]["params"]["rel_l2"] < 1e-5
+    assert not cs.lora_gates(lora["f32"]["column_axes"])["grad_norm"]
+    cs.check_lora_ranks({"f32": lora["f32"]}, "15", (8, 64, 32))
 
 
 RANKS_DRY_RUN = r'''
@@ -1277,7 +1284,12 @@ if sys.argv[3] == "expert":
     # Phase 18's rank processes at tiny-moe (4 experts, 2 layers) on the CPU.
     PRESETS["tiny-moe-2k"] = PRESETS["tiny-moe"].with_(max_seq_len=2048)
     cs.EP_PRESET, cs.EP_DEVICE, cs.EP_B, cs.EP_S, cs.EP_LAYERS = "tiny-moe-2k", "cpu", 2, 64, 2
-main = {"ring": cs.rg_rank_main, "pipe": cs.pp_rank_main, "expert": cs.ep_rank_main}[sys.argv[3]]
+if sys.argv[3] == "moe_seq":
+    # Phase 20's rank processes at tiny-moe (4 experts, 2 layers) on the CPU.
+    PRESETS["tiny-moe-2k"] = PRESETS["tiny-moe"].with_(max_seq_len=2048)
+    cs.MS_PRESET, cs.MS_DEVICE, cs.MS_B, cs.MS_S, cs.MS_LAYERS = "tiny-moe-2k", "cpu", 2, 64, 2
+main = {"ring": cs.rg_rank_main, "pipe": cs.pp_rank_main, "expert": cs.ep_rank_main,
+        "moe_seq": cs.ms_rank_main}[sys.argv[3]]
 sys.exit(main(int(sys.argv[1]), sys.argv[2]))
 '''
 
@@ -1399,6 +1411,16 @@ def test_expert_rank_phase_runs_on_the_cpu(tmp_path, monkeypatch):
     bad = {**res["f32"], "block_off": {**res["f32"]["block_off"], "loss_rel": 0.0}}
     with pytest.raises(AssertionError, match="phase 18 block_off"):
         cs.check_expert_ranks({"f32": bad})
+    # 18(g): LoRA on wq/wv over the expert axis against the unsharded run.
+    lora = res["lora"]
+    assert sorted(lora["f32"]) == ["sound", "summed_over_expert", "unsharded"]
+    assert lora["f32"]["sound"]["loss_rel"] < 1e-6 and lora["f32"]["sound"]["params"]["rel_l2"] < 1e-5
+    assert lora["f32"]["summed_over_expert"]["grad_norm_rel"] > 0.5  # the grads doubled
+    cs.check_lora_ranks({"f32": lora["f32"]}, "18", (8, 64, 32))
+    bad = {**lora["f32"], "summed_over_expert": {**lora["f32"]["summed_over_expert"],
+                                                 "grad_norm_rel": 0.0}}
+    with pytest.raises(AssertionError, match="phase 18 LoRA summed_over_expert"):
+        cs.check_lora_ranks({"f32": bad}, "18", (8, 64, 32))
 
 
 EXPERT_PAIR = r'''
@@ -1515,3 +1537,36 @@ def test_gang_phase_runs_on_the_cpu(tmp_path, monkeypatch):
         check(sound, {**rl, "epochs": [2, 3]})
     with pytest.raises(AssertionError, match="step lines"):
         check({**sound, "gang_steps": sound["gang_steps"][:1]}, rl)
+
+
+def test_moe_seq_rank_phase_runs_on_the_cpu(tmp_path, monkeypatch):
+    """Phase 20's two rank processes at tiny-moe on the CPU over gloo: the
+    seq ranks, pinned to the one-device ring's routing, against it; the
+    one-device run drops choices at cf 1.25; rank i's i + 1 ring steps a
+    layer, 3 hops and one all-gather of the routing counts a layer; each
+    mutant failing the loss gate, and the phase's checks passing the sound
+    run and failing a mutant read as sound."""
+    res = _dry_run_ranks(tmp_path, "moe_seq", cs.MS_RANKS, "MS_RESULT")
+    assert sorted(res["f32"]) == sorted(["sound", "one_device", *cs.MS_MUTANTS])
+    assert sorted(res["bf16"]) == ["one_device", "sound"]
+    for tag in ("bf16", "f32"):
+        ref, r = res[tag]["one_device"], res[tag]["sound"]
+        assert ref["route_calls"] == 2 * 2 and sum(ref["dropped"]) > 0
+        for rank, rr in enumerate(r["ranks"]):
+            assert rr["launches_per_step"]["flash_block_fwd"] == 2 * (rank + 1)
+            assert rr["hops_per_step"] == 2 * 3
+            assert rr["collectives_per_step"]["all_gathers"] == 2
+            assert rr["route_calls"] == ref["route_calls"] and rr["flips"] >= 0
+            assert rr["digest"] == r["ranks"][0]["digest"]
+    assert res["bf16"]["sound"]["ranks"][0]["kernel_shapes"] == {"flash_block_fwd": [[8, 32, 32]]}
+    sound = res["f32"]["sound"]
+    assert sound["loss_rel"] < 1e-6 and sound["params"]["rel_l2"] < 1e-5
+    for m in cs.MS_MUTANTS:
+        assert not cs.ep_gates(res["f32"][m])["loss"], m
+    monkeypatch.setattr(cs, "MS_PRESET", "tiny-moe")
+    monkeypatch.setattr(cs, "MS_B", 2)
+    monkeypatch.setattr(cs, "MS_S", 64)
+    cs.check_moe_seq_ranks({"f32": res["f32"]})
+    bad = {**res["f32"], "no_rank_prefix": {**res["f32"]["no_rank_prefix"], "loss_rel": 0.0}}
+    with pytest.raises(AssertionError, match="phase 20 no_rank_prefix"):
+        cs.check_moe_seq_ranks({"f32": bad})

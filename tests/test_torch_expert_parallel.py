@@ -483,13 +483,27 @@ def test_fine_tune_expert_parallel_over_four_ranks_trains_exports_and_resumes(tm
 @pytest.mark.parametrize("flag,error,match", [
     (["--expert-parallel", "3", "--ranks", "3"], SystemExit,
      "--expert-parallel must divide the preset's n_experts"),
-    (["--expert-parallel", "2", "--seq-parallel", "2"], NotImplementedError,
-     "ROADMAP Queue 1 item 3h"),
-    (["--expert-parallel", "2", "--lora-rank", "4"], NotImplementedError,
-     "ROADMAP Queue 1 item 3j"),
+    # MoE over a seq axis of ranks and LoRA on an expert axis train (their
+    # parity with JAX: tests/test_torch_moe_seq_ranks.py and
+    # tests/test_torch_lora_ranks.py).
+    pytest.param(["--expert-parallel", "2", "--seq-parallel", "2"], None,
+                 "4 ranks over gloo (seq 2 x expert 2)",
+                 id="flag1-NotImplementedError-ROADMAP Queue 1 item 3h"),
+    pytest.param(["--expert-parallel", "2", "--lora-rank", "4"], None,
+                 "2 ranks over gloo (expert 2), LoRA rank 4",
+                 id="flag2-NotImplementedError-ROADMAP Queue 1 item 3j"),
 ])
-def test_fine_tune_expert_parallel_refusals(flag, error, match):
+def test_fine_tune_expert_parallel_refusals(flag, error, match, capsys):
+    """An expert axis that does not divide the experts is refused before
+    any rank starts; MoE over seq ranks beside the expert axis and LoRA on
+    it train over gloo ranks (rank 0 in this process starts the others)."""
     from dstack_tpu_torch import fine_tune
 
-    with pytest.raises(error, match=match):
-        fine_tune.main(["--device", "cpu", "--preset", "tiny-moe", *flag])
+    if error is not None:
+        with pytest.raises(error, match=match):
+            fine_tune.main(["--device", "cpu", "--preset", "tiny-moe", *flag])
+        return
+    fine_tune.main(["--device", "cpu", "--preset", "tiny-moe", "--steps", "2",
+                    "--seq-len", "32", "--batch-size", "2", *flag])
+    out = capsys.readouterr().out
+    assert match in out and "step 1: loss" in out and "training complete" in out

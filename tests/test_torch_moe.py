@@ -593,12 +593,13 @@ def test_fine_tune_trains_tiny_moe_and_refuses_expert_parallel(capsys):
                     "--batch-size", "2", "--seq-len", "32"])
     out = capsys.readouterr().out
     assert "step 1: loss" in out and "router_aux" in out and "training complete" in out
-    # Expert parallelism trains (tests/test_torch_expert_parallel.py); LoRA
-    # over an expert mesh stays refused, before any rank starts.
-    with pytest.raises(NotImplementedError, match="--expert-parallel 2 is ROADMAP Queue 1"
-                                                  " item 3j"):
-        fine_tune.main(["--device", "cpu", "--preset", "tiny-moe",
-                        "--expert-parallel", "2", "--lora-rank", "4"])
+    # Expert parallelism trains (tests/test_torch_expert_parallel.py), and
+    # so does LoRA over an expert mesh (tests/test_torch_lora_ranks.py).
+    fine_tune.main(["--device", "cpu", "--preset", "tiny-moe", "--steps", "2",
+                    "--batch-size", "2", "--seq-len", "32", "--expert-parallel", "2",
+                    "--lora-rank", "4"])
+    out = capsys.readouterr().out
+    assert "2 ranks over gloo (expert 2), LoRA rank 4" in out and "training complete" in out
 
 
 def test_native_server_engine_serves_tiny_moe():

@@ -337,19 +337,18 @@ def test_fine_tune_cli_trains_tiny_and_exports_what_native_server_serves(tmp_pat
                                    "--expert-parallel", "2"],
                                   ["--expert-parallel", "2"]])
 def test_fine_tune_refuses_unported_options(flag, capsys):
-    """MoE over a seq axis of ranks stays unported (ROADMAP Queue 1 item
-    3h); --model-parallel 2 trains over two gloo ranks (rank 0 in this
-    process starts rank 1), and so does --expert-parallel 2 (the dense
-    model replicated over the expert axis, as the JAX trainer's mesh
-    holds it; MoE over it in tests/test_torch_expert_parallel.py)."""
+    """Options once refused that now train over gloo ranks (rank 0 in this
+    process starts the others): --model-parallel 2, --expert-parallel 2
+    (the dense model replicated over the expert axis, as the JAX trainer's
+    mesh holds it; MoE over it in tests/test_torch_expert_parallel.py), and
+    tiny-moe over seq 2 x expert 2 (MoE over a seq axis of ranks; its
+    parity with JAX in tests/test_torch_moe_seq_ranks.py)."""
     from dstack_tpu_torch import fine_tune
 
-    if "--seq-parallel" not in flag:
-        fine_tune.main(["--device", "cpu", "--preset", "tiny", "--steps", "2",
-                        "--seq-len", "32", "--batch-size", "2", *flag])
-        out = capsys.readouterr().out
-        axis = "model" if "--model-parallel" in flag else "expert"
-        assert f"2 ranks over gloo ({axis} 2)" in out and "training complete" in out
-        return
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        fine_tune.main(["--device", "cpu", "--preset", "tiny", *flag])
+    fine_tune.main(["--device", "cpu", "--preset", "tiny", "--steps", "2",
+                    "--seq-len", "32", "--batch-size", "2", *flag])
+    out = capsys.readouterr().out
+    mesh = ("4 ranks over gloo (seq 2 x expert 2)" if "--seq-parallel" in flag else
+            "2 ranks over gloo (model 2)" if "--model-parallel" in flag else
+            "2 ranks over gloo (expert 2)")
+    assert mesh in out and "training complete" in out

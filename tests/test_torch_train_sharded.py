@@ -564,17 +564,24 @@ def test_fine_tune_over_four_ranks_trains_exports_and_resumes(tmp_path):
 
 
 @pytest.mark.parametrize("flag,what", [
-    # MoE over a seq axis of ranks, and LoRA on an expert mesh; the expert
-    # axis and MoE over ranks train since the expert slice
-    # (tests/test_torch_expert_parallel.py).
+    # MoE over a seq axis of ranks (3h) and LoRA on an expert mesh (3j),
+    # refused until the slice that ported them; their parity with JAX is
+    # tests/test_torch_moe_seq_ranks.py's and tests/test_torch_lora_ranks.py's.
     (["--preset", "tiny-moe", "--model-parallel", "2", "--seq-parallel", "2"], "3h"),
     (["--preset", "tiny-moe", "--expert-parallel", "2", "--lora-rank", "4"], "3j"),
 ])
-def test_fine_tune_over_ranks_still_refuses_seq_expert_and_moe(flag, what):
+def test_fine_tune_over_ranks_still_refuses_seq_expert_and_moe(flag, what, capsys):
+    """The flags the port once refused over ranks now train: tiny-moe
+    over seq 2 x model 2 (four ranks) and LoRA over expert 2 (two), rank 0
+    in this process starting the others."""
     from dstack_tpu_torch import fine_tune
 
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item {what}"):
-        fine_tune.main(["--device", "cpu", "--preset", "tiny", *flag])
+    fine_tune.main(["--device", "cpu", "--preset", "tiny", "--steps", "2",
+                    "--seq-len", "32", "--batch-size", "2", *flag])
+    out = capsys.readouterr().out
+    mesh = {"3h": "4 ranks over gloo (seq 2 x model 2)",
+            "3j": "2 ranks over gloo (expert 2), LoRA rank 4"}[what]
+    assert mesh in out and "step 1: loss" in out and "training complete" in out
 
 
 def test_sigterm_drains_every_rank_once_and_a_relaunch_resumes(tmp_path):
