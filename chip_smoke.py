@@ -23,8 +23,8 @@ Phases (any failure fails the run; nothing is caught to exit 0):
                launch count over that run; a chunked prefill's logits
                against the dense plain forward;
   4b. spec   — the plain engine and the speculative one (int8 drafter,
-               spec_max_draft 4) on phase 4's requests x 64 tokens, plain,
-               spec, spec, plain: decode tok/s, TTFT, acceptance, draft vs
+               spec_max_draft 4) on phase 4's requests x 64 tokens at 8 of
+               smol-1b's 16 layers, plain then spec: decode tok/s, TTFT, acceptance, draft vs
                verify seconds, paged launches per token, a profiled spec
                wave; streams held by the near-tie rule (at the first
                token two temperature-0 streams differ, the dense forward's
@@ -104,15 +104,16 @@ Phases (any failure fails the run; nothing is caught to exit 0):
                (the drain's save timed); a relaunch on the same volume and
                cache hits the cache (no build), resumes at step 2 and runs
                to step 5.
-  9. LoRA serving — smol-1b, bf16, rank 8 on wq/wv, a bank of 4 slots:
+  9. LoRA serving — smol-1b, bf16, rank 8 on wq/wv, a bank of 4 slots,
+               (a)-(d) at 8 of its 16 layers, (e) at all 16:
                (a) project_qkv_lora at a decode batch (B 8, rows on t1-t3
-               and the base) and a 128-token chunk, layers 0 and 15,
+               and the base) and a 128-token chunk, layers 0 and 7,
                against a per-row plain version by rel_l2 and row_rel, base
                rows equal to project_qkv bit for bit, the gate shown
                failing the indices rolled by a row and -1 read from slot
                0; the LoRA decode program's host syncs against the plain
                one's (set_sync_debug_mode); (b) phase 4's requests, 3 on
-               t1, 3 on t2, 2 base, plain, LoRA, LoRA, plain: decode tok/s,
+               t1, 3 on t2, 2 base, plain then LoRA: decode tok/s,
                TTFT, launches, the LoRA engine with no adapter in flight, a
                profiled mixed wave (the delta as its own class); adapter
                streams by the near-tie rule against a plain engine on the
@@ -135,7 +136,7 @@ Phases (any failure fails the run; nothing is caught to exit 0):
                `fine_tune --lora-rank 8` (full depth, S 512) in a
                subprocess: SIGTERM -> 113 with an adapter checkpoint, a
                relaunch resumes, native_server serves its merged export.
-  11. disaggregation — smol-1b, bf16: (a) a prefill engine and a decode
+  11. disaggregation — smol-1b, bf16: (a, at 8 of its 16 layers) a prefill engine and a decode
                engine joined by the port's TransferServer/TransferClient
                over localhost TCP, phase 4's 8 requests and the drill's
                awkward lengths (mid-block end, chunk remainder, a decode
@@ -159,7 +160,7 @@ Phases (any failure fails the run; nothing is caught to exit 0):
                subprocesses: kv_handoff ack, /v1/handoffs/<id> streaming the
                unified server's tokens by the near-tie rule, the
                role-labelled series.
-  12. RL (Podracer) — (a) smol-1b at 8 of its 16 layers Anakin, bf16, batch 8, 64-token
+  12. RL (Podracer) — (a) smol-1b at 4 of its 16 layers Anakin, bf16, batch 8, 64-token
                prompts x 64 new tokens (the target the token the untrained
                policy samples most in a warm-up round), 3 updates over the
                socket weight-refresh channel and 1 each over the
@@ -188,7 +189,7 @@ Phases (any failure fails the run; nothing is caught to exit 0):
                cf 0.5, where much does) and einsum against gather (1 x 128,
                2 x 2048), the gate shown failing the second choice dropped,
                the gate unnormalised and a dropped choice computed; both
-               dispatches timed, forward and forward + backward; (b) 8
+               dispatches timed, forward and forward + backward; (b) 4
                layers behind the paged engine, phase 4's requests: at cf 4.0
                the dense check with the dense run pinned to the chunks'
                routing (flips counted unpinned; shown failing a layer routed
@@ -218,7 +219,14 @@ Phases (any failure fails the run; nothing is caught to exit 0):
                output's all-gather; decode tok/s, TTFT and the staged
                all-gathers per decode step recorded (gloo, two ranks on one
                card: not a TP speed); (f) a world-1 NCCL group's short wave
-               in a process of its own (--tp-nccl).
+               in a process of its own (--tp-nccl --tr-nccl, 15(f) after it); (g) in the same rank
+               processes, the RL actor on the model-2 mesh at 8 layers: one
+               f32 round (8 x 64-token prompts x 64 new, temperature 1)
+               token for token against the one-device actor's with the
+               leader's admission gate held over it, the engine's score op
+               (#2 once a layer on each rank) against the one-device scorer
+               in f32 and bf16 (RL_LOGP_TOL), a frame adopted into both
+               ranks' slices by sha1, failing a refresh only the leader takes.
   15. training across ranks — (c) the three flash kernels against their
                plain versions at a rank's geometry of smol-1b's training
                step (B*H 64, S 2048, hd 128: 8 rows x 8 q heads at model 2,
@@ -238,14 +246,23 @@ Phases (any failure fails the run; nothing is caught to exit 0):
                recorded (gloo, two ranks on one card: a check, not a
                parallel speed); (f) a world-1 NCCL training step, its
                checkpoint saved and restored, in a process of its own
-               (--tr-nccl); (g) in the same rank processes, LoRA rank 8 on the
+               (run in phase 14's NCCL process); (g) in the same rank processes, LoRA rank 8 on the
                row-parallel wo and w_down over model 2 (each rank gathers both
                factors whole) against the unsharded LoRA run, 2 steps at full
                depth in bf16 and at 2 layers in f32: the first step's loss and
                grad_norm, the adapters after the steps, #2 once a layer a
                step on each rank and #3, #4 once a layer but the first (no
                target sits before its attention); the grad_norm gate failing the whole
-               factors' grads summed over the column targets' axes (f32).
+               factors' grads summed over the column targets' axes (f32);
+               (h) in the same rank processes, the PPO learner (rl.Learner on
+               the mesh) at 8 layers, bf16, fsdp 2 and model 2, on an RL
+               batch of 8 x 128 against the one-device learner: the first
+               update's loss, every param after 2 updates, the same at 2
+               layers in f32 with three mutants (the entropy from a rank's
+               vocab columns, a rank's own mask count, grads not summed over
+               the batch axes) each failing its gate; #2-#4 8 an update on
+               each rank at (64, 127, 128); the published frame the unshard
+               of the ranks' slices leaf for leaf.
   16. the ring across ranks — four processes of this script (--rg-rank,
                --rank 0-3) over gloo on the one card train smol-1b-8k at
                full width and depth, B 1 x S 8192, at seq 4 (2048 positions
@@ -289,7 +306,14 @@ Phases (any failure fails the run; nothing is caught to exit 0):
                (g) in the same rank processes, LoRA rank 8 on wq/wv over the
                expert axis against the unsharded LoRA run, 2 steps at 8 layers
                in bf16 and at 2 layers in f32, the grad_norm gate failing the
-               grads also summed over the expert line (f32).
+               grads also summed over the expert line (f32); (c) the same two
+               ranks serve smol-moe at 8 layers on an expert-2 serving mesh
+               (4 experts and all 16 heads a rank), phase 4's requests at cf
+               4.0, against the unsharded engine: f32 streams token for
+               token, bf16 token for token with every routed call pinned to
+               the unsharded routing (RoutingSpy), the f32 streams changed by
+               the expert blocks swapped in the outputs' gather, #1 once a
+               layer a decode step on each rank.
   19. the gang — (a) `python -m dstack_tpu_torch.fine_tune --ranks 2
                --device cuda:0 --dist-backend gloo` (smol-1b at full width and
                depth, B 8 x 2048, fsdp 2, 2 steps, --checkpoint-dir) on one
@@ -1578,9 +1602,25 @@ SPEC_KEYS = ("spec_rounds_total", "spec_tokens_proposed_total", "spec_tokens_acc
              "spec_fallback_rounds_total")
 
 
-def run_spec(cfg, params, n_new: int = 64) -> dict:
+# The A/B orders of 4b and 9(b): plain, then the feature (PR 19 cut the
+# repeats of plain, feature, feature, plain; PERF.md section 4).
+SPEC_AB = (False, True)
+LORA_AB = (False, True)
+# 4b, 9(a)-(d) and 11a run smol-1b's first 8 layers (PR 19's depth cut;
+# their gates are the near-tie rule, bit equality and counts).
+SERVE_CUT_LAYERS = 8
+
+
+def first_layers(cfg, params, n: int):
+    """(cfg at `n` layers, the params' first `n` layers as views of the
+    stacks): a depth cut of the same weights."""
+    return cfg.with_(n_layers=n), {**params, "layers": {k: v[:n] for k, v in
+                                                        params["layers"].items()}}
+
+
+def run_spec(cfg, params, n_new: int = 64, order=SPEC_AB) -> dict:
     """Phase 4b: the plain engine and the speculative one (int8 drafter,
-    spec_max_draft 4) on phase 4's requests, plain, spec, spec, plain in
+    spec_max_draft 4) on phase 4's requests, in `order` (plain, spec) in
     one call; every spec stream held by the near-tie rule against the
     first plain run's, the rule shown failing a genuine divergence, and a
     profiled wave of the spec engine. Then the same A/B at smol-1b width
@@ -1590,7 +1630,7 @@ def run_spec(cfg, params, n_new: int = 64) -> dict:
 
     prompts = engine_prompts()
     runs, profiled = [], None
-    for spec in (False, True, True, False):
+    for spec in order:
         eng = ServingEngine(cfg, params, slots=8, steps_per_sync=4, prefill_chunk_tokens=128,
                             kv_block_size=16, spec_enable=spec, spec_max_draft=4)
         try:
@@ -2727,10 +2767,10 @@ def reference_streams(cfg, params, requests) -> list:
         eng.close()
 
 
-def run_lora_engines(cfg, params, adapters, n_new: int = 32) -> dict:
+def run_lora_engines(cfg, params, adapters, n_new: int = 32, order=LORA_AB) -> dict:
     """Phase 9(b)-(d). (b) The plain engine and the LoRA engine (bank of 4,
     t1-t3 loaded) on phase 4's prompts x 32 tokens, 3 on t1, 3 on t2, 2 on
-    the base, in the order plain, LoRA, LoRA, plain; the first LoRA run
+    the base, in `order` (plain, LoRA); the first LoRA run
     also serves the wave with no adapter in flight (the plain twins), a
     shared prompt on t1, t2 and the base, and a profiled mixed wave.
     Adapter streams are held by the near-tie rule against a plain engine
@@ -2746,7 +2786,7 @@ def run_lora_engines(cfg, params, adapters, n_new: int = 32) -> dict:
     shared = prompts[2]
     runs, extra, profiled = [], {}, None
     t_b = time.monotonic()
-    for lora in (False, True, True, False):
+    for lora in order:
         eng = ServingEngine(cfg, params, slots=8, steps_per_sync=4, prefill_chunk_tokens=128,
                             kv_block_size=16, **lora_engine_kw(adapters if lora else None))
         try:
@@ -2950,13 +2990,17 @@ def run_lora_http(adapters) -> dict:
     return out
 
 
-def run_lora_serving(cfg, params) -> dict:
-    """Phase 9 (a)-(e); the paged kernel's launches of each engine path."""
+def run_lora_serving(cfg, params, order=LORA_AB, depth=SERVE_CUT_LAYERS) -> dict:
+    """Phase 9 (a)-(e); the paged kernel's launches of each engine path.
+    (a)-(d) run the first `depth` layers (PR 19's depth cut), (e) the
+    server at the preset's full depth with full-depth adapters."""
+    cut_cfg, cut_params = first_layers(cfg, params, depth)
     t0 = time.monotonic()
-    out = {"module": run_lora_module(cfg, params)}
+    out = {"module": run_lora_module(cut_cfg, cut_params)}
     log(f"9(a): {time.monotonic() - t0:.1f}s")
+    out.update(run_lora_engines(cut_cfg, cut_params, demo_adapters(cut_cfg, cut_params),
+                                order=order))
     adapters = demo_adapters(cfg, params)
-    out.update(run_lora_engines(cfg, params, adapters))
     t0 = time.monotonic()
     out["http"] = run_lora_http(adapters)
     log(f"9(e): {time.monotonic() - t0:.1f}s")
@@ -3819,22 +3863,61 @@ def split_live(tiers, prompt, n_new):
     return decode_queue
 
 
-def run_disagg_drill(timeout: int = 900) -> dict:
+class Background:
+    """A command run beside the smoke's own work (its output in temporary
+    files, so a full pipe never stalls it); `result` waits for it, kills
+    it past `timeout` seconds from its start, and returns (returncode,
+    stdout, stderr, seconds)."""
+
+    def __init__(self, argv):
+        import tempfile
+
+        self.out = tempfile.TemporaryFile(mode="w+")
+        self.err = tempfile.TemporaryFile(mode="w+")
+        self.t0 = time.monotonic()
+        self.proc = subprocess.Popen(argv, cwd=ROOT, stdout=self.out, stderr=self.err,
+                                     text=True, start_new_session=True)
+
+    def result(self, timeout: float):
+        try:
+            code = self.proc.wait(timeout=max(0.1, self.t0 + timeout - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            os.killpg(self.proc.pid, 9)
+            self.proc.wait()
+            raise
+        seconds = time.monotonic() - self.t0
+        texts = []
+        for f in (self.out, self.err):
+            f.seek(0)
+            texts.append(f.read())
+            f.close()
+        return code, texts[0], texts[1], seconds
+
+
+def disagg_drill_path() -> str:
+    return os.path.join(ROOT, os.path.dirname(OUT), "disagg_drill.json")
+
+
+def start_disagg_drill() -> Background:
     """Phase 11(b): the two-process drill on the card, as a user runs it:
     python -m dstack_tpu_torch.workloads.serving_disagg --device cuda
-    --preset smol-1b. It must exit 0 with every check of its own passed."""
-    path = os.path.join(ROOT, os.path.dirname(OUT), "disagg_drill.json")
+    --preset smol-1b, started beside 11(c) (both only serve and check)."""
+    path = disagg_drill_path()
     os.makedirs(os.path.dirname(path), exist_ok=True)
-    argv = [sys.executable, "-m", "dstack_tpu_torch.workloads.serving_disagg",
-            "--device", DISAGG_DEVICE, "--preset", DISAGG_PRESET, "--out", path]
-    t0 = time.monotonic()
-    r = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True, timeout=timeout)
-    seconds = time.monotonic() - t0
-    for line in r.stdout.splitlines():
+    return Background([sys.executable, "-m", "dstack_tpu_torch.workloads.serving_disagg",
+                       "--device", DISAGG_DEVICE, "--preset", DISAGG_PRESET, "--out", path])
+
+
+def run_disagg_drill(timeout: int = 900, started=None) -> dict:
+    """Phase 11(b)'s result (`started`, or the drill run now): it must exit
+    0 with every check of its own passed."""
+    path = disagg_drill_path()
+    code, stdout, stderr, seconds = (started or start_disagg_drill()).result(timeout)
+    for line in stdout.splitlines():
         if line.startswith("[drill]"):
             log("  " + line)
-    if r.returncode != 0:
-        raise AssertionError(f"the drill exited {r.returncode}: {r.stderr[-3000:]}")
+    if code != 0:
+        raise AssertionError(f"the drill exited {code}: {stderr[-3000:]}")
     with open(path) as f:
         report = json.load(f)
     checks = report["checks"]
@@ -4010,9 +4093,10 @@ def run_disagg_http(cfg, params, n_new: int = 16) -> dict:
 # -- phase 12: Podracer RL ----------------------------------------------------
 
 RL_PRESET, RL_DEVICE = "smol-1b", "cuda"
-# 12(a)'s depth: 8 of smol-1b's 16 layers at full width, since the whole
-# smoke neared its limit once phases 16 and 17 came (PERF.md, PR 15).
-RL_LAYERS = 8
+# 12(a)'s depth: 4 of smol-1b's 16 layers at full width (8 since PR 15,
+# when the whole smoke neared its limit; 4 since PR 19, which added 14(g),
+# 15(h) and 18(c); its gates are sha1, bit equality and counts).
+RL_LAYERS = 4
 RL_ENV = dict(prompt_len=64, horizon=64)
 RL_BATCH = 8
 RL_UPDATES = {"socket": 3, "direct": 1, "checkpoint": 1}
@@ -4521,19 +4605,21 @@ def check_rl_drill(summary: dict) -> None:
         raise AssertionError(f"the RL drill's summary: {summary}")
 
 
-def run_rl_drill(timeout: int = 600) -> dict:
+def start_rl_drill() -> Background:
     """Phase 12(c): `python -m dstack_tpu_torch.workloads.rl_drill
     --updates-per-phase 1`, the learner and its actors as separate
-    processes on the one card, tiny RL policy."""
-    argv = [sys.executable, "-m", "dstack_tpu_torch.workloads.rl_drill",
-            "--updates-per-phase", "1", "--device", RL_DEVICE]
-    t0 = time.monotonic()
-    r = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True, timeout=timeout)
-    seconds = time.monotonic() - t0
-    if r.returncode != 0:
-        raise AssertionError(f"the RL drill exited {r.returncode}: "
-                             f"{r.stdout[-2000:]} {r.stderr[-2000:]}")
-    summary = json.loads(r.stdout[r.stdout.index("{"):])
+    processes on the one card, tiny RL policy; started beside 12(a)-(b)."""
+    return Background([sys.executable, "-m", "dstack_tpu_torch.workloads.rl_drill",
+                       "--updates-per-phase", "1", "--device", RL_DEVICE])
+
+
+def run_rl_drill(timeout: int = 600, started=None) -> dict:
+    """Phase 12(c)'s result (`started`, or the drill run now): the
+    reference drill's summary asserts."""
+    code, stdout, stderr, seconds = (started or start_rl_drill()).result(timeout)
+    if code != 0:
+        raise AssertionError(f"the RL drill exited {code}: {stdout[-2000:]} {stderr[-2000:]}")
+    summary = json.loads(stdout[stdout.index("{"):])
     check_rl_drill(summary)
     out = {"seconds": seconds, **summary}
     log("rl drill (12c)", json.dumps(out))
@@ -4543,10 +4629,12 @@ def run_rl_drill(timeout: int = 600) -> dict:
 # -- phase 13: mixture-of-experts ----------------------------------------------
 
 MOE_PRESET, MOE_DEVICE = "smol-moe", "cuda"
-# 13b's engines run smol-moe at full width and half its depth: at 16
+# 13b's engines run smol-moe at full width and 4 of its 16 layers: at 16
 # layers the whole smoke's command passed 1100 s of its 1200 s limit once
-# phase 15 came (PERF.md, PR 14); 13c trains at full depth.
-MOE_SERVING_LAYERS = 8
+# phase 15 came (PERF.md, PR 14: 8 layers), and PR 19's 14(g), 15(h) and
+# 18(c) took 4 (the near-tie rule, two runs equal, counts); 13c trains at
+# 8 (PR 18).
+MOE_SERVING_LAYERS = 4
 # moe_mlp against a per-expert f32 loop on the same routing (13a), and the
 # einsum dispatch against the gather one: (rel_l2, row_rel) over token
 # rows, as flash_errors. The port rounds the up and down products and the
@@ -5298,15 +5386,21 @@ def tp_rank_main(rank: int, init: str) -> int:
         log(f"phase 14 {name}: " + json.dumps(out[name]))
         del eng, state, pool, params, got, want
         torch.cuda.empty_cache()
+    actor = ta_run(rank, mesh)
     if rank == 0:
+        out["rl_actor"] = actor
         print("TP_RESULT " + json.dumps(out), flush=True)
     torch.distributed.destroy_process_group()
     return 0
 
 
 def check_tp(res: dict) -> None:
-    """The gates of 14(a), (b), (d) and (e) on rank 0's readings."""
+    """The gates of 14(a), (b), (d), (e) and (g) on rank 0's readings."""
+    if "rl_actor" in res:
+        check_tp_actor(res["rl_actor"])
     for name, r in res.items():
+        if name == "rl_actor":
+            continue
         per_step = [x for rk in r["ranks"] for x in rk["per_step"]]
         if not per_step or any(x != r["n_layers"] for x in per_step):
             raise AssertionError(f"phase 14 {name}: launches per decode step {per_step},"
@@ -5359,6 +5453,94 @@ def run_tp_nccl(n_new: int = 8) -> dict:
     return r
 
 
+PR_SET_CHILD_SUBREAPER = 36
+
+
+def adopt_orphans() -> None:
+    """Make this process the subreaper of all it starts: a process whose
+    parent ends first (a drill's worker, an entry point's follower) is
+    re-parented here rather than to init, so `descendants` still sees it
+    and `stop_descendants` ends it."""
+    import ctypes
+
+    libc = ctypes.CDLL(None, use_errno=True)
+    if libc.prctl(PR_SET_CHILD_SUBREAPER, 1, 0, 0, 0) != 0:
+        raise OSError(ctypes.get_errno(), "prctl(PR_SET_CHILD_SUBREAPER)")
+
+
+def descendants(root: int = None) -> list:
+    """[(pid, state, command line)] of every process below `root` (this
+    one by default), read from /proc; a zombie's state is "Z"."""
+    root = os.getpid() if root is None else root
+    procs = {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                state, ppid = f.read().rsplit(")", 1)[1].split()[:2]
+            with open(f"/proc/{d}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace").strip()
+        except (OSError, ValueError):
+            continue  # gone between the listing and the read
+        procs[int(d)] = (int(ppid), state, cmd)
+    out, todo = [], [root]
+    while todo:
+        parent = todo.pop()
+        for pid, (ppid, state, cmd) in sorted(procs.items()):
+            if ppid == parent:
+                out.append((pid, state, cmd))
+                todo.append(pid)
+    return out
+
+
+def reap_children() -> None:
+    """Collect the exit status of every child that has ended (adopted
+    orphans too), so none is left a zombie."""
+    while True:
+        try:
+            if os.waitpid(-1, os.WNOHANG)[0] == 0:
+                return
+        except ChildProcessError:
+            return
+
+
+def stray_processes(after: str) -> list:
+    """The live processes below this one when none should be (`after` a
+    phase, each of which stops its own), logged by command line."""
+    live = [f"{pid} {cmd[:160]}" for pid, state, cmd in descendants() if state != "Z"]
+    if live:
+        log(f"stray processes after {after}: {live}")
+    return live
+
+
+def stop_descendants(grace: float = 30.0) -> list:
+    """End every process below this one: each gets `grace` seconds to exit
+    on its own, then SIGKILL; every ended child is reaped. Returns the
+    command lines of those alive at the call."""
+    import signal
+
+    found = [f"{pid} {cmd[:160]}" for pid, state, cmd in descendants() if state != "Z"]
+    deadline, killed = time.monotonic() + grace, False
+    while True:
+        reap_children()
+        live = [pid for pid, state, _ in descendants() if state != "Z"]
+        if not live:
+            break
+        if time.monotonic() > deadline:
+            if killed:
+                raise RuntimeError(f"processes {live} outlived SIGKILL")
+            for pid in live:
+                try:
+                    os.kill(pid, signal.SIGKILL)
+                except ProcessLookupError:
+                    pass
+            deadline, killed = time.monotonic() + 30.0, True
+        time.sleep(0.2)
+    reap_children()
+    return found
+
+
 def wait_ranks(procs, timeout: float) -> list:
     """Wait for every rank process until `timeout` seconds in all, then
     kill the process group of any still running; returns the exit codes
@@ -5388,17 +5570,22 @@ def run_tp() -> dict:
     ranks = launch_procs(["--tp-rank"], "phase14", TP_RANKS, "TP_RESULT", TP_TIMEOUT)
     check_tp(ranks)
     t2 = time.monotonic()
-    nccl = launch_procs(["--tp-nccl"], "phase14_nccl", 1, "TP_NCCL", TP_TIMEOUT)
+    # 14(f) and 15(f) in one process of their own (one start-up for both).
+    nccl = launch_procs(["--tp-nccl", "--tr-nccl"], "phase14_nccl", 1, "TP_NCCL", TP_TIMEOUT)
+    with open("chiprun_out/phase14_nccl_rank0.log") as f:
+        train_nccl = json.loads(next(ln for ln in f if ln.startswith("TR_NCCL "))[8:])
     log("phase 14(f) nccl world 1: " + json.dumps(nccl))
     t3 = time.monotonic()
     for name, r in ranks.items():
+        if name == "rl_actor":
+            continue
         log(f"phase 14 {name} (gloo, two ranks on one card: not a TP speed):"
             f" decode {r['decode_tokens_per_s']:.1f} tok/s, TTFT p50"
             f" {r['ttft_p50_s'] * 1e3:.1f} ms, {r['all_gathers_per_step']:.1f} staged"
             f" all-gathers per decode step taking {r['all_gather_ms_per_step']:.2f} ms,"
             f" streams bit for bit {r['bit_exact_streams']}/8")
     log(f"phase 14: kernels {t1 - t0:.1f}s, ranks {t2 - t1:.1f}s, nccl {t3 - t2:.1f}s")
-    return dict(kernels=kernels, ranks=ranks, nccl=nccl,
+    return dict(kernels=kernels, ranks=ranks, nccl=nccl, train_nccl=train_nccl,
                 seconds=dict(kernels=t1 - t0, ranks=t2 - t1, nccl=t3 - t2))
 
 
@@ -5650,6 +5837,11 @@ def tr_rank_main(rank: int, init: str) -> int:
                    "f32": lora_rank_run(cfg32, rank, meshes["model2"], TR_DEVICE,
                                         LR_ROW_TARGETS, shape, ("column_axes",),
                                         TR_LORA_TOL["float32"])}
+    out["rl"] = {"bf16": rlr_run(cfg.with_(n_layers=RLR_LAYERS), rank, meshes, TR_DEVICE,
+                                 RLR_CASES),
+                 "f32": rlr_run(cfg.with_(n_layers=RLR_F32_LAYERS, dtype="float32"), rank,
+                                meshes, TR_DEVICE,
+                                RLR_CASES + tuple((m, layout, m) for m, layout, _ in RLR_MUTANTS))}
     if rank == 0:
         print("TR_RESULT " + json.dumps(out), flush=True)
     torch.distributed.destroy_process_group()
@@ -5665,8 +5857,10 @@ def check_train_ranks(res: dict) -> None:
     rank_shape = (TR_B * cfg.n_heads // TR_RANKS, TR_S, cfg.head_dim)
     if "lora" in res:
         check_lora_ranks(res["lora"], "15", rank_shape)
+    if "rl" in res:
+        check_rl_ranks(res["rl"])
     for dtype_tag, cases in res.items():
-        if dtype_tag == "lora":
+        if dtype_tag in ("lora", "rl"):
             continue
         for name, r in cases.items():
             if name == "unsharded":
@@ -5707,7 +5901,8 @@ def run_train_nccl() -> dict:
     TR_F32_LAYERS layers of smol-1b on the training layout, saves and
     restores its checkpoint through the mesh (the restore's barrier runs
     over NCCL). At world 1 the step's collectives have one shard and
-    return their inputs. A process of its own (`--tr-nccl`)."""
+    return their inputs. In a process of its own (`--tr-nccl`), after
+    14(f) in the same process (`--tp-nccl --tr-nccl`)."""
     import tempfile
 
     from dstack_tpu_torch.workloads import checkpoint as ckpt
@@ -5764,17 +5959,16 @@ def launch_procs(argv, tag: str, n: int, marker: str, timeout: float) -> str:
     return json.loads(line[len(marker) + 1:])
 
 
-def run_train_ranks() -> dict:
+def run_train_ranks(nccl: dict) -> dict:
     """Phase 15: (c) kernels #2-#4 at a rank's geometry here, (a, b, d,
-    e) in two rank processes, (f) in a process of its own."""
+    e, g, h) in two rank processes; (f), `nccl`, ran in phase 14's NCCL
+    process."""
     t0 = time.monotonic()
     kernels = run_flash(cases=TR_KERNEL_CASES)
     t1 = time.monotonic()
     ranks = launch_procs(["--tr-rank"], "phase15", TR_RANKS, "TR_RESULT", TR_TIMEOUT)
     check_train_ranks(ranks)
     t2 = time.monotonic()
-    nccl = launch_procs(["--tr-nccl"], "phase15_nccl", 1, "TR_NCCL", TR_TIMEOUT)
-    t3 = time.monotonic()
     r, ref = ranks["lora"]["bf16"]["sound"], ranks["lora"]["bf16"]["unsharded"]
     log(f"phase 15 LoRA on {list(LR_ROW_TARGETS)} over model 2: step"
         f" {r['ranks'][0]['step_ms'][-1]:.1f} ms against unsharded {ref['step_ms'][-1]:.1f};"
@@ -5790,9 +5984,9 @@ def run_train_ranks() -> dict:
             f" {r['ranks'][0]['collectives_per_step']} taking"
             f" {r['ranks'][0]['collective_ms_per_step']:.1f} ms; peak"
             f" {[round(x['peak_mem_gb'], 2) for x in r['ranks']]} GB per rank")
-    log(f"phase 15: kernels {t1 - t0:.1f}s, ranks {t2 - t1:.1f}s, nccl {t3 - t2:.1f}s")
+    log(f"phase 15: kernels {t1 - t0:.1f}s, ranks {t2 - t1:.1f}s (15(f): phase 14's process)")
     return dict(kernels=kernels, ranks=ranks, nccl=nccl,
-                seconds=dict(kernels=t1 - t0, ranks=t2 - t1, nccl=t3 - t2))
+                seconds=dict(kernels=t1 - t0, ranks=t2 - t1))
 
 
 # -- phase 16: the ring across ranks ----------------------------------------------
@@ -6400,6 +6594,7 @@ def ep_rank_main(rank: int, init: str) -> int:
                                          EP_LORA_TOL["bfloat16"]),
                    "f32": lora_rank_run(cfg32, rank, mesh, EP_DEVICE, LORA_TARGETS, shape,
                                         ("summed_over_expert",), EP_LORA_TOL["float32"])}
+    out["serve"] = es_run(rank)
     if rank == 0:
         print("EP_RESULT " + json.dumps(out), flush=True)
     sharding.leave_ranks(mesh)
@@ -6428,8 +6623,10 @@ def check_expert_ranks(res: dict) -> None:
     shape = (EP_B * cfg.n_heads, EP_S, cfg.head_dim)
     if "lora" in res:
         check_lora_ranks(res["lora"], "18", shape)
+    if "serve" in res:
+        check_expert_serving(res["serve"])
     for dtype_tag, cases in res.items():
-        if dtype_tag == "lora":
+        if dtype_tag in ("lora", "serve"):
             continue
         for name, r in cases.items():
             if name == "unsharded":
@@ -7163,6 +7360,565 @@ def run_moe_seq_ranks() -> dict:
     return dict(kernels=kernels, ranks=res, seconds=time.monotonic() - t0)
 
 
+# -- 15(h), 14(g), 18(c): RL over meshes of ranks, the expert axis on a serving mesh -----
+
+# 15(h): the PPO learner on phase 15's two training ranks, smol-1b at full
+# width and 8 of its 16 layers, bf16, fsdp 2 and model 2, on
+# 12(a)'s RL batch (8 x 128: 64 prompt + 64 generated tokens), RLR_STEPS
+# updates, against the one-device learner on the same card, weights and
+# batch; then at RLR_F32_LAYERS in f32 with the mutants. entropy_coef above
+# 0 so the entropy's grads reach every param.
+RLR_LAYERS, RLR_F32_LAYERS, RLR_STEPS = 8, 2, 2
+RLR_ENTROPY = 0.01
+RLR_CASES = (("fsdp2", "fsdp2", None), ("model2", "model2", None))
+# (mutant, layout, the gate it must fail): the entropy from a rank's vocab
+# columns alone, each rank's own mask count for the global one, grads not
+# summed over the batch axes (the norms' and the router's, on fsdp 2). A
+# mutant takes one update, its params held against the one-device
+# learner's after its first.
+RLR_MUTANTS = (("entropy_local", "model2", "loss"), ("count_local", "fsdp2", "loss"),
+               ("grads_unsummed", "fsdp2", "params"))
+# The learner over ranks against the one-device learner, per (dtype,
+# layout): the first update's loss by relative difference and every param
+# after RLR_STEPS updates by flash_errors' (rel_l2, row_rel) over its leaf.
+# The first update is on-policy, so its pg_loss is a sum of advantages that
+# cancels to ~0 and the loss is mostly -entropy_coef x entropy; on model 2
+# in bf16 the pg_loss carries the ratio's noise (the ranks' bf16 partial
+# sums move a token's log-prob by a few 1e-2, times its advantage). Each
+# limit is ~3x the sound reading on the H100 (PERF.md, PR 19): bf16 fsdp 2
+# loss 3.0e-7, params 8.3e-4 / 1.23e-2; model 2 loss 2.76e-2, params
+# 2.45e-3 / 1.32e-2; f32 at 2 layers loss 3.8e-7 (fsdp 2) and 7.5e-7
+# (model 2), params 5.1e-6 / 1.84e-3. The mutants read loss 7.0e-2
+# (entropy_local) and 1.0 (count_local), params 1.56e-4 (grads_unsummed).
+RLR_TOL = {("bfloat16", "fsdp2"): dict(loss=1e-6, params=(2.5e-3, 3.7e-2)),
+           ("bfloat16", "model2"): dict(loss=8.3e-2, params=(7.4e-3, 4e-2)),
+           ("float32", "fsdp2"): dict(loss=1.2e-6, params=(1.5e-5, 5.5e-3)),
+           ("float32", "model2"): dict(loss=2.3e-6, params=(1.5e-5, 5.5e-3))}
+
+
+def rlr_mutate(kind):
+    """15(h)'s faults of the learner over ranks (RLR_MUTANTS). Returns the
+    undo."""
+    from dstack_tpu_torch.workloads import rl, train
+
+    real = rl.token_entropy, rl.mask_count, rl.reduce_grads
+
+    def undo():
+        rl.token_entropy, rl.mask_count, rl.reduce_grads = real
+
+    if kind == "entropy_local":
+        rl.token_entropy = lambda logits, mesh=None: train.token_entropy(logits, None)
+    elif kind == "count_local":
+        rl.mask_count = lambda mask, mesh=None: real[1](mask, None)
+    elif kind == "grads_unsummed":
+        rl.reduce_grads = lambda grads, mesh, axes_of: real[2](
+            grads, mesh, lambda k: tuple(a for a in axes_of(k) if a not in ("data", "fsdp")))
+    return undo
+
+
+def rlr_trajectory(cfg, device):
+    """15(h)'s trajectory batch: 12(a)'s RL batch shape from seed 2
+    (rl_model_batch's tokens and episode ends), a reward on a fifth of the
+    generated tokens, the behavior log-probs the one-device scorer's at
+    the learner's initial weights (seed 0)."""
+    import numpy as np
+
+    from dstack_tpu_torch.workloads import rl
+    from dstack_tpu_torch.workloads.transformer import init_params
+
+    P = RL_ENV["prompt_len"]
+    b = rl_model_batch(cfg, RL_BATCH, P, RL_ENV["horizon"], 2, device)
+    logp = rl.make_sequence_scorer(cfg)(init_params(cfg, 0, device), b["tokens"], 1.0)
+    g = torch.Generator().manual_seed(3)
+    mask = b["mask"].cpu().numpy()
+    rewards = (torch.rand(mask.shape, generator=g) < 0.2).float().numpy() * mask
+    tokens = b["tokens"].cpu().numpy().astype(np.int32)
+    return rl.TrajectoryBatch(tokens=tokens, actions=tokens[:, P:],
+                              behavior_logprob=logp[:, P - 1:].float().cpu().numpy(),
+                              rewards=rewards, mask=mask, prompt_len=P, actor_id=0,
+                              weight_epoch=0)
+
+
+def rlr_learn(cfg, mesh, device, tb, rank, publish=False, steps=RLR_STEPS, first=None):
+    """`steps` updates of an RL Learner (on `mesh`, or one device) from
+    seed 0's params on `tb` (rank 0 ingests it, the ranks step on their
+    rows of its broadcast): the first update's metrics, each update's wall
+    ms, flash launches per update, collectives, peak memory. With `publish`
+    every rank then publishes through rank 0's in-process channel, and
+    rank 0 holds the frame against the unshard of the ranks' slices, leaf
+    for leaf. `first` (a list) receives host copies of the whole params
+    after the first update. Returns (the whole params, readings)."""
+    from dstack_tpu_torch.workloads import rl
+    from dstack_tpu_torch.workloads.transformer import init_params
+
+    torch.cuda.reset_peak_memory_stats()
+    pub = rl.InProcessWeightRefresh() if publish and rank == 0 else None
+    learner = rl.Learner(cfg, mesh=mesh, params=init_params(cfg, 0, device),
+                         learning_rate=RL_LR, clip_eps=RL_CLIP, entropy_coef=RLR_ENTROPY,
+                         refresh=pub, device=None if mesh else device)
+    stats0 = dict(mesh.stats) if mesh else {}
+    zero_flash_counts()
+    metrics, step_ms = [], []
+    for _ in range(steps):
+        if rank == 0:
+            learner.ingest(tb)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        metrics.append(learner.update_once(timeout=120))
+        torch.cuda.synchronize()
+        step_ms.append((time.monotonic() - t0) * 1e3)
+        if first is not None and not first:
+            first.extend(state_host(learner.state))
+    r = dict(loss=metrics[0]["loss"], first={k: metrics[0][k] for k in rl.METRIC_KEYS},
+             losses=[m["loss"] for m in metrics],
+             step_ms=step_ms,
+             launches_per_step={k: v / steps for k, v in flash_counts().items()},
+             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if mesh:
+        delta = {k: mesh.stats[k] - stats0[k] for k in mesh.stats}
+        r["collectives_per_step"] = {k: v / steps for k, v in delta.items()
+                                     if not k.endswith("seconds") and not k.endswith("bytes")}
+        r["collective_ms_per_step"] = sum(v for k, v in delta.items()
+                                          if k.endswith("seconds")) * 1e3 / steps
+    whole = learner.whole_params()
+    if publish:
+        t0 = time.monotonic()
+        epoch = learner.publish()
+        if rank == 0:
+            frame, named = pub.poll(0)[1], rl.named_params(whole)
+            r["publish"] = dict(epoch=epoch, seconds=time.monotonic() - t0,
+                                leaves=len(frame), equal=[n for n, _ in named] == list(frame)
+                                and all(frame[n].dtype == t.dtype and torch.equal(frame[n], t)
+                                        for n, t in named))
+    del learner
+    return whole, r
+
+
+def rlr_run(cfg, rank, meshes, device, cases) -> dict:
+    """15(h) at one dtype: rank 0 runs the one-device learner (rank 1
+    waits), then both ranks run each case on its layout; rank 0 holds the
+    whole params against the one-device ones."""
+    from dstack_tpu_torch.workloads.weights import flatten_params
+
+    out, ref, ref_params, tb, ref_first = {}, None, None, None, []
+    if rank == 0:
+        tb = rlr_trajectory(cfg, device)
+        whole, ref = rlr_learn(cfg, None, device, tb, 0, first=ref_first)
+        ref_params = [(k, t.detach().to("cpu", copy=True)) for k, t in flatten_params(whole)]
+        del whole
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"15(h) one-device learner {cfg.dtype}: " + json.dumps(ref))
+    torch.distributed.barrier()
+    for name, layout, mutation in cases:
+        shapes, undo_spy = tr_launch_spy()
+        undo = rlr_mutate(mutation)
+        try:
+            whole, r = rlr_learn(cfg, meshes[layout], device, tb, rank,
+                                 publish=mutation is None,
+                                 steps=1 if mutation else RLR_STEPS)
+        finally:
+            undo()
+            undo_spy()
+        r["kernel_shapes"] = {k: sorted(v) for k, v in shapes.items()}
+        every = [None] * TR_RANKS
+        torch.distributed.all_gather_object(every, r)
+        if rank == 0:
+            res = dict(ranks=every, layout=layout, mutation=mutation, dtype=cfg.dtype,
+                       n_layers=cfg.n_layers, tol=RLR_TOL[(cfg.dtype, layout)],
+                       loss_rel=abs(every[0]["loss"] - ref["loss"]) / abs(ref["loss"]),
+                       params=tr_param_gaps(whole, ref_first if mutation else ref_params))
+            out[name] = res
+            log(f"15(h) {name} ({cfg.dtype}, {cfg.n_layers} layers): " + json.dumps(res))
+        del whole
+        gc.collect()
+        torch.cuda.empty_cache()
+    if rank == 0:
+        out["unsharded"] = ref
+    return out
+
+
+def rlr_gates(r: dict) -> dict:
+    """15(h)'s gates on one case's readings: True where it passes."""
+    tol, p = r["tol"], r["params"]
+    return {"loss": r["loss_rel"] <= tol["loss"],
+            "params": p["rel_l2"] <= tol["params"][0] and p["row_rel"] <= tol["params"][1]}
+
+
+def check_rl_ranks(res: dict) -> None:
+    """15(h)'s gates on rank 0's readings: each sound case within its
+    gates, the ranks' metrics equal, the published frame the unshard of
+    the ranks' slices leaf for leaf, #2-#4 once a layer an update on each
+    rank at a rank's geometry (B*H 64, S 127: 4 rows x 16 heads or 8 x 8);
+    each mutant failing its gate."""
+    from dstack_tpu_torch.workloads.config import PRESETS
+
+    cfg = PRESETS[TR_PRESET]
+    P, H = RL_ENV["prompt_len"], RL_ENV["horizon"]
+    shape = (RL_BATCH * cfg.n_heads // TR_RANKS, P + H - 1, cfg.head_dim)
+    guards = {m: g for m, _, g in RLR_MUTANTS}
+    for dtype_tag, cases in res.items():
+        for name, r in cases.items():
+            if name == "unsharded":
+                continue
+            gates = rlr_gates(r)
+            if r["mutation"]:
+                if gates[guards[r["mutation"]]]:
+                    raise AssertionError(f"15(h) {name}: its {guards[r['mutation']]} gate"
+                                         f" passes the mutant ({r})")
+                continue
+            if not all(gates.values()):
+                raise AssertionError(f"15(h) {name} {dtype_tag}: gates {gates}; loss"
+                                     f" {r['loss_rel']}, params {r['params']}; tol {r['tol']}")
+            pub = r["ranks"][0]["publish"]
+            if not (pub["equal"] and pub["epoch"] == 1):
+                raise AssertionError(f"15(h) {name}: the published frame is not the ranks'"
+                                     f" whole params: {pub}")
+            for rk, rr in enumerate(r["ranks"]):
+                if rr["first"] != r["ranks"][0]["first"]:
+                    raise AssertionError(f"15(h) {name}: rank {rk}'s metrics differ")
+                got = {k: rr["launches_per_step"][k]
+                       for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+                if any(v != r["n_layers"] for v in got.values()):
+                    raise AssertionError(f"15(h) {name} rank {rk}: flash launches per update"
+                                         f" {got}, not {r['n_layers']}")
+                if dtype_tag == "bf16":
+                    shapes = {tuple(s) for v in rr["kernel_shapes"].values() for s in v}
+                    if shapes != {shape}:
+                        raise AssertionError(f"15(h) {name} rank {rk}: kernel shapes"
+                                             f" {rr['kernel_shapes']}, not {shape}")
+
+
+# 14(g): the RL actor on phase 14's model-2 serving mesh, smol-1b at 8
+# layers: in f32 one round of RL_BATCH episodes (64-token prompts x 64 new
+# tokens, temperature 1) against the one-device actor's round, token for
+# token, its behavior log-probs (the engine's score op, each rank on its
+# shards) against the one-device scorer's; in bf16 the mesh scorer on the
+# same tokens against the one-device scorer's (RL_LOGP_TOL), then an
+# adopted frame (seed 1's weights) in every rank's slices by sha1, shown
+# failing a refresh that only the leader's slices take.
+TA_LAYERS = 8
+# The score op's log-probs against the one-device scorer's (max abs): f32
+# ~3x the H100's reading (9.5e-6: the rank's column products round apart
+# from the whole ones'), bf16 phase 12's RL_LOGP_TOL (the reading was 0).
+TA_LOGP_TOL = {"float32": 3e-5, "bfloat16": RL_LOGP_TOL[torch.bfloat16]}
+
+
+def ta_counts(serving, pa):
+    """An op of the smoke's own (`_op_ta_zero`) that zeroes the paged and
+    flash launch counts on every rank at one point of the op stream, and
+    the leader's admission gate as it stood at each release (no request
+    admitted, the round's all pending). Returns (held, undo)."""
+    cls = serving.ServingEngine
+    real_release = cls.release_admission
+    held = []
+
+    def zero(self):
+        pa.LAUNCHES["ragged_paged_attention"] = 0
+        zero_flash_counts()
+
+    def release(self):
+        st = self.stats()
+        held.append(st["active"] == 0 and st["pending"] == RL_BATCH)
+        return real_release(self)
+
+    cls._op_ta_zero, cls.release_admission = zero, release
+
+    def undo():
+        del cls._op_ta_zero
+        cls.release_admission = real_release
+    return held, undo
+
+
+def ta_actor(cfg, params, env, mesh, rank, tokens=None, frame=None,
+             leader_only=False) -> dict:
+    """One mesh actor (rank 0: rl.Actor on the mesh, rank 1: its
+    follower): a round when given neither `tokens` nor `frame`; else the
+    score op on `tokens` and/or an adoption of `frame` through rank 0's
+    in-process channel. Each rank's launches and, after an adoption,
+    whether its slices' sha1 digests are the frame's slices'."""
+    from dstack_tpu_torch.workloads import paged_attention as pa
+    from dstack_tpu_torch.workloads import rl, serving, sharding
+    from dstack_tpu_torch.workloads.weights import flatten_params
+
+    held, undo = ta_counts(serving, pa)
+    real_refresh = serving.ServingEngine._op_refresh
+    if leader_only and rank:
+        serving.ServingEngine._op_refresh = lambda self, params: None
+    kw = dict(batch_size=RL_BATCH, temperature=1.0, seed=0)
+    r = {}
+    try:
+        if rank:
+            eng = rl.run_actor_follower(cfg, params, env, mesh=mesh, **kw)
+        else:
+            pub = rl.InProcessWeightRefresh()
+            actor = rl.Actor(cfg, params, env, refresh=pub, engine_kwargs={"mesh": mesh}, **kw)
+            try:
+                actor.engine._op("ta_zero")
+                if tokens is None and frame is None:
+                    t0 = time.monotonic()
+                    b = actor.rollout(0)
+                    r.update(tokens=b.tokens, logp=b.behavior_logprob, held=held,
+                             round_s=time.monotonic() - t0)
+                if tokens is not None:
+                    logp = actor.engine.score(tokens, 1.0)
+                    r["logp"] = logp[:, env.prompt_len - 1:].cpu().numpy()
+                if frame is not None:
+                    pub.publish(frame)
+                    if not actor.maybe_refresh():
+                        raise AssertionError("14(g): the mesh actor adopted no frame")
+            finally:
+                actor.close()
+            eng = actor.engine
+        r.update(launches=pa.LAUNCHES["ragged_paged_attention"], flash=flash_counts(),
+                 heads=int(eng.params["layers"]["wq"].shape[-1] // cfg.head_dim))
+        if frame is not None:
+            want = leaf_digests(flatten_params(sharding.rank_params(mesh, frame)))
+            r["adopted"] = leaf_digests(flatten_params(eng.params)) == want
+        del eng
+    finally:
+        serving.ServingEngine._op_refresh = real_refresh
+        undo()
+    return r
+
+
+def ta_run(rank, mesh) -> dict:
+    """14(g) on both ranks; rank 0 returns the readings."""
+    import numpy as np
+
+    from dstack_tpu_torch.workloads import rl, sharding
+    from dstack_tpu_torch.workloads.config import PRESETS
+    from dstack_tpu_torch.workloads.transformer import init_params
+
+    P = RL_ENV["prompt_len"]
+    out, tokens = {}, None
+    for tag, dtype in (("f32", "float32"), ("bf16", "bfloat16")):
+        cfg = PRESETS[TP_PRESET].with_(dtype=dtype, n_layers=TA_LAYERS)
+        params = init_params(cfg, seed=0, device=TP_DEVICE)
+        env = rl.TargetTokenEnv(cfg.vocab_size, **RL_ENV, seed=0)
+        frame = init_params(cfg, seed=1, device=TP_DEVICE) if tag == "bf16" else None
+        t0 = time.monotonic()
+        if tag == "f32":
+            got = ta_actor(cfg, params, env, mesh, rank)
+            tokens = sharding.broadcast_object(got.get("tokens"), mesh)
+        else:
+            got = ta_actor(cfg, params, env, mesh, rank, tokens=tokens, frame=frame)
+        mesh_s = time.monotonic() - t0
+        res = None
+        if rank == 0:
+            ref_logp = rl.make_sequence_scorer(cfg)(
+                params, torch.from_numpy(tokens).to(TP_DEVICE), 1.0)[:, P - 1:]
+            res = dict(mesh_s=mesh_s, logp_tol=TA_LOGP_TOL[dtype],
+                       logp_max_abs=float((torch.from_numpy(got["logp"]) - ref_logp.cpu())
+                                          .abs().max()))
+            if tag == "f32":
+                one = rl.Actor(cfg, params, env, batch_size=RL_BATCH, temperature=1.0, seed=0,
+                               device=TP_DEVICE)
+                try:
+                    b = one.rollout(0)
+                finally:
+                    one.close()
+                res.update(round_s=got["round_s"], held=got["held"],
+                           tokens_equal=bool(np.array_equal(b.tokens, tokens)),
+                           tokens_equal_rows=int((b.tokens == tokens).all(1).sum()),
+                           logp_vs_actor=float(np.abs(b.behavior_logprob - got["logp"]).max()))
+                del one
+        every = [None] * TP_RANKS
+        torch.distributed.all_gather_object(
+            every, {k: got[k] for k in ("launches", "flash", "heads", "adopted") if k in got})
+        if tag == "bf16":
+            mutant = ta_actor(cfg, params, env, mesh, rank, frame=frame, leader_only=True)
+            both = [None] * TP_RANKS
+            torch.distributed.all_gather_object(both, mutant["adopted"])
+            if rank == 0:
+                res["adopted"] = [e["adopted"] for e in every]
+                res["adopted_leader_only"] = both
+        if rank == 0:
+            res["ranks"] = every
+            out[tag] = res
+            log(f"14(g) actor on model 2 ({dtype}, {TA_LAYERS} layers): " + json.dumps(res))
+        del params, frame
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_tp_actor(res: dict) -> None:
+    """14(g)'s gates on rank 0's readings: the f32 round's tokens the
+    one-device actor's with the leader's gate held over it and a paged
+    launch on every rank; the score op's log-probs within RL_LOGP_TOL of
+    the one-device scorer's, one #2 launch a layer on each rank, at a
+    rank's heads; the adoption by sha1 on both ranks, failing rank 1 when
+    only the leader refreshes."""
+    from dstack_tpu_torch.workloads.config import PRESETS
+
+    cfg = PRESETS[TP_PRESET]
+    for tag, r in res.items():
+        if not r["logp_max_abs"] <= r["logp_tol"]:
+            raise AssertionError(f"14(g) {tag}: log-probs {r['logp_max_abs']} past"
+                                 f" {r['logp_tol']}")
+        for rk, rr in enumerate(r["ranks"]):
+            if rr["flash"]["flash_fwd"] != TA_LAYERS or (tag == "f32" and rr["launches"] <= 0):
+                raise AssertionError(f"14(g) {tag} rank {rk}: #1 launched {rr['launches']},"
+                                     f" #2 {rr['flash']['flash_fwd']} (the score op: one a"
+                                     f" layer)")
+            if rr["heads"] != cfg.n_heads // TP_RANKS:
+                raise AssertionError(f"14(g) {tag} rank {rk}: {rr['heads']} q heads")
+    f = res["f32"]
+    if not (f["tokens_equal"] and f["held"] == [True]):
+        raise AssertionError(f"14(g): the f32 mesh round against the one-device actor's:"
+                             f" {f['tokens_equal_rows']} rows equal, admission held {f['held']}")
+    b = res["bf16"]
+    if b["adopted"] != [True, True] or b["adopted_leader_only"] != [True, False]:
+        raise AssertionError(f"14(g): adoption by sha1 {b['adopted']}, and with the leader"
+                             f" alone refreshing {b['adopted_leader_only']} (must fail rank 1)")
+
+
+# 18(c): phase 18's two ranks serve smol-moe at 8 layers on an expert-2
+# serving mesh (each rank 4 of the 8 experts, all 16 heads), phase 4's
+# requests at the all-admitting cf (E/k = 4.0), against the unsharded
+# engine on the same card: f32 streams token for token, bf16 streams token
+# for token with every routed call pinned to the unsharded engine's
+# routing (RoutingSpy, flips under the pin counted), the f32 streams
+# changed by the two ranks' expert blocks swapped in the outputs' gather,
+# and the paged kernel once a layer a decode step on each rank.
+ES_LAYERS, ES_NEW = 8, 32
+ES_KW = dict(slots=8, steps_per_sync=4, prefill_chunk_tokens=128, kv_block_size=16)
+
+
+def es_swap_blocks():
+    """18(c)'s mutant: the experts' outputs gathered in reverse rank order
+    on the serving mesh. Returns the undo."""
+    from dstack_tpu_torch.workloads import moe, sharding
+
+    real = moe.gather_experts
+
+    def swapped(x, dim, mesh=None):
+        out = real(x, dim, mesh)
+        if not sharding.serves_experts(mesh):
+            return out
+        return torch.cat(out.chunk(mesh.shape["expert"], dim)[::-1], dim)
+
+    moe.gather_experts = swapped
+    return lambda: setattr(moe, "gather_experts", real)
+
+
+def es_wave(eng, prompts) -> list:
+    """Phase 4's requests on a warm engine in a fixed order of programs:
+    the first alone, then the other 7 admitted as one wave."""
+    first = drain(eng.submit(prompts[0], max_new_tokens=ES_NEW, temperature=0.0))[0]
+    eng.hold_admission()
+    outs = [eng.submit(p, max_new_tokens=ES_NEW, temperature=0.0) for p in prompts[1:]]
+    eng.release_admission()
+    return [first] + [drain(q)[0] for q in outs]
+
+
+def es_serve(cfg, params, mesh, rank, pinned=None) -> dict:
+    """One engine's run (on `mesh`, its follower on rank 1; or one
+    device): warmup and es_wave, the routed calls recorded (or pinned),
+    the paged launches per decode step."""
+    from dstack_tpu_torch.workloads import paged_attention as pa
+    from dstack_tpu_torch.workloads import serving
+
+    counts, undo = tp_count_ops(serving, pa, mesh) if mesh else (None, lambda: None)
+    r = {}
+    try:
+        with RoutingSpy(pinned) as spy:
+            if mesh is not None and rank:
+                eng = serving.run_follower(mesh, cfg, params, **ES_KW)
+            else:
+                eng = serving.ServingEngine(cfg, params, mesh=mesh,
+                                            device=None if mesh else EP_DEVICE, **ES_KW)
+                try:
+                    eng.warmup()
+                    if mesh is not None:
+                        eng._op("tp_zero_counts")
+                    t0 = time.monotonic()
+                    r["streams"] = es_wave(eng, engine_prompts())
+                    r["wave_s"] = time.monotonic() - t0
+                finally:
+                    eng.close()
+        r.update(routing=[idx.cpu() for _, idx, _ in spy.calls], flips=sum(spy.flips),
+                 heads=int(eng.params["layers"]["wq"].shape[-1] // cfg.head_dim))
+        if counts is not None:
+            r["launches"] = pa.LAUNCHES["ragged_paged_attention"]
+            r["per_step"] = sorted(set(counts["per_step"]))
+            r["decode_ops"] = counts["decode_ops"]
+        del eng
+    finally:
+        undo()
+    return r
+
+
+def es_run(rank) -> dict:
+    """18(c) on both ranks; rank 0 returns the readings."""
+    from dstack_tpu_torch.workloads import sharding
+    from dstack_tpu_torch.workloads.config import PRESETS
+    from dstack_tpu_torch.workloads.transformer import init_params
+
+    mesh = sharding.make_mesh([EP_DEVICE], expert=EP_RANKS)  # the serving layout
+    base = PRESETS[EP_PRESET].with_(n_layers=ES_LAYERS)
+    base = base.with_(capacity_factor=moe_cf_all(base))
+    out = {}
+    for tag, dtype in (("f32", "float32"), ("bf16", "bfloat16")):
+        cfg = base.with_(dtype=dtype)
+        params = init_params(cfg, seed=0, device=EP_DEVICE)
+        ref = None
+        if rank == 0:
+            ref = es_serve(cfg, params, None, 0)
+            gc.collect()
+            torch.cuda.empty_cache()
+        torch.distributed.barrier()
+        pinned = None
+        if tag == "bf16":
+            pinned = sharding.broadcast_object(ref["routing"] if rank == 0 else None, mesh)
+        got = es_serve(cfg, params, mesh, rank, pinned)
+        runs = {"sound": got}
+        if tag == "f32":
+            undo = es_swap_blocks()
+            try:
+                runs["swapped"] = es_serve(cfg, params, mesh, rank)
+            finally:
+                undo()
+        every = [None] * EP_RANKS
+        torch.distributed.all_gather_object(every, {
+            name: {k: r[k] for k in ("launches", "per_step", "decode_ops", "heads", "flips")}
+            for name, r in runs.items()})
+        if rank == 0:
+            res = {"ranks": every, "routed_calls": len(ref["routing"]),
+                   "unsharded_wave_s": ref["wave_s"], "wave_s": got["wave_s"]}
+            for name, r in runs.items():
+                res[name] = dict(equal=r["streams"] == ref["streams"],
+                                 equal_streams=sum(a == b for a, b in zip(r["streams"],
+                                                                          ref["streams"])),
+                                 token_counts=[len(s) for s in r["streams"]])
+            out[tag] = res
+            log(f"18(c) expert-2 serving ({dtype}, {ES_LAYERS} layers): " + json.dumps(res))
+        del params, got, runs, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_expert_serving(res: dict) -> None:
+    """18(c)'s gates on rank 0's readings."""
+    from dstack_tpu_torch.workloads.config import PRESETS
+
+    cfg = PRESETS[EP_PRESET]
+    for tag, r in res.items():
+        if not (r["sound"]["equal"] and r["sound"]["token_counts"] == [ES_NEW] * 8):
+            raise AssertionError(f"18(c) {tag}: streams {r['sound']}")
+        if tag == "f32" and r["swapped"]["equal"]:
+            raise AssertionError("18(c): the swapped expert blocks give the same streams")
+        for rk, rr in enumerate(r["ranks"]):
+            s = rr["sound"]
+            if s["per_step"] != [ES_LAYERS] or s["decode_ops"] <= 0:
+                raise AssertionError(f"18(c) {tag} rank {rk}: launches per decode step"
+                                     f" {s['per_step']}, not {ES_LAYERS}")
+            if s["heads"] != cfg.n_heads:
+                raise AssertionError(f"18(c) {tag} rank {rk}: {s['heads']} q heads, not all")
+
+
 def paged_entry(kres, launches, wave) -> dict:
     """The paged kernel's entry of the `kernels` line: the bf16 decode
     case's times, the bf16 short-slot decode and chunk cases' beside them,
@@ -7227,6 +7983,7 @@ def main() -> int:
     kres = run_kernels(flush)
     del flush
     log(f"phase 3: {time.monotonic() - t0:.1f}s")
+    stray_processes("phase 3")
 
     # 3b. flash kernels against plain versions
     t0 = time.monotonic()
@@ -7235,6 +7992,7 @@ def main() -> int:
     # 3c. the ring-step kernel against its plain version
     fres += run_ring_block()
     log(f"phases 3b-3c: {time.monotonic() - t0:.1f}s")
+    stray_processes("phases 3b-3c")
 
     # 4. engine: smol-1b, full width and depth, random weights from seed 0
     from dstack_tpu_torch.workloads import paged_attention as pa
@@ -7253,15 +8011,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches, wave = run_engine(cfg, params)
 
-    # 4b. speculative decoding: plain, spec, spec, plain; f32 at 4 layers
+    # 4b. speculative decoding: plain, spec at 8 layers; f32 at 4 layers
     t0 = time.monotonic()
-    spec = run_spec(cfg, params)
+    cut_cfg, cut_params = first_layers(cfg, params, SERVE_CUT_LAYERS)
+    spec = run_spec(cut_cfg, cut_params)
     log(f"phase 4b: {time.monotonic() - t0:.1f}s")
+    stray_processes("phase 4b")
 
     # 4c. the host KV tier: spill and swap back, preempt and resume
     t0 = time.monotonic()
     host_tier = run_host_tier(cfg, params)
     log(f"phase 4c: {time.monotonic() - t0:.1f}s")
+    stray_processes("phase 4c")
 
     # 5. http; the QoS gate on a second server
     run_http(params)
@@ -7271,27 +8032,33 @@ def main() -> int:
     t0 = time.monotonic()
     service = run_service(cfg, params)
     log(f"phase 5b: {time.monotonic() - t0:.1f}s")
+    stray_processes("phase 5b")
 
     # 11. disaggregation: in process, the two-process drill, the HTTP tiers
     t0 = time.monotonic()
-    disagg = run_disagg(cfg, params)
+    disagg = run_disagg(cut_cfg, cut_params)
     log(f"phase 11a: {time.monotonic() - t0:.1f}s")
+    stray_processes("phase 11a")
     t0 = time.monotonic()
-    disagg["drill"] = run_disagg_drill()
+    drill = start_disagg_drill()  # 11b beside 11c: both serve and check, neither is timed
     disagg["http"] = run_disagg_http(cfg, params)
+    disagg["drill"] = run_disagg_drill(started=drill)
     log(f"phases 11b-11c: {time.monotonic() - t0:.1f}s")
-    del params
+    stray_processes("phases 11b-11c")
+    del params, cut_params
     torch.cuda.empty_cache()
 
     # 12. Podracer RL: smol-1b Anakin over the three refresh channels,
     # learning on the tiny policy, the Sebulba drill in processes
     t0 = time.monotonic()
+    drill = start_rl_drill()  # 12c beside 12a-12b (its tiny policy's processes)
     rl_checks = run_rl_model_checks()
     rl = run_rl_anakin()
     rl["model_checks"] = rl_checks
     rl["learning"] = run_rl_learning()
-    rl["drill"] = run_rl_drill()
+    rl["drill"] = run_rl_drill(started=drill)
     log(f"phase 12: {time.monotonic() - t0:.1f}s")
+    stray_processes("phase 12")
 
     # 6. train: smol-1b, full depth, B 8 x S 2048
     t0 = time.monotonic()
@@ -7300,6 +8067,7 @@ def main() -> int:
     # 6b. kernels against plain attention inside the model
     model = run_model_check()
     log(f"phases 6-6b: {time.monotonic() - t0:.1f}s")
+    stray_processes("phases 6-6b")
 
     # 7. ring: smol-1b-8k, full depth, B 1 x S 8192 over 4 seq shards
     t0 = time.monotonic()
@@ -7321,6 +8089,7 @@ def main() -> int:
     # 7b. the ring against plain attention and the flash kernels in the model
     ring_model = run_model_check("smol-1b-8k", 1, 8192, seq_shards=RING_SHARDS)
     log(f"phases 7-7b: {time.monotonic() - t0:.1f}s")
+    stray_processes("phases 7-7b")
 
     # 8. the train-state checkpoint of smol-1b at full width and depth
     t0 = time.monotonic()
@@ -7329,6 +8098,7 @@ def main() -> int:
     # 8b. SIGTERM drain and resume of a subprocess trainer, kernel cache
     drain = run_drain()
     log(f"phases 8-8b: {time.monotonic() - t0:.1f}s")
+    stray_processes("phases 8-8b")
 
     # 9. LoRA serving: the module, the engines, speculation, the host tier, http
     t0 = time.monotonic()
@@ -7337,6 +8107,7 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     log(f"phase 9: {time.monotonic() - t0:.1f}s")
+    stray_processes("phase 9")
 
     # 10. LoRA training at full width and depth; 10b. at 2 layers, drain
     t0 = time.monotonic()
@@ -7344,11 +8115,13 @@ def main() -> int:
     lora_checks = run_lora_model_checks()
     lora_checks["drain"] = run_lora_drain()
     log(f"phases 10-10b: {time.monotonic() - t0:.1f}s")
+    stray_processes("phases 10-10b")
 
     # 13. mixture-of-experts: the module, serving and training at smol-moe
     t0 = time.monotonic()
     moe_module = run_moe_module()
     log(f"phase 13a: {time.monotonic() - t0:.1f}s")
+    stray_processes("phase 13a")
     t1 = time.monotonic()
     mcfg = PRESETS[MOE_PRESET].with_(n_layers=MOE_SERVING_LAYERS)
     log(f"model: {MOE_PRESET}, {mcfg.param_count() / 1e9:.3f}B params, {mcfg.dtype},"
@@ -7360,18 +8133,21 @@ def main() -> int:
     moe_train = run_moe_train()
     log(f"phase 13c: {time.monotonic() - t1:.1f}s")
     log(f"phase 13: {time.monotonic() - t0:.1f}s")
+    stray_processes("phase 13")
 
     # 14. tensor-parallel serving: smol-1b over two gloo ranks on the card,
     # kernel #1 at a rank's heads, a world-1 NCCL wave
     t0 = time.monotonic()
     tp = run_tp()
     log(f"phase 14: {time.monotonic() - t0:.1f}s")
+    stray_processes("phase 14")
 
     # 15. training across ranks: smol-1b over two gloo ranks on the card at
     # fsdp 2 and model 2, kernels #2-#4 at a rank's geometry, NCCL world 1
     t0 = time.monotonic()
-    tr = run_train_ranks()
+    tr = run_train_ranks(tp["train_nccl"])
     log(f"phase 15: {time.monotonic() - t0:.1f}s")
+    stray_processes("phase 15")
 
     # 16. the ring across ranks: smol-1b-8k over four gloo ranks on the card
     # at seq 4; 17. the GPipe pipeline: smol-1b in two stages on two ranks
@@ -7380,9 +8156,11 @@ def main() -> int:
     t0 = time.monotonic()
     ring_ranks = run_ring_ranks()
     log(f"phase 16: {time.monotonic() - t0:.1f}s")
+    stray_processes("phase 16")
     t0 = time.monotonic()
     pipe = run_pipeline()
     log(f"phase 17: {time.monotonic() - t0:.1f}s")
+    stray_processes("phase 17")
 
     # 18. expert parallelism: smol-moe (8 of 16 layers) over an expert axis
     # of two gloo ranks on the card, against its unsharded steps
@@ -7391,20 +8169,24 @@ def main() -> int:
     t0 = time.monotonic()
     expert = run_expert_parallel()
     log(f"phase 18: {time.monotonic() - t0:.1f}s")
+    stray_processes("phase 18")
 
     # 19. the gang: fine_tune as two host processes joined from the
     # orchestrator's variables against one host; run_rl's Sebulba pair
     gc.collect()
     torch.cuda.empty_cache()
     gang = run_gang()
+    stray_processes("phase 19")
 
     # 20. MoE over a seq axis of ranks: smol-moe (4 of 16 layers) over two
     # gloo ranks on the card at seq 2, against the one-device seq-2 ring
     gc.collect()
     torch.cuda.empty_cache()
     moe_seq = run_moe_seq_ranks()
+    stray_processes("phase 20")
 
     log(f"total {time.monotonic() - t_all:.1f}s")
+    log(smi)  # again near the end, where a reader of the output's tail finds it
     kernels = {"kernels": [paged_entry(kres, launches, wave)]}
     # The paged kernel's launches on the speculative and host-tier paths
     # (each zeroed just before its run and read just after).
@@ -7421,6 +8203,12 @@ def main() -> int:
         "moe_spec": moe_serving["runs"]["spec_all"]["kernel_launches"],
         # Each rank of phase 14's bf16 wave, on its 8 q / 4 KV heads.
         **{f"tp_rank{r}": rk["launches"] for r, rk in enumerate(tp["ranks"]["bf16"]["ranks"])},
+        # Each rank of 14(g)'s f32 RL round on the model-2 mesh.
+        **{f"rl_actor_rank{r}": rk["launches"]
+           for r, rk in enumerate(tp["ranks"]["rl_actor"]["f32"]["ranks"])},
+        # Each expert rank of 18(c)'s bf16 wave, on all 16 heads.
+        **{f"expert_serving_rank{r}": rk["sound"]["launches"]
+           for r, rk in enumerate(expert["ranks"]["serve"]["bf16"]["ranks"])},
     }
     kernels["kernels"][0]["per_rank"] = {
         r["case"]: {k: r[k] for k in ("rel_l2", "row_rel", "row_l2", "max_abs_err",
@@ -7462,7 +8250,15 @@ def main() -> int:
                 **{f"lora_model_rank{r}": int(rr["launches_per_step"][kern] * TR_STEPS)
                    for r, rr in enumerate(tr["ranks"]["lora"]["bf16"]["sound"]["ranks"])},
                 **{f"lora_expert_rank{r}": int(rr["launches_per_step"][kern] * EP_STEPS)
-                   for r, rr in enumerate(expert["ranks"]["lora"]["bf16"]["sound"]["ranks"])}}}
+                   for r, rr in enumerate(expert["ranks"]["lora"]["bf16"]["sound"]["ranks"])},
+                # Each rank of 15(h)'s bf16 PPO learner over its RLR_STEPS updates
+                # (B*H 64, S 127), and 14(g)'s score op (#2, once a layer a rank).
+                **{f"rl_learner_{name}_rank{r}": int(rr["launches_per_step"][kern] * RLR_STEPS)
+                   for name in ("fsdp2", "model2")
+                   for r, rr in enumerate(tr["ranks"]["rl"]["bf16"][name]["ranks"])},
+                **({f"rl_actor_score_rank{r}": rk["flash"][kern]
+                    for r, rk in enumerate(tp["ranks"]["rl_actor"]["bf16"]["ranks"])}
+                   if kern == "flash_fwd" else {})}}
                if kern != "flash_block_fwd" else {"launches_by_path": {
                    # Each rank of phase 16's bf16 ring over its RG_STEPS steps.
                    **{f"ring_rank{r}": int(rr["launches_per_step"][kern] * RG_STEPS)
@@ -7512,14 +8308,12 @@ def main() -> int:
                    "ring_ranks": ring_ranks, "pipeline": pipe, "expert_parallel": expert,
                    "gang": gang, "moe_seq_ranks": moe_seq, "build_s": _build.build_seconds},
                   f, indent=1)
-    # What could hold the interpreter's exit: threads that are not daemons
-    # and child processes still running (every phase stops its own).
+    # What could hold the interpreter's exit or outlive it: threads that
+    # are not daemons, and processes below this one still running (every
+    # phase stops its own; what is left is stopped here, and named).
     left = [t.name for t in threading.enumerate()
             if t is not threading.main_thread() and not t.daemon]
-    kids = subprocess.run(["ps", "--ppid", str(os.getpid()), "-o", "pid=,args="],
-                          capture_output=True, text=True).stdout.split("\n")
-    log(f"at exit: non-daemon threads {left}, children"
-        f" {[k for k in kids if k.strip() and 'ps --ppid' not in k]}")
+    log(f"at exit: non-daemon threads {left}, processes stopped {stop_descendants()}")
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
@@ -7547,6 +8341,14 @@ if __name__ == "__main__":
         sys.exit(ms_rank_main(*rank_args()))
     if "--tp-nccl" in argv or "--tr-nccl" in argv:  # 14(f) and 15(f), in their own process
         torch.backends.cuda.matmul.allow_tf32 = False
-        run_tp_nccl() if "--tp-nccl" in argv else run_train_nccl()
+        if "--tp-nccl" in argv:
+            run_tp_nccl()
+        if "--tr-nccl" in argv:
+            run_train_nccl()
         sys.exit(0)
-    sys.exit(main())
+    adopt_orphans()
+    try:
+        code = main()
+    finally:
+        stop_descendants(grace=5.0)  # a failed phase's processes end with the run
+    sys.exit(code)

@@ -22,6 +22,19 @@ keeps it f32: in bf16 the two are slightly different functions.
 Tensor-parallel serving: on a `model` mesh the expert banks carry their
 output columns per rank (`we_*` take "model" on their last dim) and the
 router is replicated, so the expert FFN gathers where the dense MLP does.
+On a serving mesh with an expert axis each rank's banks also hold only its
+block of E/expert experts (`we_*` take "expert" on their expert dim): every
+rank holds every token and routes it alike, dispatches only to its own
+experts, runs them (gathering over model inside the bank, as above), and
+gathers the experts' outputs over the expert line
+(`sharding.gather_experts`, with no autograd there) before the combine, which
+runs in the unsharded order on every rank. Gathers move bits, so each
+expert's products are the unsharded ones and the combine is the same sum
+in the same order: an f32 engine on the CPU gives the unsharded engine's
+streams token for token. The reference's GSPMD program is free to place
+the combine's sum elsewhere (a partial sum per expert shard, then a
+psum); its expert-mesh engine gave the one-device streams on the CPU too
+(tests/test_torch_serving_expert.py).
 
 Training across ranks (a training mesh, sharding.py): the reference's
 layout, where the batch rides (data, fsdp) only and the expert inputs and
@@ -264,9 +277,9 @@ def moe_mlp(c: ModelConfig, h: torch.Tensor, p: Params, mesh=None
     combine products, 2*E*C*D FLOPs a token each way) or "gather" (the
     same permutation by gathers, no dispatch FLOPs). The router is
     replicated, so every rank of a `mesh` routes alike; on a serving mesh
-    the banks are column slices (`_expert_ffn`), on a training mesh a
-    rank dispatches to its block of experts and gathers their outputs
-    (module docstring)."""
+    the banks are column slices (`_expert_ffn`); on a training mesh, and
+    on a serving mesh with an expert axis, a rank dispatches to its block
+    of experts and gathers their outputs (module docstring)."""
     if c.moe_impl == "gather":
         return _moe_mlp_gather(c, h, p, mesh)
     if c.moe_impl != "einsum":

@@ -58,10 +58,42 @@ Divergences from the reference:
 - Params and seeds: `init_rl_state` draws from a torch generator; parity
   tests pass JAX-initialised params (`params=`, through
   `weights.params_from_numpy`).
-- A mesh over more than one device raises NotImplementedError (the
-  sharding slice's work).
 - Every entry takes `device`; None means the CUDA device, which raises
   without a card.
+
+Meshes over ranks (sharding.py):
+
+- The learner on a training mesh (`Learner(mesh=)`, `init_rl_state`,
+  `make_rl_train_step`, `make_sequence_scorer` on `make_mesh(...,
+  layout="training")`): data, fsdp, model and expert axes, as the trainer
+  takes them. Each rank keeps its slices of the params and moments; the
+  step runs `forward(..., mesh=)` on the rank's rows and the loss is the
+  rank's share of the reference's loss over the global batch: the mask
+  count, pg_loss, entropy and clip_fraction are the rank's sums over the
+  global count (`batch_sum`), and on a model axis the target's log-prob
+  and the entropy are vocab-parallel (`train.token_nll`,
+  `train.token_entropy`); grads are summed over the axes each leaf owes
+  (`reduce_grads`) and grad_norm is the global one. An MoE policy runs on
+  an expert axis as the trainer's does; the RL loss adds no router aux, as
+  the reference's does not. Rank 0 alone gathers trajectories, computes
+  the advantages and broadcasts each step batch; every rank cuts its rows.
+  `publish` gathers the whole params on every rank and rank 0 publishes
+  them: the frame is the one-device learner's, byte for byte in layout.
+- A seq axis raises ValueError: the reference's step cannot run one.
+  BATCH_SPEC cuts both `tokens` (N, T) and the forward's (N, T-1) over
+  seq, and no seq >= 2 divides two consecutive integers, so JAX raises on
+  every seq mesh (from shard_map when T-1 is odd, from pjit when T is).
+  Taking one here would be a feature the reference lacks.
+- The actor on a serving mesh (`Actor(engine_kwargs={"mesh": mesh})` on
+  rank 0 of `make_mesh(model=m, expert=e)`, `run_actor_follower` on the
+  others, from the same arguments through `actor_engine_kwargs`): the
+  engine's ops reach every rank in one order, so `hold_admission` holds a
+  round there as on one device; the behavior scorer is the engine's own
+  op (`ServingEngine.score`), every rank on its shards, so no rank builds
+  a whole copy of the params; a refresh rebuilds the frame's tree on a
+  template from the config (`transformer.param_template`) and every rank
+  copies its slices of it in. The colocated Anakin loop stays on one
+  device: the reference's `run_anakin` takes no mesh.
 """
 
 import json
@@ -88,9 +120,32 @@ from dstack_tpu_torch.workloads.kv_transfer import (
     recv_msg,
     send_msg,
 )
-from dstack_tpu_torch.workloads.serving import ServingEngine
-from dstack_tpu_torch.workloads.train import TrainState, global_norm, make_optimizer
-from dstack_tpu_torch.workloads.transformer import forward, init_params, params_device
+from dstack_tpu_torch.workloads.serving import ServingEngine, run_follower
+from dstack_tpu_torch.workloads.sharding import (
+    batch_sum,
+    broadcast_object,
+    grad_axes,
+    model_shards,
+    param_specs,
+    reduce_grads,
+    shard_batch,
+    shard_tree,
+    unshard_tree,
+)
+from dstack_tpu_torch.workloads.train import (
+    TrainState,
+    global_norm,
+    make_optimizer,
+    ranked_mesh,
+    token_entropy,
+    token_nll,
+)
+from dstack_tpu_torch.workloads.transformer import (
+    forward,
+    init_params,
+    param_template,
+    params_device,
+)
 from dstack_tpu_torch.workloads.weights import flatten_params, unflatten_params
 
 Params = Dict[str, Any]
@@ -125,11 +180,26 @@ def tiny_rl_config(**overrides) -> ModelConfig:
     return ModelConfig(**kw)
 
 
-def _one_device(mesh) -> None:
-    if mesh is not None and any(n > 1 for n in dict(mesh.shape).values()):
-        raise NotImplementedError(
-            f"RL over mesh {dict(mesh.shape)}: meshes beyond one device belong"
-            " to the sharding slice (ROADMAP Queue 1), not ported yet")
+_SEQ_REFUSAL = (
+    "the reference's PPO step cannot take a seq axis: BATCH_SPEC cuts both"
+    " the tokens (N, T) and the forward's (N, T-1) over seq, and no seq >= 2"
+    " divides two consecutive lengths (JAX raises on every seq mesh); RL runs"
+    " on data, fsdp, model and expert axes")
+
+
+def rl_mesh(config: ModelConfig, mesh):
+    """The training mesh over ranks the RL learner runs on, or None (no
+    mesh, or a mesh of one device with every axis 1). A seq axis above 1
+    raises ValueError (`_SEQ_REFUSAL`), as does a mesh cut for serving (the
+    actor's: `Actor(engine_kwargs={"mesh": ...})`) or an expert axis that
+    does not divide the experts; an object that is not a mesh of the port
+    raises NotImplementedError."""
+    model_shards(mesh)
+    if mesh is None:
+        return None
+    if mesh.shape["seq"] > 1:
+        raise ValueError(f"RL over mesh {dict(mesh.shape)}: {_SEQ_REFUSAL}")
+    return ranked_mesh(config, mesh)
 
 
 # -- toy environment ----------------------------------------------------------
@@ -242,13 +312,20 @@ def make_sequence_scorer(config: ModelConfig, mesh=None):
     no nucleus cut), so scoring a rollout under the weights that generated
     it yields the PPO denominator without touching the decode programs.
     Attention is `make_attention_fn(None)`: the flash forward kernel on
-    the card, plain attention on the CPU."""
-    _one_device(mesh)
+    the card, plain attention on the CPU. On a training mesh over ranks
+    (`rl_mesh`) `params` are the rank's slices and `tokens` its rows, and
+    it returns the rank's rows of the log-probs (the reference's
+    `out_shardings=BATCH_SPEC`), vocab-parallel on a model axis."""
+    ranked = rl_mesh(config, mesh)
     attention_fn = make_attention_fn(None)
 
     @torch.no_grad()
     def score(params, tokens, temperature):
-        return token_logprobs(config, params, tokens, temperature, attention_fn)[1]
+        if ranked is None:
+            return token_logprobs(config, params, tokens, temperature, attention_fn)[1]
+        logits = forward(config, params, tokens[:, :-1], attention_fn=attention_fn,
+                         mesh=ranked)
+        return -token_nll(logits / max(float(temperature), 1e-6), tokens[:, 1:], ranked)
 
     return score
 
@@ -260,13 +337,22 @@ def init_rl_state(config: ModelConfig, seed: int = 0, mesh=None,
                   learning_rate: float = 1e-2, *, params: Optional[Params] = None,
                   device: DeviceLike = None) -> TrainState:
     """Fresh policy TrainState: params (random from `seed` on `device`, or
-    the given `params`, e.g. bridged from JAX) marked for grad, and AdamW
-    moments with no weight decay (decay drags a reward-shaped objective
-    toward the uniform policy)."""
-    _one_device(mesh)
-    dev = resolve_device(device)
+    the given whole `params`, e.g. bridged from JAX) marked for grad, and
+    AdamW moments with no weight decay (decay drags a reward-shaped
+    objective toward the uniform policy). On a training mesh over ranks
+    (`rl_mesh`) each rank keeps its slices of the whole params
+    (sharding.shard_tree) and its moments are cut as the params, as
+    `train.init_train_state` does."""
+    ranked = rl_mesh(config, mesh)
+    if ranked is None:
+        dev = resolve_device(device)
+    elif device is not None and resolve_device(device) != ranked.device:
+        raise ValueError(f"device {device} is not the mesh's {ranked.device}")
+    else:
+        dev = ranked.device
     if params is None:
         params = init_params(config, seed, dev)
+    params = shard_tree(ranked, params)
     for _, p in flatten_params(params):
         if p.device != dev:
             raise ValueError(f"params live on {p.device}, device is {dev}")
@@ -278,26 +364,45 @@ def init_rl_state(config: ModelConfig, seed: int = 0, mesh=None,
 METRIC_KEYS = ("loss", "pg_loss", "entropy", "clip_fraction", "grad_norm")
 
 
+def mask_count(mask: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The PPO loss's denominator: the global batch's mask count (the
+    rank's count summed over data and fsdp on a training mesh), at least 1."""
+    return torch.clamp(batch_sum(torch.sum(mask), mesh), min=1.0)
+
+
 def ppo_loss(config: ModelConfig, params: Params, batch, attention_fn, *,
-             clip_eps: float = 0.2, entropy_coef: float = 0.0):
+             clip_eps: float = 0.2, entropy_coef: float = 0.0, mesh=None):
     """The PPO step's objective: (loss, (pg_loss, entropy, clip_fraction))
     for a step batch (see `make_rl_train_step`), with `attention_fn` in
-    the forward."""
+    the forward. On a training mesh over ranks (`rl_mesh`) `params` are
+    the rank's slices and `batch` its rows, and each value is the rank's
+    share of the global batch's: its sums over the mask count of the
+    whole batch (summed over data and fsdp), the target's log-prob and the
+    entropy vocab-parallel on a model axis. The shares summed over data
+    and fsdp (`sharding.batch_sum`) are the reference's values, and their
+    grads sum to its grads."""
     tokens = batch["tokens"]
     behavior = batch["behavior_logprob"]
     adv = batch["advantage"]
     mask = batch["mask"]
     h = behavior.shape[1]
     p = tokens.shape[1] - h
-    logp_all, logp = token_logprobs(config, params, tokens,
-                                     batch.get("temperature", 1.0), attention_fn)
-    logp_all, logp = logp_all[:, p - 1:], logp[:, p - 1:]
-    denom = torch.clamp(torch.sum(mask), min=1.0)
+    temperature = batch.get("temperature", 1.0)
+    if mesh is None:
+        logp_all, logp = token_logprobs(config, params, tokens, temperature, attention_fn)
+        logp_all, logp = logp_all[:, p - 1:], logp[:, p - 1:]
+        ent = -torch.sum(torch.exp(logp_all) * logp_all, dim=-1)
+    else:
+        logits = forward(config, params, tokens[:, :-1], attention_fn=attention_fn,
+                         mesh=mesh)
+        logits = logits[:, p - 1:] / max(float(temperature), 1e-6)
+        logp = -token_nll(logits, tokens[:, p:], mesh)
+        ent = token_entropy(logits, mesh)
+    denom = mask_count(mask, mesh)
     ratio = torch.exp(logp - behavior)
     surr = torch.minimum(
         ratio * adv, torch.clamp(ratio, 1.0 - clip_eps, 1.0 + clip_eps) * adv)
     pg_loss = -torch.sum(surr * mask) / denom
-    ent = -torch.sum(torch.exp(logp_all) * logp_all, dim=-1)
     entropy = torch.sum(ent * mask) / denom
     loss = pg_loss - entropy_coef * entropy
     clipped = torch.sum(
@@ -319,18 +424,32 @@ def make_rl_train_step(config: ModelConfig, mesh=None,
     `temperature` (a float, default 1). The clipped surrogate uses the
     ACTOR-side behavior logprobs as the ratio denominator, so
     off-policyness from refresh staleness is importance-corrected up to
-    the clip radius. Metrics are 0-d device tensors (METRIC_KEYS)."""
-    _one_device(mesh)
+    the clip radius. Metrics are 0-d device tensors (METRIC_KEYS).
+
+    On a training mesh over ranks (`rl_mesh`: data, fsdp, model, expert)
+    the state holds the rank's slices (`init_rl_state(mesh=)`) and the
+    batch the rank's rows (`sharding.shard_batch`); the step runs the
+    forward on them, sums the grads over the axes each leaf owes
+    (`reduce_grads`, as `train.make_train_step`) and returns the global
+    batch's metrics on every rank."""
+    ranked = rl_mesh(config, mesh)
     optimizer = make_optimizer(learning_rate, weight_decay=0.0)
     attention_fn = make_attention_fn(None)
 
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         pairs = flatten_params(state.params)
         loss, (pg, ent, clipped) = ppo_loss(config, state.params, batch, attention_fn,
-                                            clip_eps=clip_eps, entropy_coef=entropy_coef)
+                                            clip_eps=clip_eps, entropy_coef=entropy_coef,
+                                            mesh=ranked)
         grads = torch.autograd.grad(loss, [p for _, p in pairs])
-        grads = unflatten_params((k, g) for (k, _), g in zip(pairs, grads))
-        gnorm = global_norm(grads)
+        grads = [(k, g) for (k, _), g in zip(pairs, grads)]
+        if ranked is not None:
+            specs = dict(flatten_params(param_specs(state.params)))
+            grads = reduce_grads(grads, ranked, lambda k: grad_axes(specs[k]))
+            loss, pg, ent, clipped = (batch_sum(v.detach(), ranked)
+                                      for v in (loss, pg, ent, clipped))
+        grads = unflatten_params(grads)
+        gnorm = global_norm(grads, ranked)
         opt_state = optimizer.apply(state.params, grads, state.opt_state)
         metrics = {"loss": loss.detach(), "pg_loss": pg.detach(),
                    "entropy": ent.detach(), "clip_fraction": clipped,
@@ -398,6 +517,60 @@ def _host_copies(params: Params) -> List[Tuple[str, torch.Tensor]]:
     return [(name, t.to("cpu", copy=True).contiguous()) for name, t in named_params(params)]
 
 
+class _Listener:
+    """A listening socket, its accept thread and one handler thread per
+    accepted connection (`handle(conn)`). `close()` ends them all before
+    it returns: it shuts the listener and every connection down, which
+    wakes each blocked accept and recv, and joins the threads. A daemon
+    thread still inside torch (encoding or decoding a frame) when the
+    interpreter exits aborts the process ("terminate called without an
+    active exception")."""
+
+    def __init__(self, host: str, port: int, handle: Callable[[socket.socket], None]):
+        self._handle = handle
+        self._lock = threading.Lock()
+        self._conns: List[Tuple[socket.socket, threading.Thread]] = []
+        self.stopped = False
+        self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        self._sock.bind((host, port))
+        self._sock.listen(16)
+        self.port = self._sock.getsockname()[1]
+        self._accept = threading.Thread(target=self._accept_loop, daemon=True)
+        self._accept.start()
+
+    def _accept_loop(self) -> None:
+        while not self.stopped:
+            try:
+                conn, _ = self._sock.accept()
+            except OSError:
+                return
+            t = threading.Thread(target=self._handle, args=(conn,), daemon=True)
+            with self._lock:
+                if self.stopped:
+                    conn.close()
+                    return
+                self._conns.append((conn, t))
+            t.start()
+
+    def close(self, timeout: float = 10.0) -> None:
+        with self._lock:
+            self.stopped = True
+            conns, self._conns = self._conns, []
+        for sock in [self._sock] + [c for c, _ in conns]:
+            try:
+                sock.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+        try:
+            self._sock.close()
+        except OSError:
+            pass
+        for t in [self._accept] + [t for _, t in conns]:
+            if t is not threading.current_thread():
+                t.join(timeout)
+
+
 class WeightRefreshServer:
     """Learner-side publisher. `publish(params)` copies the tree to host
     tensors once and swaps the (epoch, manifest, arrays) snapshot
@@ -409,16 +582,11 @@ class WeightRefreshServer:
         self._lock = threading.Lock()
         self._snap: Optional[Tuple[int, List, List[torch.Tensor]]] = None
         self._epoch = 0
-        self._stop = False
         self.publishes = 0
         self.pulls_served = 0
         self.bytes_sent = 0
-        self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
-        self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
-        self._sock.bind((host, port))
-        self._sock.listen(16)
-        self.port = self._sock.getsockname()[1]
-        threading.Thread(target=self._accept_loop, daemon=True).start()
+        self._listener = _Listener(host, port, self._serve_conn)
+        self.port = self._listener.port
 
     @property
     def epoch(self) -> int:
@@ -435,14 +603,6 @@ class WeightRefreshServer:
             self.publishes += 1
             return self._epoch
 
-    def _accept_loop(self) -> None:
-        while not self._stop:
-            try:
-                conn, _ = self._sock.accept()
-            except OSError:
-                return
-            threading.Thread(target=self._serve_conn, args=(conn,), daemon=True).start()
-
     def _serve_conn(self, conn: socket.socket) -> None:
         try:
             with conn:
@@ -450,7 +610,7 @@ class WeightRefreshServer:
                     "kind": "hello", "service": "weight_refresh",
                     "version": WEIGHT_REFRESH_VERSION, "epoch": self.epoch,
                 })
-                while not self._stop:
+                while not self._listener.stopped:
                     req = recv_msg(conn)
                     if req.get("kind") != "weight_pull":
                         send_msg(conn, {"kind": "error", "reason": "unexpected message"})
@@ -477,11 +637,8 @@ class WeightRefreshServer:
             return
 
     def close(self) -> None:
-        self._stop = True
-        try:
-            self._sock.close()
-        except OSError:
-            pass
+        """Stop serving: every handler thread has ended when this returns."""
+        self._listener.close()
 
 
 class WeightRefreshClient:
@@ -705,30 +862,17 @@ class TrajectorySink:
     def __init__(self, host: str = "127.0.0.1", port: int = 0, *,
                  on_batch: Callable[[TrajectoryBatch], None]):
         self._on_batch = on_batch
-        self._stop = False
         self._lock = threading.Lock()
         self.batches_received = 0
         self.bytes_received = 0
-        self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
-        self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
-        self._sock.bind((host, port))
-        self._sock.listen(16)
-        self.port = self._sock.getsockname()[1]
-        threading.Thread(target=self._accept_loop, daemon=True).start()
-
-    def _accept_loop(self) -> None:
-        while not self._stop:
-            try:
-                conn, _ = self._sock.accept()
-            except OSError:
-                return
-            threading.Thread(target=self._serve_conn, args=(conn,), daemon=True).start()
+        self._listener = _Listener(host, port, self._serve_conn)
+        self.port = self._listener.port
 
     def _serve_conn(self, conn: socket.socket) -> None:
         try:
             with conn:
                 send_msg(conn, {"kind": "hello", "service": "trajectories"})
-                while not self._stop:
+                while not self._listener.stopped:
                     header = recv_msg(conn)
                     if header.get("kind") != "trajectories":
                         send_msg(conn, {"kind": "error", "reason": "unexpected message"})
@@ -744,11 +888,8 @@ class TrajectorySink:
             return
 
     def close(self) -> None:
-        self._stop = True
-        try:
-            self._sock.close()
-        except OSError:
-            pass
+        """Stop listening: every handler thread has ended when this returns."""
+        self._listener.close()
 
 
 class TrajectoryClient:
@@ -945,6 +1086,45 @@ def rl_prometheus_metrics(stats: Dict[str, Any]) -> str:
 # -- actor --------------------------------------------------------------------
 
 
+def actor_engine_kwargs(env: TargetTokenEnv, *, batch_size: int = 8,
+                        temperature: float = 1.0, seed: int = 0,
+                        engine_kwargs: Optional[Dict[str, Any]] = None,
+                        device: DeviceLike = None) -> Dict[str, Any]:
+    """The ServingEngine arguments of an actor: one slot per rollout, a
+    window of the episode's length rounded up to a block, the round's
+    prompts in one prefill chunk, the actor's sampling temperature and
+    seed, then `engine_kwargs` over them. The leader (`Actor`) and the
+    followers of a mesh actor (`run_actor_follower`) both build their
+    engines from it."""
+    need = env.prompt_len + env.horizon
+    kwargs: Dict[str, Any] = dict(
+        slots=batch_size,
+        max_len=-(-need // 16) * 16,
+        temperature=float(temperature),
+        seed=seed,
+        max_prefills_per_chunk=batch_size,
+        prefill_chunk_tokens=max(batch_size * env.prompt_len, 1),
+        device=device,
+    )
+    kwargs.update(engine_kwargs or {})
+    return kwargs
+
+
+def run_actor_follower(config: ModelConfig, params: Params, env: TargetTokenEnv, *,
+                       mesh, batch_size: int = 8, temperature: float = 1.0, seed: int = 0,
+                       engine_kwargs: Optional[Dict[str, Any]] = None,
+                       device: DeviceLike = None) -> ServingEngine:
+    """Ranks 1.. of an actor on a serving mesh (`Actor(engine_kwargs=
+    {"mesh": mesh})` on rank 0): the leader's engine arguments
+    (`actor_engine_kwargs`, from the actor's own), then the leader's ops
+    (`serving.run_follower`) until its actor closes. `params` are the whole
+    params, as the leader was given them; each rank keeps its slices."""
+    kw = actor_engine_kwargs(env, batch_size=batch_size, temperature=temperature,
+                             seed=seed, engine_kwargs=engine_kwargs, device=device)
+    kw.pop("mesh", None)
+    return run_follower(mesh, config, params, **kw)
+
+
 class Actor:
     """One rollout worker: a ServingEngine over (its own copy of) the
     policy, a teacher-forced scorer for behavior logprobs, and a refresh
@@ -955,7 +1135,10 @@ class Actor:
     deterministic sampler draws), drains all streams, scores them under the
     weights that generated them, then polls for fresh weights at the idle
     boundary before the next round. `device` (None: the CUDA device) must
-    be where `params` live."""
+    be where `params` live. With `engine_kwargs={"mesh": mesh}` (a serving
+    mesh over ranks) this is rank 0's actor and ranks 1.. run
+    `run_actor_follower` with the same arguments: rollouts, scoring
+    (`ServingEngine.score`) and refreshes run on every rank's shards."""
 
     def __init__(self, config: ModelConfig, params: Params, env: TargetTokenEnv, *,
                  actor_id: int = 0, batch_size: int = 8,
@@ -976,20 +1159,15 @@ class Actor:
         self._refresh = refresh
         self.stats = stats or RLStats()
         self.weight_epoch = 0
-        need = env.prompt_len + env.horizon
-        kwargs: Dict[str, Any] = dict(
-            slots=batch_size,
-            max_len=-(-need // 16) * 16,
-            temperature=self.temperature,
-            seed=seed,
-            max_prefills_per_chunk=batch_size,
-            prefill_chunk_tokens=max(batch_size * env.prompt_len, 1),
-            device=device,
-        )
-        kwargs.update(engine_kwargs or {})
-        self.engine = ServingEngine(config, params, **kwargs)
+        self.engine = ServingEngine(config, params, **actor_engine_kwargs(
+            env, batch_size=batch_size, temperature=self.temperature, seed=seed,
+            engine_kwargs=engine_kwargs, device=device))
         self.device = self.engine.device
-        self._score = make_sequence_scorer(config)
+        # On a mesh the engine scores on every rank's shards (its op);
+        # one device scores its own params with the flash forward.
+        mesh = self.engine.mesh
+        self._ranked = mesh is not None and mesh.ranked
+        self._score = None if self._ranked else make_sequence_scorer(config)
         self.rounds = 0
 
     def maybe_refresh(self) -> bool:
@@ -1003,7 +1181,10 @@ class Actor:
         if got is None:
             return False
         epoch, by_name = got
-        self.engine.refresh_params(params_from_named(self.engine.params, by_name))
+        # A mesh rank's params are its slices: the frame's whole tree is
+        # checked against the config's shapes, and each rank cuts its own.
+        template = param_template(self.config) if self._ranked else self.engine.params
+        self.engine.refresh_params(params_from_named(template, by_name))
         self.weight_epoch = epoch
         auto_stage("weight_refresh")
         self.stats.count_adoption(self.actor_id, epoch, time.monotonic() - t0)
@@ -1042,9 +1223,12 @@ class Actor:
                     mask[i, t] = 1.0
                 t += 1
         tokens = np.concatenate([np.asarray(prompts, np.int32), actions], axis=1)
-        logp = self._score(self.engine.params,
-                           torch.from_numpy(tokens).to(self.device),
-                           self.temperature).cpu().numpy()[:, p_len - 1:]
+        if self._ranked:
+            logp = self.engine.score(tokens, self.temperature)
+        else:
+            logp = self._score(self.engine.params, torch.from_numpy(tokens).to(self.device),
+                               self.temperature)
+        logp = logp.cpu().numpy()[:, p_len - 1:]
         rewards = env.token_rewards(actions) * mask
         batch = TrajectoryBatch(
             tokens=tokens, actions=actions,
@@ -1078,7 +1262,15 @@ class Learner:
     batches-per-update — and therefore the stacked batch SHAPE — is
     invariant: survivors of a shrink just contribute more rounds each. Zero
     learner restarts by construction; the resize is a host-side integer
-    swap. `params` (e.g. bridged from JAX) replaces the init from `seed`."""
+    swap. `params` (e.g. bridged from JAX) replaces the init from `seed`.
+
+    On a training mesh over ranks (`rl_mesh`) every rank builds a Learner
+    with the same arguments, but only rank 0 holds the refresh publisher
+    (and is fed trajectories): `update_once` on rank 0 gathers the batches,
+    computes the advantages and broadcasts the step batch, every rank cuts
+    its rows and steps, and `publish` gathers the whole params on every
+    rank (the same collectives in the same order) for rank 0 to publish.
+    The caller ends a rank process with `sharding.leave_ranks`."""
 
     def __init__(self, config: ModelConfig, *, seed: int = 0, mesh=None,
                  learning_rate: float = 1e-2, gamma: float = 0.7,
@@ -1090,6 +1282,10 @@ class Learner:
         self.gamma = gamma
         self.accum_per_actor = accum_per_actor
         self.gang_width = gang_width
+        self.mesh = rl_mesh(config, mesh)
+        self._lead = self.mesh is None or self.mesh.rank == 0
+        if refresh is not None and not self._lead:
+            raise ValueError("only rank 0 of a learner's mesh holds the refresh publisher")
         self._refresh = refresh
         self.stats = stats or RLStats()
         self.state = init_rl_state(config, seed, mesh, learning_rate,
@@ -1144,28 +1340,47 @@ class Learner:
                            self._buf[self.batches_per_update:])
         return take
 
-    def step_batch(self, batches: List[TrajectoryBatch]) -> Tuple[Dict[str, Any], float]:
-        """(the PPO step's device batch for a gang round, its mean reward
-        per env step): the rounds stacked, advantages computed on the host."""
+    def _host_batch(self, batches: List[TrajectoryBatch]) -> Tuple[Dict[str, np.ndarray], float]:
+        """(the step batch of a gang round as host arrays, its mean reward
+        per env step): the rounds stacked, advantages computed here."""
         tokens, behavior, rewards, mask = (
             np.concatenate([getattr(tb, f) for tb in batches])
             for f in ("tokens", "behavior_logprob", "rewards", "mask"))
         adv = compute_advantages(rewards, mask, gamma=self.gamma)
-        step_batch = {
-            "tokens": torch.from_numpy(tokens).to(self.device),
-            "behavior_logprob": torch.from_numpy(behavior).to(self.device),
-            "advantage": torch.from_numpy(adv).to(self.device),
-            "mask": torch.from_numpy(mask).to(self.device),
-            "temperature": 1.0,
-        }
-        return step_batch, float(rewards.sum() / max(mask.sum(), 1.0))
+        arrays = {"tokens": tokens, "behavior_logprob": behavior, "advantage": adv,
+                  "mask": mask}
+        return arrays, float(rewards.sum() / max(mask.sum(), 1.0))
 
-    def update_from(self, batches: List[TrajectoryBatch]) -> Dict[str, float]:
-        """One PPO update over a gathered gang round."""
-        for tb in batches:
-            self.stats.observe_staleness(
-                tb.actor_id, max(self.weight_epoch - tb.weight_epoch, 0))
-        step_batch, reward_mean = self.step_batch(batches)
+    def _device_batch(self, arrays: Dict[str, np.ndarray]) -> Dict[str, Any]:
+        out: Dict[str, Any] = {k: torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+                               for k, a in arrays.items()}
+        out["temperature"] = 1.0
+        return out
+
+    def step_batch(self, batches: List[TrajectoryBatch]) -> Tuple[Dict[str, Any], float]:
+        """(the PPO step's device batch for a gang round, whole, its mean
+        reward per env step): the rounds stacked, advantages computed on
+        the host."""
+        arrays, reward_mean = self._host_batch(batches)
+        return self._device_batch(arrays), reward_mean
+
+    def update_from(self, batches: Optional[List[TrajectoryBatch]]) -> Dict[str, float]:
+        """One PPO update over a gathered gang round. On a mesh rank 0
+        passes the round and broadcasts its step batch; the other ranks
+        pass None and step on their rows of it."""
+        if self._lead:
+            for tb in batches:
+                self.stats.observe_staleness(
+                    tb.actor_id, max(self.weight_epoch - tb.weight_epoch, 0))
+            arrays, reward_mean = self._host_batch(batches)
+        if self.mesh is not None:
+            arrays, reward_mean = broadcast_object(
+                (arrays, reward_mean) if self._lead else None, self.mesh)
+        step_batch = self._device_batch(arrays)
+        if self.mesh is not None:
+            rows = shard_batch({k: v for k, v in step_batch.items() if torch.is_tensor(v)},
+                               self.mesh)
+            step_batch = {**step_batch, **rows}
         t0 = time.monotonic()
         self.state, metrics = self._step(self.state, step_batch)
         # The one host readback, which also waits for the step to finish.
@@ -1181,13 +1396,27 @@ class Learner:
 
     def update_once(self, *, timeout: float = 60.0,
                     poll: Optional[Callable[[], None]] = None) -> Dict[str, float]:
-        return self.update_from(self.gather(timeout=timeout, poll=poll))
+        """Gather an update's batches (rank 0 of a mesh; the others take
+        its broadcast) and step."""
+        return self.update_from(self.gather(timeout=timeout, poll=poll)
+                                if self._lead else None)
+
+    def whole_params(self) -> Params:
+        """The policy's whole params: the state's own on one device; on a
+        mesh gathered from every rank's slices (a collective every rank
+        runs, in the same order)."""
+        return unshard_tree(self.mesh, self.state.params)
 
     def publish(self) -> int:
-        """Push the current policy; returns the new weight epoch."""
-        if self._refresh is None:
+        """Push the current policy; returns the new weight epoch. On a mesh
+        every rank calls it: each gathers the whole params, rank 0
+        publishes them and broadcasts the epoch."""
+        if self._lead and self._refresh is None:
             raise RuntimeError("learner has no refresh channel")
-        epoch = self._refresh.publish(self.state.params)
+        whole = self.whole_params()
+        epoch = self._refresh.publish(whole) if self._lead else None
+        if self.mesh is not None:
+            epoch = broadcast_object(epoch, self.mesh)
         self.weight_epoch = epoch
         self.stats.count_publish(epoch)
         return epoch

@@ -348,10 +348,7 @@ def run_drill(*, seed: int = 0, updates_per_phase: int = 2, echo: bool = False,
             if proc.poll() is None:
                 proc.send_signal(signal.SIGKILL)
         for proc in procs.values():
-            try:
-                proc.wait(timeout=10)
-            except subprocess.TimeoutExpired:
-                pass
+            proc.wait()  # killed: no actor outlives the drill
         httpd.shutdown()
         sink.close()
         refresh.close()

@@ -47,7 +47,10 @@ process group): rank r holds its column slices of every weight and its
 KV heads (sharding.SERVING_PARAM_SPECS, SERVING_KV_POOL_SPEC), and every
 program gathers activations at the column-parallel layout's points
 (kv_blocks.py), so a rank computes its columns as the unsharded program
-does. The host loop runs on rank 0 only. Every device program call and
+does. A mesh with an expert axis as well (model x expert ranks) cuts the
+MoE banks over expert and every other weight and the KV pools over model
+only (workloads/moe.py gathers the experts' outputs over the expert line).
+The host loop runs on rank 0 only. Every device program call and
 every host write into device state goes through one op layer (`_op`):
 rank 0 broadcasts the op and its host inputs, then runs it itself; each
 follower rank (`run_follower`) builds the same state from its shards and
@@ -84,7 +87,7 @@ from dstack_tpu_torch.utils.flight_recorder import FlightRecorder
 from dstack_tpu_torch.utils.histogram import HistogramData
 from dstack_tpu_torch.utils.stagemarkers import auto_stage
 from dstack_tpu_torch.workloads import compile_cache
-from dstack_tpu_torch.workloads.attention import decode_attention
+from dstack_tpu_torch.workloads.attention import decode_attention, make_attention_fn
 from dstack_tpu_torch.workloads.config import ModelConfig
 from dstack_tpu_torch.workloads.device import (
     DeviceLike,
@@ -134,6 +137,7 @@ from dstack_tpu_torch.workloads.transformer import (
     params_device,
     project_qkv,
     rms_norm,
+    serving_forward,
 )
 from dstack_tpu_torch.workloads.weights import flatten_params
 
@@ -513,11 +517,17 @@ class ServingEngine:
         # too); None on one device. Only rank 0 leads: it runs the host
         # loop and the reader threads, the others follow ops.
         model_shards(mesh)  # NotImplementedError for an object that is not a mesh
-        if mesh is not None and any(n > 1 for a, n in mesh.shape.items() if a != "model"):
+        if mesh is not None and any(n > 1 for a, n in mesh.shape.items()
+                                    if a not in ("model", "expert")):
             raise NotImplementedError(
-                f"serving over mesh {mesh.shape}: the engine serves over a model"
-                " axis only (tensor parallelism); a seq axis is the ring's, for"
-                " training")
+                f"serving over mesh {mesh.shape}: the engine serves over model and"
+                " expert axes only (tensor and expert parallelism); a seq axis is"
+                " the ring's, for training")
+        for what, cfg in (("target", config), ("drafter", spec_draft_config)):
+            if (mesh is not None and cfg is not None and cfg.n_experts > 0
+                    and cfg.n_experts % mesh.shape["expert"]):
+                raise ValueError(f"the mesh's expert axis ({mesh.shape['expert']}) must"
+                                 f" divide the {what}'s n_experts ({cfg.n_experts})")
         if mesh is not None and mesh.ranked and mesh.layout != "serving":
             raise ValueError(
                 f"mesh cut for the {mesh.layout!r} layout: the engine serves on the"
@@ -1046,6 +1056,28 @@ class ServingEngine:
             for (_, dst), (_, s) in zip(flatten_params(self.params), flatten_params(src)):
                 dst.copy_(s)
 
+    def _op_score(self, tokens: List[List[int]], temperature: float) -> torch.Tensor:
+        """The teacher-forced scorer on this rank's shards: the log-probs
+        (B, T-1) f32 of tokens[:, 1:] under softmax(logits / temperature),
+        the whole logits gathered over model as the paged programs gather
+        them (transformer.serving_forward)."""
+        toks = torch.tensor(tokens, dtype=torch.int64, device=self.device)
+        with torch.no_grad():
+            logits = serving_forward(self.config, self.params, toks[:, :-1], self.mesh,
+                                     attention_fn=make_attention_fn(None))
+            logp_all = torch.log_softmax(logits / max(float(temperature), 1e-6), dim=-1)
+            return torch.gather(logp_all, -1, toks[:, 1:, None])[..., 0]
+
+    def score(self, tokens, temperature: float) -> torch.Tensor:
+        """Per-token log-probs (B, T-1) f32 of tokens[:, 1:] (B, T ints,
+        any array) under softmax(logits / temperature) and the engine's
+        current weights, with no grad: the RL actor's behavior scorer on a
+        mesh (workloads/rl.py). Every rank runs the forward on its own
+        shards (the op layer), so no rank holds a whole copy of the
+        params; the result is on the leader's device."""
+        rows = [[int(t) for t in row] for row in tokens]
+        return self._op("score", rows, float(temperature))
+
     def _op_adapter(self, ix: int, layers: Optional[Params], scale: float) -> None:
         """Write bank slot `ix` (layers None zeroes it): A whole, B this
         rank's columns."""
@@ -1094,12 +1126,9 @@ class ServingEngine:
         admission waves, which changes how many prefill/decode chunks —
         and therefore how many sampler draws — the round consumes, the
         difference between a bit-reproducible seeded rollout and not.
-        submit() keeps enqueueing normally while held. Over a model mesh it
-        raises: RL across ranks belongs to the training slice."""
-        if model_shards(self.mesh) > 1:
-            raise NotImplementedError(
-                "hold_admission over a model mesh: RL across ranks belongs to"
-                " the next sharding slice (ROADMAP Queue 1 item 3)")
+        submit() keeps enqueueing normally while held. On a mesh the gate
+        is the leader's: its loop decides admission, and every op it then
+        dispatches reaches the followers in one order (`_op`)."""
         self._hold_admission = True
 
     def release_admission(self) -> None:

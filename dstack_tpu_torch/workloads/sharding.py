@@ -8,9 +8,10 @@ Three mesh shapes run here:
 - one device with a `seq` axis of n, whose n sequence shards take turns
   on that device through the ring (`attention._ring_attention_local`). No
   process group is involved; every other axis above 1 raises.
-- a serving mesh: a `model` axis over the ranks of a `torch.distributed`
-  process group (`init_ranks`, then `make_mesh(model=n)`), one rank per
-  device: the tensor-parallel serving engine (`serving.ServingEngine(mesh=)`).
+- a serving mesh: a `model` axis, and optionally an `expert` axis, over
+  the ranks of a `torch.distributed` process group (`init_ranks`, then
+  `make_mesh(model=m, expert=e)`), one rank per device: the
+  tensor-parallel serving engine (`serving.ServingEngine(mesh=)`).
   Rank r holds its slice of every weight and its KV heads, and the
   engine's host loop on rank 0 drives the same device programs on every
   rank.
@@ -76,7 +77,15 @@ coordinator's address (`start_ranks`). A rank's card is its index on its
 host. Everything above holds across hosts as it does on one: groups,
 rows and collectives follow global ranks.
 
-An expert axis on a serving mesh is ROADMAP Queue 1 item 3i, and raises.
+A serving mesh may also carry an expert axis (`make_mesh(model=m,
+expert=e)`, m x e ranks, the expert coordinate the faster): the banks
+`we_*` ride "expert" on their expert dim and "model" on their output
+columns (SERVING_PARAM_SPECS), every other weight and the KV pools are cut
+on model only, so they replicate over expert. Every rank holds every
+token; an MoE FFN runs the rank's block of E/e experts and gathers their
+outputs over the expert line (`gather_experts`, with no autograd there), and
+the combine runs whole on every rank. Such a mesh has a process group for
+each line of ranks along its axes (`mesh.groups`), as a training mesh does.
 """
 
 import datetime
@@ -109,9 +118,6 @@ LAYOUTS = ("serving", "training")
 # heartbeat, serving.HEARTBEAT_S, keeps its followers well inside it).
 GROUP_TIMEOUT = datetime.timedelta(minutes=30)
 
-_SERVING_EXPERT = ("an expert axis on a serving mesh (the tensor-parallel engine's"
-                   " expert-sharded banks) is ROADMAP Queue 1 item 3i, not ported yet;"
-                   " the trainer takes one (make_mesh(..., layout='training'))")
 _ONE_DEVICE = ("without a process group the port runs one device with a seq axis"
                " (the ring's shards take turns on it); the model, data, fsdp, seq and"
                " expert axes run over the ranks of sharding.init_ranks (the sharding"
@@ -130,7 +136,7 @@ class Mesh:
     """A mesh of the port: this process's device, the size of each axis
     (`shape`, axis -> size, the field `make_attention_fn` and the remat
     estimate read), and for a mesh over ranks its process group, this
-    rank's index in it (on a serving mesh, its index on the `model` axis),
+    rank's index in it (row-major over the axes, the expert axis fastest),
     the group's backend, the layout it was cut for, and a training mesh's
     sub-group for each set of axes (`groups`, axes tuple -> group, every
     rank's line of ranks along those axes). `stats` counts the collectives
@@ -155,13 +161,11 @@ class Mesh:
             if any(n > 1 for a, n in self.shape.items() if a != "seq"):
                 raise NotImplementedError(f"mesh {self.shape}: {_ONE_DEVICE}")
             return
-        if self.shape["expert"] > 1 and self.layout == "serving":
-            raise NotImplementedError(f"mesh {self.shape} over ranks: {_SERVING_EXPERT}")
         if self.layout == "serving" and (
                 self.shape["data"] * self.shape["fsdp"] * self.shape["seq"] > 1):
             raise ValueError(f"mesh {self.shape}: the serving layout shards the model"
-                             " axis only; a data, fsdp or seq axis is the trainer's"
-                             " (make_mesh(..., layout='training'))")
+                             " and expert axes only; a data, fsdp or seq axis is the"
+                             " trainer's (make_mesh(..., layout='training'))")
 
     @property
     def ranked(self) -> bool:
@@ -241,19 +245,21 @@ def init_ranks(world: int, rank: int, init_method: str, backend: Optional[str] =
 
 def make_mesh(devices: Optional[Sequence[DeviceLike]] = None, *, data: int = 1,
               fsdp: Optional[int] = None, seq: int = 1, model: int = 1,
-              expert: int = 1, layout: str = "serving") -> Mesh:
+              expert: int = 1, layout: str = "serving", group: Any = None) -> Mesh:
     """A mesh over `devices`. Without a process group: one device
     (default: the CUDA device) with a seq axis. After `init_ranks`: a mesh
-    over every rank of the group, cut for `layout` ("serving": a model
-    axis, the tensor-parallel engine's; "training": data, fsdp, seq,
-    model and expert, the trainer's), whose axis sizes multiply to the world; `devices` is
+    over every rank of `group` (default: the whole world), cut for
+    `layout` ("serving": model and expert axes, the tensor-parallel
+    engine's; "training": data, fsdp, seq, model and expert, the
+    trainer's), whose axis sizes multiply to the group's size; `devices` is
     None (`cuda:<rank>`, one host) or this rank's one device (the same for
     every rank on one card; a gang's rank passes its own, `rank_device`). `fsdp=None` takes
     the factor left after the other axes, as the reference's (`:45-49`).
-    A training mesh makes one sub-group per line of ranks along each set
-    of its axes, every rank creating every group in the same order. (Two
-    engines that serve at once over the same ranks each need a `Mesh` on
-    a group of their own, from `torch.distributed.new_group`.)"""
+    A training mesh, and a serving mesh with an expert axis, makes one
+    sub-group per line of ranks along each set of its axes, every rank of
+    `group` creating every group in the same order. (Two engines that
+    serve at once over the same ranks each need a mesh on a group of their
+    own: `group=torch.distributed.new_group(...)`.)"""
     ranked = dist.is_available() and dist.is_initialized()
     if fsdp is None and ranked:
         n, denom = dist.get_world_size(), data * seq * model * expert
@@ -268,7 +274,7 @@ def make_mesh(devices: Optional[Sequence[DeviceLike]] = None, *, data: int = 1,
         if len(devices) != 1:
             raise NotImplementedError(f"a mesh over {len(devices)} devices: {_ONE_DEVICE}")
         return Mesh(devices[0], shape, layout=layout)
-    group = dist.group.WORLD
+    group = dist.group.WORLD if group is None else group
     world, rank = dist.get_world_size(group), dist.get_rank(group)
     if math.prod(shape.values()) != world:
         raise ValueError(f"mesh {shape} over a process group of {world} ranks")
@@ -281,18 +287,22 @@ def make_mesh(devices: Optional[Sequence[DeviceLike]] = None, *, data: int = 1,
                          " (cuda:<rank>) or one for every rank")
     mesh = Mesh(dev, shape, group=group, rank=rank, backend=dist.get_backend(group),
                 layout=layout)
-    if layout == "training":
-        mesh.groups.update(_line_groups(shape, rank))
+    if layout == "training" or expert > 1:
+        mesh.groups.update(_line_groups(shape, rank, group=group))
     return mesh
 
 
-def _line_groups(shape: Dict[str, int], rank: int,
-                 order: Sequence[str] = AXES) -> Dict[Tuple[str, ...], Any]:
+def _line_groups(shape: Dict[str, int], rank: int, order: Sequence[str] = AXES,
+                 group: Any = None) -> Dict[Tuple[str, ...], Any]:
     """For each set of the axes above 1, the group of ranks that differ
     from this one only along those axes (its ranks in ascending order,
     which is their row-major index over the set; ranks are row-major over
-    `order`). Every rank calls `new_group` for every line in the same
-    order; the whole world is the default group."""
+    `order` and numbered within `group`, the whole world by default).
+    Every rank of `group` calls `new_group` for every line in the same
+    order; a line that spans `group` is `group` itself."""
+    group = dist.group.WORLD if group is None else group
+    glob = ((lambda r: r) if group is dist.group.WORLD
+            else (lambda r: dist.get_global_rank(group, r)))
     sizes = [shape[a] for a in order]
     world = math.prod(sizes)
     coords = [np.unravel_index(r, sizes) for r in range(world)]
@@ -306,8 +316,8 @@ def _line_groups(shape: Dict[str, int], rank: int,
                 lines.setdefault(key, []).append(r)
             for key in sorted(lines):
                 ranks = lines[key]
-                g = (dist.group.WORLD if len(ranks) == world
-                     else dist.new_group(ranks, timeout=GROUP_TIMEOUT))
+                g = (group if len(ranks) == world
+                     else dist.new_group([glob(r) for r in ranks], timeout=GROUP_TIMEOUT))
                 if rank in ranks:
                     out[axes] = g
     return out
@@ -631,16 +641,20 @@ def shard_batch(batch: Dict[str, torch.Tensor], mesh: Optional[Mesh]) -> Dict[st
 
 def _group(mesh: Mesh, axes: Sequence[str]) -> Tuple[Any, int]:
     """The process group of this rank's line along `axes` (the axes above
-    1, in the mesh's axis order) and its size: the whole group on a
-    serving mesh."""
+    1, in the mesh's axis order) and its size: the mesh's own group where
+    the line spans it (a serving mesh of one axis)."""
     live = tuple(a for a in mesh.axes if a in axes and mesh.shape[a] > 1)
     n = math.prod(mesh.shape[a] for a in live)
     if n == 1:
         return None, 1
     if not mesh.training:
-        if live != ("model",):
+        if any(a not in ("model", "expert") for a in live):
             raise ValueError(f"a serving mesh has no {live} axes")
-        return mesh.group, n
+        if n == math.prod(mesh.shape.values()):
+            return mesh.group, n
+        if live not in mesh.groups:
+            raise ValueError(f"serving mesh {mesh.shape} has no group for its {live}"
+                             " lines: build it with make_mesh(..., group=)")
     return mesh.groups[live], n
 
 
@@ -908,17 +922,30 @@ def enter_expert(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
 
 
 def gather_experts(x: torch.Tensor, dim: int, mesh: Optional[Mesh]) -> torch.Tensor:
-    """Every rank's experts' outputs concatenated along `dim` on a training
-    mesh's expert axis (backward: this rank's block, unsummed); `x` itself
-    elsewhere."""
+    """Every rank's experts' outputs concatenated along `dim` in expert
+    order: on a training mesh's expert axis with its backward (this rank's
+    block, unsummed); on a serving mesh's, a plain all-gather under no_grad
+    (the serving programs take no grads); `x` itself elsewhere."""
+    if serves_experts(mesh):
+        with torch.no_grad():
+            return gather_axes(x, dim, mesh, ("expert",))
     return _GatherExperts.apply(x, dim, mesh) if _splits(mesh, "expert") else x
+
+
+def serves_experts(mesh: Optional[Mesh]) -> bool:
+    """Whether `mesh` is a serving mesh over ranks whose expert axis cuts
+    the banks (False for no mesh and other meshes)."""
+    model_shards(mesh)
+    return (mesh is not None and mesh.ranked and not mesh.training
+            and mesh.shape["expert"] > 1)
 
 
 def expert_block(n_experts: int, mesh: Optional[Mesh]) -> Tuple[int, int]:
     """[e0, e1): the experts this rank's banks hold, its block of
-    `n_experts` by its expert coordinate on a training mesh; all of them
-    elsewhere. An expert axis that does not divide them raises ValueError."""
-    if not _splits(mesh, "expert"):
+    `n_experts` by its expert coordinate on a training mesh or a serving
+    mesh with an expert axis; all of them elsewhere. An expert axis that
+    does not divide them raises ValueError."""
+    if not (_splits(mesh, "expert") or serves_experts(mesh)):
         return 0, n_experts
     n = mesh.shape["expert"]
     if n_experts % n:

@@ -277,17 +277,68 @@ def token_nll(logits: torch.Tensor, targets: torch.Tensor, mesh=None) -> torch.T
     model axis the logits are this rank's V/m vocab columns (lm_head is
     column-parallel), and the CE is vocab-parallel: the rows' max over
     model, their sum of exps and the target's logit summed over model."""
-    if mesh is None or not mesh.training or mesh.shape["model"] == 1:
+    if not _vocab_split(mesh):
         lse = torch.logsumexp(logits, dim=-1)
         return lse - torch.gather(logits, -1, targets.long()[..., None])[..., 0]
     v = logits.shape[-1]
-    m = all_reduce(logits.detach().amax(dim=-1), mesh, ("model",), op="max")
-    sum_exp = reduce_model(torch.sum(torch.exp(logits - m[..., None]), dim=-1), mesh)
     local = targets.long() - mesh.coords["model"] * v
     mine = (local >= 0) & (local < v)
     tgt = torch.gather(logits, -1, local.clamp(0, v - 1)[..., None])[..., 0]
-    return m + torch.log(sum_exp) - reduce_model(
+    return vocab_lse(logits, mesh) - reduce_model(
         torch.where(mine, tgt, torch.zeros_like(tgt)), mesh)
+
+
+def _vocab_split(mesh) -> bool:
+    """Whether logits are a training rank's columns of the vocab (a model
+    axis above 1)."""
+    return mesh is not None and mesh.training and mesh.shape["model"] > 1
+
+
+def vocab_lse(logits: torch.Tensor, mesh=None) -> torch.Tensor:
+    """logsumexp over the whole vocab of f32 logits: on a training mesh's
+    model axis, from the rank's V/m columns, the rows' max over model (no
+    grad) plus the log of their sums of exps summed over model (the grad
+    of every column flows through `reduce_model`)."""
+    if not _vocab_split(mesh):
+        return torch.logsumexp(logits, dim=-1)
+    m = all_reduce(logits.detach().amax(dim=-1), mesh, ("model",), op="max")
+    return m + torch.log(reduce_model(torch.sum(torch.exp(logits - m[..., None]), dim=-1),
+                                      mesh))
+
+
+class _VocabEntropy(torch.autograd.Function):
+    """The entropy of softmax over a model axis's vocab columns: forward
+    the whole vocab's lse (`vocab_lse`) and each rank's partial sum of
+    p log p over its columns summed over model; backward dH/dlogit_v =
+    -p_v (log p_v + H), which needs only the rank's own columns and the
+    global H (autograd through the partial sums would miss the other
+    columns' share of the lse's grad)."""
+
+    @staticmethod
+    def forward(ctx, logits, mesh):
+        with torch.no_grad():
+            logp = logits - vocab_lse(logits, mesh)[..., None]
+            p = torch.exp(logp)
+            ent = -all_reduce(torch.sum(p * logp, dim=-1), mesh, ("model",))
+        ctx.save_for_backward(p, logp, ent)
+        return ent
+
+    @staticmethod
+    def backward(ctx, g):
+        p, logp, ent = ctx.saved_tensors
+        return -g[..., None] * p * (logp + ent[..., None]), None
+
+
+def token_entropy(logits: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Per-token entropy of softmax(logits), -sum_v p_v log p_v with log p
+    = logits - lse, from f32 logits (the reference's `-sum(exp(logp) *
+    logp)`). On a training mesh's model axis it is vocab-parallel
+    (`_VocabEntropy`): the lse over the whole vocab and each rank's partial
+    sum over its columns summed over model."""
+    if _vocab_split(mesh):
+        return _VocabEntropy.apply(logits, mesh)
+    logp = logits - torch.logsumexp(logits, dim=-1, keepdim=True)
+    return -torch.sum(torch.exp(logp) * logp, dim=-1)
 
 
 def ce_from_logits(logits: torch.Tensor, targets: torch.Tensor,

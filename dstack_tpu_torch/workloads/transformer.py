@@ -83,12 +83,9 @@ def init_params(config: ModelConfig, seed: int = 0,
     JAX weights instead, see weights.py). An MoE config draws the
     reference's leaves in place of the dense MLP's: router (L, D, E) f32,
     then we_gate and we_up (L, E, D, F) and we_down (L, E, F, D)."""
-    c = config
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    dt = c.activation_dtype
-    hd = c.head_dim
-    L, D, F, V = c.n_layers, c.d_model, c.d_ff, c.vocab_size
+    dt = config.activation_dtype
 
     def dense(shape, fan_in):
         w = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
@@ -97,6 +94,31 @@ def init_params(config: ModelConfig, seed: int = 0,
     def norm(shape):
         return torch.ones(shape, device=dev, dtype=torch.float32)
 
+    def router(shape, fan_in):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.float32) * fan_in ** -0.5
+
+    return _param_tree(config, dense, norm, router)
+
+
+def param_template(config: ModelConfig) -> Params:
+    """The whole params tree's leaves (names, shapes, dtypes) as tensors on
+    the meta device, which hold no storage: a template for a frame of
+    named weights (rl.params_from_named) where the params at hand are a
+    rank's slices."""
+    dt = config.activation_dtype
+
+    def empty(dtype):
+        return lambda shape, *_: torch.empty(shape, dtype=dtype, device="meta")
+
+    return _param_tree(config, empty(dt), empty(torch.float32), empty(torch.float32))
+
+
+def _param_tree(c: ModelConfig, dense, norm, router) -> Params:
+    """The params tree of `c` from leaf makers (shape, fan_in) -> tensor,
+    called in the order init_params draws."""
+    hd = c.head_dim
+    L, D, F, V = c.n_layers, c.d_model, c.d_ff, c.vocab_size
     embed = dense((V, D), D)
     layers = {
         "wq": dense((L, D, c.n_heads * hd), D),
@@ -109,8 +131,7 @@ def init_params(config: ModelConfig, seed: int = 0,
     if c.n_experts > 0:
         E = c.n_experts
         # The router stays f32: routing decisions are precision-sensitive.
-        layers["router"] = torch.randn((L, D, E), generator=gen, device=dev,
-                                       dtype=torch.float32) * D ** -0.5
+        layers["router"] = router((L, D, E), D)
         layers["we_gate"] = dense((L, E, D, F), D)
         layers["we_up"] = dense((L, E, D, F), D)
         layers["we_down"] = dense((L, E, F, D), F)
@@ -267,6 +288,30 @@ def ffn_block(c: ModelConfig, x: torch.Tensor, p: Params, mesh=None) -> torch.Te
     if c.n_experts > 0:
         return moe_block(c, x, p, mesh)[0]
     return mlp_block(c, x, p, mesh)
+
+
+def serving_forward(config: ModelConfig, params: Params, tokens: torch.Tensor,
+                    mesh=None, *, attention_fn: Optional[AttentionFn] = None) -> torch.Tensor:
+    """tokens (B, S) int -> the whole logits (B, S, V) f32, causal over
+    positions 0..S-1, on a serving rank's shards (sharding.rank_params):
+    each layer projects the rank's heads, attends with `attention_fn`
+    (default plain), and gathers where the paged programs gather
+    (`attn_out`, `ffn_block`; an MoE FFN's experts over the expert axis),
+    and the lm-head's columns are gathered over model. The same function
+    as `forward` without a mesh; no autograd is assumed (callers run it
+    under no_grad)."""
+    c = config
+    attn = attention_fn or plain_attention
+    b, s = tokens.shape
+    positions = torch.arange(s, device=tokens.device)
+    x = params["embed"][tokens]
+    for layer in range(c.n_layers):
+        p = layer_params(params, layer)
+        q, k, v = project_qkv(c, x, p, positions)
+        x = x + attn_out(attn(q, k, v).reshape(b, s, -1), p, mesh)
+        x = ffn_block(c, x, p, mesh)
+    h = rms_norm(x, params["final_norm"], c.norm_eps)
+    return all_gather(logits_linear(h, params["lm_head"]), -1, mesh)
 
 
 def _dots_policy(ctx, op, *args, **kwargs):

@@ -1148,6 +1148,7 @@ from dstack_tpu_torch.workloads.config import PRESETS
 # are no-ops and the flash path's plain versions count as launches.
 PRESETS["tiny-2k"] = PRESETS["tiny"].with_(max_seq_len=2048)
 cs.TR_PRESET, cs.TR_DEVICE, cs.TR_B, cs.TR_S = "tiny-2k", "cpu", 4, 64
+cs.RLR_LAYERS = 2
 torch.cuda.synchronize = lambda *a: None
 torch.cuda.reset_peak_memory_stats = lambda *a: None
 torch.cuda.max_memory_allocated = lambda *a: 0
@@ -1232,6 +1233,33 @@ def test_train_rank_phase_runs_on_the_cpu(tmp_path):
     assert lora["f32"]["sound"]["loss_rel"] < 1e-6 and lora["f32"]["sound"]["params"]["rel_l2"] < 1e-5
     assert not cs.lora_gates(lora["f32"]["column_axes"])["grad_norm"]
     cs.check_lora_ranks({"f32": lora["f32"]}, "15", (8, 64, 32))
+    # 15(h): the RL learner over fsdp 2 and model 2 against the one-device
+    # learner, at tiny with 2 layers; every rank's launches a layer an
+    # update at a rank's geometry (8 rows x 4 heads / 2, 127 positions).
+    rl = res["rl"]
+    assert sorted(rl["f32"]) == sorted(["fsdp2", "model2", "unsharded",
+                                        *[m for m, _, _ in cs.RLR_MUTANTS]])
+    for tag in ("bf16", "f32"):
+        for name in ("fsdp2", "model2"):
+            r = rl[tag][name]
+            assert r["ranks"][0]["publish"]["equal"] and r["ranks"][0]["publish"]["epoch"] == 1
+            for rr in r["ranks"]:
+                assert rr["first"] == r["ranks"][0]["first"]
+                assert rr["launches_per_step"]["flash_bwd_dq"] == 2
+                assert rr["kernel_shapes"]["flash_fwd"] == [[16, 127, 32]]
+    assert all(rl["f32"][n]["loss_rel"] < 1e-6 and rl["f32"][n]["params"]["rel_l2"] < 1e-5
+               for n in ("fsdp2", "model2"))
+    for m, _, guard in cs.RLR_MUTANTS:
+        assert not cs.rlr_gates(rl["f32"][m])[guard], m
+    monkeypatch = pytest.MonkeyPatch()
+    monkeypatch.setattr(cs, "TR_PRESET", "tiny")
+    try:
+        cs.check_rl_ranks({"f32": rl["f32"]})
+        bad = {**rl["f32"], "count_local": {**rl["f32"]["count_local"], "loss_rel": 0.0}}
+        with pytest.raises(AssertionError, match="15.h. count_local"):
+            cs.check_rl_ranks({"f32": bad})
+    finally:
+        monkeypatch.undo()
 
 
 RANKS_DRY_RUN = r'''
@@ -1280,10 +1308,44 @@ def counted_block(q, k, v, c):
 
 
 fa._flash_fwd_plain, fa._flash_bwd_plain, fa._block_ref_bh = counted_fwd, counted_bwd, counted_block
+
+
+def count_paged_calls():
+    """The paged kernel's plain version, counted as a launch."""
+    from dstack_tpu_torch.workloads import kv_blocks
+    from dstack_tpu_torch.workloads import paged_attention as pa
+
+    real = kv_blocks.ragged_attention
+
+    def counted(*a, **kw):
+        pa.LAUNCHES["ragged_paged_attention"] += 1
+        return real(*a, **kw)
+
+    kv_blocks.ragged_attention = counted
+
+
+if sys.argv[3] == "actor":
+    # 14(g)'s actor on phase 14's two serving ranks at tiny (2 layers).
+    import json
+    from dstack_tpu_torch.workloads import sharding
+
+    PRESETS["tiny-2k"] = PRESETS["tiny"].with_(max_seq_len=2048)
+    cs.TP_PRESET, cs.TP_DEVICE, cs.TA_LAYERS = "tiny-2k", "cpu", 2
+    count_paged_calls()
+    rank = int(sys.argv[1])
+    sharding.init_ranks(cs.TP_RANKS, rank, sys.argv[2], backend="gloo", device="cpu")
+    mesh = sharding.make_mesh(["cpu"], model=cs.TP_RANKS)
+    res = cs.ta_run(rank, mesh)
+    if rank == 0:
+        print("TA_RESULT " + json.dumps(res), flush=True)
+    sharding.leave_ranks(mesh)
+    sys.exit(0)
 if sys.argv[3] == "expert":
     # Phase 18's rank processes at tiny-moe (4 experts, 2 layers) on the CPU.
     PRESETS["tiny-moe-2k"] = PRESETS["tiny-moe"].with_(max_seq_len=2048)
     cs.EP_PRESET, cs.EP_DEVICE, cs.EP_B, cs.EP_S, cs.EP_LAYERS = "tiny-moe-2k", "cpu", 2, 64, 2
+    cs.ES_LAYERS = 2
+    count_paged_calls()
 if sys.argv[3] == "moe_seq":
     # Phase 20's rank processes at tiny-moe (4 experts, 2 layers) on the CPU.
     PRESETS["tiny-moe-2k"] = PRESETS["tiny-moe"].with_(max_seq_len=2048)
@@ -1421,6 +1483,40 @@ def test_expert_rank_phase_runs_on_the_cpu(tmp_path, monkeypatch):
                                                  "grad_norm_rel": 0.0}}
     with pytest.raises(AssertionError, match="phase 18 LoRA summed_over_expert"):
         cs.check_lora_ranks({"f32": bad}, "18", (8, 64, 32))
+    # 18(c): the expert-2 serving mesh on the same ranks against the
+    # unsharded engine: f32 and bf16 (routing pinned) token for token, the
+    # swapped blocks changing the f32 streams, a paged launch a layer a
+    # decode step on each rank, every rank with all of tiny-moe's heads.
+    serve = res["serve"]
+    assert serve["f32"]["sound"]["equal"] and serve["bf16"]["sound"]["equal"]
+    assert not serve["f32"]["swapped"]["equal"]
+    assert serve["bf16"]["ranks"][1]["sound"]["flips"] == 0
+    monkeypatch.setattr(cs, "ES_LAYERS", 2)
+    cs.check_expert_serving(serve)
+    bad = {**serve, "f32": {**serve["f32"], "swapped": {**serve["f32"]["swapped"],
+                                                        "equal": True}}}
+    with pytest.raises(AssertionError, match="18.c.: the swapped expert blocks"):
+        cs.check_expert_serving(bad)
+
+
+def test_rl_actor_phase_runs_on_the_cpu(tmp_path, monkeypatch):
+    """14(g) on two gloo ranks at tiny on the CPU: the mesh actor's f32
+    round equals the one-device actor's, its scores are within the gate,
+    the leader's admission gate held the round, the adopted frame is every
+    rank's slices by sha1 and the leader-only refresh fails rank 1's."""
+    res = _dry_run_ranks(tmp_path, "actor", cs.TP_RANKS, "TA_RESULT")
+    assert res["f32"]["tokens_equal"] and res["f32"]["logp_max_abs"] < 1e-5
+    assert res["f32"]["logp_vs_actor"] < 1e-6
+    for tag in ("f32", "bf16"):
+        for rr in res[tag]["ranks"]:
+            assert rr["flash"]["flash_fwd"] == 2 and rr["heads"] == 2
+            assert (rr["launches"] > 0) == (tag == "f32")  # bf16 scores the f32 round
+    monkeypatch.setattr(cs, "TP_PRESET", "tiny")
+    monkeypatch.setattr(cs, "TA_LAYERS", 2)
+    cs.check_tp_actor(res)
+    bad = {**res, "bf16": {**res["bf16"], "adopted_leader_only": [True, True]}}
+    with pytest.raises(AssertionError, match="must fail rank 1"):
+        cs.check_tp_actor(bad)
 
 
 EXPERT_PAIR = r'''
@@ -1570,3 +1666,53 @@ def test_moe_seq_rank_phase_runs_on_the_cpu(tmp_path, monkeypatch):
     bad = {**res["f32"], "no_rank_prefix": {**res["f32"]["no_rank_prefix"], "loss_rel": 0.0}}
     with pytest.raises(AssertionError, match="phase 20 no_rank_prefix"):
         cs.check_moe_seq_ranks({"f32": bad})
+
+
+ORPHAN_SCRIPT = """
+import subprocess, sys, time
+import chip_smoke as cs
+
+cs.adopt_orphans()
+# A parent that starts a grandchild in its own session and exits before it.
+subprocess.run([sys.executable, "-c",
+                "import subprocess; subprocess.Popen(['sleep', '120'], start_new_session=True)"],
+               check=True)
+time.sleep(0.5)
+stray = cs.stray_processes("the parent")
+stopped = cs.stop_descendants(grace=1.0)
+print("RESULT", len(stray), len(stopped), "sleep 120" in stopped[0], len(cs.descendants()))
+"""
+
+
+def test_an_orphaned_grandchild_is_adopted_named_and_stopped(tmp_path):
+    """The run adopts what its children leave behind: a grandchild whose
+    parent ended first is found below the smoke's process, logged as a
+    stray, killed past its grace and reaped, so nothing of the run outlives
+    it."""
+    import os
+    import subprocess
+    import sys
+
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+         os.environ.get("PYTHONPATH", "")])}
+    p = subprocess.run([sys.executable, "-c", ORPHAN_SCRIPT], capture_output=True, text=True,
+                       env=env, cwd=tmp_path, timeout=120)
+    assert p.returncode == 0, p.stderr[-3000:]
+    assert "stray processes after the parent" in p.stdout
+    assert p.stdout.splitlines()[-1] == "RESULT 1 1 True 0"
+
+
+def test_descendants_reads_the_tree_below_a_process():
+    import os
+    import subprocess
+
+    child = subprocess.Popen(["sleep", "30"])
+    try:
+        below = cs.descendants()
+        assert any(pid == child.pid and cmd == "sleep 30" for pid, _, cmd in below)
+        assert cs.descendants(child.pid) == []
+        assert all(pid != os.getpid() for pid, _, _ in below)
+    finally:
+        child.kill()
+        child.wait()

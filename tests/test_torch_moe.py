@@ -320,16 +320,23 @@ def test_train_step_single_device():
 
 
 def test_an_expert_mesh_is_refused():
-    """An expert axis without ranks, and on a serving mesh over ranks
-    (ROADMAP Queue 1 item 3i), is refused; the trainer's expert mesh runs
-    in tests/test_torch_expert_parallel.py."""
+    """An expert axis without ranks is refused; over ranks it builds a
+    serving mesh (the engine serves on it, tests/test_torch_serving_expert.py)
+    and a training mesh (tests/test_torch_expert_parallel.py). An engine
+    refuses an expert axis that does not divide the experts."""
+    from dstack_tpu_torch.workloads.serving import ServingEngine
     from dstack_tpu_torch.workloads.sharding import AXES, Mesh, make_mesh
 
     with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
         make_mesh(["cpu"], expert=2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3i"):
-        Mesh(torch.device("cpu"), dict(zip(AXES, (1, 1, 1, 1, 2))), group=object(),
-             backend="gloo")
+    mesh = Mesh(torch.device("cpu"), dict(zip(AXES, (1, 1, 1, 1, 2))), group=object(),
+                backend="gloo")
+    assert mesh.ranked and not mesh.training
+    c = PRESETS["tiny-moe"]
+    odd = Mesh(torch.device("cpu"), dict(zip(AXES, (1, 1, 1, 1, c.n_experts + 1))),
+               group=object(), backend="gloo")
+    with pytest.raises(ValueError, match="must divide the target's n_experts"):
+        ServingEngine(c, ttr.init_params(c, 0, "cpu"), mesh=odd, slots=2, max_len=64)
 
 
 def test_decode_matches_forward():

@@ -248,14 +248,39 @@ def test_rl_step_raises_logprob_of_advantaged_actions():
 
 
 def test_a_mesh_beyond_one_device_is_refused():
-    from dstack_tpu_torch.workloads.sharding import make_mesh
+    """A seq axis is refused (the reference's PPO step cannot take one:
+    tests/test_torch_rl_ranks.py pins JAX's own ValueError), on the
+    one-device seq mesh and over ranks."""
+    from dstack_tpu_torch.workloads.sharding import AXES, Mesh, make_mesh
 
-    mesh = make_mesh(["cpu"], seq=2)
-    for fn in (lambda: trl.init_rl_state(TCFG, mesh=mesh, device="cpu"),
-               lambda: trl.make_rl_train_step(TCFG, mesh),
-               lambda: trl.make_sequence_scorer(TCFG, mesh)):
-        with pytest.raises(NotImplementedError, match="mesh"):
-            fn()
+    over_ranks = Mesh(torch.device("cpu"), dict(zip(AXES, (1, 2, 2, 1, 1))), group=object(),
+                      backend="gloo", layout="training")
+    for mesh in (make_mesh(["cpu"], seq=2), over_ranks):
+        for fn in (lambda: trl.init_rl_state(TCFG, mesh=mesh, device="cpu"),
+                   lambda: trl.make_rl_train_step(TCFG, mesh),
+                   lambda: trl.make_sequence_scorer(TCFG, mesh),
+                   lambda: trl.Learner(TCFG, mesh=mesh, device="cpu")):
+            with pytest.raises(ValueError, match="cannot take a seq axis"):
+                fn()
+
+
+@pytest.mark.parametrize("axes", [dict(data=2), dict(fsdp=2), dict(model=2), dict(expert=2),
+                                  dict(data=2, fsdp=2), dict(expert=2, model=2)])
+def test_a_ranked_training_mesh_is_taken(axes):
+    """Data, fsdp, model and expert axes over ranks are the learner's mesh
+    (tests/test_torch_rl_ranks.py steps on them against JAX's mesh step);
+    a mesh cut for serving is the actor's, not the learner's."""
+    from dstack_tpu_torch.workloads.sharding import Mesh, make_mesh
+
+    shape = {"data": 1, "fsdp": 1, "seq": 1, "model": 1, "expert": 1, **axes}
+    cfg = trl.tiny_rl_config(n_experts=4, experts_per_token=2)
+    mesh = Mesh(torch.device("cpu"), shape, group=object(), backend="gloo", layout="training")
+    assert trl.rl_mesh(cfg, mesh) is mesh
+    assert trl.rl_mesh(cfg, None) is None and trl.rl_mesh(cfg, make_mesh(["cpu"])) is None
+    if set(axes) == {"model"}:
+        serving_mesh = Mesh(torch.device("cpu"), shape, group=object(), backend="gloo")
+        with pytest.raises(ValueError, match="cut for 'serving'"):
+            trl.make_rl_train_step(cfg, serving_mesh)
 
 
 # -- named params -----------------------------------------------------------------

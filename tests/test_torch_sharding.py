@@ -199,17 +199,24 @@ def test_meshes_without_ranks_still_refuse_every_axis_but_seq(kw):
 
 
 def test_training_axes_over_ranks_raise():
-    """An expert axis on a serving mesh stays refused (ROADMAP Queue 1 item
-    3i); on a training mesh it builds (tests/test_torch_expert_parallel.py
-    trains on it): each rank's block of the experts by its expert
-    coordinate, the same rows on every rank of an expert line, and an
-    expert axis that does not divide the experts refused. The data, fsdp
-    and model axes train since the training slice
-    (tests/test_torch_train_sharded.py), seq since the ring's
-    (tests/test_torch_ring_ranks.py)."""
+    """An expert axis over ranks builds on a serving mesh (with the model
+    axis: tests/test_torch_serving_expert.py serves on it), each rank's
+    block of the experts by its expert coordinate; a serving mesh still
+    refuses data, fsdp and seq. On a training mesh it builds
+    (tests/test_torch_expert_parallel.py trains on it): the same rows on
+    every rank of an expert line, and an expert axis that does not divide
+    the experts refused. The data, fsdp and model axes train since the
+    training slice (tests/test_torch_train_sharded.py), seq since the
+    ring's (tests/test_torch_ring_ranks.py)."""
+    served = tsh.Mesh(torch.device("cpu"), dict(zip(tsh.AXES, (1, 1, 1, 2, 2))),
+                      group=object(), rank=3, backend="gloo")
+    assert served.coords == dict(data=0, fsdp=0, seq=0, model=1, expert=1)
+    assert tsh.serves_experts(served) and tsh.expert_block(8, served) == (4, 8)
+    assert tsh.model_shards(served) == 2
+    with pytest.raises(ValueError, match="serving layout shards the model and expert"):
+        tsh.Mesh(torch.device("cpu"), dict(zip(tsh.AXES, (1, 2, 1, 1, 2))),
+                 group=object(), backend="gloo")
     shape = dict(zip(tsh.AXES, (1, 2, 1, 1, 2)))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3i"):
-        tsh.Mesh(torch.device("cpu"), shape, group=object(), backend="gloo")
     mesh = tsh.Mesh(torch.device("cpu"), shape, group=object(), rank=3, backend="gloo",
                     layout="training")
     assert mesh.coords == dict(data=0, fsdp=1, seq=0, model=0, expert=1)
@@ -322,13 +329,16 @@ def wave(eng, reqs):
 
 
 def serve_plain(eng):
-    refused = False
-    if eng.mesh is not None:
-        try:
-            eng.hold_admission()  # RL's gang admission: the training slice's
-        except NotImplementedError:
-            refused = True
-    return {"streams": wave(eng, SC), "hold_refused": refused}
+    # RL's gang admission (workloads/rl.py): the first request waits behind
+    # the gate until it is released; the wave then runs one request at a
+    # time, as the JAX engine's below.
+    eng.hold_admission()
+    first = eng.submit(SC[0][0], SC[0][1], temperature=0.0)
+    time.sleep(0.3)
+    st = eng.stats()
+    held = st["active"] == 0 and st["pending"] == 1
+    eng.release_admission()
+    return {"streams": [drain(first)] + wave(eng, SC[1:]), "held": held}
 
 
 def serve_spec(eng):
@@ -666,7 +676,9 @@ def test_two_rank_streams_equal_the_unsharded_engine(request, case):
 
 def test_two_rank_features_ran(tp_serve, tp_features):
     tp_run = {**tp_serve, **tp_features}
-    assert tp_run["plain"]["hold_refused"] and tp_run["moe"]["hold_refused"]
+    # hold_admission gates the round on the mesh as on one device.
+    for name in ("plain", "moe"):
+        assert tp_run[name]["held"] and tp_run[name]["unsharded"]["held"], name
     assert tp_run["spec"]["rounds"] > 0
     assert tp_run["refresh"]["dropped"] > 0
     # The refreshed weights change what the engine says.
