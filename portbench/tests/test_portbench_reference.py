@@ -1,0 +1,48 @@
+"""The plain reference against the program at tiny Mistral- and
+Mixtral-shaped configurations (Mixtral's at capacity factor E/k, where
+the program drops no token), in f32 on the CPU."""
+
+import pytest
+import torch
+
+from portbench import weights
+from portbench.model_config import port_config, shapes
+from portbench.reference import model as ref
+from portbench.tests import tiny
+
+
+@pytest.mark.parametrize("moe", [False, True], ids=["mistral", "mixtral"])
+def test_reference_matches_the_program(moe):
+    from dstack_tpu_torch.workloads.transformer import serving_forward
+
+    s = shapes(tiny.config(moe))
+    w = weights.make_weights(s, 7, "cpu")
+    tokens = torch.randint(0, s.vocab, (1, 48), generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        got = serving_forward(port_config(s), w, tokens)[0]
+    want = ref.logits(s, w, tokens[0].tolist(), range(48))
+    assert torch.allclose(got, want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("moe", [False, True], ids=["mistral", "mixtral"])
+def test_fp8_control_moves_the_logits(moe):
+    s = shapes(tiny.config(moe))
+    w = weights.make_weights(s, 7, "cpu")
+    toks = list(range(40))
+    full = ref.logits(s, w, toks, range(40))
+    low = ref.logits(s, w, toks, range(40), quant="fp8")
+    rel = float((low - full).norm() / full.norm())
+    assert 1e-3 < rel < 0.5
+
+
+def test_router_takes_the_lower_expert_on_a_tie():
+    s = shapes(tiny.config(True))
+    h = torch.zeros(3, s.d_model)
+    lw = {"router": torch.zeros(s.d_model, s.experts),
+          "we_gate": torch.zeros(s.experts, s.d_model, s.d_ff),
+          "we_up": torch.zeros(s.experts, s.d_model, s.d_ff),
+          "we_down": torch.zeros(s.experts, s.d_ff, s.d_model)}
+    probs = torch.softmax(h @ lw["router"], dim=-1)
+    order = torch.sort(probs, dim=-1, descending=True, stable=True).indices
+    assert order[:, :2].tolist() == [[0, 1]] * 3
+    assert torch.equal(ref.moe(s, h, lw, None), torch.zeros_like(h))
