@@ -69,7 +69,7 @@ Phases (any failure fails the run; nothing is caught to exit 0):
                loss and grad norm finite, loss falling, each flash kernel
                launched 16 times a step (32 for the forward under "full"
                remat); step ms, tokens/s, MFU, peak memory, and a profiled
-               step (device idle share, ms by kernel class);
+               step (device busy ms, ms by kernel class);
   6b. model  — smol-1b width at 2 layers, B 2 x S 2048: loss and grads
                through the kernels against plain_attention, f32 and bf16;
   3c. ring step — the ring-step kernel against its plain version
@@ -1226,8 +1226,7 @@ def state_leaves(state):
 
 def profile_step(step, state, batch):
     """One train step under torch.profiler: device time by kernel class
-    and the device's idle share of the step's wall time (the profiler adds
-    host overhead; not used for the throughput above)."""
+    (the profiler adds host overhead; not used for the throughput above)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1253,7 +1252,6 @@ def profile_step(step, state, batch):
     out = {
         "wall_ms": wall_us / 1e3,
         "device_busy_ms": busy / 1e3,
-        "device_idle_share": 1 - busy / wall_us if wall_us else None,
         "device_ms_by_class": {k: v / 1e3 for k, v in by_class.items()},
         "flash_kernels": flash,
         "top_kernels_ms": [(n[:90], v / 1e3) for n, v in top],
@@ -1491,8 +1489,8 @@ def device_kernels(prof):
 
 def profile_wave(eng, cfg, adapters=None):
     """A second wave (8 requests x 32 tokens, prompts 100-240 tokens)
-    under torch.profiler: device time per kernel class and the device's
-    busy share of the wave's wall time. Not used for the throughput
+    under torch.profiler: device time per kernel class and the wave's
+    wall time. Not used for the throughput
     numbers above (the profiler adds host overhead). With `adapters` (one
     per request) every LoRA delta runs on a side stream of its own, fenced
     both ways by stream waits (no host sync), so its kernels form a
@@ -1545,7 +1543,6 @@ def profile_wave(eng, cfg, adapters=None):
     out = {
         "wall_ms": wall_us / 1e3,
         "device_busy_ms": busy / 1e3,
-        "device_idle_share": 1 - busy / wall_us if wall_us else None,
         "device_ms_by_class": {k: v / 1e3 for k, v in by_class.items()},
         "top_kernels_ms": [(n[:90], v / 1e3) for n, v in top],
     }

@@ -1,4 +1,5 @@
-"""Per-request flight recorder: a bounded ring of phase timelines.
+"""Per-request flight recorder: a bounded ring of phase timelines, and
+`LoopTrace`, the engine loop's own span ring (at the end of this file).
 
 Each serving *request* gets one trace —
 Dapper-style request-scoped tracing over the dataplane hot path. The
@@ -31,7 +32,7 @@ primitive) because it imports nothing of the JAX package.
 import re
 import threading
 import time
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 from dstack_tpu_torch.utils.histogram import HistogramData
 
@@ -325,3 +326,113 @@ class FlightRecorder:
     def phase_histograms(self) -> Dict[str, Dict[str, Any]]:
         with self._lock:
             return {p: h.to_dict() for p, h in self.phase_hist.items()}
+
+
+class Span(NamedTuple):
+    """One engine-loop span as `LoopTrace.stop()` returns it. `parent`
+    indexes the same returned list (-1: none, or overwritten)."""
+
+    name: str
+    start_ns: int
+    end_ns: int
+    parent: int
+
+
+class LoopTrace:
+    """Engine-loop span ring: where the serving loop's thread spends each
+    iteration, on the clock of `torch.profiler`'s events.
+
+    Unlike `FlightRecorder`, whose traces are scoped to one request, these
+    spans are scoped to the engine, on the same design rules:
+
+    - **Fixed memory.** `capacity` span slots are preallocated as flat
+      lists and recycled overwrite-oldest; `dropped` counts the spans of a
+      capture that were overwritten before `stop()` read them.
+    - **No allocation on the hot path.** Opening a span writes four list
+      slots and bumps a count. Off (the default, until `start()`), a span
+      site is one attribute test: `if trace.on: trace.phase(...)`.
+    - **Telescoping phases.** `iteration()` closes the open iteration and
+      its open phase at one clock read and opens the next iteration;
+      `phase()` closes the open phase and opens the next under the same
+      iteration. So an iteration's phase spans tile it, except the stretch
+      between its start and its first phase (its self time). A capture
+      that starts inside an iteration takes that iteration from its next
+      phase on.
+    - **The profiler's clock.** Spans are stamped with `time.time_ns()`,
+      the clock of the profiler's kineto events, so a span and a device
+      interval compare with no offset to estimate.
+
+    Only the engine's loop thread opens and closes spans; `start()` and
+    `stop()` may run on another thread. A slot is written before the count
+    that publishes it moves, so `stop()` reads only whole spans; a span
+    still open at `stop()` ends there.
+    """
+
+    def __init__(self, capacity: int = 4096):
+        self.capacity = max(2, int(capacity))
+        self.on = False
+        cap = self.capacity
+        self._name = [""] * cap
+        self._start = [0] * cap
+        self._end = [0] * cap
+        self._parent = [-1] * cap
+        self._count = 0   # spans opened over the ring's life
+        self._first = 0   # _count at the last start()
+        self._iter = -1   # the open iteration span's index
+        self._phase = -1  # the open phase span's index
+
+    def start(self) -> None:
+        """Keep spans from now on (the previous capture's are let go)."""
+        self._first = self._count
+        self.on = True
+
+    def stop(self) -> Tuple[List[Span], int]:
+        """Stop keeping spans: (the spans opened since `start()`, oldest
+        first, the open ones ending now; how many were overwritten). At
+        most `capacity - 1` come back: the slot after the newest span may
+        be under a write from the loop thread."""
+        self.on = False
+        now = time.time_ns()
+        cap = self.capacity
+        hi = self._count
+        lo = max(self._first, hi - cap + 1)
+        raw = [(self._name[i % cap], self._start[i % cap], self._end[i % cap],
+                self._parent[i % cap]) for i in range(lo, hi)]
+        # Spans the loop opened while these were read reused the oldest slots.
+        keep = max(lo, self._count - cap + 1)
+        spans = [Span(name, start, end or now, p - keep if p >= keep else -1)
+                 for name, start, end, p in raw[keep - lo:]]
+        return spans, keep - self._first
+
+    def iteration(self) -> None:
+        """Close the open iteration (and its phase) and open the next."""
+        t = time.time_ns()
+        self._close(self._phase, t)
+        self._close(self._iter, t)
+        self._phase = -1
+        self._iter = self._open("loop.iteration", t, -1)
+
+    def phase(self, name: str) -> None:
+        """Close the open phase and open `name` under the open iteration.
+        A capture that began inside an iteration opens that iteration
+        here, at its first phase."""
+        t = time.time_ns()
+        if self._iter < self._first:
+            self._iter = self._open("loop.iteration", t, -1)
+        else:
+            self._close(self._phase, t)
+        self._phase = self._open(name, t, self._iter)
+
+    def _open(self, name: str, t: int, parent: int) -> int:
+        i = self._count
+        k = i % self.capacity
+        self._name[k] = name
+        self._start[k] = t
+        self._end[k] = 0
+        self._parent[k] = parent
+        self._count = i + 1
+        return i
+
+    def _close(self, i: int, t: int) -> None:
+        if i >= self._first and i >= self._count - self.capacity:
+            self._end[i % self.capacity] = t

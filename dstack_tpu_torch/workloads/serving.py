@@ -67,6 +67,17 @@ their times), and one per finalized prefill's first token, which a
 reader thread waits for on its own CUDA event so the loop never blocks
 on it. A spill and a swap-out wait for their device-to-host copies.
 
+Observability of the loop itself (dstack_tpu_torch/OBSERVABILITY.md):
+`loop_trace` (utils/flight_recorder.py `LoopTrace`, rank 0 only, off
+until `loop_trace.start()`) spans each iteration's phases on the
+profiler's clock, and the stream counters (`prefill_stream_seconds_total`,
+`decode_stream_seconds_total`, `decode_steps_total`) bracket the prefill
+chunks and the decode op on the stream with CUDA events read after a
+readback the loop already makes. A bracket runs from its first launch's
+start to its last launch's end, so it holds the stretches in which the
+device waited for the host to launch the next kernel: it is not the
+kernels' busy time.
+
 The dense primitives (DecodeState / make_prefill / make_insert /
 make_decode_step) are the reference semantics: the paged decode body
 shares `_select_next_token` with the dense body.
@@ -83,7 +94,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
-from dstack_tpu_torch.utils.flight_recorder import FlightRecorder
+from dstack_tpu_torch.utils.flight_recorder import FlightRecorder, LoopTrace
 from dstack_tpu_torch.utils.histogram import HistogramData
 from dstack_tpu_torch.utils.stagemarkers import auto_stage
 from dstack_tpu_torch.workloads import compile_cache
@@ -149,6 +160,14 @@ HEARTBEAT_S = 30.0
 # The key of a mesh host-tier payload's id (a host int64 scalar beside its
 # arrays), which names the followers' shards of the same payload.
 PAYLOAD_ID = "payload_id"
+# Series `prometheus_metrics` renders beyond the reference engine's
+# (dstack_tpu/server/metrics_registry.py declares those): the stream
+# counters, which read the port's CUDA events.
+PORT_SERIES = {
+    "dstack_tpu_serving_prefill_stream_seconds_total": "counter",
+    "dstack_tpu_serving_decode_stream_seconds_total": "counter",
+    "dstack_tpu_serving_decode_steps_total": "counter",
+}
 
 
 # -- dense reference -----------------------------------------------------------
@@ -380,11 +399,11 @@ class _SwappedSlot:
     or a terminal path unreserves it."""
 
     __slots__ = ("req", "length", "last_token", "remaining", "arrays",
-                 "nbytes", "t0")
+                 "nbytes", "t0", "t_tok")
 
     def __init__(self, req: _Request, length: int, last_token: int,
                  remaining: int, arrays: Dict[str, torch.Tensor],
-                 nbytes: int, t0: float):
+                 nbytes: int, t0: float, t_tok: float):
         self.req = req
         self.length = length          # filled cache positions at swap
         self.last_token = last_token  # next token to feed
@@ -392,6 +411,7 @@ class _SwappedSlot:
         self.arrays = arrays          # k/v (+draft_k/draft_v), (L, n, bs, KV, hd)
         self.nbytes = nbytes          # reserved against the host budget
         self.t0 = t0                  # original slot admission time
+        self.t_tok = t_tok            # its last token's delivery
 
 
 class _FirstToken:
@@ -413,6 +433,60 @@ class _FirstToken:
         if self._event is not None:
             self._event.synchronize()
         return int(self._host)
+
+
+class _StreamTimer:
+    """Seconds of the loop's stream between the start of the first op of a
+    bracket and the end of its last (`start` / `stop` around each op,
+    `close` ends the bracket). On the card a bracket is a pair of timing
+    events, reused; `collect` adds the pairs the stream has passed, after
+    a readback that already waited for them: it asks and never waits. On
+    the CPU ops run synchronously, so the host clock times each op.
+
+    A bracket's time is not the kernels' busy time: where the host
+    launches more slowly than the device runs, the stream waits inside the
+    bracket for the next launch, and that wait counts. Faster launching
+    (CUDA graphs) shortens a bracket as much as faster kernels do."""
+
+    def __init__(self, device: torch.device):
+        self.seconds = 0.0
+        self._cuda = device.type == "cuda"
+        self._free: List[Tuple[Any, Any]] = []
+        if self._cuda:
+            self._stream = torch.cuda.current_stream(device)
+            self._free = [self._pair() for _ in range(4)]
+        self._open: Optional[Tuple[Any, Any]] = None
+        self._pending: List[Tuple[Any, Any]] = []
+        self._t0 = 0.0
+
+    @staticmethod
+    def _pair() -> Tuple[Any, Any]:
+        return (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+
+    def start(self) -> None:
+        if not self._cuda:
+            self._t0 = time.perf_counter()
+        elif self._open is None:
+            self._open = self._free.pop() if self._free else self._pair()
+            self._open[0].record(self._stream)
+
+    def stop(self) -> None:
+        if not self._cuda:
+            self.seconds += time.perf_counter() - self._t0
+        else:  # a later op's record moves the bracket's end
+            self._open[1].record(self._stream)
+
+    def close(self) -> None:
+        if self._open is not None:
+            self._pending.append(self._open)
+            self._open = None
+
+    def collect(self) -> None:
+        while self._pending and self._pending[0][1].query():
+            pair = self._pending.pop(0)
+            self.seconds += pair[0].elapsed_time(pair[1]) / 1e3
+            self._free.append(pair)
 
 
 class _HostPayload:
@@ -808,8 +882,15 @@ class ServingEngine:
         self._prefill_chunks = 0
         self._prefill_tokens_computed = 0
         self._tpt_hist = HistogramData()
-        self._last_chunk_s = 0.0
         self._slot_t0: List[float] = [0.0] * slots
+        # Each live slot's last delivery (host clock): tpt_hist observes the
+        # wait since it over the tokens of the next.
+        self._slot_t_tok: List[float] = [0.0] * slots
+        # Stream time of the prefill chunks and of the decode op, and the
+        # decode steps run (a speculation round counts one).
+        self._prefill_timer = _StreamTimer(self.device)
+        self._decode_timer = _StreamTimer(self.device)
+        self._decode_steps = 0
         self._pending: "queue.Queue[_Request]" = queue.Queue()
         self._next_req: Optional[_Request] = None
         self._live: List[Optional[_Request]] = [None] * slots
@@ -850,6 +931,8 @@ class ServingEngine:
         self._kv_transfer_bytes = 0
         self._kv_transfer_hist = HistogramData()
         self._handoff_thread: Optional[threading.Thread] = None
+        # The loop's span ring: the loop runs on the leader only.
+        self.loop_trace = LoopTrace() if self._leader else None
         if not self._leader:
             return  # a follower runs ops (_follow), no loop or reader threads
         self._deliver_thread = threading.Thread(
@@ -1569,6 +1652,13 @@ class ServingEngine:
             "decode_seconds_total": round(self._t_decode, 4),
             "prefill_seconds_total": round(self._t_prefill, 4),
             "idle_seconds_total": round(self._t_idle, 4),
+            # Stream time, first launch to last end, launch gaps included;
+            # read after readbacks (the loop's timers above are host time,
+            # and a decode readback also waits for the prefill chunks
+            # queued ahead of it).
+            "prefill_stream_seconds_total": round(self._prefill_timer.seconds, 6),
+            "decode_stream_seconds_total": round(self._decode_timer.seconds, 6),
+            "decode_steps_total": self._decode_steps,
             "admitted_total": self._n_admitted,
             "ttft_seconds_sum": round(self._sum_ttft, 4),
             "queue_wait_seconds_sum": round(self._sum_queue_wait, 4),
@@ -1796,6 +1886,9 @@ class ServingEngine:
         chunk samples the first token and flips the slot live on the
         device; the reader thread delivers it. Returns True if anything
         moved."""
+        lt = self.loop_trace
+        if lt.on:
+            lt.phase("loop.admit")
         progressed = False
         while (not self._hold_admission
                and len(self._tasks) < self.max_prefills_per_chunk):
@@ -1864,6 +1957,8 @@ class ServingEngine:
                 progressed = True
                 continue
             n = min(len(task.req.tokens) - task.pos, budget)
+            if lt.on:
+                lt.phase("loop.blocks")
             if not self._ensure_task_blocks(task, task.pos + n):
                 continue  # pool exhausted; retry next boundary
             final = task.pos + n == len(task.req.tokens)
@@ -1872,6 +1967,9 @@ class ServingEngine:
             args = (n_padded, task.slot, self._pad_table(task.table),
                     chunk + [0] * (n_padded - n), n, task.pos,
                     task.req.max_new_tokens, task.req.temperature, task.req.top_p)
+            if lt.on:
+                lt.phase("loop.prefill_launch")
+            self._prefill_timer.start()
             # Target only takes the adapter: the drafter never applies LoRA.
             first = self._op("chunk", *args, final, task.req.adapter_ix)
             self._attn_dispatch[self._attn_path] += 1
@@ -1881,6 +1979,9 @@ class ServingEngine:
                 # alike).
                 self._op("draft_chunk", *args)
                 self._attn_dispatch[self._attn_path] += 1
+            self._prefill_timer.stop()
+            if lt.on:
+                lt.phase("loop.admit")
             task.pos += n
             budget -= n
             self._prefill_chunks += 1
@@ -1921,6 +2022,7 @@ class ServingEngine:
                 else:
                     self._pending_activation.append(task)
                     self._deliver_q.put(task)
+        self._prefill_timer.close()
         return progressed
 
     def _deliver_loop(self) -> None:
@@ -1942,6 +2044,7 @@ class ServingEngine:
                 dead = req.out in self._cancelled
                 if not dead:
                     req.out.put(first)
+                    self._slot_t_tok[task.slot] = now
                     if req.trace is not None and req.max_new_tokens > 1:
                         req.trace.mark("decode", now)
                 self._ttft_s = self._ewma_seed(self._ttft_s, now - req.t_submit)
@@ -2237,6 +2340,7 @@ class ServingEngine:
             with self._lock:
                 if out not in self._cancelled:
                     out.put(first)
+                    self._slot_t_tok[slot] = now
                     if rec is not None:
                         if h.max_new_tokens > 1:
                             rec.mark("decode", now)  # kv_adopt closes here
@@ -2371,7 +2475,7 @@ class ServingEngine:
                 req.trace.mark("decode")
             return False
         sw = _SwappedSlot(req, length, last, rem, arrays, nbytes,
-                          self._slot_t0[slot])
+                          self._slot_t0[slot], self._slot_t_tok[slot])
         with self._lock:
             self._live[slot] = None
             self._release_slot_blocks(slot, cache_tail=False)
@@ -2474,6 +2578,7 @@ class ServingEngine:
                 self._slot_k[slot] = self._spec_init_k
                 self._accept_ewma[slot] = None
                 self._slot_t0[slot] = sw.t0
+                self._slot_t_tok[slot] = sw.t_tok
                 self._host_tier.unreserve(sw.nbytes)
             self._slot_swap_ins += 1
             self._swap_in_hist.observe(time.monotonic() - t0)
@@ -2602,22 +2707,43 @@ class ServingEngine:
     def _decode_chunk(self):
         """Dispatch one decode chunk and read it back: the one host sync
         per `steps_per_sync` tokens."""
+        lt = self.loop_trace
+        if lt.on:
+            lt.phase("loop.decode_launch")
         sampling, nucleus = self._sampling_flags()
         lora, has_lora = self._lora_live()
+        self._decode_timer.start()
         tokens, active = self._op("decode", lora, sampling, nucleus, has_lora)
+        self._decode_timer.stop()
+        self._decode_timer.close()
         self._attn_dispatch[self._attn_path] += 1
+        if lt.on:
+            lt.phase("loop.readback")
         both = torch.cat([tokens, active[:, None].to(tokens.dtype)], dim=1).cpu()
-        return both[:, :-1].tolist(), [bool(x) for x in both[:, -1]]
+        out = both[:, :-1].tolist(), [bool(x) for x in both[:, -1]]
+        self._decode_steps += self._steps_per_sync
+        self._collect_device_time()
+        return out
+
+    def _collect_device_time(self) -> None:
+        """Add the timed brackets the stream has passed (after a readback)."""
+        self._prefill_timer.collect()
+        self._decode_timer.collect()
 
     def _loop(self) -> None:
+        lt = self.loop_trace
         while not self._stop:
             try:
+                if lt.on:
+                    lt.iteration()
                 has_live = any(r is not None for r in self._live)
                 if not has_live and not self._tasks:
                     with self._lock:
                         waiting = (bool(self._swapped) or self._next_req is not None
                                    or bool(self._prefilled_pending))
                     if self._pending.empty() and not waiting:
+                        if lt.on:
+                            lt.phase("loop.idle_wait")
                         t_w = time.monotonic()
                         self._wake.wait(timeout=0.2)
                         self._wake.clear()
@@ -2631,28 +2757,41 @@ class ServingEngine:
                     # iteration decodes the freshly activated slots.
                     # Swapped-out requests get first claim on capacity.
                     t_p = time.monotonic()
+                    if lt.on:
+                        lt.phase("loop.admit")
                     progressed = self._readmit_swapped()
                     progressed |= self._advance_prefills()
                     progressed |= self._admit_prefilled()
+                    if lt.on:
+                        lt.phase("loop.first_token_wait")
                     self._wait_activations()
+                    self._collect_device_time()
                     self._t_prefill += time.monotonic() - t_p
                     if not progressed and (self._tasks or self._swapped
                                            or self._prefilled_pending):
+                        if lt.on:
+                            lt.phase("loop.idle_wait")
                         time.sleep(0.001)  # pool starved, nothing live
                     continue
                 # 1) Prefill chunks first, so first-token readbacks land
                 #    while the decode chunk runs; block growth after, so
                 #    a prefill that went live above gets its decode rows.
                 t0 = time.monotonic()
+                if lt.on:
+                    lt.phase("loop.admit")
                 self._readmit_swapped()
                 self._process_preempt_requests()
                 self._advance_prefills()
+                if lt.on:
+                    lt.phase("loop.admit")
                 self._admit_prefilled()
                 if self._spec and self._spec_cooldown == 0:
                     toks, still, t_pf = self._spec_round()
                     if toks is None:
                         continue  # every slot left during provisioning
                 else:
+                    if lt.on:
+                        lt.phase("loop.blocks")
                     self._ensure_decode_blocks()
                     t_pf = time.monotonic()
                     # 2) The decode chunk, and its one readback.
@@ -2660,7 +2799,6 @@ class ServingEngine:
                     t_sync = time.monotonic()
                     self._chunk_s = self._ewma(self._chunk_s, t_sync - t_pf)
                     self._t_decode += t_sync - t_pf
-                    self._last_chunk_s = t_sync - t_pf
                     if self._spec:
                         self._spec_fallback_rounds += 1
                         self._spec_cooldown -= 1
@@ -2672,7 +2810,11 @@ class ServingEngine:
                             self._spec_low_streak = 0
                 self._t_prefill += t_pf - t0
                 # 3) First-token order barrier, then fan out the chunk.
+                if lt.on:
+                    lt.phase("loop.first_token_wait")
                 self._wait_activations()
+                if lt.on:
+                    lt.phase("loop.fan_out")
                 self._fan_out(toks, still)
             except Exception as e:  # fail every consumer loudly, not by
                 # wedging them on a dead queue
@@ -2691,6 +2833,9 @@ class ServingEngine:
         (toks, still, t_pf) shaped like a decode chunk's (rows of k+1,
         -1-padded) so the fan-out is shared, or (None, None, t) when no
         slot survived block provisioning."""
+        lt = self.loop_trace
+        if lt.on:
+            lt.phase("loop.blocks")
         k_cur = max((self._slot_k[s] for s in range(self.slots)
                      if self._live[s] is not None), default=self._spec_init_k)
         self._ensure_decode_blocks(k_cur + 1)
@@ -2698,23 +2843,39 @@ class ServingEngine:
         if not any(r is not None for r in self._live):
             return None, None, time.monotonic()
         t_pf = time.monotonic()
+        if lt.on:
+            lt.phase("loop.decode_launch")
         sampling, nucleus = self._sampling_flags()
+        self._decode_timer.start()
         self._op("spec_draft", k_cur, sampling, nucleus)
+        self._decode_timer.stop()
+        if lt.on:
+            lt.phase("loop.readback")
         self._sync()  # splits the draft's time from the verify's
         t_draft = time.monotonic()
+        if lt.on:
+            lt.phase("loop.decode_launch")
         lora, has_lora = self._lora_live()
+        self._decode_timer.start()
         emitted, accepted, active = self._op("spec_verify", k_cur, lora, sampling,
                                              nucleus, has_lora)
+        self._decode_timer.stop()
+        self._decode_timer.close()
+        if lt.on:
+            lt.phase("loop.readback")
         both = torch.cat([emitted, accepted[:, None], active[:, None].to(emitted.dtype)],
                          dim=1).cpu().tolist()
         t_sync = time.monotonic()
+        self._decode_steps += 1
+        self._collect_device_time()
+        if lt.on:
+            lt.phase("loop.fan_out")
         toks = [row[:-2] for row in both]
         acc = [row[-2] for row in both]
         still = [bool(row[-1]) for row in both]
         self._attn_dispatch[self._attn_path] += 2  # draft + verify programs
         self._chunk_s = self._ewma(self._chunk_s, t_sync - t_pf)
         self._t_decode += t_sync - t_pf
-        self._last_chunk_s = t_sync - t_pf
         self._t_spec_draft += t_draft - t_pf
         self._t_spec_verify += t_sync - t_draft
         self._spec_rounds += 1
@@ -2765,16 +2926,19 @@ class ServingEngine:
         finished or were cancelled."""
         with self._lock:
             cancelled = set(self._cancelled)
-        total_emitted = 0
+        now = time.monotonic()
         for slot, req in enumerate(self._live):
             if req is None:
                 continue
             row = [t for t in toks[slot] if t >= 0]
             self._lengths_host[slot] += len(row)
-            total_emitted += len(row)
             if req.trace is not None:
                 req.trace.decode_steps += 1
                 req.trace.decode_tokens += len(row)
+            if row and req.out not in cancelled:
+                # The wait since this slot's last delivery, over its tokens.
+                self._tpt_hist.observe((now - self._slot_t_tok[slot]) / len(row))
+                self._slot_t_tok[slot] = now
             if req.out in cancelled:
                 with self._lock:
                     self._cancelled.discard(req.out)
@@ -2808,8 +2972,6 @@ class ServingEngine:
                 continue
             for tok in row:
                 req.out.put(tok)
-        if total_emitted:
-            self._tpt_hist.observe(self._last_chunk_s / total_emitted)
 
 
 def run_follower(mesh, config: ModelConfig, params: Params, **engine_kw) -> "ServingEngine":
@@ -2866,6 +3028,11 @@ def prometheus_metrics(stats: Dict[str, Any]) -> str:
          stats["prefill_chunks_total"]),
         ("dstack_tpu_serving_prefill_tokens_total", "counter",
          stats["prefill_tokens_computed_total"]),
+        ("dstack_tpu_serving_prefill_stream_seconds_total", "counter",
+         stats["prefill_stream_seconds_total"]),
+        ("dstack_tpu_serving_decode_stream_seconds_total", "counter",
+         stats["decode_stream_seconds_total"]),
+        ("dstack_tpu_serving_decode_steps_total", "counter", stats["decode_steps_total"]),
         ("dstack_tpu_serving_admitted_total", "counter", stats["admitted_total"]),
         ("dstack_tpu_serving_rejected_total", "counter", stats["rejected_total"]),
         # Speculative decoding (zero without spec_enable).

@@ -354,11 +354,13 @@ def test_native_server_qos_rate_sheds_with_retry_after_and_counts_tenants():
         assert f'dstack_tpu_serving_tenant_shed_total{{tenant="flood"}} {n_shed}' in text
         assert 'dstack_tpu_serving_tenant_ttft_seconds_count{tenant="other"} 1' in text
         from dstack_tpu.server.metrics_registry import METRICS
+        from dstack_tpu_torch.workloads.serving import PORT_SERIES
 
         for line in text.splitlines():
             if line.startswith("# TYPE "):
                 _, _, name, mtype = line.split()
-                assert name in METRICS and METRICS[name][0] == mtype, line
+                assert (name in METRICS and METRICS[name][0] == mtype
+                        or PORT_SERIES.get(name) == mtype), line
         stats = json.loads(_call("GET", base + "/metrics")[1])
         assert stats["qos"]["shed_total"] == {"flood": n_shed}
         assert stats["qos"]["admitted_total"] == {"flood": 2, "other": 1}

@@ -227,7 +227,8 @@ def test_prometheus_series_are_registered(weights):
     for line in text.splitlines():
         if line.startswith("# TYPE "):
             _, _, name, mtype = line.split()
-            assert name in METRICS and METRICS[name][0] == mtype, line
+            assert (name in METRICS and METRICS[name][0] == mtype
+                    or tsrv.PORT_SERIES.get(name) == mtype), line
     assert 'dstack_tpu_serving_attn_dispatch_total{path="plain"}' in text
 
 
@@ -521,7 +522,8 @@ def test_native_server_runs_service_yml_flags_on_cpu(monkeypatch):
         for line in text.splitlines():
             if line.startswith("# TYPE "):
                 _, _, name, mtype = line.split()
-                assert name in METRICS and METRICS[name][0] == mtype, line
+                assert (name in METRICS and METRICS[name][0] == mtype
+                        or tsrv.PORT_SERIES.get(name) == mtype), line
     finally:
         seen["server"].shutdown()
         th.join(timeout=30)

@@ -447,7 +447,8 @@ def test_role_metrics_render(weights):
         for line in text.splitlines():
             if line.startswith("# TYPE "):
                 _, _, name, mtype = line.split()
-                assert name in METRICS and METRICS[name][0] == mtype, line
+                assert (name in METRICS and METRICS[name][0] == mtype
+                        or tsrv.PORT_SERIES.get(name) == mtype), line
 
 
 def test_warmup_runs_the_roles_transfer_programs(weights):
