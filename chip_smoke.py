@@ -405,6 +405,14 @@ PAGED_COPIES = 16
 # plain forward, max |diff| / max |ref| over 16 layers.
 # The near-tie rule (dense_logits, near_tie) and its table are the drill's.
 ENGINE_LOGIT_TOL = NEAR_TIE_TOL
+# The benchmark cells' attention geometry (Mistral-7B, Mixtral-8x7B) and
+# the (S, start) of their prompt chunks that phase 3 times: docs' pow-2
+# chunks at start 0, a chunk after chat's reused prefix.
+CELL_GEO = dict(H=32, KV=8, hd=128, bs=16)
+CELL_CHUNKS = ((2048, 0), (4096, 0), (8192, 0), (4096, 1536))
+# The grid over which run_prefill_crossover times both kernels.
+CROSSOVER_S = (16, 32, 64, 128, 256, 512)
+CROSSOVER_STARTS = (0, 1024, 3072, 6144)
 PAGED_KERNEL_SOURCE = "dstack_tpu_torch/workloads/csrc/paged_attention.cu"
 PAGED_KERNEL_REPLACES = "dstack_tpu/workloads/paged_attention.py:222"
 FLASH_KERNEL_SOURCE = "dstack_tpu_torch/workloads/csrc/flash_attention.cu"
@@ -652,6 +660,13 @@ def run_kernels(flush):
                                 start=decode_bs32_lens, seed=8))
         cases.append(paged_case(f"verify_bs32_{tag}", dtype, B=32, S=5, **geo32,
                                 start=verify32_lens, seed=9))
+    # The benchmark cells' prompt chunks (Mistral-7B's attention: H 32, KV
+    # 8, hd 128, block 16), bf16 only, which takes the prefill kernel:
+    # docs' chunks at start 0, and a chunk after chat's reused prefix.
+    for S, start in CELL_CHUNKS:
+        n = -(-(start + S) // 16)
+        cases.append(paged_case(f"cell{S}_at{start}_bf16", torch.bfloat16, B=1, S=S,
+                                **CELL_GEO, MB=n, NB=n + 16, start=[start], seed=10 + S + start))
     results = []
     for case in cases:
         args = (case["q"], case["k"], case["v"], case["tables"], case["vlen"])
@@ -667,6 +682,8 @@ def run_kernels(flush):
         r["mutation"] = dict(scale=MUTATION_SCALE, caught=not within(mutant, tol),
                              **{k: mutant[k] for k in ("rel_l2", "row_rel", "row_l2")})
         r["split_plan"] = plan._asdict()
+        prefill = prefill_plan(pa, case)
+        r["prefill_plan"] = prefill._asdict() if prefill else None
         log(f"kernel {case['name']}: " + json.dumps(r) + f" (tol {tol})")
         results.append(r)
         del got, ref
@@ -684,12 +701,57 @@ def run_kernels(flush):
     return results
 
 
+def run_prefill_crossover(flush) -> list:
+    """Where the prefill kernel starts to beat the split kernel: both at
+    short bf16 chunks of the cells' geometry (the prefill kernel forced
+    below PREFILL_MIN_ROWS), CROSSOVER_S x CROSSOVER_STARTS, back to back
+    over PAGED_COPIES copies of the pools; each output first held against
+    the plain version."""
+    from dstack_tpu_torch.workloads import paged_attention as pa
+
+    out = []
+    for S in CROSSOVER_S:
+        for start in CROSSOVER_STARTS:
+            n = -(-(start + S) // 16)
+            case = paged_case(f"x{S}_at{start}", torch.bfloat16, B=1, S=S, **CELL_GEO, MB=n,
+                              NB=n + 16, start=[start], seed=20 + S + start)
+            args = (case["q"], case["k"], case["v"], case["tables"], case["vlen"])
+            grid = pa._prefill_grid(1, S, CELL_GEO["H"], CELL_GEO["H"] // CELL_GEO["KV"])
+            plans = dict(prefill=grid, split=paged_plan(pa, case))
+            ref = pa._ragged_attention_plain(*args)
+            r = dict(S=S, start=start, bound_ms=paged_bound(case)[0])
+            copies = [{**case, "k": case["k"].clone(), "v": case["v"].clone()}
+                      for _ in range(PAGED_COPIES)]
+            for name, plan in plans.items():
+                got = pa._ragged_attention_cuda(*args, plan=plan)
+                rd = paged_readings(got, ref, CELL_GEO["H"])
+                if not within(rd, PAGED_TOL[torch.bfloat16]):
+                    raise AssertionError(f"crossover {case['name']} {name}: readings {rd}")
+                kern = [lambda c=c, plan=plan: pa._ragged_attention_cuda(
+                    c["q"], c["k"], c["v"], c["tables"], c["vlen"], plan) for c in copies]
+                r[f"{name}_ms"] = cuda_ms(kern, 4 * PAGED_COPIES)
+                r[f"{name}_ms_one_launch"] = cuda_ms_one(kern[0], 50, flush)
+            log("prefill crossover", json.dumps(r))
+            out.append(r)
+            del copies, case, ref
+    torch.cuda.empty_cache()
+    return out
+
+
 def paged_plan(pa, case, per_sm=None):
     """`_split_plan` of a case's shapes on this card."""
     B, S, H, hd = case["q"].shape
     _, bs, KV, _ = case["k"].shape
     return pa._split_plan(B, S, H, KV, case["tables"].shape[1], bs, hd, case["dtype"],
                           pa._device_info(case["q"].device.index)[1], per_sm)
+
+
+def prefill_plan(pa, case):
+    """`_prefill_plan` of a case's shapes (None where the call stays on
+    the split kernel)."""
+    B, S, H, hd = case["q"].shape
+    _, bs, KV, _ = case["k"].shape
+    return pa._prefill_plan(B, S, H, KV, case["tables"].shape[1], bs, hd, case["dtype"])
 
 
 def paged_call_breakdown(kern, n: int = 32) -> dict:
@@ -724,7 +786,9 @@ def paged_times(pa, case, ref, flush) -> dict:
     `library_ms_one_launch`); the plain version one call at a time; and
     the kernel back to back under the split target (CTAs per SM) that
     `_split_plan` does not choose of 4 and 8 (`other_plan`), which the
-    chosen one should beat."""
+    chosen one should beat; for a case that takes the prefill kernel, the
+    split kernel it took before (`split_kernel`) and the prefill kernel
+    with one query head a CTA (`pack1_ms`) in its place."""
     args = (case["q"], case["k"], case["v"], case["tables"], case["vlen"])
     copies = [{**case, "k": case["k"].clone(), "v": case["v"].clone()}
               for _ in range(PAGED_COPIES)]
@@ -745,13 +809,24 @@ def paged_times(pa, case, ref, flush) -> dict:
              library_ms_one_launch=cuda_ms_one(lib[0], 50, flush),
              library_max_abs_err=lib_err)
     r.update(tflops=ops / (r["ms"] * 1e-3) / 1e12, bound_share=bound_ms / r["ms"])
-    other = {4: 8, 8: 4}[pa.CTAS_PER_SM[(case["dtype"], case["q"].shape[1] == 1)]]
-    plan = paged_plan(pa, case, other)
-    alt = [lambda c=c: pa._ragged_attention_cuda(c["q"], c["k"], c["v"], c["tables"],
-                                                 c["vlen"], plan) for c in copies]
-    r["other_plan"] = dict(per_sm=other, splits=plan.splits,
-                           keys_per_split=plan.keys_per_split, ms=cuda_ms(alt, 4 * PAGED_COPIES))
-    del alt
+
+    def alt_ms(plan):
+        alt = [lambda c=c: pa._ragged_attention_cuda(c["q"], c["k"], c["v"], c["tables"],
+                                                     c["vlen"], plan) for c in copies]
+        return cuda_ms(alt, 4 * PAGED_COPIES)
+
+    if prefill_plan(pa, case) is not None:
+        # The split kernel this call took before the prefill kernel, and
+        # one query head a CTA over 128 rows in place of the GQA group.
+        plan = paged_plan(pa, case)
+        r["split_kernel"] = dict(splits=plan.splits, keys_per_split=plan.keys_per_split,
+                                 ms=alt_ms(plan))
+        r["pack1_ms"] = alt_ms(pa._prefill_grid(*case["q"].shape[:3], 1))
+    else:
+        other = {4: 8, 8: 4}[pa.CTAS_PER_SM[(case["dtype"], case["q"].shape[1] == 1)]]
+        plan = paged_plan(pa, case, other)
+        r["other_plan"] = dict(per_sm=other, splits=plan.splits,
+                               keys_per_split=plan.keys_per_split, ms=alt_ms(plan))
     r.update(paged_call_breakdown(kern))
     del kern, lib, views, lib_out, copies
     torch.cuda.empty_cache()
@@ -801,6 +876,7 @@ def rate_readings(which, bh, s, hd, causal, ms, bound_ms) -> dict:
 PTXAS_ENTRY = {
     "ragged_paged_attention": "ragged_paged_attention_kernelI13__nv_bfloat16Li128ELi4E",
     "ragged_paged_attention_chunk": "ragged_paged_attention_kernelI13__nv_bfloat16Li128ELi1E",
+    "ragged_paged_prefill": "ragged_paged_attention_prefill_sm90_kernelILi128E",
     "flash_fwd": "flash_fwd_sm90_kernelILi128E",
     "flash_block_fwd": "flash_block_fwd_sm90_kernelILi128E",
     "flash_bwd_dq": "flash_bwd_dq_sm90_kernelILi128E",
@@ -1341,34 +1417,42 @@ def byte_prompt(seed: int, n: int):
     return [(i * 31 + seed * 17 + 7) % 251 + 1 for i in range(n)]
 
 
-def dense_check(cfg, params, dtype):
-    """A 200-token prompt through two chunk-prefill programs (128 + 72,
-    paged, attention through the kernel) against the dense plain
-    `_forward_cached`, on the last position's logits."""
+def dense_check(cfg, params, dtype, chunk: int = 128, n_prompt: int = 200):
+    """A prompt of `n_prompt` tokens through two chunk-prefill programs of
+    `chunk` tokens (the second ragged: n_prompt - chunk real rows, the pad
+    rows reaching sentinel blocks; paged, attention through the kernels)
+    against the dense plain `_forward_cached`, on the last position's
+    logits. At 128 both chunks take the split kernel; at 512 in bf16,
+    the prefill kernel."""
     from dstack_tpu_torch.workloads import paged_attention as pa
     from dstack_tpu_torch.workloads.generate import _forward_cached, init_cache
     from dstack_tpu_torch.workloads.kv_blocks import init_paged_state, make_chunk_prefill
 
     dev = params["embed"].device
-    prompt = byte_prompt(99, 200)
-    st = init_paged_state(cfg, 1, 256, 16, 16, dev)
-    table = list(range(13)) + [16] * 3
-    fn = make_chunk_prefill(cfg, 128)
-    before = pa.LAUNCHES["ragged_paged_attention"]
-    fn(params, st, 0, table, prompt[:128], 128, 0, 8, 0.0, 1.0, None, False)
-    _, first, logits = fn(params, st, 0, table, prompt[128:] + [0] * 56, 72, 128,
-                          8, 0.0, 1.0, None, True)
-    launched = pa.LAUNCHES["ragged_paged_attention"] - before
+    prompt = byte_prompt(99, n_prompt)
+    nb = 2 * chunk // 16
+    st = init_paged_state(cfg, 1, 2 * chunk, 16, nb, dev)
+    real = -(-n_prompt // 16)
+    table = list(range(real)) + [nb] * (nb - real)
+    fn = make_chunk_prefill(cfg, chunk)
+    before = dict(pa.LAUNCHES)
+    fn(params, st, 0, table, prompt[:chunk], chunk, 0, 8, 0.0, 1.0, None, False)
+    _, first, logits = fn(params, st, 0, table, prompt[chunk:] + [0] * (2 * chunk - n_prompt),
+                          n_prompt - chunk, chunk, 8, 0.0, 1.0, None, True)
+    launched = {k: pa.LAUNCHES[k] - before[k] for k in before}
     ref, _ = _forward_cached(cfg, params, torch.tensor([prompt], device=dev),
-                             init_cache(cfg, 1, 200, dev))
+                             init_cache(cfg, 1, n_prompt, dev))
     rel = float((logits - ref[0]).abs().max() / ref[0].abs().max())
     same_top1 = int(first) == int(ref[0].argmax())
     tag = "bf16" if dtype == torch.bfloat16 else "f32"
-    log(f"engine dense check {tag}: max|dlogits|/max|logits|={rel:.3e}"
+    log(f"engine dense check {tag}, chunks of {chunk}: max|dlogits|/max|logits|={rel:.3e}"
         f" (tol {ENGINE_LOGIT_TOL[dtype]:g}), top-1 agrees={same_top1},"
         f" kernel launches={launched}")
-    if launched != 2 * cfg.n_layers:
-        raise AssertionError(f"dense check ran the kernel {launched} times")
+    prefill = pa._prefill_plan(1, chunk, cfg.n_heads, cfg.n_kv_heads, nb, 16, cfg.head_dim,
+                               dtype) is not None
+    if launched != {"ragged_paged_attention": 2 * cfg.n_layers,
+                    "ragged_paged_prefill": 2 * cfg.n_layers * prefill}:
+        raise AssertionError(f"dense check ran the kernels {launched} times")
     if not rel <= ENGINE_LOGIT_TOL[dtype]:
         raise AssertionError(f"chunked-prefill logits off by {rel}")
 
@@ -1465,6 +1549,36 @@ def run_engine(cfg, params):
     )
     log("engine stats", json.dumps(eng_stats))
     return launches, breakdown
+
+
+def run_engine_chunks(cfg, params, n_new: int = 16) -> dict:
+    """The engine at a chunk budget of 1024 (prompts of 300-1000 tokens,
+    bf16): its prompt chunks take the prefill kernel, its decode steps the
+    split kernel; both launch counts are read around the wave."""
+    from dstack_tpu_torch.workloads import paged_attention as pa
+    from dstack_tpu_torch.workloads.serving import ServingEngine
+
+    eng = ServingEngine(cfg, params, slots=8, steps_per_sync=4,
+                        prefill_chunk_tokens=1024, kv_block_size=16)
+    try:
+        eng.warmup()
+        for k in pa.LAUNCHES:
+            pa.LAUNCHES[k] = 0
+        outs = [eng.submit(byte_prompt(40 + i, n), max_new_tokens=n_new, temperature=0.0)
+                for i, n in enumerate((300, 520, 777, 1000))]
+        counts = [len(drain(q)[0]) for q in outs]
+        launches = dict(pa.LAUNCHES)
+    finally:
+        eng.close()
+    r = dict(token_counts=counts, launches=launches,
+             split_kernel_launches=launches["ragged_paged_attention"]
+             - launches["ragged_paged_prefill"])
+    log("engine chunks of 1024:", json.dumps(r))
+    if counts != [n_new] * 4:
+        raise AssertionError(f"token counts {counts}")
+    if launches["ragged_paged_prefill"] <= 0 or r["split_kernel_launches"] <= 0:
+        raise AssertionError(f"the wave did not run both kernels: {launches}")
+    return r
 
 
 def kernel_class(name: str) -> str:
@@ -7916,11 +8030,12 @@ def check_expert_serving(res: dict) -> None:
                 raise AssertionError(f"18(c) {tag} rank {rk}: {s['heads']} q heads, not all")
 
 
-def paged_entry(kres, launches, wave) -> dict:
+def paged_entry(kres, launches, wave, crossover) -> dict:
     """The paged kernel's entry of the `kernels` line: the bf16 decode
     case's times, the bf16 short-slot decode and chunk cases' beside them,
-    the largest readings over the bf16 cases, ptxas's report of the bf16
-    hd-128 build and the profiled wave's device time per call."""
+    the cells' prompt chunks through the prefill kernel and the crossover
+    sweep, the largest readings over the bf16 cases, ptxas's report of the
+    bf16 hd-128 build and the profiled wave's device time per call."""
     from dstack_tpu_torch.workloads import _build
 
     case = {r["case"]: r for r in kres}
@@ -7940,6 +8055,10 @@ def paged_entry(kres, launches, wave) -> dict:
         "verify32": {k: case["verify32_bf16"][k] for k in PAGED_TIMES},
         **{name: {k: case[f"{name}_bf16"][k] for k in PAGED_TIMES}
            for name in ("chunk256", "chunk256_bs32", "decode_bs32", "verify_bs32")},
+        "prefill": {**{f"cell{S}_at{start}": {
+            k: case[f"cell{S}_at{start}_bf16"].get(k)
+            for k in PAGED_TIMES + ("split_kernel", "pack1_ms")} for S, start in CELL_CHUNKS},
+            "crossover": crossover, "ptxas": ptxas["ragged_paged_prefill"]},
         "profiled_ms_per_call": wave["paged_ms_per_call"],
         "ptxas": ptxas["ragged_paged_attention"],
     }
@@ -7978,6 +8097,7 @@ def main() -> int:
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     t0 = time.monotonic()
     kres = run_kernels(flush)
+    kres_crossover = run_prefill_crossover(flush)
     del flush
     log(f"phase 3: {time.monotonic() - t0:.1f}s")
     stray_processes("phase 3")
@@ -8001,12 +8121,14 @@ def main() -> int:
     log(f"model: smol-1b, {cfg.param_count() / 1e9:.3f}B params, {cfg.dtype},"
         f" {cfg.n_layers} layers")
     dense_check(cfg, params, torch.bfloat16)
+    dense_check(cfg, params, torch.bfloat16, chunk=512, n_prompt=600)
     p32 = {k: ({kk: vv.float() for kk, vv in v.items()} if isinstance(v, dict)
                else v.float()) for k, v in params.items()}
     dense_check(cfg.with_(dtype="float32"), p32, torch.float32)
     del p32
     torch.cuda.empty_cache()
     launches, wave = run_engine(cfg, params)
+    run_engine_chunks(cfg, params)
 
     # 4b. speculative decoding: plain, spec at 8 layers; f32 at 4 layers
     t0 = time.monotonic()
@@ -8184,7 +8306,7 @@ def main() -> int:
 
     log(f"total {time.monotonic() - t_all:.1f}s")
     log(smi)  # again near the end, where a reader of the output's tail finds it
-    kernels = {"kernels": [paged_entry(kres, launches, wave)]}
+    kernels = {"kernels": [paged_entry(kres, launches, wave, kres_crossover)]}
     # The paged kernel's launches on the speculative and host-tier paths
     # (each zeroed just before its run and read just after).
     kernels["kernels"][0]["launches_by_path"] = {

@@ -11,11 +11,12 @@ kernel cache that `compile_cache` enabled (`DSTACK_TPU_COMPILE_CACHE`,
 keyed by nvcc release and architecture), else in `build/` beside this
 file (git-ignored), named by a hash of the sources and flags so an edited
 kernel never loads a stale build. A directory that cannot be written
-raises; nothing falls back to another place. The bf16 forward kernels
-copy tiles with TMA, whose descriptors the driver's
-`cuTensorMapEncodeTiled` encodes; the source fetches that function through
-the CUDA runtime (`cudaGetDriverEntryPoint`), so the link needs no
-`-lcuda`, and no CUTLASS header is included. Nothing here runs at
+raises; nothing falls back to another place. The bf16 Hopper kernels
+(the flash forward and backward, the paged prefill kernel) copy tiles
+with TMA, whose descriptors the driver's `cuTensorMapEncodeTiled`
+encodes; `csrc/sm90.cuh`, which both sources include, fetches that
+function through the CUDA runtime (`cudaGetDriverEntryPoint`), so the link
+needs no `-lcuda`, and no CUTLASS header is included. Nothing here runs at
 import: `load_library()` builds on its first call, which the kernel
 wrappers make from their launch path.
 """
@@ -35,6 +36,7 @@ from typing import Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("paged_attention.cu", "flash_attention.cu")
+HEADERS = ("sm90.cuh",)  # included by the sources: part of the digest
 ARCH = "sm_90a"
 NVCC_FLAGS = (
     f"-gencode=arch=compute_{ARCH[3:]},code={ARCH}", "-std=c++17", "-O3",
@@ -66,7 +68,7 @@ def nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
 
@@ -79,6 +81,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn = lib.dstack_ragged_paged_prefill
+    fn.argtypes = [ptr] * 6 + [i32] * 9 + [f32, ptr]
+    fn.restype = ctypes.c_int
     tail = [i32, i32, i32, f32, i32, i32, ptr]  # BH, S, HD, scale, causal, dtype, stream
     for name, n_ptr in (("dstack_flash_fwd", 5), ("dstack_flash_block_fwd", 6),
                         ("dstack_flash_bwd_dq", 7), ("dstack_flash_bwd_dkv", 8)):

@@ -130,6 +130,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include "sm90.cuh"
 
 namespace {
 
@@ -368,34 +369,11 @@ __global__ void __launch_bounds__(kThreads) flash_block_fwd_kernel(Args p) {
 
 namespace sm90 {
 
-constexpr int kBQ = 128;  // two consumer warpgroups of 64 query rows
-constexpr int kBK = 128;  // keys per K/V tile
-constexpr int kStages = 2;
-constexpr int kThreads = 384;  // producer warpgroup, then two consumers
-constexpr int kProducerRegs = 24, kConsumerRegs = 240;
-// setmaxnreg moves registers inside the CTA's allocation: the consumers'
-// 240 fit only if the kernel was allocated 65536 / 384 = 168 per thread
-// (rounded down to the allocation's 8); a split that does not fit makes
-// setmaxnreg.inc wait forever.
-constexpr int kLaunchRegs = 168;
-static_assert(128 * kProducerRegs + 256 * kConsumerRegs <= kThreads * kLaunchRegs,
-              "setmaxnreg split exceeds the CTA's registers");
-constexpr float kLog2e = 1.4426950408889634f;
-
 template <int HD>
-struct Cfg {
-  // A tile is kChunks column blocks of kChunkCols, each (rows, kChunkCols)
-  // with kRowBytes-byte rows in the TMA's swizzle (the box's inner extent
-  // is capped at the swizzle width).
-  static constexpr int kChunkCols = HD < 64 ? HD : 64;
-  static constexpr int kRowBytes = kChunkCols * 2;
-  static constexpr int kChunks = HD / kChunkCols;
-  static constexpr int kLayout = kRowBytes == 128 ? 1 : 2;  // wgmma: 128B or 64B swizzle
-  static constexpr CUtensorMapSwizzle kSwizzle =
-      kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
-  static constexpr uint32_t kTileBytes = kBK * HD * 2;  // also the Q tile's
-  static constexpr uint32_t kQ = 0, kK = kTileBytes, kV = kK + kStages * kTileBytes;
-  static constexpr uint32_t kBar = kV + kStages * kTileBytes;
+struct Cfg : Tile<HD> {
+  using T = Tile<HD>;
+  static constexpr uint32_t kQ = 0, kK = T::kTileBytes, kV = kK + kStages * T::kTileBytes;
+  static constexpr uint32_t kBar = kV + kStages * T::kTileBytes;
   // 1 + 4 * kStages mbarriers, and slack to align the base to 1024 bytes.
   static constexpr size_t smem = kBar + 8 * (1 + 4 * kStages) + 1024;
 };
@@ -403,273 +381,6 @@ struct Cfg {
 struct Maps {
   CUtensorMap q, k, v;  // each (BH, S, HD) as 3-d, boxes (1, 128, kChunkCols)
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void st_shared(uint32_t addr, float x) {
-  asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(addr), "f"(x) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Until the phase of `parity` has completed (a fresh barrier counts its
-// phase 1 as completed, so producers start with parity 1 on empties).
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One box of `map` at (col, row, head) into shared memory, completing on `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int col, int row, int head) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row), "r"(head)
-      : "memory");
-}
-
-// wgmma shared-memory operand descriptor: start, leading and stride byte
-// offsets (16-byte units), swizzle layout.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
-                                              int layout) {
-  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(lbo >> 4) << 16) |
-         (uint64_t(sbo >> 4) << 32) | (uint64_t(layout) << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-// Until at most N committed groups of this warpgroup are in flight.
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Named barriers over the two consumer warpgroups (0 is __syncthreads).
-constexpr int kTurnBar = 1;
-
-__device__ __forceinline__ void named_sync(int id) {
-  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
-}
-
-__device__ __forceinline__ void named_arrive(int id) {
-  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
-}
-
-// Pins the registers of an accumulator at this point of the program, so
-// the compiler moves no read or write of them across an async wgmma's
-// issue or its wait.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// The products. The accumulator d[4 * j + e] of a thread (warp w of the
-// warpgroup, lane = 4 g + c) is row 16 w + g + 8 (e >> 1), column
-// 8 j + 2 c + (e & 1): the mma.sync C layout repeated over the width.
-// S (64 x 128) += A (64 x 16) B^T, A and B K-major in shared memory.
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
-                                             int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
-      " %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// O (64 x N) += P (64 x 16, bf16 pairs in the A fragment layout) V, V an
-// MN-major B in shared memory (the transpose bit).
-__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15},"
-      " {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
-      " {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
-      " {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
-}
-
-// S (64 x kBK) = Q K^T over HD, the first k16 step overwriting S. Q and K
-// are K-major: within a swizzled row a k16 step moves the start by 32
-// bytes; past kChunkCols it moves to the next column block.
-template <int HD>
-__device__ __forceinline__ void issue_qk(float (&sc)[64], uint32_t q_tile, uint32_t k_tile) {
-  using C = Cfg<HD>;
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    const uint32_t blk = (kk * 16) / C::kChunkCols, off = (kk * 16) % C::kChunkCols * 2;
-    wgmma_ss_n128(
-        sc, smem_desc(q_tile + blk * kBQ * C::kRowBytes + off, 16, 8 * C::kRowBytes, C::kLayout),
-        smem_desc(k_tile + blk * kBK * C::kRowBytes + off, 16, 8 * C::kRowBytes, C::kLayout),
-        kk > 0);
-  }
-}
-
-// O (64 x HD) += P V over kBK keys. V is MN-major: a k16 step is 16 rows
-// further; the leading offset steps to the next column block.
-template <int HD>
-__device__ __forceinline__ void issue_pv(float (&o)[HD / 2], const uint32_t (&pa)[kBK / 16][4],
-                                         uint32_t v_tile) {
-  using C = Cfg<HD>;
-#pragma unroll
-  for (int kk = 0; kk < kBK / 16; ++kk)
-    wgmma_rs(o, pa[kk],
-             smem_desc(v_tile + kk * 16 * C::kRowBytes, kBK * C::kRowBytes, 8 * C::kRowBytes,
-                       C::kLayout));
-}
-
-// What the softmax of a thread needs to know of its rows.
-struct Rows {
-  int first;  // the warpgroup's first row
-  int row0;   // this thread's rows: row0, row0 + 8
-  int c4;     // lane % 4: columns 2 c4, 2 c4 + 1 of each 8
-  int S, causal;
-  float scale;
-};
-
-// The online softmax of one S tile (keys k0 ...) in registers: masks it
-// where the tile reaches past S, or past the warpgroup's first row when
-// causal; updates m and l; leaves P (f32) in place of S and returns the
-// factor alpha that takes O to the new max.
-__device__ __forceinline__ void softmax_tile(float (&sc)[64], float (&m)[2], float (&l)[2],
-                                             float (&alpha)[2], const Rows& w, int k0) {
-  if (k0 + kBK > w.S || (w.causal && k0 + kBK - 1 > w.first)) {
-#pragma unroll
-    for (int j = 0; j < 64; ++j) {
-      const int col = k0 + (j / 4) * 8 + 2 * w.c4 + (j & 1);
-      const int row = w.row0 + ((j >> 1) & 1) * 8;
-      if (col >= w.S || (w.causal && col > row)) sc[j] = -INFINITY;
-    }
-  }
-  // The row max on the raw scores: max(s) * scale rounds to the same value
-  // as max(s * scale), the reference's m.
-  float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-  for (int j = 0; j < 64; ++j) mx[(j >> 1) & 1] = fmaxf(mx[(j >> 1) & 1], sc[j]);
-  float mc[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const float m_new = fmaxf(m[r], fmaxf(quad_max(mx[r]) * w.scale, kNegInf * 0.5f));
-    alpha[r] = ex2((m[r] - m_new) * kLog2e);
-    m[r] = m_new;
-    mc[r] = m_new * kLog2e;
-  }
-  // P = exp(s * scale - m) = exp2(s * scale * log2(e) - m * log2(e));
-  // masked: exp2(-inf) = 0.
-  const float scale_log2 = w.scale * kLog2e;
-  float rs[2] = {0.f, 0.f};
-#pragma unroll
-  for (int j = 0; j < 64; ++j) {
-    sc[j] = ex2(fmaf(sc[j], scale_log2, -mc[(j >> 1) & 1]));
-    rs[(j >> 1) & 1] += sc[j];
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + quad_sum(rs[r]);
-}
-
-// P rounded to bf16 as the A fragments of P V: pairs of the accumulator
-// layout are the A layout's, k16 step kk holding columns 16 kk ..., i.e.
-// accumulator entries 8 kk .. 8 kk + 7.
-__device__ __forceinline__ void to_a_frag(const float (&sc)[64], uint32_t (&pa)[kBK / 16][4]) {
-#pragma unroll
-  for (int kk = 0; kk < kBK / 16; ++kk)
-#pragma unroll
-    for (int h = 0; h < 4; ++h) pa[kk][h] = pack_bf16(sc[8 * kk + 2 * h], sc[8 * kk + 2 * h + 1]);
-}
 
 // The forward's streaming loop for bf16; kBlock picks the ring step's
 // epilogue (see the header). Grid (ceil(S / 128), BH), kThreads threads.
@@ -747,7 +458,11 @@ __device__ __forceinline__ void fwd_body(const Maps& maps, const Args& p) {
     const int own_turn = kTurnBar + cw, other_turn = kTurnBar + 1 - cw;
     if (cw == 1) named_arrive(other_turn);
     mbar_wait(full_q, 0);
-    const Rows rows{q0 + cw * 64, row0, c4, p.S, p.causal, p.scale};
+    // The mask: tiles that reach past S, or past the warpgroup's first row
+    // when causal; keys past S, or past the row when causal.
+    const int first = q0 + cw * 64;
+    auto masked = [&](int k0) { return k0 + kBK > p.S || (p.causal && k0 + kBK - 1 > first); };
+    auto drop = [&](int col, int r) { return col >= p.S || (p.causal && col > row0 + 8 * r); };
 
     // Tile 0 (keys (n_kt - 1) * kBK ...): S alone.
     {
@@ -763,7 +478,8 @@ __device__ __forceinline__ void fwd_body(const Maps& maps, const Args& p) {
       fence_regs(sc);
       __syncwarp();
       if (lane == 0) mbar_arrive(empty_k);
-      softmax_tile(sc, m, l, alpha, rows, (n_kt - 1) * kBK);
+      const int k0 = (n_kt - 1) * kBK;
+      softmax_tile(sc, m, l, alpha, p.scale, c4, k0, masked(k0), drop);
       to_a_frag(sc, pa);
     }
     // Tile i: its S = Q K^T and tile i-1's O += P V in flight together;
@@ -788,7 +504,8 @@ __device__ __forceinline__ void fwd_body(const Maps& maps, const Args& p) {
       fence_regs(sc);
       __syncwarp();
       if (lane == 0) mbar_arrive(empty_k + 8 * s);
-      softmax_tile(sc, m, l, alpha, rows, (n_kt - 1 - i) * kBK);
+      const int k0 = (n_kt - 1 - i) * kBK;
+      softmax_tile(sc, m, l, alpha, p.scale, c4, k0, masked(k0), drop);
       wgmma_wait<0>();
       fence_regs(o);
       fence_regs(pa);
@@ -1419,56 +1136,15 @@ cudaError_t launch(Kernel kernel, size_t smem, dim3 grid, const Args& a, cudaStr
 
 namespace sm90 {
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver the runtime loaded (null if none).
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
-                                                           cudaEnableDefault, &found);
-#else
-    const cudaError_t e =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
-#endif
-    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(f)
-               : nullptr;
-  }();
-  return fn;
-}
-
 // (BH, S, HD) bf16 as a 3-d map (HD innermost), boxes of `rows` rows by
 // one column block; rows past S read as zeros.
 template <int HD>
 cudaError_t make_map(CUtensorMap* map, const void* ptr, int BH, int S, int rows) {
   using C = Cfg<HD>;
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[3] = {cuuint64_t(HD), cuuint64_t(S), cuuint64_t(BH)};
   const cuuint64_t strides[2] = {cuuint64_t(HD) * 2, cuuint64_t(S) * HD * 2};
   const cuuint32_t box[3] = {cuuint32_t(C::kChunkCols), cuuint32_t(rows), 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
-                            strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, C::kSwizzle,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
-// The register split of setmaxnreg holds only if ptxas gave the kernel
-// kLaunchRegs per thread; a build that did not is refused here rather than
-// left to wait for registers that never come.
-template <typename Kernel>
-cudaError_t check_regs(Kernel kernel) {
-  cudaFuncAttributes attr;
-  const cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
-  if (e != cudaSuccess) return e;
-  return attr.numRegs >= kLaunchRegs ? cudaSuccess : cudaErrorLaunchOutOfResources;
+  return encode_bf16(map, ptr, 3, dims, strides, box, C::kSwizzle);
 }
 
 template <int HD, bool kBlock>

@@ -1,6 +1,6 @@
 // Ragged paged attention for NVIDIA Hopper (sm_90a).
 //
-// Replaces the TPU kernel `_paged_kernel` (dstack_tpu/workloads/
+// Both kernels replace the TPU kernel `_paged_kernel` (dstack_tpu/workloads/
 // paged_attention.py:222, launched by `_ragged_attention_pallas`). Same
 // function: query row (b, i) of head h attends the cache positions
 // p < valid_len[b, i] of slot b, position p living at row p % bs of pool
@@ -10,12 +10,19 @@
 // reference; probabilities are rounded to the storage dtype before the PV
 // product, as the TPU kernel's `p.astype(v.dtype)`.
 //
-// What bounds it on this card: the bytes of K and V read from HBM, at
-// both shapes the engine gives it. A decode step (S 1) does 2 flops per
-// K/V byte per query head it carries, a 128-token chunk ~2 x 32 per byte
-// for the 32 query vectors of a tile, both far below the ~295 flop/byte at
-// which the H100's tensor cores become the limit. So the design keeps
-// enough bytes in flight on every SM, and reads each K/V row once:
+// Two bodies, picked per call from shapes alone (`_plan` in
+// paged_attention.py), because what bounds the function on this card
+// changes with the rows a call carries. Per byte of HBM, a call of S rows
+// over a context of L positions does ~n_rep * S flop when the context was
+// cached before the call (start >> S) and ~0.4 * S at start 0 (H 32, KV 8:
+// q and the output count too), against the ~295 flop/byte at which the
+// H100's tensor cores, and not HBM, become the limit.
+//
+// ragged_paged_attention_kernel (+ its combine): decode steps (S 1, 2 flop
+// per K/V byte per query head), speculative verifies (S = k + 1), f32, and
+// bf16 chunks under PREFILL_MIN_ROWS rows, which stay under the line or
+// near it: bound by the bytes of K and V read from HBM. So the design
+// keeps enough bytes in flight on every SM, and reads each K/V row once:
 //   - one CTA per (tile of query rows, KV split, KV head g, slot b)
 //     carries all n_rep = H / KV query heads of head g, so a row is read
 //     once for its GQA group;
@@ -48,15 +55,51 @@
 //     merged in shared memory at the end. f32 keeps CUDA-core FMAs on the
 //     same fragment layout, with the same split, ring and merge.
 //
+// ragged_paged_attention_prefill_sm90_kernel: bf16 prompt chunks of
+// PREFILL_MIN_ROWS rows or more (hd 64, 128). The benchmark's docs chunks
+// (2048-8192 rows at start 0) do 800-3300 flop per byte: bound by
+// operations, where only wgmma reaches the card's rate. So it is the flash
+// forward's design (`sm90::fwd_body` in flash_attention.cu, the shared
+// pieces in sm90.cuh) re-fed from the block pool:
+//   - one CTA per (128-vector query tile, KV head, slot), no KV split and
+//     no workspace, the last (heaviest) row tiles first. A tile packs the
+//     KV head's GQA group: 128 / n_rep rows x n_rep heads (32 x 4 at the
+//     cells' H 32, KV 8), one TMA box of q viewed (HD, H, S, B), so each
+//     K/V tile reaches shared memory once per group;
+//   - a producer warpgroup whose one thread issues TMA copies into a
+//     2-stage full/empty mbarrier ring, two consumer warpgroups of 64
+//     vectors, setmaxnreg 24/240; S = Q K^T (wgmma m64n128k16, both
+//     operands swizzled in shared memory) and the previous tile's
+//     O += P V (P rounded to bf16 in registers) in flight together, the
+//     softmax under the other warpgroup's products;
+//   - K/V gathered by TMA: a 128-key tile is 128 / bs pool blocks, one
+//     copy per (block, 64-column box) from a map over the layer's pool
+//     viewed (HD, KV, bs, NB); a sentinel entry, and a block wholly at or
+//     past the CTA's largest valid length, is asked at block NB, outside
+//     the map, so TMA zero-fills it and reads nothing;
+//   - masking by valid_len: row r sees keys p < valid_len[b, r] (clipped
+//     to MB * bs) outside sentinel blocks; only tiles that reach past the
+//     CTA's least valid length or hold a sentinel block are masked, and no
+//     tile at or past its largest is loaded. The slot's table lives in
+//     shared memory (MB <= 8192);
+//   - the NaN guard: in the tile that holds the largest valid length, the
+//     K/V rows past it in the last pool block are zeroed in shared memory
+//     before either product reads them;
+//   - the same f32 (m, l, acc) and floors as the split kernel; a row of
+//     valid length 0 gives 0.
+//
 // Launch contract: the kernels allocate nothing (the wrapper passes the
 // split partials' workspace), run on the caller's stream, and the C entry
-// point returns cudaGetLastError() after each launch.
+// points return cudaGetLastError() after each launch; the prefill
+// kernel's tensor maps are encoded on the host at each launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -605,6 +648,322 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
   return launch_kg<T, HD, 1>(p, stream);
 }
 
+
+// ------------------------------------------------ bf16 prompt chunks for Hopper
+
+namespace sm90 {
+
+constexpr int kMaxPrefillTable = 8192;  // a slot's table entries, kept in shared memory
+
+struct PrefillParams {
+  const int* tables;  // (B, MB)
+  const int* vlen;    // (B, S)
+  void* out;          // (B, S, H, HD) bf16
+  int B, S, H, KV, NB, bs, MB;
+  int pack;      // query heads of one KV head a CTA carries; kBQ / pack query rows
+  int bs_shift;  // log2(bs)
+  float scale;
+};
+
+struct PrefillMaps {
+  CUtensorMap q;     // (B, S, H, HD) as 4-d (HD, H, S, B), boxes (kChunkCols, pack, rows, 1)
+  CUtensorMap k, v;  // (NB, bs, KV, HD) as 4-d (HD, KV, bs, NB), boxes (kChunkCols, 1, bs, 1)
+};
+
+template <int HD>
+struct PrefillCfg {
+  using T = Tile<HD>;
+  static constexpr uint32_t kQ = 0, kK = T::kTileBytes, kV = kK + kStages * T::kTileBytes;
+  static constexpr uint32_t kBar = kV + kStages * T::kTileBytes;
+  static constexpr uint32_t kTable = kBar + 8 * (1 + 4 * kStages);  // the slot's table
+  // 1 + 4 * kStages mbarriers, the table, and slack to align the base to 1024 bytes.
+  static size_t smem(int MB) { return kTable + 4 * size_t(MB) + 1024; }
+};
+
+// The NaN guard: in stage 0 (the first tile, keys k0 ..., which holds key
+// hi_len - 1), zero the K and V rows of the keys from hi_len to the end of
+// their pool block. No row sees them, but a pool block is read whole and
+// 0 * NaN inside a tensor-core sum is NaN. Blocks wholly at or past hi_len
+// were never read (TMA zero-filled them). Run by one consumer warpgroup
+// (t its thread) before either issues a product on the stage.
+template <int HD>
+__device__ __forceinline__ void zero_tail(uint32_t base, uint32_t full_v, int hi_len, int k0,
+                                          int bs, int t) {
+  using T = Tile<HD>;
+  using C = PrefillCfg<HD>;
+  const int first = hi_len - k0;
+  const int last = min((hi_len + bs - 1) / bs * bs, k0 + kBK) - k0;
+  if (first >= last) return;
+  mbar_wait(full_v, 0);
+  constexpr int kUnits = T::kRowBytes / 16;  // 16-byte units of a row of a column block
+  for (int u = t; u < (last - first) * T::kChunks * kUnits; u += 128) {
+    const int row = first + u / (T::kChunks * kUnits), w = u % (T::kChunks * kUnits);
+    // The swizzle permutes a row's units inside its kRowBytes: zeroing all
+    // of them zeroes the row.
+    const uint32_t off = (w / kUnits) * kBK * T::kRowBytes + row * T::kRowBytes + (w % kUnits) * 16;
+    asm volatile("st.shared.v4.u32 [%0], {%1, %1, %1, %1};\n" ::"r"(base + C::kK + off), "r"(0)
+                 : "memory");
+    asm volatile("st.shared.v4.u32 [%0], {%1, %1, %1, %1};\n" ::"r"(base + C::kV + off), "r"(0)
+                 : "memory");
+  }
+  // Generic-proxy writes made visible to the wgmma (async proxy) reads.
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// One CTA per (query tile, group of `pack` heads of one KV head, slot b):
+// grid (row_tiles * H / pack, B), kThreads threads, the last row tiles
+// (the heaviest) first. Query vector v of the tile is row r0 + v / pack,
+// head h0 + v % pack.
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+    ragged_paged_attention_prefill_sm90_kernel(const __grid_constant__ PrefillMaps maps,
+                                               PrefillParams p) {
+  using T = Tile<HD>;
+  using C = PrefillCfg<HD>;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ int s_len[2];  // the CTA's least and largest valid length
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // the swizzle's period
+  int* tb = reinterpret_cast<int*>(smem_raw + (base - raw) + C::kTable);
+  const uint32_t full_q = base + C::kBar;
+  const uint32_t full_k = full_q + 8, full_v = full_k + 8 * kStages;
+  const uint32_t empty_k = full_v + 8 * kStages, empty_v = empty_k + 8 * kStages;
+
+  const int rows = kBQ / p.pack;
+  const int groups = p.H / p.pack;
+  const int tile = (p.S + rows - 1) / rows - 1 - int(blockIdx.x) / groups;
+  const int h0 = int(blockIdx.x) % groups * p.pack;
+  const int g = h0 / (p.H / p.KV);
+  const int b = blockIdx.y;
+  const int r0 = tile * rows;
+  const int cols = p.MB * p.bs;
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full_k + 8 * s, 1);
+      mbar_init(full_v + 8 * s, 1);
+      mbar_init(empty_k + 8 * s, 8);  // one arrival per consumer warp
+      mbar_init(empty_v + 8 * s, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // The producer warpgroup copies the slot's table; the first consumer
+  // warp takes the least and largest valid length of the tile's rows.
+  if (threadIdx.x < 128) {
+    for (int i = threadIdx.x; i < p.MB; i += 128) {
+      const int e = p.tables[size_t(b) * p.MB + i];
+      tb[i] = (e >= 0 && e < p.NB) ? e : -1;
+    }
+  } else if (threadIdx.x < 160) {
+    const int lane = threadIdx.x - 128;
+    int lo = cols, hi = 0;
+    for (int r = lane; r < rows && r0 + r < p.S; r += 32) {
+      const int len = min(max(p.vlen[size_t(b) * p.S + r0 + r], 0), cols);
+      lo = min(lo, len);
+      hi = max(hi, len);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+      hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+    }
+    if (lane == 0) {
+      s_len[0] = lo;
+      s_len[1] = hi;
+    }
+  }
+  __syncthreads();
+  const int lo_len = s_len[0], hi_len = s_len[1];
+  const int n_kt = (hi_len + kBK - 1) / kBK;  // no tile at or past the largest valid length
+
+  if (threadIdx.x < 128) {
+    // Producer: one thread keeps the ring full. Tile i of the loop (keys
+    // k0 = (n_kt - 1 - i) * kBK ...) goes to stage i % kStages, one TMA box
+    // per (pool block, column block); a sentinel block, or one wholly at
+    // or past hi_len, is asked at block NB, past the map: zeros, no read.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == 0 && n_kt > 0) {
+      mbar_expect_tx(full_q, T::kTileBytes);
+#pragma unroll
+      for (int c = 0; c < T::kChunks; ++c)
+        tma_load4(base + C::kQ + c * kBQ * T::kRowBytes, &maps.q, full_q, c * T::kChunkCols, h0,
+                  r0, b);
+      const int per_tile = kBK >> p.bs_shift;
+      const uint32_t box = uint32_t(p.bs) * T::kRowBytes;
+      for (int i = 0; i < n_kt; ++i) {
+        const int s = i % kStages;
+        const uint32_t parity = ((i / kStages) & 1) ^ 1;
+        const int k0 = (n_kt - 1 - i) * kBK;
+#pragma unroll 1
+        for (int kv = 0; kv < 2; ++kv) {
+          const uint32_t empty = (kv ? empty_v : empty_k) + 8 * s;
+          const uint32_t full = (kv ? full_v : full_k) + 8 * s;
+          const uint32_t dst = base + (kv ? C::kV : C::kK) + s * T::kTileBytes;
+          const CUtensorMap* map = kv ? &maps.v : &maps.k;
+          mbar_wait(empty, parity);
+          mbar_expect_tx(full, T::kTileBytes);
+          for (int j = 0; j < per_tile; ++j) {
+            const int pos = k0 + (j << p.bs_shift);
+            const int e = pos < hi_len ? tb[pos >> p.bs_shift] : -1;
+#pragma unroll
+            for (int c = 0; c < T::kChunks; ++c)
+              tma_load4(dst + c * kBK * T::kRowBytes + j * box, map, full, c * T::kChunkCols, g,
+                        0, e >= 0 ? e : p.NB);
+          }
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int cw = threadIdx.x / 128 - 1;  // consumer warpgroup: vectors 64 cw ...
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32, c4 = lane % 4;
+    const int v0 = cw * 64 + warp * 16 + lane / 4;  // this thread's vectors: v0, v0 + 8
+    int vl[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + (v0 + 8 * r) / p.pack;
+      vl[r] = row < p.S ? min(max(p.vlen[size_t(b) * p.S + row], 0), cols) : 0;
+    }
+    float o[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+    float m[2] = {kNegInf * 0.5f, kNegInf * 0.5f};
+    float l[2] = {0.f, 0.f};
+    if (n_kt > 0) {
+      const uint32_t q_tile = base + C::kQ + cw * 64 * T::kRowBytes;
+      // The mask runs only on a tile that reaches past the CTA's least
+      // valid length or holds a sentinel block (a tile past the table's
+      // end reaches past every valid length).
+      const int per_tile = kBK >> p.bs_shift;
+      auto masked = [&](int k0) {
+        const int e = (k0 >> p.bs_shift) + lane;
+        return k0 + kBK > lo_len ||
+               __any_sync(0xffffffffu, lane < per_tile && e < p.MB && tb[e] < 0);
+      };
+      // A key is masked at or past its row's valid length (clipped to the
+      // table's MB * bs positions) and in a sentinel block.
+      auto drop = [&](int col, int r) { return col >= vl[r] || tb[col >> p.bs_shift] < 0; };
+      uint32_t pa[kBK / 16][4];  // the previous tile's P, read by its P V in flight
+      // Turns, as the flash forward's: a warpgroup issues its products
+      // between sync(own barrier) and arrive(the other's).
+      const int own_turn = kTurnBar + cw, other_turn = kTurnBar + 1 - cw;
+      if (cw == 1) named_arrive(other_turn);
+      mbar_wait(full_q, 0);
+
+      // Tile 0 (keys (n_kt - 1) * kBK ...): S alone.
+      {
+        float sc[64];
+        float alpha[2];
+        const int k0 = (n_kt - 1) * kBK;
+        mbar_wait(full_k, 0);
+        if (cw == 0) zero_tail<HD>(base, full_v, hi_len, k0, p.bs, t);
+        named_sync(own_turn);
+        wgmma_fence();
+        issue_qk<HD>(sc, q_tile, base + C::kK);
+        wgmma_commit();
+        named_arrive(other_turn);
+        wgmma_wait<0>();
+        fence_regs(sc);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty_k);
+        softmax_tile(sc, m, l, alpha, p.scale, c4, k0, masked(k0), drop);
+        to_a_frag(sc, pa);
+      }
+      // Tile i: its S = Q K^T and tile i-1's O += P V in flight together.
+      for (int i = 1; i < n_kt; ++i) {
+        const int s = i % kStages, sp = (i - 1) % kStages;
+        const int k0 = (n_kt - 1 - i) * kBK;
+        float sc[64];
+        float alpha[2];
+        mbar_wait(full_k + 8 * s, (i / kStages) & 1);
+        mbar_wait(full_v + 8 * sp, ((i - 1) / kStages) & 1);
+        fence_regs(pa);
+        fence_regs(o);
+        named_sync(own_turn);
+        wgmma_fence();
+        issue_qk<HD>(sc, q_tile, base + C::kK + s * T::kTileBytes);
+        wgmma_commit();
+        issue_pv<HD>(o, pa, base + C::kV + sp * T::kTileBytes);
+        wgmma_commit();
+        named_arrive(other_turn);
+        wgmma_wait<1>();
+        fence_regs(sc);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty_k + 8 * s);
+        softmax_tile(sc, m, l, alpha, p.scale, c4, k0, masked(k0), drop);
+        wgmma_wait<0>();
+        fence_regs(o);
+        fence_regs(pa);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty_v + 8 * sp);
+#pragma unroll
+        for (int j = 0; j < HD / 2; ++j) o[j] *= alpha[(j >> 1) & 1];
+        to_a_frag(sc, pa);
+      }
+      // The last tile's P V.
+      const int sl = (n_kt - 1) % kStages;
+      mbar_wait(full_v + 8 * sl, ((n_kt - 1) / kStages) & 1);
+      fence_regs(o);
+      fence_regs(pa);
+      named_sync(own_turn);
+      wgmma_fence();
+      issue_pv<HD>(o, pa, base + C::kV + sl * T::kTileBytes);
+      wgmma_commit();
+      if (cw == 0) named_arrive(other_turn);
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(pa);
+    }
+
+    // O / max(l, 1e-30) in bf16; a row with valid length 0 gives 0.
+    __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int v = v0 + 8 * r, row = r0 + v / p.pack;
+      if (row >= p.S) continue;
+      const float inv = 1.f / fmaxf(l[r], 1e-30f);
+      __nv_bfloat16* dst = out + ((size_t(b) * p.S + row) * p.H + h0 + v % p.pack) * HD;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(dst + j * 8 + 2 * c4) =
+            __floats2bfloat162_rn(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+    }
+  }
+}
+
+template <int HD>
+cudaError_t launch_prefill(const void* q, const void* k, const void* v, const PrefillParams& p,
+                           cudaStream_t stream) {
+  using T = Tile<HD>;
+  auto kernel = ragged_paged_attention_prefill_sm90_kernel<HD>;
+  static const cudaError_t regs = check_regs(kernel);
+  if (regs != cudaSuccess) return regs;
+  const int rows = kBQ / p.pack;
+  PrefillMaps maps;
+  const cuuint64_t qd[4] = {cuuint64_t(HD), cuuint64_t(p.H), cuuint64_t(p.S), cuuint64_t(p.B)};
+  const cuuint64_t qs[3] = {cuuint64_t(HD) * 2, cuuint64_t(p.H) * HD * 2,
+                            cuuint64_t(p.S) * p.H * HD * 2};
+  const cuuint32_t qb[4] = {cuuint32_t(T::kChunkCols), cuuint32_t(p.pack), cuuint32_t(rows), 1};
+  const cuuint64_t kd[4] = {cuuint64_t(HD), cuuint64_t(p.KV), cuuint64_t(p.bs), cuuint64_t(p.NB)};
+  const cuuint64_t ks[3] = {cuuint64_t(HD) * 2, cuuint64_t(p.KV) * HD * 2,
+                            cuuint64_t(p.bs) * p.KV * HD * 2};
+  const cuuint32_t kb[4] = {cuuint32_t(T::kChunkCols), 1, cuuint32_t(p.bs), 1};
+  cudaError_t e;
+  if ((e = encode_bf16(&maps.q, q, 4, qd, qs, qb, T::kSwizzle)) != cudaSuccess) return e;
+  if ((e = encode_bf16(&maps.k, k, 4, kd, ks, kb, T::kSwizzle)) != cudaSuccess) return e;
+  if ((e = encode_bf16(&maps.v, v, 4, kd, ks, kb, T::kSwizzle)) != cudaSuccess) return e;
+  const size_t smem = PrefillCfg<HD>::smem(p.MB);
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (e != cudaSuccess) return e;
+  const dim3 grid(unsigned((p.S + rows - 1) / rows * (p.H / p.pack)), unsigned(p.B));
+  kernel<<<grid, kThreads, smem, stream>>>(maps, p);
+  return cudaGetLastError();
+}
+
+}  // namespace sm90
+
 }  // namespace
 
 extern "C" {
@@ -657,6 +1016,36 @@ int dstack_ragged_paged_attention(const void* q, const void* k, const void* v,
     if (HD == 64) return launch<__nv_bfloat16, 64>(p, st);
     if (HD == 128) return launch<__nv_bfloat16, 128>(p, st);
   }
+  return cudaErrorInvalidValue;
+}
+
+// The bf16 prompt-chunk kernel (hd 64 or 128). pack: query heads of one KV
+// head a CTA carries (divides H / KV and 128), bs a power of two in
+// [16, 128], MB <= 8192. Returns a cudaError_t (0 = launched).
+int dstack_ragged_paged_prefill(const void* q, const void* k, const void* v, const int* tables,
+                                const int* vlen, void* out, int B, int S, int H, int KV, int HD,
+                                int NB, int bs, int MB, int pack, float scale, void* stream) {
+  if (B <= 0 || B > 65535 || S <= 0 || KV <= 0 || H % KV != 0 || NB <= 0 || MB <= 0 ||
+      MB > sm90::kMaxPrefillTable || pack <= 0 || (H / KV) % pack != 0 ||
+      sm90::kBQ % pack != 0 || bs < 16 || bs > sm90::kBK || (bs & (bs - 1)) != 0)
+    return cudaErrorInvalidValue;
+  sm90::PrefillParams p;
+  p.tables = tables;
+  p.vlen = vlen;
+  p.out = out;
+  p.B = B;
+  p.S = S;
+  p.H = H;
+  p.KV = KV;
+  p.NB = NB;
+  p.bs = bs;
+  p.MB = MB;
+  p.pack = pack;
+  p.bs_shift = __builtin_ctz(bs);
+  p.scale = scale;  // hd ** -0.5 rounded to f32 by the caller, as the reference
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (HD == 64) return sm90::launch_prefill<64>(q, k, v, p, st);
+  if (HD == 128) return sm90::launch_prefill<128>(q, k, v, p, st);
   return cudaErrorInvalidValue;
 }
 

@@ -9,17 +9,26 @@ builds a dense per-slot view.
 Two implementations behind one seam (`ragged_attention`), chosen by where
 the tensors live, nothing else:
 
-- `_ragged_attention_cuda`: the hand-written Hopper kernel
-  (`csrc/paged_attention.cu`, built at first use by `_build.py`). It
-  replaces the TPU kernel `_paged_kernel`
-  (dstack_tpu/workloads/paged_attention.py:222). It is bound by the K/V
-  bytes it reads from HBM; one CTA per (query-row tile, KV split, KV head,
-  slot) carries all query heads of its KV head, so each block is read
-  once per GQA group rather than once per query head as the TPU grid did,
-  and the KV axis is split across CTAs (`_split_plan`, from shapes and
-  dtype only) so that a few long slots still fill the card; a second kernel merges the
-  splits' partials. CUDA tensors always go here: it launches or raises,
-  with no fallback and no switch that could route them elsewhere.
+- `_ragged_attention_cuda`: the hand-written Hopper kernels
+  (`csrc/paged_attention.cu`, built at first use by `_build.py`). They
+  replace the TPU kernel `_paged_kernel`
+  (dstack_tpu/workloads/paged_attention.py:222), one algorithm whose right
+  design changes with the rows a call carries, so the plan picks the body
+  from shapes alone (`_prefill_plan`, then `_split_plan`; never valid_len,
+  which stays on the device, so a CUDA graph can capture either):
+  - decode, verify and short chunks are bound by the K/V bytes they read
+    from HBM: one CTA per (query-row tile, KV split, KV head, slot)
+    carries all query heads of its KV head, so each block is read once
+    per GQA group rather than once per query head as the TPU grid did,
+    and the KV axis is split across CTAs (`_split_plan`) so that a few
+    long slots still fill the card; a second kernel merges the splits'
+    partials;
+  - bf16 prompt chunks of PREFILL_MIN_ROWS rows or more are bound by
+    operations: a warp-specialised wgmma kernel (the flash forward's
+    design) gathers K/V from the pool by TMA, one CTA per (128-vector
+    query tile, KV head, slot) with no split (`_prefill_plan`).
+  CUDA tensors always go here: it launches or raises, with no fallback
+  and no switch that could route them elsewhere.
 - `_ragged_attention_plain`: plain PyTorch, a mirror of the JAX
   `_ragged_attention_lax`, for CPU tensors (the tests) and as the
   reference `chip_smoke.py` holds the kernel against on the card.
@@ -40,10 +49,13 @@ from dstack_tpu_torch.workloads.attention import NEG_INF, _repeat_kv
 
 __all__ = ["ragged_attention", "dispatch_path", "LAUNCHES"]
 
-# Kernel launches through `_ragged_attention_cuda`, counted where the
-# kernel is launched and nowhere else (chip_smoke.py zeroes and reads it
-# around the engine run to show the serving path went through the kernel).
-LAUNCHES: Dict[str, int] = {"ragged_paged_attention": 0}
+# Kernel launches through `_ragged_attention_cuda`, counted where a kernel
+# is launched and nowhere else (chip_smoke.py zeroes and reads them around
+# the engine run to show the serving path went through the kernels):
+# "ragged_paged_attention" every call's launch, whichever body it took (both
+# kernels' names hold "ragged_paged_attention"), "ragged_paged_prefill" the
+# calls that took the prefill kernel.
+LAUNCHES: Dict[str, int] = {"ragged_paged_attention": 0, "ragged_paged_prefill": 0}
 
 CUDA_HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -58,6 +70,52 @@ CTAS_PER_SM = {(torch.bfloat16, True): 4, (torch.bfloat16, False): 8,
 CTA_VECTORS = 64         # (row, head) query vectors one CTA carries
 KEY_ALIGN = 64           # keys per split: a multiple of every stage's tile
 MAX_TABLE_ENTRIES = 1024  # table entries one split may span
+
+
+# The prefill kernel's plan. A bf16 call of at least PREFILL_MIN_ROWS query
+# rows, hd in PREFILL_HEAD_DIMS and a block size in PREFILL_BLOCK_SIZES
+# takes it. On the H100 it beat the split kernel at every S of 64-512 over
+# contexts of 0-6144 positions at the cells' geometry (H 32, KV 8), 1.3-7.2x
+# (PERF.md, chip_smoke.py's crossover sweep). Its CTA keeps the slot's
+# table in shared memory, at most PREFILL_MAX_TABLE entries.
+PREFILL_MIN_ROWS = 64
+PREFILL_HEAD_DIMS = (64, 128)
+PREFILL_BLOCK_SIZES = (16, 32, 64, 128)
+PREFILL_MAX_TABLE = 8192
+PREFILL_VECTORS = 128    # (row, head) query vectors one CTA carries
+
+
+class PrefillPlan(NamedTuple):
+    pack: int             # query heads of one KV head a CTA carries
+    rows_per_cta: int     # PREFILL_VECTORS / pack
+    row_tiles: int
+    ctas: int             # grid size
+
+
+@functools.lru_cache(maxsize=256)
+def _prefill_plan(B, S, H, KV, MB, bs, hd, dtype) -> Optional[PrefillPlan]:
+    """The prefill kernel's grid for these shapes, or None where the call
+    stays on the split kernel: f32, a decode step, a verify, a short
+    chunk, a head dim or block size it lacks, a table too long for shared
+    memory, a GQA group that does not tile 128 vectors. From shapes and
+    dtype alone, never valid_len. A CTA carries the KV head's whole GQA
+    group, n_rep heads over 128 / n_rep rows, so each K/V tile is read
+    once per group."""
+    n_rep = H // KV
+    if (dtype != torch.bfloat16 or S < PREFILL_MIN_ROWS or hd not in PREFILL_HEAD_DIMS
+            or bs not in PREFILL_BLOCK_SIZES or MB > PREFILL_MAX_TABLE
+            or PREFILL_VECTORS % n_rep):
+        return None
+    return _prefill_grid(B, S, H, n_rep)
+
+
+def _prefill_grid(B, S, H, pack) -> PrefillPlan:
+    """The prefill kernel's grid carrying `pack` heads a CTA, at any S
+    (`_prefill_plan` takes the GQA group from PREFILL_MIN_ROWS; tests and
+    chip_smoke.py force other packs and shorter chunks)."""
+    rows = PREFILL_VECTORS // pack
+    tiles = _cdiv(S, rows)
+    return PrefillPlan(pack, rows, tiles, tiles * (H // pack) * B)
 
 
 class SplitPlan(NamedTuple):
@@ -305,9 +363,17 @@ def _device_info(index) -> Tuple[Tuple[int, int], int]:
     return (props.major, props.minor), props.multi_processor_count
 
 
+def _plan(b, s, h, kv, mb, bs, hd, dtype, sms):
+    """The body a call of these shapes takes: the prefill kernel's plan
+    where it applies, else the split kernel's."""
+    return (_prefill_plan(b, s, h, kv, mb, bs, hd, dtype)
+            or _split_plan(b, s, h, kv, mb, bs, hd, dtype, sms))
+
+
 def _ragged_attention_cuda(q, k_pool, v_pool, tables, valid_len, plan=None):
-    """The kernel on CUDA tensors. `plan` (a `_split_plan`) defaults to
-    the plan of these shapes on this device."""
+    """The kernels on CUDA tensors. `plan` (a `PrefillPlan` or a
+    `SplitPlan`) picks the body and its grid; it defaults to `_plan` of
+    these shapes on this device."""
     from dstack_tpu_torch.workloads import _build
 
     _check_cuda_args(q, k_pool, v_pool, tables, valid_len)
@@ -317,24 +383,31 @@ def _ragged_attention_cuda(q, k_pool, v_pool, tables, valid_len, plan=None):
     if b == 0 or s == 0:
         return out
     if plan is None:
-        plan = _split_plan(b, s, h, kv, tables.shape[1], bs, hd, q.dtype,
-                           _device_info(q.device.index)[1])
-    ws = (torch.empty(plan.workspace, dtype=torch.float32, device=q.device)
-          if plan.workspace else None)
+        plan = _plan(b, s, h, kv, tables.shape[1], bs, hd, q.dtype,
+                     _device_info(q.device.index)[1])
     lib = _build.load_library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = lib.dstack_ragged_paged_attention(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        tables.data_ptr(), valid_len.data_ptr(), out.data_ptr(),
-        ws.data_ptr() if ws is not None else None,
-        b, s, h, kv, hd, nb, bs, tables.shape[1],
-        plan.rows_per_cta, plan.splits, plan.keys_per_split,
-        ctypes.c_float(hd ** -0.5), _DTYPE_CODE[q.dtype], stream,
-    )
+    ptrs = (q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            tables.data_ptr(), valid_len.data_ptr(), out.data_ptr())
+    scale = ctypes.c_float(hd ** -0.5)
+    if isinstance(plan, PrefillPlan):
+        rc = lib.dstack_ragged_paged_prefill(
+            *ptrs, b, s, h, kv, hd, nb, bs, tables.shape[1], plan.pack, scale, stream)
+    else:
+        ws = (torch.empty(plan.workspace, dtype=torch.float32, device=q.device)
+              if plan.workspace else None)
+        rc = lib.dstack_ragged_paged_attention(
+            *ptrs, ws.data_ptr() if ws is not None else None,
+            b, s, h, kv, hd, nb, bs, tables.shape[1],
+            plan.rows_per_cta, plan.splits, plan.keys_per_split,
+            scale, _DTYPE_CODE[q.dtype], stream,
+        )
     if rc != 0:
         raise RuntimeError(
             "ragged paged-attention kernel launch failed: "
             + lib.dstack_cuda_error_string(rc).decode()
         )
     LAUNCHES["ragged_paged_attention"] += 1
+    if isinstance(plan, PrefillPlan):
+        LAUNCHES["ragged_paged_prefill"] += 1
     return out

@@ -44,6 +44,10 @@ SHAPES = (
     (2, 7, 8, 8, 64, 40, 32, 9),
     (4, 1, 16, 8, 128, 600, 16, 128),
     (2, 3, 32, 8, 64, 300, 16, 128),
+    # bf16 takes the prefill kernel here (S >= PREFILL_MIN_ROWS), f32 the
+    # split one: ragged valid lengths in any order, sentinel columns.
+    (1, 256, 32, 8, 128, 80, 16, 64),
+    (2, 300, 8, 4, 64, 120, 32, 40),
 )
 # (rel_l2, row_rel, row_l2) over the output rows, as chip_smoke.PAGED_TOL.
 PAGED_TOL = {torch.float32: (2.6e-6, 1.1e-5, 4.7e-6), torch.bfloat16: (1e-2, 2.5e-2, 1.2e-2)}
@@ -135,10 +139,13 @@ def cuda():
 @pytest.mark.parametrize("shape", SHAPES, ids=str)
 def test_kernel_matches_plain_on_card(cuda, shape, dtype):
     args = _inputs(9, *shape, dtype)
-    before = tpa.LAUNCHES["ragged_paged_attention"]
+    before = dict(tpa.LAUNCHES)
     got = tpa.ragged_attention(*args)
     torch.cuda.synchronize()
-    assert tpa.LAUNCHES["ragged_paged_attention"] == before + 1
+    B, S, H, KV, hd, NB, bs, MB = shape
+    prefill = tpa._prefill_plan(B, S, H, KV, MB, bs, hd, dtype) is not None
+    assert {k: tpa.LAUNCHES[k] - before[k] for k in before} == {
+        "ragged_paged_attention": 1, "ragged_paged_prefill": int(prefill)}
     _check_paged(got, args, dtype, shape)
 
 
@@ -158,27 +165,36 @@ SPLIT_CASES = {
 @pytest.mark.parametrize("case", sorted(SPLIT_CASES))
 def test_kernel_matches_plain_across_splits_on_card(cuda, case, dtype):
     """Slots that end on and just past KV-split boundaries, NaN in every
-    position no row sees (tails that fall in later splits included)."""
+    position no row sees (tails that fall in later splits included), on
+    the split kernel (a bf16 chunk of 128 rows would take the prefill one)."""
     geo, starts = SPLIT_CASES[case]
     args = _slot_inputs(13, starts, hd=128, bs=16, MB=128, dtype=dtype, **geo)
-    got = tpa.ragged_attention(*args)
+    plan = tpa._split_plan(len(starts), geo["S"], geo["H"], geo["KV"], 128, 16, 128, dtype,
+                           tpa._device_info(args[0].device.index)[1])
+    got = tpa._ragged_attention_cuda(*args, plan=plan)
     torch.cuda.synchronize()
     _check_paged(got, args, dtype, case)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("where", ["one_split", "across_splits"])
+@pytest.mark.parametrize("where", ["one_split", "across_splits", "prefill"])
 def test_kernel_ignores_nan_in_positions_no_row_sees(cuda, where):
     """NaN written into every position no row may see leaves the output
     bit-for-bit unchanged; in the second case the NaN tails fall in KV
     splits other than the first (slots of 300 and 700 positions, splits
-    of 64, pinned in tests/test_torch_paged_attention.py)."""
+    of 64, pinned in tests/test_torch_paged_attention.py); in the third,
+    512-row bf16 chunks through the prefill kernel, the tails inside the
+    pool block that holds each slot's last position."""
     if where == "one_split":
         q, kp, vp, tables, vlen = _inputs(3, 2, 3, 4, 2, 64, 10, 8, 4, torch.float32)
-    else:
+    elif where == "across_splits":
         q, kp, vp, tables, vlen = _slot_inputs(3, [297, 697], 3, 16, 8, 128, 16, 128,
                                                torch.float32, nan=False)
+    else:
+        q, kp, vp, tables, vlen = _slot_inputs(3, [297, 697], 512, 16, 8, 128, 16, 128,
+                                               torch.bfloat16, nan=False)
     NB, bs, MB = kp.shape[0], kp.shape[1], tables.shape[1]
+    before = tpa.LAUNCHES["ragged_paged_prefill"]
     clean = tpa.ragged_attention(q, kp, vp, tables, vlen)
     named = set(tables[tables < NB].tolist())
     for blk in set(range(NB)) - named:
@@ -193,6 +209,7 @@ def test_kernel_ignores_nan_in_positions_no_row_sees(cuda, where):
     out = tpa.ragged_attention(q, kp, vp, tables, vlen)
     assert torch.isfinite(out).all()
     torch.testing.assert_close(out, clean, rtol=0, atol=0)
+    assert tpa.LAUNCHES["ragged_paged_prefill"] - before == (2 if where == "prefill" else 0)
 
 
 @pytest.mark.cuda
@@ -220,6 +237,78 @@ def test_kernel_replays_in_a_cuda_graph_on_card(cuda):
         torch.cuda.synchronize()
         torch.testing.assert_close(out, eager, rtol=0, atol=0)
         _check_paged(out, (q, kp, vp, tables, vlen), torch.bfloat16, f"graph {lens}")
+
+
+def _chunk_inputs(seed, S, H, KV, hd, bs, start, n_valid=None, zero_every=0):
+    """One slot's prompt chunk as the chunk program gives it: S rows at
+    positions start ..., row i attending positions < start + 1 + i, the
+    table naming the blocks of the first start + n_valid positions (the
+    pow-2 chunk's real rows) and the sentinel past them, so pad rows reach
+    sentinel blocks. Every zero_every-th row has valid length 0. Blocks no
+    table names are NaN."""
+    n_valid = S if n_valid is None else n_valid
+    n = -(-(start + n_valid) // bs)
+    MB = -(-(start + S) // bs) + 2
+    NB = n + 8
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((1, S, H, hd)).astype(np.float32)
+    kp = rng.standard_normal((NB, bs, KV, hd)).astype(np.float32)
+    vp = rng.standard_normal((NB, bs, KV, hd)).astype(np.float32)
+    perm = rng.permutation(NB)
+    tables = np.full((1, MB), NB, np.int32)
+    tables[0, :n] = perm[:n]
+    kp[perm[n:]] = np.nan
+    vp[perm[n:]] = np.nan
+    vlen = np.arange(start + 1, start + S + 1, dtype=np.int32)[None]
+    if zero_every:
+        vlen[0, ::zero_every] = 0
+    dev = torch.device("cuda")
+    return (torch.from_numpy(q).to(dev, torch.bfloat16), torch.from_numpy(kp).to(dev, torch.bfloat16),
+            torch.from_numpy(vp).to(dev, torch.bfloat16), torch.from_numpy(tables).to(dev),
+            torch.from_numpy(vlen).to(dev))
+
+
+# The prefill kernel at B 1: the cells' chunk shapes (H 32, KV 8, block 16)
+# at start 0 from S 32 (below the dispatch's S_min, forced) to 8192, and
+# after chat's reused prefix (start 1536); a ragged n_valid inside a pow-2
+# chunk; rows of valid length 0; a rank's heads (H 8, KV 4); block 32;
+# hd 64; one head a CTA over 128 rows (pack 1).
+PREFILL_CASES = {
+    "s32_forced": dict(S=32, start=0),
+    "s128": dict(S=128, start=0),
+    "s1024": dict(S=1024, start=0),
+    "s4096": dict(S=4096, start=0),
+    "s8192": dict(S=8192, start=0),
+    "s2048_at_1536": dict(S=2048, start=1536),
+    "s1024_n_valid_700": dict(S=1024, start=0, n_valid=700),
+    "s512_zero_rows": dict(S=512, start=100, zero_every=7),
+    "rank_s1024_bs32_at_300": dict(S=1024, start=300, H=8, KV=4, bs=32, n_valid=1000),
+    "rank_s512_bs16": dict(S=512, start=0, H=8, KV=4, n_valid=333),
+    "s2048_bs32": dict(S=2048, start=0, bs=32),
+    "hd64_s512_at_64": dict(S=512, start=64, H=16, KV=4, hd=64),
+    "s1024_pack1_at_256": dict(S=1024, start=256, pack=1),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(PREFILL_CASES))
+def test_prefill_kernel_matches_plain_on_card(cuda, case):
+    """The prefill kernel against the plain version, within the chunk
+    path's tolerances; a row of valid length 0 gives exactly 0."""
+    kw = {"H": 32, "KV": 8, "hd": 128, "bs": 16, **PREFILL_CASES[case]}
+    pack = kw.pop("pack", None)
+    args = _chunk_inputs(17, **kw)
+    S, H, KV = kw["S"], kw["H"], kw["KV"]
+    plan = (tpa._prefill_grid(1, S, H, pack or H // KV)
+            if pack is not None or S < tpa.PREFILL_MIN_ROWS else None)
+    before = tpa.LAUNCHES["ragged_paged_prefill"]
+    got = tpa._ragged_attention_cuda(*args, plan=plan)
+    torch.cuda.synchronize()
+    assert tpa.LAUNCHES["ragged_paged_prefill"] == before + 1
+    _check_paged(got, args, torch.bfloat16, case)
+    zero = args[4][0] == 0
+    if bool(zero.any()):
+        assert bool((got[0][zero] == 0).all())
 
 
 # (rel_l2, row_rel) limits and the lse limit, as chip_smoke.py's.

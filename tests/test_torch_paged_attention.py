@@ -268,3 +268,75 @@ def test_merge_floors_rows_with_no_split_and_sentinel_only_splits():
 def test_split_plan_of_the_card_tests(shape, dtype, splits, kps):
     plan = tpa._split_plan(*shape, 128, dtype, 132)
     assert (plan.splits, plan.keys_per_split) == (splits, kps)
+
+
+# ------------------------------------------------ the prefill kernel's plan
+
+# (B, S, H, KV, MB, bs, hd): docs' chunks (start 0, up to 6272 positions),
+# chat's after a reused prefix (8704), a sharded rank's heads (H 8, KV 4:
+# n_rep 2), block 32 and 128, hd 64.
+PREFILL_SHAPES = (
+    (1, tpa.PREFILL_MIN_ROWS, 32, 8, 392, 16, 128),
+    (1, 2048, 32, 8, 392, 16, 128),
+    (1, 8192, 32, 8, 544, 16, 128),
+    (1, 1024, 8, 4, 392, 16, 128),
+    (1, 4096, 32, 8, 196, 32, 128),
+    (1, 512, 32, 8, 49, 128, 128),
+    (2, 300, 16, 4, 64, 16, 64),
+)
+
+
+@pytest.mark.parametrize("shape", PREFILL_SHAPES, ids=str)
+def test_prefill_plan_takes_bf16_chunks_from_s_min(shape):
+    """A bf16 chunk of PREFILL_MIN_ROWS rows or more takes the prefill
+    kernel: a CTA carries the GQA group's n_rep heads over 128 / n_rep
+    rows, one CTA per (row tile, KV head, slot), no KV split."""
+    B, S, H, KV, MB, bs, hd = shape
+    plan = tpa._prefill_plan(B, S, H, KV, MB, bs, hd, torch.bfloat16)
+    n_rep = H // KV
+    assert plan == tpa.PrefillPlan(n_rep, 128 // n_rep, -(-S // (128 // n_rep)),
+                                   -(-S // (128 // n_rep)) * KV * B)
+    assert plan.row_tiles * plan.rows_per_cta >= S > (plan.row_tiles - 1) * plan.rows_per_cta
+    assert tpa._plan(B, S, H, KV, MB, bs, hd, torch.bfloat16, 132) == plan
+
+
+@pytest.mark.parametrize("what,shape,dtype", [
+    ("decode", (8, 1, 32, 8, 392, 16, 128), torch.bfloat16),
+    ("verify", (8, 5, 32, 8, 392, 16, 128), torch.bfloat16),
+    ("verify_k8", (8, 9, 32, 8, 392, 16, 128), torch.bfloat16),
+    ("short_chunk", (1, tpa.PREFILL_MIN_ROWS - 1, 32, 8, 392, 16, 128), torch.bfloat16),
+    ("f32", (1, 4096, 32, 8, 392, 16, 128), torch.float32),
+    ("hd32", (1, 4096, 8, 4, 392, 16, 32), torch.bfloat16),
+    ("bs8", (1, 4096, 32, 8, 784, 8, 128), torch.bfloat16),
+    ("bs24", (1, 4096, 32, 8, 262, 24, 128), torch.bfloat16),
+    ("long_table", (1, 4096, 32, 8, tpa.PREFILL_MAX_TABLE + 1, 16, 128), torch.bfloat16),
+    ("n_rep3", (1, 4096, 24, 8, 392, 16, 128), torch.bfloat16),
+], ids=lambda x: x if isinstance(x, str) else None)
+def test_prefill_plan_leaves_the_rest_to_the_split_kernel(what, shape, dtype):
+    """Decode (S 1), verify (S = k + 1), short chunks, f32, head dims and
+    block sizes the prefill kernel lacks, tables longer than its shared
+    memory and GQA groups that do not tile 128 vectors stay on the split
+    kernel."""
+    B, S, H, KV, MB, bs, hd = shape
+    assert tpa._prefill_plan(B, S, H, KV, MB, bs, hd, dtype) is None
+    plan = tpa._plan(B, S, H, KV, MB, bs, hd, dtype, 132)
+    assert plan == tpa._split_plan(B, S, H, KV, MB, bs, hd, dtype, 132)
+
+
+def test_prefill_grid_of_one_head_a_cta():
+    """pack 1 (what chip_smoke.py times beside the GQA group): one query
+    head a CTA over 128 rows, H CTAs a row tile; below S_min the grid is
+    the same arithmetic."""
+    assert tpa._prefill_grid(1, 4096, 32, 1) == tpa.PrefillPlan(1, 128, 32, 32 * 32)
+    assert tpa._prefill_grid(2, 32, 32, 4) == tpa.PrefillPlan(4, 32, 1, 16)
+
+
+def test_prefill_plan_ignores_valid_lengths():
+    """The plan's inputs are shapes: nothing of either plan, nor of the
+    choice between them, can read valid_len."""
+    import inspect
+
+    assert list(inspect.signature(tpa._prefill_plan).parameters) == [
+        "B", "S", "H", "KV", "MB", "bs", "hd", "dtype"]
+    assert list(inspect.signature(tpa._plan).parameters) == [
+        "b", "s", "h", "kv", "mb", "bs", "hd", "dtype", "sms"]
