@@ -11,13 +11,11 @@ below the reference's best. The control reads the same gap for the token
 that the fp8 reference puts first at each of those positions.
 """
 
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from portbench.model_config import Shapes
-from portbench.reference import model as ref
 from portbench.traffic import Request
 
 
@@ -50,19 +48,21 @@ def statistic(gaps: Sequence[float], spec: Dict) -> float:
     raise ValueError(f"unknown statistic {spec['statistic']!r}")
 
 
-def gaps(s: Shapes, w, r: Request, quant: Optional[str] = None) -> Dict[str, List[float]]:
+def gaps(logits: Callable, s, w, r: Request,
+         quant: Optional[str] = None) -> Dict[str, List[float]]:
     """{"served": the gap of each served token} and, with `quant`,
     {"control": the gap of the token the quantized reference ranks first}
-    at each of the positions that produced r's served tokens."""
+    at each of the positions that produced r's served tokens. `logits` is
+    the family's reference, `s` its shapes."""
     p, toks = len(r.prompt), list(r.tokens)
     seq = list(r.prompt) + toks[:-1]
     rows = range(p - 1, p - 1 + len(toks))
-    full = ref.logits(s, w, seq, rows)
+    full = logits(s, w, seq, rows)
     best = full.max(dim=-1).values
     served = torch.as_tensor(toks, device=full.device)
     at = torch.arange(len(toks), device=full.device)
     out = {"served": (best - full[at, served]).tolist()}
     if quant is not None:
-        low = ref.logits(s, w, seq, rows, quant=quant)
+        low = logits(s, w, seq, rows, quant=quant)
         out["control"] = (best - full[at, low.argmax(dim=-1)]).tolist()
     return out

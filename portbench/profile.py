@@ -1,6 +1,6 @@
 """The profiled slice of a traced run, reduced to intervals and sums.
 
-The slice is a fixed stretch in the middle of the window under
+The slice is a fixed stretch at the start of the window under
 `torch.profiler` (CPU and CUDA activities), so the trace's event count
 stays bounded. Events are read off the profiler's raw kineto results,
 without building its Python event tree (a copy of the method of
@@ -18,35 +18,39 @@ Interval = Tuple[int, int]
 
 
 class Slice:
-    """Start and stop the profiler on the window's clock."""
+    """Start and stop the profiler on the window's clock.
+
+    `prepare()` switches the device's tracing on (CUPTI's activity records)
+    and `start()` opens the slice: the profiler keeps only what happens
+    after it. On an H100 under a serving cell's load, sessions switched on
+    and off while the engine's threads launched have lost all or part of
+    their kernel records, the launches and copies kept, for seconds at a
+    time and often for the rest of the process; one session kept on for
+    40 s kept every kernel. So a traced run switches tracing on once, in
+    set-up while the engine is idle, and keeps it on until its slice ends."""
 
     def __init__(self):
         self.prof = None
         self.t0: Optional[float] = None
         self.t1: Optional[float] = None
 
-    def prime(self) -> None:
-        """Start and stop the profiler once on a trivial operation: its first
-        start initialises CUPTI, which takes seconds, so a run pays that in
-        set-up and not inside the slice."""
-        import torch
-
-        self.start()
-        (torch.ones(1, device="cuda") + 1).sum().item()
-        self.stop()
-        self.prof = None
-
-    def start(self) -> None:
+    def prepare(self) -> None:
         """Profile the device, and the host's CUDA runtime calls from every
         thread (CUPTI records those). Host operators are recorded on the
         starting thread only: with every operator of the engine's loop
         thread recorded as well, a 6 s slice of the Mistral docs cell on an H100 read
         0.76 s of device time where a run without them read 2.05 s, an idle
-        share that the profiler itself made."""
+        share that the profiler itself made. The first preparation in a
+        process initialises CUPTI, which takes seconds."""
         from torch.profiler import ProfilerActivity, profile
 
         self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-        self.prof.__enter__()
+        self.prof.prepare_trace()
+
+    def start(self) -> None:
+        if self.prof is None:
+            self.prepare()
+        self.prof.start_trace()
         self.t0 = time.monotonic()
 
     def stop(self) -> None:
@@ -55,7 +59,7 @@ class Slice:
         if torch.cuda.is_available():
             torch.cuda.synchronize()
         self.t1 = time.monotonic()
-        self.prof.__exit__(None, None, None)
+        self.prof.stop_trace()
 
     def events(self) -> Dict[str, List[Tuple[int, int, str]]]:
         """{"device": [(start_ns, end_ns, name)], "host": [...]}."""
@@ -67,6 +71,27 @@ class Slice:
             item = (e.start_ns(), e.end_ns(), e.name())
             (dev if e.device_type() == cuda else host).append(item)
         return {"device": dev, "host": host}
+
+
+def kernel_count(device: List[Tuple[int, int, str]]) -> int:
+    """The device events that are kernels: neither a memcpy nor a memset
+    (the profiler names those "Memcpy HtoD (...)", "Memset (Device)")."""
+    return sum(1 for _, _, n in device if not n.lower().startswith(("memcpy", "memset")))
+
+
+def launch_count(host: List[Tuple[int, int, str]]) -> int:
+    """The host's kernel launches that the slice recorded (CUDA runtime and
+    driver calls: cudaLaunchKernel, cuLaunchKernelEx, ...)."""
+    return sum(1 for _, _, n in host if n.startswith(("cudaLaunch", "cuLaunch")))
+
+
+def kernels_kept(ev: Dict[str, List], least: int, share: float) -> Tuple[bool, int, int]:
+    """Whether a slice kept its kernels: at least `least`, and at least
+    `share` of the launches it recorded (a launch just before the start
+    can run inside, one just before the stop has ended by it). Also the
+    two counts."""
+    k, n = kernel_count(ev["device"]), launch_count(ev["host"])
+    return k >= least and k >= share * n, k, n
 
 
 def union(intervals: List[Interval]) -> List[Interval]:

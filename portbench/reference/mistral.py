@@ -14,7 +14,8 @@ null in both configs, so attention is full causal.
 It runs one sequence at a time, layer by layer, each layer's weights
 upcast to f32 only while that layer runs, attention over blocks of query
 heads, so it fits on the card beside nothing but the weights. Of two
-equal router probabilities the lower expert index is taken first.
+equal router probabilities the lower expert index is taken first. `s`
+is the family's shapes (`families/mistral.py` `Shapes`).
 
 `quant="bf16"` is a witness, not a control: every linear layer takes its
 input rounded to bf16 and multiplies in bf16 (f32 accumulation), the
@@ -30,8 +31,6 @@ f32.
 from typing import Any, Dict, Optional, Sequence
 
 import torch
-
-from portbench.model_config import Shapes
 
 FP8_MAX = 448.0
 
@@ -89,7 +88,7 @@ def swiglu(h, w_gate, w_up, w_down, quant):
     return _linear(torch.nn.functional.silu(g) * _linear(h, w_up, quant), w_down, quant)
 
 
-def moe(s: Shapes, h: torch.Tensor, lw: Dict[str, torch.Tensor], quant) -> torch.Tensor:
+def moe(s, h: torch.Tensor, lw: Dict[str, torch.Tensor], quant) -> torch.Tensor:
     probs = torch.softmax(h @ lw["router"].to(torch.float32), dim=-1)     # (T, E)
     order = torch.sort(probs, dim=-1, descending=True, stable=True).indices
     idx = order[:, : s.experts_per_token]
@@ -105,7 +104,7 @@ def moe(s: Shapes, h: torch.Tensor, lw: Dict[str, torch.Tensor], quant) -> torch
 
 
 @torch.no_grad()
-def logits(s: Shapes, w: Dict[str, Any], tokens: Sequence[int], rows: Sequence[int],
+def logits(s, w: Dict[str, Any], tokens: Sequence[int], rows: Sequence[int],
            quant: Optional[str] = None, head_block: int = 8) -> torch.Tensor:
     """f32 logits (len(rows), V) at positions `rows` of the causal forward
     over `tokens` (a list of ids), on the weights' device."""

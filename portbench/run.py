@@ -66,9 +66,9 @@ def result(cell, rec, checks, trace: bool, kind: str) -> dict:
               "memory_peak_bytes": rec.memory_peak_bytes}
     out = {"correct": bool(checks["correct"]), "attempted": len(rec.attempted),
            "failed": len(rec.failed), "metrics": metrics, "device": device}
+    if trace and rec.device_time:
+        device.update(rec.device_time)
     if trace and rec.slice:
-        device["busy_s"] = rec.slice["busy_s"]
-        device["window_s"] = rec.slice["window_s"]
         out["breakdown"] = {"device_ops": [[n, v] for n, v in rec.slice["device_ops"]],
                             "idle_gaps": rec.slice["idle_gaps"]}
     out["setup_parts"] = rec.setup

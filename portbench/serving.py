@@ -1,17 +1,20 @@
 """One run of a serving cell: set-up, the window, the output check.
 
 Set-up builds what `native_server` builds for the cell's flags: the
-program's `ServingEngine` over weights the benchmark made on the card from
-the seed, then `warmup()` (every chunk bucket of the cell's chunk budget
-and the decode step), then the mix's warm traffic, which is the start of
-the same traffic. The window drives `ServingEngine.submit` through the
-mix's loop (`drivers/<kind>.py`) for exactly `seconds`; a traced run
-profiles a fixed slice in its middle. Then the engine is closed and freed,
-the weights are made again from the seed, and the reference judges a
-sample of the served requests (check.py).
+program's `ServingEngine` over weights the benchmark made on the card
+from the seed (the configuration's family makes them, and gives the
+program's config and the reference), then `warmup()` (every chunk bucket
+of the cell's chunk budget and the decode step), then the mix's warm
+traffic, which is the start of the same traffic. The window drives
+`ServingEngine.submit` through the mix's loop (`drivers/<kind>.py`) for
+exactly `seconds`; a traced run profiles a fixed slice at its start.
+Then the engine is closed and freed, the weights are made again from the
+seed, and the reference judges a sample of the served requests
+(check.py).
 """
 
 import gc
+import sys
 import time
 from typing import Any, Dict, List, Optional
 
@@ -19,17 +22,21 @@ import torch
 
 from portbench import check, weights
 from portbench.client import Client
-from portbench.model_config import port_config, shapes
-from portbench.profile import Slice, reduce
+from portbench.profile import Slice, kernels_kept, reduce
 from portbench.traffic import Request, make_requests
 
 PROFILE_SECONDS = 6.0
 # The engine's load gauges (live slots, KV blocks in use) are read this many
 # times, evenly over the window.
 LOAD_SAMPLES = 8
-# Fewer device operations than this in a slice of a loaded engine means the
-# profiler lost them (a serving step launches hundreds).
+# Fewer kernels than this in a slice of a loaded engine means the profiler
+# lost them (a serving step launches hundreds). Memcpys and memsets are not
+# counted: a slice that lost its kernels has kept those.
 MIN_DEVICE_OPS = 100
+# Nor is a slice whole whose kernels fall short of this share of the
+# launches it recorded: one that lost part of them reads too little busy
+# time (whole slices on an H100 read 0.988 to 1.000).
+MIN_KERNEL_SHARE = 0.98
 # Engine counters whose change over the window a run's notes keep.
 COUNTERS = ("prefill_tokens_computed_total", "prefill_chunks_total",
             "prefix_tokens_reused_total", "decode_seconds_total",
@@ -54,7 +61,8 @@ class ServingRun:
         self.cell, self.seed, self.seconds, self.trace = cell, seed, seconds, trace
         self.device = torch.device(device)
         self.t_start = t_start
-        self.shapes = shapes(cell["config"])
+        self.family = cell["family"]
+        self.shapes = self.family.shapes(cell["config"])
         self.traffic = dict(cell["traffic"])
         if rate is not None:
             self.traffic["rate"] = rate
@@ -66,6 +74,8 @@ class ServingRun:
         self.stats0 = self.stats1 = self.stats_quarter = None
         self.load: List[Dict[str, float]] = []
         self.slice: Optional[Dict[str, Any]] = None
+        self.prof: Optional[Slice] = None
+        self.device_time: Optional[Dict[str, float]] = None
         self.memory_peak_bytes = 0
         self.drain_limit_s: Optional[float] = None
         self.notes: Dict[str, Any] = {}
@@ -77,14 +87,15 @@ class ServingRun:
 
         t = time.monotonic()
         self.setup["import_s"] = t - self.t_start
-        w = weights.make_weights(self.shapes, self.seed, self.device)
+        w = self.family.make_weights(self.shapes, self.seed, self.device)
         self._sync()
         self.notes["weight_bytes"] = weights.weight_bytes(w)
         t2 = time.monotonic()
         self.setup["weights_s"] = t2 - t
         flags = dict(self.traffic["engine"])
-        self.engine = ServingEngine(port_config(self.shapes), w, device=self.device,
-                                    seed=self.seed % (1 << 63), temperature=0.0, **flags)
+        self.engine = ServingEngine(self.family.port_config(self.shapes), w,
+                                    device=self.device, seed=self.seed % (1 << 63),
+                                    temperature=0.0, **flags)
         del w  # the engine holds its own copy
         gc.collect()
         if self.device.type == "cuda":
@@ -95,7 +106,8 @@ class ServingRun:
         t4 = time.monotonic()
         self.setup["warmup_s"] = t4 - t3
         if self.trace and self.device.type == "cuda":
-            Slice().prime()
+            self.prof = Slice()
+            self.prof.prepare()
             self.setup["profiler_s"] = time.monotonic() - t4
         self.client = Client(self.engine)
 
@@ -109,8 +121,10 @@ class ServingRun:
     def window(self, t0: float) -> None:
         """Warm traffic runs until t0, then the window for `seconds`, with
         the waiting queue read at its first quarter, the engine's load
-        gauges LOAD_SAMPLES times, and the profiled slice in its middle on
-        a traced run."""
+        gauges LOAD_SAMPLES times, and the profiled slice at its start on
+        a traced run: the load is steady by then (a standing queue, warm
+        traffic before), and the device's tracing, on since set-up, is
+        switched off at the slice's end for the rest of the window."""
         t_warm = time.monotonic()
         sleep_until(t0)
         self.t0 = time.monotonic()
@@ -123,8 +137,8 @@ class ServingRun:
         events += [(self.t0 + W * (i + 0.5) / LOAD_SAMPLES, "load")
                    for i in range(LOAD_SAMPLES)]
         if self.trace:
-            events.append((self.t0 + (W - span) / 2, "slice_start"))
-        prof, kept, retry = Slice(), None, True
+            events.append((self.t0, "slice_start"))
+        kept, whole, retry = None, False, True
         while events:
             t, what = min(events)
             events.remove((t, what))
@@ -135,18 +149,21 @@ class ServingRun:
                 st = self.engine.stats()
                 self.load.append({"t": time.monotonic(), **{k: st[k] for k in LOAD_GAUGES}})
             elif what == "slice_start":
-                prof = Slice()
+                # The slice prepared in set-up, else (a retake) a new one.
+                prof, self.prof = self.prof or Slice(), None
                 prof.start()
                 events.append((min(prof.t0 + span, self.t0 + W), "slice_stop"))
             else:
                 prof.stop()
                 kept = (prof.events(), prof.t1 - prof.t0)
-                # The profiler has now and then returned a slice with next to
-                # no device operation while the engine ran (2 of ~30 traced
-                # runs): take one more slice, where the window has room.
-                if (len(kept[0]["device"]) < MIN_DEVICE_OPS and retry
+                # A slice that lost its kernels, memcpys and memsets kept, is
+                # taken again where the window has room.
+                whole, kernels, launches = kernels_kept(kept[0], MIN_DEVICE_OPS,
+                                                        MIN_KERNEL_SHARE)
+                self.notes["slice_kernels_launches"] = [kernels, launches]
+                if (not whole and retry
                         and time.monotonic() + span <= self.t0 + W):
-                    self.notes["slice_retaken_after_device_ops"] = len(kept[0]["device"])
+                    self.notes["slice_retaken_after_kernels"] = kernels
                     retry = False
                     events.append((time.monotonic(), "slice_start"))
         sleep_until(self.t0 + W)
@@ -156,10 +173,20 @@ class ServingRun:
         self.notes["active_at_close"] = self.stats1["active"]
         self.notes["load"] = [[x["active"], x["kv_blocks_in_use"], x["pending"]]
                               for x in self.load]
-        if kept is not None:
-            self.slice = reduce(*kept)
+        if kept is None:
+            return
+        reading = reduce(*kept)
+        self.device_time = {"busy_s": reading["busy_s"], "window_s": reading["window_s"]}
+        if whole:
+            self.slice = reading
             self.slice["paged_s"] = sum(v for k, v in self.slice["by_name"].items()
                                         if "ragged_paged_attention" in k)
+        else:
+            # Lost again, or no room left to retake: the trace's own busy
+            # time stays in the line, marked, and nothing is read from it.
+            self.notes["slice_lost_kernels"] = self.notes["slice_kernels_launches"]
+            print("portbench: the profiled slice lost its kernels; its device"
+                  " metrics and breakdown withheld", file=sys.stderr)
 
     # -- after the window -------------------------------------------------------
 
@@ -193,8 +220,8 @@ class ServingRun:
         t = time.monotonic()
         c = self.traffic["check"]
         picked = check.sample(self.finished(), self.seed, c["served_tokens"], c["max_requests"])
-        w = weights.make_weights(self.shapes, self.seed, self.device)
-        readings = [check.gaps(self.shapes, w, r, quant) for r in picked]
+        w = self.family.make_weights(self.shapes, self.seed, self.device)
+        readings = [check.gaps(self.family.logits, self.shapes, w, r, quant) for r in picked]
         del w
         served = [g for x in readings for g in x["served"]]
         value, limit = check.statistic(served, spec), spec.get("limit")

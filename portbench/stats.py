@@ -34,12 +34,6 @@ def window_tokens(reqs: Sequence[Request], t0: float, t1: float) -> int:
     return total
 
 
-def decoded_in(reqs: Sequence[Request], t0: float, t1: float) -> int:
-    """Tokens after each request's first (the decode steps' tokens) that
-    reached the client in [t0, t1)."""
-    return sum(1 for r in reqs for t in r.times[1:] if t0 <= t < t1)
-
-
 def ttft(r: Request, limit: float) -> float:
     """Seconds from the request's due time to its first token at the
     client; `limit` when it failed or never had one."""

@@ -58,12 +58,6 @@ def test_a_stall_inside_the_window_moves_the_tail():
     assert stats.percentile(stalled, 50) == pytest.approx(0.2)
 
 
-def test_decoded_tokens_leave_out_each_first_token():
-    a = req(0, 100, [1.0, 2.0, 3.0])       # first token before the window
-    b = req(1, 50, [4.0, 5.0, 11.0])       # first token inside: prefill's, not decode's
-    assert stats.decoded_in([a, b], 2.0, 10.0) == 2 + 1
-
-
 def test_live_kv_counts_live_contexts_and_a_shared_prompt_once():
     from types import SimpleNamespace
 

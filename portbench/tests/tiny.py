@@ -1,5 +1,6 @@
 """Tiny cells for the CPU tests: the cells' own mixes and loops at a size
-a test run holds, on Mistral- and Mixtral-shaped configurations."""
+a test run holds, on Mistral- and Mixtral-shaped configurations
+(`tiny_mistral.json`, `tiny_mixtral.json` beside this file)."""
 
 import copy
 
@@ -7,16 +8,9 @@ from portbench import spec
 
 
 def config(moe: bool = False) -> dict:
-    c = {
-        "hidden_size": 64, "intermediate_size": 128, "num_hidden_layers": 2,
-        "num_attention_heads": 4, "num_key_value_heads": 2, "vocab_size": 256,
-        "max_position_embeddings": 1024, "rope_theta": 1e6, "rms_norm_eps": 1e-5,
-        "dtype": "float32",
-    }
-    if moe:
-        c.update(num_local_experts=8, num_experts_per_tok=2, capacity_factor=4.0,
-                 moe_impl="einsum")
-    return c
+    """Mixtral's experts (8, top-2, at capacity factor E/k) with `moe`."""
+    name = "mixtral" if moe else "mistral"
+    return spec.load_json(spec.PKG / "tests" / f"tiny_{name}.json")
 
 
 def traffic(kind: str) -> dict:
@@ -39,7 +33,8 @@ def traffic(kind: str) -> dict:
 
 
 def cell(kind: str = "docs", moe: bool = False, limit: float = 1e-3) -> dict:
-    return {"name": f"tiny.{kind}", "chips": 1, "config": config(moe),
+    conf = config(moe)
+    return {"name": f"tiny.{kind}", "chips": 1, "config": conf, "family": spec.family(conf),
             "traffic": traffic(kind),
             "check": {"name": "logit_gap", "statistic": "max", "limit": limit},
             "end_to_end": [], "per_layer": []}

@@ -8,13 +8,13 @@ the most the prefix cache could have saved: a shared system prompt seen
 in an earlier request, floored to whole cache blocks. Taking the most
 keeps every count of work a lower bound. A prompt counts when its first
 token arrived in the window, a decode token when it did; how the engine
-scheduled or delivered the work does not enter.
+scheduled or delivered the work does not enter. What each prefill and
+decode token costs is the configuration's family's count
+(`families/<model_type>.py`).
 """
 
 from typing import Dict, List
 
-from portbench import roofline
-from portbench.model_config import Shapes
 from portbench.traffic import Request
 
 
@@ -35,8 +35,9 @@ def reused(reqs: List[Request], block: int) -> Dict[int, int]:
     return out
 
 
-def window_flops(s: Shapes, reqs: List[Request], t0: float, t1: float, block: int) -> float:
-    """Forward FLOPs of the work that arrived in [t0, t1)."""
+def window_flops(fam, s, reqs: List[Request], t0: float, t1: float, block: int) -> float:
+    """Forward FLOPs of the work that arrived in [t0, t1), by the family
+    `fam`'s counts at its shapes `s`."""
     R = reused(reqs, block)
     total = 0.0
     for r in reqs:
@@ -44,13 +45,14 @@ def window_flops(s: Shapes, reqs: List[Request], t0: float, t1: float, block: in
         for j, t in enumerate(r.times):
             if not (t0 <= t < t1):
                 continue
-            total += (roofline.prefill_flops(s, P, R[r.index]) if j == 0
-                      else roofline.decode_flops(s, P + j))
+            total += (fam.prefill_flops(s, P, R[r.index]) if j == 0
+                      else fam.decode_flops(s, P + j))
     return total
 
 
-def window_paged_work(s: Shapes, reqs: List[Request], t0: float, t1: float, block: int):
-    """(bytes, ops) of the paged kernel for the work that arrived in [t0, t1)."""
+def window_paged_work(fam, s, reqs: List[Request], t0: float, t1: float, block: int):
+    """(bytes, ops) of the paged kernel for the work that arrived in
+    [t0, t1), by the family `fam`'s counts at its shapes `s`."""
     R = reused(reqs, block)
     nbytes = ops = 0.0
     for r in reqs:
@@ -58,7 +60,7 @@ def window_paged_work(s: Shapes, reqs: List[Request], t0: float, t1: float, bloc
         for j, t in enumerate(r.times):
             if not (t0 <= t < t1):
                 continue
-            b, o = (roofline.paged_prefill_work(s, P, R[r.index]) if j == 0
-                    else roofline.paged_decode_work(s, P + j))
+            b, o = (fam.paged_prefill_work(s, P, R[r.index]) if j == 0
+                    else fam.paged_decode_work(s, P + j))
             nbytes, ops = nbytes + b, ops + o
     return nbytes, ops
